@@ -1,0 +1,134 @@
+"""Serving engine (port of ``dl_biomass_tpu/models/inference.py``).
+
+``compile_inference`` folds each eval-mode BatchNorm into the Linear before
+it and returns ``serve(batch) -> (B, 4)``: a flat chain of the four
+kernels (FPS, stratified ball grouping, exact ball query, row gather) and
+folded matmuls, with bf16 activations in production. It follows
+``compile_inference`` of the JAX package branch for branch: the stratified and
+the exact SA1 branches (``inference.py:198-226``) and the split SA2 path with
+the gathered z-table (``:232-269``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Tuple
+
+import torch
+
+from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
+from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
+from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor, sample_centroids
+from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
+from dl_biomass_tpu_torch.ops.ballquery import ball_query
+from dl_biomass_tpu_torch.ops.grouping import group_neighborhoods
+from dl_biomass_tpu_torch.ops.pooling import masked_max
+
+Layers = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def fold_bn(kernel, bias, bn_scale, bn_bias, bn_mean, bn_var, eps=1e-5):
+    """Fold an eval-mode BatchNorm into the preceding Linear; ``kernel`` is (in, out)."""
+    inv = bn_scale / torch.sqrt(bn_var + eps)
+    return kernel * inv[None, :], (bias - bn_mean) * inv + bn_bias
+
+
+def _folded_mlp(mlp: MLP) -> Layers:
+    """[(W' (in, out), b'), ...] in float32, hidden-layer BN folded, final layer plain."""
+    lins, bns = mlp.linears(), mlp.norms()
+    out = []
+    for i, lin in enumerate(lins):
+        w, b = lin.weight.detach().t().float(), lin.bias.detach().float()
+        if i < len(bns):
+            bn = bns[i]
+            w, b = fold_bn(w, b, bn.weight.detach(), bn.bias.detach(), bn.running_mean,
+                           bn.running_var, eps=bn.eps)
+        out.append((w, b))
+    return out
+
+
+def _run_folded(x: torch.Tensor, layers, act: bool = True,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Each layer: compute-dtype matmul with float32 output, + float32 bias,
+    ReLU on hidden layers when ``act``, then rounding to ``compute_dtype``.
+    ``layers`` hold weights already in ``compute_dtype``."""
+    for i, (w, b) in enumerate(layers):
+        y = dot_f32(x.to(compute_dtype), w)
+        y += b
+        if act and i < len(layers) - 1:
+            y.relu_()
+        x = y.to(compute_dtype)
+    return x
+
+
+def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: bool = False,
+                      mesh=None) -> Callable[[CloudBatch], torch.Tensor]:
+    """Returns ``serve(batch) -> (B, 4)`` float32 on ``device``.
+
+    ``device=None`` means the card, and raises without one; ``device="cpu"``
+    runs the plain PyTorch versions of the kernels. The folded weights are
+    made once, here, on ``device``."""
+    if fused_eval:
+        raise NotImplementedError(
+            "fused_eval (the fused SA1 eval kernel) is not ported yet: ROADMAP B.5")
+    if mesh is not None:
+        raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
+    if not isinstance(model, PointNet2Regressor):
+        raise NotImplementedError(
+            f"inference engine covers PointNet2Regressor; got {type(model).__name__}")
+    if model.activation_function != "ReLU" or model.max_neighbors != 64:
+        raise NotImplementedError("inference engine covers the flagship SSG/ReLU/K=64 config")
+    if not model.split_first_layer:
+        raise NotImplementedError(
+            "split_first_layer=False (the aux-table gather of kernel 4) is not ported "
+            "yet: ROADMAP B.4")
+    dev = resolve_device(device)
+    ct = model.compute_dtype
+
+    def prepare(mlp):
+        return [(w.to(dev, ct), b.to(dev)) for w, b in _folded_mlp(mlp)]
+
+    with torch.no_grad():
+        sa1, sa2, sa3, head = (prepare(model.sa1.mlp), prepare(model.sa2.mlp),
+                               prepare(model.sa3.mlp), prepare(model.head))
+    r1, r2 = model.sa1_radius, model.sa2_radius
+    sectored = model.fast_fps and not model.exact_selection
+
+    @torch.inference_mode()
+    def serve(batch: CloudBatch) -> torch.Tensor:
+        batch = batch.to(dev)
+        feat, pos, mask = batch.feat, batch.pos, batch.mask
+        if feat.shape[-1] == 0:
+            feat = pos
+        n = pos.shape[1]
+        m1 = math.ceil(model.sa1_ratio * n)
+        m2 = math.ceil(model.sa2_ratio * m1)
+
+        _, c1, cm1 = sample_centroids(pos, mask, m1, sectored=sectored)
+        if model.fast_group and feat.shape[-1] <= 4 and not model.exact_selection:
+            _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,
+                                                      out_dtype=ct, need_idx=False)
+        else:
+            nidx1, nm1 = ball_query(c1, cm1, pos, mask, radius=r1, k=64)
+            e1 = group_neighborhoods(pos, feat, c1, nidx1, nm1)
+        h1 = masked_max(_run_folded(e1, sa1, compute_dtype=ct), nm1, dim=2)
+
+        _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
+        nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
+        # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
+        # so it runs once per point and kernel 4 gathers the z-table. Pad
+        # slots carry index 0, so their gathered rows are point 0's finite
+        # row, and masked_max leaves them out through nm.
+        w0, b0 = sa2[0]
+        fdim = h1.shape[-1]
+        zpt = (dot_f32(h1.to(ct), w0[:fdim]) + dot_f32(c1.to(ct), w0[fdim:]) + b0).to(ct)
+        gz = gather_kernel.gather_rows(zpt, nidx)
+        cshift = dot_f32(c2.to(ct), w0[fdim:])
+        z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
+        h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
+
+        g = torch.cat([h2, c2], dim=-1)
+        h3 = masked_max(_run_folded(g, sa3, compute_dtype=ct), cm2, dim=1)
+        return _run_folded(h3, head, act=False, compute_dtype=ct).float()
+
+    return serve

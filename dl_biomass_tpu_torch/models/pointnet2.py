@@ -1,0 +1,180 @@
+"""PointNet++ (SSG) biomass regressor (port of ``dl_biomass_tpu/models/pointnet2.py``).
+
+  SA1: fps ratio 0.2,  ball r=2,  MLP[3+F, 64, 64, 128]
+  SA2: fps ratio 0.25, ball r=8,  MLP[128+3, 128, 128, 256]
+  SA3: global — MLP[256+3, 256, 512, 1024] + masked global max pool
+  head: MLP[1024, 128, 128, 4], act=None
+
+The eval forward takes the branches that ``model.apply(train=False)`` takes in
+the JAX package with its kernels on (``use_pallas=True``): sectored or exact
+FPS on kernel 1; the stratified SA1 grouping on kernel 2 (``fast_group``) or
+the exact ball query on kernel 3 (SA2 always, SA1 under ``exact_selection``);
+and the per-point first layer of SA2 with its z-table gathered by kernel 4
+(``split_first_layer``). Train mode belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
+from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
+from dl_biomass_tpu_torch.ops.ballquery import ball_query
+from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
+from dl_biomass_tpu_torch.ops.grouping import gather_points, group_neighborhoods
+from dl_biomass_tpu_torch.ops.pooling import masked_max
+
+_TRAIN_MODE = "train-mode forward is not ported yet (ROADMAP A.1: the training slice)"
+
+
+def sample_centroids(pos, mask, m: int, *, sectored: bool):
+    """FPS (sectored or exact, from the first valid point) -> (idx, centers, center_mask)."""
+    idx = fps_sectored(pos, mask, m) if sectored else farthest_point_sample(pos, mask, m)
+    centers = gather_points(pos, idx)
+    center_mask = mask.gather(1, idx.long())
+    return idx, centers, center_mask
+
+
+class SAModule(nn.Module):
+    """Set-abstraction layer: FPS -> neighbours -> grouped pointwise MLP -> max."""
+
+    def __init__(self, ratio: float, radius: float, mlp_channels: Sequence[int],
+                 act: Optional[str] = "ReLU", max_neighbors: int = 64,
+                 compute_dtype: torch.dtype = torch.float32, fast_group: bool = False,
+                 fast_fps: bool = False, exact_selection: bool = False,
+                 split_first_layer: bool = True):
+        super().__init__()
+        self.ratio, self.radius = ratio, radius
+        self.max_neighbors = max_neighbors
+        self.compute_dtype = compute_dtype
+        self.fast_group, self.fast_fps = fast_group, fast_fps
+        self.exact_selection = exact_selection
+        self.split_first_layer = split_first_layer
+        self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
+
+    def forward(self, feat, pos, mask):
+        n = pos.shape[1]
+        m = math.ceil(self.ratio * n)
+        cdt = self.compute_dtype
+        _, centers, center_mask = sample_centroids(
+            pos, mask, m, sectored=self.fast_fps and not self.exact_selection)
+        if (self.fast_group and not self.exact_selection and self.max_neighbors == 64
+                and (feat is None or feat.shape[-1] <= 4)):
+            _, nbr_mask, edges = ball_group_kernel.ball_group(
+                centers, center_mask, pos, mask, feat, radius=self.radius, out_dtype=cdt,
+                need_idx=False)
+            return masked_max(self.mlp(edges), nbr_mask, dim=2), centers, center_mask
+
+        nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=self.radius,
+                                       k=self.max_neighbors)
+        if (self.split_first_layer and feat is not None and feat.shape[-1] >= 16
+                and self.max_neighbors == 64):
+            # layer 0 is linear in [x_j, p_j - p_i]: z0 = (Wf x_j + Wp p_j + b0) - Wp p_i
+            # runs once per point, and kernel 4 gathers the z-table
+            lin0 = self.mlp.lin0
+            w0 = lin0.weight.t()
+            fdim = feat.shape[-1]
+            wf, wp = w0[:fdim].to(cdt), w0[fdim:].to(cdt)
+            zpt = (dot_f32(feat.to(cdt), wf) + dot_f32(pos.to(cdt), wp) + lin0.bias).to(cdt)
+            gz = gather_kernel.gather_rows(zpt, nbr_idx)
+            cshift = dot_f32(centers.to(cdt), wp)
+            z0 = gz - cshift[:, :, None, :].to(gz.dtype)
+            h = self.mlp.from_z0(z0)
+        else:
+            h = self.mlp(group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask))
+        return masked_max(h, nbr_mask, dim=2), centers, center_mask
+
+
+class GlobalSAModule(nn.Module):
+    """Global set abstraction: MLP over [feat, pos], then a masked global max."""
+
+    def __init__(self, mlp_channels: Sequence[int], act: Optional[str] = "ReLU",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
+
+    def forward(self, feat, pos, mask):
+        return masked_max(self.mlp(torch.cat([feat, pos], dim=-1)), mask, dim=1)
+
+
+class PointNet2Regressor(nn.Module):
+    """The reference ``Net(num_features, activation_function,
+    neuron_multiplier, dropout_probability)``, with the JAX package's knobs."""
+
+    def __init__(self, num_features: int, activation_function: str = "ReLU",
+                 neuron_multiplier: int = 0, dropout_probability: float = 0.5,
+                 sa1_ratio: float = 0.2, sa1_radius: float = 2.0, sa2_ratio: float = 0.25,
+                 sa2_radius: float = 8.0, max_neighbors: int = 64,
+                 doubled_radius: bool = False, fast_group: bool = False,
+                 fast_fps: bool = False, exact_selection: bool = False,
+                 split_first_layer: bool = True, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_features = num_features
+        self.activation_function = activation_function
+        self.dropout_probability = dropout_probability  # the head's; eval uses none
+        self.sa1_ratio, self.sa2_ratio = sa1_ratio, sa2_ratio
+        self.sa1_radius = sa1_radius * (2 if doubled_radius else 1)
+        self.sa2_radius = sa2_radius * (2 if doubled_radius else 1)
+        self.max_neighbors = max_neighbors
+        self.fast_group, self.fast_fps = fast_group, fast_fps
+        self.exact_selection = exact_selection
+        self.split_first_layer = split_first_layer
+        self.compute_dtype = compute_dtype
+        nm = neuron_multiplier if neuron_multiplier != 0 else 1
+        f = num_features if num_features else 3  # no features: coordinates stand in
+        act = activation_function
+        common = dict(act=act, max_neighbors=max_neighbors, compute_dtype=compute_dtype,
+                      fast_fps=fast_fps, exact_selection=exact_selection,
+                      split_first_layer=split_first_layer)
+        self.sa1 = SAModule(sa1_ratio, self.sa1_radius, [3 + f, 64 * nm, 64 * nm, 128 * nm],
+                            fast_group=fast_group, **common)
+        self.sa2 = SAModule(sa2_ratio, self.sa2_radius,
+                            [128 * nm + 3, 128 * nm, 128 * nm, 256 * nm], **common)
+        self.sa3 = GlobalSAModule([256 * nm + 3, 256 * nm, 512 * nm, 1024 * nm], act=act,
+                                  compute_dtype=compute_dtype)
+        self.head = MLP([1024 * nm, 128 * nm, 128 * nm, 4], act=None,
+                        compute_dtype=compute_dtype)
+
+    def forward(self, cloud, *, train: bool = False) -> torch.Tensor:
+        if train:
+            raise NotImplementedError(_TRAIN_MODE)
+        feat, pos, mask = cloud.feat, cloud.pos, cloud.mask
+        if self.num_features == 0:
+            feat = pos  # the reference: x = coords when no columns are used
+        h, pos, mask = self.sa1(feat, pos, mask)
+        h, pos, mask = self.sa2(h, pos, mask)
+        h = self.sa3(h, pos, mask)
+        return self.head(h).float()  # predictions always float32
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(cfg, num_features: int) -> PointNet2Regressor:
+    """The regressor from a ``TrainConfig`` (hp + model sections)."""
+    hp, mc = cfg.hp, cfg.model
+    unported = [name for name in ("msg", "fused_sa", "analytic_bn") if getattr(mc, name)]
+    if mc.family != "pointnet2" or unported:
+        raise NotImplementedError(
+            f"not ported yet (ROADMAP A.9): family={mc.family!r}, options {unported}")
+    return PointNet2Regressor(
+        num_features=num_features,
+        activation_function=hp.activation_function,
+        neuron_multiplier=hp.neuron_multiplier,
+        dropout_probability=hp.dropout_probability,
+        sa1_ratio=mc.sa1_ratio,
+        sa1_radius=mc.sa1_radius,
+        sa2_ratio=mc.sa2_ratio,
+        sa2_radius=mc.sa2_radius,
+        max_neighbors=mc.max_neighbors,
+        doubled_radius=mc.doubled_radius,
+        fast_group=mc.fast_group,
+        fast_fps=mc.fast_fps,
+        exact_selection=mc.exact_selection,
+        split_first_layer=mc.split_first_layer,
+        compute_dtype=_DTYPES[mc.compute_dtype],
+    )

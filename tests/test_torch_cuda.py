@@ -1,0 +1,86 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without a card each test skips with the reason. On a machine
+with one, ``python -m pytest tests/test_torch_cuda.py -m cuda`` builds the
+kernels from ``dl_biomass_tpu_torch/csrc`` and runs these; ``chip_smoke.py``
+holds the same comparisons at the serving shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dl_biomass_tpu_torch.core.cloud import CloudBatch
+from dl_biomass_tpu_torch.models.inference import compile_inference
+from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
+from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
+                                      gather_kernel)
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return torch.device("cuda")
+
+
+def _cloud(dev, b=2, n=1000, seed=0):
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy((rng.normal(size=(b, n, 3)) * 3).astype(np.float32)).to(dev)
+    mask = torch.arange(n, device=dev)[None] < torch.tensor([n, n * 3 // 4], device=dev)[:, None]
+    feat = torch.from_numpy(rng.normal(size=(b, n, 1)).astype(np.float32)).to(dev)
+    return pos, mask, feat
+
+
+@pytest.mark.parametrize("n,k", [(1280, 256), (12000, 64)])  # shared memory; global scratch
+def test_fps_kernel_matches_plain(dev, n, k):
+    pos, mask, _ = _cloud(dev, n=n)
+    starts = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    got = fps_kernel.fps_rows(pos, mask, starts, k)
+    assert torch.equal(got, fps_kernel.fps_rows_plain(pos, mask, starts, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ball_group_kernel_matches_plain(dev, dtype):
+    pos, mask, feat = _cloud(dev)
+    centers, cmask = pos[:, :200].contiguous(), mask[:, :200].contiguous()
+    got = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, radius=2.0,
+                                       out_dtype=dtype)
+    want = ball_group_kernel.ball_group_plain(centers, cmask, pos, mask, feat, radius=2.0,
+                                              out_dtype=dtype)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+
+
+def test_ball_query_kernel_matches_plain(dev):
+    pos, mask, _ = _cloud(dev)
+    centers, cmask = pos[:, :300].contiguous(), mask[:, :300].contiguous()
+    got = ball_query_kernel.ball_query_first_k(centers, cmask, pos, mask, radius=3.0, k=64)
+    want = ball_query_kernel.ball_query_plain(centers, cmask, pos, mask, radius=3.0, k=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 128), (torch.float32, 3)])
+def test_gather_kernel_matches_plain(dev, dtype, c):
+    values = torch.randn(2, 500, c, device=dev).to(dtype)
+    idx = torch.randint(-2, 502, (2, 37, 64), device=dev, dtype=torch.int32)
+    assert torch.equal(gather_kernel.gather_rows(values, idx),
+                       gather_kernel.gather_rows_plain(values, idx))
+
+
+def test_serving_launches_every_kernel(dev):
+    rng = np.random.default_rng(1)
+    pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(2)]
+    feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(2)]
+    batch = CloudBatch.from_numpy(pos, feat, device=dev)
+    model = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True,
+                               compute_dtype=torch.bfloat16).to(dev)
+    _build.launch_counts.clear()
+    out = compile_inference(model)(batch)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 4) and bool(torch.isfinite(out).all())
+    assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
+                                          "dlbt_ball_query": 1, "dlbt_gather": 1}
