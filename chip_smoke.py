@@ -20,7 +20,20 @@ Phases, each of which raises on failure (exit code 1):
              with garbage in its pad rows, and 24 and 28 x 7168. The launch counts of that run, the
              repeat and pad invariance, agreement with the same forward on the
              plain versions and with the unfolded module, and ms per batch.
-4. summary — one JSON line of the kernels, the card line, and as the last
+4. kernel 4b — the scatter-add backward of the gather at the inputs one
+             training step at 16 x 10240 gives it, held bit for bit against
+             its plain version and timed (median of 100 launches) beside its
+             bound and one ``index_add_`` as the library yardstick.
+5. train   — ``Trainer`` on the same production model (Adam, lr, weight decay,
+             head dropout 0.5; FPS starts and dropout from a seeded
+             ``torch.Generator``) takes 12 steps on each fixed batch of
+             16 x 10240, 36 x 10240 and 36 x 7168: finite and falling loss,
+             every parameter with a gradient moved, BatchNorm statistics
+             moved, launches per step, ms/step (median of the last 10),
+             clouds/s and peak memory; one step on the plain versions from the
+             same state and seed against the kernel step; ``evaluate`` and
+             ``predict`` at 24 and 28 x 7168; a profile of a 16 x 10240 step.
+6. summary — one JSON line of the kernels, the card line, and as the last
              line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -29,6 +42,7 @@ not beside this script.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -63,6 +77,15 @@ N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO = 10240, 16, 36, 5, 7000
 SHORT_POINTS, FAULT_BATCHES = 7168, (24, 28)
 EXPECTED_PER_FORWARD = {"dlbt_fps": 2, "dlbt_ball_group": 1, "dlbt_ball_query": 1,
                         "dlbt_gather": 1}  # launches of each kernel per serving forward
+EXPECTED_PER_STEP = dict(EXPECTED_PER_FORWARD, dlbt_scatter_rows=1)  # per training step
+SCATTER_REPS = 100
+# training: fixed batches of (clouds, points); 2 warm-up steps, then 10 timed
+TRAIN_SHAPES = ((16, N_POINTS), (36, N_POINTS), (36, SHORT_POINTS))
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# kernel step vs plain-version step from one state and seed: every kernel is
+# exact against its plain version, so the two steps should be identical; the
+# bound allows one bf16 rounding step (2^-8) if a GEMM took another algorithm
+PLAIN_STEP_RTOL = 2.0**-8
 
 
 class PhaseError(RuntimeError):
@@ -165,12 +188,13 @@ def kernel_sites():
     return [(fps_kernel, "fps_rows", "fps_rows_plain"),
             (ball_group_kernel, "ball_group", "ball_group_plain"),
             (ball_query_kernel, "ball_query_first_k", "ball_query_plain"),
-            (gather_kernel, "gather_rows", "gather_rows_plain")]
+            (gather_kernel, "gather_rows_forward", "gather_rows_plain"),
+            (gather_kernel, "scatter_rows", "scatter_rows_plain")]
 
 
 def record_kernel_inputs(serve, batch):
-    """Run one forward with recording wrappers: each kernel's arguments as the
-    main path gives them."""
+    """Run ``serve(batch)`` (a forward or a training step) with recording
+    wrappers: each kernel's arguments as the main path gives them."""
     calls = {name: [] for _, name, _ in kernel_sites()}
 
     def recorder(module, name):
@@ -314,7 +338,7 @@ def check_kernels(calls, device):
                      bound_ms=bms, bound_by=by, library_ms=None))
 
     # kernel 4: row gather
-    (args, kwargs), = calls["gather_rows"]
+    (args, kwargs), = calls["gather_rows_forward"]
     values, idx = args
     got = gather_kernel.gather_rows(values, idx)
     want = gather_kernel.gather_rows_plain(values, idx)
@@ -341,6 +365,45 @@ def check_kernels(calls, device):
     return rows
 
 
+def check_scatter(calls, device):
+    """Phase 4: kernel 4b against its plain version, timed, with its bound."""
+    from dl_biomass_tpu_torch.ops import gather_kernel
+
+    (args, kwargs), = calls["scatter_rows"]
+    ct, idx, n = args
+    got = gather_kernel.scatter_rows(ct, idx, n)
+    want = gather_kernel.scatter_rows_plain(ct, idx, n)
+    torch.cuda.synchronize()
+    require(same_bits(got, want), "scatter kernel differs from plain in bits")
+    b, m, k, c = ct.shape
+    ok = (idx >= 0) & (idx < n)
+    keys = (idx.long() + torch.arange(b, device=device).view(b, 1, 1) * n)[ok]
+    src = ct.reshape(b, m, k, c)[ok].float()  # the f32 image of the rows that count
+    buf = torch.empty((b * n, c), dtype=torch.float32, device=device)
+
+    def library():  # float atomics: a yardstick only, not deterministic
+        buf.zero_()
+        return buf.index_add_(0, keys, src).to(ct.dtype)
+
+    lib = library().view(b, n, c)
+    torch.cuda.synchronize()
+    lib_err = max_abs_err(lib, want)
+    t = time_ms(lambda: gather_kernel.scatter_rows(ct, idx, n), reps=SCATTER_REPS)
+    tp = time_ms(lambda: gather_kernel.scatter_rows_plain(ct, idx, n), reps=3, warmup=1)
+    tl = time_ms(library, reps=SCATTER_REPS)
+    valid = int(ok.sum())
+    bms, by = bound(ct.numel() * ct.element_size() + idx.numel() * 4
+                    + b * n * c * ct.element_size(), valid * c)
+    print(f"kernel scatter_rows B={b} M={m} K={k} C={c} N={n} {ct.dtype}: {t:.4f} ms "
+          f"(median of {SCATTER_REPS}), plain {tp:.4f} ms, library (index_add_ of the f32 rows, "
+          f"float atomics) {tl:.4f} ms, bound {bms:.6f} ms ({valid} rows), bit-identical; "
+          f"library max|diff| {lib_err:.3e}", flush=True)
+    return dict(name="scatter_rows", source="dl_biomass_tpu_torch/csrc/gather_bwd.cu",
+                replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:164", entry="dlbt_scatter_rows",
+                max_abs_err=max_abs_err(got, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
+                library_ms=tl)
+
+
 def serve_timing(serve, batch, reps: int = SERVE_REPS) -> float:
     """Median ms per batch: host clock around a forward ending in a synchronize."""
     for _ in range(2):
@@ -355,31 +418,44 @@ def serve_timing(serve, batch, reps: int = SERVE_REPS) -> float:
     return statistics.median(times)
 
 
-def profile_serve(serve, batch, forwards: int = 3):
-    """Device time per forward over a short window of forwards (torch.profiler):
-    the wall time, the device's busy time, and the busy time by kernel and by
-    the PyTorch operator that launched it."""
+def profile_calls(fn, calls: int = 3):
+    """Device time per call of ``fn`` over a short window (torch.profiler): the
+    wall time, the device's busy time, and the busy time by kernel and by the
+    PyTorch operator that launched it."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        serve(batch)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(forwards):
-            serve(batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
 
     def table(device_type):
-        rows = [(e.key, e.self_device_time_total / 1e3 / forwards, e.count // forwards)
+        rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
                 for e in events if e.device_type == device_type and e.self_device_time_total > 0]
         return sorted(rows, key=lambda r: r[1], reverse=True)
 
     kernels = table(torch.autograd.DeviceType.CUDA)
     busy_ms = sum(ms for _, ms, _ in kernels)
-    return wall_ms / forwards, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
+    return wall_ms / calls, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
+
+
+def print_profile(what: str, fn, calls: int, n_kernels: int = 10, n_ops: int = 12) -> None:
+    wall, busy, by_kernel, by_op = profile_calls(fn, calls)
+    if busy <= 0:
+        print(f"profile {what}: the profiler recorded no device time (not measured)", flush=True)
+        return
+    print(f"profile {what}: {busy:.3f} ms of device time in {wall:.3f} ms per call under the "
+          f"profiler (device idle {1 - busy / wall:.1%})", flush=True)
+    for title, table in (("by kernel", by_kernel[:n_kernels]), ("by operator", by_op[:n_ops])):
+        print(f"profile {what} {title}:", flush=True)
+        for name, ms, count in table:
+            print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{count:<3d} {name[:100]}", flush=True)
 
 
 def main() -> int:
@@ -411,9 +487,9 @@ def main() -> int:
     print(f"build: {len(list(_build.CSRC_DIR.glob('*.cu')))} sources -> {so.name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    kernels = run(torch.device("cuda"), card)
+    kernels = drive(torch.device("cuda"), card)
 
-    # phase 4: summary
+    # phase 6: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -421,8 +497,27 @@ def main() -> int:
     return 0
 
 
-def run(device, card: str) -> list:
-    """Phases 2 and 3; returns the kernels' summary rows."""
+def drive(device, card: str) -> list:
+    """Phases 2-5; returns the kernels' summary rows, with each kernel's
+    launches in the serving run and in the training run."""
+    rows, serve_launches = run(device, card)
+    train_launches = {}
+    rows.append(train_phases(device, card, train_launches))
+    kernels = []
+    for r in rows:
+        w = r.pop("entry")
+        by_path = {"serve": serve_launches.get(w, 0), "train": train_launches[w]}
+        kernels.append(dict(name=r["name"], route="cuda", source=r["source"],
+                            replaces=r["replaces"], launches=sum(by_path.values()),
+                            launches_by_path=by_path, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    return kernels
+
+
+def run(device, card: str):
+    """Phases 2 and 3; returns the serving kernels' rows and the launches of
+    the serving run."""
     n_points, small, large, partial, partial_lo = N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO
     from dl_biomass_tpu_torch.models.inference import compile_inference
     from dl_biomass_tpu_torch.ops import _build
@@ -488,16 +583,7 @@ def run(device, card: str) -> list:
           f"(bound {BF16_SERVE_RTOL}); vs unfolded module forward: {rel_module:.3e} "
           f"(bound {FOLDED_VS_MODULE_RTOL})", flush=True)
 
-    wall, busy, by_kernel, by_op = profile_serve(serve, req16)
-    if busy > 0:
-        print(f"profile B={small}: {busy:.3f} ms of device time in {wall:.3f} ms per forward "
-              f"under the profiler (device idle {1 - busy / wall:.1%})", flush=True)
-        for title, table in (("by kernel", by_kernel[:10]), ("by operator", by_op[:12])):
-            print(f"profile {title}:", flush=True)
-            for name, ms, count in table:
-                print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{count:<3d} {name[:100]}", flush=True)
-    else:
-        print("profile: the profiler recorded no device time (not measured)", flush=True)
+    print_profile(f"serve B={small}", lambda: serve(req16), calls=3)
 
     for req in [req16, req36] + faults:
         b, n = req.pos.shape[:2]
@@ -507,15 +593,124 @@ def run(device, card: str) -> list:
         print(f"serve B={b} x {n}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} clouds/s, "
               f"peak {peak:.2f} GiB [{card}]", flush=True)
 
-    kernels = []
-    for r in rows:
-        w = r.pop("entry")
-        kernels.append(dict(name=r["name"], route="cuda", source=r["source"],
-                            replaces=r["replaces"], launches=launches[w],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
-    return kernels
+    return rows, launches
+
+
+def train_timing(trainer, batch, generator, name: str, card: str, launches: dict) -> None:
+    """TRAIN_WARMUP + TRAIN_TIMED steps on one fixed batch, each ending in a
+    synchronize; checks loss, moved parameters and statistics, and launches."""
+    from dl_biomass_tpu_torch.ops import _build
+
+    b = batch.pos.shape[0]
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    counts0 = dict(_build.launch_counts)
+    losses, times = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(batch, generator))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:  # one step moved every parameter that has a gradient
+            after = trainer.model.state_dict()
+            for k, p in trainer.model.named_parameters():
+                if p.grad is not None and bool(p.grad.abs().max() > 0):
+                    require(not torch.equal(after[k], before[k]), f"{name}: {k} did not move")
+            stats = [k for k in before if "running_" in k]
+            require(all(not torch.equal(after[k], before[k]) for k in stats),
+                    f"{name}: a BatchNorm running statistic did not move")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).float().cpu()
+    require(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss {losses.tolist()}")
+    require(float(losses[TRAIN_TIMED]) < float(losses[0]),
+            f"{name}: loss after {TRAIN_TIMED} steps {float(losses[TRAIN_TIMED])} is not "
+            f"below the first step's {float(losses[0])}")
+    per_step = {}
+    for k, per in EXPECTED_PER_STEP.items():
+        got = _build.launch_counts[k] - counts0.get(k, 0)
+        require(got == per * steps, f"{name}: {k} launched {got} times in {steps} steps, "
+                                    f"expected {per * steps}")
+        per_step[k] = got / steps
+        launches[k] = _build.launch_counts[k]
+    ms = statistics.median(times[TRAIN_WARMUP:])
+    print(f"train {name}: {ms:.3f} ms/step (median of {TRAIN_TIMED} after {TRAIN_WARMUP}), "
+          f"{b / ms * 1e3:.1f} clouds/s, peak {peak:.2f} GiB, loss {float(losses[0]):.4f} -> "
+          f"{float(losses[TRAIN_TIMED]):.4f} after {TRAIN_TIMED} steps; launches per step "
+          f"{per_step} [{card}]", flush=True)
+
+
+def compare_plain_step(trainer, batch, seed: int) -> None:
+    """One step on the kernels and one on their plain versions, from one state
+    and one generator seed: the same loss and gradients."""
+    device = batch.pos.device
+    model_state = copy.deepcopy(trainer.model.state_dict())
+    opt_state = copy.deepcopy(trainer.optimizer.state_dict())
+
+    def one_step():
+        loss = trainer.step(batch, torch.Generator(device=device).manual_seed(seed))
+        return loss, {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
+
+    loss_k, grads_k = one_step()
+    trainer.model.load_state_dict(model_state)
+    trainer.optimizer.load_state_dict(opt_state)
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        loss_p, grads_p = one_step()
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(loss_k, loss_p)) and all(
+        torch.equal(grads_k[k], grads_p[k]) for k in grads_k)
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_k))
+    rel_grad = max(float((grads_k[k] - grads_p[k]).abs().max())
+                   / max(float(grads_k[k].abs().max()), 1e-30) for k in grads_k)
+    require(rel_loss <= PLAIN_STEP_RTOL and rel_grad <= PLAIN_STEP_RTOL,
+            f"kernel vs plain step: loss rel {rel_loss}, gradient rel {rel_grad} > "
+            f"{PLAIN_STEP_RTOL}")
+    print(f"train step on the kernels vs on the plain versions (B={batch.pos.shape[0]} x "
+          f"{batch.pos.shape[1]}, one state and seed): loss rel {rel_loss:.3e}, max gradient "
+          f"rel {rel_grad:.3e} (bound {PLAIN_STEP_RTOL:.3e}); bit-identical: {identical}",
+          flush=True)
+
+
+def train_phases(device, card: str, train_launches: dict) -> dict:
+    """Phases 4 and 5; returns kernel 4b's row and fills ``train_launches``
+    with the launches of the training run."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import _build
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(seeded_model(device), TrainConfig(), device)
+    batches = [synthetic_batch(b, n, seed=10 + i, device=device)
+               for i, (b, n) in enumerate(TRAIN_SHAPES)]
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    # phase 4: kernel 4b at the inputs of one training step (B=16 x 10240)
+    calls = record_kernel_inputs(lambda b: trainer.step(b, gen(0)), batches[0])
+    require(len(calls["scatter_rows"]) == 1, "a training step launched the gather backward "
+                                             f"{len(calls['scatter_rows'])} times, not once")
+    row = check_scatter(calls, device)
+    del calls
+
+    # phase 5: train, every launch of the main path counted
+    _build.launch_counts.clear()
+    for i, ((b, n), batch) in enumerate(zip(TRAIN_SHAPES, batches)):
+        train_timing(trainer, batch, gen(100 + i), f"B={b} x {n}", card, train_launches)
+    compare_plain_step(trainer, batches[0], seed=7)
+    for i, b in enumerate(FAULT_BATCHES):
+        batch = synthetic_batch(b, SHORT_POINTS, seed=4 + i, device=device)
+        val = trainer.evaluate([batch])
+        pred = trainer.predict([batch])
+        require(np.isfinite(val) and pred.shape == (b, 4) and np.isfinite(pred).all(),
+                f"evaluate/predict at B={b} x {SHORT_POINTS}: loss {val}, {pred.shape}")
+    print(f"train: evaluate and predict at B={FAULT_BATCHES} x {SHORT_POINTS}: finite loss, "
+          "predictions (B, 4) finite", flush=True)
+    print_profile(f"train step B={TRAIN_SHAPES[0][0]}",
+                  lambda: trainer.step(batches[0], gen(9)), calls=2, n_kernels=14, n_ops=16)
+    return row
 
 
 if __name__ == "__main__":

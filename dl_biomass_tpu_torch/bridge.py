@@ -1,4 +1,4 @@
-"""flax variables -> torch ``state_dict`` for the ported ``PointNet2Regressor``.
+"""flax variables <-> torch ``state_dict`` for the ported ``PointNet2Regressor``.
 
 The flax tree is ``{"params": ..., "batch_stats": ...}`` of arrays (numpy, or
 anything ``np.asarray`` takes), with the module names fixed by
@@ -9,6 +9,9 @@ anything ``np.asarray`` takes), with the module names fixed by
   ``lin{i}.bias``              -> ``lin{i}.bias``
   ``bn{i}.scale`` / ``.bias``  -> ``bn{i}.weight`` / ``.bias``
   batch_stats ``bn{i}.mean`` / ``.var`` -> ``bn{i}.running_mean`` / ``.running_var``
+
+``to_flax_variables`` maps a model back, so that a trained port model can be
+compared with (or loaded by) the JAX package.
 """
 
 from __future__ import annotations
@@ -46,4 +49,29 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected batch statistic {'/'.join(path)}")
         arr = np.asarray(leaf, dtype=np.float32)
         out[".".join(path[:-1] + (_STAT_NAMES[path[-1]],))] = torch.from_numpy(arr.copy())
+    return out
+
+
+def to_flax_variables(model: torch.nn.Module) -> Dict[str, dict]:
+    """``{"params", "batch_stats"}`` nested dicts of float32 numpy arrays from the
+    model's ``state_dict``: the inverse of ``from_flax_variables``."""
+    inv_param = {"lin": {"weight": "kernel", "bias": "bias"},
+                 "bn": {"weight": "scale", "bias": "bias"}}
+    inv_stat = {v: k for k, v in _STAT_NAMES.items()}
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        *mods, leaf = name.split(".")
+        arr = t.detach().cpu().float().numpy()
+        kind = "lin" if mods[-1].startswith("lin") else "bn"
+        if leaf in inv_stat:
+            tree, key = out["batch_stats"], inv_stat[leaf]
+        elif leaf in inv_param[kind]:
+            tree, key = out["params"], inv_param[kind][leaf]
+            if key == "kernel":
+                arr = arr.T
+        else:
+            raise KeyError(f"unexpected state entry {name}")
+        for mod in mods:
+            tree = tree.setdefault(mod, {})
+        tree[key] = np.ascontiguousarray(arr)
     return out

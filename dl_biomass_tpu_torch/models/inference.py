@@ -5,8 +5,9 @@ it and returns ``serve(batch) -> (B, 4)``: a flat chain of the four
 kernels (FPS, stratified ball grouping, exact ball query, row gather) and
 folded matmuls, with bf16 activations in production. It follows
 ``compile_inference`` of the JAX package branch for branch: the stratified and
-the exact SA1 branches (``inference.py:198-226``) and the split SA2 path with
-the gathered z-table (``:232-269``).
+the exact SA1 branches (``inference.py:198-226``), the split SA2 path with
+the gathered z-table while SA1 keeps at most ``MXU_MAX_POINTS`` centroids
+(``:232-269``), and the unsplit per-edge gather beyond (``:270-279``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
 from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
-from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor, sample_centroids
+from dl_biomass_tpu_torch.models.pointnet2 import (MXU_MAX_POINTS, PointNet2Regressor,
+                                                   sample_centroids)
 from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.grouping import group_neighborhoods
@@ -115,17 +117,21 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
         _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
         nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
-        # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
-        # so it runs once per point and kernel 4 gathers the z-table. Pad
-        # slots carry index 0, so their gathered rows are point 0's finite
-        # row, and masked_max leaves them out through nm.
-        w0, b0 = sa2[0]
-        fdim = h1.shape[-1]
-        zpt = (dot_f32(h1.to(ct), w0[:fdim]) + dot_f32(c1.to(ct), w0[fdim:]) + b0).to(ct)
-        gz = gather_kernel.gather_rows(zpt, nidx)
-        cshift = dot_f32(c2.to(ct), w0[fdim:])
-        z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
-        h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
+        if m1 <= MXU_MAX_POINTS:
+            # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
+            # so it runs once per point and kernel 4 gathers the z-table. Pad
+            # slots carry index 0, so their gathered rows are point 0's finite
+            # row, and masked_max leaves them out through nm.
+            w0, b0 = sa2[0]
+            fdim = h1.shape[-1]
+            zpt = (dot_f32(h1.to(ct), w0[:fdim]) + dot_f32(c1.to(ct), w0[fdim:]) + b0).to(ct)
+            gz = gather_kernel.gather_rows(zpt, nidx)
+            cshift = dot_f32(c2.to(ct), w0[fdim:])
+            z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
+            h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
+        else:
+            e2 = group_neighborhoods(c1, h1, c2, nidx, nm)  # [h1_j, c1_j - c2_i], 0 on pads
+            h2 = masked_max(_run_folded(e2, sa2, compute_dtype=ct), nm, dim=2)
 
         g = torch.cat([h2, c2], dim=-1)
         h3 = masked_max(_run_folded(g, sa3, compute_dtype=ct), cm2, dim=1)

@@ -5,12 +5,17 @@
   SA3: global — MLP[256+3, 256, 512, 1024] + masked global max pool
   head: MLP[1024, 128, 128, 4], act=None
 
-The eval forward takes the branches that ``model.apply(train=False)`` takes in
-the JAX package with its kernels on (``use_pallas=True``): sectored or exact
-FPS on kernel 1; the stratified SA1 grouping on kernel 2 (``fast_group``) or
-the exact ball query on kernel 3 (SA2 always, SA1 under ``exact_selection``);
-and the per-point first layer of SA2 with its z-table gathered by kernel 4
-(``split_first_layer``). Train mode belongs to the training slice.
+The forward takes the branches that ``model.apply`` takes in the JAX package
+with its kernels on (``use_pallas=True``): sectored or exact FPS on kernel 1;
+the stratified SA1 grouping on kernel 2 (``fast_group``; its edges carry no
+gradient) or the exact ball query on kernel 3 (SA2 always, SA1 under
+``exact_selection``); and, while SA2's input holds at most ``MXU_MAX_POINTS``
+points, the per-point first layer of SA2 with its z-table gathered by kernel
+4, whose scatter-add backward is SA1's only gradient path
+(``split_first_layer``). Beyond that, SA2 gathers ``[h1_j, c1_j - c2_i]`` per
+edge, as the JAX package does. ``train=True`` uses batch statistics in every
+BatchNorm and the head's dropout, with FPS starts and dropout drawn from the
+``generator`` passed in (without one, FPS starts at the first valid point).
 """
 
 from __future__ import annotations
@@ -28,12 +33,17 @@ from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
 from dl_biomass_tpu_torch.ops.grouping import gather_points, group_neighborhoods
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 
-_TRAIN_MODE = "train-mode forward is not ported yet (ROADMAP A.1: the training slice)"
+# the JAX package gathers SA2's z-table with its one-hot kernel only while the
+# table (SA1's centroids) holds at most this many rows (pointnet2.py:172,
+# inference.py:233); beyond it the edges are gathered unsplit
+MXU_MAX_POINTS = 4096
 
 
-def sample_centroids(pos, mask, m: int, *, sectored: bool):
-    """FPS (sectored or exact, from the first valid point) -> (idx, centers, center_mask)."""
-    idx = fps_sectored(pos, mask, m) if sectored else farthest_point_sample(pos, mask, m)
+def sample_centroids(pos, mask, m: int, *, sectored: bool, generator=None):
+    """FPS (sectored or exact; random starts from ``generator``, else the first
+    valid point) -> (idx, centers, center_mask)."""
+    fps = fps_sectored if sectored else farthest_point_sample
+    idx = fps(pos, mask, m, generator=generator)
     centers = gather_points(pos, idx)
     center_mask = mask.gather(1, idx.long())
     return idx, centers, center_mask
@@ -56,36 +66,42 @@ class SAModule(nn.Module):
         self.split_first_layer = split_first_layer
         self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
 
-    def forward(self, feat, pos, mask):
+    def forward(self, feat, pos, mask, *, train: bool = False, generator=None):
         n = pos.shape[1]
         m = math.ceil(self.ratio * n)
         cdt = self.compute_dtype
         _, centers, center_mask = sample_centroids(
-            pos, mask, m, sectored=self.fast_fps and not self.exact_selection)
+            pos, mask, m, sectored=self.fast_fps and not self.exact_selection,
+            generator=generator)
         if (self.fast_group and not self.exact_selection and self.max_neighbors == 64
                 and (feat is None or feat.shape[-1] <= 4)):
             _, nbr_mask, edges = ball_group_kernel.ball_group(
                 centers, center_mask, pos, mask, feat, radius=self.radius, out_dtype=cdt,
                 need_idx=False)
-            return masked_max(self.mlp(edges), nbr_mask, dim=2), centers, center_mask
+            h = self.mlp(edges.detach(), nbr_mask, train)
+            return masked_max(h, nbr_mask, dim=2), centers, center_mask
 
         nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=self.radius,
                                        k=self.max_neighbors)
         if (self.split_first_layer and feat is not None and feat.shape[-1] >= 16
-                and self.max_neighbors == 64):
+                and n <= MXU_MAX_POINTS and self.max_neighbors == 64):
             # layer 0 is linear in [x_j, p_j - p_i]: z0 = (Wf x_j + Wp p_j + b0) - Wp p_i
-            # runs once per point, and kernel 4 gathers the z-table
+            # runs once per point, and kernel 4 gathers the z-table. Each use
+            # casts wp on its own, as JAX does, so the two bf16 gradients of
+            # wp meet in float32
             lin0 = self.mlp.lin0
             w0 = lin0.weight.t()
             fdim = feat.shape[-1]
-            wf, wp = w0[:fdim].to(cdt), w0[fdim:].to(cdt)
-            zpt = (dot_f32(feat.to(cdt), wf) + dot_f32(pos.to(cdt), wp) + lin0.bias).to(cdt)
+            wf, wp = w0[:fdim], w0[fdim:]
+            zpt = (dot_f32(feat.to(cdt), wf.to(cdt)) + dot_f32(pos.to(cdt), wp.to(cdt))
+                   + lin0.bias).to(cdt)
             gz = gather_kernel.gather_rows(zpt, nbr_idx)
-            cshift = dot_f32(centers.to(cdt), wp)
+            cshift = dot_f32(centers.to(cdt), wp.to(cdt))
             z0 = gz - cshift[:, :, None, :].to(gz.dtype)
-            h = self.mlp.from_z0(z0)
+            h = self.mlp.from_z0(z0, nbr_mask, train)
         else:
-            h = self.mlp(group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask))
+            h = self.mlp(group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask), nbr_mask,
+                         train)
         return masked_max(h, nbr_mask, dim=2), centers, center_mask
 
 
@@ -97,8 +113,8 @@ class GlobalSAModule(nn.Module):
         super().__init__()
         self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
 
-    def forward(self, feat, pos, mask):
-        return masked_max(self.mlp(torch.cat([feat, pos], dim=-1)), mask, dim=1)
+    def forward(self, feat, pos, mask, *, train: bool = False):
+        return masked_max(self.mlp(torch.cat([feat, pos], dim=-1), mask, train), mask, dim=1)
 
 
 class PointNet2Regressor(nn.Module):
@@ -115,8 +131,10 @@ class PointNet2Regressor(nn.Module):
         super().__init__()
         self.num_features = num_features
         self.activation_function = activation_function
-        self.dropout_probability = dropout_probability  # the head's; eval uses none
+        self.neuron_multiplier = neuron_multiplier
+        self.dropout_probability = dropout_probability  # the head's, in training
         self.sa1_ratio, self.sa2_ratio = sa1_ratio, sa2_ratio
+        self.doubled_radius = doubled_radius
         self.sa1_radius = sa1_radius * (2 if doubled_radius else 1)
         self.sa2_radius = sa2_radius * (2 if doubled_radius else 1)
         self.max_neighbors = max_neighbors
@@ -137,21 +155,54 @@ class PointNet2Regressor(nn.Module):
         self.sa3 = GlobalSAModule([256 * nm + 3, 256 * nm, 512 * nm, 1024 * nm], act=act,
                                   compute_dtype=compute_dtype)
         self.head = MLP([1024 * nm, 128 * nm, 128 * nm, 4], act=None,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, dropout=dropout_probability)
 
-    def forward(self, cloud, *, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(_TRAIN_MODE)
+    def forward(self, cloud, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, 4) float32 predictions. ``train=True``: batch statistics (and
+        their running update) in every BatchNorm, and the head's dropout,
+        which needs ``generator``; FPS starts are drawn from ``generator``
+        when one is given."""
         feat, pos, mask = cloud.feat, cloud.pos, cloud.mask
         if self.num_features == 0:
             feat = pos  # the reference: x = coords when no columns are used
-        h, pos, mask = self.sa1(feat, pos, mask)
-        h, pos, mask = self.sa2(h, pos, mask)
-        h = self.sa3(h, pos, mask)
-        return self.head(h).float()  # predictions always float32
+        h, pos, mask = self.sa1(feat, pos, mask, train=train, generator=generator)
+        h, pos, mask = self.sa2(h, pos, mask, train=train, generator=generator)
+        h = self.sa3(h, pos, mask, train=train)
+        return self.head(h, None, train, generator).float()  # predictions always float32
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def model_to_dict(model: PointNet2Regressor) -> dict:
+    """JSON-serializable constructor arguments, under the JAX package's names
+    (``dl_biomass_tpu/models/pointnet2.py`` model_to_dict), for the
+    checkpoint sidecar."""
+    div = 2 if model.doubled_radius else 1
+    return dict(
+        num_features=model.num_features,
+        activation_function=model.activation_function,
+        neuron_multiplier=model.neuron_multiplier,
+        dropout_probability=model.dropout_probability,
+        sa1_ratio=model.sa1_ratio,
+        sa1_radius=model.sa1_radius / div,
+        sa2_ratio=model.sa2_ratio,
+        sa2_radius=model.sa2_radius / div,
+        max_neighbors=model.max_neighbors,
+        doubled_radius=model.doubled_radius,
+        msg=False,
+        remat=False,
+        fast_group=model.fast_group,
+        fast_fps=model.fast_fps,
+        fused_sa=False,
+        exact_selection=model.exact_selection,
+        analytic_bn=False,
+        split_first_layer=model.split_first_layer,
+        num_outputs=4,
+        global_width_mult=1,
+        compute_dtype="bfloat16" if model.compute_dtype == torch.bfloat16 else "float32",
+    )
 
 
 def build_model(cfg, num_features: int) -> PointNet2Regressor:

@@ -1,11 +1,22 @@
-"""Kernel 4: batched row gather, values (B, N, C) by idx (B, M, K) -> (B, M, K, C).
+"""Kernel 4: batched row gather, values (B, N, C) by idx (B, M, K) -> (B, M, K, C),
+and its scatter-add backward.
 
-Forward of ``dl_biomass_tpu/ops/pallas_mxu_gather.py`` mxu_gather: the same
-bits (its one-hot product is exact), and an index outside [0, N) gives a row
-of zeros, as a one-hot row with no match does.
+Forward (4a) of ``dl_biomass_tpu/ops/pallas_mxu_gather.py`` mxu_gather: the
+same bits (its one-hot product is exact), and an index outside [0, N) gives a
+row of zeros, as a one-hot row with no match does.
 
-``gather_rows`` launches ``csrc/gather.cu`` on a CUDA tensor and runs
-``gather_rows_plain`` on a CPU tensor.
+Backward (4b), ``_gather_bwd``/``_bwd_kernel``: each row of d/dvalues is the
+float32 sum of the cotangent rows whose index points at it, rounded once to
+the cotangent's dtype; an index outside [0, N) contributes nothing, and a pad
+slot (index 0) contributes its cotangent (zero on the model's path). The sum
+runs in ascending flat-row order, so the kernel and its plain version agree
+bit for bit and a run repeats exactly: no float atomics.
+
+``gather_rows`` is the differentiable op the model calls. Its forward is
+``gather_rows_forward`` and its backward ``scatter_rows``: each launches its
+CUDA kernel (``csrc/gather.cu``, ``csrc/gather_bwd.cu``) on a CUDA tensor and
+runs its plain version (``gather_rows_plain``, ``scatter_rows_plain``) on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -17,6 +28,11 @@ import torch
 from dl_biomass_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the CSR pass of the backward keeps one int32 histogram of the N rows per
+# warp, plus one of totals, in a block's shared memory
+_BWD_SMEM_BYTES = 200 * 1024
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(values, idx):
@@ -45,7 +61,7 @@ def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
     return 1
 
 
-def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows_forward(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values (B, N, C), idx (B, M, K) -> (B, M, K, C) in the values' dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
@@ -66,3 +82,102 @@ def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                   b, m * k, n, row_bytes, vec, _build.stream_of(values))
     return out
 
+
+def _check_scatter(ct, idx, n):
+    if ct.dim() != 4 or idx.dim() != 3 or tuple(ct.shape[:3]) != tuple(idx.shape):
+        raise ValueError(f"ct must be (B, M, K, C) and idx (B, M, K), got "
+                         f"{tuple(ct.shape)} and {tuple(idx.shape)}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError("idx must be int32 or int64")
+    if n < 1:
+        raise ValueError(f"n={n} must be positive")
+
+
+def scatter_rows_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The plain PyTorch version of the backward: ct (B, M, K, C), idx (B, M, K)
+    -> (B, N, C) in ct's dtype.
+
+    A stable sort of the flat keys ``b*N + idx`` lists each output row's
+    contributions in ascending flat-row order; the r-th member of every
+    segment is then added at once (rank by rank) into a float32 buffer, by
+    gather, add and ``index_copy_`` (each row once per rank: no atomics)."""
+    _check_scatter(ct, idx, n)
+    b, m, k, c = ct.shape
+    dev = ct.device
+    ok = (idx >= 0) & (idx < n)
+    base = torch.arange(b, device=dev).view(b, 1, 1) * n
+    key = torch.where(ok, idx.long() + base, b * n).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    keep = skey < b * n
+    order, skey = order[keep], skey[keep]
+    acc = torch.zeros((b * n, c), dtype=torch.float32, device=dev)
+    if skey.numel():
+        _, seg_len = torch.unique_consecutive(skey, return_counts=True)
+        seg_start = torch.cumsum(seg_len, 0) - seg_len
+        rank = torch.arange(skey.numel(), device=dev) - torch.repeat_interleave(seg_start,
+                                                                               seg_len)
+        by_rank = torch.argsort(rank, stable=True)  # rank 0 of every segment, then 1, ...
+        per_rank = torch.bincount(rank).tolist()
+        rows_flat = ct.reshape(-1, c)
+        lo = 0
+        for cnt in per_rank:
+            sel = by_rank[lo:lo + cnt]
+            lo += cnt
+            dst, src = skey[sel], order[sel]
+            acc.index_copy_(0, dst, acc.index_select(0, dst) + rows_flat.index_select(0, src).float())
+    return acc.to(ct.dtype).view(b, n, c)
+
+
+def _bwd_warps(n: int) -> int:
+    return min(32, _BWD_SMEM_BYTES // (4 * n) - 1)
+
+
+def scatter_rows(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """ct (B, M, K, C) float32 or bfloat16, idx (B, M, K) -> (B, N, C) in ct's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if ct.device.type == "cpu":
+        return scatter_rows_plain(ct, idx, n)
+    if ct.device.type != "cuda":
+        raise RuntimeError(f"scatter_rows runs on cuda or cpu tensors, got {ct.device}")
+    _check_scatter(ct, idx, n)
+    if ct.dtype not in _DTYPE_CODES:
+        raise ValueError(f"scatter_rows takes float32 or bfloat16, got {ct.dtype}")
+    warps = _bwd_warps(n)
+    if warps < 1:
+        raise ValueError(f"scatter_rows: n={n} rows do not fit the CSR pass's shared memory")
+    b, m, k, c = ct.shape
+    r = m * k
+    ct = ct.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    _build.check_cuda("scatter_rows", ct, idx)
+    out = torch.empty((b, n, c), dtype=ct.dtype, device=ct.device)
+    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=ct.device)
+    rows = torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device)
+    _build.launch("dlbt_scatter_rows", _BWD_ARGTYPES, ct.data_ptr(), idx.data_ptr(),
+                  offsets.data_ptr(), rows.data_ptr(), out.data_ptr(), b, r, n, c,
+                  _DTYPE_CODES[ct.dtype], warps, _build.stream_of(ct))
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = values.shape[1]
+        return gather_rows_forward(values, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(ct.contiguous(), idx, ctx.n), None
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values (B, N, C), idx (B, M, K) -> (B, M, K, C), differentiable in values:
+    the backward is ``scatter_rows``. Without a gradient to take it is the
+    forward alone."""
+    if torch.is_grad_enabled() and values.requires_grad:
+        return _GatherRows.apply(values, idx)
+    return gather_rows_forward(values, idx)

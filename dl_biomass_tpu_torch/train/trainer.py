@@ -1,0 +1,219 @@
+"""Training loop (port of ``dl_biomass_tpu/train/trainer.py``).
+
+  * torch ``Adam(lr, weight_decay)``: L2 folded into the gradient before the
+    moment updates, which is what the JAX package builds from optax's
+    ``add_decayed_weights`` + ``adam``; ``AdamW`` is torch's own;
+  * the weighted 4-component MSE (``train/loss.py``), pad clouds weighted 0;
+  * early stopping with the reference's trigger rule (``main.py:226-235``);
+  * a per-epoch CSV line ``epoch, train_mse, val_mse``, save-on-best
+    checkpoints of model + optimizer state, and resume.
+
+``Trainer.step`` is the body of the JAX package's ``_step_core``: one
+train-mode forward (batch statistics, their running update, the head's
+dropout), the loss, its gradients and one optimizer step. Randomness (FPS
+starts, dropout) comes from the ``torch.Generator`` the caller passes. The
+loop syncs with the host once per epoch, not per step.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
+from dl_biomass_tpu_torch.core.config import TrainConfig
+from dl_biomass_tpu_torch.models.pointnet2 import model_to_dict
+from dl_biomass_tpu_torch.train import checkpoint
+from dl_biomass_tpu_torch.train.loss import weighted_component_mse
+
+_DEVICE_DATASET = ("a DeviceDataset (the fused and scan epochs) is not ported yet: ROADMAP A.3; "
+                   "pass callables that yield CloudBatches")
+
+
+def make_optimizer(params, hp) -> torch.optim.Optimizer:
+    """torch's own ``Adam`` (L2 weight decay inside the gradient) or ``AdamW``."""
+    if hp.optimizer == "Adam":
+        return torch.optim.Adam(params, lr=hp.lr, weight_decay=hp.weight_decay)
+    if hp.optimizer == "AdamW":
+        return torch.optim.AdamW(params, lr=hp.lr, weight_decay=hp.weight_decay)
+    raise ValueError(f"unknown optimizer {hp.optimizer!r}")
+
+
+class EarlyStopping:
+    """The reference's trigger rule (``main.py:226-235``): count up when val MSE
+    rises above the last *accepted* value; reset and accept otherwise."""
+
+    def __init__(self, patience: int, enabled: bool = True):
+        self.patience = patience
+        self.enabled = enabled
+        self.trigger_times = 0
+        self.last_val = np.inf
+
+    def update(self, val_mse: float) -> bool:
+        """True when training should stop."""
+        if not self.enabled:
+            return False
+        if val_mse > self.last_val:
+            self.trigger_times += 1
+            return self.trigger_times >= self.patience
+        self.trigger_times = 0
+        self.last_val = val_mse
+        return False
+
+
+def _pad_weight(batch: CloudBatch) -> torch.Tensor:
+    return batch.mask.any(dim=1)  # fully padded clouds weigh 0
+
+
+class Trainer:
+    """Trains ``model`` on ``device`` (None: the card, which must exist;
+    ``"cpu"`` runs the kernels' plain versions)."""
+
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.optimizer = make_optimizer(self.model.parameters(), cfg.hp)
+
+    # ---- steps ---------------------------------------------------------------
+
+    def step(self, batch: CloudBatch,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One gradient step; returns the loss (a device tensor, not synced).
+        After it, each parameter's ``.grad`` holds this step's gradient."""
+        batch = batch.to(self.device)
+        self.optimizer.zero_grad(set_to_none=True)
+        out = self.model(batch, train=True, generator=generator)
+        loss = weighted_component_mse(out, batch.y, _pad_weight(batch))
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    @torch.inference_mode()
+    def _eval_batch(self, batch: CloudBatch):
+        """(loss, predictions, real-cloud mask) of one eval-mode forward."""
+        batch = batch.to(self.device)
+        out = self.model(batch, train=False)
+        keep = _pad_weight(batch)
+        return weighted_component_mse(out, batch.y, keep), out, keep
+
+    # ---- loops ---------------------------------------------------------------
+
+    def train_epoch(self, batches: Iterable[CloudBatch],
+                    generator: Optional[torch.Generator] = None) -> Tuple[float, int]:
+        """(mean train loss, real clouds seen); one host sync at the end."""
+        if hasattr(batches, "epoch_specs"):
+            raise NotImplementedError(_DEVICE_DATASET)
+        losses, counts = [], []
+        for batch in batches:
+            losses.append(self.step(batch, generator))
+            counts.append(_pad_weight(batch).sum())
+        if not losses:
+            raise ValueError("train_epoch got no batches")
+        losses = torch.stack(losses).cpu().numpy()
+        return float(np.mean(losses.astype(np.float64))), int(torch.stack(counts).sum())
+
+    def evaluate(self, batches: Iterable[CloudBatch]) -> float:
+        """Mean eval loss over the batches; one host sync at the end."""
+        if hasattr(batches, "epoch_specs"):
+            raise NotImplementedError(_DEVICE_DATASET)
+        losses = [self._eval_batch(b)[0] for b in batches]
+        if not losses:
+            raise ValueError("evaluate got no batches")
+        return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+
+    def predict(self, batches: Iterable[CloudBatch]) -> np.ndarray:
+        """(clouds, 4) predictions of the real clouds, in batch order; every
+        batch is queued before the one host sync."""
+        evals = [self._eval_batch(b) for b in batches]
+        out = torch.cat([e[1] for e in evals]).cpu().numpy()
+        return out[torch.cat([e[2] for e in evals]).cpu().numpy()]
+
+    def epoch_generator(self, epoch: int) -> torch.Generator:
+        """The step randomness of ``epoch``, from ``cfg.seed``: a resumed run
+        draws what an uninterrupted one would have."""
+        return torch.Generator(device=self.device).manual_seed(
+            int(self.cfg.seed) * 1_000_003 + epoch)
+
+    def fit(self, train_batches_fn: Callable[[int], Iterable[CloudBatch]],
+            val_batches_fn: Callable[[], Iterable[CloudBatch]], *,
+            num_epochs: Optional[int] = None, csv_path: Optional[str] = None,
+            checkpoint_dir: Optional[str] = None, log_fn: Callable[[str], None] = print,
+            resume: bool = False) -> Dict[str, Any]:
+        """Training with early stopping and save-on-best.
+
+        ``train_batches_fn(epoch)`` and ``val_batches_fn()`` yield CloudBatches.
+        Returns the history: per-epoch train/val MSE, seconds and clouds/s,
+        ``best_val_mse``, ``best_state`` (a copy of the best model
+        ``state_dict``) and ``stopped_early``."""
+        if hasattr(train_batches_fn, "epoch_specs") or hasattr(val_batches_fn, "epoch_specs"):
+            raise NotImplementedError(_DEVICE_DATASET)
+        cfg = self.cfg
+        num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
+        stopper = EarlyStopping(cfg.hp.patience, cfg.early_stopping)
+        history: Dict[str, Any] = {"epoch": [], "train_mse": [], "val_mse": [],
+                                   "epoch_seconds": [], "clouds_per_sec": []}
+        best_val = np.inf
+        best_state = copy.deepcopy(self.model.state_dict())
+        stopped_early = False
+        start_epoch = 0
+
+        if resume and checkpoint_dir:
+            meta = checkpoint.restore_latest(checkpoint_dir, self.model, self.optimizer)
+            if meta is not None:
+                start_epoch = int(meta["epoch"]) + 1
+                best_val = float(meta["val_mse"])
+                stopper.last_val = best_val
+                best_state = copy.deepcopy(self.model.state_dict())
+                log_fn(f"Resuming from epoch {start_epoch} (best val MSE {best_val:.4f})")
+
+        if checkpoint_dir:
+            # sidecar so that evaluation can rebuild the exact model later
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            with open(os.path.join(checkpoint_dir, "model_config.json"), "w") as f:
+                json.dump({"model": model_to_dict(self.model), "train": cfg.to_dict()}, f,
+                          indent=2)
+
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.perf_counter()
+            train_mse, n_clouds = self.train_epoch(train_batches_fn(epoch),
+                                                   self.epoch_generator(epoch))
+            val_mse = self.evaluate(val_batches_fn())
+            dt = time.perf_counter() - t0
+
+            history["epoch"].append(epoch)
+            history["train_mse"].append(train_mse)
+            history["val_mse"].append(val_mse)
+            history["epoch_seconds"].append(dt)
+            history["clouds_per_sec"].append(n_clouds / dt if dt > 0 else 0.0)
+
+            if csv_path:
+                with open(csv_path, "a") as f:
+                    f.write(f"{epoch}, {train_mse}, {val_mse}\n")
+
+            if val_mse <= best_val:
+                best_val = val_mse
+                best_state = copy.deepcopy(self.model.state_dict())
+                if checkpoint_dir:
+                    checkpoint.save_checkpoint(checkpoint_dir, self.model, self.optimizer,
+                                               epoch=epoch, val_mse=val_mse)
+                log_fn(f"    Saving model for epoch {epoch}")
+
+            log_fn(f"    Epoch: {epoch}  | Mean val MSE: {round(val_mse, 2)}"
+                   f"  | Mean train MSE: {round(train_mse, 2)}")
+
+            if stopper.update(val_mse):
+                log_fn(f"\nEarly stopping at epoch {epoch}!\n")
+                stopped_early = True
+                break
+
+        history["best_val_mse"] = float(best_val)
+        history["best_state"] = best_state
+        history["stopped_early"] = stopped_early
+        return history

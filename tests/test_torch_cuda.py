@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the launches of a serving forward and of a training step.
 
 Marked ``cuda``: without a card each test skips with the reason. On a machine
 with one, ``python -m pytest tests/test_torch_cuda.py -m cuda`` builds the
@@ -11,8 +12,10 @@ import pytest
 import torch
 
 from dl_biomass_tpu_torch.core.cloud import CloudBatch
+from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.models.inference import compile_inference
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
+from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
                                       gather_kernel)
 
@@ -69,6 +72,38 @@ def test_gather_kernel_matches_plain(dev, dtype, c):
     idx = torch.randint(-2, 502, (2, 37, 64), device=dev, dtype=torch.int32)
     assert torch.equal(gather_kernel.gather_rows(values, idx),
                        gather_kernel.gather_rows_plain(values, idx))
+
+
+@pytest.mark.parametrize("dtype,n,c", [(torch.bfloat16, 500, 128), (torch.float32, 300, 24),
+                                       (torch.bfloat16, 2048, 128)])
+def test_scatter_kernel_matches_plain_bit_for_bit(dev, dtype, n, c):
+    """Both sum each output row in ascending flat-row order in float32."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    ct = torch.randn(3, 37, 64, c, device=dev, generator=g).to(dtype)
+    idx = torch.randint(-2, n + 2, (3, 37, 64), device=dev, dtype=torch.int32, generator=g)
+    idx[2, 10:] = 0  # a long segment: pad slots at index 0
+    got = gather_kernel.scatter_rows(ct, idx, n)
+    want = gather_kernel.scatter_rows_plain(ct, idx, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_train_step_launches_every_kernel(dev):
+    rng = np.random.default_rng(2)
+    pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(4)]
+    feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(4)]
+    y = rng.normal(size=(4, 4)).astype(np.float32)
+    batch = CloudBatch.from_numpy(pos, feat, y, device=dev)
+    model = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True,
+                               compute_dtype=torch.bfloat16)
+    trainer = Trainer(model, TrainConfig())
+    _build.launch_counts.clear()
+    loss = trainer.step(batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
+                                          "dlbt_ball_query": 1, "dlbt_gather": 1,
+                                          "dlbt_scatter_rows": 1}
 
 
 def test_serving_launches_every_kernel(dev):

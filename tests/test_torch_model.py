@@ -10,7 +10,7 @@ import torch
 from dl_biomass_tpu.core import config as jax_config
 from dl_biomass_tpu_torch.bridge import from_flax_variables
 from dl_biomass_tpu_torch.core import config
-from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor, build_model
+from dl_biomass_tpu_torch.models.pointnet2 import build_model
 from torch_port_helpers import BF16_RTOL, F32_RTOL, batches, models, rel_err
 
 torch.set_num_threads(1)
@@ -74,12 +74,6 @@ def test_bridge_transposes_kernels_and_renames_batch_norm(batch_pair):
                                   v["params"]["head"]["bn1"]["scale"])
     np.testing.assert_array_equal(sd["sa1.mlp.bn0.running_var"].numpy(),
                                   v["batch_stats"]["sa1"]["mlp"]["bn0"]["var"])
-
-
-def test_train_mode_is_not_ported_yet(batch_pair):
-    _, tb = batch_pair
-    with pytest.raises(NotImplementedError, match="training slice"):
-        PointNet2Regressor(num_features=1)(tb, train=True)
 
 
 def test_build_model_follows_config():

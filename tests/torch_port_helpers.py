@@ -41,10 +41,11 @@ def batches(seed, b, n, valid):
     return jb, tb
 
 
-def models(preset, dtype, jax_batch, num_features=1, seed=0):
+def models(preset, dtype, jax_batch, num_features=1, seed=0, **kwargs):
     """(JAX model, numpy variables, bridged port model) with the JAX package's
-    kernels on (use_pallas=True: interpret mode on the CPU)."""
-    flags = PRESETS[preset]
+    kernels on (use_pallas=True: interpret mode on the CPU); ``kwargs`` go to
+    both constructors."""
+    flags = dict(PRESETS[preset], **kwargs)
     jm = JaxModel(num_features=num_features, use_pallas=True,
                   compute_dtype=getattr(jnp, dtype), **flags)
     v = jax.tree.map(np.asarray, jm.init({"params": jax.random.key(seed)}, jax_batch,
