@@ -20,11 +20,24 @@ Phases, each of which raises on failure (exit code 1):
              with garbage in its pad rows, and 24 and 28 x 7168. The launch counts of that run, the
              repeat and pad invariance, agreement with the same forward on the
              plain versions and with the unfolded module, and ms per batch.
-4. kernel 4b — the scatter-add backward of the gather at the inputs one
+4. kernels 4c and 5 — the two-table gather (``split_first_layer=False``) and
+             the fused SA1 layer (``fused_eval=True``) at the inputs one
+             16 x 10240 forward of their configuration gives them: 4c
+             bit-identical to its plain version, 5 within 1e-2 of max|y| (bf16;
+             1e-5 in a small f32 case) with identical zero rows; timed beside
+             their bounds, plain versions and yardsticks (two ``values[b, idx]``
+             ops; the default engine's unfused SA1 segment).
+5. serve_fused_eval and serve_unsplit — the same requests through
+             ``compile_inference(fused_eval=True)`` and through the engine of
+             the same weights with ``split_first_layer=False``: launches per
+             forward, repeat and pad invariance, agreement with the
+             plain-version forward, the unfolded module and (fused_eval) the
+             default engine, and ms per batch beside the default engine's.
+6. kernel 4b — the scatter-add backward of the gather at the inputs one
              training step at 16 x 10240 gives it, held bit for bit against
              its plain version and timed (median of 100 launches) beside its
              bound and one ``index_add_`` as the library yardstick.
-5. train   — ``Trainer`` on the same production model (Adam, lr, weight decay,
+7. train   — ``Trainer`` on the same production model (Adam, lr, weight decay,
              head dropout 0.5; FPS starts and dropout from a seeded
              ``torch.Generator``) takes 12 steps on each fixed batch of
              16 x 10240, 36 x 10240 and 36 x 7168: finite and falling loss,
@@ -33,8 +46,12 @@ Phases, each of which raises on failure (exit code 1):
              clouds/s and peak memory; one step on the plain versions from the
              same state and seed against the kernel step; ``evaluate`` and
              ``predict`` at 24 and 28 x 7168; a profile of a 16 x 10240 step.
-6. summary — one JSON line of the kernels, the card line, and as the last
-             line ``{"ok": true, "device": {...}}``.
+8. train_unsplit — the same checks for 12 steps of the model with
+             ``split_first_layer=False`` at 16 x 10240 (kernels 4c and 4b).
+9. fps scratch — kernel 1's global-scratch variant (rows of more than 10240
+             points): exact FPS on 2 rows of 16384, index-exact, timed.
+10. summary — one JSON line of the kernels with their launches by path, the
+             card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
 not beside this script.
@@ -58,10 +75,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and float32 outside
-# the tensor cores — the type of every kernel's arithmetic here
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, float32 outside the
+# tensor cores (the type of the selection kernels' arithmetic) and dense bf16
+# on the tensor cores (the type of kernel 5's MLP at the least)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 FPS_FLOPS_PER_POINT_STEP = 9  # t: 3 mul + 2 add; d: mul, sub, add; running min
 DIST_TEST_FLOPS = 8  # 3 sub, 3 mul, 2 add
 BF16_SERVE_RTOL = 1e-2  # kernel vs plain forward: max |diff| / max |y|
@@ -75,12 +94,34 @@ N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO = 10240, 16, 36, 5, 7000
 # (docs/DESIGN.md section 9): B=24 and B=28 of SHORT_POINTS; their centroid
 # counts (1434 and 359) are no multiple of any kernel's tile
 SHORT_POINTS, FAULT_BATCHES = 7168, (24, 28)
-EXPECTED_PER_FORWARD = {"dlbt_fps": 2, "dlbt_ball_group": 1, "dlbt_ball_query": 1,
-                        "dlbt_gather": 1}  # launches of each kernel per serving forward
-EXPECTED_PER_STEP = dict(EXPECTED_PER_FORWARD, dlbt_scatter_rows=1)  # per training step
+ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlbt_gather_aux",
+           "dlbt_sa1_fused_eval", "dlbt_scatter_rows")
+
+
+def per_run(**launches):
+    """Launches of every kernel in one forward or step of a path (0 unless given)."""
+    return {e: launches.get(e, 0) for e in ENTRIES}
+
+
+# launches of each kernel per serving forward or training step, by path
+EXPECTED = {
+    "serve": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1, dlbt_gather=1),
+    "serve_fused_eval": per_run(dlbt_fps=2, dlbt_sa1_fused_eval=1, dlbt_ball_query=1,
+                                dlbt_gather=1),
+    "serve_unsplit": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
+                             dlbt_gather_aux=1),
+    "train": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1, dlbt_gather=1,
+                     dlbt_scatter_rows=1),
+    "train_unsplit": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
+                             dlbt_gather_aux=1, dlbt_scatter_rows=1),
+}
+FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
+SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
 SCATTER_REPS = 100
 # training: fixed batches of (clouds, points); 2 warm-up steps, then 10 timed
 TRAIN_SHAPES = ((16, N_POINTS), (36, N_POINTS), (36, SHORT_POINTS))
+# kernel 1's global-scratch variant: rows of more than 10240 points
+SCRATCH_ROWS, SCRATCH_POINTS = 2, 16384
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # kernel step vs plain-version step from one state and seed: every kernel is
 # exact against its plain version, so the two steps should be identical; the
@@ -155,15 +196,21 @@ def synthetic_batch(num: int, n_points: int, seed: int, device, sizes=None):
     return CloudBatch.from_numpy(pos, feat, y, capacity=n_points, device=device)
 
 
-def seeded_model(device, seed: int = 0):
+def seeded_model(device, seed: int = 0, split_first_layer: bool = True):
     """The production model with weights from a seeded ``torch.Generator``:
     torch-default Linear ranges and BatchNorm affine + running statistics away
-    from identity, so that folding does real work."""
+    from identity, so that folding does real work. ``split_first_layer``
+    changes the path, not the weights."""
+    import dataclasses
+
     from dl_biomass_tpu_torch.core.config import TrainConfig
     from dl_biomass_tpu_torch.models.layers import Dense, MaskedBatchNorm
     from dl_biomass_tpu_torch.models.pointnet2 import build_model
 
-    model = build_model(TrainConfig(), num_features=1)
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, split_first_layer=split_first_layer))
+    model = build_model(cfg, num_features=1)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -181,14 +228,16 @@ def seeded_model(device, seed: int = 0):
 
 
 def kernel_sites():
-    """(module, wrapper name, plain version name) of each kernel of the path."""
+    """(module, wrapper name, plain version name) of each kernel of the paths."""
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
-                                          gather_kernel)
+                                          gather_kernel, sa_eval_kernel)
 
     return [(fps_kernel, "fps_rows", "fps_rows_plain"),
             (ball_group_kernel, "ball_group", "ball_group_plain"),
             (ball_query_kernel, "ball_query_first_k", "ball_query_plain"),
             (gather_kernel, "gather_rows_forward", "gather_rows_plain"),
+            (gather_kernel, "gather_rows_aux", "gather_rows_aux_plain"),
+            (sa_eval_kernel, "sa1_fused_eval", "sa1_fused_eval_plain"),
             (gather_kernel, "scatter_rows", "scatter_rows_plain")]
 
 
@@ -266,7 +315,7 @@ def check_kernels(calls, device):
               f"bound {bound(cb, cf)[0]:.6f} ms, index-exact", flush=True)
         ms, plain_ms, nbytes, flops = ms + t, plain_ms + tp, nbytes + cb, flops + cf
     bms, by = bound(nbytes, flops)
-    rows.append(dict(name="fps", source="dl_biomass_tpu_torch/csrc/fps.cu",
+    rows.append(dict(name="fps_rows", source="dl_biomass_tpu_torch/csrc/fps.cu",
                      replaces="dl_biomass_tpu/ops/pallas_fps.py:127", entry="dlbt_fps",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                      bound_by=by, library_ms=None))
@@ -332,7 +381,7 @@ def check_kernels(calls, device):
     bms, by = bound(b * n * 13 + b * m * 13 + b * m * k * 5, tests * DIST_TEST_FLOPS)
     print(f"kernel ball_query B={b} M={m} N={n} K={k}: {t:.4f} ms, plain {tp:.4f} ms, "
           f"bound {bms:.6f} ms ({tests} distance tests), index-exact", flush=True)
-    rows.append(dict(name="ball_query", source="dl_biomass_tpu_torch/csrc/ball_query.cu",
+    rows.append(dict(name="ball_query_first_k", source="dl_biomass_tpu_torch/csrc/ball_query.cu",
                      replaces="dl_biomass_tpu/ops/pallas_ballquery.py:142",
                      entry="dlbt_ball_query", max_abs_err=err, ms=t, plain_ms=tp,
                      bound_ms=bms, bound_by=by, library_ms=None))
@@ -358,15 +407,124 @@ def check_kernels(calls, device):
     print(f"kernel gather B={b} N={n} C={c} M={m} K={k} {values.dtype}: {t:.4f} ms, plain "
           f"{tp:.4f} ms, library (values[b, idx]) {tl:.4f} ms, bound {bms:.6f} ms, "
           f"bit-identical", flush=True)
-    rows.append(dict(name="gather", source="dl_biomass_tpu_torch/csrc/gather.cu",
+    rows.append(dict(name="gather_rows_forward", source="dl_biomass_tpu_torch/csrc/gather.cu",
                      replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:191",
                      entry="dlbt_gather", max_abs_err=max_abs_err(got, want), ms=t,
                      plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl))
     return rows
 
 
+def check_gather_aux(calls, device):
+    """Phase 4: kernel 4c against its plain version, timed, with its bound."""
+    from dl_biomass_tpu_torch.ops import gather_kernel
+
+    (args, kwargs), = calls["gather_rows_aux"]
+    values, idx, aux = args
+    got = gather_kernel.gather_rows_aux(values, idx, aux)
+    want = gather_kernel.gather_rows_aux_plain(values, idx, aux)
+    b_ar = torch.arange(values.shape[0], device=device)[:, None, None]
+    idx_l = idx.long()
+    torch.cuda.synchronize()
+    require(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+            "aux gather kernel differs from plain in bits")
+    require(same_bits(got[0], values[b_ar, idx_l]) and same_bits(got[1], aux[b_ar, idx_l]),
+            "aux gather kernel differs from advanced indexing in bits")
+    t = time_ms(lambda: gather_kernel.gather_rows_aux(values, idx, aux))
+    tp = time_ms(lambda: gather_kernel.gather_rows_aux_plain(values, idx, aux))
+    tl = time_ms(lambda: (values[b_ar, idx_l], aux[b_ar, idx_l]))
+    b, n, c = values.shape
+    _, m, k = idx.shape
+    c2 = aux.shape[-1]
+    es = values.element_size()
+    bms, by = bound(b * m * k * (c * es + c2 * 4 + 4) + b * n * (c * es + c2 * 4), 0)
+    print(f"kernel gather_rows_aux B={b} N={n} C={c} {values.dtype} + aux C2={c2} f32, M={m} "
+          f"K={k}: {t:.4f} ms, plain {tp:.4f} ms, yardstick (values[b, idx] and aux[b, idx]) "
+          f"{tl:.4f} ms, bound {bms:.6f} ms, bit-identical", flush=True)
+    return dict(name="gather_rows_aux", source="dl_biomass_tpu_torch/csrc/gather.cu",
+                replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:263", entry="dlbt_gather_aux",
+                max_abs_err=max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])),
+                ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl)
+
+
+def rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    return max_abs_err(got, want) / max(float(want.double().abs().max()), 1e-30)
+
+
+def check_sa1_fused_eval(calls, device):
+    """Phase 4: kernel 5 against its plain version (bf16 at the path's inputs,
+    and a small float32 case), timed beside its bound, its plain version and
+    the default engine's unfused SA1 segment."""
+    from dl_biomass_tpu_torch.models.inference import _run_folded
+    from dl_biomass_tpu_torch.ops import ball_group_kernel, sa_eval_kernel
+    from dl_biomass_tpu_torch.ops.pooling import masked_max
+
+    (args, kwargs), = calls["sa1_fused_eval"]
+    centers, cmask, pos, mask, feat, weights = args
+    radius, bf16, out_dtype = kwargs["radius"], kwargs["bf16"], kwargs["out_dtype"]
+    require(bf16 and out_dtype == torch.bfloat16, "the production path runs kernel 5 in bf16")
+    got = sa_eval_kernel.sa1_fused_eval(*args, **kwargs)
+    want = sa_eval_kernel.sa1_fused_eval_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    rel = rel_diff(got, want)
+    require(rel <= BF16_SERVE_RTOL, f"sa1_fused_eval vs plain: rel {rel} > {BF16_SERVE_RTOL}")
+    zero_got, zero_want = (got == 0).all(-1), (want == 0).all(-1)
+    require(torch.equal(zero_got, zero_want), "sa1_fused_eval: zero rows differ from plain")
+    require(bool(zero_got[~cmask].all()), "sa1_fused_eval: a masked centroid's row is not 0")
+    # a small float32 case: 2 clouds, 256 centroids, the weights in float32
+    small = (centers[:2, :256], cmask[:2, :256], pos[:2], mask[:2], feat[:2],
+             [w.float() for w in weights])
+    got32 = sa_eval_kernel.sa1_fused_eval(*small, radius=radius)
+    want32 = sa_eval_kernel.sa1_fused_eval_plain(*small, radius=radius)
+    torch.cuda.synchronize()
+    rel32 = rel_diff(got32, want32)
+    require(rel32 <= SA1_F32_RTOL, f"sa1_fused_eval f32 vs plain: rel {rel32} > {SA1_F32_RTOL}")
+
+    ct = torch.bfloat16
+    layers = [(weights[i].to(ct), weights[i + 1].float()) for i in range(0, 6, 2)]
+
+    def unfused():  # the default engine's SA1 segment at the same inputs
+        _, nm, e = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, radius=radius,
+                                                out_dtype=ct, need_idx=False)
+        return masked_max(_run_folded(e, layers, compute_dtype=ct), nm, dim=2)
+
+    rel_unfused = rel_diff(got, unfused())
+    require(rel_unfused <= BF16_SERVE_RTOL,
+            f"sa1_fused_eval vs the unfused segment: rel {rel_unfused} > {BF16_SERVE_RTOL}")
+    t = time_ms(lambda: sa_eval_kernel.sa1_fused_eval(*args, **kwargs))
+    tp = time_ms(lambda: sa_eval_kernel.sa1_fused_eval_plain(*args, **kwargs), reps=5, warmup=1)
+    tu = time_ms(unfused)
+
+    b, m, _ = centers.shape
+    n, f = pos.shape[1], feat.shape[-1]
+    h1, h2, c = (weights[i].shape[1] for i in (0, 2, 4))
+    _, nbr_mask, _ = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, radius=radius,
+                                                  out_dtype=ct, need_idx=False)
+    edges = int(nbr_mask.sum())  # the valid slots: the MLP rows the data needs
+    mlp_flops = edges * 2 * ((f + 3) * h1 + h1 * h2 + h2 * c)
+    tests = bucket_scan_lengths(centers, cmask, pos, mask, ball_group_kernel._radius2(radius))
+    nbytes = (b * n * (12 + 4 * f + 1) + b * m * 13 + sum(w.numel() * 4 for w in weights)
+              + b * m * c * got.element_size())
+    t_ops = mlp_flops / PEAK_BF16_FLOP_PER_S + tests * DIST_TEST_FLOPS / PEAK_F32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    floor = (mlp_flops + tests * DIST_TEST_FLOPS) / PEAK_F32_FLOP_PER_S * 1e3
+    print(f"kernel sa1_fused_eval B={b} M={m} N={n} F={f} widths {h1},{h2},{c} bf16: {t:.4f} ms, "
+          f"plain {tp:.4f} ms, yardstick (default engine's unfused SA1 segment: ball_group, "
+          f"3 folded layers, masked_max) {tu:.4f} ms, bound {bms:.6f} ms ({by}: {edges} valid "
+          f"edges x {mlp_flops // max(edges, 1)} flop on the bf16 tensor cores, {tests} distance "
+          f"tests), CUDA-core f32 floor {floor:.4f} ms; vs plain max|diff|/max|y| {rel:.3e} "
+          f"(bound {BF16_SERVE_RTOL}), f32 case {rel32:.3e} (bound {SA1_F32_RTOL}), vs unfused "
+          f"segment {rel_unfused:.3e}; zero rows identical "
+          f"({int(zero_want.sum())} of {zero_want.numel()})", flush=True)
+    return dict(name="sa1_fused_eval", source="dl_biomass_tpu_torch/csrc/sa1_fused_eval.cu",
+                replaces="dl_biomass_tpu/ops/pallas_sa_eval.py:176", entry="dlbt_sa1_fused_eval",
+                max_abs_err=max_abs_err(got, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
+                library_ms=None, yardstick_ms=tu)
+
+
 def check_scatter(calls, device):
-    """Phase 4: kernel 4b against its plain version, timed, with its bound."""
+    """Phase 6: kernel 4b against its plain version, timed, with its bound."""
     from dl_biomass_tpu_torch.ops import gather_kernel
 
     (args, kwargs), = calls["scatter_rows"]
@@ -489,7 +647,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 6: summary
+    # phase 10: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -497,108 +655,174 @@ def main() -> int:
     return 0
 
 
+PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit")
+
+
 def drive(device, card: str) -> list:
-    """Phases 2-5; returns the kernels' summary rows, with each kernel's
-    launches in the serving run and in the training run."""
-    rows, serve_launches = run(device, card)
-    train_launches = {}
-    rows.append(train_phases(device, card, train_launches))
+    """Phases 2-9; returns the kernels' summary rows, with each kernel's
+    launches in the run of each path."""
+    launches = {}  # path -> {entry: launches in that path's run}
+    rows, ctx = run(device, card, launches)
+    rows += serve_configs(device, card, ctx, launches)
+    rows.append(train_phases(device, card, launches))
+    train_unsplit(device, card, launches)
+    check_fps_scratch(device, card)
+    order = {name: i for i, (_, name, _) in enumerate(kernel_sites())}
     kernels = []
-    for r in rows:
+    for r in sorted(rows, key=lambda r: order[r["name"]]):
         w = r.pop("entry")
-        by_path = {"serve": serve_launches.get(w, 0), "train": train_launches[w]}
-        kernels.append(dict(name=r["name"], route="cuda", source=r["source"],
-                            replaces=r["replaces"], launches=sum(by_path.values()),
-                            launches_by_path=by_path, max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        by_path = {path: launches[path][w] for path in PATHS}
+        kernels.append(dict(name=r.pop("name"), route="cuda", source=r.pop("source"),
+                            replaces=r.pop("replaces"), launches=sum(by_path.values()),
+                            launches_by_path=by_path, **r))
     return kernels
 
 
-def run(device, card: str):
-    """Phases 2 and 3; returns the serving kernels' rows and the launches of
-    the serving run."""
-    n_points, small, large, partial, partial_lo = N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO
-    from dl_biomass_tpu_torch.models.inference import compile_inference
+def serving_requests(device):
+    """16 x 10240, 36 x 10240, a partial request, the first again, the partial
+    one with garbage in its pad rows, and 24 and 28 x 7168."""
+    n_points = N_POINTS
+    req16 = synthetic_batch(SMALL, n_points, seed=1, device=device)
+    req36 = synthetic_batch(LARGE, n_points, seed=2, device=device)
+    sizes = np.random.default_rng(3).integers(PARTIAL_LO, n_points + 1, size=PARTIAL)
+    part = synthetic_batch(PARTIAL, n_points, seed=3, device=device, sizes=sizes)
+    pad = ~part.mask
+    garbage = synthetic_batch(PARTIAL, n_points, seed=3, device=device, sizes=sizes)
+    noise = torch.Generator(device=device).manual_seed(7)
+    garbage.pos[pad] = 1e4 * torch.rand(int(pad.sum()), 3, device=device, generator=noise)
+    garbage.feat[pad] = -1e4 * torch.rand(int(pad.sum()), 1, device=device, generator=noise)
+    faults = [synthetic_batch(b, SHORT_POINTS, seed=4 + i, device=device)
+              for i, b in enumerate(FAULT_BATCHES)]
+    return [req16, req36, part, req16, garbage] + faults
+
+
+# the requests of serving_requests held against the plain versions and the
+# module: 16 and 36 x 10240, 24 and 28 x 7168
+MAIN_REQUESTS = (0, 1, 5, 6)
+
+
+def counted_run(path: str, fn, launches: dict, runs: int):
+    """``fn()`` with every launch count set to 0 just before it and read just
+    after; checks the counts against ``runs`` forwards or steps of ``path``."""
     from dl_biomass_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {e: _build.launch_counts[e] for e in ENTRIES}
+    launches[path] = got
+    for e, per in EXPECTED[path].items():
+        require(got[e] == per * runs,
+                f"{path}: {e} launched {got[e]} times in {runs} runs, expected {per * runs}")
+    return out
+
+
+def check_serving(path: str, serve, model, requests, launches: dict):
+    """One path's serving run: launches, shapes, repeat and pad invariance,
+    the plain-version forward and the unfolded module; returns the outputs."""
+    outs = counted_run(path, lambda: [serve(r) for r in requests], launches, len(requests))
+    print(f"{path} launches over {len(requests)} forwards: {launches[path]}", flush=True)
+    for out, req in zip(outs, requests):
+        b = req.pos.shape[0]
+        require(tuple(out.shape) == (b, 4), f"{path}: output shape {tuple(out.shape)} != ({b}, 4)")
+        require(bool(torch.isfinite(out).all()), f"{path}: non-finite prediction")
+    require(torch.equal(outs[0], outs[3]), f"{path}: a repeated request gave another answer")
+    require(torch.equal(outs[2], outs[4]), f"{path}: garbage in pad rows changed the predictions")
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        plain = [serve(requests[i]) for i in MAIN_REQUESTS]
+    rel_plain = max(rel_diff(outs[i], p) for i, p in zip(MAIN_REQUESTS, plain))
+    require(rel_plain <= BF16_SERVE_RTOL,
+            f"{path}: kernel vs plain forward: rel {rel_plain} > {BF16_SERVE_RTOL}")
+    with torch.inference_mode():
+        rel_module = max(rel_diff(outs[i], model(requests[i])) for i in MAIN_REQUESTS)
+    require(rel_module <= FOLDED_VS_MODULE_RTOL,
+            f"{path}: folded serving vs module forward: rel {rel_module} > "
+            f"{FOLDED_VS_MODULE_RTOL}")
+    print(f"{path}: shapes (B, 4), finite; repeated request identical; pad garbage leaves "
+          f"predictions identical; vs plain-version forward (B={SMALL}, {LARGE} x {N_POINTS}, "
+          f"B={FAULT_BATCHES} x {SHORT_POINTS}) max|diff|/max|y| = {rel_plain:.3e} (bound "
+          f"{BF16_SERVE_RTOL}); vs unfolded module: {rel_module:.3e} (bound "
+          f"{FOLDED_VS_MODULE_RTOL})", flush=True)
+    return outs
+
+
+def run(device, card: str, launches: dict):
+    """Phases 2 and 3; returns the serving kernels' rows and what phase 5
+    reuses: the model, the requests, the default engine and its outputs."""
+    from dl_biomass_tpu_torch.models.inference import compile_inference
 
     # phase 2: kernels at the inputs of one serving forward (B=16 x 10240)
     model = seeded_model(device)
     n_params = sum(p.numel() for p in model.parameters())
     require(n_params == 953_732, f"model has {n_params} parameters, not 953,732")
     serve = compile_inference(model, device)
-    req16 = synthetic_batch(small, n_points, seed=1, device=device)
-    calls = record_kernel_inputs(serve, req16)
+    requests = serving_requests(device)
+    calls = record_kernel_inputs(serve, requests[0])
     rows = check_kernels(calls, device)
 
     # phase 3: serve, with every launch of the main path counted
-    req36 = synthetic_batch(large, n_points, seed=2, device=device)
-    sizes = np.random.default_rng(3).integers(partial_lo, n_points + 1, size=partial)
-    part = synthetic_batch(partial, n_points, seed=3, device=device, sizes=sizes)
-    pad = ~part.mask
-    garbage = synthetic_batch(partial, n_points, seed=3, device=device, sizes=sizes)
-    noise = torch.Generator(device=device).manual_seed(7)
-    garbage.pos[pad] = 1e4 * torch.rand(int(pad.sum()), 3, device=device, generator=noise)
-    garbage.feat[pad] = -1e4 * torch.rand(int(pad.sum()), 1, device=device, generator=noise)
-
-    faults = [synthetic_batch(b, SHORT_POINTS, seed=4 + i, device=device)
-              for i, b in enumerate(FAULT_BATCHES)]
-    requests = [req16, req36, part, req16, garbage] + faults
-
-    _build.launch_counts.clear()
-    outs = [serve(r) for r in requests]
-    torch.cuda.synchronize()
-    launches = {name: _build.launch_counts[name] for name in EXPECTED_PER_FORWARD}
-    forwards = len(outs)
-    for name, per in EXPECTED_PER_FORWARD.items():
-        require(launches[name] == per * forwards,
-                f"{name}: {launches[name]} launches in {forwards} forwards, "
-                f"expected {per * forwards}")
-    print(f"serve launches over {forwards} forwards: {launches}", flush=True)
-    for out, req in zip(outs, requests):
-        b = req.pos.shape[0]
-        require(tuple(out.shape) == (b, 4), f"output shape {tuple(out.shape)} != ({b}, 4)")
-        require(bool(torch.isfinite(out).all()), "non-finite prediction")
-    require(torch.equal(outs[0], outs[3]), "a repeated request gave another answer")
-    require(torch.equal(outs[2], outs[4]), "garbage in pad rows changed the predictions")
-    print(f"serve: shapes (B, 4), finite, also at B={FAULT_BATCHES} x {SHORT_POINTS}; "
-          "repeated request identical; pad garbage leaves predictions identical", flush=True)
-
-    with ExitStack() as stack:
-        for p in plain_versions():
-            stack.enter_context(p)
-        plain = [serve(req16), serve(faults[0])]
-    rel_plain = max(float((p - o).abs().max()) / float(o.abs().max())
-                    for p, o in zip(plain, (outs[0], outs[5])))
-    require(rel_plain <= BF16_SERVE_RTOL,
-            f"kernel vs plain forward: rel {rel_plain} > {BF16_SERVE_RTOL}")
-    scale = float(outs[0].abs().max())
-    with torch.inference_mode():
-        module16 = model(req16)
-    rel_module = float((module16 - outs[0]).abs().max()) / scale
-    require(rel_module <= FOLDED_VS_MODULE_RTOL,
-            f"folded serving vs module forward: rel {rel_module} > {FOLDED_VS_MODULE_RTOL}")
-    print(f"serve vs plain-version forward on the card (B={small} x {n_points} and "
-          f"B={FAULT_BATCHES[0]} x {SHORT_POINTS}): max|diff|/max|y| = {rel_plain:.3e} "
-          f"(bound {BF16_SERVE_RTOL}); vs unfolded module forward: {rel_module:.3e} "
-          f"(bound {FOLDED_VS_MODULE_RTOL})", flush=True)
-
-    print_profile(f"serve B={small}", lambda: serve(req16), calls=3)
-
-    for req in [req16, req36] + faults:
+    outs = check_serving("serve", serve, model, requests, launches)
+    print_profile(f"serve B={SMALL}", lambda: serve(requests[0]), calls=3)
+    for i in MAIN_REQUESTS:
+        req = requests[i]
         b, n = req.pos.shape[:2]
         torch.cuda.reset_peak_memory_stats()
         ms = serve_timing(serve, req)
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"serve B={b} x {n}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} clouds/s, "
               f"peak {peak:.2f} GiB [{card}]", flush=True)
+    return rows, dict(model=model, requests=requests, serve=serve, outs=outs)
 
-    return rows, launches
+
+def serve_configs(device, card: str, ctx: dict, launches: dict) -> list:
+    """Phases 4 and 5: kernels 4c and 5 at their configurations' inputs, then
+    serving with fused_eval and with split_first_layer=False; returns the two
+    kernels' rows."""
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+
+    model, requests, serve, default_outs = ctx["model"], ctx["requests"], ctx["serve"], ctx["outs"]
+    unsplit_model = seeded_model(device, split_first_layer=False)
+    configs = {"serve_fused_eval": (compile_inference(model, device, fused_eval=True), model),
+               "serve_unsplit": (compile_inference(unsplit_model, device), unsplit_model)}
+
+    # phase 4: kernels 4c and 5 at the inputs of one B=16 x 10240 forward
+    rows = [check_sa1_fused_eval(record_kernel_inputs(configs["serve_fused_eval"][0],
+                                                      requests[0]), device),
+            check_gather_aux(record_kernel_inputs(configs["serve_unsplit"][0], requests[0]),
+                             device)]
+
+    # phase 5: serve in each configuration, every launch counted
+    for path, (fn, mod) in configs.items():
+        outs = check_serving(path, fn, mod, requests, launches)
+        if path == "serve_fused_eval":
+            rel = max(rel_diff(outs[i], default_outs[i]) for i in MAIN_REQUESTS)
+            require(rel <= FUSED_VS_DEFAULT_RTOL,
+                    f"fused_eval vs the default engine: rel {rel} > {FUSED_VS_DEFAULT_RTOL}")
+            print(f"serve_fused_eval vs the default engine: max|diff|/max|y| = {rel:.3e} "
+                  f"(bound {FUSED_VS_DEFAULT_RTOL})", flush=True)
+        print_profile(f"{path} B={SMALL}", lambda: fn(requests[0]), calls=3)
+    for i in MAIN_REQUESTS:  # the three engines in turns, one request at a time
+        req = requests[i]
+        b, n = req.pos.shape[:2]
+        times = {"serve": serve_timing(serve, req)}
+        for path, (fn, _) in configs.items():
+            torch.cuda.reset_peak_memory_stats()
+            times[path] = serve_timing(fn, req)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"{path} B={b} x {n}: {times[path]:.3f} ms/batch, "
+                  f"{b / times[path] * 1e3:.1f} clouds/s, peak {peak:.2f} GiB; default engine "
+                  f"in the same turn {times['serve']:.3f} ms/batch, "
+                  f"{b / times['serve'] * 1e3:.1f} clouds/s [{card}]", flush=True)
+    return rows
 
 
-def train_timing(trainer, batch, generator, name: str, card: str, launches: dict) -> None:
+def train_timing(trainer, batch, generator, name: str, card: str, expected: dict) -> None:
     """TRAIN_WARMUP + TRAIN_TIMED steps on one fixed batch, each ending in a
-    synchronize; checks loss, moved parameters and statistics, and launches."""
+    synchronize; checks loss, moved parameters and statistics, and launches
+    per step against ``expected``."""
     from dl_biomass_tpu_torch.ops import _build
 
     b = batch.pos.shape[0]
@@ -628,12 +852,11 @@ def train_timing(trainer, batch, generator, name: str, card: str, launches: dict
             f"{name}: loss after {TRAIN_TIMED} steps {float(losses[TRAIN_TIMED])} is not "
             f"below the first step's {float(losses[0])}")
     per_step = {}
-    for k, per in EXPECTED_PER_STEP.items():
+    for k, per in expected.items():
         got = _build.launch_counts[k] - counts0.get(k, 0)
         require(got == per * steps, f"{name}: {k} launched {got} times in {steps} steps, "
                                     f"expected {per * steps}")
         per_step[k] = got / steps
-        launches[k] = _build.launch_counts[k]
     ms = statistics.median(times[TRAIN_WARMUP:])
     print(f"train {name}: {ms:.3f} ms/step (median of {TRAIN_TIMED} after {TRAIN_WARMUP}), "
           f"{b / ms * 1e3:.1f} clouds/s, peak {peak:.2f} GiB, loss {float(losses[0]):.4f} -> "
@@ -674,31 +897,34 @@ def compare_plain_step(trainer, batch, seed: int) -> None:
           flush=True)
 
 
-def train_phases(device, card: str, train_launches: dict) -> dict:
-    """Phases 4 and 5; returns kernel 4b's row and fills ``train_launches``
-    with the launches of the training run."""
+def train_gen(device, seed):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def train_phases(device, card: str, launches: dict) -> dict:
+    """Phases 6 and 7; returns kernel 4b's row and records the launches of
+    the training run."""
     from dl_biomass_tpu_torch.core.config import TrainConfig
-    from dl_biomass_tpu_torch.ops import _build
     from dl_biomass_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(seeded_model(device), TrainConfig(), device)
     batches = [synthetic_batch(b, n, seed=10 + i, device=device)
                for i, (b, n) in enumerate(TRAIN_SHAPES)]
 
-    def gen(seed):
-        return torch.Generator(device=device).manual_seed(seed)
-
-    # phase 4: kernel 4b at the inputs of one training step (B=16 x 10240)
-    calls = record_kernel_inputs(lambda b: trainer.step(b, gen(0)), batches[0])
+    # phase 6: kernel 4b at the inputs of one training step (B=16 x 10240)
+    calls = record_kernel_inputs(lambda b: trainer.step(b, train_gen(device, 0)), batches[0])
     require(len(calls["scatter_rows"]) == 1, "a training step launched the gather backward "
                                              f"{len(calls['scatter_rows'])} times, not once")
     row = check_scatter(calls, device)
     del calls
 
-    # phase 5: train, every launch of the main path counted
-    _build.launch_counts.clear()
-    for i, ((b, n), batch) in enumerate(zip(TRAIN_SHAPES, batches)):
-        train_timing(trainer, batch, gen(100 + i), f"B={b} x {n}", card, train_launches)
+    # phase 7: train, every launch of the main path counted
+    def steps():
+        for i, ((b, n), batch) in enumerate(zip(TRAIN_SHAPES, batches)):
+            train_timing(trainer, batch, train_gen(device, 100 + i), f"B={b} x {n}", card,
+                         EXPECTED["train"])
+
+    counted_run("train", steps, launches, (TRAIN_WARMUP + TRAIN_TIMED) * len(TRAIN_SHAPES))
     compare_plain_step(trainer, batches[0], seed=7)
     for i, b in enumerate(FAULT_BATCHES):
         batch = synthetic_batch(b, SHORT_POINTS, seed=4 + i, device=device)
@@ -709,8 +935,49 @@ def train_phases(device, card: str, train_launches: dict) -> dict:
     print(f"train: evaluate and predict at B={FAULT_BATCHES} x {SHORT_POINTS}: finite loss, "
           "predictions (B, 4) finite", flush=True)
     print_profile(f"train step B={TRAIN_SHAPES[0][0]}",
-                  lambda: trainer.step(batches[0], gen(9)), calls=2, n_kernels=14, n_ops=16)
+                  lambda: trainer.step(batches[0], train_gen(device, 9)), calls=2, n_kernels=14,
+                  n_ops=16)
     return row
+
+
+def train_unsplit(device, card: str, launches: dict) -> None:
+    """Phase 8: the model with split_first_layer=False takes 12 steps on the
+    16 x 10240 batch of phase 7 (kernels 4c and 4b at SA2), and one step on
+    the plain versions from the same state and seed."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(seeded_model(device, split_first_layer=False), TrainConfig(), device)
+    (b, n), = TRAIN_SHAPES[:1]
+    batch = synthetic_batch(b, n, seed=10, device=device)
+    counted_run("train_unsplit",
+                lambda: train_timing(trainer, batch, train_gen(device, 100),
+                                     f"unsplit B={b} x {n}", card, EXPECTED["train_unsplit"]),
+                launches, TRAIN_WARMUP + TRAIN_TIMED)
+    compare_plain_step(trainer, batch, seed=7)
+
+
+def check_fps_scratch(device, card: str) -> None:
+    """Phase 9: kernel 1's global-scratch variant, exact FPS (SA1's ratio) on
+    rows of more than 10240 points, index-exact against its plain version."""
+    from dl_biomass_tpu_torch.ops import fps_kernel
+
+    r, n = SCRATCH_ROWS, SCRATCH_POINTS
+    require(5 * n * 4 > fps_kernel._SMEM_BYTES, f"rows of {n} points fit shared memory")
+    batch = synthetic_batch(r, n, seed=30, device=device)
+    pos, mask = batch.pos, batch.mask
+    k = math.ceil(0.2 * n)
+    starts = torch.zeros(r, dtype=torch.int32, device=device)
+    got = fps_kernel.fps_rows(pos, mask, starts, k)
+    want = fps_kernel.fps_rows_plain(pos, mask, starts, k)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"FPS scratch variant differs from plain at {r} x {n}")
+    t = time_ms(lambda: fps_kernel.fps_rows(pos, mask, starts, k), reps=5, warmup=1)
+    tp = time_ms(lambda: fps_kernel.fps_rows_plain(pos, mask, starts, k), reps=1, warmup=0)
+    bms, by = bound(r * n * 13 + r * 4 + r * k * 4,
+                    r * n * 5 + r * (k - 1) * n * FPS_FLOPS_PER_POINT_STEP)
+    print(f"kernel fps rows={r} n={n} k={k} (global-scratch variant): {t:.4f} ms (median of 5), "
+          f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}), index-exact [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,34 +2,33 @@
 //
 // Replaces: dl_biomass_tpu/ops/pallas_group.py ball_group_pallas (kernel
 // _kernel, rule stratified_pair_select).
-// Semantics: points fall into 128 residue buckets (index mod 128). Output slot
-// j of 64 holds the smallest in-radius valid point index whose residue is j or
-// j + 64; a slot with no such point is invalid. For each slot the kernel
-// writes [feat_0 .. feat_{F-1}, x - cx, y - cy, z - cz] in the output type
-// (bf16 or f32, rounded to nearest even), zeros for an invalid slot, the
-// validity byte and, when asked, the index (0 where invalid). The in-radius
-// test is dx*dx + dy*dy + dz*dz <= r2 with every operation rounded on its own,
-// as in the Pallas kernel and the plain version (ops/ball_group_kernel.py): a
-// contracted FMA would flip points on the ball's boundary.
+// Semantics: the selection rule of stratified_select.cuh (slot j of 64 holds
+// the smallest in-radius valid index whose residue mod 128 is j or j + 64).
+// For each slot the kernel writes [feat_0 .. feat_{F-1}, x - cx, y - cy,
+// z - cz] in the output type (bf16 or f32, rounded to nearest even), zeros for
+// an invalid slot, the validity byte and, when asked, the index (0 where
+// invalid), as the plain version (ops/ball_group_kernel.py) does.
 //
 // Bound on the H100: operations, the distance tests (at worst B*M*N, each 8
 // flops plus a compare); the early exit below cuts them to what the data
 // needs. The output (B*M*64*(F+3) values) is the only sizeable traffic.
 //
-// Design: one 128-thread block per centroid. Thread g scans points g, g+128,
-// ... in ascending order from the point planes (x, y, z, features, each
-// (B, N) f32, so a warp's loads are coalesced) and stops at its first
-// in-radius valid point: that is its bucket's minimum. Slot j is the smaller
-// of threads j's and j+64's results, written by thread j; a slot's F+3 values
-// are contiguous, so a warp's stores are too.
+// Design: one 128-thread block per centroid. Thread g finds its bucket's
+// minimum with dlbt::bucket_first (a scan of points g, g+128, ... of the
+// point planes x, y, z, features, each (B, N) f32, that stops at the first
+// in-radius valid point). Slot j is the smaller of threads j's and j+64's
+// results, written by thread j; a slot's F+3 values are contiguous, so a
+// warp's stores are too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "stratified_select.cuh"
+
 namespace {
 
-constexpr int kBuckets = 128;
-constexpr int kSlots = 64;
+using dlbt::kBuckets;
+using dlbt::kSlots;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
@@ -47,24 +46,12 @@ ball_group_kernel(const float* __restrict__ centers, const unsigned char* __rest
   const float* py = px + n;
   const float* pz = py + n;
   const float cx = centers[3 * ci], cy = centers[3 * ci + 1], cz = centers[3 * ci + 2];
-  int hit = n;
-  if (cmask[ci]) {
-    const unsigned char* mk = mask + static_cast<size_t>(b) * n;
-    for (int i = g; i < n; i += kBuckets) {
-      const float dx = __fsub_rn(px[i], cx);
-      const float dy = __fsub_rn(py[i], cy);
-      const float dz = __fsub_rn(pz[i], cz);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-      if (d2 <= r2 && mk[i]) {
-        hit = i;
-        break;
-      }
-    }
-  }
-  first[g] = hit;
+  first[g] = cmask[ci] ? dlbt::bucket_first(px, py, pz, mask + static_cast<size_t>(b) * n, n,
+                                            cx, cy, cz, r2, g)
+                      : n;
   __syncthreads();
   if (g >= kSlots) return;
-  const int sel = min(first[g], first[g + kSlots]);
+  const int sel = dlbt::pair_select(first, g);
   const bool ok = sel < n;
   const size_t slot = ci * kSlots + g;
   nbr_mask[slot] = ok;

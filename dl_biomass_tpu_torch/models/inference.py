@@ -1,13 +1,15 @@
 """Serving engine (port of ``dl_biomass_tpu/models/inference.py``).
 
 ``compile_inference`` folds each eval-mode BatchNorm into the Linear before
-it and returns ``serve(batch) -> (B, 4)``: a flat chain of the four
-kernels (FPS, stratified ball grouping, exact ball query, row gather) and
-folded matmuls, with bf16 activations in production. It follows
-``compile_inference`` of the JAX package branch for branch: the stratified and
-the exact SA1 branches (``inference.py:198-226``), the split SA2 path with
-the gathered z-table while SA1 keeps at most ``MXU_MAX_POINTS`` centroids
-(``:232-269``), and the unsplit per-edge gather beyond (``:270-279``).
+it and returns ``serve(batch) -> (B, 4)``: a flat chain of the kernels (FPS,
+stratified ball grouping or the fused SA1 layer, exact ball query, row
+gather) and folded matmuls, with bf16 activations in production. It follows
+``compile_inference`` of the JAX package branch for branch: the stratified SA1
+branch, as one fused kernel under ``fused_eval`` (kernel 5), and the exact SA1
+branch (``inference.py:198-226``); while SA1 keeps at most ``MXU_MAX_POINTS``
+centroids, the split SA2 path with the gathered z-table (``:232-269``) or,
+with ``split_first_layer=False``, the features and positions gathered by one
+index (kernel 4c); and the unsplit per-edge gather beyond (``:270-279``).
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
 from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
 from dl_biomass_tpu_torch.models.pointnet2 import (MXU_MAX_POINTS, PointNet2Regressor,
                                                    sample_centroids)
-from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
+from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel, sa_eval_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
-from dl_biomass_tpu_torch.ops.grouping import group_neighborhoods
+from dl_biomass_tpu_torch.ops.grouping import edges_from_gathered, group_neighborhoods
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 
 Layers = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -69,10 +71,11 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
     ``device=None`` means the card, and raises without one; ``device="cpu"``
     runs the plain PyTorch versions of the kernels. The folded weights are
-    made once, here, on ``device``."""
-    if fused_eval:
-        raise NotImplementedError(
-            "fused_eval (the fused SA1 eval kernel) is not ported yet: ROADMAP B.5")
+    made once, here, on ``device``.
+
+    ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
+    and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
+    in the JAX package."""
     if mesh is not None:
         raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
     if not isinstance(model, PointNet2Regressor):
@@ -80,10 +83,12 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
             f"inference engine covers PointNet2Regressor; got {type(model).__name__}")
     if model.activation_function != "ReLU" or model.max_neighbors != 64:
         raise NotImplementedError("inference engine covers the flagship SSG/ReLU/K=64 config")
-    if not model.split_first_layer:
+    stratified = (model.fast_group and (model.num_features or 3) <= 4
+                  and not model.exact_selection)
+    if fused_eval and not stratified:
         raise NotImplementedError(
-            "split_first_layer=False (the aux-table gather of kernel 4) is not ported "
-            "yet: ROADMAP B.4")
+            "fused_eval requires the stratified SA1 production path (fast_group, <= 4 "
+            "features, not exact_selection)")
     dev = resolve_device(device)
     ct = model.compute_dtype
 
@@ -107,17 +112,22 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
         m2 = math.ceil(model.sa2_ratio * m1)
 
         _, c1, cm1 = sample_centroids(pos, mask, m1, sectored=sectored)
-        if model.fast_group and feat.shape[-1] <= 4 and not model.exact_selection:
-            _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,
-                                                      out_dtype=ct, need_idx=False)
+        if stratified and fused_eval:
+            h1 = sa_eval_kernel.sa1_fused_eval(c1, cm1, pos, mask, feat,
+                                               [w for wb in sa1 for w in wb], radius=r1,
+                                               bf16=(ct == torch.bfloat16), out_dtype=ct)
         else:
-            nidx1, nm1 = ball_query(c1, cm1, pos, mask, radius=r1, k=64)
-            e1 = group_neighborhoods(pos, feat, c1, nidx1, nm1)
-        h1 = masked_max(_run_folded(e1, sa1, compute_dtype=ct), nm1, dim=2)
+            if stratified:
+                _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,
+                                                          out_dtype=ct, need_idx=False)
+            else:
+                nidx1, nm1 = ball_query(c1, cm1, pos, mask, radius=r1, k=64)
+                e1 = group_neighborhoods(pos, feat, c1, nidx1, nm1)
+            h1 = masked_max(_run_folded(e1, sa1, compute_dtype=ct), nm1, dim=2)
 
         _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
         nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
-        if m1 <= MXU_MAX_POINTS:
+        if m1 <= MXU_MAX_POINTS and model.split_first_layer:
             # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
             # so it runs once per point and kernel 4 gathers the z-table. Pad
             # slots carry index 0, so their gathered rows are point 0's finite
@@ -130,7 +140,11 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
             z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
             h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
         else:
-            e2 = group_neighborhoods(c1, h1, c2, nidx, nm)  # [h1_j, c1_j - c2_i], 0 on pads
+            if m1 <= MXU_MAX_POINTS:  # h1 and c1 gathered by one index, kernel 4c
+                gfeat, gpos = gather_kernel.gather_rows(h1, nidx, aux=c1)
+                e2 = edges_from_gathered(gfeat, gpos, c2, nm)
+            else:
+                e2 = group_neighborhoods(c1, h1, c2, nidx, nm)  # [h1_j, c1_j - c2_i], 0 on pads
             h2 = masked_max(_run_folded(e2, sa2, compute_dtype=ct), nm, dim=2)
 
         g = torch.cat([h2, c2], dim=-1)

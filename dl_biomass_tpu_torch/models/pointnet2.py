@@ -9,13 +9,16 @@ The forward takes the branches that ``model.apply`` takes in the JAX package
 with its kernels on (``use_pallas=True``): sectored or exact FPS on kernel 1;
 the stratified SA1 grouping on kernel 2 (``fast_group``; its edges carry no
 gradient) or the exact ball query on kernel 3 (SA2 always, SA1 under
-``exact_selection``); and, while SA2's input holds at most ``MXU_MAX_POINTS``
-points, the per-point first layer of SA2 with its z-table gathered by kernel
-4, whose scatter-add backward is SA1's only gradient path
-(``split_first_layer``). Beyond that, SA2 gathers ``[h1_j, c1_j - c2_i]`` per
-edge, as the JAX package does. ``train=True`` uses batch statistics in every
-BatchNorm and the head's dropout, with FPS starts and dropout drawn from the
-``generator`` passed in (without one, FPS starts at the first valid point).
+``exact_selection``). While SA2's input holds at most ``MXU_MAX_POINTS``
+points (and has at least 16 features: the JAX package's ``use_mxu``), SA2
+gathers through kernel 4, whose scatter-add backward is SA1's only gradient
+path: the per-point first layer's z-table (``split_first_layer``), or else
+the features with the positions as the gradient-free aux table (kernel 4c),
+from which it builds the edges ``[h1_j, c1_j - c2_i]``. Beyond that bound,
+SA2 gathers those edges with ``group_neighborhoods``, as the JAX package
+does. ``train=True`` uses batch statistics in every BatchNorm and the head's
+dropout, with FPS starts and dropout drawn from the ``generator`` passed in
+(without one, FPS starts at the first valid point).
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
 from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
-from dl_biomass_tpu_torch.ops.grouping import gather_points, group_neighborhoods
+from dl_biomass_tpu_torch.ops.grouping import (edges_from_gathered, gather_points,
+                                             group_neighborhoods)
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 
 # the JAX package gathers SA2's z-table with its one-hot kernel only while the
@@ -83,8 +87,9 @@ class SAModule(nn.Module):
 
         nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=self.radius,
                                        k=self.max_neighbors)
-        if (self.split_first_layer and feat is not None and feat.shape[-1] >= 16
-                and n <= MXU_MAX_POINTS and self.max_neighbors == 64):
+        use_mxu = (feat is not None and feat.shape[-1] >= 16 and n <= MXU_MAX_POINTS
+                   and self.max_neighbors == 64)
+        if use_mxu and self.split_first_layer:
             # layer 0 is linear in [x_j, p_j - p_i]: z0 = (Wf x_j + Wp p_j + b0) - Wp p_i
             # runs once per point, and kernel 4 gathers the z-table. Each use
             # casts wp on its own, as JAX does, so the two bf16 gradients of
@@ -100,8 +105,14 @@ class SAModule(nn.Module):
             z0 = gz - cshift[:, :, None, :].to(gz.dtype)
             h = self.mlp.from_z0(z0, nbr_mask, train)
         else:
-            h = self.mlp(group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask), nbr_mask,
-                         train)
+            if use_mxu:
+                # features (differentiable) and positions (the gradient-free aux
+                # table) gathered by one index, kernel 4c
+                gfeat, gpos = gather_kernel.gather_rows(feat, nbr_idx, aux=pos)
+                grouped = edges_from_gathered(gfeat, gpos, centers, nbr_mask)
+            else:
+                grouped = group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask)
+            h = self.mlp(grouped, nbr_mask, train)
         return masked_max(h, nbr_mask, dim=2), centers, center_mask
 
 

@@ -1,9 +1,18 @@
 """Kernel 4: batched row gather, values (B, N, C) by idx (B, M, K) -> (B, M, K, C),
-and its scatter-add backward.
+its scatter-add backward, and the gather of a second, gradient-free table.
 
 Forward (4a) of ``dl_biomass_tpu/ops/pallas_mxu_gather.py`` mxu_gather: the
 same bits (its one-hot product is exact), and an index outside [0, N) gives a
 row of zeros, as a one-hot row with no match does.
+
+Aux table (4c), ``mxu_gather(values, idx, aux=aux)`` (``_core2``): one index
+gathers the values and an f32 ``aux`` (B, N, C2) table (SA2's positions beside
+its features) into two outputs; d/dvalues is the backward below and aux gets
+no gradient (``_core2_bwd``). Rows are copied, so the kernel and its plain
+version agree bit for bit. A divergence by design: the TPU's compiled path
+rebuilds f32 aux from three bf16 chunks, to 2^-21 relative; the JAX package
+in interpret mode and the port gather it exactly. The hi/mid/lo packing, the
+128-lane padding and the M-split are TPU layout and are not copied.
 
 Backward (4b), ``_gather_bwd``/``_bwd_kernel``: each row of d/dvalues is the
 float32 sum of the cotangent rows whose index points at it, rounded once to
@@ -13,21 +22,24 @@ runs in ascending flat-row order, so the kernel and its plain version agree
 bit for bit and a run repeats exactly: no float atomics.
 
 ``gather_rows`` is the differentiable op the model calls. Its forward is
-``gather_rows_forward`` and its backward ``scatter_rows``: each launches its
-CUDA kernel (``csrc/gather.cu``, ``csrc/gather_bwd.cu``) on a CUDA tensor and
-runs its plain version (``gather_rows_plain``, ``scatter_rows_plain``) on a
-CPU tensor.
+``gather_rows_forward`` (``gather_rows_aux`` with an aux table) and its
+backward ``scatter_rows``: each launches its CUDA kernel (``csrc/gather.cu``
+entries ``dlbt_gather`` and ``dlbt_gather_aux``, ``csrc/gather_bwd.cu``) on a
+CUDA tensor and runs its plain version (``gather_rows_plain``,
+``gather_rows_aux_plain``, ``scatter_rows_plain``) on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from dl_biomass_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_AUX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # the CSR pass of the backward keeps one int32 histogram of the N rows per
 # warp, plus one of totals, in a block's shared memory
@@ -81,6 +93,47 @@ def gather_rows_forward(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     _build.launch("dlbt_gather", _ARGTYPES, values.data_ptr(), idx.data_ptr(), out.data_ptr(),
                   b, m * k, n, row_bytes, vec, _build.stream_of(values))
     return out
+
+
+def _check_aux(values, idx, aux):
+    _check(values, idx)
+    if aux.dim() != 3 or tuple(aux.shape[:2]) != tuple(values.shape[:2]):
+        raise ValueError(f"aux must be (B, N, C2) beside values {tuple(values.shape)}, got "
+                         f"{tuple(aux.shape)}")
+
+
+def gather_rows_aux_plain(values: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor):
+    """The plain PyTorch version of the two-table gather: two ``index_select``s."""
+    _check_aux(values, idx, aux)
+    return gather_rows_plain(values, idx), gather_rows_plain(aux, idx)
+
+
+def gather_rows_aux(values: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor):
+    """values (B, N, C) float32 or bfloat16 and aux (B, N, C2) float32, gathered
+    by one idx (B, M, K) -> ((B, M, K, C), (B, M, K, C2)).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if values.device.type == "cpu":
+        return gather_rows_aux_plain(values, idx, aux)
+    if values.device.type != "cuda":
+        raise RuntimeError(f"gather_rows_aux runs on cuda or cpu tensors, got {values.device}")
+    _check_aux(values, idx, aux)
+    if aux.dtype != torch.float32:
+        raise ValueError(f"the aux table must be float32, got {aux.dtype}")
+    b, n, c = values.shape
+    _, m, k = idx.shape
+    c2 = aux.shape[-1]
+    values, aux = values.contiguous(), aux.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    _build.check_cuda("gather_rows_aux", values, aux, idx)
+    out = torch.empty((b, m, k, c), dtype=values.dtype, device=values.device)
+    out_aux = torch.empty((b, m, k, c2), dtype=torch.float32, device=values.device)
+    row_bytes = c * values.element_size()
+    vec = _vec_bytes(row_bytes, values.data_ptr(), out.data_ptr())
+    _build.launch("dlbt_gather_aux", _AUX_ARGTYPES, values.data_ptr(), aux.data_ptr(),
+                  idx.data_ptr(), out.data_ptr(), out_aux.data_ptr(), b, m * k, n, row_bytes,
+                  vec, c2, _build.stream_of(values))
+    return out, out_aux
 
 
 def _check_scatter(ct, idx, n):
@@ -174,10 +227,28 @@ class _GatherRows(torch.autograd.Function):
         return scatter_rows(ct.contiguous(), idx, ctx.n), None
 
 
-def gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+class _GatherRowsAux(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, idx, aux):
+        ctx.save_for_backward(idx)
+        ctx.n = values.shape[1]
+        out, out_aux = gather_rows_aux(values, idx, aux)
+        ctx.mark_non_differentiable(out_aux)
+        return out, out_aux
+
+    @staticmethod
+    def backward(ctx, ct, _ct_aux):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows(ct.contiguous(), idx, ctx.n), None, None
+
+
+def gather_rows(values: torch.Tensor, idx: torch.Tensor, aux: Optional[torch.Tensor] = None):
     """values (B, N, C), idx (B, M, K) -> (B, M, K, C), differentiable in values:
-    the backward is ``scatter_rows``. Without a gradient to take it is the
-    forward alone."""
-    if torch.is_grad_enabled() and values.requires_grad:
-        return _GatherRows.apply(values, idx)
-    return gather_rows_forward(values, idx)
+    the backward is ``scatter_rows``. With ``aux`` (B, N, C2) float32 it returns
+    ``(gathered, gathered_aux)``, the aux rows gathered by the same index and
+    carrying no gradient, as ``mxu_gather(values, idx, aux=aux)``. Without a
+    gradient to take it is the forward alone."""
+    grad = torch.is_grad_enabled() and values.requires_grad
+    if aux is None:
+        return _GatherRows.apply(values, idx) if grad else gather_rows_forward(values, idx)
+    return _GatherRowsAux.apply(values, idx, aux) if grad else gather_rows_aux(values, idx, aux)

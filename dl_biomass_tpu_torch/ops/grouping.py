@@ -41,3 +41,13 @@ def group_neighborhoods(pos: torch.Tensor, feat: Optional[torch.Tensor], centers
         out = grouped_pos
     return torch.where(nbr_mask[..., None], out, torch.zeros((), dtype=out.dtype,
                                                              device=out.device))
+
+
+def edges_from_gathered(gfeat: torch.Tensor, gpos: torch.Tensor, centers: torch.Tensor,
+                        nbr_mask: torch.Tensor) -> torch.Tensor:
+    """The same edge block from rows already gathered (features ``gfeat`` and
+    positions ``gpos``, (B, M, K, .), by kernel 4c), in the features' dtype:
+    ``where(nbr_mask, [gfeat, gpos - center], 0)``."""
+    rel = (gpos - centers[:, :, None, :]).to(gfeat.dtype)
+    return torch.where(nbr_mask[..., None], torch.cat([gfeat, rel], dim=-1),
+                       torch.zeros((), dtype=gfeat.dtype, device=gfeat.device))

@@ -17,7 +17,7 @@ from dl_biomass_tpu_torch.models.inference import compile_inference
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
 from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
-                                      gather_kernel)
+                                      gather_kernel, sa_eval_kernel)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -74,6 +74,52 @@ def test_gather_kernel_matches_plain(dev, dtype, c):
                        gather_kernel.gather_rows_plain(values, idx))
 
 
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 128), (torch.float32, 24),
+                                     (torch.bfloat16, 3)])
+def test_gather_aux_kernel_matches_plain_bit_for_bit(dev, dtype, c):
+    values = torch.randn(2, 500, c, device=dev).to(dtype)
+    aux = torch.randn(2, 500, 3, device=dev) * 7
+    idx = torch.randint(-2, 502, (2, 37, 64), device=dev, dtype=torch.int32)
+    got = gather_kernel.gather_rows_aux(values, idx, aux)
+    want = gather_kernel.gather_rows_aux_plain(values, idx, aux)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _sa_weights(dev, widths, f=1, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dims = (f + 3,) + widths
+    out = []
+    for cin, cout in zip(dims[:-1], dims[1:]):
+        out += [torch.randn(cin, cout, device=dev, generator=g) * 0.3,
+                torch.randn(cout, device=dev, generator=g) * 0.3]
+    return out
+
+
+@pytest.mark.parametrize("bf16,widths,tol", [(True, (64, 64, 128), 1e-2),
+                                             (False, (64, 64, 128), 1e-5),
+                                             (False, (16, 16, 32), 1e-5)])  # padded widths
+def test_sa1_fused_eval_kernel_matches_plain(dev, bf16, widths, tol):
+    """Against the plain version at max|diff| <= tol * max|y|; masked and
+    isolated centroids give rows of exactly 0 in both."""
+    pos, mask, feat = _cloud(dev)
+    centers, cmask = pos[:, :200].clone(), mask[:, :200].clone()
+    cmask[:, 150:] = False
+    centers[0, 0] = 50.0
+    ws = _sa_weights(dev, widths)
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
+    got = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, radius=2.0,
+                                        bf16=bf16, out_dtype=out_dtype)
+    want = sa_eval_kernel.sa1_fused_eval_plain(centers, cmask, pos, mask, feat, ws, radius=2.0,
+                                               bf16=bf16, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    for out in (got, want):
+        assert bool((out[:, 150:] == 0).all()) and bool((out[0, 0] == 0).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max())
+
+
 @pytest.mark.parametrize("dtype,n,c", [(torch.bfloat16, 500, 128), (torch.float32, 300, 24),
                                        (torch.bfloat16, 2048, 128)])
 def test_scatter_kernel_matches_plain_bit_for_bit(dev, dtype, n, c):
@@ -106,16 +152,40 @@ def test_train_step_launches_every_kernel(dev):
                                           "dlbt_scatter_rows": 1}
 
 
-def test_serving_launches_every_kernel(dev):
+def test_unsplit_train_step_launches_the_aux_gather(dev):
+    rng = np.random.default_rng(3)
+    pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(4)]
+    feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(4)]
+    y = rng.normal(size=(4, 4)).astype(np.float32)
+    batch = CloudBatch.from_numpy(pos, feat, y, device=dev)
+    model = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True,
+                               split_first_layer=False, compute_dtype=torch.bfloat16)
+    trainer = Trainer(model, TrainConfig())
+    _build.launch_counts.clear()
+    loss = trainer.step(batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
+                                          "dlbt_ball_query": 1, "dlbt_gather_aux": 1,
+                                          "dlbt_scatter_rows": 1}
+
+
+@pytest.mark.parametrize("fused_eval,split,launched", [
+    (False, True, {"dlbt_fps": 2, "dlbt_ball_group": 1, "dlbt_ball_query": 1, "dlbt_gather": 1}),
+    (True, True, {"dlbt_fps": 2, "dlbt_sa1_fused_eval": 1, "dlbt_ball_query": 1,
+                  "dlbt_gather": 1}),
+    (False, False, {"dlbt_fps": 2, "dlbt_ball_group": 1, "dlbt_ball_query": 1,
+                    "dlbt_gather_aux": 1}),
+])
+def test_serving_launches_every_kernel(dev, fused_eval, split, launched):
     rng = np.random.default_rng(1)
     pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(2)]
     feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(2)]
     batch = CloudBatch.from_numpy(pos, feat, device=dev)
     model = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True,
-                               compute_dtype=torch.bfloat16).to(dev)
+                               split_first_layer=split, compute_dtype=torch.bfloat16).to(dev)
     _build.launch_counts.clear()
-    out = compile_inference(model)(batch)
+    out = compile_inference(model, fused_eval=fused_eval)(batch)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (2, 4) and bool(torch.isfinite(out).all())
-    assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
-                                          "dlbt_ball_query": 1, "dlbt_gather": 1}
+    assert dict(_build.launch_counts) == launched

@@ -87,9 +87,10 @@ def test_default_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs,model_kwargs,match", [
-    (dict(fused_eval=True), {}, "ROADMAP B.5"),
+    # fused_eval needs the stratified SA1 path, as in the JAX package
+    (dict(fused_eval=True), dict(exact_selection=True), "fused_eval"),
     (dict(mesh=object()), {}, "ROADMAP A.8"),
-    ({}, dict(split_first_layer=False), "ROADMAP B.4"),
+    (dict(fused_eval=True), dict(fast_group=False), "fused_eval"),
     ({}, dict(activation_function="ELU"), "ReLU"),
 ])
 def test_unported_options_raise(kwargs, model_kwargs, match):

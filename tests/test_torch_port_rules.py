@@ -88,6 +88,7 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("ball_query.cu", "pallas_ballquery.py ball_query_pallas"),
     ("gather.cu", "pallas_mxu_gather.py mxu_gather"),
     ("gather_bwd.cu", "pallas_mxu_gather.py mxu_gather, its backward"),
+    ("sa1_fused_eval.cu", "pallas_sa_eval.py sa1_fused_eval"),
 ])
 def test_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "csrc" / name).read_text().split("#include")[0]

@@ -1,0 +1,112 @@
+"""Kernel 5, the fused SA1 eval layer: its plain version
+(``ops/sa_eval_kernel.sa1_fused_eval_plain``, which the wrapper runs on a CPU
+tensor) against the JAX package's ``sa1_fused_eval`` in interpret mode, and the
+serving engine with ``fused_eval=True`` against the JAX engine with the same
+flag, on the same weights through the bridge."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dl_biomass_tpu.models.inference import compile_inference as jax_compile_inference
+from dl_biomass_tpu.ops.pallas_sa_eval import sa1_fused_eval as jax_sa1_fused_eval
+from dl_biomass_tpu_torch.models.inference import compile_inference
+from dl_biomass_tpu_torch.ops import sa_eval_kernel
+from torch_port_helpers import BF16_RTOL, F32_RTOL, batches, models, rel_err
+
+torch.set_num_threads(1)
+
+# f32: the two sum each dot product in another order; bf16: JAX's own bound for
+# the fused kernel against the unfused chain (tests/test_pallas_sa_eval.py)
+TOL = {False: 1e-5, True: 2e-2}
+
+
+def _cloud(seed, b=2, n=512, m=128, f=1):
+    rng = np.random.default_rng(seed)
+    pos = (rng.normal(size=(b, n, 3)) * 2).astype(np.float32)
+    mask = rng.random((b, n)) > 0.1
+    feat = rng.normal(size=(b, n, f)).astype(np.float32)
+    return pos, mask, feat, pos[:, :m].copy(), mask[:, :m].copy()
+
+
+def _weights(seed, cin, h1, h2, cout):
+    rng = np.random.default_rng(seed)
+    shapes = ((cin, h1), (h1,), (h1, h2), (h2,), (h2, cout), (cout,))
+    return [(rng.normal(size=s) * 0.3).astype(np.float32) for s in shapes]
+
+
+def _both(pos, mask, feat, centers, cmask, ws, radius, bf16):
+    """(port, JAX) outputs as float32 numpy."""
+    want = jax_sa1_fused_eval(jnp.asarray(centers), jnp.asarray(cmask), jnp.asarray(pos),
+                              jnp.asarray(mask), jnp.asarray(feat), [jnp.asarray(w) for w in ws],
+                              radius=radius, interpret=True, bf16=bf16,
+                              out_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    t = torch.from_numpy
+    got = sa_eval_kernel.sa1_fused_eval(t(centers), t(cmask), t(pos), t(mask), t(feat),
+                                        [t(w) for w in ws], radius=radius, bf16=bf16,
+                                        out_dtype=torch.bfloat16 if bf16 else torch.float32)
+    assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,m,f,widths", [
+    (512, 128, 1, (16, 16, 32)),
+    (512, 128, 1, (64, 64, 128)),  # the production widths
+    (300, 50, 1, (8, 8, 16)),  # M no multiple of 32, N none of 128
+    (384, 64, 4, (16, 16, 32)),  # the most features the layer takes
+])
+def test_plain_version_matches_jax_interpret(n, m, f, widths, bf16):
+    pos, mask, feat, centers, cmask = _cloud(n + f, n=n, m=m, f=f)
+    ws = _weights(m, f + 3, *widths)
+    got, want = _both(pos, mask, feat, centers, cmask, ws, 0.9, bf16)
+    assert got.shape == (2, m, widths[-1])
+    np.testing.assert_allclose(got, want, atol=TOL[bf16], rtol=TOL[bf16])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_masked_and_isolated_centroids_give_zero_rows(bf16):
+    """Centroids 40.. are masked and centroid 0 of cloud 0 has no point within
+    the radius: both give exactly 0 in the port and in JAX."""
+    pos, mask, feat, centers, cmask = _cloud(7, m=64)
+    cmask &= np.arange(64)[None, :] < 40
+    centers[0, 0] = 50.0
+    ws = _weights(8, 4, 8, 8, 16)
+    got, want = _both(pos, mask, feat, centers, cmask, ws, 0.9, bf16)
+    for out in (got, want):
+        assert (out[:, 40:] == 0).all() and (out[0, 0] == 0).all()
+        assert np.abs(out[:, 1:40]).max() > 0
+    np.testing.assert_allclose(got, want, atol=TOL[bf16], rtol=TOL[bf16])
+
+
+def test_first_layer_rows_must_match_the_features():
+    pos, mask, feat, centers, cmask = _cloud(9, m=32)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="features\\+3"):
+        sa_eval_kernel.sa1_fused_eval(t(centers), t(cmask), t(pos), t(mask), t(feat),
+                                      [t(w) for w in _weights(1, 5, 8, 8, 16)], radius=0.9)
+
+
+@pytest.mark.parametrize("dtype,rtol,valid", [
+    ("float32", F32_RTOL, [640, 517]),
+    ("bfloat16", BF16_RTOL, [640, 517]),
+    ("float32", F32_RTOL, [640, 300, 129]),  # a ragged mask
+])
+def test_fused_eval_engine_matches_jax_engine(dtype, rtol, valid):
+    jb, tb = batches(4, len(valid), 640, valid)
+    jm, v, tm = models("production", dtype, jb)
+    want = np.asarray(jax_compile_inference(jm, v, fused_eval=True)(jb))
+    got = compile_inference(tm, device="cpu", fused_eval=True)(tb)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (len(valid), 4)
+    assert rel_err(got.numpy(), want) <= rtol
+
+
+def test_fused_eval_engine_matches_the_default_engine():
+    """The fused layer computes what the default chain computes: kernel 2, the
+    folded layers, masked_max (float32: to rounding of the sums)."""
+    jb, tb = batches(5, 2, 640, [640, 517])
+    _, _, tm = models("production", "float32", jb)
+    fused = compile_inference(tm, device="cpu", fused_eval=True)(tb)
+    default = compile_inference(tm, device="cpu")(tb)
+    assert rel_err(fused.numpy(), default.numpy()) <= 1e-5

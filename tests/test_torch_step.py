@@ -64,13 +64,14 @@ def torch_name(path):
     return ".".join(path[:-1]) + "." + _NAMES[path[-1]]
 
 
-def step_pair(preset, dtype, act, seed):
+def step_pair(preset, dtype, act, seed, **model_kwargs):
     """Both steps on the same clouds and weights; returns a dict of results."""
     jb, tb = batches(seed, B, N, VALID)
     y = (np.random.default_rng(9).normal(size=(B, 4)) * 3).astype(np.float32)
     jb = JaxBatch(pos=jb.pos, feat=jb.feat, mask=jb.mask, y=jnp.asarray(y))
     tb = CloudBatch(pos=tb.pos, feat=tb.feat, mask=tb.mask, y=torch.from_numpy(y))
-    jm, v, tm = models(preset, dtype, jb, dropout_probability=0.0, activation_function=act)
+    jm, v, tm = models(preset, dtype, jb, dropout_probability=0.0, activation_function=act,
+                       **model_kwargs)
     cfg = TrainConfig()
 
     def loss_fn(params):
@@ -108,15 +109,21 @@ def port_grad(r, path):
     return g.T if path[-1] == "kernel" else g
 
 
-@pytest.mark.parametrize("preset,seed", [("production", 0), ("parity", 1)])
-def test_float32_step_matches_jax(preset, seed):
+@pytest.mark.parametrize("preset,seed,model_kwargs", [
+    pytest.param("production", 0, {}, id="production-0"),
+    pytest.param("parity", 1, {}, id="parity-1"),
+    # SA2 gathers features and positions by one index (kernel 4c); its
+    # features' gradient is the scatter-add backward (4b)
+    pytest.param("production", 1, dict(split_first_layer=False), id="production-1-unsplit"),
+])
+def test_float32_step_matches_jax(preset, seed, model_kwargs):
     """float32 with ELU, a smooth activation: a ReLU input within rounding of
     0 would take the other branch in one package and move one element's
     gradient whole. The inputs keep every max at least 1e-6 (relative) from a
     tie, well clear of the ~1e-6 float32 agreement of the forward, so no
     argmax flips either (asserted). Then loss, gradients, statistics and
     updates agree at 1e-4 (measured: ~3e-5 gradients, 2e-6 loss)."""
-    r = step_pair(preset, "float32", "ELU", seed)
+    r = step_pair(preset, "float32", "ELU", seed, **model_kwargs)
     assert min(r["gaps"]) >= 1e-6
     assert abs(r["tloss"] - r["jloss"]) <= 1e-5 * abs(r["jloss"])
     top = max(np.abs(g).max() for g in r["jgrads"].values())
