@@ -50,7 +50,22 @@ Phases, each of which raises on failure (exit code 1):
              ``split_first_layer=False`` at 16 x 10240 (kernels 4c and 4b).
 9. fps scratch — kernel 1's global-scratch variant (rows of more than 10240
              points): exact FPS on 2 rows of 16384, index-exact, timed.
-10. summary — one JSON line of the kernels with their launches by path, the
+10. kernel 6 — the three passes of the fused SA MLP (F1, F2, F3) at the
+             inputs one train-mode and one eval forward of the ``fused_sa``
+             model at 16 x 10240 give them, SA1 and SA2, in bf16 and in f32:
+             statistics and outputs against the plain version (1e-2 of max|y|
+             in bf16, 1e-5 in f32), the argmax equal wherever the winner leads
+             by more, zero rows identical, two launches bit-identical; timed
+             beside their bounds, plain versions and the unfused layer (``MLP``
+             + ``masked_max``) in train and eval mode.
+11. eval_fused_sa and train_forward_fused_sa — ``Trainer.evaluate`` and
+             ``predict`` on the ``fused_sa`` model at 16 and 36 x 10240, held
+             against the plain-version forward and the unfused model of the same
+             weights, ms per batch beside the unfused model's; its train-mode
+             forward at 16 x 10240 under ``torch.no_grad()`` against the plain
+             version (output and moved running statistics); ``Trainer.step``
+             raising ``NotImplementedError`` with the parameters unmoved.
+12. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -95,7 +110,8 @@ N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO = 10240, 16, 36, 5, 7000
 # counts (1434 and 359) are no multiple of any kernel's tile
 SHORT_POINTS, FAULT_BATCHES = 7168, (24, 28)
 ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlbt_gather_aux",
-           "dlbt_sa1_fused_eval", "dlbt_scatter_rows")
+           "dlbt_sa1_fused_eval", "dlbt_scatter_rows", "dlbt_fused_sa_f1", "dlbt_fused_sa_f2",
+           "dlbt_fused_sa_f3")
 
 
 def per_run(**launches):
@@ -114,6 +130,12 @@ EXPECTED = {
                      dlbt_scatter_rows=1),
     "train_unsplit": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                              dlbt_gather_aux=1, dlbt_scatter_rows=1),
+    # fused_sa: kernel 6 at SA1 (kernel 2's planes) and SA2 (kernel 4c's rows)
+    "eval_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
+                             dlbt_gather_aux=1, dlbt_fused_sa_f3=2),
+    "train_forward_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
+                                      dlbt_gather_aux=1, dlbt_fused_sa_f1=2,
+                                      dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2),
 }
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
@@ -127,6 +149,26 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # exact against its plain version, so the two steps should be identical; the
 # bound allows one bf16 rounding step (2^-8) if a GEMM took another algorithm
 PLAIN_STEP_RTOL = 2.0**-8
+# kernel 6 vs its plain version, max|diff| / max|y|, by bf16: the two sum in
+# another order; in bf16 an activation at a rounding boundary may then round
+# one step the other way
+FUSED_SA_RTOL = {True: BF16_SERVE_RTOL, False: 1e-5}
+# the fused_sa model's eval forward on the kernels vs on the plain versions:
+# kernel 6 sums in another order than its plain version, so an SA1 output
+# near a bf16 rounding boundary rounds the other way in SA2's dense block,
+# and that step travels through SA2, SA3 and the head (8.0e-3 on an H100)
+FUSED_VS_PLAIN_RTOL = 2.5e-2
+# the fused_sa model's forward vs the unfused model on the same weights (bf16):
+# the fused layers keep h1, a1, h2 and a2 in float32 where the unfused MLP
+# rounds each to bf16
+FUSED_VS_UNFUSED_RTOL = 5e-2
+# the fused_sa model's train-mode forward on the kernels vs on the plain
+# versions: kernel 6 is not bit-exact (its sums run in another order), and the
+# head's train-mode BatchNorm over the batch's 16 rows amplifies what differs
+# (on an H100: output 2.5e-2, statistics 3.4e-3; SA1's and SA2's 8.2e-7,
+# which are held at BF16_SERVE_RTOL)
+FUSED_TRAIN_FORWARD_RTOL = 5e-2
+FUSED_SA_REPS = 10
 
 
 class PhaseError(RuntimeError):
@@ -196,11 +238,11 @@ def synthetic_batch(num: int, n_points: int, seed: int, device, sizes=None):
     return CloudBatch.from_numpy(pos, feat, y, capacity=n_points, device=device)
 
 
-def seeded_model(device, seed: int = 0, split_first_layer: bool = True):
+def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa: bool = False):
     """The production model with weights from a seeded ``torch.Generator``:
     torch-default Linear ranges and BatchNorm affine + running statistics away
-    from identity, so that folding does real work. ``split_first_layer``
-    changes the path, not the weights."""
+    from identity, so that folding does real work. ``split_first_layer`` and
+    ``fused_sa`` change the path, not the weights."""
     import dataclasses
 
     from dl_biomass_tpu_torch.core.config import TrainConfig
@@ -209,7 +251,7 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True):
 
     cfg = TrainConfig()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, split_first_layer=split_first_layer))
+        cfg.model, split_first_layer=split_first_layer, fused_sa=fused_sa))
     model = build_model(cfg, num_features=1)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -230,7 +272,7 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True):
 def kernel_sites():
     """(module, wrapper name, plain version name) of each kernel of the paths."""
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
-                                          gather_kernel, sa_eval_kernel)
+                                          gather_kernel, sa_eval_kernel, sa_train_kernel)
 
     return [(fps_kernel, "fps_rows", "fps_rows_plain"),
             (ball_group_kernel, "ball_group", "ball_group_plain"),
@@ -238,7 +280,8 @@ def kernel_sites():
             (gather_kernel, "gather_rows_forward", "gather_rows_plain"),
             (gather_kernel, "gather_rows_aux", "gather_rows_aux_plain"),
             (sa_eval_kernel, "sa1_fused_eval", "sa1_fused_eval_plain"),
-            (gather_kernel, "scatter_rows", "scatter_rows_plain")]
+            (gather_kernel, "scatter_rows", "scatter_rows_plain"),
+            (sa_train_kernel, "fused_sa_stage", "fused_sa_stage_plain")]
 
 
 def record_kernel_inputs(serve, batch):
@@ -647,7 +690,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 10: summary
+    # phase 12: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -655,11 +698,12 @@ def main() -> int:
     return 0
 
 
-PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit")
+PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
+         "train_forward_fused_sa")
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-9; returns the kernels' summary rows, with each kernel's
+    """Phases 2-11; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -667,9 +711,10 @@ def drive(device, card: str) -> list:
     rows.append(train_phases(device, card, launches))
     train_unsplit(device, card, launches)
     check_fps_scratch(device, card)
-    order = {name: i for i, (_, name, _) in enumerate(kernel_sites())}
+    rows += check_fused_sa(device, card)
+    fused_sa_paths(device, card, launches)
     kernels = []
-    for r in sorted(rows, key=lambda r: order[r["name"]]):
+    for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
         by_path = {path: launches[path][w] for path in PATHS}
         kernels.append(dict(name=r.pop("name"), route="cuda", source=r.pop("source"),
@@ -978,6 +1023,260 @@ def check_fps_scratch(device, card: str) -> None:
                     r * n * 5 + r * (k - 1) * n * FPS_FLOPS_PER_POINT_STEP)
     print(f"kernel fps rows={r} n={n} k={k} (global-scratch variant): {t:.4f} ms (median of 5), "
           f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}), index-exact [{card}]", flush=True)
+
+
+# kernel 6's passes: (row name, the Pallas kernel it replaces)
+FUSED_SA_STAGES = {1: ("fused_sa_f1", "dl_biomass_tpu/ops/pallas_sa_train.py:245"),
+                   2: ("fused_sa_f2", "dl_biomass_tpu/ops/pallas_sa_train.py:266"),
+                   3: ("fused_sa_f3", "dl_biomass_tpu/ops/pallas_sa_train.py:289")}
+
+
+def fused_sa_stage_flops(stage: int, params: dict) -> int:
+    """flop per edge row of pass ``stage``: the products it recomputes."""
+    w = [params[f"w{i}"].shape for i in (1, 2, 3)]
+    return sum(2 * r * c for r, c in w[:stage])
+
+
+def check_fused_sa_call(label: str, call, bf16: bool, ctx: dict):
+    """One kernel 6 pass at recorded inputs: kernel vs plain (statistics or
+    output, argmax, zero rows), two launches bit-identical, timings, bound."""
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+
+    (stage, dense, planes, nbr_mask, params, folds), kwargs = call
+    if not bf16 and dense is not None:
+        dense = dense.float()
+    kwargs = dict(kwargs, bf16=bf16)
+    args = (stage, dense, planes, nbr_mask, params, folds)
+    got = k6.fused_sa_stage(*args, **kwargs)
+    again = k6.fused_sa_stage(*args, **kwargs)
+    want = k6.fused_sa_stage_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    require(all(same_bits(a, b) for a, b in zip(got, again)),
+            f"kernel 6 {label}: two launches differ in bits")
+    tol = FUSED_SA_RTOL[bf16]
+    b, m, k = nbr_mask.shape
+    note = ""
+    if stage < 3:
+        cnt = torch.clamp_min(nbr_mask.sum().float(), 1.0)
+        g, w = k6._stats(*got, cnt), k6._stats(*want, cnt)
+        rel = max(rel_diff(g[0], w[0]), rel_diff(g[1], w[1]))
+        err = max(max_abs_err(g[0], w[0]), max_abs_err(g[1], w[1]))
+        require(rel <= tol, f"kernel 6 {label}: statistics vs plain rel {rel} > {tol}")
+    else:
+        out, am = got
+        w_out, w_am = want
+        rel, err = rel_diff(out, w_out), max_abs_err(out, w_out)
+        require(rel <= tol, f"kernel 6 {label}: output vs plain rel {rel} > {tol}")
+        require(torch.equal((out == 0).all(-1), (w_out == 0).all(-1))
+                and torch.equal(am == -1, w_am == -1), f"kernel 6 {label}: zero rows differ")
+        h3 = k6.hidden_plain(3, *args[1:], **kwargs).view(b, m, k, -1)
+        top2 = torch.where(nbr_mask[..., None], h3, float("-inf")).topk(2, dim=2).values
+        lead = (top2[:, :, 0] - top2[:, :, 1]) > tol * float(w_out.abs().max())
+        require(torch.equal(am[lead], w_am[lead]),
+                f"kernel 6 {label}: argmax differs where the winner leads")
+        note = f"; argmax equal where the winner leads ({int(lead.sum())} of {lead.numel()})"
+        del h3, top2
+    t = time_ms(lambda: k6.fused_sa_stage(*args, **kwargs), reps=FUSED_SA_REPS, warmup=2)
+    tp = time_ms(lambda: k6.fused_sa_stage_plain(*args, **kwargs), reps=3, warmup=1)
+    edges = int(nbr_mask.sum())
+    per_edge = fused_sa_stage_flops(stage, params)
+    flops = edges * per_edge
+    c_out = params[f"w{stage}"].shape[1]
+    nbytes = (nbr_mask.numel() + sum(x.numel() * x.element_size() for x in (dense, planes)
+                                     if x is not None)
+              + sum(v.numel() * 4 for v in params.values())
+              + (2 * c_out * 4 if stage < 3 else b * m * c_out * 8))
+    peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    floor = flops / PEAK_F32_FLOP_PER_S * 1e3
+    print(f"kernel fused_sa F{stage} {label} (B={b} M={m} CD={0 if dense is None else dense.shape[-1]}"
+          f" CP={0 if planes is None else planes.shape[-1]} widths "
+          f"{','.join(str(params[f'w{i}'].shape[1]) for i in (1, 2, 3))}): {t:.4f} ms (median of "
+          f"{FUSED_SA_REPS}), plain {tp:.4f} ms, bound {bms:.6f} ms ({by}: {edges} valid edges x "
+          f"{per_edge} flop at {peak / 1e12:.0f} TFLOP/s, {nbytes} bytes), CUDA-core f32 floor "
+          f"{floor:.4f} ms; vs plain max|diff|/max|y| {rel:.3e} (bound {tol}){note}; two "
+          f"launches bit-identical", flush=True)
+    ctx.setdefault(stage, []).append(dict(bf16=bf16, ms=t, plain_ms=tp, bound_ms=bms,
+                                          bound_by=by, err=err, label=label))
+    return t
+
+
+def unfused_layer_ms(mlp, call, bf16: bool, train: bool) -> float:
+    """The yardstick: the unfused ``MLP`` and ``masked_max`` of the same layer
+    on the same edges (the unfused path's edge tensor in the compute type)."""
+    from dl_biomass_tpu_torch.models.layers import MLP
+    from dl_biomass_tpu_torch.ops.pooling import masked_max
+
+    (_, dense, planes, nbr_mask, _, _), _ = call
+    ct = torch.bfloat16 if bf16 else torch.float32
+    parts = ([] if dense is None else [dense.to(ct)]) + ([] if planes is None else [planes.to(ct)])
+    edges = torch.where(nbr_mask[..., None], torch.cat(parts, dim=-1),
+                        torch.zeros((), dtype=ct, device=nbr_mask.device))
+    mlp = copy.deepcopy(mlp)  # train mode moves the copy's running statistics
+    for lin in mlp.linears():
+        lin.compute_dtype = ct
+
+    def run():
+        with torch.no_grad():
+            return masked_max(MLP.forward(mlp, edges, nbr_mask, train), nbr_mask, dim=2)
+
+    return time_ms(run, reps=FUSED_SA_REPS, warmup=2)
+
+
+def layer_checks(model, train_calls, eval_calls, card: str, ctx: dict) -> None:
+    """Each pass of each layer in bf16 and f32, train and eval; the yardsticks."""
+    for li, (layer, mlp) in enumerate((("SA1", model.sa1.mlp), ("SA2", model.sa2.mlp))):
+        for bf16 in (True, False):
+            dt = "bf16" if bf16 else "f32"
+            train_ms = sum(check_fused_sa_call(f"{layer} {dt} train", call, bf16, ctx)
+                           for call in train_calls[3 * li:3 * li + 3])
+            eval_ms = check_fused_sa_call(f"{layer} {dt} eval", eval_calls[li], bf16, ctx)
+            yt = unfused_layer_ms(mlp, train_calls[3 * li + 2], bf16, train=True)
+            ye = unfused_layer_ms(mlp, eval_calls[li], bf16, train=False)
+            ctx.setdefault("yardstick", []).append(dict(bf16=bf16, train=yt, eval=ye))
+            print(f"kernel fused_sa {layer} {dt}: F1+F2+F3 (train mode) {train_ms:.4f} ms against "
+                  f"the unfused layer (MLP + masked_max, train mode) {yt:.4f} ms; F3 (eval) "
+                  f"{eval_ms:.4f} ms against the unfused layer in eval mode {ye:.4f} ms "
+                  f"[{card}]", flush=True)
+
+
+def check_fused_sa(device, card: str) -> list:
+    """Phase 10: kernel 6's passes at the inputs of one train-mode and one eval
+    forward of the fused_sa model (B=16 x 10240), SA1 and SA2, bf16 and f32,
+    against the plain version, timed; returns the three passes' rows."""
+    model = seeded_model(device, fused_sa=True)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
+    rec = copy.deepcopy(model)  # the train-mode forward moves running statistics
+    with torch.no_grad():
+        train_calls = record_kernel_inputs(
+            lambda b: rec(b, train=True, generator=train_gen(device, 0)), batch)["fused_sa_stage"]
+        eval_calls = record_kernel_inputs(lambda b: model(b), batch)["fused_sa_stage"]
+    del rec
+    require([c[0][0] for c in train_calls] == [1, 2, 3, 1, 2, 3],
+            f"a train-mode forward ran passes {[c[0][0] for c in train_calls]}")
+    require([c[0][0] for c in eval_calls] == [3, 3],
+            f"an eval forward ran passes {[c[0][0] for c in eval_calls]}")
+    ctx = {}
+    with torch.no_grad():
+        layer_checks(model, train_calls, eval_calls, card, ctx)
+    rows = []
+    yard = [y for y in ctx["yardstick"] if y["bf16"]]  # the production type, both layers
+    for stage, (name, replaces) in FUSED_SA_STAGES.items():
+        runs = [r for r in ctx[stage] if r["bf16"] and r["label"].endswith("train")]
+        row = dict(name=name, source="dl_biomass_tpu_torch/csrc/fused_sa_fwd.cu",
+                   replaces=replaces, entry=f"dlbt_{name}",
+                   max_abs_err=max(r["err"] for r in ctx[stage]),
+                   ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
+                   bound_ms=sum(r["bound_ms"] for r in runs),
+                   bound_by=max(runs, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
+                   yardstick_train_ms=sum(y["train"] for y in yard))
+        if stage == 3:
+            row["yardstick_eval_ms"] = sum(y["eval"] for y in yard)
+        rows.append(row)
+    return rows
+
+
+def fused_sa_paths(device, card: str, launches: dict) -> None:
+    """Phase 11: the fused_sa model's evaluation (eval_fused_sa) and its
+    train-mode forward (train_forward_fused_sa), every launch counted."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    fused = Trainer(seeded_model(device, fused_sa=True), TrainConfig(), device)
+    unfused = Trainer(seeded_model(device), TrainConfig(), device)  # the same weights
+    reqs = [synthetic_batch(b, N_POINTS, seed=20 + i, device=device)
+            for i, b in enumerate((SMALL, LARGE))]
+
+    def evaluation():
+        return [(fused.evaluate([r]), fused.predict([r])) for r in reqs]
+
+    outs = counted_run("eval_fused_sa", evaluation, launches, 2 * len(reqs))
+    print(f"eval_fused_sa launches over {2 * len(reqs)} forwards: {launches['eval_fused_sa']}",
+          flush=True)
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        plain = [fused.predict([r]) for r in reqs]
+    rel_plain = rel_unfused = 0.0
+    for (val, pred), p, r in zip(outs, plain, reqs):
+        b = r.pos.shape[0]
+        require(np.isfinite(val) and pred.shape == (b, 4) and np.isfinite(pred).all(),
+                f"eval_fused_sa at B={b}: loss {val}, predictions {pred.shape}")
+        require(np.array_equal(pred, fused.predict([r])), "eval_fused_sa: a repeat differs")
+        scale = max(float(np.abs(p).max()), 1e-30)
+        rel_plain = max(rel_plain, float(np.abs(pred - p).max()) / scale)
+        u = unfused.predict([r])
+        rel_unfused = max(rel_unfused, float(np.abs(pred - u).max()) / max(float(np.abs(u).max()),
+                                                                           1e-30))
+    require(rel_plain <= FUSED_VS_PLAIN_RTOL,
+            f"eval_fused_sa vs plain-version forward: rel {rel_plain} > {FUSED_VS_PLAIN_RTOL}")
+    require(rel_unfused <= FUSED_VS_UNFUSED_RTOL,
+            f"eval_fused_sa vs the unfused model: rel {rel_unfused} > {FUSED_VS_UNFUSED_RTOL}")
+    print(f"eval_fused_sa: evaluate and predict at B={SMALL}, {LARGE} x {N_POINTS}: finite, "
+          f"(B, 4), repeat identical; vs plain-version forward max|diff|/max|y| {rel_plain:.3e} "
+          f"(bound {FUSED_VS_PLAIN_RTOL}); vs the unfused model on the same weights "
+          f"{rel_unfused:.3e} (bound {FUSED_VS_UNFUSED_RTOL})", flush=True)
+    print_profile(f"eval_fused_sa B={SMALL}", lambda: fused.predict([reqs[0]]), calls=3)
+    for r in reqs:  # the two models in turns
+        b = r.pos.shape[0]
+        tu = serve_timing(lambda x: unfused.predict([x]), r)
+        tf = serve_timing(lambda x: fused.predict([x]), r)
+        print(f"eval_fused_sa B={b} x {N_POINTS}: {tf:.3f} ms/batch, {b / tf * 1e3:.1f} clouds/s; "
+              f"unfused model's predict in the same turn {tu:.3f} ms/batch, "
+              f"{b / tu * 1e3:.1f} clouds/s [{card}]", flush=True)
+
+    # train_forward_fused_sa: the train-mode forward, no gradient
+    model, batch = fused.model, reqs[0]
+    state = copy.deepcopy(model.state_dict())
+
+    def forward(m=model):
+        with torch.no_grad():
+            return m(batch, train=True, generator=train_gen(device, 3))
+
+    out = counted_run("train_forward_fused_sa", forward, launches, 1)
+    print(f"train_forward_fused_sa launches in one forward: {launches['train_forward_fused_sa']}",
+          flush=True)
+    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    model.load_state_dict(state)
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        out_p = forward()
+    stats_p = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    model.load_state_dict(state)
+    require(bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(v).all())
+                                                    for v in stats.values()),
+            "train_forward_fused_sa: non-finite output or statistics")
+    require(all(not torch.equal(stats[k], state[k]) for k in stats),
+            "train_forward_fused_sa: a running statistic did not move")
+    rel_out = rel_diff(out, out_p)
+    rel_stats = {k: rel_diff(stats[k], stats_p[k]) for k in stats}
+    rel_fused = max(v for k, v in rel_stats.items() if k.startswith(("sa1.", "sa2.")))
+    require(rel_fused <= BF16_SERVE_RTOL,
+            f"train_forward_fused_sa: SA1/SA2 statistics vs plain rel {rel_fused}")
+    require(rel_out <= FUSED_TRAIN_FORWARD_RTOL and max(rel_stats.values()) <= FUSED_TRAIN_FORWARD_RTOL,
+            f"train_forward_fused_sa vs plain: output rel {rel_out}, statistics "
+            f"{max(rel_stats.values())} > {FUSED_TRAIN_FORWARD_RTOL}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        fused.step(batch, train_gen(device, 4))
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise PhaseError("Trainer.step on a fused_sa model did not raise NotImplementedError")
+    require(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
+            "Trainer.step on a fused_sa model moved its state before raising")
+    tf = serve_timing(lambda x: forward(), batch)
+    model.load_state_dict(state)
+    tu = serve_timing(lambda x: forward(unfused.model), batch)
+    print(f"train_forward_fused_sa B={SMALL} x {N_POINTS}: output finite, every running statistic "
+          f"moved; vs plain versions: output max|diff|/max|y| {rel_out:.3e}, SA1/SA2 statistics "
+          f"{rel_fused:.3e}, all statistics {max(rel_stats.values()):.3e} (bounds "
+          f"{BF16_SERVE_RTOL}, {FUSED_TRAIN_FORWARD_RTOL}); train-mode forward (no gradient) "
+          f"{tf:.3f} ms against the unfused model's {tu:.3f} ms in the same turn; Trainer.step "
+          f"raises NotImplementedError ({refused[:60]}...) with the state unmoved [{card}]",
+          flush=True)
 
 
 if __name__ == "__main__":

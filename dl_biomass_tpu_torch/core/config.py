@@ -54,7 +54,7 @@ class ModelConfig:
     remat: bool = False  # rematerialize edge MLPs in backward (training)
     fast_group: bool = True  # stratified SA1 grouping (ops/ball_group_kernel.py)
     fast_fps: bool = True  # sectored multi-start FPS (ops/fps.py fps_sectored)
-    fused_sa: bool = False  # fused SA MLP+BN+max kernels (not ported yet)
+    fused_sa: bool = False  # fused SA MLP+BN+max (kernel 6; its backward is not ported yet)
     exact_selection: bool = False  # exact first-K ball query everywhere
     # (torch_cluster semantics); normally set via apply_parity()
     split_first_layer: bool = True  # per-POINT first MLP layer on SA2: layer 0

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dl_biomass_tpu_torch.ops.sa_train_kernel import fused_sa_mlp
+
 
 def resolve_activation(name: Optional[str]) -> Optional[Callable]:
     """Map the reference's activation names (torch module names) to functions."""
@@ -224,3 +226,45 @@ class MLP(nn.Module):
         for lin, bn in zip(lins[1:-1], bns[1:]):
             x = self._post(lin(x), bn, mask, act, train, generator)
         return lins[-1](x)
+
+
+class FusedSAMLP(MLP):
+    """``MLP([C0, C1, C2, C3])`` and the masked max over the 64 neighbour slots,
+    run by kernel 6 (``ops/sa_train_kernel.fused_sa_mlp``). The submodules are
+    ``MLP``'s (``lin0``, ``bn0``, ``lin1``, ``bn1``, ``lin2``), so the bridge,
+    the checkpoints and the serving engine's folding treat it as an ``MLP``.
+
+    ``forward(dense, planes, nbr_mask, train)``: dense (B, M, 64, CD) (cast to
+    the compute type) or None, planes (B, M, 64, CP) float32 or None, W1's rows
+    ``[dense..., planes...]`` -> pooled (B, M, C3) float32. Train mode uses the
+    batch statistics and updates the running ones (torch EMA); eval mode uses
+    the running ones. Its backward is not ported yet: a forward that autograd
+    would differentiate raises ``NotImplementedError``."""
+
+    def __init__(self, channels: Sequence[int], act: Optional[str] = "ReLU",
+                 compute_dtype: torch.dtype = torch.float32):
+        if len(channels) != 4:
+            raise ValueError(f"FusedSAMLP needs [C0, C1, C2, C3] channels, got {list(channels)}")
+        super().__init__(channels, act=act, compute_dtype=compute_dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
+                nbr_mask: torch.Tensor, train: bool = False) -> torch.Tensor:
+        lin0, lin1, lin2 = self.linears()
+        bn0, bn1 = self.norms()
+        params = dict(w1=lin0.weight.t(), b1=lin0.bias, gamma1=bn0.weight, beta1=bn0.bias,
+                      w2=lin1.weight.t(), b2=lin1.bias, gamma2=bn1.weight, beta2=bn1.bias,
+                      w3=lin2.weight.t(), b3=lin2.bias)
+        bf16 = self.compute_dtype == torch.bfloat16
+        if dense is not None:
+            dense = dense.to(self.compute_dtype)
+        if train:
+            out, (m1, v1, m2, v2) = fused_sa_mlp(dense, planes, nbr_mask, params, act=self.act,
+                                                 bf16=bf16, train=True)
+            cnt = torch.clamp_min(nbr_mask.sum().float(), 1.0)
+            bn0.update_running(m1, v1, cnt)
+            bn1.update_running(m2, v2, cnt)
+            return out
+        running = (bn0.running_mean, bn0.running_var, bn1.running_mean, bn1.running_var)
+        return fused_sa_mlp(dense, planes, nbr_mask, params, running, act=self.act, bf16=bf16,
+                            train=False)

@@ -16,9 +16,15 @@ path: the per-point first layer's z-table (``split_first_layer``), or else
 the features with the positions as the gradient-free aux table (kernel 4c),
 from which it builds the edges ``[h1_j, c1_j - c2_i]``. Beyond that bound,
 SA2 gathers those edges with ``group_neighborhoods``, as the JAX package
-does. ``train=True`` uses batch statistics in every BatchNorm and the head's
-dropout, with FPS starts and dropout drawn from the ``generator`` passed in
-(without one, FPS starts at the first valid point).
+does. Under ``fused_sa`` each SA layer's MLP and max run as kernel 6
+(``FusedSAMLP``) on the same inputs: kernel 2's float32 edges as its planes
+at SA1, the gathered features (masked) as its dense block and the
+centroid-relative positions as its planes at SA2 (kernel 4c), or the
+``group_neighborhoods`` edges as its dense block; the split first layer is
+off there, as in the JAX package. ``train=True`` uses batch statistics in
+every BatchNorm and the head's dropout, with FPS starts and dropout drawn
+from the ``generator`` passed in (without one, FPS starts at the first valid
+point).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
+from dl_biomass_tpu_torch.models.layers import MLP, FusedSAMLP, dot_f32
 from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
@@ -41,6 +47,8 @@ from dl_biomass_tpu_torch.ops.pooling import masked_max
 # table (SA1's centroids) holds at most this many rows (pointnet2.py:172,
 # inference.py:233); beyond it the edges are gathered unsplit
 MXU_MAX_POINTS = 4096
+# the activations kernel 6 computes; under fused_sa any other keeps the unfused MLP
+FUSED_SA_ACTS = (None, "None", "ReLU", "LeakyReLU", "ELU")
 
 
 def sample_centroids(pos, mask, m: int, *, sectored: bool, generator=None):
@@ -60,7 +68,7 @@ class SAModule(nn.Module):
                  act: Optional[str] = "ReLU", max_neighbors: int = 64,
                  compute_dtype: torch.dtype = torch.float32, fast_group: bool = False,
                  fast_fps: bool = False, exact_selection: bool = False,
-                 split_first_layer: bool = True):
+                 split_first_layer: bool = True, fused_sa: bool = False):
         super().__init__()
         self.ratio, self.radius = ratio, radius
         self.max_neighbors = max_neighbors
@@ -68,7 +76,12 @@ class SAModule(nn.Module):
         self.fast_group, self.fast_fps = fast_group, fast_fps
         self.exact_selection = exact_selection
         self.split_first_layer = split_first_layer
-        self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
+        # the JAX package's use_fused_sa: kernel 6 takes K=64, two hidden layers
+        # and its four activations
+        self.fused_sa = (fused_sa and max_neighbors == 64 and len(mlp_channels) == 4
+                         and act in FUSED_SA_ACTS)
+        mlp_cls = FusedSAMLP if self.fused_sa else MLP
+        self.mlp = mlp_cls(mlp_channels, act=act, compute_dtype=compute_dtype)
 
     def forward(self, feat, pos, mask, *, train: bool = False, generator=None):
         n = pos.shape[1]
@@ -80,8 +93,10 @@ class SAModule(nn.Module):
         if (self.fast_group and not self.exact_selection and self.max_neighbors == 64
                 and (feat is None or feat.shape[-1] <= 4)):
             _, nbr_mask, edges = ball_group_kernel.ball_group(
-                centers, center_mask, pos, mask, feat, radius=self.radius, out_dtype=cdt,
-                need_idx=False)
+                centers, center_mask, pos, mask, feat, radius=self.radius,
+                out_dtype=torch.float32 if self.fused_sa else cdt, need_idx=False)
+            if self.fused_sa:  # the float32 edges [feat, rel] are kernel 6's planes
+                return self.mlp(None, edges, nbr_mask, train), centers, center_mask
             h = self.mlp(edges.detach(), nbr_mask, train)
             return masked_max(h, nbr_mask, dim=2), centers, center_mask
 
@@ -89,7 +104,7 @@ class SAModule(nn.Module):
                                        k=self.max_neighbors)
         use_mxu = (feat is not None and feat.shape[-1] >= 16 and n <= MXU_MAX_POINTS
                    and self.max_neighbors == 64)
-        if use_mxu and self.split_first_layer:
+        if use_mxu and self.split_first_layer and not self.fused_sa:
             # layer 0 is linear in [x_j, p_j - p_i]: z0 = (Wf x_j + Wp p_j + b0) - Wp p_i
             # runs once per point, and kernel 4 gathers the z-table. Each use
             # casts wp on its own, as JAX does, so the two bf16 gradients of
@@ -109,9 +124,16 @@ class SAModule(nn.Module):
                 # features (differentiable) and positions (the gradient-free aux
                 # table) gathered by one index, kernel 4c
                 gfeat, gpos = gather_kernel.gather_rows(feat, nbr_idx, aux=pos)
+                if self.fused_sa:  # dense: the masked features; planes: p_j - c_i
+                    dense = torch.where(nbr_mask[..., None], gfeat,
+                                        torch.zeros((), dtype=gfeat.dtype, device=gfeat.device))
+                    planes = gpos - centers[:, :, None, :]
+                    return self.mlp(dense, planes, nbr_mask, train), centers, center_mask
                 grouped = edges_from_gathered(gfeat, gpos, centers, nbr_mask)
             else:
                 grouped = group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask)
+                if self.fused_sa:
+                    return self.mlp(grouped, None, nbr_mask, train), centers, center_mask
             h = self.mlp(grouped, nbr_mask, train)
         return masked_max(h, nbr_mask, dim=2), centers, center_mask
 
@@ -138,7 +160,8 @@ class PointNet2Regressor(nn.Module):
                  sa2_radius: float = 8.0, max_neighbors: int = 64,
                  doubled_radius: bool = False, fast_group: bool = False,
                  fast_fps: bool = False, exact_selection: bool = False,
-                 split_first_layer: bool = True, compute_dtype: torch.dtype = torch.float32):
+                 split_first_layer: bool = True, fused_sa: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_features = num_features
         self.activation_function = activation_function
@@ -152,13 +175,14 @@ class PointNet2Regressor(nn.Module):
         self.fast_group, self.fast_fps = fast_group, fast_fps
         self.exact_selection = exact_selection
         self.split_first_layer = split_first_layer
+        self.fused_sa = fused_sa
         self.compute_dtype = compute_dtype
         nm = neuron_multiplier if neuron_multiplier != 0 else 1
         f = num_features if num_features else 3  # no features: coordinates stand in
         act = activation_function
         common = dict(act=act, max_neighbors=max_neighbors, compute_dtype=compute_dtype,
                       fast_fps=fast_fps, exact_selection=exact_selection,
-                      split_first_layer=split_first_layer)
+                      split_first_layer=split_first_layer, fused_sa=fused_sa)
         self.sa1 = SAModule(sa1_ratio, self.sa1_radius, [3 + f, 64 * nm, 64 * nm, 128 * nm],
                             fast_group=fast_group, **common)
         self.sa2 = SAModule(sa2_ratio, self.sa2_radius,
@@ -206,7 +230,7 @@ def model_to_dict(model: PointNet2Regressor) -> dict:
         remat=False,
         fast_group=model.fast_group,
         fast_fps=model.fast_fps,
-        fused_sa=False,
+        fused_sa=model.fused_sa,
         exact_selection=model.exact_selection,
         analytic_bn=False,
         split_first_layer=model.split_first_layer,
@@ -219,7 +243,7 @@ def model_to_dict(model: PointNet2Regressor) -> dict:
 def build_model(cfg, num_features: int) -> PointNet2Regressor:
     """The regressor from a ``TrainConfig`` (hp + model sections)."""
     hp, mc = cfg.hp, cfg.model
-    unported = [name for name in ("msg", "fused_sa", "analytic_bn") if getattr(mc, name)]
+    unported = [name for name in ("msg", "analytic_bn") if getattr(mc, name)]
     if mc.family != "pointnet2" or unported:
         raise NotImplementedError(
             f"not ported yet (ROADMAP A.9): family={mc.family!r}, options {unported}")
@@ -238,5 +262,6 @@ def build_model(cfg, num_features: int) -> PointNet2Regressor:
         fast_fps=mc.fast_fps,
         exact_selection=mc.exact_selection,
         split_first_layer=mc.split_first_layer,
+        fused_sa=mc.fused_sa,
         compute_dtype=_DTYPES[mc.compute_dtype],
     )

@@ -32,5 +32,7 @@ def weighted_component_mse(pred: torch.Tensor, target: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _weights(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # made once per device: a host-to-device copy in every step would wait
-    # for the device
-    return torch.tensor(COMPONENT_WEIGHTS, dtype=dtype, device=device)
+    # for the device. Made outside inference mode, so that a first call from
+    # an evaluation does not cache a tensor that a training step cannot save
+    with torch.inference_mode(False):
+        return torch.tensor(COMPONENT_WEIGHTS, dtype=dtype, device=device)

@@ -17,7 +17,7 @@ from dl_biomass_tpu_torch.models.inference import compile_inference
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
 from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
-                                      gather_kernel, sa_eval_kernel)
+                                      gather_kernel, sa_eval_kernel, sa_train_kernel)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -189,3 +189,87 @@ def test_serving_launches_every_kernel(dev, fused_eval, split, launched):
     torch.cuda.synchronize()
     assert tuple(out.shape) == (2, 4) and bool(torch.isfinite(out).all())
     assert dict(_build.launch_counts) == launched
+
+
+def _fused_sa_case(dev, b, m, cd, cp, widths, bf16, seed=0):
+    """Kernel 6's inputs: dense (invalid rows zero) in the compute type,
+    planes, a mask with one centroid without a valid slot, the weights and
+    two folded BatchNorms."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.rand(b, m, 64, device=dev, generator=g) > 0.3
+    mask[0, 3] = False
+    dense = None
+    if cd:
+        dense = torch.randn(b, m, 64, cd, device=dev, generator=g) * mask[..., None]
+        dense = dense.to(torch.bfloat16 if bf16 else torch.float32)
+    planes = torch.randn(b, m, 64, cp, device=dev, generator=g) if cp else None
+    dims = (cd + cp,) + widths
+    params = {}
+    for i in range(3):
+        params[f"w{i + 1}"] = torch.randn(dims[i], dims[i + 1], device=dev, generator=g) * 0.2
+        params[f"b{i + 1}"] = torch.randn(dims[i + 1], device=dev, generator=g) * 0.1
+    folds = [(0.5 + torch.rand(c, device=dev, generator=g),
+              0.1 * torch.randn(c, device=dev, generator=g)) for c in widths[:2]]
+    return dense, planes, mask, params, folds
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,m,cd,cp,widths", [
+    (2, 12, 0, 4, (8, 8, 16)),  # small widths: zero-padded to 64
+    (2, 12, 4, 3, (8, 8, 16)),
+    (2, 300, 0, 4, (64, 64, 128)),  # SA1's production widths
+    (2, 128, 128, 3, (128, 128, 256)),  # SA2's
+], ids=["small-planes", "small-both", "sa1", "sa2"])
+def test_fused_sa_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
+    """Each pass against the plain version: statistics and output within
+    1e-5 (f32) or 1e-2 (bf16) of max|y|, the argmax wherever the winner leads
+    by more, 0 and -1 for the centroid without a valid slot, and a second
+    launch bit-identical."""
+    dense, planes, mask, params, folds = _fused_sa_case(dev, b, m, cd, cp, widths, bf16)
+    tol = 1e-2 if bf16 else 1e-5
+    for stage in (1, 2, 3):
+        args = (stage, dense, planes, mask, params, folds)
+        got = sa_train_kernel.fused_sa_stage(*args, bf16=bf16)
+        again = sa_train_kernel.fused_sa_stage(*args, bf16=bf16)
+        want = sa_train_kernel.fused_sa_stage_plain(*args, bf16=bf16)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        scale = float(want[0].abs().max())
+        assert float((got[0] - want[0]).abs().max()) <= tol * scale
+        if stage < 3:
+            assert float((got[1] - want[1]).abs().max()) <= tol * float(want[1].abs().max())
+            continue
+        out, am = got
+        assert bool((out[0, 3] == 0).all()) and bool((am[0, 3] == -1).all())
+        h3 = sa_train_kernel.hidden_plain(3, *args[1:], bf16=bf16).view(b, m, 64, -1)
+        top2 = torch.where(mask[..., None], h3, float("-inf")).topk(2, dim=2).values
+        lead = (top2[:, :, 0] - top2[:, :, 1]) > tol * scale
+        assert torch.equal(am[lead], want[1][lead])
+
+
+def test_fused_sa_model_launches_kernel_6(dev):
+    """The fused_sa model's eval forward runs F3 at both SA layers, its
+    train-mode forward F1, F2 and F3; its training step raises."""
+    rng = np.random.default_rng(4)
+    pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(2)]
+    feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(2)]
+    y = rng.normal(size=(2, 4)).astype(np.float32)
+    batch = CloudBatch.from_numpy(pos, feat, y, device=dev)
+    model = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True, fused_sa=True,
+                               compute_dtype=torch.bfloat16).to(dev)
+    common = {"dlbt_fps": 2, "dlbt_ball_group": 1, "dlbt_ball_query": 1, "dlbt_gather_aux": 1}
+    _build.launch_counts.clear()
+    with torch.inference_mode():
+        out = model(batch)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 4) and bool(torch.isfinite(out).all())
+    assert dict(_build.launch_counts) == dict(common, dlbt_fused_sa_f3=2)
+    _build.launch_counts.clear()
+    with torch.no_grad():
+        out = model(batch, train=True, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert dict(_build.launch_counts) == dict(common, dlbt_fused_sa_f1=2, dlbt_fused_sa_f2=2,
+                                              dlbt_fused_sa_f3=2)
+    with pytest.raises(NotImplementedError):
+        Trainer(model, TrainConfig()).step(batch, torch.Generator(device=dev).manual_seed(0))

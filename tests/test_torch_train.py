@@ -4,6 +4,9 @@ fit with its CSV, save-on-best checkpoints and resume) and its device rule;
 and SA2's branch beyond 4096 SA1 centroids against the JAX package."""
 
 import json
+import subprocess
+import sys
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -28,6 +31,7 @@ from dl_biomass_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
+ROOT = Path(__file__).resolve().parent.parent
 N = 384
 
 
@@ -102,6 +106,22 @@ def test_loss_falls_over_steps_on_a_fixed_batch():
     g = gen(0)
     losses = [float(trainer.step(batch, g)) for _ in range(11)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_a_step_after_an_evaluation_in_a_fresh_process():
+    """The loss caches its component weights per device; a first call from
+    an evaluation (inference mode) must not leave a tensor that a training
+    step cannot save for its backward."""
+    code = ("import torch\n"
+            "from dl_biomass_tpu_torch.train import loss\n"
+            "with torch.inference_mode():\n"
+            "    loss.weighted_component_mse(torch.zeros(2, 4), torch.ones(2, 4))\n"
+            "p = torch.zeros(2, 4, requires_grad=True)\n"
+            "loss.weighted_component_mse(p, torch.ones(2, 4)).backward()\n"
+            "assert float(p.grad.abs().sum()) > 0\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_evaluate_and_predict_drop_pad_clouds():
