@@ -57,14 +57,29 @@ Phases, each of which raises on failure (exit code 1):
              in bf16, 1e-5 in f32), the argmax equal wherever the winner leads
              by more, zero rows identical, two launches bit-identical; timed
              beside their bounds, plain versions and the unfused layer (``MLP``
-             + ``masked_max``) in train and eval mode.
-11. eval_fused_sa and train_forward_fused_sa — ``Trainer.evaluate`` and
-             ``predict`` on the ``fused_sa`` model at 16 and 36 x 10240, held
-             against the plain-version forward and the unfused model of the same
-             weights, ms per batch beside the unfused model's; its train-mode
-             forward at 16 x 10240 under ``torch.no_grad()`` against the plain
-             version (output and moved running statistics); ``Trainer.step``
-             raising ``NotImplementedError`` with the parameters unmoved.
+             + ``masked_max``) in train and eval mode. Then its three backward
+             passes (B1, B2, B3) at the inputs one training step of that model
+             gives them, SA1 and SA2, bf16, and f32 with ELU (no branch to
+             flip): the weight and bias gradients and the four sums within 1e-2
+             (bf16) or 1e-5 (f32) of the pass's largest, d(dense) of its own
+             max|.|, from the plain backward, d(dense) rows 0
+             where a centroid has no valid slot, two launches bit-identical;
+             timed beside their bounds, plain versions and the autograd
+             backward of the unfused layer.
+11. eval_fused_sa, train_forward_fused_sa and train_fused_sa —
+             ``Trainer.evaluate`` and ``predict`` on the ``fused_sa`` model at
+             16 and 36 x 10240, held against the plain-version forward and the
+             unfused model of the same weights, ms per batch beside the
+             unfused model's; its train-mode forward at 16 x 10240 under
+             ``torch.no_grad()`` against the plain version (output and moved
+             running statistics); then ``Trainer.step``, 12 steps on each fixed
+             batch of 16 and 36 x 10240 with the checks of phase 7, ms/step,
+             clouds/s and peak memory beside the unfused model's steps on the
+             same batches, one step on the kernels against one on the plain
+             versions from one state and seed (float32 with ELU: loss 1e-5
+             relative, gradients 1e-2 in relative L2 norm and 2e-3 of the
+             largest |g|; bf16: loss 1e-2, gradients 0.35 in relative L2 norm)
+             and a profile of a 16 x 10240 step.
 12. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -111,7 +126,7 @@ N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO = 10240, 16, 36, 5, 7000
 SHORT_POINTS, FAULT_BATCHES = 7168, (24, 28)
 ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlbt_gather_aux",
            "dlbt_sa1_fused_eval", "dlbt_scatter_rows", "dlbt_fused_sa_f1", "dlbt_fused_sa_f2",
-           "dlbt_fused_sa_f3")
+           "dlbt_fused_sa_f3", "dlbt_fused_sa_b1", "dlbt_fused_sa_b2", "dlbt_fused_sa_b3")
 
 
 def per_run(**launches):
@@ -136,6 +151,11 @@ EXPECTED = {
     "train_forward_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                                       dlbt_gather_aux=1, dlbt_fused_sa_f1=2,
                                       dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2),
+    # and its step: B1-B3 at both layers, kernel 4b for SA2's d(dense)
+    "train_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
+                              dlbt_gather_aux=1, dlbt_scatter_rows=1, dlbt_fused_sa_f1=2,
+                              dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2, dlbt_fused_sa_b1=2,
+                              dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2),
 }
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
@@ -169,6 +189,16 @@ FUSED_VS_UNFUSED_RTOL = 5e-2
 # which are held at BF16_SERVE_RTOL)
 FUSED_TRAIN_FORWARD_RTOL = 5e-2
 FUSED_SA_REPS = 10
+# a fused_sa step on the kernels vs on the plain versions, from one state and
+# seed, by dtype: the loss (relative), each gradient in relative L2 norm and by
+# max|diff| over the step's largest |g|, and the biases whose true gradient is
+# 0 by the latter. Kernel 6 sums in another order than its plain version, so a
+# max near a tie takes another slot and moves one centroid's share of a
+# gradient whole (float32 with ELU on an H100: 9.1e-4 of the largest |g|,
+# relative L2 2.2e-3); in bf16 a ReLU flip does too, so bf16 takes the
+# cross-package bound of tests/test_torch_step.py.
+FUSED_STEP_RTOL = {False: dict(loss=1e-5, grad_l2=1e-2, grad_top=2e-3, zero=1e-3),
+                   True: dict(loss=1e-2, grad_l2=0.35, grad_top=None, zero=2e-2)}
 
 
 class PhaseError(RuntimeError):
@@ -238,11 +268,13 @@ def synthetic_batch(num: int, n_points: int, seed: int, device, sizes=None):
     return CloudBatch.from_numpy(pos, feat, y, capacity=n_points, device=device)
 
 
-def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa: bool = False):
+def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa: bool = False,
+                 compute_dtype: str = "bfloat16", activation: str = "ReLU"):
     """The production model with weights from a seeded ``torch.Generator``:
     torch-default Linear ranges and BatchNorm affine + running statistics away
-    from identity, so that folding does real work. ``split_first_layer`` and
-    ``fused_sa`` change the path, not the weights."""
+    from identity, so that folding does real work. ``split_first_layer``,
+    ``fused_sa``, ``compute_dtype`` and ``activation`` change the path, not
+    the weights."""
     import dataclasses
 
     from dl_biomass_tpu_torch.core.config import TrainConfig
@@ -251,7 +283,9 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa
 
     cfg = TrainConfig()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, split_first_layer=split_first_layer, fused_sa=fused_sa))
+        cfg.model, split_first_layer=split_first_layer, fused_sa=fused_sa,
+        compute_dtype=compute_dtype), hp=dataclasses.replace(cfg.hp,
+                                                             activation_function=activation))
     model = build_model(cfg, num_features=1)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -281,7 +315,8 @@ def kernel_sites():
             (gather_kernel, "gather_rows_aux", "gather_rows_aux_plain"),
             (sa_eval_kernel, "sa1_fused_eval", "sa1_fused_eval_plain"),
             (gather_kernel, "scatter_rows", "scatter_rows_plain"),
-            (sa_train_kernel, "fused_sa_stage", "fused_sa_stage_plain")]
+            (sa_train_kernel, "fused_sa_stage", "fused_sa_stage_plain"),
+            (sa_train_kernel, "fused_sa_bwd_stage", "fused_sa_bwd_stage_plain")]
 
 
 def record_kernel_inputs(serve, batch):
@@ -699,7 +734,7 @@ def main() -> int:
 
 
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
-         "train_forward_fused_sa")
+         "train_forward_fused_sa", "train_fused_sa")
 
 
 def drive(device, card: str) -> list:
@@ -907,11 +942,13 @@ def train_timing(trainer, batch, generator, name: str, card: str, expected: dict
           f"{b / ms * 1e3:.1f} clouds/s, peak {peak:.2f} GiB, loss {float(losses[0]):.4f} -> "
           f"{float(losses[TRAIN_TIMED]):.4f} after {TRAIN_TIMED} steps; launches per step "
           f"{per_step} [{card}]", flush=True)
+    return ms, peak
 
 
-def compare_plain_step(trainer, batch, seed: int) -> None:
+def kernel_and_plain_steps(trainer, batch, seed: int, restore: bool = False):
     """One step on the kernels and one on their plain versions, from one state
-    and one generator seed: the same loss and gradients."""
+    and one generator seed: (loss, gradients) of each; ``restore`` puts the
+    state back after them."""
     device = batch.pos.device
     model_state = copy.deepcopy(trainer.model.state_dict())
     opt_state = copy.deepcopy(trainer.optimizer.state_dict())
@@ -920,14 +957,24 @@ def compare_plain_step(trainer, batch, seed: int) -> None:
         loss = trainer.step(batch, torch.Generator(device=device).manual_seed(seed))
         return loss, {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
 
-    loss_k, grads_k = one_step()
+    kernel = one_step()
     trainer.model.load_state_dict(model_state)
     trainer.optimizer.load_state_dict(opt_state)
     with ExitStack() as stack:
         for p in plain_versions():
             stack.enter_context(p)
-        loss_p, grads_p = one_step()
+        plain = one_step()
+    if restore:
+        trainer.model.load_state_dict(model_state)
+        trainer.optimizer.load_state_dict(opt_state)
     torch.cuda.synchronize()
+    return kernel, plain
+
+
+def compare_plain_step(trainer, batch, seed: int) -> None:
+    """One step on the kernels and one on their plain versions, from one state
+    and one generator seed: the same loss and gradients."""
+    (loss_k, grads_k), (loss_p, grads_p) = kernel_and_plain_steps(trainer, batch, seed)
     identical = bool(torch.equal(loss_k, loss_p)) and all(
         torch.equal(grads_k[k], grads_p[k]) for k in grads_k)
     rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_k))
@@ -1174,6 +1221,159 @@ def check_fused_sa(device, card: str) -> list:
         if stage == 3:
             row["yardstick_eval_ms"] = sum(y["eval"] for y in yard)
         rows.append(row)
+    return rows + check_fused_sa_bwd(device, card)
+
+
+# kernel 6's backward passes: (row name, the Pallas kernel it replaces)
+FUSED_SA_BWD_STAGES = {1: ("fused_sa_b1", "dl_biomass_tpu/ops/pallas_sa_train.py:331"),
+                       2: ("fused_sa_b2", "dl_biomass_tpu/ops/pallas_sa_train.py:365"),
+                       3: ("fused_sa_b3", "dl_biomass_tpu/ops/pallas_sa_train.py:404")}
+
+
+def fused_sa_bwd_flops(stage: int, cd: int, params: dict, edges: int, centroids: int) -> int:
+    """flop of backward pass ``stage`` that this run's data needs: the
+    recompute of h1 and h2 and the layer products over the valid edges, and
+    the routed products (one row per column) over the centroids with a valid
+    slot."""
+    (k0, c1), (_, c2), (_, c3) = (params[f"w{i}"].shape for i in (1, 2, 3))
+    per_edge = 2 * (k0 * c1 + c1 * c2) + {1: 0, 2: 4 * c1 * c2,
+                                          3: 2 * c1 * c2 + 2 * k0 * c1 + 2 * cd * c1}[stage]
+    per_centroid = 2 * c2 * c3 * (2 if stage == 1 else 1)
+    return edges * per_edge + centroids * per_centroid
+
+
+def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
+    """One backward pass at recorded inputs: kernel vs plain (the weight and
+    bias gradients and the sums within the bound of the largest of them:
+    some, such as SA1's db3, are 0 but for rounding, since a BatchNorm
+    follows; d(dense) within the bound of its own max|.|; zero d(dense) rows
+    where a centroid has no valid slot), two launches bit-identical,
+    timings, bound."""
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+
+    args, kwargs = call
+    stage, dense, planes, nbr_mask, params = args[:5]
+    if not bf16 and dense is not None:
+        dense = dense.float()
+    args = (stage, dense, planes, nbr_mask) + tuple(args[4:])
+    # float32 runs with ELU, whose derivative is continuous: at a million rows
+    # some ReLU inputs lie within rounding of 0, and the kernel's and the plain
+    # version's sums of h2 put them on other sides, moving whole elements
+    kwargs = dict(kwargs, bf16=bf16, **({} if bf16 else {"act": "ELU"}))
+    got = k6.fused_sa_bwd_stage(*args, **kwargs)
+    again = k6.fused_sa_bwd_stage(*args, **kwargs)
+    want = k6.fused_sa_bwd_stage_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    require(all(a is None or same_bits(a, b) for a, b in zip(got, again)),
+            f"kernel 6 B{stage} {label}: two launches differ in bits")
+    tol = FUSED_SA_RTOL[bf16]
+    sums = list(zip(got, want))[:2] if stage == 3 else list(zip(got, want))
+    scale = max(float(b.abs().max()) for _, b in sums)
+    rels = [max_abs_err(a, b) / scale for a, b in sums]
+    if stage == 3 and want[2] is not None:
+        rels.append(rel_diff(got[2], want[2]))
+    err = max(max_abs_err(a, b) for a, b in zip(got, want) if b is not None)
+    require(max(rels) <= tol, f"kernel 6 B{stage} {label}: outputs vs plain rel {rels} > {tol}")
+    empty = ~nbr_mask.any(-1)
+    cd = 0 if dense is None else dense.shape[-1]
+    if stage == 3 and cd:
+        require(bool((got[2][empty] == 0).all()) and bool((want[2][empty] == 0).all()),
+                f"kernel 6 B3 {label}: d(dense) rows of centroids without a valid slot are not 0")
+    t = time_ms(lambda: k6.fused_sa_bwd_stage(*args, **kwargs), reps=FUSED_SA_REPS, warmup=2)
+    tp = time_ms(lambda: k6.fused_sa_bwd_stage_plain(*args, **kwargs), reps=3, warmup=1)
+    b, m, _ = nbr_mask.shape
+    edges, centroids = int(nbr_mask.sum()), int((~empty).sum())
+    flops = fused_sa_bwd_flops(stage, cd, params, edges, centroids)
+    c3 = params["w3"].shape[1]
+    nbytes = (nbr_mask.numel() + sum(x.numel() * x.element_size() for x in (dense, planes)
+                                     if x is not None)
+              + sum(v.numel() * 4 for v in params.values()) + b * m * c3 * 8
+              + sum(x.numel() * x.element_size() for x in got if x is not None))
+    peak = PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    floor = flops / PEAK_F32_FLOP_PER_S * 1e3
+    print(f"kernel fused_sa B{stage} {label} (B={b} M={m} CD={cd} "
+          f"CP={0 if planes is None else planes.shape[-1]} widths "
+          f"{','.join(str(params[f'w{i}'].shape[1]) for i in (1, 2, 3))}): {t:.4f} ms (median of "
+          f"{FUSED_SA_REPS}), plain {tp:.4f} ms, bound {bms:.6f} ms ({by}: {flops} flop for "
+          f"{edges} valid edges and {centroids} centroids at {peak / 1e12:.0f} TFLOP/s, {nbytes} "
+          f"bytes), CUDA-core f32 floor {floor:.4f} ms ({floor / t:.1%} reached); vs plain "
+          f"max|diff| per output over the pass's largest gradient or sum (d(dense): its own "
+          f"max) {', '.join(f'{r:.3e}' for r in rels)} (bound {tol}); two launches "
+          f"bit-identical", flush=True)
+    ctx.setdefault(stage, []).append(dict(bf16=bf16, ms=t, plain_ms=tp, bound_ms=bms,
+                                          bound_by=by, err=err, label=label))
+    return t
+
+
+def unfused_backward_ms(mlp, call, bf16: bool) -> float:
+    """The yardstick: the autograd backward of the unfused ``MLP`` and
+    ``masked_max`` of the same layer in train mode, on the same edges (the
+    dense block's gradient where it has one) under the same cotangent."""
+    from dl_biomass_tpu_torch.models.layers import MLP
+    from dl_biomass_tpu_torch.ops.pooling import masked_max
+
+    (_, dense, planes, nbr_mask, _, _, _, _, g, _), _ = call
+    ct = torch.bfloat16 if bf16 else torch.float32
+    x = None if dense is None else dense.detach().to(ct).requires_grad_()
+    parts = ([] if x is None else [x]) + ([] if planes is None else [planes.to(ct)])
+    mlp = copy.deepcopy(mlp)
+    for lin in mlp.linears():
+        lin.compute_dtype = ct
+    edges = torch.where(nbr_mask[..., None], torch.cat(parts, dim=-1),
+                        torch.zeros((), dtype=ct, device=nbr_mask.device))
+    with torch.enable_grad():
+        out = masked_max(MLP.forward(mlp, edges, nbr_mask, True), nbr_mask, dim=2)
+        wrt = list(mlp.parameters()) + ([] if x is None else [x])
+
+        def run():
+            return torch.autograd.grad(out, wrt, g.to(out.dtype), retain_graph=True)
+
+        return time_ms(run, reps=FUSED_SA_REPS, warmup=2)
+
+
+def check_fused_sa_bwd(device, card: str) -> list:
+    """Phase 10, backward: B1-B3 at the inputs of one training step of the
+    fused_sa model (B=16 x 10240), SA1 and SA2, bf16 and f32, against the
+    plain backward, timed beside the unfused layer's autograd backward;
+    returns the three passes' rows."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(seeded_model(device, fused_sa=True), TrainConfig(), device)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
+    calls = record_kernel_inputs(lambda b: trainer.step(b, train_gen(device, 0)),
+                                 batch)["fused_sa_bwd_stage"]
+    # autograd runs SA2's backward first
+    require([(c[0][0], c[0][1] is None) for c in calls]
+            == [(1, False), (2, False), (3, False), (1, True), (2, True), (3, True)],
+            f"a fused_sa step ran backward passes {[c[0][0] for c in calls]}")
+    ctx = {}
+    mlps = {"SA1": trainer.model.sa1.mlp, "SA2": trainer.model.sa2.mlp}
+    for layer, at in (("SA1", 3), ("SA2", 0)):
+        for bf16 in (True, False):
+            dt = "bf16" if bf16 else "f32 (ELU)"
+            with torch.no_grad():
+                ms = sum(check_fused_sa_bwd_call(f"{layer} {dt}", call, bf16, ctx)
+                         for call in calls[at:at + 3])
+            yard = unfused_backward_ms(mlps[layer], calls[at], bf16)
+            ctx.setdefault("yardstick", []).append(dict(bf16=bf16, ms=yard))
+            print(f"kernel fused_sa {layer} {dt}: B1+B2+B3 {ms:.4f} ms against the unfused "
+                  f"layer's autograd backward (MLP + masked_max, train mode) {yard:.4f} ms "
+                  f"[{card}]", flush=True)
+    del calls, trainer
+    rows = []
+    yard = sum(y["ms"] for y in ctx["yardstick"] if y["bf16"])
+    for stage, (name, replaces) in FUSED_SA_BWD_STAGES.items():
+        runs = [r for r in ctx[stage] if r["bf16"]]
+        rows.append(dict(name=name, source="dl_biomass_tpu_torch/csrc/fused_sa_bwd.cu",
+                         replaces=replaces, entry=f"dlbt_{name}",
+                         max_abs_err=max(r["err"] for r in ctx[stage]),
+                         ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
+                         bound_ms=sum(r["bound_ms"] for r in runs),
+                         bound_by=max(runs, key=lambda r: r["bound_ms"])["bound_by"],
+                         library_ms=None, yardstick_backward_ms=yard))
     return rows
 
 
@@ -1258,15 +1458,6 @@ def fused_sa_paths(device, card: str, launches: dict) -> None:
     require(rel_out <= FUSED_TRAIN_FORWARD_RTOL and max(rel_stats.values()) <= FUSED_TRAIN_FORWARD_RTOL,
             f"train_forward_fused_sa vs plain: output rel {rel_out}, statistics "
             f"{max(rel_stats.values())} > {FUSED_TRAIN_FORWARD_RTOL}")
-    before = {k: v.clone() for k, v in model.state_dict().items()}
-    try:
-        fused.step(batch, train_gen(device, 4))
-    except NotImplementedError as e:
-        refused = str(e)
-    else:
-        raise PhaseError("Trainer.step on a fused_sa model did not raise NotImplementedError")
-    require(all(torch.equal(v, before[k]) for k, v in model.state_dict().items()),
-            "Trainer.step on a fused_sa model moved its state before raising")
     tf = serve_timing(lambda x: forward(), batch)
     model.load_state_dict(state)
     tu = serve_timing(lambda x: forward(unfused.model), batch)
@@ -1274,9 +1465,91 @@ def fused_sa_paths(device, card: str, launches: dict) -> None:
           f"moved; vs plain versions: output max|diff|/max|y| {rel_out:.3e}, SA1/SA2 statistics "
           f"{rel_fused:.3e}, all statistics {max(rel_stats.values()):.3e} (bounds "
           f"{BF16_SERVE_RTOL}, {FUSED_TRAIN_FORWARD_RTOL}); train-mode forward (no gradient) "
-          f"{tf:.3f} ms against the unfused model's {tu:.3f} ms in the same turn; Trainer.step "
-          f"raises NotImplementedError ({refused[:60]}...) with the state unmoved [{card}]",
+          f"{tf:.3f} ms against the unfused model's {tu:.3f} ms in the same turn [{card}]",
           flush=True)
+    train_fused_sa(device, card, launches, fused, unfused, reqs)
+
+
+def zero_gradient(name: str) -> bool:
+    """Biases whose true gradient is 0: each hidden layer's (a BatchNorm
+    follows), each SA MLP's last layer's (the max passes a shift on to the
+    next BatchNorm) and the head's first BatchNorm's."""
+    parts = name.split(".")
+    if name == "head.bn0.bias":
+        return True
+    return (len(parts) >= 2 and parts[-1] == "bias" and parts[-2].startswith("lin")
+            and (parts[0] != "head" or int(parts[-2][3:]) < 2))
+
+
+def compare_fused_plain_step(trainer, batch, seed: int, bf16: bool) -> str:
+    """One fused_sa step on the kernels and one on their plain versions, from
+    one state and generator seed, within FUSED_STEP_RTOL; the state is put
+    back."""
+    (loss_k, grads_k), (loss_p, grads_p) = kernel_and_plain_steps(trainer, batch, seed,
+                                                                  restore=True)
+    grads_k = {k: g.double() for k, g in grads_k.items()}
+    grads_p = {k: g.double() for k, g in grads_p.items()}
+    bnd = FUSED_STEP_RTOL[bf16]
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    zero = max((float((grads_k[k] - grads_p[k]).abs().max()) / top
+                for k in grads_p if zero_gradient(k)), default=0.0)
+    l2 = {k: float((grads_k[k] - grads_p[k]).norm() / max(float(grads_p[k].norm()), 1e-30))
+          for k in grads_p if not zero_gradient(k)}
+    by_top = {k: float((grads_k[k] - grads_p[k]).abs().max()) / top for k in grads_p}
+    worst, worst_top = max(l2, key=l2.get), max(by_top, key=by_top.get)
+    dt = "bf16" if bf16 else "f32"
+    require(rel_loss <= bnd["loss"] and l2[worst] <= bnd["grad_l2"] and zero <= bnd["zero"]
+            and (bnd["grad_top"] is None or by_top[worst_top] <= bnd["grad_top"]),
+            f"fused_sa {dt} step, kernels vs plain: loss rel {rel_loss}, gradient {worst} rel L2 "
+            f"{l2[worst]}, {worst_top} max|diff| {by_top[worst_top]} of the largest |g|, "
+            f"zero-gradient biases {zero}")
+    return (f"{dt}: loss rel {rel_loss:.3e} (bound {bnd['loss']}), gradients rel L2 at most "
+            f"{l2[worst]:.3e} ({worst}; median {statistics.median(l2.values()):.3e}; bound "
+            f"{bnd['grad_l2']}), zero-gradient biases {zero:.3e} of the largest |g| (bound "
+            f"{bnd['zero']}); max|diff| over the largest |g| at most {by_top[worst_top]:.3e} "
+            f"({worst_top}; median {statistics.median(by_top.values()):.3e}; bound "
+            f"{bnd['grad_top']})")
+
+
+def train_fused_sa(device, card: str, launches: dict, fused, unfused, reqs) -> None:
+    """Phase 11, training: the fused_sa model's Trainer.step, 12 steps on each
+    fixed batch of 16 and 36 x 10240 (every launch counted), then the
+    unfused model's steps on the same batches, a kernel-vs-plain step in
+    float32 and in bf16, and a profile of one 16 x 10240 step."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    state = copy.deepcopy(fused.model.state_dict())
+
+    def steps():
+        return [train_timing(fused, r, train_gen(device, 200 + i),
+                             f"fused_sa B={r.pos.shape[0]} x {N_POINTS}", card,
+                             EXPECTED["train_fused_sa"]) for i, r in enumerate(reqs)]
+
+    timed = counted_run("train_fused_sa", steps, launches,
+                        (TRAIN_WARMUP + TRAIN_TIMED) * len(reqs))
+    print(f"train_fused_sa launches over {(TRAIN_WARMUP + TRAIN_TIMED) * len(reqs)} steps: "
+          f"{launches['train_fused_sa']}", flush=True)
+    for i, (r, (ms, peak)) in enumerate(zip(reqs, timed)):
+        b = r.pos.shape[0]
+        ms_u, peak_u = train_timing(unfused, r, train_gen(device, 200 + i),
+                                    f"unfused B={b} x {N_POINTS}", card, EXPECTED["train"])
+        print(f"train_fused_sa B={b} x {N_POINTS}: {ms:.3f} ms/step, {b / ms * 1e3:.1f} clouds/s, "
+              f"peak {peak:.2f} GiB; the unfused model's step on the same batch {ms_u:.3f} "
+              f"ms/step, {b / ms_u * 1e3:.1f} clouds/s, peak {peak_u:.2f} GiB [{card}]",
+              flush=True)
+    fused.model.load_state_dict(state)
+    # float32 with ELU, as tests/test_torch_step.py: no ReLU branch to flip
+    f32 = Trainer(seeded_model(device, fused_sa=True, compute_dtype="float32", activation="ELU"),
+                  TrainConfig(), device)
+    notes = [compare_fused_plain_step(f32, reqs[0], 7, bf16=False),
+             compare_fused_plain_step(fused, reqs[0], 7, bf16=True)]
+    del f32
+    print(f"train_fused_sa step on the kernels vs on the plain versions (B={SMALL} x {N_POINTS}, "
+          f"one state and seed): {'; '.join(notes)}", flush=True)
+    print_profile(f"train_fused_sa step B={SMALL}", lambda: fused.step(reqs[0], train_gen(device, 9)),
+                  calls=2, n_kernels=14, n_ops=16)
 
 
 if __name__ == "__main__":

@@ -51,10 +51,10 @@ class ModelConfig:
     # predictions stay float32
     compute_dtype: str = "bfloat16"  # float32 | bfloat16
     use_pallas: str = "auto"  # JAX package only: the port always runs its kernels
-    remat: bool = False  # rematerialize edge MLPs in backward (training)
+    remat: bool = False  # rematerialize edge MLPs in backward (not ported yet)
     fast_group: bool = True  # stratified SA1 grouping (ops/ball_group_kernel.py)
     fast_fps: bool = True  # sectored multi-start FPS (ops/fps.py fps_sectored)
-    fused_sa: bool = False  # fused SA MLP+BN+max (kernel 6; its backward is not ported yet)
+    fused_sa: bool = False  # fused SA MLP+BN+max (kernel 6, forward and backward)
     exact_selection: bool = False  # exact first-K ball query everywhere
     # (torch_cluster semantics); normally set via apply_parity()
     split_first_layer: bool = True  # per-POINT first MLP layer on SA2: layer 0

@@ -238,8 +238,8 @@ class FusedSAMLP(MLP):
     the compute type) or None, planes (B, M, 64, CP) float32 or None, W1's rows
     ``[dense..., planes...]`` -> pooled (B, M, C3) float32. Train mode uses the
     batch statistics and updates the running ones (torch EMA); eval mode uses
-    the running ones. Its backward is not ported yet: a forward that autograd
-    would differentiate raises ``NotImplementedError``."""
+    the running ones. Differentiable in dense and every parameter through
+    kernel 6's backward (B1-B3); the planes get no gradient."""
 
     def __init__(self, channels: Sequence[int], act: Optional[str] = "ReLU",
                  compute_dtype: torch.dtype = torch.float32):

@@ -243,10 +243,11 @@ def model_to_dict(model: PointNet2Regressor) -> dict:
 def build_model(cfg, num_features: int) -> PointNet2Regressor:
     """The regressor from a ``TrainConfig`` (hp + model sections)."""
     hp, mc = cfg.hp, cfg.model
-    unported = [name for name in ("msg", "analytic_bn") if getattr(mc, name)]
+    unported = [name for name in ("msg", "analytic_bn", "remat") if getattr(mc, name)]
     if mc.family != "pointnet2" or unported:
         raise NotImplementedError(
-            f"not ported yet (ROADMAP A.9): family={mc.family!r}, options {unported}")
+            f"not ported yet (ROADMAP A.10, model variants): family={mc.family!r}, options "
+            f"{unported}")
     return PointNet2Regressor(
         num_features=num_features,
         activation_function=hp.activation_function,

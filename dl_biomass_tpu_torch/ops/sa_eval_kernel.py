@@ -48,8 +48,9 @@ def _layers(folded_weights: Sequence[torch.Tensor], f: int):
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (R, Cin) @ w (Cin, Cout) of one dtype with a float32 product (the
-    models' ``dot_f32`` numerics; ``ops`` does not import ``models``)."""
-    if x.dtype == torch.float32:
+    models' ``dot_f32`` numerics; ``ops`` does not import ``models``); float64
+    operands keep a float64 product."""
+    if x.dtype in (torch.float32, torch.float64):
         return x @ w
     if x.is_cuda:
         return torch.mm(x, w, out_dtype=torch.float32)

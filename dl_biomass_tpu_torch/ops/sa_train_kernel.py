@@ -1,5 +1,5 @@
-"""Kernel 6's forward: the fused SA-layer MLP and masked max (port of the
-forward passes of ``dl_biomass_tpu/ops/pallas_sa_train.py`` fused_sa_mlp).
+"""Kernel 6: the fused SA-layer MLP and masked max, forward and backward (port
+of ``dl_biomass_tpu/ops/pallas_sa_train.py`` fused_sa_mlp).
 
 An SA layer's edge MLP ``[C0, C1, C2, C3]`` (Linear, BatchNorm, act, twice,
 then Linear) and its masked max over the 64 neighbour slots, computed by
@@ -10,27 +10,44 @@ three recomputing passes that keep every hidden value on chip:
   F3: recompute to h3 = a2 W3 + b3; masked max over the slots and first argmax
 
 with the batch statistics (train) or the running ones (eval) folded into
-(sc, sh) between the passes. The numerics are the JAX function's: one-pass
-statistics ``mean = s / cnt``, ``var = max(ss / cnt - mean^2, 0)`` with
-``cnt = max(sum(nbr_mask), 1)``, eps 1e-5; in bf16 mode each product takes
-bf16-rounded operands with float32 accumulation while h1, a1, h2 and a2 stay
-float32 (unlike the unfused ``MLP``, which rounds every layer's output); in
-float32 mode plain float32 products. The output is float32, 0 (argmax -1)
-where a centroid has no valid slot.
+(sc, sh) between the passes. Its backward recomputes the same chain three
+times more, with the cotangent of the pooled output routed to F3's argmax
+slot (a centroid with argmax -1 gets nothing):
 
-``fused_sa_stage`` is one pass: it launches ``csrc/fused_sa_fwd.cu`` (entries
-``dlbt_fused_sa_f1``, ``_f2``, ``_f3``) on a CUDA tensor and runs
-``fused_sa_stage_plain`` on a CPU tensor. ``fused_sa_mlp`` chains the passes as
-the JAX function does; ``fused_sa_mlp_plain`` chains the plain passes. The
-kernel sums in its own order (float32 FMAs per row, float64 across rows), so
-it agrees with the plain version to float32 rounding of the sums (bf16: an
-activation near a rounding boundary may round one step the other way).
+  B1: dW3, db3, and the sums of db2n = da2 act'(z2) and of db2n xhat2
+  B2: dh2 = sc2 (db2n - t2a - xhat2 t2b); dW2, db2, the same sums of layer 1
+  B3: dh1 likewise; dW1 over the [dense..., planes...] rows, db1, d(dense)
 
-The planes arrive as one (B, M, 64, CP) float32 tensor (kernel 2's edges at
-SA1, the centroid-relative positions at SA2) where the JAX package passes CP
-(B, M, 64) planes, a TPU layout. The backward passes (B1-B3) are not ported
-yet: a call that autograd would have to differentiate raises
-``NotImplementedError`` on every device.
+with ``t2a = sum(db2n) / cnt`` and ``t2b = sum(db2n xhat2) / cnt`` between
+the passes (0 in eval mode: the running statistics are constants),
+dgamma = sum(db xhat) and dbeta = sum(db). The numerics are the JAX
+function's: one-pass statistics ``mean = s / cnt``, ``var = max(ss / cnt -
+mean^2, 0)`` with ``cnt = max(sum(nbr_mask), 1)``, eps 1e-5; in bf16 mode
+each product takes bf16-rounded operands with float32 accumulation (the
+weights, the edge rows, a1, a2, the routed cotangent, dh2 and dh1) while the
+hidden values, the column sums and the statistics stay float32; in float32
+mode plain float32 products; float64 inputs (``dense`` or ``planes``) compute
+in float64 throughout, on the CPU only, with the parameters promoted as the
+JAX function promotes them (the pooled output then stays float64, where the
+JAX function casts it to float32). The output is 0 (argmax -1) where a
+centroid has no valid slot.
+
+``fused_sa_stage`` (one forward pass) and ``fused_sa_bwd_stage`` (one
+backward pass) launch ``csrc/fused_sa_fwd.cu`` (entries ``dlbt_fused_sa_f1``,
+``_f2``, ``_f3``) and ``csrc/fused_sa_bwd.cu`` (``dlbt_fused_sa_b1``, ``_b2``,
+``_b3``) on a CUDA tensor and run ``fused_sa_stage_plain`` and
+``fused_sa_bwd_stage_plain`` on a CPU tensor. ``fused_sa_mlp`` chains them as
+the JAX function does, inside a ``torch.autograd.Function``;
+``fused_sa_mlp_plain`` chains the plain passes the same way. The kernels sum
+in their own order (float32 FMAs per row, float32 per block, float64 across
+blocks), so they agree with the plain versions to float32 rounding of the
+sums (bf16: a value near a rounding boundary may round one step the other
+way).
+
+The planes arrive as one (B, M, 64, CP) tensor (kernel 2's edges at SA1, the
+centroid-relative positions at SA2) where the JAX package passes CP (B, M, 64)
+planes, a TPU layout. ``dense`` gets its gradient in its own dtype; the
+planes, the mask and the returned statistics get none.
 """
 
 from __future__ import annotations
@@ -47,14 +64,14 @@ from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
 
 K = 64  # neighbour slots
 EPS = 1e-5
-WIDTH_STEP = 64  # the kernel's layer widths are multiples of 64 (zero-padded)
-MAX_GRID = 1024  # blocks of the kernel at most: the rows of F1's and F2's scratch
+WIDTH_STEP = 64  # the kernels' layer widths are multiples of 64 (zero-padded)
+MAX_GRID = 1024  # blocks of a kernel at most: the rows of its per-block scratch
 ACTS = {None: 0, "None": 0, "ReLU": 1, "LeakyReLU": 2, "ELU": 3}
 ENTRIES = {1: "dlbt_fused_sa_f1", 2: "dlbt_fused_sa_f2", 3: "dlbt_fused_sa_f3"}
+BWD_ENTRIES = {1: "dlbt_fused_sa_b1", 2: "dlbt_fused_sa_b2", 3: "dlbt_fused_sa_b3"}
+PARAMS = ("w1", "b1", "gamma1", "beta1", "w2", "b2", "gamma2", "beta2", "w3", "b3")
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-BACKWARD_MISSING = ("the backward of the fused SA MLP (kernel 6's B1-B3) is not ported yet "
-                    "(ROADMAP A, Next item 1b): run a fused_sa model under torch.no_grad() or "
-                    "torch.inference_mode()")
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 
 Folds = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -75,6 +92,17 @@ def _act(z: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     return z
 
 
+def _act_deriv(z: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+    _check_act(name)
+    if ACTS[name] == 1:
+        return (z > 0).to(z.dtype)
+    if ACTS[name] == 2:
+        return torch.where(z > 0, torch.ones_like(z), torch.full_like(z, 0.01))
+    if ACTS[name] == 3:
+        return torch.where(z > 0, 1.0, torch.exp(torch.clamp_max(z, 0.0)))
+    return torch.ones_like(z)
+
+
 def _widths(dense, planes, nbr_mask, params):
     b, m, k = nbr_mask.shape
     if k != K:
@@ -91,39 +119,57 @@ def _widths(dense, planes, nbr_mask, params):
     return cd, cp
 
 
-def hidden_plain(layer: int, dense, planes, nbr_mask, params: dict, folds: Folds = (), *,
-                 act: Optional[str] = "ReLU", bf16: bool = False) -> torch.Tensor:
-    """h1, h2 or h3 (``layer`` 1, 2, 3) of every edge row, (B*M*64, C) float32:
-    the chain the passes recompute, with ``folds`` = [(sc1, sh1), (sc2, sh2)]."""
+def _types(dense, planes, bf16: bool):
+    """(accumulation type, product operand type): float64 when dense or planes
+    is float64 (bf16 is then ignored, as in the JAX function), else float32
+    and bf16 or float32."""
+    if any(x is not None and x.dtype == torch.float64 for x in (dense, planes)):
+        return torch.float64, torch.float64
+    return torch.float32, (torch.bfloat16 if bf16 else torch.float32)
+
+
+def _hiddens(layers: int, dense, planes, nbr_mask, params: dict, folds: Folds, act, bf16):
+    """[h1, ..., h_layers] of every edge row, each (B*M*64, C) in the
+    accumulation type."""
     cd, cp = _widths(dense, planes, nbr_mask, params)
     _check_act(act)
-    ct = torch.bfloat16 if bf16 else torch.float32
+    ft, ct = _types(dense, planes, bf16)
 
     def dot(x, w):
         return _dot_f32(x.reshape(-1, x.shape[-1]).to(ct), w.to(ct))
 
     w1 = params["w1"]
-    h = dot(planes.float(), w1[cd:]) if cp else 0.0
+    h = dot(planes.to(ft), w1[cd:]) if cp else 0.0
     if cd:
         h = h + dot(dense, w1[:cd])
-    h = h + params["b1"]
-    for i in range(2, layer + 1):
+    hs = [h + params["b1"].to(ft)]
+    for i in range(2, layers + 1):
         sc, sh = folds[i - 2]
-        h = dot(_act(h * sc + sh, act), params[f"w{i}"]) + params[f"b{i}"]
-    return h
+        hs.append(dot(_act(hs[-1] * sc + sh, act), params[f"w{i}"]) + params[f"b{i}"].to(ft))
+    return hs
+
+
+def hidden_plain(layer: int, dense, planes, nbr_mask, params: dict, folds: Folds = (), *,
+                 act: Optional[str] = "ReLU", bf16: bool = False) -> torch.Tensor:
+    """h1, h2 or h3 (``layer`` 1, 2, 3) of every edge row, (B*M*64, C) float32
+    (float64 for float64 inputs): the chain the passes recompute, with
+    ``folds`` = [(sc1, sh1), (sc2, sh2)]."""
+    return _hiddens(layer, dense, planes, nbr_mask, params, folds, act, bf16)[-1]
 
 
 def fused_sa_stage_plain(stage: int, dense, planes, nbr_mask, params: dict, folds: Folds = (),
                          *, act: Optional[str] = "ReLU", bf16: bool = False):
     """The plain PyTorch version of one pass: ``stage`` 1 or 2 -> (s, ss)
-    (C,) float32 column sums and sums of squares of h1 (of h2) over the valid
-    slots; 3 -> (out (B, M, C3) float32, argmax (B, M, C3) int32). ``folds``
-    holds (sc1, sh1) for stage 2 and both pairs for stage 3."""
+    (C,) column sums and sums of squares of h1 (of h2) over the valid slots,
+    accumulated in float64 as the kernel's are; 3 -> (out (B, M, C3), argmax
+    (B, M, C3) int32). float32, or float64 for float64 inputs. ``folds`` holds
+    (sc1, sh1) for stage 2 and both pairs for stage 3."""
     h = hidden_plain(stage, dense, planes, nbr_mask, params, folds, act=act, bf16=bf16)
     valid = nbr_mask.reshape(-1, 1)
     if stage < 3:
         hm = torch.where(valid, h, 0.0)
-        return hm.sum(0), (hm * h).sum(0)
+        return (hm.sum(0, dtype=torch.float64).to(h.dtype),
+                (hm * h).sum(0, dtype=torch.float64).to(h.dtype))
     b, m, k = nbr_mask.shape
     filled = torch.where(valid, h, float("-inf")).view(b, m, k, -1)
     mx = filled.amax(dim=2)
@@ -132,28 +178,120 @@ def fused_sa_stage_plain(stage: int, dense, planes, nbr_mask, params: dict, fold
     return torch.where(found, mx, 0.0), torch.where(found, am, -1)
 
 
+def _routed(g: torch.Tensor, amax: torch.Tensor, ft) -> torch.Tensor:
+    """The cotangent (B, M, C3) at F3's argmax slots -> (B*M*64, C3); argmax
+    -1 routes nothing."""
+    b, m, c3 = g.shape
+    gs = torch.zeros((b, m, K, c3), dtype=ft, device=g.device)
+    src = torch.where(amax >= 0, g.to(ft), 0.0)
+    gs.scatter_(2, amax.clamp_min(0).long().unsqueeze(2), src.unsqueeze(2))
+    return gs.view(-1, c3)
+
+
+def fused_sa_bwd_stage_plain(stage: int, dense, planes, nbr_mask, params: dict, folds: Folds,
+                             stats: Folds, terms: Folds, g: torch.Tensor, amax: torch.Tensor, *,
+                             act: Optional[str] = "ReLU", bf16: bool = False):
+    """The plain PyTorch version of one backward pass. ``folds`` = [(sc1, sh1),
+    (sc2, sh2)], ``stats`` = [(mean1, inv1), (mean2, inv2)] with inv =
+    rsqrt(var + eps), ``terms`` = [(t2a, t2b)] for stage 2 and [(t2a, t2b),
+    (t1a, t1b)] for stage 3; ``g`` the cotangent of the pooled output and
+    ``amax`` F3's argmax, both (B, M, C3). The column sums accumulate in
+    float64, as the kernel's do (their terms cancel: SA1's db3 is 0 but for
+    rounding). Returns, float32 (float64 for float64 inputs):
+
+      1 -> (dW3 (C2, C3), db3, sum(db2n) (C2), sum(db2n xhat2) (C2))
+      2 -> (dW2 (C1, C2), db2, sum(db1n) (C1), sum(db1n xhat1) (C1))
+      3 -> (dW1 (CD+CP, C1), db1, d(dense) (B, M, 64, CD) in the product type
+            or None)
+    """
+    cd, cp = _widths(dense, planes, nbr_mask, params)
+    ft, ct = _types(dense, planes, bf16)
+
+    def dot(x, w):
+        return _dot_f32(x.to(ct), w.to(ct))
+
+    def colsum(x):
+        return x.sum(0, dtype=torch.float64).to(ft)
+
+    h1, h2 = _hiddens(2, dense, planes, nbr_mask, params, folds, act, bf16)
+    valid = nbr_mask.reshape(-1, 1).to(ft)
+    (sc1, sh1), (sc2, sh2) = folds
+    (mean1, inv1), (mean2, inv2) = stats
+    z2 = h2 * sc2 + sh2
+    gs = _routed(g, amax, ft)
+    db2n = dot(gs, params["w3"].t()) * _act_deriv(z2, act) * valid
+    xhat2 = (h2 - mean2) * inv2
+    if stage == 1:
+        return dot(_act(z2, act).t(), gs), colsum(gs), colsum(db2n), colsum(db2n * xhat2)
+    (t2a, t2b) = terms[0]
+    dh2 = sc2 * (db2n - t2a - xhat2 * t2b) * valid
+    z1 = h1 * sc1 + sh1
+    db1n = dot(dh2, params["w2"].t()) * _act_deriv(z1, act) * valid
+    xhat1 = (h1 - mean1) * inv1
+    if stage == 2:
+        return dot(_act(z1, act).t(), dh2), colsum(dh2), colsum(db1n), colsum(db1n * xhat1)
+    (t1a, t1b) = terms[1]
+    dh1 = sc1 * (db1n - t1a - xhat1 * t1b) * valid
+    parts = ([dense.reshape(-1, cd).to(ct)] if cd else []) + (
+        [planes.reshape(-1, cp).to(ft).to(ct)] if cp else [])
+    dw1 = dot(torch.cat(parts, dim=1).t(), dh1)
+    d_dense = None
+    if cd:
+        d_dense = dot(dh1, params["w1"][:cd].t()).view(*nbr_mask.shape, cd).to(ct)
+    return dw1, colsum(dh1), d_dense
+
+
+def _pad(x: torch.Tensor, *size: int) -> torch.Tensor:
+    out = torch.zeros(size, dtype=torch.float32, device=x.device)
+    out[tuple(slice(0, s) for s in x.shape)] = x.detach()
+    return out.reshape(-1)
+
+
+def _mat(w: torch.Tensor, rows: int, cols: int, ct) -> torch.Tensor:
+    """A zero-padded (rows, cols) f32 matrix, rounded to ``ct``, flattened."""
+    return _pad(w.to(ct).float(), rows, cols)
+
+
+def _vec(v: torch.Tensor, cols: int) -> torch.Tensor:
+    return _pad(v.float().reshape(-1), cols)
+
+
 def _packed(params: dict, folds: Folds, kp: int, c1p: int, c2p: int, c3p: int, ct, device):
-    """The kernel's f32 weight block: w1 (KP, C1), b1, sc1, sh1, w2 (C1, C2), b2,
+    """The kernels' f32 weight block: w1 (KP, C1), b1, sc1, sh1, w2 (C1, C2), b2,
     sc2, sh2, w3 (C2, C3), b3, zero-padded, the matrices rounded to ``ct``."""
     zero = torch.zeros(1, device=device)
     f = list(folds) + [(zero, zero)] * (2 - len(folds))
-
-    def pad(x, *size):
-        out = torch.zeros(size, dtype=torch.float32, device=device)
-        out[tuple(slice(0, s) for s in x.shape)] = x
-        return out.reshape(-1)
-
-    def mat(w, rows, cols):
-        return pad(w.detach().to(ct).float(), rows, cols)
-
-    def vec(v, cols):
-        return pad(v.detach().float().reshape(-1), cols)
-
     return torch.cat([
-        mat(params["w1"], kp, c1p), vec(params["b1"], c1p), vec(f[0][0], c1p),
-        vec(f[0][1], c1p), mat(params["w2"], c1p, c2p), vec(params["b2"], c2p),
-        vec(f[1][0], c2p), vec(f[1][1], c2p), mat(params["w3"], c2p, c3p),
-        vec(params["b3"], c3p)])
+        _mat(params["w1"], kp, c1p, ct), _vec(params["b1"], c1p), _vec(f[0][0], c1p),
+        _vec(f[0][1], c1p), _mat(params["w2"], c1p, c2p, ct), _vec(params["b2"], c2p),
+        _vec(f[1][0], c2p), _vec(f[1][1], c2p), _mat(params["w3"], c2p, c3p, ct),
+        _vec(params["b3"], c3p)])
+
+
+def _packed_bwd(params: dict, folds: Folds, stats: Folds, terms: Folds, cd: int, kp: int,
+                c1p: int, c2p: int, c3p: int, cdp: int, ct, device):
+    """The forward block, then mean1, inv1 (C1), mean2, inv2 (C2), t2a, t2b
+    (C2), t1a, t1b (C1) and the transposed products' weights w3^T (C3, C2),
+    w2^T (C2, C1), w1's dense rows transposed (C1, CDP)."""
+    zero = torch.zeros(1, device=device)
+    t = list(terms) + [(zero, zero)] * (2 - len(terms))
+    (mean1, inv1), (mean2, inv2) = stats
+    return torch.cat([
+        _packed(params, folds, kp, c1p, c2p, c3p, ct, device),
+        _vec(mean1, c1p), _vec(inv1, c1p), _vec(mean2, c2p), _vec(inv2, c2p),
+        _vec(t[0][0], c2p), _vec(t[0][1], c2p), _vec(t[1][0], c1p), _vec(t[1][1], c1p),
+        _mat(params["w3"].t(), c3p, c2p, ct), _mat(params["w2"].t(), c2p, c1p, ct),
+        _mat(params["w1"][:cd].t(), c1p, cdp, ct)])
+
+
+def _on_card(name: str, dense, planes, nbr_mask):
+    """Refuse what the kernels do not take: float64 (never cast down) and any
+    device but a card."""
+    if any(x is not None and x.dtype == torch.float64 for x in (dense, planes)):
+        raise ValueError(f"{name}: the kernel computes in float32 or bf16; float64 runs on "
+                         "CPU tensors only")
+    if nbr_mask.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu tensors, got {nbr_mask.device}")
 
 
 def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
@@ -164,14 +302,14 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
     None, nbr_mask (B, M, 64) bool, params {w1 (CD+CP, C1), b1, w2, b2, w3, b3}
     (the gammas and betas enter through ``folds``).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (float64 raises ``ValueError`` there)."""
     if stage not in ENTRIES:
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
     if nbr_mask.device.type == "cpu":
         return fused_sa_stage_plain(stage, dense, planes, nbr_mask, params, folds, act=act,
                                     bf16=bf16)
-    if nbr_mask.device.type != "cuda":
-        raise RuntimeError(f"fused_sa_stage runs on cuda or cpu tensors, got {nbr_mask.device}")
+    _on_card("fused_sa_stage", dense, planes, nbr_mask)
     cd, cp = _widths(dense, planes, nbr_mask, params)
     _check_act(act)
     if len(folds) < stage - 1:
@@ -206,6 +344,72 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
     return out, amax
 
 
+def _bwd_sizes(stage: int, kp: int, c1p: int, c2p: int, c3p: int):
+    """The parts of a backward pass's output vector, as the kernel lays them out."""
+    return {1: [c2p * c3p, c3p, c2p, c2p], 2: [c1p * c2p, c2p, c1p, c1p],
+            3: [kp * c1p, c1p]}[stage]
+
+
+def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
+                       nbr_mask: torch.Tensor, params: dict, folds: Folds, stats: Folds,
+                       terms: Folds, g: torch.Tensor, amax: torch.Tensor, *,
+                       act: Optional[str] = "ReLU", bf16: bool = False):
+    """One pass of kernel 6's backward (see ``fused_sa_bwd_stage_plain``; the
+    inputs as ``fused_sa_stage`` takes them, and ``g``, ``amax`` (B, M, C3)).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (float64 raises ``ValueError`` there)."""
+    if stage not in BWD_ENTRIES:
+        raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    if nbr_mask.device.type == "cpu":
+        return fused_sa_bwd_stage_plain(stage, dense, planes, nbr_mask, params, folds, stats,
+                                        terms, g, amax, act=act, bf16=bf16)
+    _on_card("fused_sa_bwd_stage", dense, planes, nbr_mask)
+    cd, cp = _widths(dense, planes, nbr_mask, params)
+    _check_act(act)
+    if len(folds) != 2 or len(stats) != 2 or len(terms) < stage - 1:
+        raise ValueError(f"backward stage {stage} needs 2 folds, 2 statistics and "
+                         f"{stage - 1} correction terms")
+    b, m, _ = nbr_mask.shape
+    dev = nbr_mask.device
+    ct = torch.bfloat16 if bf16 else torch.float32
+    c1, c2, c3 = (params[f"w{i}"].shape[1] for i in (1, 2, 3))
+    if tuple(g.shape) != (b, m, c3) or tuple(amax.shape) != (b, m, c3):
+        raise ValueError(f"g and amax must be (B, M, C3) = {(b, m, c3)}, got "
+                         f"{tuple(g.shape)} and {tuple(amax.shape)}")
+    kp = round_up(cd + cp, 4)
+    c1p, c2p, c3p = (round_up(c, WIDTH_STEP) for c in (c1, c2, c3))
+    cdp = round_up(cd, WIDTH_STEP)
+    w = _packed_bwd(params, folds, stats, terms[:stage - 1], cd, kp, c1p, c2p, c3p, cdp, ct, dev)
+    dense = None if dense is None else dense.to(ct).contiguous()
+    planes = None if planes is None else planes.float().contiguous()
+    nbr_mask = nbr_mask.contiguous()
+    g = g.float().contiguous()
+    amax = amax.to(torch.int32).contiguous()
+    _build.check_cuda("fused_sa_bwd_stage", nbr_mask, w, g, amax,
+                      *(x for x in (dense, planes) if x is not None))
+    sizes = _bwd_sizes(stage, kp, c1p, c2p, c3p)
+    # the blocks' partial sums: the weight gradient in f32, the rest in f64
+    partial = torch.empty((MAX_GRID, sizes[0]), dtype=torch.float32, device=dev)
+    partial_v = torch.empty((MAX_GRID, sum(sizes[1:])), dtype=torch.float64, device=dev)
+    sums = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    d_dense = None
+    if stage == 3 and cd:
+        d_dense = torch.empty((b, m, K, cd), dtype=ct, device=dev)
+    _build.launch(BWD_ENTRIES[stage], _BWD_ARGTYPES, _build.ptr(dense), _build.ptr(planes),
+                  nbr_mask.data_ptr(), w.data_ptr(), g.data_ptr(), amax.data_ptr(),
+                  partial.data_ptr(), partial_v.data_ptr(), sums.data_ptr(), _build.ptr(d_dense),
+                  b * m, cd, cp, kp,
+                  cdp, c1p, c2p, c3p, c3, ACTS[act], int(bf16), MAX_GRID,
+                  _build.stream_of(nbr_mask))
+    parts = sums.split(sizes)
+    if stage == 1:
+        return parts[0].view(c2p, c3p)[:c2, :c3], parts[1][:c3], parts[2][:c2], parts[3][:c2]
+    if stage == 2:
+        return parts[0].view(c1p, c2p)[:c1, :c2], parts[1][:c2], parts[2][:c1], parts[3][:c1]
+    return parts[0].view(kp, c1p)[:cd + cp, :c1], parts[1][:c1], d_dense
+
+
 def _stats(s, ss, cnt):
     mean = s / cnt
     return mean, torch.clamp_min(ss / cnt - mean * mean, 0.0)
@@ -216,40 +420,106 @@ def _fold(gamma, beta, mean, var):
     return scale, beta - mean * scale
 
 
-def _needs_backward(dense, params) -> bool:
-    return torch.is_grad_enabled() and (
-        (dense is not None and dense.requires_grad)
-        or any(torch.is_tensor(v) and v.requires_grad for v in params.values()))
-
-
-def _chain(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train):
+def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train):
     """F1 -> F2 -> F3 (train) or F3 alone on the running statistics (eval) ->
-    (out, (mean1, var1, mean2, var2), argmax)."""
-    if _needs_backward(dense, params):
-        raise NotImplementedError(BACKWARD_MISSING)
+    (out, [mean1, var1, mean2, var2], argmax, what the backward needs:
+    (folds, [(mean1, inv1), (mean2, inv2)], cnt))."""
     if not train and running is None:
         raise ValueError("eval mode (train=False) needs the running statistics")
-    cnt = torch.clamp_min(nbr_mask.sum().float(), 1.0)
-    folds, stats = [], []
+    ft, _ = _types(dense, planes, bf16)
+    if ft == torch.float64:
+        params = {k: v.to(ft) for k, v in params.items()}
+    cnt = torch.clamp_min(nbr_mask.sum().to(ft), 1.0)
+    folds, stats, norms = [], [], []
     for layer in (1, 2):
         if train:
             mean, var = _stats(*stage_fn(layer, dense, planes, nbr_mask, params, folds, act=act,
                                          bf16=bf16), cnt)
         else:
-            mean, var = (r.float() for r in running[2 * layer - 2:2 * layer])
+            mean, var = (r.to(ft) for r in running[2 * layer - 2:2 * layer])
         folds.append(_fold(params[f"gamma{layer}"], params[f"beta{layer}"], mean, var))
+        norms.append((mean, torch.rsqrt(var + EPS)))
         stats += [mean, var]
     out, amax = stage_fn(3, dense, planes, nbr_mask, params, folds, act=act, bf16=bf16)
+    return out, stats, amax, (folds, norms, cnt)
+
+
+def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf16, train):
+    """B1 -> B2 -> B3 with the correction terms between them -> (d(dense) or
+    None, {parameter name: gradient})."""
+    folds, norms, cnt = state
+    kw = dict(act=act, bf16=bf16)
+    args = (dense, planes, nbr_mask, params, folds, norms)
+    dw3, db3, sdb2, sdb2x = stage_fn(1, *args, [], g, amax, **kw)
+    terms = [(sdb2 / cnt, sdb2x / cnt) if train else
+             (torch.zeros_like(sdb2), torch.zeros_like(sdb2x))]
+    dw2, db2, sdb1, sdb1x = stage_fn(2, *args, terms, g, amax, **kw)
+    terms.append((sdb1 / cnt, sdb1x / cnt) if train else
+                  (torch.zeros_like(sdb1), torch.zeros_like(sdb1x)))
+    dw1, db1, d_dense = stage_fn(3, *args, terms, g, amax, **kw)
+    return d_dense, dict(w1=dw1, b1=db1, gamma1=sdb1x, beta1=sdb1, w2=dw2, b2=db2,
+                         gamma2=sdb2x, beta2=sdb2, w3=dw3, b3=db3)
+
+
+class _FusedSAMLP(torch.autograd.Function):
+    """The forward passes, and the backward passes as the gradient. The
+    statistics and the argmax are outputs without a gradient; the forward
+    keeps the inputs, the argmax and the folded statistics, no hidden value."""
+
+    @staticmethod
+    def forward(ctx, plain, dense, planes, nbr_mask, running, act, bf16, train, *values):
+        params = dict(zip(PARAMS, values))
+        stage_fn = fused_sa_stage_plain if plain else fused_sa_stage
+        out, stats, amax, state = _forward(stage_fn, dense, planes, nbr_mask, params, running,
+                                           act, bf16, train)
+        if not train:  # the running statistics, as new tensors
+            stats = [s.clone() for s in stats]
+        ctx.save_for_backward(dense, planes, nbr_mask, amax, *values)
+        ctx.state = state
+        ctx.config = (plain, act, bf16, train)
+        ctx.mark_non_differentiable(amax, *stats)
+        return (out, amax, *stats)
+
+    @staticmethod
+    def backward(ctx, g_out, *_):
+        dense, planes, nbr_mask, amax, *values = ctx.saved_tensors
+        plain, act, bf16, train = ctx.config
+        ft, _ = _types(dense, planes, bf16)
+        params = {k: v.to(ft) for k, v in zip(PARAMS, values)}
+        stage_fn = fused_sa_bwd_stage_plain if plain else fused_sa_bwd_stage
+        d_dense, grads = _backward(stage_fn, dense, planes, nbr_mask, params, ctx.state, g_out,
+                                   amax, act, bf16, train)
+        need = ctx.needs_input_grad
+        d_dense = d_dense.to(dense.dtype) if need[1] and d_dense is not None else None
+        return (None, d_dense, None, None, None, None, None, None,
+                *(grads[k].to(v.dtype) if need[8 + i] else None
+                  for i, (k, v) in enumerate(zip(PARAMS, values))))
+
+
+def _mlp(plain, dense, planes, nbr_mask, params, running, act, bf16, train, return_argmax):
+    if return_argmax and not train:
+        raise ValueError("return_argmax requires train=True")
+    missing = [k for k in PARAMS if k not in params]
+    if missing:
+        raise ValueError(f"fused SA MLP: params lack {missing}")
+    if return_argmax:  # introspection: no gradient, as in the JAX function
+        with torch.no_grad():
+            out, stats, amax, _ = _forward(fused_sa_stage_plain if plain else fused_sa_stage,
+                                           dense, planes, nbr_mask, params, running, act, bf16,
+                                           train)
+        return out, tuple(stats), amax
+    out, amax, *stats = _FusedSAMLP.apply(plain, dense, planes, nbr_mask, running, act, bf16,
+                                          train, *(params[k] for k in PARAMS))
     return out, tuple(stats), amax
 
 
 def fused_sa_mlp_plain(dense, planes, nbr_mask, params: dict, running=None, *,
                        act: Optional[str] = "ReLU", bf16: bool = False, train: bool = True):
-    """The plain version of the whole forward: (out (B, M, C3) float32, the
-    statistics (mean1, var1, mean2, var2) — the batch's in train mode, the
-    running ones given in eval — and the argmax (B, M, C3) int32)."""
-    return _chain(fused_sa_stage_plain, dense, planes, nbr_mask, params, running, act, bf16,
-                  train)
+    """The plain version of the whole layer: (out (B, M, C3), the statistics
+    (mean1, var1, mean2, var2) — the batch's in train mode, the running ones
+    given in eval — and the argmax (B, M, C3) int32), differentiable through
+    the plain backward passes."""
+    return _mlp(True, dense, planes, nbr_mask, params, running, act, bf16, train, False)
 
 
 def fused_sa_mlp(dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
@@ -259,17 +529,16 @@ def fused_sa_mlp(dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
     """Fused SA-layer MLP + masked max over the 64 slots, as the JAX function.
 
     dense (B, M, 64, CD) (invalid rows zeroed; cast to the compute type) or
-    None; planes (B, M, 64, CP) float32 or None; W1's rows are [dense...,
-    planes...]; params {w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, w3, b3}
-    with each w (in, out). Train: (out, (mean1, var1, mean2, var2)) with the
-    batch statistics for the caller's running update. Eval (``train=False``,
-    ``running`` = (mean1, var1, mean2, var2)): out. ``return_argmax=True``
-    (train only) returns (out, stats, argmax). Raises
-    ``NotImplementedError`` where autograd would need the backward."""
-    if return_argmax and not train:
-        raise ValueError("return_argmax requires train=True")
-    out, stats, amax = _chain(fused_sa_stage, dense, planes, nbr_mask, params, running, act,
-                              bf16, train)
+    None; planes (B, M, 64, CP) or None; W1's rows are [dense..., planes...];
+    params {w1, b1, gamma1, beta1, w2, b2, gamma2, beta2, w3, b3} with each w
+    (in, out). Train: (out, (mean1, var1, mean2, var2)) with the batch
+    statistics for the caller's running update. Eval (``train=False``,
+    ``running`` = (mean1, var1, mean2, var2)): out. Differentiable in
+    ``dense`` and every parameter (kernel 6's backward; the eval backward
+    takes the running statistics as constants). ``return_argmax=True``
+    (train only) returns (out, stats, argmax) without a gradient."""
+    out, stats, amax = _mlp(False, dense, planes, nbr_mask, params, running, act, bf16, train,
+                            return_argmax)
     if return_argmax:
         return out, stats, amax
     return (out, stats) if train else out

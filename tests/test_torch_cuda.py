@@ -247,9 +247,58 @@ def test_fused_sa_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
         assert torch.equal(am[lead], want[1][lead])
 
 
+def _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, seed=1):
+    """The backward's inputs beside the forward's: the forward's first argmax
+    (the centroid without a valid slot: -1), a cotangent, the statistics
+    (mean, inv) and the correction terms."""
+    dense, planes, mask, params, folds = _fused_sa_case(dev, b, m, cd, cp, widths, bf16, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    _, amax = sa_train_kernel.fused_sa_stage_plain(3, dense, planes, mask, params, folds,
+                                                   bf16=bf16)
+    cot = torch.randn(b, m, widths[2], device=dev, generator=g)
+    stats = [(0.1 * torch.randn(c, device=dev, generator=g),
+              0.5 + torch.rand(c, device=dev, generator=g)) for c in widths[:2]]
+    terms = [(0.01 * torch.randn(c, device=dev, generator=g),
+              0.01 * torch.randn(c, device=dev, generator=g)) for c in (widths[1], widths[0])]
+    return dense, planes, mask, params, folds, stats, terms, cot, amax
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,m,cd,cp,widths", [
+    (2, 13, 0, 4, (8, 8, 16)),  # odd M, small widths zero-padded to 64
+    (3, 37, 5, 3, (8, 8, 16)),
+    (2, 300, 0, 4, (64, 64, 128)),  # SA1's production widths
+    (2, 129, 128, 3, (128, 128, 256)),  # SA2's
+], ids=["small-planes", "small-both", "sa1", "sa2"])
+def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
+    """Each backward pass against the plain version: every output within
+    1e-5 (f32) or 1e-2 (bf16) of its max|.|, d(dense) 0 on every row of the
+    centroid without a valid slot, and a second launch bit-identical."""
+    args = _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16)
+    tol = 1e-2 if bf16 else 1e-5
+    for stage in (1, 2, 3):
+        got = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16)
+        again = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16)
+        want = sa_train_kernel.fused_sa_bwd_stage_plain(stage, *args, bf16=bf16)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for x, y, z in zip(got, again, want):
+            if z is None:
+                assert x is None and stage == 3 and cd == 0
+                continue
+            assert x.shape == z.shape and torch.equal(x, y)
+            err = float((x.float() - z.float()).abs().max())
+            assert err <= tol * float(z.float().abs().max()), (stage, err)
+        if stage == 3 and cd:
+            assert got[2].dtype == (torch.bfloat16 if bf16 else torch.float32)
+            assert bool((got[2][0, 3] == 0).all())
+
+
 def test_fused_sa_model_launches_kernel_6(dev):
     """The fused_sa model's eval forward runs F3 at both SA layers, its
-    train-mode forward F1, F2 and F3; its training step raises."""
+    train-mode forward F1, F2 and F3, and its training step F1-F3 and B1-B3
+    at both, with kernel 4b carrying SA2's d(dense) back to SA1, and every
+    parameter gets a finite gradient."""
     rng = np.random.default_rng(4)
     pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(2)]
     feat = [rng.normal(size=(640, 1)).astype(np.float32) for _ in range(2)]
@@ -271,5 +320,11 @@ def test_fused_sa_model_launches_kernel_6(dev):
     assert bool(torch.isfinite(out).all())
     assert dict(_build.launch_counts) == dict(common, dlbt_fused_sa_f1=2, dlbt_fused_sa_f2=2,
                                               dlbt_fused_sa_f3=2)
-    with pytest.raises(NotImplementedError):
-        Trainer(model, TrainConfig()).step(batch, torch.Generator(device=dev).manual_seed(0))
+    _build.launch_counts.clear()
+    loss = Trainer(model, TrainConfig()).step(batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert dict(_build.launch_counts) == dict(
+        common, dlbt_scatter_rows=1, **{f"dlbt_fused_sa_{p}{i}": 2 for p in "fb" for i in (1, 2, 3)})
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name

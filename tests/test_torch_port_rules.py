@@ -90,6 +90,7 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("gather_bwd.cu", "pallas_mxu_gather.py mxu_gather, its backward"),
     ("sa1_fused_eval.cu", "pallas_sa_eval.py sa1_fused_eval"),
     ("fused_sa_fwd.cu", "pallas_sa_train.py fused_sa_mlp"),
+    ("fused_sa_bwd.cu", "pallas_sa_train.py fused_sa_mlp, its backward"),
 ])
 def test_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "csrc" / name).read_text().split("#include")[0]

@@ -1,9 +1,11 @@
-"""Kernel 6's forward, the fused SA-layer MLP: its plain version
+"""Kernel 6, the fused SA-layer MLP: the forward of its plain version
 (``ops/sa_train_kernel.fused_sa_mlp_plain``; the wrapper runs it on a CPU
 tensor) against the JAX package's ``fused_sa_mlp`` in interpret mode, the
 ``FusedSAMLP`` layer and the ``fused_sa`` model against their JAX
 counterparts on the same weights through the bridge, and the port's entry
-points on such a model: ``build_model``, ``Trainer`` and the serving engine.
+points on such a model: ``build_model``, ``Trainer`` (evaluation and the
+training step) and the serving engine. The backward's parity with JAX is in
+``test_torch_sa_train_bwd.py``.
 
 Tolerances, as max|diff| / max|y|: the plain version and JAX's interpret
 mode take the same float32 (or exact bf16 x bf16) products and sum them in
@@ -135,26 +137,39 @@ def test_plain_version_matches_jax_interpret(form, act, train, bf16):
 
 
 def test_wrapper_raises_where_autograd_needs_the_backward():
+    """Where autograd needs the backward, the wrapper gives it: the gradient of
+    every parameter and of dense on a CPU tensor, equal to that of the plain
+    chain; the planes get none. What the kernels cannot take still raises:
+    an unsupported activation, return_argmax in eval mode, mismatched
+    channels, and float64 on any device but the CPU (``meta`` stands in for a
+    card here: the refusal comes before any launch)."""
     dense, planes, mask, p, _ = _case(5, 4, 3)
-    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
-    args = (torch.from_numpy(dense), torch.from_numpy(planes), torch.from_numpy(mask), tp)
-    with pytest.raises(NotImplementedError, match="1b"):
-        sa_train_kernel.fused_sa_mlp(*args)
-    with pytest.raises(NotImplementedError, match="1b"):
-        sa_train_kernel.fused_sa_mlp_plain(*args)
-    with torch.no_grad():
-        out, stats = sa_train_kernel.fused_sa_mlp(*args)
+    grads = []
+    for fn in (sa_train_kernel.fused_sa_mlp, sa_train_kernel.fused_sa_mlp_plain):
+        tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+        td = torch.from_numpy(dense).requires_grad_()
+        tpl = torch.from_numpy(planes).requires_grad_()
+        out = fn(td, tpl, torch.from_numpy(mask), tp)[0]
+        out.square().sum().backward()
+        assert tpl.grad is None and td.grad.dtype == torch.float32
+        grads.append([td.grad] + [tp[k].grad for k in sa_train_kernel.PARAMS])
+    assert all(g is not None and bool(g.abs().max() > 0) for g in grads[0])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    args = (torch.from_numpy(dense), torch.from_numpy(planes), torch.from_numpy(mask),
+            {k: torch.from_numpy(v) for k, v in p.items()})
+    out, stats = sa_train_kernel.fused_sa_mlp(*args)
     assert out.shape == (B, M, 16) and len(stats) == 4
     with pytest.raises(ValueError, match="unsupported activation"):
-        with torch.no_grad():
-            sa_train_kernel.fused_sa_mlp(*args, act="GELU")
+        sa_train_kernel.fused_sa_mlp(*args, act="GELU")
     with pytest.raises(ValueError, match="return_argmax"):
-        with torch.no_grad():
-            sa_train_kernel.fused_sa_mlp(*args, (stats[0], stats[1], stats[2], stats[3]),
-                                         train=False, return_argmax=True)
+        sa_train_kernel.fused_sa_mlp(*args, stats, train=False, return_argmax=True)
     with pytest.raises(ValueError, match="input channels"):
-        with torch.no_grad():
-            sa_train_kernel.fused_sa_mlp(args[0], None, *args[2:])
+        sa_train_kernel.fused_sa_mlp(args[0], None, *args[2:])
+    meta = [x.double().to("meta") for x in args[:2]] + [args[2].to("meta")]
+    with pytest.raises(ValueError, match="float64"):
+        sa_train_kernel.fused_sa_stage(1, *meta, args[3])
+    with pytest.raises(ValueError, match="float64"):
+        sa_train_kernel.fused_sa_bwd_stage(1, *meta, args[3], [], [], [], None, None)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -239,9 +254,10 @@ def test_build_model_takes_fused_sa_and_writes_it_back():
     assert ours == ref
     assert PointNet2Regressor(**{k: v for k, v in ours.items() if k in (
         "num_features", "fast_group", "fast_fps", "fused_sa")}).fused_sa
-    unported = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, analytic_bn=True))
-    with pytest.raises(NotImplementedError, match="analytic_bn"):
-        build_model(unported, num_features=1)
+    for option in ("analytic_bn", "remat"):
+        unported = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{option: True}))
+        with pytest.raises(NotImplementedError, match=f"A.10.*{option}"):
+            build_model(unported, num_features=1)
 
 
 def _fused_trainer():
@@ -257,6 +273,9 @@ def _synthetic(b, n=256, seed=0):
 
 
 def test_trainer_evaluates_and_predicts_a_fused_sa_model_but_refuses_its_step():
+    """Evaluation and prediction of a fused_sa model, and its training step
+    (once refused): a finite loss, every parameter with a gradient, every
+    parameter and running statistic moved."""
     trainer = _fused_trainer()
     batch = _synthetic(3)
     pred = trainer.predict([batch])
@@ -264,10 +283,12 @@ def test_trainer_evaluates_and_predicts_a_fused_sa_model_but_refuses_its_step():
     assert np.array_equal(pred, trainer.predict([batch]))
     assert np.isfinite(trainer.evaluate([batch]))
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="1b"):
-        trainer.step(batch, torch.Generator().manual_seed(0))
+    loss = trainer.step(batch, torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(loss))
+    for name, p in trainer.model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
     for k, v in trainer.model.state_dict().items():
-        assert torch.equal(v, before[k]), k
+        assert not torch.equal(v, before[k]), k
 
 
 def test_serving_engine_serves_a_fused_sa_model_as_the_unfused_one():

@@ -1,0 +1,211 @@
+"""Kernel 6's backward, B1-B3 of the fused SA-layer MLP: the gradient of
+``ops/sa_train_kernel.fused_sa_mlp`` (its ``torch.autograd.Function``, which
+runs the plain passes on a CPU tensor) and of ``fused_sa_mlp_plain`` against
+``jax.grad`` of the JAX package's ``fused_sa_mlp`` in interpret mode; a
+float64 ``gradcheck``; the float64 forward against the JAX function under
+x64; and the ``FusedSAMLP`` layer's parameter gradients against the JAX
+layer's on bridged weights.
+
+Tolerances. float32: max|diff| <= 1e-4 of the largest gradient of the call
+(measured <= 5e-7): both sides take the same float32 products and sum them
+in another order. bf16: the same bf16 x bf16 products, exact in float32, so
+also 1e-4 of the largest gradient (measured <= 7e-6), and each gradient
+within 1e-2 in relative L2 norm (measured <= 4e-5) unless its true value is
+0 (the hidden layers' biases in train mode: a BatchNorm follows), which is
+held by the first bound alone. float64: see its test.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dl_biomass_tpu.models.layers import FusedSAMLP as JaxFusedSAMLP
+from dl_biomass_tpu.ops.pallas_sa_train import fused_sa_mlp as jax_fused_sa_mlp
+from dl_biomass_tpu_torch.bridge import from_flax_variables
+from dl_biomass_tpu_torch.models.layers import FusedSAMLP
+from dl_biomass_tpu_torch.ops import sa_train_kernel
+from test_torch_sa_train import B, FORMS, M, _case
+
+torch.set_num_threads(1)
+
+PARAMS = sa_train_kernel.PARAMS
+F32_TOL = 1e-4  # of the call's largest gradient
+BF16_L2 = 1e-2  # relative L2 norm per gradient
+
+
+def _cotangent(seed, c3):
+    return np.random.default_rng(seed).normal(size=(B, M, c3)).astype(np.float32)
+
+
+def _jax_grads(dense, planes, mask, p, running, r, act, bf16, train, x64=False):
+    """jax.grad of sum(out * r) in dense and every parameter."""
+    jt = jnp.bfloat16 if bf16 else (jnp.float64 if x64 else jnp.float32)
+    jpl = [] if planes is None else [jnp.asarray(planes[..., c]) for c in range(planes.shape[-1])]
+    jrun = None if train else tuple(jnp.asarray(x) for x in running)
+
+    def loss(d, pp):
+        out = jax_fused_sa_mlp(d, jpl, jnp.asarray(mask), pp, jrun, act=act, bf16=bf16,
+                               interpret=True, train=train)
+        return jnp.sum((out[0] if train else out) * jnp.asarray(r))
+
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    if dense is None:
+        return None, jax.grad(loss, argnums=1)(None, jp)
+    return jax.grad(loss, argnums=(0, 1))(jnp.asarray(dense, jt), jp)
+
+
+def _torch_grads(fn, dense, planes, mask, p, running, r, act, bf16, train):
+    tt = torch.bfloat16 if bf16 else torch.float32
+    td = None if dense is None else torch.from_numpy(dense).to(tt).requires_grad_()
+    tpl = None if planes is None else torch.from_numpy(planes).requires_grad_()
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    trun = None if train else tuple(torch.from_numpy(x) for x in running)
+    out = fn(td, tpl, torch.from_numpy(mask), tp, trun, act=act, bf16=bf16, train=train)
+    out = out[0] if isinstance(out, tuple) else out
+    (out * torch.from_numpy(r)).sum().backward()
+    assert tpl is None or tpl.grad is None  # the planes get no gradient
+    return td, {k: tp[k].grad for k in PARAMS}
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("form,act", [("planes", "ReLU"), ("dense", "LeakyReLU"),
+                                      ("both", "ELU")])
+def test_backward_matches_jax_grad(form, act, train, bf16):
+    """The Function's and the plain chain's gradients (identical on the CPU)
+    against jax.grad under a random cotangent, the fully invalid centroid
+    included; dense gets its gradient in its own dtype."""
+    cd, cp = FORMS[form]
+    dense, planes, mask, p, running = _case(cd * 10 + cp + 1, cd, cp)
+    r = _cotangent(5, 16)
+    jd, jg = _jax_grads(dense, planes, mask, p, running, r, act, bf16, train)
+    args = (dense, planes, mask, p, running, r, act, bf16, train)
+    td, tg = _torch_grads(sa_train_kernel.fused_sa_mlp, *args)
+    pd, pg = _torch_grads(sa_train_kernel.fused_sa_mlp_plain, *args)
+    assert all(torch.equal(tg[k], pg[k]) for k in PARAMS)
+    assert td is None or torch.equal(td.grad, pd.grad)
+    want = {k: np.asarray(jg[k], np.float64) for k in PARAMS}
+    got = {k: tg[k].double().numpy() for k in PARAMS}
+    if td is not None:
+        assert td.grad.dtype == td.dtype
+        want["dense"] = np.asarray(jd.astype(jnp.float32), np.float64)
+        got["dense"] = td.grad.double().numpy()
+        assert not got["dense"][0, 3].any()  # no valid slot: no gradient
+    top = max(np.abs(w).max() for w in want.values())
+    for k, w in want.items():
+        assert np.abs(got[k] - w).max() <= F32_TOL * top, k
+        if bf16 and not (train and k in ("b1", "b2")):
+            assert np.linalg.norm(got[k] - w) <= BF16_L2 * np.linalg.norm(w), k
+
+
+def _f64_case(seed, cd=2, cp=3, b=1, m=3, widths=(4, 4, 8)):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((b, m, 64)) > 0.3
+    mask[0, 1] = False
+    dense = torch.from_numpy(np.where(mask[..., None], rng.normal(size=(b, m, 64, cd)), 0.0))
+    planes = torch.from_numpy(rng.normal(size=(b, m, 64, cp)))
+    ch = (cd + cp,) + widths
+    p = {}
+    for i in range(3):
+        p[f"w{i + 1}"] = torch.from_numpy(rng.normal(size=(ch[i], ch[i + 1])) * 0.5)
+        p[f"b{i + 1}"] = torch.from_numpy(rng.normal(size=ch[i + 1]) * 0.1)
+    for i in (1, 2):
+        p[f"gamma{i}"] = torch.from_numpy(rng.uniform(0.5, 1.5, ch[i]))
+        p[f"beta{i}"] = torch.from_numpy(rng.normal(size=ch[i]) * 0.1)
+    running = tuple(torch.from_numpy(f(ch[i])) for i in (1, 2)
+                    for f in (lambda n: rng.normal(size=n) * 0.2,
+                              lambda n: rng.uniform(0.5, 2.0, n)))
+    return dense, planes, torch.from_numpy(mask), p, running
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_gradcheck_float64(train):
+    """torch.autograd.gradcheck of the Function in float64 (ELU: smooth; the
+    maxes lead their runners-up by far more than the finite step)."""
+    dense, planes, mask, p, running = _f64_case(3)
+
+    def fn(d, *values):
+        out = sa_train_kernel.fused_sa_mlp(d, planes, mask, dict(zip(PARAMS, values)),
+                                           None if train else running, act="ELU",
+                                           train=train)
+        return out[0] if train else out
+
+    inputs = [dense.requires_grad_()] + [p[k].requires_grad_() for k in PARAMS]
+    assert fn(*inputs).dtype == torch.float64
+    assert torch.autograd.gradcheck(fn, inputs, eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+def test_float64_forward_matches_jax_x64():
+    """float64 inputs compute in float64 with the parameters promoted, as the
+    JAX function does under x64: the statistics agree to float64 rounding, the
+    output to float32 rounding (the JAX function casts it to float32; the
+    port keeps float64) and the gradients to 1e-6."""
+    dense, planes, mask, p, running = _f64_case(4, b=B, m=M)
+    p32 = {k: v.float() for k, v in p.items()}  # promoted inside, as in JAX
+    out, stats = sa_train_kernel.fused_sa_mlp_plain(dense, planes, mask, p32, act="ELU")[:2]
+    assert out.dtype == torch.float64 and all(s.dtype == torch.float64 for s in stats)
+    r = np.random.default_rng(6).normal(size=tuple(out.shape))
+    jax.config.update("jax_enable_x64", True)
+    try:
+        jpl = [jnp.asarray(planes[..., c].numpy()) for c in range(planes.shape[-1])]
+        jp = {k: jnp.asarray(v.numpy()) for k, v in p32.items()}
+        want_out, want_stats = jax_fused_sa_mlp(jnp.asarray(dense.numpy()), jpl,
+                                                jnp.asarray(mask.numpy()), jp, act="ELU",
+                                                interpret=True)
+        _, jg = _jax_grads(dense.numpy(), planes.numpy(), mask.numpy(),
+                           {k: v.numpy() for k, v in p32.items()}, None, r, "ELU", False,
+                           True, x64=True)
+        jg = jax.tree.map(lambda x: np.asarray(x, np.float64), jg)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out, np.float64), rtol=2 ** -23)
+    for got, want in zip(stats, want_stats):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float64), rtol=1e-10,
+                                   atol=1e-12)
+    tp = {k: v.clone().requires_grad_() for k, v in p32.items()}
+    o = sa_train_kernel.fused_sa_mlp(dense, planes, mask, tp, act="ELU")[0]
+    (o * torch.from_numpy(r)).sum().backward()
+    for k in PARAMS:
+        assert tp[k].grad.dtype == torch.float32  # each parameter's own dtype
+        np.testing.assert_allclose(tp[k].grad.double().numpy(), jg[k], rtol=1e-6,
+                                   atol=1e-6 * max(np.abs(x).max() for x in jg.values()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_fused_sa_layer_gradients_match_jax(dtype, train):
+    """FusedSAMLP's parameter gradients, gammas and betas included, against
+    the JAX layer's on bridged weights under one cotangent; the dense block's
+    gradient arrives in its own dtype (float32 here)."""
+    dense, planes, mask, _, _ = _case(12, 4, 3)
+    chans = [7, 8, 8, 16]
+    jl = JaxFusedSAMLP(chans, act="ReLU", compute_dtype=getattr(jnp, dtype))
+    jpl = [jnp.asarray(planes[..., c]) for c in range(3)]
+    v = jl.init(jax.random.key(5), jnp.asarray(dense), jpl, jnp.asarray(mask), False)
+    rng = np.random.default_rng(6)
+    v = {"params": v["params"], "batch_stats": jax.tree.map(
+        lambda x: rng.uniform(0.5, 1.5, x.shape).astype(np.float32), v["batch_stats"])}
+    r = _cotangent(7, 16)
+
+    def loss(params):
+        out = jl.apply({"params": params, "batch_stats": v["batch_stats"]}, jnp.asarray(dense),
+                       jpl, jnp.asarray(mask), train, mutable=["batch_stats"])[0]
+        return jnp.sum(out * jnp.asarray(r))
+
+    jg = from_flax_variables({"params": jax.grad(loss)(v["params"]),
+                              "batch_stats": v["batch_stats"]})
+    tl = FusedSAMLP(chans, act="ReLU", compute_dtype=getattr(torch, dtype))
+    tl.load_state_dict(from_flax_variables(v))
+    td = torch.from_numpy(dense).requires_grad_()
+    out = tl(td, torch.from_numpy(planes), torch.from_numpy(mask), train=train)
+    (out * torch.from_numpy(r)).sum().backward()
+    assert td.grad.dtype == torch.float32 and bool(torch.isfinite(td.grad).all())
+    grads = dict(tl.named_parameters())
+    top = max(float(jg[n].abs().max()) for n in grads)
+    for name, prm in grads.items():
+        got, want = prm.grad.double().numpy(), jg[name].double().numpy()
+        assert np.abs(got - want).max() <= F32_TOL * top, name
+        if dtype == "bfloat16" and not (train and name in ("lin0.bias", "lin1.bias")):
+            assert np.linalg.norm(got - want) <= BF16_L2 * np.linalg.norm(want), name
