@@ -80,7 +80,26 @@ Phases, each of which raises on failure (exit code 1):
              relative, gradients 1e-2 in relative L2 norm and 2e-3 of the
              largest |g|; bf16: loss 1e-2, gradients 0.35 in relative L2 norm)
              and a profile of a 16 x 10240 step.
-12. summary — one JSON line of the kernels with their launches by path, the
+12. tail_bench, bn_stats_bench and dma_probe — each tool's ``main()`` on the
+             card (``dl_biomass_tpu_torch.tools``) with its launches counted;
+             then kernel 7 (``fused_tail``) forward and backward at SA1
+             (36 x 2048 x 64, 64 -> 128) and SA2 (36 x 512 x 64, 128 -> 256):
+             output within 1e-2 of max|y| (bf16) of its plain version, the
+             argmax equal where the winner leads by more than one bf16 step,
+             empty rows 0 with argmax 64, NaN, Inf and 1e4 junk at invalid
+             slots changing no bit; da2 and dW3 within 1e-2 of their largest,
+             exactly 0 at every slot no column routes to (invalid slots
+             among them), the autograd op's da2, dW3 and db3 likewise; two
+             launches bit-identical; timed beside the bound, the plain version
+             and the unfused pair (forward, autograd backward). Kernel 8
+             (``stats_kernel``) at (36, 2048, 64, 64) and (36, 512, 64, 128):
+             s1 and s2 within 1e-5 of the plain version's largest, two
+             launches bit-identical, timed. The slice sum that ends kernels
+             7-B and 8 (``sum_slices``) against its plain version on both
+             kernels' slices, timed. Kernel 10
+             (``block_copy``) at 128 blocks of 256 KB, 1 MB and 4 MB:
+             bit-identical to x + 1.0, timed beside ``torch.add``.
+13. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -126,12 +145,25 @@ N_POINTS, SMALL, LARGE, PARTIAL, PARTIAL_LO = 10240, 16, 36, 5, 7000
 SHORT_POINTS, FAULT_BATCHES = 7168, (24, 28)
 ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlbt_gather_aux",
            "dlbt_sa1_fused_eval", "dlbt_scatter_rows", "dlbt_fused_sa_f1", "dlbt_fused_sa_f2",
-           "dlbt_fused_sa_f3", "dlbt_fused_sa_b1", "dlbt_fused_sa_b2", "dlbt_fused_sa_b3")
+           "dlbt_fused_sa_f3", "dlbt_fused_sa_b1", "dlbt_fused_sa_b2", "dlbt_fused_sa_b3",
+           "dlbt_fused_tail_fwd", "dlbt_fused_tail_bwd", "dlbt_masked_stats", "dlbt_sum_slices",
+           "dlbt_block_copy")
 
 
 def per_run(**launches):
     """Launches of every kernel in one forward or step of a path (0 unless given)."""
     return {e: launches.get(e, 0) for e in ENTRIES}
+
+
+# the tools' timings in one main(), each a warm-up chain and timed chains:
+# (calls per chain, timed chains, shapes or block sizes), as the tools' own
+# constants give them (tool_paths holds the tools to these)
+TOOL_CHAINS = {"tail_bench": (10, 3, 2), "bn_stats_bench": (10, 3, 2), "dma_probe": (16, 5, 3)}
+
+
+def chained_calls(tool: str) -> int:
+    calls, windows, shapes = TOOL_CHAINS[tool]
+    return calls * (1 + windows) * shapes
 
 
 # launches of each kernel per serving forward or training step, by path
@@ -156,6 +188,15 @@ EXPECTED = {
                               dlbt_gather_aux=1, dlbt_scatter_rows=1, dlbt_fused_sa_f1=2,
                               dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2, dlbt_fused_sa_b1=2,
                               dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2),
+    # the tools, per main(): tail_bench times the forward and the forward +
+    # backward; bn_stats_bench calls kernel 8 once more per shape for max_rel_s1
+    "tail_bench": per_run(dlbt_fused_tail_fwd=2 * chained_calls("tail_bench"),
+                          dlbt_fused_tail_bwd=chained_calls("tail_bench"),
+                          dlbt_sum_slices=chained_calls("tail_bench")),
+    "bn_stats_bench": per_run(
+        dlbt_masked_stats=chained_calls("bn_stats_bench") + TOOL_CHAINS["bn_stats_bench"][2],
+        dlbt_sum_slices=chained_calls("bn_stats_bench") + TOOL_CHAINS["bn_stats_bench"][2]),
+    "dma_probe": per_run(dlbt_block_copy=chained_calls("dma_probe")),
 }
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
@@ -200,6 +241,14 @@ FUSED_SA_REPS = 10
 FUSED_STEP_RTOL = {False: dict(loss=1e-5, grad_l2=1e-2, grad_top=2e-3, zero=1e-3),
                    True: dict(loss=1e-2, grad_l2=0.35, grad_top=None, zero=2e-2)}
 
+# phase 12: the tools' paths, each its tool's main() once on the card; kernel 7's
+# shapes (tail_bench's); kernel 8 vs its f32 plain version, of the plain
+# version's largest s1 or s2; CUDA-event timings of the tools' kernels
+TOOL_PATHS = ("tail_bench", "bn_stats_bench", "dma_probe")
+TAIL_SHAPES = {"SA1": (36, 2048, 64, 64, 128), "SA2": (36, 512, 64, 128, 256)}
+STATS_RTOL = 1e-5  # kernel 8 vs its f32 plain version, of the plain version's largest
+TOOL_REPS = 10
+
 
 class PhaseError(RuntimeError):
     pass
@@ -233,8 +282,8 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -306,7 +355,9 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa
 def kernel_sites():
     """(module, wrapper name, plain version name) of each kernel of the paths."""
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
-                                          gather_kernel, sa_eval_kernel, sa_train_kernel)
+                                          gather_kernel, sa_eval_kernel, sa_train_kernel,
+                                          sum_slices_kernel, tail_kernel)
+    from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe
 
     return [(fps_kernel, "fps_rows", "fps_rows_plain"),
             (ball_group_kernel, "ball_group", "ball_group_plain"),
@@ -316,7 +367,12 @@ def kernel_sites():
             (sa_eval_kernel, "sa1_fused_eval", "sa1_fused_eval_plain"),
             (gather_kernel, "scatter_rows", "scatter_rows_plain"),
             (sa_train_kernel, "fused_sa_stage", "fused_sa_stage_plain"),
-            (sa_train_kernel, "fused_sa_bwd_stage", "fused_sa_bwd_stage_plain")]
+            (sa_train_kernel, "fused_sa_bwd_stage", "fused_sa_bwd_stage_plain"),
+            (tail_kernel, "fused_tail_fwd", "fused_tail_fwd_plain"),
+            (tail_kernel, "fused_tail_bwd", "fused_tail_bwd_plain"),
+            (bn_stats_bench, "stats_kernel", "stats_current"),
+            (sum_slices_kernel, "sum_slices", "sum_slices_plain"),
+            (dma_probe, "block_copy", "block_copy_plain")]
 
 
 def record_kernel_inputs(serve, batch):
@@ -725,7 +781,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 12: summary
+    # phase 13: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -734,11 +790,11 @@ def main() -> int:
 
 
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
-         "train_forward_fused_sa", "train_fused_sa")
+         "train_forward_fused_sa", "train_fused_sa") + TOOL_PATHS
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-11; returns the kernels' summary rows, with each kernel's
+    """Phases 2-12; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -748,6 +804,7 @@ def drive(device, card: str) -> list:
     check_fps_scratch(device, card)
     rows += check_fused_sa(device, card)
     fused_sa_paths(device, card, launches)
+    rows += tool_paths(device, card, launches)
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
@@ -1551,6 +1608,290 @@ def train_fused_sa(device, card: str, launches: dict, fused, unfused, reqs) -> N
     print_profile(f"train_fused_sa step B={SMALL}", lambda: fused.step(reqs[0], train_gen(device, 9)),
                   calls=2, n_kernels=14, n_ops=16)
 
+
+
+
+def tail_inputs(shape, device, seed: int):
+    """a2, mask (with two all-invalid rows), w3, b3 and a cotangent g of one shape."""
+    b, m, k, c2, c3 = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a2 = torch.randn((b, m, k, c2), device=device, generator=gen).to(torch.bfloat16)
+    mask = torch.rand((b, m, k), device=device, generator=gen) > 0.1
+    mask[0, :2] = False
+    w3 = 0.1 * torch.randn((c2, c3), device=device, generator=gen)
+    b3 = 0.1 * torch.randn((c3,), device=device, generator=gen)
+    g = torch.randn((b, m, c3), device=device, generator=gen)
+    return a2, mask, w3, b3, g
+
+
+def bf16_lead(a2, mask, w3, b3) -> torch.Tensor:
+    """Where the masked max of z = bf16(a2 W3 + b3) leads the second value by
+    more than one bf16 step of the max (B, M, C3): where the argmax is not a
+    near tie."""
+    from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
+
+    b, m, k, c2 = a2.shape
+    z = (_dot_f32(a2.reshape(-1, c2), w3.to(torch.bfloat16)) + b3).to(torch.bfloat16)
+    z = torch.where(mask[..., None], z.view(b, m, k, -1), float("-inf"))
+    top2 = z.topk(2, dim=2).values.float()
+    del z
+    _, e = torch.frexp(top2[:, :, 0])
+    ulp = torch.ldexp(torch.ones_like(top2[:, :, 0]), e - 8)
+    return (top2[:, :, 0] - top2[:, :, 1]) > ulp
+
+
+def check_tail_fwd(name: str, args, ctx: dict) -> None:
+    """Kernel 7's forward at one shape: vs plain (output, argmax where the
+    winner leads, zero rows), junk at invalid slots, two launches, timings."""
+    from dl_biomass_tpu_torch.ops import tail_kernel as k7
+    from dl_biomass_tpu_torch.tools.tail_bench import unfused
+
+    a2, mask, w3, b3, _ = args
+    out, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    again = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    want, w_am = k7.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
+    torch.cuda.synchronize()
+    require(same_bits(out, again[0]) and torch.equal(am, again[1]),
+            f"kernel 7 {name}: two launches differ in bits")
+    rel = rel_diff(out, want)
+    require(rel <= BF16_SERVE_RTOL,
+            f"kernel 7 {name}: output vs plain rel {rel} > {BF16_SERVE_RTOL}")
+    empty = ~mask.any(-1)
+    require(bool((out[empty] == 0).all()) and torch.equal(out[empty], want[empty])
+            and bool((am[empty] == 64).all()) and bool((w_am[empty] == 64).all()),
+            f"kernel 7 {name}: rows with no valid slot differ")
+    lead = bf16_lead(a2, mask, w3, b3)
+    require(torch.equal(am[lead], w_am[lead]), f"kernel 7 {name}: argmax differs where the "
+                                               f"winner leads by more than one bf16 step")
+    for junk in (float("nan"), float("inf"), 1e4):
+        dirty = torch.where(mask[..., None], a2, torch.tensor(junk, dtype=a2.dtype,
+                                                               device=a2.device))
+        got = k7.fused_tail_fwd(dirty, mask, w3, b3, with_argmax=True)
+        require(same_bits(got[0], out) and torch.equal(got[1], am),
+                f"kernel 7 {name}: junk {junk} at invalid slots changed the output")
+        del dirty, got
+    t = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3), reps=TOOL_REPS)
+    t_am = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True), reps=TOOL_REPS)
+    tp = time_ms(lambda: k7.fused_tail_fwd_plain(a2, mask, w3, b3), reps=3, warmup=1)
+    with torch.no_grad():
+        tu = time_ms(lambda: unfused(a2, mask, w3, b3), reps=3, warmup=1)
+    b, m, k, c2 = a2.shape
+    c3 = w3.shape[1]
+    flops = 2 * b * m * k * c2 * c3
+    nbytes = a2.numel() * 2 + mask.numel() + w3.numel() * 4 + c3 * 4 + b * m * c3 * 2
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    print(f"kernel fused_tail_fwd {name} (B={b} M={m} C2={c2} C3={c3}): {t:.4f} ms (median of "
+          f"{TOOL_REPS}; {t_am:.4f} ms with the argmax), plain {tp:.4f} ms, unfused pair "
+          f"(dot_f32 + masked_max) {tu:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} bytes, "
+          f"{flops} flop at {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff|/max|y| "
+          f"{rel:.3e} (bound {BF16_SERVE_RTOL}); argmax equal where the winner leads "
+          f"({int(lead.sum())} of {lead.numel()}); {int(empty.sum())} empty rows 0 with argmax "
+          f"64; NaN, Inf and 1e4 junk at invalid slots: same bits; two launches bit-identical",
+          flush=True)
+    ctx.setdefault("fused_tail_fwd", []).append(dict(
+        err=max_abs_err(out, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, yard=tu))
+    ctx.setdefault("am", {})[name] = am
+
+
+def check_tail_bwd(name: str, args, ctx: dict) -> None:
+    """Kernel 7's backward at one shape: da2, dW3 and db3 vs plain, exact 0 at
+    invalid slots, the autograd op, two launches, timings."""
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss, tail_kernel as k7
+    from dl_biomass_tpu_torch.tools.tail_bench import unfused
+
+    a2, mask, w3, b3, g = args
+    am = ctx["am"].pop(name)
+    gb = g.to(torch.bfloat16)
+    da2, slices = k7.fused_tail_bwd_slices(a2, gb, am, w3)
+    dw3 = ss.sum_slices(slices).view(w3.shape)
+    again = k7.fused_tail_bwd(a2, gb, am, w3)
+    w_da2, w_dw3 = k7.fused_tail_bwd_plain(a2, gb, am, w3)
+    w_sum = ss.sum_slices_plain(slices).view(w3.shape)
+    torch.cuda.synchronize()
+    require(same_bits(da2, again[0]) and same_bits(dw3, again[1]),
+            f"kernel 7 backward {name}: two launches differ in bits")
+    rels = (rel_diff(da2, w_da2), rel_diff(dw3, w_dw3))
+    require(max(rels) <= BF16_SERVE_RTOL,
+            f"kernel 7 backward {name}: da2, dW3 vs plain rel {rels} > {BF16_SERVE_RTOL}")
+    rel_sum = rel_diff(dw3, w_sum)
+    require(rel_sum <= 1e-6, f"kernel 7 slice sum {name}: vs plain rel {rel_sum} > 1e-6")
+    b, m, k, c2 = a2.shape
+    c3 = w3.shape[1]
+    hit = torch.zeros((b, m, k + 1), dtype=torch.bool, device=a2.device)
+    hit.scatter_(2, am.long(), True)  # the slots some column routes to (64: none)
+    require(bool((da2[~hit[:, :, :k]] == 0).all()) and not bool(hit[:, :, :k][~mask].any()),
+            f"kernel 7 backward {name}: gradient at a slot no column routes to")
+    leaves = [t.detach().requires_grad_() for t in (a2, w3, b3)]
+    with torch.enable_grad():
+        out = k7.fused_tail(leaves[0], mask, leaves[1], leaves[2])
+        grads = torch.autograd.grad(out, leaves, gb)
+    _, w_am = k7.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
+    w_db3 = torch.where(w_am < 64, g.to(torch.bfloat16).float(), 0.0).sum(dim=(0, 1))
+    rel_auto = (rel_diff(grads[0], w_da2), rel_diff(grads[1], w_dw3), rel_diff(grads[2], w_db3))
+    require(max(rel_auto) <= BF16_SERVE_RTOL,
+            f"kernel 7 autograd {name}: da2, dW3, db3 vs plain rel {rel_auto} > {BF16_SERVE_RTOL}")
+    err = max(max_abs_err(da2, w_da2), max_abs_err(dw3, w_dw3))
+    del grads, out, leaves, w_da2, again
+    t = time_ms(lambda: k7.fused_tail_bwd(a2, gb, am, w3), reps=TOOL_REPS)
+    t_slices = time_ms(lambda: k7.fused_tail_bwd_slices(a2, gb, am, w3), reps=TOOL_REPS)
+    t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
+    tp = time_ms(lambda: k7.fused_tail_bwd_plain(a2, gb, am, w3), reps=3, warmup=1)
+    tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
+    leaves = [t_.detach().requires_grad_() for t_ in (a2, w3, b3)]
+    with torch.enable_grad():
+        out = unfused(leaves[0], mask, leaves[1], leaves[2])
+        tu = time_ms(lambda: torch.autograd.grad(out, leaves, gb, retain_graph=True), reps=3,
+                     warmup=1)
+    del out, leaves
+    routed = int((am < 64).sum())
+    flops = 4 * c2 * routed
+    nbytes = 2 * a2.numel() * 2 + b * m * c3 * (2 + 4) + 2 * c2 * c3 * 4
+    bms, by = bound(nbytes, flops)
+    n_sum = slices.numel()
+    bms_sum, by_sum = bound(n_sum * 4 + c2 * c3 * 4, n_sum)
+    print(f"kernel fused_tail_bwd {name} (B={b} M={m} C2={c2} C3={c3}): {t_slices:.4f} ms "
+          f"(median of {TOOL_REPS}; {t:.4f} ms with the slice sum; the sum of "
+          f"{slices.shape[0]} slices alone {t_sum:.4f} ms, its plain version {tsp:.4f} ms, bound "
+          f"{bms_sum:.6f} ms), plain "
+          f"{tp:.4f} ms, the unfused pair's autograd backward {tu:.4f} ms, bound {bms:.6f} ms "
+          f"({by}: {nbytes} bytes, {flops} flop over {routed} routed columns at "
+          f"{PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff| over the largest: "
+          f"da2 {rels[0]:.3e}, dW3 {rels[1]:.3e} (bound {BF16_SERVE_RTOL}), slice sum "
+          f"{rel_sum:.3e}; autograd op da2, dW3, db3 {', '.join(f'{r:.3e}' for r in rel_auto)};"
+          f" slots no column routes to exactly 0; two launches bit-identical", flush=True)
+    ctx.setdefault("fused_tail_bwd", []).append(dict(
+        err=err, ms=t_slices, plain_ms=tp,
+        bound_ms=bms, bound_by=by, yard=tu))
+    ctx.setdefault("sum_slices", []).append(dict(
+        err=max_abs_err(dw3, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
+        yard=None))
+
+
+def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
+    """Kernel 8 at one shape: s1 and s2 vs the plain version, two launches,
+    timings; its slices' sum vs the plain sum."""
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
+    from dl_biomass_tpu_torch.tools import bn_stats_bench as bn
+
+    b, m, k, c = shape
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.randn((b, m, k, c), device=device, generator=gen).to(torch.bfloat16)
+    m3 = torch.rand((b, m, k), device=device, generator=gen) > 0.1
+    got, again = bn.stats_kernel(x, m3), bn.stats_kernel(x, m3)
+    want = bn.stats_current(x, m3)
+    slices = bn.stats_slices(x, m3)
+    s_sum, w_sum = ss.sum_slices(slices), ss.sum_slices_plain(slices)
+    torch.cuda.synchronize()
+    require(all(same_bits(p, q) for p, q in zip(got, again)),
+            f"kernel 8 {name}: two launches differ in bits")
+    rels = [rel_diff(p, q) for p, q in zip(got, want)]
+    require(max(rels) <= STATS_RTOL, f"kernel 8 {name}: s1, s2 vs plain rel {rels} > {STATS_RTOL}")
+    rel_sum = rel_diff(s_sum, w_sum)
+    require(rel_sum <= 1e-6, f"slice sum of kernel 8 {name}: vs plain rel {rel_sum} > 1e-6")
+    t = time_ms(lambda: bn.stats_kernel(x, m3), reps=TOOL_REPS)
+    tp = time_ms(lambda: bn.stats_current(x, m3), reps=TOOL_REPS)
+    t_slices = time_ms(lambda: bn.stats_slices(x, m3), reps=TOOL_REPS)
+    t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
+    tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
+    bms_sum, by_sum = bound(slices.numel() * 4 + 2 * c * 4, slices.numel())
+    nbytes = x.numel() * 2 + m3.numel() + 2 * c * 4
+    bms, by = bound(nbytes, 4 * x.numel())
+    print(f"kernel masked_stats {name} (B={b} M={m} K={k} C={c}): {t_slices:.4f} ms (median "
+          f"of {TOOL_REPS}, {x.numel() * 2 / t_slices / 1e6:.1f} GB/s of x; {t:.4f} ms with the "
+          f"slice sum; the sum of {slices.shape[0]} slices alone {t_sum:.4f} ms, its plain "
+          f"version {tsp:.4f} ms, bound {bms_sum:.6f} ms), plain (stats_current, the yardstick) "
+          f"{tp:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} bytes); vs plain max|diff| over the "
+          f"largest s1 {rels[0]:.3e}, s2 {rels[1]:.3e} (bound {STATS_RTOL}), slice sum "
+          f"{rel_sum:.3e}; two launches bit-identical", flush=True)
+    ctx.setdefault("masked_stats", []).append(dict(
+        err=max(max_abs_err(p, q) for p, q in zip(got, want)), ms=t_slices, plain_ms=tp,
+        bound_ms=bms, bound_by=by, yard=None))
+    ctx.setdefault("sum_slices", []).append(dict(
+        err=max_abs_err(s_sum, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
+        yard=None))
+
+
+def check_block_copy(block_kb: int, device, ctx: dict) -> None:
+    """Kernel 10 at one block size: bit-identical to x + 1.0, timings."""
+    from dl_biomass_tpu_torch.tools import dma_probe as dp
+
+    rows = block_kb * 1024 // (4 * 128)
+    gen = torch.Generator(device=device).manual_seed(10)
+    x = torch.randn((dp.BLOCKS, rows, 128), device=device, generator=gen)
+    got = dp.block_copy(x)
+    torch.cuda.synchronize()
+    require(same_bits(got, dp.block_copy_plain(x)), f"kernel 10 {block_kb} KB: differs from x + 1")
+    t = time_ms(lambda: dp.block_copy(x), reps=TOOL_REPS)
+    tp = time_ms(lambda: dp.block_copy_plain(x), reps=TOOL_REPS)
+    tl = time_ms(lambda: torch.add(x, 1.0), reps=TOOL_REPS)
+    bms, by = bound(2 * x.numel() * 4, x.numel())
+    print(f"kernel block_copy {dp.BLOCKS} x {block_kb} KB: {t:.4f} ms (median of {TOOL_REPS}, "
+          f"{2 * x.numel() * 4 / t / 1e6:.1f} GB/s), plain (x + 1.0) {tp:.4f} ms, library "
+          f"(torch.add) {tl:.4f} ms, bound {bms:.6f} ms; bit-identical", flush=True)
+    ctx.setdefault("block_copy", []).append(dict(err=0.0, ms=t, plain_ms=tp, bound_ms=bms,
+                                                 bound_by=by, yard=None, library=tl))
+
+
+# the tools' kernels: (row name, source, the TPU kernel it replaces, what its
+# yardstick key is)
+TOOL_KERNELS = {
+    "fused_tail_fwd": ("fused_tail.cu", "dl_biomass_tpu/ops/pallas_tail.py:63",
+                       "yardstick_unfused_ms"),
+    "fused_tail_bwd": ("fused_tail.cu", "dl_biomass_tpu/ops/pallas_tail.py:108",
+                       "yardstick_unfused_backward_ms"),
+    "masked_stats": ("masked_stats.cu", "tools/bn_stats_bench.py:92", None),
+    # the cross-block step of 7-B and 8: on the TPU their grids accumulate in order
+    "sum_slices": ("sum_slices.cu", "dl_biomass_tpu/ops/pallas_tail.py:108, "
+                   "tools/bn_stats_bench.py:92", None),
+    "block_copy": ("block_copy.cu", "tools/dma_probe.py:63", None),
+}
+
+
+def tool_paths(device, card: str, launches: dict) -> list:
+    """Phase 12: each tool's main() on the card with its launches counted,
+    then its kernels at the tool's full shapes against their plain versions,
+    timed beside their bounds and yardsticks; returns the kernels' rows."""
+    from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe, tail_bench
+
+    tools = (tail_bench, bn_stats_bench, dma_probe)
+    for path, chains in zip(TOOL_PATHS, ((tail_bench.LOOPS, tail_bench.WINDOWS,
+                                          len(tail_bench.SHAPES)),
+                                         (bn_stats_bench.LOOPS, bn_stats_bench.WINDOWS,
+                                          len(bn_stats_bench.SHAPES)),
+                                         (dma_probe.CHAIN, dma_probe.WINDOWS,
+                                          len(dma_probe.BLOCK_KBS)))):
+        require(chains == TOOL_CHAINS[path], f"{path}'s timing constants changed: {chains}")
+    for path, tool in zip(TOOL_PATHS, tools):
+        t0 = time.perf_counter()
+        counted_run(path, lambda: tool.main(device), launches, runs=1)
+        print(f"{path} launches in one main() ({time.perf_counter() - t0:.1f} s): "
+              f"{ {e: n for e, n in launches[path].items() if n} } [{card}]", flush=True)
+    ctx = {}
+    for name, shape in TAIL_SHAPES.items():
+        require(dict(tail_bench.SHAPES)[name] == shape, f"tail_bench's {name} shape changed")
+        args = tail_inputs(shape, device, seed=7)
+        with torch.no_grad():
+            check_tail_fwd(name, args, ctx)
+        check_tail_bwd(name, args, ctx)
+        del args
+        torch.cuda.empty_cache()
+    for name, shape in bn_stats_bench.SHAPES:
+        check_masked_stats(name, shape, device, ctx)
+    for kb in dma_probe.BLOCK_KBS:
+        check_block_copy(kb, device, ctx)
+    rows = []
+    for name, (src, replaces, yard_key) in TOOL_KERNELS.items():
+        runs = ctx[name]
+        row = dict(name=name, source=f"dl_biomass_tpu_torch/csrc/{src}", replaces=replaces,
+                   entry=f"dlbt_{name}", max_abs_err=max(r["err"] for r in runs),
+                   ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
+                   bound_ms=sum(r["bound_ms"] for r in runs),
+                   bound_by=max(runs, key=lambda r: r["bound_ms"])["bound_by"],
+                   library_ms=(sum(r["library"] for r in runs) if "library" in runs[0] else None))
+        if yard_key:
+            row[yard_key] = sum(r["yard"] for r in runs)
+        rows.append(row)
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

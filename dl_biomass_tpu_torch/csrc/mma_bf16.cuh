@@ -1,0 +1,115 @@
+// bf16 tensor-core products of one warp (mma.sync m16n8k16, bf16 in, f32
+// accumulators) and asynchronous copies into shared memory, shared by
+// csrc/sa1_fused_eval.cu (kernel 5) and csrc/fused_tail.cu (kernel 7). In
+// warp_mma the right-hand operand is stored transposed in shared memory, each
+// of its rows (depth + kSkewH) values apart, so that a fragment is one 32-bit
+// load and a warp's fragment loads hit 32 banks.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+namespace dlbt {
+
+constexpr int kSkewH = 8;  // bf16 rows are (depth + 8) values apart: 16-byte aligned, and a
+                           // fragment load's 8 rows x 4 words fall in 32 banks
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[nt] = rows r0..r0+15 of a (depth values per row, rows lda apart) @ columns
+// n0 + 8 nt .. n0 + 8 nt + 7 of the transposed weights wt (rows depth + 8 apart),
+// nt < NT. Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
+// rows g and g + 8, depths 2t, 2t+1 and 2t+8, 2t+9; B depths 2t, 2t+1 and 2t+8,
+// 2t+9 of column g; C rows g and g + 8, columns 2t, 2t+1.
+template <int NT>
+__device__ __forceinline__ void warp_mma(const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* wt, int depth, int r0, int n0,
+                                         float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ldw = depth + kSkewH;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0f;
+  }
+  for (int k0 = 0; k0 < depth; k0 += 16) {
+    const __nv_bfloat16* ar = a + (r0 + g) * lda + k0 + 2 * t;
+    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * lda), ld32(ar + 8), ld32(ar + 8 * lda + 8)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const __nv_bfloat16* br = wt + (n0 + nt * 8 + g) * ldw + k0 + 2 * t;
+      const uint32_t bf[2] = {ld32(br), ld32(br + 8)};
+      mma_bf16(acc[nt], af, bf);
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_mma64(const __nv_bfloat16* a, int lda,
+                                           const __nv_bfloat16* wt, int depth, int r0, int n0,
+                                           float (&acc)[8][4]) {
+  warp_mma<8>(a, lda, wt, depth, r0, n0, acc);
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lanes 8q..8q+7 give
+// the addresses of matrix q's 8 rows (16 bytes each, 16-byte aligned), and
+// r[q] holds the fragment of its transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// acc[nt] += (x^T y)[j0 .. j0 + 15][n0 + 8 nt .. n0 + 8 nt + 7], summed over the
+// depth rows 0 .. depth - 1 of x (rows ldx apart) and y (rows ldy apart): both
+// operands are stored with the summed index as the row, so their fragments
+// are loaded transposed. ldx and ldy keep rows 16-byte aligned and 8 rows in
+// other banks (a width plus kSkewH).
+__device__ __forceinline__ void warp_mma64_tn(const __nv_bfloat16* x, int ldx,
+                                              const __nv_bfloat16* y, int ldy, int depth, int j0,
+                                              int n0, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, q = lane >> 3, i = lane & 7;
+  for (int k0 = 0; k0 < depth; k0 += 16) {
+    uint32_t af[4];  // matrices: (j 0-7, k 0-7), (j 8-15, k 0-7), (j 0-7, k 8-15), (j 8-15, k 8-15)
+    ldmatrix_x4_trans(af, x + (k0 + i + (q >> 1) * 8) * ldx + j0 + (q & 1) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {  // two 8-column blocks: (k 0-7, k 8-15) of each
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, y + (k0 + i + (q & 1) * 8) * ldy + n0 + np * 16 + (q >> 1) * 8);
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma_bf16(acc[2 * np], af, b0);
+      mma_bf16(acc[2 * np + 1], af, b1);
+    }
+  }
+}
+
+// Asynchronous 16-byte copy from device to shared memory (both 16-byte
+// aligned), in the calling thread's current group.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `n` of the thread's newest groups are still in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+}  // namespace dlbt

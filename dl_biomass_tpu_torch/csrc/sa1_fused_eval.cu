@@ -42,6 +42,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "stratified_select.cuh"
 
 namespace {
@@ -55,8 +56,8 @@ constexpr int kInPad = 8;   // f32 layer-1 input: [feat..., dx, dy, dz] padded w
 constexpr int kInMma = 16;  // bf16 layer-1 input: padded to one MMA step
 constexpr int kSkew = 4;    // f32 rows are (width + 4) floats apart: 16-byte aligned, and the
                             // 4 row groups of a warp fall in other banks
-constexpr int kSkewH = 8;   // bf16 rows are (depth + 8) values apart: 16-byte aligned, and a
-                            // fragment load's 8 rows x 4 words fall in 32 banks
+using dlbt::kSkewH;  // bf16 rows are (depth + 8) values apart (mma_bf16.cuh)
+using dlbt::warp_mma64;
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -207,47 +208,7 @@ __device__ void fma_mlp(char* smem, const Layout& L, const int* valid, float* re
   }
 }
 
-// ---- bf16: tensor-core MMA ---------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[nt] = rows r0..r0+15 of a (depth values per row, rows lda apart) @ columns
-// n0 + 8 nt .. n0 + 8 nt + 7 of the transposed weights wt (rows depth + 8 apart).
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g
-// and g + 8, depths 2t, 2t+1 and 2t+8, 2t+9; B depths 2t, 2t+1 and 2t+8, 2t+9 of
-// column g; C rows g and g + 8, columns 2t, 2t+1.
-__device__ __forceinline__ void warp_mma64(const __nv_bfloat16* a, int lda,
-                                           const __nv_bfloat16* wt, int depth, int r0, int n0,
-                                           float (&acc)[8][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ldw = depth + kSkewH;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0f;
-  }
-  for (int k0 = 0; k0 < depth; k0 += 16) {
-    const __nv_bfloat16* ar = a + (r0 + g) * lda + k0 + 2 * t;
-    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * lda), ld32(ar + 8), ld32(ar + 8 * lda + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const __nv_bfloat16* br = wt + (n0 + nt * 8 + g) * ldw + k0 + 2 * t;
-      const uint32_t bf[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16(acc[nt], af, bf);
-    }
-  }
-}
+// ---- bf16: tensor-core MMA (mma_bf16.cuh) ------------------------------------
 
 // The warp's 16 rows of out = bf16(relu(in @ w + bias)), rows (width + 8) apart.
 __device__ __forceinline__ void mma_hidden(const __nv_bfloat16* in, int depth,

@@ -130,3 +130,9 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes: the
+    kernels that copy rows in 16-byte pieces take it so."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

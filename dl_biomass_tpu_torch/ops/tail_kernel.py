@@ -1,0 +1,211 @@
+"""Kernel 7: the fused tail of an SA layer, its last Linear and the masked max
+over the 64 neighbour slots, forward and backward (port of
+``dl_biomass_tpu/ops/pallas_tail.py`` fused_tail).
+
+Forward: ``z = bf16(bf16(a2) bf16(W3) [float32 sum] + b3)``, then
+``where(mask, z, -inf)``, its max over the slots and the first slot that
+equals the max; the output is 0 and the argmax 64 (= K) on a row with no
+valid slot. Masking is a true select, so NaN or Inf junk in ``a2`` at an
+invalid slot never reaches the output. The (B, M, 64, C3) tensor z never
+reaches device memory.
+
+Backward: the cotangent, rounded to bf16 (``gb``), goes to the argmax slot of
+its column (an argmax of 64 routes nothing), and is contracted at once:
+``da2 = bf16(gs W3^T)`` in a2's dtype, ``dW3 = a2^T gs`` with float32 sums.
+``db3`` is the float32 sum of the cotangent over the rows whose argmax is
+below 64, taken with torch ops outside the kernel as the JAX function takes it
+with jnp. The mask gets no gradient, and an invalid slot gets exactly 0.
+
+``fused_tail_fwd`` and ``fused_tail_bwd`` launch ``csrc/fused_tail.cu``
+(entries ``dlbt_fused_tail_fwd``; ``dlbt_fused_tail_bwd``, wrapper
+``fused_tail_bwd_slices``, and then ``dlbt_sum_slices``, which adds the
+blocks' dW3 slices: ``ops/sum_slices_kernel``) on a CUDA tensor and run
+``fused_tail_fwd_plain`` and ``fused_tail_bwd_plain`` on a CPU tensor.
+``fused_tail`` is the differentiable op, a ``torch.autograd.Function``
+around the two. Like the JAX function, it is wired into no model: the tool
+``dl_biomass_tpu_torch.tools.tail_bench`` times it beside the unfused pair.
+The kernels sum in their own order, so they agree with the plain versions to
+float32 rounding of the sums (a bf16 value near a rounding boundary may round
+one step the other way, and the argmax then move where two slots tie within
+it). The TPU's M padding to a multiple of 8 and its tiling are not copied: any
+M works.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from dl_biomass_tpu_torch.ops import _build, sum_slices_kernel
+from dl_biomass_tpu_torch.ops.pooling import _max_only, first_argmax
+from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
+
+K = 64  # neighbour slots
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
+
+
+def _check(a2, nbr_mask, w3):
+    if a2.dim() != 4 or a2.shape[2] != K or tuple(nbr_mask.shape) != tuple(a2.shape[:3]):
+        raise ValueError(f"a2 must be (B, M, {K}, C2) and nbr_mask (B, M, {K}), got "
+                         f"{tuple(a2.shape)} and {tuple(nbr_mask.shape)}")
+    if w3.dim() != 2 or w3.shape[0] != a2.shape[3]:
+        raise ValueError(f"w3 must be (C2, C3) = ({a2.shape[3]}, C3), got {tuple(w3.shape)}")
+
+
+def _argmax(filled: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """The first slot equal to the max, and K where the max is the -inf fill
+    (no valid slot): the JAX kernel's rule, not ``first_argmax``'s 0."""
+    am = first_argmax(filled, raw, dim=2).to(torch.int32)
+    return torch.where(raw == float("-inf"), K, am)
+
+
+def fused_tail_fwd_plain(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
+                         b3: torch.Tensor, with_argmax: bool = False):
+    """The plain PyTorch version: the unfused pair the JAX kernel mirrors, a
+    bf16 product with a float32 sum plus ``b3`` rounded to bf16, then the
+    masked max of ``ops/pooling``. Returns ``(out (B, M, C3) bf16, argmax
+    (B, M, C3) int32 or None)``."""
+    _check(a2, nbr_mask, w3)
+    b, m, k, c2 = a2.shape
+    z = _dot_f32(a2.reshape(-1, c2).to(torch.bfloat16), w3.to(torch.bfloat16))
+    z = (z + b3.float()).to(torch.bfloat16).view(b, m, k, -1)
+    filled, raw, _, out = _max_only(z, nbr_mask, dim=2)
+    return out, (_argmax(filled, raw) if with_argmax else None)
+
+
+def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
+                   b3: torch.Tensor, with_argmax: bool = False):
+    """a2 (B, M, 64, C2) bf16 (any dtype is rounded to bf16), nbr_mask (B, M, 64)
+    bool, w3 (C2, C3) and b3 (C3,) float32 -> (out (B, M, C3) bf16, argmax
+    (B, M, C3) int32 or None).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if a2.device.type == "cpu":
+        return fused_tail_fwd_plain(a2, nbr_mask, w3, b3, with_argmax)
+    if a2.device.type != "cuda":
+        raise RuntimeError(f"fused_tail_fwd runs on cuda or cpu tensors, got {a2.device}")
+    _check(a2, nbr_mask, w3)
+    b, m, k, c2 = a2.shape
+    c3 = w3.shape[1]
+    if c2 % 16 or c3 % 32:
+        raise ValueError(f"the kernel takes C2 a multiple of 16 and C3 of 32, got {c2}, {c3}")
+    a2 = _build.aligned16(a2.to(torch.bfloat16).contiguous())
+    nbr_mask = _build.aligned16(nbr_mask.to(torch.bool).contiguous())
+    w3, b3 = w3.float().contiguous(), b3.float().contiguous()
+    _build.check_cuda("fused_tail_fwd", a2, nbr_mask, w3, b3)
+    out = torch.empty((b, m, c3), dtype=torch.bfloat16, device=a2.device)
+    am = torch.empty((b, m, c3), dtype=torch.int32, device=a2.device) if with_argmax else None
+    _build.launch("dlbt_fused_tail_fwd", _FWD_ARGTYPES, a2.data_ptr(), nbr_mask.data_ptr(),
+                  w3.data_ptr(), b3.data_ptr(), out.data_ptr(), _build.ptr(am), b * m, c2, c3,
+                  _build.stream_of(a2))
+    return out, am
+
+
+def _routed(gb: torch.Tensor, am: torch.Tensor) -> torch.Tensor:
+    """gb (B, M, C3) at the argmax slots -> (B, M, 64, C3) bf16; K routes nothing."""
+    b, m, c3 = gb.shape
+    gs = torch.zeros((b, m, K + 1, c3), dtype=torch.bfloat16, device=gb.device)
+    gs.scatter_(2, am.long().unsqueeze(2), gb.to(torch.bfloat16).unsqueeze(2))
+    return gs[:, :, :K]
+
+
+def fused_tail_bwd_plain(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor,
+                         w3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward: the routed cotangent gs
+    (B, M, 64, C3), ``da2 = bf16(gs W3^T)`` in a2's dtype and ``dW3 = a2^T gs``
+    (C2, C3) float32, both bf16 products with float32 sums."""
+    _check_bwd(a2, gb, am, w3)
+    b, m, k, c2 = a2.shape
+    gs = _routed(gb, am).reshape(-1, w3.shape[1])
+    a2r = a2.reshape(-1, c2).to(torch.bfloat16)
+    da2 = _dot_f32(gs, w3.to(torch.bfloat16).t()).to(a2.dtype).view(b, m, k, c2)
+    return da2, _dot_f32(a2r.t(), gs)
+
+
+def _check_bwd(a2, gb, am, w3):
+    if a2.dim() != 4 or a2.shape[2] != K:
+        raise ValueError(f"a2 must be (B, M, {K}, C2), got {tuple(a2.shape)}")
+    b, m, _, c2 = a2.shape
+    c3 = w3.shape[1]
+    if (tuple(w3.shape) != (c2, c3) or tuple(gb.shape) != (b, m, c3)
+            or tuple(am.shape) != (b, m, c3)):
+        raise ValueError(f"gb and am must be (B, M, C3) = {(b, m, c3)} beside w3 (C2, C3), got "
+                         f"{tuple(gb.shape)}, {tuple(am.shape)} and {tuple(w3.shape)}")
+
+
+def fused_tail_bwd_slices(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor,
+                          w3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's first launch (``dlbt_fused_tail_bwd``), on CUDA tensors
+    only: da2 and the blocks' dW3 slices, (blocks, C2 * C3) float32, each the
+    sum over its block's centroids."""
+    if a2.device.type != "cuda":
+        raise RuntimeError(f"fused_tail_bwd_slices runs on cuda tensors, got {a2.device}")
+    _check_bwd(a2, gb, am, w3)
+    if a2.dtype != torch.bfloat16:
+        raise ValueError(f"a2 must be bf16, got {a2.dtype}")
+    b, m, _, c2 = a2.shape
+    c3 = w3.shape[1]
+    if c2 % 64 or c3 % 64 or (c2 // 16) * (c3 // 64) > 32:
+        raise ValueError(f"the kernel takes C2 and C3 multiples of 64 with C2 * C3 <= 32768, "
+                         f"got {c2}, {c3}")
+    dev = a2.device
+    a2 = _build.aligned16(a2.contiguous())
+    gb = _build.aligned16(gb.to(torch.bfloat16).contiguous())
+    am = _build.aligned16(am.to(torch.int32).contiguous())
+    w3 = w3.float().contiguous()
+    _build.check_cuda("fused_tail_bwd", a2, gb, am, w3)
+    max_grid = BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty((max_grid, c2 * c3), dtype=torch.float32, device=dev)
+    da2 = torch.empty_like(a2)
+    grid = ctypes.c_int(0)
+    _build.launch("dlbt_fused_tail_bwd", _BWD_ARGTYPES, a2.data_ptr(), gb.data_ptr(),
+                  am.data_ptr(), w3.data_ptr(), partial.data_ptr(), da2.data_ptr(), b * m, c2,
+                  c3, max_grid, ctypes.byref(grid), _build.stream_of(a2))
+    return da2, partial[:grid.value]
+
+
+def fused_tail_bwd(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor,
+                   w3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a2 (B, M, 64, C2) bf16, gb (B, M, C3) bf16, am (B, M, C3) the forward's
+    argmax, w3 (C2, C3) float32 -> (da2 (B, M, 64, C2) bf16, dW3 (C2, C3) float32).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``fused_tail_bwd_slices``) and the sum of its blocks' dW3 slices
+    (``sum_slices_kernel.sum_slices``)."""
+    if a2.device.type == "cpu":
+        return fused_tail_bwd_plain(a2, gb, am, w3)
+    if a2.device.type != "cuda":
+        raise RuntimeError(f"fused_tail_bwd runs on cuda or cpu tensors, got {a2.device}")
+    da2, slices = fused_tail_bwd_slices(a2, gb, am, w3)
+    return da2, sum_slices_kernel.sum_slices(slices).view(w3.shape)
+
+
+class _FusedTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a2, nbr_mask, w3, b3):
+        out, am = fused_tail_fwd(a2, nbr_mask, w3, b3, with_argmax=True)
+        ctx.save_for_backward(a2, am, w3)
+        ctx.b3_dtype = b3.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, am, w3 = ctx.saved_tensors
+        da2, dw3 = fused_tail_bwd(a2.to(torch.bfloat16), g.to(torch.bfloat16), am, w3)
+        db3 = torch.where(am < K, g.float(), 0.0).sum(dim=(0, 1))  # from the f32 cotangent
+        return da2.to(a2.dtype), None, dw3.to(w3.dtype), db3.to(ctx.b3_dtype)
+
+
+def fused_tail(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
+               b3: torch.Tensor) -> torch.Tensor:
+    """``masked_max(Dense(a2), nbr_mask, dim=2)`` in bf16 without z in device
+    memory: (B, M, 64, C2) -> (B, M, C3) bf16, differentiable in a2, w3 and
+    b3. Without a gradient to take, the forward skips the argmax."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a2, w3, b3)):
+        return _FusedTail.apply(a2, nbr_mask, w3, b3)
+    return fused_tail_fwd(a2, nbr_mask, w3, b3)[0]

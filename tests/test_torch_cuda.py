@@ -17,7 +17,9 @@ from dl_biomass_tpu_torch.models.inference import compile_inference
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
 from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
-                                      gather_kernel, sa_eval_kernel, sa_train_kernel)
+                                      gather_kernel, sa_eval_kernel, sa_train_kernel,
+                                      sum_slices_kernel, tail_kernel)
+from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -328,3 +330,88 @@ def test_fused_sa_model_launches_kernel_6(dev):
         common, dlbt_scatter_rows=1, **{f"dlbt_fused_sa_{p}{i}": 2 for p in "fb" for i in (1, 2, 3)})
     for name, p in model.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+
+
+def _tail_inputs(dev, b, m, c2, c3, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a2 = torch.randn((b, m, 64, c2), device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.rand((b, m, 64), device=dev, generator=g) > 0.3
+    mask[0, 3] = False
+    w3 = 0.1 * torch.randn((c2, c3), device=dev, generator=g)
+    b3 = 0.1 * torch.randn((c3,), device=dev, generator=g)
+    return a2, mask, w3, b3
+
+
+@pytest.mark.parametrize("b,m,c2,c3", [(2, 32, 64, 128), (2, 20, 128, 256), (3, 500, 64, 128)])
+def test_fused_tail_kernel_matches_plain(dev, b, m, c2, c3):
+    """Kernel 7's forward and backward against their plain versions (bf16:
+    1e-2 of the largest), empty rows 0 with argmax 64, NaN junk at invalid
+    slots changing nothing, da2 exactly 0 at every slot no column routes to,
+    and two launches bit-identical."""
+    a2, mask, w3, b3 = _tail_inputs(dev, b, m, c2, c3)
+    out, am = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    again = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    want, w_am = tail_kernel.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), again[0].view(torch.int16))
+    assert torch.equal(am, again[1])
+    assert float((out.float() - want.float()).abs().max()) <= 1e-2 * float(want.float().abs().max())
+    assert bool((out[0, 3] == 0).all()) and bool((am[0, 3] == 64).all())
+    assert float((am != w_am).float().mean()) < 0.01  # near ties only
+    junk = torch.where(mask[..., None], a2, torch.tensor(float("nan"), dtype=a2.dtype, device=dev))
+    assert torch.equal(tail_kernel.fused_tail_fwd(junk, mask, w3, b3)[0].view(torch.int16),
+                       out.view(torch.int16))
+    gb = torch.randn((b, m, c3), device=dev).to(torch.bfloat16)
+    da2, dw3 = tail_kernel.fused_tail_bwd(a2, gb, am, w3)
+    da2_b, dw3_b = tail_kernel.fused_tail_bwd(a2, gb, am, w3)
+    w_da2, w_dw3 = tail_kernel.fused_tail_bwd_plain(a2, gb, am, w3)
+    torch.cuda.synchronize()
+    assert torch.equal(da2.view(torch.int16), da2_b.view(torch.int16))
+    assert torch.equal(dw3.view(torch.int32), dw3_b.view(torch.int32))
+    for got, ref in ((da2, w_da2), (dw3, w_dw3)):
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= 1e-2 * float(ref.float().abs().max())
+    hit = torch.zeros((b, m, 65), dtype=torch.bool, device=dev).scatter_(2, am.long(), True)
+    assert bool((da2[~hit[:, :, :64]] == 0).all())  # invalid slots among them
+
+
+def test_fused_tail_autograd_launches_kernel_7(dev):
+    a2, mask, w3, b3 = _tail_inputs(dev, 2, 40, 64, 128)
+    leaves = [t.requires_grad_() for t in (a2, w3, b3)]
+    _build.launch_counts.clear()
+    out = tail_kernel.fused_tail(*leaves[:1], mask, *leaves[1:])
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"dlbt_fused_tail_fwd": 1, "dlbt_fused_tail_bwd": 1,
+                                          "dlbt_sum_slices": 1}
+    assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+
+
+@pytest.mark.parametrize("c", [64, 128, 24])
+def test_masked_stats_kernel_matches_plain(dev, c):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((3, 70, 64, c), device=dev, generator=g).to(torch.bfloat16)
+    m3 = torch.rand((3, 70, 64), device=dev, generator=g) > 0.1
+    _build.launch_counts.clear()
+    got, again = bn_stats_bench.stats_kernel(x, m3), bn_stats_bench.stats_kernel(x, m3)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"dlbt_masked_stats": 2, "dlbt_sum_slices": 2}
+    want = bn_stats_bench.stats_current(x, m3)
+    for p, q, r in zip(got, again, want):
+        assert torch.equal(p.view(torch.int32), q.view(torch.int32))
+        assert float((p - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+def test_sum_slices_kernel_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    slices = torch.randn((133, 5000), device=dev, generator=g)
+    got = sum_slices_kernel.sum_slices(slices)
+    assert torch.equal(got.view(torch.int32), sum_slices_kernel.sum_slices(slices).view(torch.int32))
+    want = sum_slices_kernel.sum_slices_plain(slices)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("rows", [2, 512, 777])
+def test_block_copy_kernel_matches_plain(dev, rows):
+    x = torch.randn((5, rows, 128), device=dev)
+    assert torch.equal(dma_probe.block_copy(x), x + 1.0)

@@ -91,11 +91,15 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("sa1_fused_eval.cu", "pallas_sa_eval.py sa1_fused_eval"),
     ("fused_sa_fwd.cu", "pallas_sa_train.py fused_sa_mlp"),
     ("fused_sa_bwd.cu", "pallas_sa_train.py fused_sa_mlp, its backward"),
+    ("fused_tail.cu", "pallas_tail.py fused_tail"),
+    ("masked_stats.cu", "tools/bn_stats_bench.py stats_pallas"),
+    ("block_copy.cu", "tools/dma_probe.py pallas_bandwidth"),
 ])
 def test_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "csrc" / name).read_text().split("#include")[0]
     flat = " ".join(line.lstrip("/ ") for line in head.splitlines())
-    assert f"Replaces: dl_biomass_tpu/ops/{replaces}" in flat
+    where = "" if replaces.startswith("tools/") else "dl_biomass_tpu/ops/"  # the JAX tools
+    assert f"Replaces: {where}{replaces}" in flat
     assert "Bound on the H100:" in flat and "Design:" in flat
 
 

@@ -1,0 +1,137 @@
+"""Kernel 7, the fused tail (last Linear + masked max over the 64 slots): the
+port's ``fused_tail`` on CPU tensors (its plain versions) against the JAX
+package's ``fused_tail`` in interpret mode and ``jax.grad`` of it, on the
+cases of tests/test_pallas_tail.py, one at SA2's channel widths, and the
+argmax (64 on a row with no valid slot)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dl_biomass_tpu.ops.pallas_tail import _run_fwd
+from dl_biomass_tpu.ops.pallas_tail import fused_tail as jax_fused_tail
+from dl_biomass_tpu_torch.ops import tail_kernel
+
+torch.set_num_threads(1)
+
+# (B, M, C2, C3): the JAX test's shape, its unaligned M, and SA2's channels
+CASES = {"jax_test": (2, 32, 64, 128), "unaligned_m": (2, 20, 64, 128), "sa2": (1, 8, 128, 256)}
+
+
+def _data(case):
+    b, m, c2, c3 = CASES[case]
+    rng = np.random.default_rng(0)
+    a2 = rng.normal(size=(b, m, 64, c2)).astype(np.float32)
+    mask = rng.random(size=(b, m, 64)) > 0.3
+    mask[0, 3] = False  # an all-invalid row exercises the empty-slot fill
+    w3 = (rng.normal(size=(c2, c3)) * 0.1).astype(np.float32)
+    b3 = (rng.normal(size=(c3,)) * 0.1).astype(np.float32)
+    return a2, mask, w3, b3
+
+
+_JAX = {}
+
+
+def _jax_forward(case):
+    """JAX's (out, argmax) in interpret mode, once per case."""
+    if case not in _JAX:
+        a2, mask, w3, b3 = _data(case)
+        out, am = _run_fwd(jnp.asarray(a2, jnp.bfloat16), jnp.asarray(mask), jnp.asarray(w3),
+                           jnp.asarray(b3), with_argmax=True, interpret=True)
+        _JAX[case] = np.asarray(out, np.float32), np.asarray(am)
+    return _JAX[case]
+
+
+def _port(a2, mask, w3, b3):
+    t = torch.from_numpy
+    args = (t(a2).to(torch.bfloat16), t(mask), t(w3), t(b3))
+    out, am = tail_kernel.fused_tail_fwd(*args, with_argmax=True)
+    assert out.dtype == torch.bfloat16 and am.dtype == torch.int32
+    assert torch.equal(tail_kernel.fused_tail(*args), out)
+    return out.float().numpy(), am.numpy()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_and_argmax_match_jax(case):
+    want, want_am = _jax_forward(case)
+    got, got_am = _port(*_data(case))
+    b, m, _, c3 = *CASES[case][:2], 64, CASES[case][3]
+    assert got.shape == (b, m, c3)
+    if case == "sa2":
+        # 128-deep float32 sums in another order (torch's CPU GEMM, XLA's dot):
+        # a value at a bf16 rounding boundary may round one step (2^-8 of it)
+        # the other way; where the max agrees, so does its first slot
+        np.testing.assert_allclose(got, want, rtol=2.0**-7, atol=0)
+        same = got == want
+        assert same.mean() > 0.99
+        np.testing.assert_array_equal(got_am[same], want_am[same])
+    else:
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got_am, want_am)
+    # the empty row: 0 out, argmax 64 (the JAX rule, not first_argmax's 0)
+    np.testing.assert_array_equal(got[0, 3], 0.0)
+    np.testing.assert_array_equal(got_am[0, 3], 64)
+
+
+@pytest.mark.parametrize("junk", [1e4, np.nan, np.inf])
+def test_junk_at_invalid_slots_is_ignored(junk):
+    a2, mask, w3, b3 = _data("jax_test")
+    want, want_am = _jax_forward("jax_test")
+    got, got_am = _port(np.where(mask[..., None], a2, np.float32(junk)), mask, w3, b3)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_am, want_am)
+
+
+def _grads(case, ct):
+    """(port, JAX) gradients in a2, w3, b3 of sum(fused_tail(...) * ct)."""
+    a2, mask, w3, b3 = _data(case)
+    leaves = [torch.from_numpy(a2).to(torch.bfloat16).requires_grad_(),
+              torch.from_numpy(w3).requires_grad_(), torch.from_numpy(b3).requires_grad_()]
+    out = tail_kernel.fused_tail(leaves[0], torch.from_numpy(mask), leaves[1], leaves[2])
+    (out.float() * torch.from_numpy(ct)).sum().backward()
+    jm = jnp.asarray(mask)
+
+    def loss(a, w, b):
+        return jnp.sum(jax_fused_tail(a, jm, w, b, True) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(a2, jnp.bfloat16), jnp.asarray(w3),
+                                             jnp.asarray(b3))
+    got = [leaves[0].grad, leaves[1].grad, leaves[2].grad]
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == torch.float32
+    return [g.float().numpy() for g in got], [np.asarray(w, np.float32) for w in want], mask
+
+
+@pytest.mark.parametrize("case", ["jax_test", "sa2"])
+def test_grads_match_jax(case):
+    b, m, _, c3 = CASES[case]
+    ct = np.random.default_rng(1).normal(size=(b, m, c3)).astype(np.float32)
+    got, want, mask = _grads(case, ct)
+    # the JAX test's own tolerances: da2 routed to the same argmax slots; dW3
+    # and db3 float32 sums in another order
+    np.testing.assert_allclose(got[0], want[0], rtol=0.02, atol=1e-3)
+    np.testing.assert_allclose(got[1], want[1], rtol=0.02, atol=1e-2)
+    np.testing.assert_allclose(got[2], want[2], rtol=0.02, atol=1e-2)
+    assert np.all(got[0][~mask] == 0.0)  # no gradient to invalid slots, exactly
+
+
+def test_backward_routes_to_the_argmax_slot_only():
+    """The plain backward on its own: each column's bf16 cotangent at its
+    argmax row; argmax 64 routes nothing; dW3 = a2^T gs."""
+    a2, mask, w3, b3 = _data("unaligned_m")
+    a2t = torch.from_numpy(a2).to(torch.bfloat16)
+    _, am = tail_kernel.fused_tail_fwd(a2t, torch.from_numpy(mask), torch.from_numpy(w3),
+                                       torch.from_numpy(b3), with_argmax=True)
+    gb = torch.from_numpy(np.random.default_rng(2).normal(size=am.shape).astype(np.float32))
+    gb = gb.to(torch.bfloat16)
+    da2, dw3 = tail_kernel.fused_tail_bwd(a2t, gb, am, torch.from_numpy(w3))
+    gs = np.zeros((*am.shape[:2], 65, am.shape[2]), np.float32)
+    bi, mi, ci = np.indices(am.shape)
+    gs[bi, mi, am.numpy(), ci] = gb.float().numpy()
+    gs = gs[:, :, :64]
+    w3b = torch.from_numpy(w3).to(torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(da2.float().numpy(), gs @ w3b.T, rtol=1e-2, atol=1e-3)
+    np.testing.assert_allclose(dw3.numpy(), np.einsum("bmkc,bmkd->cd", a2t.float().numpy(), gs),
+                               rtol=1e-4, atol=1e-4)
+    assert np.all(da2.float().numpy()[0, 3] == 0.0)
