@@ -80,8 +80,9 @@ Phases, each of which raises on failure (exit code 1):
              relative, gradients 1e-2 in relative L2 norm and 2e-3 of the
              largest |g|; bf16: loss 1e-2, gradients 0.35 in relative L2 norm)
              and a profile of a 16 x 10240 step.
-12. tail_bench, bn_stats_bench and dma_probe — each tool's ``main()`` on the
-             card (``dl_biomass_tpu_torch.tools``) with its launches counted;
+12. tail_bench, bn_stats_bench, dma_probe and bq_phase_bench — each tool's
+             ``main()`` on the card (``dl_biomass_tpu_torch.tools``) with its
+             launches counted;
              then kernel 7 (``fused_tail``) forward and backward at SA1
              (36 x 2048 x 64, 64 -> 128) and SA2 (36 x 512 x 64, 128 -> 256):
              output within 1e-2 of max|y| (bf16) of its plain version, the
@@ -96,9 +97,19 @@ Phases, each of which raises on failure (exit code 1):
              s1 and s2 within 1e-5 of the plain version's largest, two
              launches bit-identical, timed. The slice sum that ends kernels
              7-B and 8 (``sum_slices``) against its plain version on both
-             kernels' slices, timed. Kernel 10
+             kernels' slices, timed beside one ``torch.sum`` in f64. Kernel 10
              (``block_copy``) at 128 blocks of 256 KB, 1 MB and 4 MB:
-             bit-identical to x + 1.0, timed beside ``torch.add``.
+             bit-identical to x + 1.0, timed beside ``torch.add``. Kernel 9
+             (``bq``) at the tool's 36 x 512 x 2048, K=64, r=8, every one of
+             its eleven variants: bit-exact against its plain version on the
+             tool's data and on a case whose bucket caps drop points, two
+             launches identical, ``dyn`` equal to kernel 3 with masked slots
+             n, the capped variants equal to it wherever they keep a point,
+             ``rank`` and ``extract`` equal to its first slot; timed (CUDA
+             events around the call, and its launches replayed from a CUDA
+             graph, free of host time) beside the bound, the plain version
+             and kernel 3 on the same input, and ``full`` at 1-32 centroids
+             per block.
 13. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -147,7 +158,7 @@ ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlb
            "dlbt_sa1_fused_eval", "dlbt_scatter_rows", "dlbt_fused_sa_f1", "dlbt_fused_sa_f2",
            "dlbt_fused_sa_f3", "dlbt_fused_sa_b1", "dlbt_fused_sa_b2", "dlbt_fused_sa_b3",
            "dlbt_fused_tail_fwd", "dlbt_fused_tail_bwd", "dlbt_masked_stats", "dlbt_sum_slices",
-           "dlbt_block_copy")
+           "dlbt_bq_phase", "dlbt_block_copy")
 
 
 def per_run(**launches):
@@ -158,7 +169,8 @@ def per_run(**launches):
 # the tools' timings in one main(), each a warm-up chain and timed chains:
 # (calls per chain, timed chains, shapes or block sizes), as the tools' own
 # constants give them (tool_paths holds the tools to these)
-TOOL_CHAINS = {"tail_bench": (10, 3, 2), "bn_stats_bench": (10, 3, 2), "dma_probe": (16, 5, 3)}
+TOOL_CHAINS = {"tail_bench": (10, 3, 2), "bn_stats_bench": (10, 3, 2), "dma_probe": (16, 5, 3),
+               "bq_phase_bench": (20, 3, 3)}
 
 
 def chained_calls(tool: str) -> int:
@@ -197,6 +209,7 @@ EXPECTED = {
         dlbt_masked_stats=chained_calls("bn_stats_bench") + TOOL_CHAINS["bn_stats_bench"][2],
         dlbt_sum_slices=chained_calls("bn_stats_bench") + TOOL_CHAINS["bn_stats_bench"][2]),
     "dma_probe": per_run(dlbt_block_copy=chained_calls("dma_probe")),
+    "bq_phase_bench": per_run(dlbt_bq_phase=chained_calls("bq_phase_bench")),
 }
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
@@ -244,10 +257,13 @@ FUSED_STEP_RTOL = {False: dict(loss=1e-5, grad_l2=1e-2, grad_top=2e-3, zero=1e-3
 # phase 12: the tools' paths, each its tool's main() once on the card; kernel 7's
 # shapes (tail_bench's); kernel 8 vs its f32 plain version, of the plain
 # version's largest s1 or s2; CUDA-event timings of the tools' kernels
-TOOL_PATHS = ("tail_bench", "bn_stats_bench", "dma_probe")
+TOOL_PATHS = ("tail_bench", "bn_stats_bench", "dma_probe", "bq_phase_bench")
 TAIL_SHAPES = {"SA1": (36, 2048, 64, 64, 128), "SA2": (36, 512, 64, 128, 256)}
 STATS_RTOL = 1e-5  # kernel 8 vs its f32 plain version, of the plain version's largest
 TOOL_REPS = 10
+# kernel 9 at the JAX tool's shape: (B, M, N), K; the cap case's far cluster
+BQ_SHAPE, BQ_K, BQ_FAR = (36, 512, 2048), 64, 100.0
+BQ_CMS = (1, 4, 8, 16, 32)  # centroids per block: the TPU tool's tile, as the port reads it
 
 
 class PhaseError(RuntimeError):
@@ -357,7 +373,7 @@ def kernel_sites():
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
                                           gather_kernel, sa_eval_kernel, sa_train_kernel,
                                           sum_slices_kernel, tail_kernel)
-    from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe
+    from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe
 
     return [(fps_kernel, "fps_rows", "fps_rows_plain"),
             (ball_group_kernel, "ball_group", "ball_group_plain"),
@@ -372,7 +388,8 @@ def kernel_sites():
             (tail_kernel, "fused_tail_bwd", "fused_tail_bwd_plain"),
             (bn_stats_bench, "stats_kernel", "stats_current"),
             (sum_slices_kernel, "sum_slices", "sum_slices_plain"),
-            (dma_probe, "block_copy", "block_copy_plain")]
+            (dma_probe, "block_copy", "block_copy_plain"),
+            (bq_phase_bench, "bq", "bq_plain")]
 
 
 def record_kernel_inputs(serve, batch):
@@ -735,6 +752,30 @@ def profile_calls(fn, calls: int = 3):
     kernels = table(torch.autograd.DeviceType.CUDA)
     busy_ms = sum(ms for _, ms, _ in kernels)
     return wall_ms / calls, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
+
+
+def graph_ms(fn, calls: int = TOOL_REPS, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the median of ``replays`` replays between two events, so that no
+    host work (which CUDA events around ``fn`` also hold once the host is
+    slower than the device) stands between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def print_profile(what: str, fn, calls: int, n_kernels: int = 10, n_ops: int = 12) -> None:
@@ -1737,6 +1778,7 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
     t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
     tp = time_ms(lambda: k7.fused_tail_bwd_plain(a2, gb, am, w3), reps=3, warmup=1)
     tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
+    tsl = time_ms(lambda: torch.sum(slices, 0, dtype=torch.float64), reps=TOOL_REPS)
     leaves = [t_.detach().requires_grad_() for t_ in (a2, w3, b3)]
     with torch.enable_grad():
         out = unfused(leaves[0], mask, leaves[1], leaves[2])
@@ -1751,8 +1793,8 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
     bms_sum, by_sum = bound(n_sum * 4 + c2 * c3 * 4, n_sum)
     print(f"kernel fused_tail_bwd {name} (B={b} M={m} C2={c2} C3={c3}): {t_slices:.4f} ms "
           f"(median of {TOOL_REPS}; {t:.4f} ms with the slice sum; the sum of "
-          f"{slices.shape[0]} slices alone {t_sum:.4f} ms, its plain version {tsp:.4f} ms, bound "
-          f"{bms_sum:.6f} ms), plain "
+          f"{slices.shape[0]} slices alone {t_sum:.4f} ms, its plain version {tsp:.4f} ms, "
+          f"torch.sum in f64 {tsl:.4f} ms, bound {bms_sum:.6f} ms), plain "
           f"{tp:.4f} ms, the unfused pair's autograd backward {tu:.4f} ms, bound {bms:.6f} ms "
           f"({by}: {nbytes} bytes, {flops} flop over {routed} routed columns at "
           f"{PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff| over the largest: "
@@ -1764,7 +1806,7 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
         bound_ms=bms, bound_by=by, yard=tu))
     ctx.setdefault("sum_slices", []).append(dict(
         err=max_abs_err(dw3, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
-        yard=None))
+        yard=None, library=tsl))
 
 
 def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
@@ -1793,22 +1835,23 @@ def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
     t_slices = time_ms(lambda: bn.stats_slices(x, m3), reps=TOOL_REPS)
     t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
     tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
+    tsl = time_ms(lambda: torch.sum(slices, 0, dtype=torch.float64), reps=TOOL_REPS)
     bms_sum, by_sum = bound(slices.numel() * 4 + 2 * c * 4, slices.numel())
     nbytes = x.numel() * 2 + m3.numel() + 2 * c * 4
     bms, by = bound(nbytes, 4 * x.numel())
     print(f"kernel masked_stats {name} (B={b} M={m} K={k} C={c}): {t_slices:.4f} ms (median "
           f"of {TOOL_REPS}, {x.numel() * 2 / t_slices / 1e6:.1f} GB/s of x; {t:.4f} ms with the "
           f"slice sum; the sum of {slices.shape[0]} slices alone {t_sum:.4f} ms, its plain "
-          f"version {tsp:.4f} ms, bound {bms_sum:.6f} ms), plain (stats_current, the yardstick) "
-          f"{tp:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} bytes); vs plain max|diff| over the "
-          f"largest s1 {rels[0]:.3e}, s2 {rels[1]:.3e} (bound {STATS_RTOL}), slice sum "
+          f"version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms, bound {bms_sum:.6f} ms), plain "
+          f"(stats_current, the yardstick) {tp:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} "
+          f"bytes); vs plain max|diff| over the largest s1 {rels[0]:.3e}, s2 {rels[1]:.3e} (bound {STATS_RTOL}), slice sum "
           f"{rel_sum:.3e}; two launches bit-identical", flush=True)
     ctx.setdefault("masked_stats", []).append(dict(
         err=max(max_abs_err(p, q) for p, q in zip(got, want)), ms=t_slices, plain_ms=tp,
         bound_ms=bms, bound_by=by, yard=None))
     ctx.setdefault("sum_slices", []).append(dict(
         err=max_abs_err(s_sum, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
-        yard=None))
+        yard=None, library=tsl))
 
 
 def check_block_copy(block_kb: int, device, ctx: dict) -> None:
@@ -1832,6 +1875,104 @@ def check_block_copy(block_kb: int, device, ctx: dict) -> None:
                                                  bound_by=by, yard=None, library=tl))
 
 
+def bq_cap_case(device):
+    """The tool's data, with 10% of the points and 20% of the centroids masked,
+    and in every cloud point 0 (centroid 0) moved far from the cloud with
+    bucket 5's 16 points around it: centroids 0, 5, 133, 261 and 389 then
+    have bucket 5's points among their first 17 hits, of which caps below 16
+    drop some."""
+    from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
+
+    _, _, pos, mask = k9.tool_data(*BQ_SHAPE, device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    pos, mask = pos.clone(), torch.rand(mask.shape, device=device, generator=gen) > 0.1
+    cmask = torch.rand(mask[:, :BQ_SHAPE[1]].shape, device=device, generator=gen) > 0.2
+    b, n = mask.shape
+    pos[:, 0] = BQ_FAR
+    pos[:, 5::128] = BQ_FAR + 0.1 * torch.randn((b, len(range(5, n, 128)), 3), device=device,
+                                                generator=gen)
+    mask[:, 0], mask[:, 5::128], cmask[:, 0] = True, True, True
+    return pos[:, :BQ_SHAPE[1]].contiguous(), cmask, pos, mask
+
+
+def check_bq_phase(device, card: str, ctx: dict) -> None:
+    """Kernel 9 at the tool's shape, every variant: bit-exact against its
+    plain version on the tool's data and on the cap case, two launches
+    identical, the writing variants against kernel 3 (``dyn`` equal, the
+    capped ones wherever they keep a point), ``rank`` and ``extract`` equal to
+    kernel 3's first slot; timed on the tool's data beside the bound, the plain
+    version and kernel 3 on the same input."""
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+    from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
+
+    b, m, n = BQ_SHAPE
+    k, radius = BQ_K, k9.RADIUS
+    require(k9.radius2(radius) == k3._radius2(radius),
+            "kernel 3 squares the radius otherwise than the tool at this radius")
+    cases = {"tool": k9.tool_data(b, m, n, device), "cap": bq_cap_case(device)}
+    for label, args in cases.items():
+        idx, nbr = k3.ball_query_first_k(*args, radius=radius, k=k)
+        exact = torch.where(nbr, idx, n)
+        first = torch.where(nbr[..., :1], idx[..., :1], k9.INT_BIG)
+        if label == "tool":  # points scanned up to the first and the K-th hit
+            scan_first = torch.where(nbr[..., 0], idx[..., 0] + 1, n)
+            scan_last = torch.where(nbr[..., k - 1], idx[..., k - 1] + 1, n)
+        dropped = {}
+        for phase in k9.PHASES:
+            got = k9.bq(*args, radius=radius, k=k, cm=32, phase=phase)
+            again = k9.bq(*args, radius=radius, k=k, cm=32, phase=phase)
+            want = k9.bq_plain(*args, radius=radius, k=k, phase=phase)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"kernel 9 {phase} ({label}): differs from plain")
+            require(torch.equal(got, again), f"kernel 9 {phase} ({label}): two launches differ")
+            mode, _ = k9.variant(phase)
+            if mode == k9.WRITE:
+                kept = got != n
+                require(torch.equal(got[kept], exact[kept]),
+                        f"kernel 9 {phase} ({label}): a kept point is not kernel 3's")
+                dropped[phase] = int((exact != got).sum())
+            elif phase != "dist":
+                require(torch.equal(got, first.expand_as(got)),
+                        f"kernel 9 {phase} ({label}): not kernel 3's first neighbour")
+        require(dropped["dyn"] == 0, f"kernel 9 dyn ({label}): not kernel 3's first {k}")
+        require(dropped["when0"] == int(nbr.sum()), f"kernel 9 when0 ({label}): wrote a slot")
+        if label == "cap":
+            require(dropped["when4"] > dropped["full"] > dropped["when12"] > 0,
+                    f"kernel 9: the cap case drops {dropped}")
+        print(f"kernel bq_phase ({label} data, B={b} M={m} N={n} K={k}): all {len(k9.PHASES)} "
+              f"variants bit-exact vs plain, two launches identical, dyn = kernel 3, kept "
+              f"points = kernel 3's, rank and extract = kernel 3's first; slots dropped against "
+              f"kernel 3 by variant: {dropped}", flush=True)
+    args = cases["tool"]
+    t3 = time_ms(lambda: k3.ball_query_first_k(*args, radius=radius, k=k), reps=TOOL_REPS)
+    d3 = graph_ms(lambda: k3.ball_query_first_k(*args, radius=radius, k=k))
+    nbytes = b * n * 13 + b * m * 13 + b * m * k * 4
+    for phase in k9.PHASES:
+        mode, cap = k9.variant(phase)
+        t = time_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=32, phase=phase), reps=TOOL_REPS)
+        tp = time_ms(lambda: k9.bq_plain(*args, radius=radius, k=k, phase=phase), reps=3,
+                     warmup=1)
+        dev_ms = graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=32, phase=phase))
+        # the distance tests this data needs: all N for dist, up to the first
+        # hit for rank and extract, up to the K-th for the writing variants
+        # (none where a cap of 0 writes nothing)
+        scan = {k9.DIST: torch.full_like(scan_first, n), k9.RANK: scan_first,
+                k9.EXTRACT: scan_first}.get(mode, scan_last)
+        tests = 0 if cap == 0 else int((scan * args[1]).sum())
+        bms, by = bound(nbytes, tests * DIST_TEST_FLOPS)
+        print(f"kernel bq_phase {phase} (tool data, B={b} M={m} N={n} K={k}, cm=32): {t:.4f} ms "
+              f"(median of {TOOL_REPS}; {dev_ms:.4f} ms replayed from a CUDA graph), plain "
+              f"{tp:.4f} ms, kernel 3 (ball_query_first_k) on the same input {t3:.4f} ms (graph "
+              f"{d3:.4f}), bound {bms:.6f} ms ({by}: {nbytes} bytes, {tests} distance tests) "
+              f"[{card}]", flush=True)
+        ctx.setdefault("bq_phase", []).append(dict(err=0.0, ms=t, plain_ms=tp, bound_ms=bms,
+                                                   bound_by=by, yard=t3, variant=phase,
+                                                   graph_ms=dev_ms, yard_graph_ms=d3))
+    by_cm = {cm: graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=cm)) for cm in BQ_CMS}
+    print(f"kernel bq_phase full by cm (centroids per block), from a CUDA graph: "
+          f"{ {cm: round(ms, 4) for cm, ms in by_cm.items()} } ms [{card}]", flush=True)
+
+
 # the tools' kernels: (row name, source, the TPU kernel it replaces, what its
 # yardstick key is)
 TOOL_KERNELS = {
@@ -1844,6 +1985,8 @@ TOOL_KERNELS = {
     "sum_slices": ("sum_slices.cu", "dl_biomass_tpu/ops/pallas_tail.py:108, "
                    "tools/bn_stats_bench.py:92", None),
     "block_copy": ("block_copy.cu", "tools/dma_probe.py:63", None),
+    # kernel 3 on the same input, once per variant
+    "bq_phase": ("bq_phase.cu", "tools/bq_phase_bench.py:286", "yardstick_ball_query_ms"),
 }
 
 
@@ -1851,19 +1994,21 @@ def tool_paths(device, card: str, launches: dict) -> list:
     """Phase 12: each tool's main() on the card with its launches counted,
     then its kernels at the tool's full shapes against their plain versions,
     timed beside their bounds and yardsticks; returns the kernels' rows."""
-    from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe, tail_bench
+    from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe, tail_bench
 
-    tools = (tail_bench, bn_stats_bench, dma_probe)
+    tools = (tail_bench, bn_stats_bench, dma_probe, bq_phase_bench)
     for path, chains in zip(TOOL_PATHS, ((tail_bench.LOOPS, tail_bench.WINDOWS,
                                           len(tail_bench.SHAPES)),
                                          (bn_stats_bench.LOOPS, bn_stats_bench.WINDOWS,
                                           len(bn_stats_bench.SHAPES)),
                                          (dma_probe.CHAIN, dma_probe.WINDOWS,
-                                          len(dma_probe.BLOCK_KBS)))):
+                                          len(dma_probe.BLOCK_KBS)),
+                                         (bq_phase_bench.LOOPS, bq_phase_bench.WINDOWS,
+                                          len(bq_phase_bench.TIMED_PHASES)))):
         require(chains == TOOL_CHAINS[path], f"{path}'s timing constants changed: {chains}")
     for path, tool in zip(TOOL_PATHS, tools):
         t0 = time.perf_counter()
-        counted_run(path, lambda: tool.main(device), launches, runs=1)
+        counted_run(path, lambda: tool.main(device=device), launches, runs=1)
         print(f"{path} launches in one main() ({time.perf_counter() - t0:.1f} s): "
               f"{ {e: n for e, n in launches[path].items() if n} } [{card}]", flush=True)
     ctx = {}
@@ -1879,6 +2024,7 @@ def tool_paths(device, card: str, launches: dict) -> list:
         check_masked_stats(name, shape, device, ctx)
     for kb in dma_probe.BLOCK_KBS:
         check_block_copy(kb, device, ctx)
+    check_bq_phase(device, card, ctx)
     rows = []
     for name, (src, replaces, yard_key) in TOOL_KERNELS.items():
         runs = ctx[name]
@@ -1890,6 +2036,10 @@ def tool_paths(device, card: str, launches: dict) -> list:
                    library_ms=(sum(r["library"] for r in runs) if "library" in runs[0] else None))
         if yard_key:
             row[yard_key] = sum(r["yard"] for r in runs)
+        if "variant" in runs[0]:
+            row["by_variant"] = {r["variant"]: {key: r[key] for key in (
+                "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "yard",
+                "yard_graph_ms")} for r in runs}
         rows.append(row)
     return rows
 

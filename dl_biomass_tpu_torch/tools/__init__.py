@@ -8,4 +8,7 @@ card, or as ``main(device="cpu")`` on the plain versions of its kernels:
                        kernel 8 (``stats_kernel``, ``csrc/masked_stats.cu``)
 - ``dma_probe``      — the bandwidth of one elementwise PyTorch call against
                        kernel 10 (``block_copy``, ``csrc/block_copy.cu``)
+- ``bq_phase_bench`` — the variants of the TPU's rank-scatter ball query
+                       (``full``, ``mstatic``, ``munroll``) as kernel 9
+                       (``bq``, ``csrc/bq_phase.cu``), with its phase stubs
 """

@@ -19,7 +19,7 @@ from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
                                       gather_kernel, sa_eval_kernel, sa_train_kernel,
                                       sum_slices_kernel, tail_kernel)
-from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe
+from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -415,3 +415,41 @@ def test_sum_slices_kernel_matches_plain(dev):
 def test_block_copy_kernel_matches_plain(dev, rows):
     x = torch.randn((5, rows, 128), device=dev)
     assert torch.equal(dma_probe.block_copy(x), x + 1.0)
+
+
+def _bq_case(dev, b, m, n, seed, cluster):
+    """Points ``normal * 5`` with 10% masked, the first m as centroids with 20%
+    masked; ``cluster`` moves point 0 of cloud 0 far from the cloud and bucket
+    5's points around it, so that the caps drop some of them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = 5 * torch.randn((b, n, 3), device=dev, generator=g)
+    mask = torch.rand((b, n), device=dev, generator=g) > 0.1
+    cmask = torch.rand((b, m), device=dev, generator=g) > 0.2
+    if cluster:
+        pos[0, 0] = 100.0
+        pos[0, 5::128] = 100.0 + 0.1 * torch.randn((len(range(5, n, 128)), 3), device=dev,
+                                                   generator=g)
+        mask[0, 0] = True
+        mask[0, 5::128] = True
+        cmask[0, 0] = True
+    return pos[:, :m].contiguous(), cmask, pos, mask
+
+
+@pytest.mark.parametrize("b,m,n,cm,cluster", [(2, 37, 300, 1, False), (3, 100, 1300, 7, True),
+                                              (4, 512, 2048, 32, True)])
+def test_bq_phase_kernel_matches_plain(dev, b, m, n, cm, cluster):
+    args = _bq_case(dev, b, m, n, seed=b, cluster=cluster)
+    dropped = False
+    for phase in bq_phase_bench.PHASES:
+        _build.launch_counts.clear()
+        got = bq_phase_bench.bq(*args, radius=8.0, cm=cm, phase=phase)
+        again = bq_phase_bench.bq(*args, radius=8.0, cm=cm, phase=phase)
+        torch.cuda.synchronize()
+        assert _build.launch_counts["dlbt_bq_phase"] == 2
+        want = bq_phase_bench.bq_plain(*args, radius=8.0, cm=cm, phase=phase)
+        assert torch.equal(got, want), phase
+        assert torch.equal(got, again), phase
+        if phase == "full":
+            exact = bq_phase_bench.bq_plain(*args, radius=8.0, phase="dyn")
+            dropped = not torch.equal(got, exact)
+    assert dropped == cluster

@@ -94,6 +94,7 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("fused_tail.cu", "pallas_tail.py fused_tail"),
     ("masked_stats.cu", "tools/bn_stats_bench.py stats_pallas"),
     ("block_copy.cu", "tools/dma_probe.py pallas_bandwidth"),
+    ("bq_phase.cu", "tools/bq_phase_bench.py bq"),
 ])
 def test_cuda_source_opens_with_its_note(name, replaces):
     head = (PORT / "csrc" / name).read_text().split("#include")[0]

@@ -4,35 +4,17 @@ tensors: kernel 8's plain version against the JAX tool's ``stats_pallas``
 version against the JAX probe's Pallas body, and each tool's ``main`` at cut
 sizes on the CPU, and refusing to run without a card unless asked."""
 
-import importlib.util
-from functools import partial
-from pathlib import Path
 from unittest import mock
 
-import jax.experimental.pallas as jpl
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from dl_biomass_tpu_torch.tools import bn_stats_bench, dma_probe, tail_bench
+from torch_port_helpers import interpreted as _interpreted, jax_tool as _jax_tool
 
 torch.set_num_threads(1)
-
-ROOT = Path(__file__).resolve().parent.parent
-
-
-def _jax_tool(name: str):
-    """The JAX package's tools/<name>.py, loaded as a module of its own."""
-    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", ROOT / "tools" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _interpreted():
-    """pallas_call in interpret mode: the TPU bodies run on the CPU."""
-    return mock.patch.object(jpl, "pallas_call", partial(jpl.pallas_call, interpret=True))
 
 
 def test_stats_kernel_plain_matches_stats_pallas_and_stats_current():

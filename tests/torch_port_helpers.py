@@ -1,9 +1,16 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX package:
 one JAX model, its variables as numpy arrays (BatchNorm running statistics
 moved away from identity, so that folding does real work), and the ported
-model with the same weights through the bridge."""
+model with the same weights through the bridge; and the JAX package's tools,
+loaded by path, with their Pallas bodies run in interpret mode."""
+
+import importlib.util
+from functools import partial
+from pathlib import Path
+from unittest import mock
 
 import jax
+import jax.experimental.pallas as jpl
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -68,3 +75,19 @@ def models(preset, dtype, jax_batch, num_features=1, seed=0, **kwargs):
 def rel_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def jax_tool(name: str):
+    """The JAX package's tools/<name>.py, loaded as a module of its own."""
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def interpreted():
+    """pallas_call in interpret mode: the TPU bodies run on the CPU."""
+    return mock.patch.object(jpl, "pallas_call", partial(jpl.pallas_call, interpret=True))
