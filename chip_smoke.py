@@ -58,7 +58,8 @@ Phases, each of which raises on failure (exit code 1):
              by more, zero rows identical, two launches bit-identical; timed
              beside their bounds, plain versions and the unfused layer (``MLP``
              + ``masked_max``) in train and eval mode. Then its three backward
-             passes (B1, B2, B3) at the inputs one training step of that model
+             passes (B1, B2, B3; B3 in bf16 on the tensor cores,
+             ``csrc/fused_sa_b3.cu``) at the inputs one training step of that model
              gives them, SA1 and SA2, bf16, and f32 with ELU (no branch to
              flip): the weight and bias gradients and the four sums within 1e-2
              (bf16) or 1e-5 (f32) of the pass's largest, d(dense) of its own
@@ -97,9 +98,10 @@ Phases, each of which raises on failure (exit code 1):
              s1 and s2 within 1e-5 of the plain version's largest, two
              launches bit-identical, timed. The slice sum that ends kernels
              7-B and 8 (``sum_slices``) against its plain version on both
-             kernels' slices, timed beside one ``torch.sum`` in f64. Kernel 10
+             kernels' slices, timed beside one ``torch.sum`` in f64, both by
+             events and replayed from a CUDA graph. Kernel 10
              (``block_copy``) at 128 blocks of 256 KB, 1 MB and 4 MB:
-             bit-identical to x + 1.0, timed beside ``torch.add``. Kernel 9
+             bit-identical to x + 1.0, timed beside ``torch.add`` likewise. Kernel 9
              (``bq``) at the tool's 36 x 512 x 2048, K=64, r=8, every one of
              its eleven variants: bit-exact against its plain version on the
              tool's data and on a case whose bucket caps drop points, two
@@ -776,6 +778,15 @@ def graph_ms(fn, calls: int = TOOL_REPS, replays: int = 5) -> float:
         times.append(s.elapsed_time(e) / calls)
     del graph
     return statistics.median(times)
+
+
+def sum_slices_graph_ms(slices: torch.Tensor):
+    """Σ and its library call, ``torch.sum(slices, 0, dtype=torch.float64)``,
+    each replayed from a CUDA graph (``graph_ms``)."""
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
+
+    return (graph_ms(lambda: ss.sum_slices(slices)),
+            graph_ms(lambda: torch.sum(slices, 0, dtype=torch.float64)))
 
 
 def print_profile(what: str, fn, calls: int, n_kernels: int = 10, n_ops: int = 12) -> None:
@@ -1465,7 +1476,8 @@ def check_fused_sa_bwd(device, card: str) -> list:
     yard = sum(y["ms"] for y in ctx["yardstick"] if y["bf16"])
     for stage, (name, replaces) in FUSED_SA_BWD_STAGES.items():
         runs = [r for r in ctx[stage] if r["bf16"]]
-        rows.append(dict(name=name, source="dl_biomass_tpu_torch/csrc/fused_sa_bwd.cu",
+        src = "fused_sa_b3.cu" if stage == 3 else "fused_sa_bwd.cu"  # the bf16 kernel's file
+        rows.append(dict(name=name, source=f"dl_biomass_tpu_torch/csrc/{src}",
                          replaces=replaces, entry=f"dlbt_{name}",
                          max_abs_err=max(r["err"] for r in ctx[stage]),
                          ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
@@ -1779,6 +1791,7 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
     tp = time_ms(lambda: k7.fused_tail_bwd_plain(a2, gb, am, w3), reps=3, warmup=1)
     tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
     tsl = time_ms(lambda: torch.sum(slices, 0, dtype=torch.float64), reps=TOOL_REPS)
+    t_sum_g, tsl_g = sum_slices_graph_ms(slices)
     leaves = [t_.detach().requires_grad_() for t_ in (a2, w3, b3)]
     with torch.enable_grad():
         out = unfused(leaves[0], mask, leaves[1], leaves[2])
@@ -1793,8 +1806,9 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
     bms_sum, by_sum = bound(n_sum * 4 + c2 * c3 * 4, n_sum)
     print(f"kernel fused_tail_bwd {name} (B={b} M={m} C2={c2} C3={c3}): {t_slices:.4f} ms "
           f"(median of {TOOL_REPS}; {t:.4f} ms with the slice sum; the sum of "
-          f"{slices.shape[0]} slices alone {t_sum:.4f} ms, its plain version {tsp:.4f} ms, "
-          f"torch.sum in f64 {tsl:.4f} ms, bound {bms_sum:.6f} ms), plain "
+          f"{slices.shape[0]} slices alone {t_sum:.4f} ms (graph {t_sum_g:.4f}), its plain "
+          f"version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms (graph {tsl_g:.4f}), bound "
+          f"{bms_sum:.6f} ms), plain "
           f"{tp:.4f} ms, the unfused pair's autograd backward {tu:.4f} ms, bound {bms:.6f} ms "
           f"({by}: {nbytes} bytes, {flops} flop over {routed} routed columns at "
           f"{PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff| over the largest: "
@@ -1806,7 +1820,7 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
         bound_ms=bms, bound_by=by, yard=tu))
     ctx.setdefault("sum_slices", []).append(dict(
         err=max_abs_err(dw3, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
-        yard=None, library=tsl))
+        yard=None, library=tsl, graph_ms=t_sum_g, library_graph_ms=tsl_g))
 
 
 def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
@@ -1836,13 +1850,15 @@ def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
     t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
     tsp = time_ms(lambda: ss.sum_slices_plain(slices), reps=TOOL_REPS)
     tsl = time_ms(lambda: torch.sum(slices, 0, dtype=torch.float64), reps=TOOL_REPS)
+    t_sum_g, tsl_g = sum_slices_graph_ms(slices)
     bms_sum, by_sum = bound(slices.numel() * 4 + 2 * c * 4, slices.numel())
     nbytes = x.numel() * 2 + m3.numel() + 2 * c * 4
     bms, by = bound(nbytes, 4 * x.numel())
     print(f"kernel masked_stats {name} (B={b} M={m} K={k} C={c}): {t_slices:.4f} ms (median "
           f"of {TOOL_REPS}, {x.numel() * 2 / t_slices / 1e6:.1f} GB/s of x; {t:.4f} ms with the "
-          f"slice sum; the sum of {slices.shape[0]} slices alone {t_sum:.4f} ms, its plain "
-          f"version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms, bound {bms_sum:.6f} ms), plain "
+          f"slice sum; the sum of {slices.shape[0]} slices alone {t_sum:.4f} ms (graph "
+          f"{t_sum_g:.4f}), its plain version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms (graph "
+          f"{tsl_g:.4f}), bound {bms_sum:.6f} ms), plain "
           f"(stats_current, the yardstick) {tp:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} "
           f"bytes); vs plain max|diff| over the largest s1 {rels[0]:.3e}, s2 {rels[1]:.3e} (bound {STATS_RTOL}), slice sum "
           f"{rel_sum:.3e}; two launches bit-identical", flush=True)
@@ -1851,7 +1867,7 @@ def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
         bound_ms=bms, bound_by=by, yard=None))
     ctx.setdefault("sum_slices", []).append(dict(
         err=max_abs_err(s_sum, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
-        yard=None, library=tsl))
+        yard=None, library=tsl, graph_ms=t_sum_g, library_graph_ms=tsl_g))
 
 
 def check_block_copy(block_kb: int, device, ctx: dict) -> None:
@@ -1867,12 +1883,18 @@ def check_block_copy(block_kb: int, device, ctx: dict) -> None:
     t = time_ms(lambda: dp.block_copy(x), reps=TOOL_REPS)
     tp = time_ms(lambda: dp.block_copy_plain(x), reps=TOOL_REPS)
     tl = time_ms(lambda: torch.add(x, 1.0), reps=TOOL_REPS)
-    bms, by = bound(2 * x.numel() * 4, x.numel())
+    tg = graph_ms(lambda: dp.block_copy(x))
+    tlg = graph_ms(lambda: torch.add(x, 1.0))
+    nbytes = 2 * x.numel() * 4
+    bms, by = bound(nbytes, x.numel())
     print(f"kernel block_copy {dp.BLOCKS} x {block_kb} KB: {t:.4f} ms (median of {TOOL_REPS}, "
-          f"{2 * x.numel() * 4 / t / 1e6:.1f} GB/s), plain (x + 1.0) {tp:.4f} ms, library "
-          f"(torch.add) {tl:.4f} ms, bound {bms:.6f} ms; bit-identical", flush=True)
+          f"{nbytes / t / 1e6:.1f} GB/s; {tg:.4f} ms replayed from a CUDA graph, "
+          f"{nbytes / tg / 1e6:.1f} GB/s), plain (x + 1.0) {tp:.4f} ms, library (torch.add) "
+          f"{tl:.4f} ms (graph {tlg:.4f} ms, {nbytes / tlg / 1e6:.1f} GB/s), bound {bms:.6f} ms; "
+          f"bit-identical", flush=True)
     ctx.setdefault("block_copy", []).append(dict(err=0.0, ms=t, plain_ms=tp, bound_ms=bms,
-                                                 bound_by=by, yard=None, library=tl))
+                                                 bound_by=by, yard=None, library=tl,
+                                                 graph_ms=tg, library_graph_ms=tlg))
 
 
 def bq_cap_case(device):
@@ -2036,6 +2058,9 @@ def tool_paths(device, card: str, launches: dict) -> list:
                    library_ms=(sum(r["library"] for r in runs) if "library" in runs[0] else None))
         if yard_key:
             row[yard_key] = sum(r["yard"] for r in runs)
+        if "library_graph_ms" in runs[0]:  # kernel 10 and Σ: both also from CUDA graphs
+            row["graph_ms"] = sum(r["graph_ms"] for r in runs)
+            row["library_graph_ms"] = sum(r["library_graph_ms"] for r in runs)
         if "variant" in runs[0]:
             row["by_variant"] = {r["variant"]: {key: r[key] for key in (
                 "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "yard",

@@ -17,14 +17,17 @@
 //       centroid with no valid slot).
 // The sums run over every centroid of the batch. In bf16 mode each product takes bf16
 // operands (a1, a2, gs, dh2, dh1, the rows and the weights) with f32 accumulation while
-// the hidden values and the sums stay f32; in f32 mode plain f32 products.
+// the hidden values and the sums stay f32; in f32 mode plain f32 products. B3 in bf16
+// runs on the tensor cores, in its own kernel (csrc/fused_sa_b3.cu); the entry
+// dlbt_fused_sa_b3 launches that one in bf16 and this file's in f32.
 //
 // Bound on the H100: operations. Per edge row the recompute costs 2 (KP C1 + C1 C2)
 // flop, B2 adds 4 C1 C2 (dW2, da1) and B3 4 C1 C2 + 4 KP C1 (da1, dW1, d(dense)); B1's
 // routed products cost 2 C2 C3 per centroid, not per row, since gs has one nonzero per
 // column. At best on the bf16 tensor cores (989 TFLOP/s); this version runs them as f32
-// FMAs on the CUDA cores (67 TFLOP/s). The inputs are read once per pass (SA2's bf16
-// dense block: 134 MB at 16 x 10240), and B3 writes d(dense) (as much again).
+// FMAs on the CUDA cores (67 TFLOP/s), B3 in bf16 excepted. The inputs are read once
+// per pass (SA2's bf16 dense block: 134 MB at 16 x 10240), and B3 writes d(dense) (as
+// much again).
 //
 // Design: the forward's walk (csrc/fused_sa_tile.cuh): a block of 128 threads takes one
 // centroid at a time with a grid stride, loads its rows into shared memory and
@@ -48,22 +51,18 @@
 
 #include "fused_sa_tile.cuh"
 
+// csrc/fused_sa_b3.cu: B3 in bf16 on the tensor cores, its kernel alone (*grid = its
+// blocks, the slices it wrote); wb is its bf16 weight block.
+extern "C" int dlbt_fused_sa_b3_mma(const void* dense, const void* planes, const void* mask,
+                                    const void* w, const void* wb, const void* g,
+                                    const void* amax, void* partial, void* partial_v,
+                                    void* d_dense, int centroids, int cd, int cp, int kp, int c1,
+                                    int c2, int c3, int c_out, int act, int max_grid,
+                                    void* stream, int* grid);
+
 namespace {
 
 using namespace fused_sa;
-
-__device__ __forceinline__ float activate_deriv(float z, int act) {
-  switch (act) {
-    case kRelu:
-      return z > 0.0f ? 1.0f : 0.0f;
-    case kLeakyRelu:
-      return z > 0.0f ? 1.0f : 0.01f;
-    case kElu:
-      return z > 0.0f ? 1.0f : expf(fminf(z, 0.0f));
-    default:
-      return 1.0f;
-  }
-}
 
 // Byte offsets of one block's shared memory: four 64-row buffers (see Design; the
 // last two only for B2 and B3), the centroid's cotangent and argmax (C3), the
@@ -224,10 +223,11 @@ __host__ __device__ __forceinline__ int vector_size(int stage, int c1, int c2, i
   return stage == 1 ? c3 + 2 * c2 : stage == 2 ? c2 + 2 * c1 : c1;
 }
 
-// kStage 1: B1, 2: B2, 3: B3. w packs, each part zero-padded: the forward's block (w1
-// (KP, C1), b1, sc1, sh1 (C1), w2 (C1, C2), b2, sc2, sh2 (C2), w3 (C2, C3), b3 (C3)),
-// then mean1, inv1 (C1), mean2, inv2 (C2), t2a, t2b (C2), t1a, t1b (C1), w3^T (C3, C2),
-// w2^T (C2, C1) and w1's dense rows transposed (C1, CDP).
+// kStage 1: B1, 2: B2, 3: B3 (in f32 alone: fma_kernel). w packs, each part
+// zero-padded: the forward's block (w1 (KP, C1), b1, sc1, sh1 (C1), w2 (C1, C2), b2,
+// sc2, sh2 (C2), w3 (C2, C3), b3 (C3)), then mean1, inv1 (C1), mean2, inv2 (C2), t2a,
+// t2b (C2), t1a, t1b (C1), w3^T (C3, C2), w2^T (C2, C1) and w1's dense rows
+// transposed (C1, CDP).
 template <int kStage, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ planes,
@@ -298,13 +298,9 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
       valid[tid] = ok;
     }
     if (!__syncthreads_or(ok)) {  // no valid slot: no gradient, and rows of 0 in d(dense)
-      if (kStage == 3 && cd > 0) {
+      if (kStage == 3) {  // f32 alone (fma_kernel)
         for (int i = tid; i < kSlots * cd; i += kThreads) {
-          if (kBf16) {
-            static_cast<__nv_bfloat16*>(d_dense)[row0 * cd + i] = __float2bfloat16_rn(0.0f);
-          } else {
-            static_cast<float*>(d_dense)[row0 * cd + i] = 0.0f;
-          }
+          static_cast<float*>(d_dense)[row0 * cd + i] = 0.0f;
         }
       }
       continue;
@@ -430,12 +426,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int k = tile_col(col0, cg, j);
-          if (k >= cd) continue;
-          if (kBf16) {
-            static_cast<__nv_bfloat16*>(d_dense)[row * cd + k] = __float2bfloat16_rn(d[i][j]);
-          } else {
-            static_cast<float*>(d_dense)[row * cd + k] = d[i][j];
-          }
+          if (k < cd) static_cast<float*>(d_dense)[row * cd + k] = d[i][j];
         }
       }
     }
@@ -454,18 +445,25 @@ __global__ void reduce_blocks(const T* __restrict__ partial, int blocks, int n,
   out[i] = static_cast<float>(s);
 }
 
+// The f32 template's kernel of a pass: B1 and B2 in either type, B3 in f32 (bf16 B3
+// runs on the tensor cores, csrc/fused_sa_b3.cu).
 template <int kStage>
-int launch_stage(const void* dense, const void* planes, const void* mask, const void* w,
-                 const void* g, const void* amax, void* partial, void* partial_v, void* sums,
-                 void* d_dense, int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
-                 int c3, int c_out, int act, int bf16, int max_grid, void* stream) {
-  if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
-      c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || cdp % 64 || cdp < cd ||
-      c_out > c3 || act < kNone || act > kElu || max_grid < 1 ||
-      (kStage == 3 && cd > 0 && d_dense == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+auto fma_kernel(int bf16) {
+  if constexpr (kStage == 3) {
+    return fused_sa_bwd_kernel<3, false>;
+  } else {
+    return bf16 ? fused_sa_bwd_kernel<kStage, true> : fused_sa_bwd_kernel<kStage, false>;
   }
-  auto kernel = bf16 ? fused_sa_bwd_kernel<kStage, true> : fused_sa_bwd_kernel<kStage, false>;
+}
+
+// Launches the f32 template's kernel of a pass; *grid_out = its blocks.
+template <int kStage>
+cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, const void* w,
+                       const void* g, const void* amax, void* partial, void* partial_v,
+                       void* d_dense, int centroids, int cd, int cp, int kp, int cdp, int c1,
+                       int c2, int c3, int c_out, int act, int bf16, int max_grid,
+                       cudaStream_t s, int* grid_out) {
+  const auto kernel = fma_kernel<kStage>(bf16);
   const size_t smem = Layout(kStage, kp, c1, c2, c3).total;
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -473,33 +471,61 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
     e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > centroids) grid = centroids;
   if (grid > max_grid) grid = max_grid;
   if (grid < 1) grid = 1;  // one block's (zero) slice even for no centroid
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
       dense, static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(w), static_cast<const float*>(g), static_cast<const int*>(amax),
       static_cast<float*>(partial), static_cast<double*>(partial_v), d_dense, centroids, cd, cp,
       kp, cdp, c1, c2, c3, c_out, act);
   e = cudaGetLastError();
+  if (e == cudaSuccess) *grid_out = static_cast<int>(grid);
+  return e;
+}
+
+template <int kStage>
+int launch_stage(const void* dense, const void* planes, const void* mask, const void* w,
+                 const void* wb, const void* g, const void* amax, void* partial,
+                 void* partial_v, void* sums, void* d_dense, int centroids, int cd, int cp,
+                 int kp, int cdp, int c1, int c2, int c3, int c_out, int act, int bf16,
+                 int max_grid, void* stream) {
+  if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
+      c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || cdp % 64 || cdp < cd ||
+      c_out > c3 || act < kNone || act > kElu || max_grid < 1 ||
+      (kStage == 3 && cd > 0 && d_dense == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  cudaError_t e;
+  if (kStage == 3 && bf16) {
+    e = static_cast<cudaError_t>(dlbt_fused_sa_b3_mma(dense, planes, mask, w, wb, g, amax,
+                                                      partial, partial_v, d_dense, centroids, cd,
+                                                      cp, kp, c1, c2, c3, c_out, act, max_grid,
+                                                      stream, &grid));
+  } else {
+    e = launch_fma<kStage>(dense, planes, mask, w, g, amax, partial, partial_v, d_dense,
+                           centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid, s,
+                           &grid);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_w = weight_size(kStage, kp, c1, c2, c3), n_v = vector_size(kStage, c1, c2, c3);
   reduce_blocks<float><<<(n_w + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<int>(grid), n_w, static_cast<float*>(sums));
+      static_cast<const float*>(partial), grid, n_w, static_cast<float*>(sums));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_blocks<double><<<(n_v + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const double*>(partial_v), static_cast<int>(grid), n_v,
+      static_cast<const double*>(partial_v), grid, n_v,
       static_cast<float*>(sums) + n_w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -512,33 +538,38 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
 // cotangent of the pooled output and amax (B, M, c_out) int32 F3's argmax. Writes
 // sums: the pass's output vector (see weight_size), f32; partial and partial_v are its
 // scratch, (max_grid, weight_size) f32 and (max_grid, vector_size) f64. B3 with CD > 0
-// also writes d_dense (B, M, 64, CD) in the dense block's type.
+// also writes d_dense (B, M, 64, CD) in the dense block's type. B3 in bf16 takes w as
+// its per-column vectors alone and wb as its bf16 weight block (csrc/fused_sa_b3.cu);
+// B1, B2 and B3 in f32 ignore wb.
 extern "C" int dlbt_fused_sa_b1(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* g, const void* amax, void* partial,
-                                void* partial_v, void* sums, void* d_dense, int centroids, int cd,
-                                int cp, int kp, int cdp, int c1, int c2, int c3, int c_out,
-                                int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<1>(dense, planes, mask, w, g, amax, partial, partial_v, sums, d_dense,
+                                const void* w, const void* wb, const void* g, const void* amax,
+                                void* partial, void* partial_v, void* sums, void* d_dense,
+                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
+                                int c3, int c_out, int act, int bf16, int max_grid,
+                                void* stream) {
+  return launch_stage<1>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
                          centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
                          stream);
 }
 
 extern "C" int dlbt_fused_sa_b2(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* g, const void* amax, void* partial,
-                                void* partial_v, void* sums, void* d_dense, int centroids, int cd,
-                                int cp, int kp, int cdp, int c1, int c2, int c3, int c_out,
-                                int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<2>(dense, planes, mask, w, g, amax, partial, partial_v, sums, d_dense,
+                                const void* w, const void* wb, const void* g, const void* amax,
+                                void* partial, void* partial_v, void* sums, void* d_dense,
+                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
+                                int c3, int c_out, int act, int bf16, int max_grid,
+                                void* stream) {
+  return launch_stage<2>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
                          centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
                          stream);
 }
 
 extern "C" int dlbt_fused_sa_b3(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* g, const void* amax, void* partial,
-                                void* partial_v, void* sums, void* d_dense, int centroids, int cd,
-                                int cp, int kp, int cdp, int c1, int c2, int c3, int c_out,
-                                int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<3>(dense, planes, mask, w, g, amax, partial, partial_v, sums, d_dense,
+                                const void* w, const void* wb, const void* g, const void* amax,
+                                void* partial, void* partial_v, void* sums, void* d_dense,
+                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
+                                int c3, int c_out, int act, int bf16, int max_grid,
+                                void* stream) {
+  return launch_stage<3>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
                          centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
                          stream);
 }

@@ -1,6 +1,8 @@
 // The per-centroid tile arithmetic of kernel 6, shared by its forward
 // (csrc/fused_sa_fwd.cu) and its backward (csrc/fused_sa_bwd.cu), so that the
-// backward recomputes exactly the hidden values the forward computed.
+// backward recomputes exactly the hidden values the forward computed (bf16 B3,
+// csrc/fused_sa_b3.cu, takes the slot count and the activations from here and
+// recomputes on the tensor cores).
 //
 // A block of 128 threads takes one centroid (its 64 edge rows) at a time. Each
 // thread holds a 4-row x 8-column tile of a 64-column pass: thread (rg, cg) of
@@ -35,6 +37,20 @@ __device__ __forceinline__ float activate(float z, int act) {
       return z > 0.0f ? z : expf(fminf(z, 0.0f)) - 1.0f;
     default:
       return z;
+  }
+}
+
+// act'(z), the derivative the backward passes take.
+__device__ __forceinline__ float activate_deriv(float z, int act) {
+  switch (act) {
+    case kRelu:
+      return z > 0.0f ? 1.0f : 0.0f;
+    case kLeakyRelu:
+      return z > 0.0f ? 1.0f : 0.01f;
+    case kElu:
+      return z > 0.0f ? 1.0f : expf(fminf(z, 0.0f));
+    default:
+      return 1.0f;
   }
 }
 

@@ -35,14 +35,15 @@ centroid has no valid slot.
 ``fused_sa_stage`` (one forward pass) and ``fused_sa_bwd_stage`` (one
 backward pass) launch ``csrc/fused_sa_fwd.cu`` (entries ``dlbt_fused_sa_f1``,
 ``_f2``, ``_f3``) and ``csrc/fused_sa_bwd.cu`` (``dlbt_fused_sa_b1``, ``_b2``,
-``_b3``) on a CUDA tensor and run ``fused_sa_stage_plain`` and
-``fused_sa_bwd_stage_plain`` on a CPU tensor. ``fused_sa_mlp`` chains them as
-the JAX function does, inside a ``torch.autograd.Function``;
-``fused_sa_mlp_plain`` chains the plain passes the same way. The kernels sum
-in their own order (float32 FMAs per row, float32 per block, float64 across
-blocks), so they agree with the plain versions to float32 rounding of the
-sums (bf16: a value near a rounding boundary may round one step the other
-way).
+``_b3``; B3 in bf16 runs ``csrc/fused_sa_b3.cu`` on the tensor cores, with the
+bf16 weight block of ``_packed_b3``) on a CUDA tensor and run
+``fused_sa_stage_plain`` and ``fused_sa_bwd_stage_plain`` on a CPU tensor.
+``fused_sa_mlp`` chains them as the JAX function does, inside a
+``torch.autograd.Function``; ``fused_sa_mlp_plain`` chains the plain passes
+the same way. The kernels sum in their own order (float32 FMAs or tensor-core
+products per row, float32 per block, float64 across blocks), so they agree
+with the plain versions to float32 rounding of the sums (bf16: a value near a
+rounding boundary may round one step the other way).
 
 The planes arrive as one (B, M, 64, CP) tensor (kernel 2's edges at SA1, the
 centroid-relative positions at SA2) where the JAX package passes CP (B, M, 64)
@@ -71,7 +72,8 @@ ENTRIES = {1: "dlbt_fused_sa_f1", 2: "dlbt_fused_sa_f2", 3: "dlbt_fused_sa_f3"}
 BWD_ENTRIES = {1: "dlbt_fused_sa_b1", 2: "dlbt_fused_sa_b2", 3: "dlbt_fused_sa_b3"}
 PARAMS = ("w1", "b1", "gamma1", "beta1", "w2", "b2", "gamma2", "beta2", "w3", "b3")
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+SKEW_H = 8  # csrc/mma_bf16.cuh kSkewH: each bf16 weight row is this many values longer
 
 Folds = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -284,6 +286,43 @@ def _packed_bwd(params: dict, folds: Folds, stats: Folds, terms: Folds, cd: int,
         _mat(params["w1"][:cd].t(), c1p, cdp, ct)])
 
 
+def b3_width(cd: int, cp: int) -> int:
+    """KX, the edge rows' width in bf16 B3: the dense channels, then the planes
+    from CD rounded up to 16, zero-padded to a multiple of 16."""
+    return round_up(cd, 16) + round_up(cp, 16)
+
+
+def _packed_b3(params: dict, cd: int, cp: int, c1p: int, c2p: int, c3p: int, device):
+    """bf16 B3's weight block, flat bf16, laid out as its kernel holds it in
+    shared memory: W1^T (C1, KX) with the dense rows' columns at 0 and the
+    planes' at CD rounded up to 16 (``b3_width``), W2^T (C2, C1) and W3 (C2,
+    C3), each zero-padded and each row ``SKEW_H`` zeros longer."""
+    cd16 = round_up(cd, 16)
+    w1, w2, w3 = (params[k].detach() for k in ("w1", "w2", "w3"))
+    c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    w1t = torch.zeros((c1p, b3_width(cd, cp) + SKEW_H), dtype=torch.bfloat16, device=device)
+    w1t[:c1, :cd] = w1[:cd].t()
+    w1t[:c1, cd16:cd16 + cp] = w1[cd:].t()
+    w2t = torch.zeros((c2p, c1p + SKEW_H), dtype=torch.bfloat16, device=device)
+    w2t[:c2, :c1] = w2.t()
+    w3p = torch.zeros((c2p, c3p + SKEW_H), dtype=torch.bfloat16, device=device)
+    w3p[:c2, :c3] = w3
+    return torch.cat([w1t.reshape(-1), w2t.reshape(-1), w3p.reshape(-1)])
+
+
+def _vectors_b3(params: dict, folds: Folds, stats: Folds, terms: Folds, c1p: int, c2p: int):
+    """bf16 B3's f32 per-column vectors, as its kernel holds them in shared
+    memory: b1, sc1, sh1, mean1, inv1, t1a, t1b (C1 each), then b2, sc2, sh2,
+    mean2, inv2, t2a, t2b (C2 each), zero-padded."""
+    (sc1, sh1), (sc2, sh2) = folds
+    (mean1, inv1), (mean2, inv2) = stats
+    (t2a, t2b), (t1a, t1b) = terms
+    rows = [(torch.stack([params["b1"], sc1, sh1, mean1, inv1, t1a, t1b]), c1p),
+            (torch.stack([params["b2"], sc2, sh2, mean2, inv2, t2a, t2b]), c2p)]
+    return torch.cat([torch.nn.functional.pad(v.detach().float(), (0, c - v.shape[1]))
+                      .reshape(-1) for v, c in rows])
+
+
 def _on_card(name: str, dense, planes, nbr_mask):
     """Refuse what the kernels do not take: float64 (never cast down) and any
     device but a card."""
@@ -358,7 +397,9 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
     inputs as ``fused_sa_stage`` takes them, and ``g``, ``amax`` (B, M, C3)).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float64 raises ``ValueError`` there)."""
+    (float64 raises ``ValueError`` there; so does bf16 B3 at widths its
+    tensor-core kernel does not take: C1 other than 64 or 128 after padding,
+    or more than 72 16 x 16 tiles of dW1)."""
     if stage not in BWD_ENTRIES:
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
     if nbr_mask.device.type == "cpu":
@@ -380,14 +421,20 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
     kp = round_up(cd + cp, 4)
     c1p, c2p, c3p = (round_up(c, WIDTH_STEP) for c in (c1, c2, c3))
     cdp = round_up(cd, WIDTH_STEP)
-    w = _packed_bwd(params, folds, stats, terms[:stage - 1], cd, kp, c1p, c2p, c3p, cdp, ct, dev)
+    wb = None
+    if stage == 3 and bf16:  # the tensor-core kernel: its vectors, its bf16 weights
+        w = _vectors_b3(params, folds, stats, terms, c1p, c2p)
+        wb = _packed_b3(params, cd, cp, c1p, c2p, c3p, dev)
+    else:
+        w = _packed_bwd(params, folds, stats, terms[:stage - 1], cd, kp, c1p, c2p, c3p, cdp, ct,
+                        dev)
     dense = None if dense is None else dense.to(ct).contiguous()
     planes = None if planes is None else planes.float().contiguous()
-    nbr_mask = nbr_mask.contiguous()
+    nbr_mask = _build.aligned16(nbr_mask.contiguous())
     g = g.float().contiguous()
     amax = amax.to(torch.int32).contiguous()
     _build.check_cuda("fused_sa_bwd_stage", nbr_mask, w, g, amax,
-                      *(x for x in (dense, planes) if x is not None))
+                      *(x for x in (dense, planes, wb) if x is not None))
     sizes = _bwd_sizes(stage, kp, c1p, c2p, c3p)
     # the blocks' partial sums: the weight gradient in f32, the rest in f64
     partial = torch.empty((MAX_GRID, sizes[0]), dtype=torch.float32, device=dev)
@@ -397,7 +444,8 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
     if stage == 3 and cd:
         d_dense = torch.empty((b, m, K, cd), dtype=ct, device=dev)
     _build.launch(BWD_ENTRIES[stage], _BWD_ARGTYPES, _build.ptr(dense), _build.ptr(planes),
-                  nbr_mask.data_ptr(), w.data_ptr(), g.data_ptr(), amax.data_ptr(),
+                  nbr_mask.data_ptr(), w.data_ptr(), _build.ptr(wb), g.data_ptr(),
+                  amax.data_ptr(),
                   partial.data_ptr(), partial_v.data_ptr(), sums.data_ptr(), _build.ptr(d_dense),
                   b * m, cd, cp, kp,
                   cdp, c1p, c2p, c3p, c3, ACTS[act], int(bf16), MAX_GRID,

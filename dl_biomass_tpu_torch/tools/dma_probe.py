@@ -2,9 +2,9 @@
 bandwidth probe (port of the JAX package's ``tools/dma_probe.py``).
 
 Times ``a + 1.0`` over 256 MB, then kernel 10 (``csrc/block_copy.cu``: o =
-x + 1 with one CUDA block per (rows, 128) block) over 128 blocks of 256 KB,
-1 MB and 4 MB, as the TPU tool timed its Pallas block copy, and ends with a
-verdict line:
+x + 1 over the whole tensor as 16-byte vectors, one CUDA block per chunk of
+256 of them) over 128 blocks of 256 KB, 1 MB and 4 MB, the sizes at which
+the TPU tool timed its Pallas block copy, and ends with a verdict line:
 
   BLOCK_COPY_CAP: {"torch_gbps": ..., "kernel_gbps": ..., "capped": true/false}
 
@@ -42,7 +42,8 @@ def block_copy(x: torch.Tensor) -> torch.Tensor:
     """x (blocks, rows, 128) float32 -> x + 1.
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel 10
-    (``dlbt_block_copy``), one CUDA block per (rows, 128) block."""
+    (``dlbt_block_copy``) over the whole tensor, one CUDA block per chunk of
+    256 16-byte vectors."""
     if x.device.type == "cpu":
         return block_copy_plain(x)
     if x.device.type != "cuda":

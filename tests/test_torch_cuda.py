@@ -249,11 +249,16 @@ def test_fused_sa_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
         assert torch.equal(am[lead], want[1][lead])
 
 
-def _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, seed=1):
+def _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, seed=1, empty_every=0):
     """The backward's inputs beside the forward's: the forward's first argmax
-    (the centroid without a valid slot: -1), a cotangent, the statistics
-    (mean, inv) and the correction terms."""
+    (the centroids without a valid slot: -1), a cotangent, the statistics
+    (mean, inv) and the correction terms. ``empty_every`` > 0 empties every
+    such centroid of each cloud besides centroid 3 of the first."""
     dense, planes, mask, params, folds = _fused_sa_case(dev, b, m, cd, cp, widths, bf16, seed)
+    if empty_every:
+        mask[:, ::empty_every] = False
+        if dense is not None:
+            dense = dense * mask[..., None]
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     _, amax = sa_train_kernel.fused_sa_stage_plain(3, dense, planes, mask, params, folds,
                                                    bf16=bf16)
@@ -266,17 +271,25 @@ def _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, seed=1):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,m,cd,cp,widths", [
-    (2, 13, 0, 4, (8, 8, 16)),  # odd M, small widths zero-padded to 64
-    (3, 37, 5, 3, (8, 8, 16)),
-    (2, 300, 0, 4, (64, 64, 128)),  # SA1's production widths
-    (2, 129, 128, 3, (128, 128, 256)),  # SA2's
-], ids=["small-planes", "small-both", "sa1", "sa2"])
-def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
+@pytest.mark.parametrize("b,m,cd,cp,widths,empty_every", [
+    (2, 13, 0, 4, (8, 8, 16), 0),  # odd M, small widths zero-padded to 64
+    (3, 37, 5, 3, (8, 8, 16), 0),
+    (2, 300, 0, 4, (64, 64, 128), 0),  # SA1's production widths
+    (2, 129, 128, 3, (128, 128, 256), 0),  # SA2's
+    # every 7th centroid empty; 3 x 211 centroids, a multiple of no grid of
+    # whole SMs, so the blocks of the persistent grid end on other counts
+    (3, 211, 128, 3, (128, 128, 256), 7),
+    # bf16 B3's two other tile counts: SA1 at neuron_multiplier 2 (C1 128, one
+    # dW1 tile a warp) and 40 plane channels at SA1's widths (more than one)
+    (2, 40, 0, 4, (128, 128, 256), 0),
+    (2, 40, 0, 40, (64, 64, 128), 0),
+], ids=["small-planes", "small-both", "sa1", "sa2", "sa2-empty", "sa1-x2", "wide-planes"])
+def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, empty_every, bf16):
     """Each backward pass against the plain version: every output within
-    1e-5 (f32) or 1e-2 (bf16) of its max|.|, d(dense) 0 on every row of the
+    1e-5 (f32) or 1e-2 (bf16) of its max|.|, d(dense) 0 on every row of each
     centroid without a valid slot, and a second launch bit-identical."""
-    args = _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16)
+    args = _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, empty_every=empty_every)
+    empty = ~args[2].any(-1)
     tol = 1e-2 if bf16 else 1e-5
     for stage in (1, 2, 3):
         got = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16)
@@ -293,7 +306,7 @@ def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, bf16):
             assert err <= tol * float(z.float().abs().max()), (stage, err)
         if stage == 3 and cd:
             assert got[2].dtype == (torch.bfloat16 if bf16 else torch.float32)
-            assert bool((got[2][0, 3] == 0).all())
+            assert bool(empty[0, 3]) and bool((got[2][empty] == 0).all())
 
 
 def test_fused_sa_model_launches_kernel_6(dev):
@@ -411,9 +424,14 @@ def test_sum_slices_kernel_matches_plain(dev):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("rows", [2, 512, 777])
-def test_block_copy_kernel_matches_plain(dev, rows):
-    x = torch.randn((5, rows, 128), device=dev)
+@pytest.mark.parametrize("blocks,rows", [
+    (5, 2), (5, 512), (5, 777),
+    (3, 1),  # 96 vectors: less than one thread block's share
+    (7, 9999),  # 2,239,776 vectors: a multiple of no grid's step
+    (300, 8),  # more blocks than SMs
+])
+def test_block_copy_kernel_matches_plain(dev, blocks, rows):
+    x = torch.randn((blocks, rows, 128), device=dev)
     assert torch.equal(dma_probe.block_copy(x), x + 1.0)
 
 

@@ -209,3 +209,68 @@ def test_fused_sa_layer_gradients_match_jax(dtype, train):
         assert np.abs(got - want).max() <= F32_TOL * top, name
         if dtype == "bfloat16" and not (train and name in ("lin0.bias", "lin1.bias")):
             assert np.linalg.norm(got - want) <= BF16_L2 * np.linalg.norm(want), name
+
+
+def _bf16_rne(x: np.ndarray) -> np.ndarray:
+    """float32 -> the bf16 value nearest (ties to even), as float32."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    up = (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return up.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("cd,cp,widths", [
+    (0, 4, (64, 64, 128)),  # SA1: the planes alone
+    (128, 3, (128, 128, 256)),  # SA2
+    (5, 3, (8, 24, 40)),  # no width a multiple of 16
+], ids=["sa1", "sa2", "odd"])
+def test_b3_bf16_weight_pack_unpacks_to_the_rounded_weights(cd, cp, widths):
+    """bf16 B3's weight block (``_packed_b3``), cut into W1^T, W2^T and W3 as
+    its kernel lays them out in shared memory (each part a whole number of
+    16-byte pieces, each row SKEW_H values longer), holds the weights rounded
+    to bf16 (W1's dense rows at columns 0.., its plane rows from CD rounded up
+    to 16) and zeros everywhere else."""
+    rng = np.random.default_rng(3)
+    dims = (cd + cp,) + widths
+    w = [rng.normal(size=dims[i:i + 2]).astype(np.float32) for i in range(3)]
+    params = {f"w{i + 1}": torch.from_numpy(w[i]) for i in range(3)}
+    c1, c2, c3 = widths
+    c1p, c2p, c3p = (-(-c // 64) * 64 for c in widths)
+    kx, skew = sa_train_kernel.b3_width(cd, cp), sa_train_kernel.SKEW_H
+    assert kx % 16 == 0 and kx >= cd + cp
+    wb = sa_train_kernel._packed_b3(params, cd, cp, c1p, c2p, c3p, torch.device("cpu"))
+    shapes = [(c1p, kx + skew), (c2p, c1p + skew), (c2p, c3p + skew)]
+    sizes = [r * c for r, c in shapes]
+    assert wb.dtype == torch.bfloat16 and wb.numel() == sum(sizes)
+    assert all(2 * n % 16 == 0 for n in sizes)
+    w1t, w2t, w3 = (p.view(shape).float().numpy().copy()
+                    for p, shape in zip(wb.split(sizes), shapes))
+    cols = [i if i < cd else -(-cd // 16) * 16 + (i - cd) for i in range(cd + cp)]
+    for got, (rows, at), want in ((w1t, (slice(0, c1), cols), _bf16_rne(w[0]).T),
+                                  (w2t, (slice(0, c2), slice(0, c1)), _bf16_rne(w[1]).T),
+                                  (w3, (slice(0, c2), slice(0, c3)), _bf16_rne(w[2]))):
+        np.testing.assert_array_equal(got[rows][:, at], want)
+        got[rows, at] = 0.0
+        assert not got.any()  # the padding and the skew
+
+
+def test_b3_bf16_vectors_lie_in_the_kernels_order():
+    """bf16 B3's f32 vector block (``_vectors_b3``): b1, sc1, sh1, mean1, inv1,
+    t1a, t1b, each zero-padded to C1, then the same seven of layer 2 padded to
+    C2, as its kernel reads them."""
+    rng = np.random.default_rng(4)
+    c1, c2, c1p, c2p = 40, 24, 64, 64
+
+    def vec(c):
+        return torch.from_numpy(rng.normal(size=c).astype(np.float32))
+
+    params = {"b1": vec(c1), "b2": vec(c2)}
+    folds = [(vec(c1), vec(c1)), (vec(c2), vec(c2))]
+    stats = [(vec(c1), vec(c1)), (vec(c2), vec(c2))]
+    terms = [(vec(c2), vec(c2)), (vec(c1), vec(c1))]
+    got = sa_train_kernel._vectors_b3(params, folds, stats, terms, c1p, c2p)
+    assert got.dtype == torch.float32 and got.shape == (7 * (c1p + c2p),)
+    l1, l2 = got[:7 * c1p].view(7, c1p), got[7 * c1p:].view(7, c2p)
+    for rows, c, want in ((l1, c1, [params["b1"], *folds[0], *stats[0], *terms[1]]),
+                          (l2, c2, [params["b2"], *folds[1], *stats[1], *terms[0]])):
+        assert torch.equal(rows[:, :c], torch.stack(want))
+        assert not rows[:, c:].any()
