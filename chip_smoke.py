@@ -58,15 +58,16 @@ Phases, each of which raises on failure (exit code 1):
              by more, zero rows identical, two launches bit-identical; timed
              beside their bounds, plain versions and the unfused layer (``MLP``
              + ``masked_max``) in train and eval mode. Then its three backward
-             passes (B1, B2, B3; B3 in bf16 on the tensor cores,
-             ``csrc/fused_sa_b3.cu``) at the inputs one training step of that model
-             gives them, SA1 and SA2, bf16, and f32 with ELU (no branch to
-             flip): the weight and bias gradients and the four sums within 1e-2
-             (bf16) or 1e-5 (f32) of the pass's largest, d(dense) of its own
-             max|.|, from the plain backward, d(dense) rows 0
+             passes (B1, B2, B3; in bf16 on the tensor cores,
+             ``csrc/fused_sa_b1.cu``, ``_b2.cu``, ``_b3.cu``) at the inputs one
+             training step of that model gives them, SA1 and SA2, bf16, and f32
+             with ELU (no branch to flip): the weight and bias gradients and the
+             four sums within 1e-2 (bf16) or 1e-5 (f32) of the pass's largest,
+             d(dense) of its own max|.|, from the plain backward, d(dense) rows 0
              where a centroid has no valid slot, two launches bit-identical;
              timed beside their bounds, plain versions and the autograd
-             backward of the unfused layer.
+             backward of the unfused layer, bf16 also by its kernel alone
+             (``torch.profiler``).
 11. eval_fused_sa, train_forward_fused_sa and train_fused_sa —
              ``Trainer.evaluate`` and ``predict`` on the ``fused_sa`` model at
              16 and 36 x 10240, held against the plain-version forward and the
@@ -756,6 +757,25 @@ def profile_calls(fn, calls: int = 3):
     return wall_ms / calls, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
 
 
+def kernel_alone_ms(fn, name: str, calls: int = 5) -> float:
+    """Device time per launch of the kernels whose name holds ``name``, over
+    ``calls`` calls of ``fn`` under torch.profiler: their time over the
+    launches it recorded, since a window can miss its first launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    require(hits, f"the profiler recorded no launch of {name}")
+    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+
+
 def graph_ms(fn, calls: int = TOOL_REPS, replays: int = 5) -> float:
     """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
     graph, the median of ``replays`` replays between two events, so that no
@@ -1357,18 +1377,23 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
     some, such as SA1's db3, are 0 but for rounding, since a BatchNorm
     follows; d(dense) within the bound of its own max|.|; zero d(dense) rows
     where a centroid has no valid slot), two launches bit-identical,
-    timings, bound."""
+    timings, bound; bf16 on one ``pack_bwd`` block, as the step runs it."""
     from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
 
     args, kwargs = call
-    stage, dense, planes, nbr_mask, params = args[:5]
+    stage, dense, planes, nbr_mask, params, folds, stats = args[:7]
     if not bf16 and dense is not None:
         dense = dense.float()
     args = (stage, dense, planes, nbr_mask) + tuple(args[4:])
+    # the step hands bf16 passes a block packed once per layer, from the
+    # parameters before the optimizer moved them: the replay packs one as the
+    # step does, from the recorded ones, and runs the step's route on it; an
+    # f32 pass takes none
+    packed = k6.pack_bwd(dense, planes, nbr_mask, params, folds, stats) if bf16 else None
     # float32 runs with ELU, whose derivative is continuous: at a million rows
     # some ReLU inputs lie within rounding of 0, and the kernel's and the plain
     # version's sums of h2 put them on other sides, moving whole elements
-    kwargs = dict(kwargs, bf16=bf16, **({} if bf16 else {"act": "ELU"}))
+    kwargs = dict(kwargs, bf16=bf16, packed=packed, **({} if bf16 else {"act": "ELU"}))
     got = k6.fused_sa_bwd_stage(*args, **kwargs)
     again = k6.fused_sa_bwd_stage(*args, **kwargs)
     want = k6.fused_sa_bwd_stage_plain(*args, **kwargs)
@@ -1390,6 +1415,10 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
                 f"kernel 6 B3 {label}: d(dense) rows of centroids without a valid slot are not 0")
     t = time_ms(lambda: k6.fused_sa_bwd_stage(*args, **kwargs), reps=FUSED_SA_REPS, warmup=2)
     tp = time_ms(lambda: k6.fused_sa_bwd_stage_plain(*args, **kwargs), reps=3, warmup=1)
+    alone = None  # the tensor-core kernel alone, without the vectors' copy and the slice sum
+    if bf16:
+        alone = kernel_alone_ms(lambda: k6.fused_sa_bwd_stage(*args, **kwargs),
+                                f"fused_sa_b{stage}_kernel")
     b, m, _ = nbr_mask.shape
     edges, centroids = int(nbr_mask.sum()), int((~empty).sum())
     flops = fused_sa_bwd_flops(stage, cd, params, edges, centroids)
@@ -1405,14 +1434,15 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
     print(f"kernel fused_sa B{stage} {label} (B={b} M={m} CD={cd} "
           f"CP={0 if planes is None else planes.shape[-1]} widths "
           f"{','.join(str(params[f'w{i}'].shape[1]) for i in (1, 2, 3))}): {t:.4f} ms (median of "
-          f"{FUSED_SA_REPS}), plain {tp:.4f} ms, bound {bms:.6f} ms ({by}: {flops} flop for "
+          f"{FUSED_SA_REPS}){'' if alone is None else f', kernel alone {alone:.4f} ms'}, plain "
+          f"{tp:.4f} ms, bound {bms:.6f} ms ({by}: {flops} flop for "
           f"{edges} valid edges and {centroids} centroids at {peak / 1e12:.0f} TFLOP/s, {nbytes} "
           f"bytes), CUDA-core f32 floor {floor:.4f} ms ({floor / t:.1%} reached); vs plain "
           f"max|diff| per output over the pass's largest gradient or sum (d(dense): its own "
           f"max) {', '.join(f'{r:.3e}' for r in rels)} (bound {tol}); two launches "
           f"bit-identical", flush=True)
     ctx.setdefault(stage, []).append(dict(bf16=bf16, ms=t, plain_ms=tp, bound_ms=bms,
-                                          bound_by=by, err=err, label=label))
+                                          bound_by=by, err=err, label=label, alone_ms=alone))
     return t
 
 
@@ -1476,14 +1506,14 @@ def check_fused_sa_bwd(device, card: str) -> list:
     yard = sum(y["ms"] for y in ctx["yardstick"] if y["bf16"])
     for stage, (name, replaces) in FUSED_SA_BWD_STAGES.items():
         runs = [r for r in ctx[stage] if r["bf16"]]
-        src = "fused_sa_b3.cu" if stage == 3 else "fused_sa_bwd.cu"  # the bf16 kernel's file
-        rows.append(dict(name=name, source=f"dl_biomass_tpu_torch/csrc/{src}",
+        rows.append(dict(name=name, source=f"dl_biomass_tpu_torch/csrc/fused_sa_b{stage}.cu",
                          replaces=replaces, entry=f"dlbt_{name}",
                          max_abs_err=max(r["err"] for r in ctx[stage]),
                          ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
                          bound_ms=sum(r["bound_ms"] for r in runs),
                          bound_by=max(runs, key=lambda r: r["bound_ms"])["bound_by"],
-                         library_ms=None, yardstick_backward_ms=yard))
+                         library_ms=None, yardstick_backward_ms=yard,
+                         kernel_alone_ms=sum(r["alone_ms"] for r in runs)))
     return rows
 
 

@@ -23,8 +23,9 @@
 // da2 as a dense product over the 64 slots, 64 times the routed work (4.2 MFLOP a
 // centroid at SA2), which the tensor cores absorb.
 //
-// Design: kernels 5's and 7's. A persistent block of 8 warps walks centroids with
-// a grid stride. It copies the bf16 weights into shared memory once, with cp.async,
+// Design: kernels 5's and 7's, with the pieces B1 and B2 share in
+// csrc/fused_sa_mma.cuh. A persistent block of 8 warps walks centroids with a grid
+// stride. It copies the bf16 weights into shared memory once, with cp.async,
 // as the wrapper packs them: W1^T (C1 x KX, the dense rows' columns at 0, the planes'
 // at CD rounded up to 16), W2^T (C2 x C1) and W3 (C2 x C3), each row kSkewH values
 // longer (mma_bf16.cuh), and the per-column vectors in f32. A centroid's inputs
@@ -56,50 +57,28 @@
 
 #include <cstdint>
 
-#include "fused_sa_tile.cuh"
-#include "mma_bf16.cuh"
+#include "fused_sa_mma.cuh"
 
 namespace {
 
-using dlbt::kSkewH;
-using fused_sa::activate;
-using fused_sa::activate_deriv;
-using fused_sa::kSlots;
-using fused_sa::take;
-using bf16 = __nv_bfloat16;
+using namespace fused_sa_mma;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRowTiles = kSlots / 16;   // the 16-slot row tiles of a centroid
-constexpr int kSub = 4;                  // n-tiles (8 columns) per pass of layer 2 and d(dense)
-constexpr int kMaxDwTiles = 9;           // dW1's 16 x 16 tiles a warp holds at most
-constexpr int kVecs = 7;                 // per-column vectors of a layer (see Vec)
-enum Vec { kBias = 0, kScale, kShift, kMean, kInv, kTa, kTb };
-
-__host__ __device__ __forceinline__ int round16(int v) { return (v + 15) / 16 * 16; }
+constexpr int kMaxDwTiles = 9;  // dW1's 16 x 16 tiles a warp holds at most
 
 // Byte offsets of one block's shared memory: the bf16 weights (W1^T, W2^T, W3: the
 // wrapper's packing), the per-column vectors of layer 1 and of layer 2 (Vec order),
-// two buffers of a centroid's inputs (its bf16 edge rows, mask bytes, f32 cotangent,
-// argmax and f32 planes: one filled by cp.async while the other is used), the a1
-// (then dh1) and dh2 rows, the row tiles' column sums of dh1 and the block's f64 db1.
+// two buffers of a centroid's inputs (Inputs: one filled by cp.async while the other
+// is used), the bf16 cotangent and 16-bit argmax, the a1 (then dh1) and dh2 rows, the
+// row tiles' column sums of dh1 and the block's f64 db1.
 struct Layout {
-  // buffer b starts at buf + b * stride; x, mask, g, am and pl are offsets in a buffer
-  size_t w1t, w2t, w3, vec, buf, stride, x, mask, g, am, pl, gb, am16, a1, dh2, red, db1, total;
-  __host__ __device__ Layout(int kx, int cp, int c1, int c2, int c3) {
-    size_t at = 0;
-    w1t = take(at, 2ull * c1 * (kx + kSkewH));
-    w2t = take(at, 2ull * c2 * (c1 + kSkewH));
-    w3 = take(at, 2ull * c2 * (c3 + kSkewH));
-    vec = take(at, 4ull * kVecs * (c1 + c2));
-    size_t in = 0;
-    x = take(in, 2ull * kSlots * (kx + kSkewH));
-    mask = take(in, kSlots);
-    g = take(in, 4ull * c3);
-    am = take(in, 4ull * c3);
-    pl = take(in, 4ull * kSlots * cp);
-    stride = in;
-    buf = take(at, 2 * in);
+  Inputs in;
+  size_t w3, vec, buf, gb, am16, a1, dh2, red, db1, total;
+  __host__ __device__ Layout(int kx, int cp, int c1, int c2, int c3) : in(kx, cp, c3) {
+    size_t at = w1t_bytes(kx, c1) + w2t_bytes(c1, c2);
+    w3 = at;
+    at += w3_bytes(c2, c3);
+    vec = take(at, vec_bytes(c1, c2));
+    buf = take(at, 2 * in.stride);
     gb = take(at, 2ull * c3);
     am16 = take(at, 2ull * c3);
     a1 = take(at, 2ull * kSlots * (c1 + kSkewH));
@@ -109,46 +88,6 @@ struct Layout {
     total = at;
   }
 };
-
-// acc[nt] += gs @ W3^T for rows r0..r0+15 and columns n0 + 8 nt. The A fragments are
-// the bf16 cotangent gb where the column's argmax (am16, 16 bits, 0xffff for none)
-// is the fragment's row, else 0: one 16-bit pair compare (__vcmpeq2) per register;
-// W3 (C2 rows of C3) gives the B fragments by ldmatrix.
-template <int NP>
-__device__ __forceinline__ void routed_mma(const bf16* gb, const unsigned short* am16, int c3,
-                                           int r0, const bf16* w3, int ld3, int n0,
-                                           float (&acc)[2 * NP][4]) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t ra = static_cast<uint32_t>(r0 + (lane >> 2)) * 0x10001u, rb = ra + 0x80008u;
-#pragma unroll 2
-  for (int k0 = 0; k0 < c3; k0 += 16) {
-    const int c = k0 + 2 * (lane & 3);
-    const uint32_t a_lo = *reinterpret_cast<const uint32_t*>(am16 + c);
-    const uint32_t a_hi = *reinterpret_cast<const uint32_t*>(am16 + c + 8);
-    const uint32_t g_lo = dlbt::ld32(gb + c), g_hi = dlbt::ld32(gb + c + 8);
-    const uint32_t af[4] = {g_lo & __vcmpeq2(a_lo, ra), g_lo & __vcmpeq2(a_lo, rb),
-                            g_hi & __vcmpeq2(a_hi, ra), g_hi & __vcmpeq2(a_hi, rb)};
-#pragma unroll
-    for (int np = 0; np < NP; ++np) {
-      uint32_t b0[2], b1[2];
-      dlbt::load_b_ldm(b0, b1, w3, ld3, k0, n0 + 16 * np);
-      dlbt::mma_bf16(acc[2 * np], af, b0);
-      dlbt::mma_bf16(acc[2 * np + 1], af, b1);
-    }
-  }
-}
-
-// An accumulator tile's two values of row r at columns col, col + 1, as bf16.
-__device__ __forceinline__ void put2(bf16* rows, int ld, int r, int col, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(rows + r * ld + col) = __floats2bfloat162_rn(v0, v1);
-}
-
-// Columns col, col + 1 of per-column vector v (col even).
-__device__ __forceinline__ float2 at2(const float* v, int col) {
-  return *reinterpret_cast<const float2*>(v + col);
-}
-
-__device__ __forceinline__ float lane2(float2 v, int e) { return (e & 1) ? v.y : v.x; }
 
 // kT1: layer 1's n-tiles per warp (C1 / 16); kDw: dW1's 16 x 16 tiles per warp. w holds
 // the per-column vectors (Vec order, layer 1's then layer 2's), wb the bf16 weights.
@@ -164,10 +103,12 @@ __global__ void __launch_bounds__(kThreads, kT1 == 4 && kDw == 1 ? 2 : 1)
   extern __shared__ __align__(16) char smem[];
   const int cd16 = round16(cd), kx = cd16 + round16(cp);
   const Layout L(kx, cp, c1, c2, c3);
-  const bf16* const w1t = reinterpret_cast<const bf16*>(smem + L.w1t);
-  const bf16* const w2t = reinterpret_cast<const bf16*>(smem + L.w2t);
+  const bf16* const w1t = reinterpret_cast<const bf16*>(smem);
+  const bf16* const w2t = reinterpret_cast<const bf16*>(smem + w1t_bytes(kx, c1));
   const bf16* const w3 = reinterpret_cast<const bf16*>(smem + L.w3);
   const float* const vec = reinterpret_cast<const float*>(smem + L.vec);
+  bf16* const gb = reinterpret_cast<bf16*>(smem + L.gb);
+  unsigned short* const am16 = reinterpret_cast<unsigned short*>(smem + L.am16);
   bf16* const a1 = reinterpret_cast<bf16*>(smem + L.a1);
   bf16* const dh1 = a1;  // a1's rows die with the last h2 product
   bf16* const dh2 = reinterpret_cast<bf16*>(smem + L.dh2);
@@ -182,48 +123,13 @@ __global__ void __launch_bounds__(kThreads, kT1 == 4 && kDw == 1 ? 2 : 1)
   const bool dense_vec = cd % 8 == 0 && reinterpret_cast<uintptr_t>(dense) % 16 == 0;
 
   // the weights and the vectors, once per block
-  for (int i = tid; i < static_cast<int>(L.vec / 16); i += kThreads) {
-    dlbt::cp_async16(smem + 16 * i, reinterpret_cast<const char*>(wb) + 16ll * i);
-  }
-  for (int i = tid; i < kVecs * (c1 + c2) / 4; i += kThreads) {
-    dlbt::cp_async16(smem + L.vec + 16 * i, reinterpret_cast<const char*>(w) + 16ll * i);
-  }
+  copy_async(smem, wb, L.vec);
+  copy_async(smem + L.vec, w, vec_bytes(c1, c2));
   for (int i = tid; i < c1; i += kThreads) db1[i] = 0.0;
-  // what the copies never fill: the edge rows' zero columns, and the padded
-  // columns of the cotangent (0) and the argmax (-1)
-  for (int b = 0; b < 2; ++b) {
-    char* const in = smem + L.buf + b * L.stride;
-    bf16* const x = reinterpret_cast<bf16*>(in + L.x);
-    for (int i = tid; i < kSlots * (kx - cd); i += kThreads) {
-      const int r = i / (kx - cd), k = cd + (i - r * (kx - cd));
-      x[r * ldx + k] = __float2bfloat16_rn(0.0f);
-    }
-    for (int c = c_out + tid; c < c3; c += kThreads) {
-      reinterpret_cast<float*>(in + L.g)[c] = 0.0f;
-      reinterpret_cast<int*>(in + L.am)[c] = -1;
-    }
-  }
 
-  // starts the copies of centroid ci's inputs into buffer b
-  auto prefetch = [&](long long ci, int b) {
-    const long long row0 = ci * kSlots;
-    char* const in = smem + L.buf + b * L.stride;
-    if (tid < kSlots / 16) dlbt::cp_async16(in + L.mask + 16 * tid, mask + row0 + 16 * tid);
-    for (int c = tid; c < c_out; c += kThreads) {
-      dlbt::cp_async4(in + L.g + 4 * c, gout + ci * c_out + c);
-      dlbt::cp_async4(in + L.am + 4 * c, amax + ci * c_out + c);
-    }
-    for (int i = tid; i < kSlots * cp; i += kThreads) {
-      dlbt::cp_async4(in + L.pl + 4 * i, planes + row0 * cp + i);
-    }
-    if (dense_vec) {
-      bf16* const x = reinterpret_cast<bf16*>(in + L.x);
-      const int vecs = cd / 8;
-      for (int i = tid; i < kSlots * vecs; i += kThreads) {
-        const int r = i / vecs, v = i - r * vecs;
-        dlbt::cp_async16(x + r * ldx + 8 * v, dense + (row0 + r) * cd + 8 * v);
-      }
-    }
+  const auto prefetch = [&](long long ci, int b) {
+    prefetch_inputs(smem + L.buf + b * L.in.stride, L.in, ci, dense, planes, mask, gout, amax,
+                    cd, cp, ldx, c_out, dense_vec);
   };
   if (blockIdx.x < total) prefetch(blockIdx.x, 0);
   dlbt::cp_async_commit();
@@ -240,8 +146,8 @@ __global__ void __launch_bounds__(kThreads, kT1 == 4 && kDw == 1 ? 2 : 1)
     dlbt::cp_async_wait<1>();  // this centroid's copies (and the weights) have landed
     __syncthreads();           // ... for every thread
     const long long row0 = ci * kSlots;
-    char* const in = smem + L.buf + b * L.stride;
-    const unsigned char* const mk = reinterpret_cast<const unsigned char*>(in + L.mask);
+    char* const in = smem + L.buf + b * L.in.stride;
+    const unsigned char* const mk = reinterpret_cast<const unsigned char*>(in + L.in.mask);
     if (!__syncthreads_or(tid < kSlots && mk[tid] != 0)) {
       // no valid slot: no gradient, and rows of 0 in d(dense)
       for (int i = tid; i < kSlots * cd; i += kThreads) {
@@ -249,93 +155,28 @@ __global__ void __launch_bounds__(kThreads, kT1 == 4 && kDw == 1 ? 2 : 1)
       }
       continue;
     }
-    bf16* const x = reinterpret_cast<bf16*>(in + L.x);
-    bf16* const gb = reinterpret_cast<bf16*>(smem + L.gb);
-    unsigned short* const am16 = reinterpret_cast<unsigned short*>(smem + L.am16);
-    {  // the cotangent in bf16 and the argmax in 16 bits; the planes rounded to bf16 at
-       // columns CD16.., and the dense rows the copies could not take
-      const float* const gf = reinterpret_cast<const float*>(in + L.g);
-      const int* const am = reinterpret_cast<const int*>(in + L.am);
-      for (int c = tid; c < c3; c += kThreads) {
-        gb[c] = __float2bfloat16_rn(gf[c]);
-        am16[c] = static_cast<unsigned short>(am[c]);  // -1: 0xffff, no slot's row
-      }
-      const float* const pl = reinterpret_cast<const float*>(in + L.pl);
-      for (int i = tid; i < kSlots * cp; i += kThreads) {
-        const int r = i / cp;
-        x[r * ldx + cd16 + (i - r * cp)] = __float2bfloat16_rn(pl[i]);
-      }
-      if (!dense_vec) {
-        for (int i = tid; i < kSlots * cd; i += kThreads) {
-          const int r = i / cd;
-          x[r * ldx + (i - r * cd)] = dense[row0 * cd + i];
-        }
-      }
-    }
+    bf16* const x = reinterpret_cast<bf16*>(in + L.in.x);
+    stage_inputs(in, L.in, gb, am16, 0, c3, c_out, dense, row0, cd, cp, kx, ldx, dense_vec);
     __syncthreads();
 
-    // h1 = (dense rows' product + planes' product) + b1, kept to the end; a1 rows
+    // h1, kept to the end; a1 rows
     float h1[kT1][4];
-    dlbt::zero_acc(h1);
-    dlbt::warp_mma_ldm<kT1 / 2>(x, ldx, w1t, ldx, 0, cd16, r0, n1, h1);
-    if (cp > 0) {
-#pragma unroll
-      for (int np = 0; np < kT1 / 2; ++np) {
-        float hp[2][4];
-        dlbt::zero_acc(hp);
-        dlbt::warp_mma_ldm<1>(x, ldx, w1t, ldx, cd16, kx, r0, n1 + 16 * np, hp);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          h1[2 * np][e] += hp[0][e];
-          h1[2 * np + 1][e] += hp[1][e];
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kT1; ++nt) {
-      const int col = n1 + 8 * nt + 2 * t;
-      const float2 bias = at2(v1 + kBias * c1, col), sc = at2(v1 + kScale * c1, col),
-                   sh = at2(v1 + kShift * c1, col);
-      float a[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        h1[nt][e] += lane2(bias, e);
-        a[e] = activate(h1[nt][e] * lane2(sc, e) + lane2(sh, e), act);
-      }
-      put2(a1, ld1, r0 + g, col, a[0], a[1]);
-      put2(a1, ld1, r0 + g + 8, col, a[2], a[3]);
-    }
+    layer1<kT1>(x, ldx, w1t, cd16, kx, cp, v1, c1, act, a1, ld1, r0, n1, h1);
     __syncthreads();
 
     // layer 2, 32 columns at a time: h2 and da2, then dh2 in bf16
     const float m_lo = mk[r0 + g] ? 1.0f : 0.0f, m_hi = mk[r0 + g + 8] ? 1.0f : 0.0f;
-    for (int n0 = half * (c2 / 2); n0 < (half + 1) * (c2 / 2); n0 += 8 * kSub) {
-      float h2[kSub][4], d2[kSub][4];
-      dlbt::zero_acc(h2);
-      dlbt::zero_acc(d2);
-      dlbt::warp_mma_ldm<kSub / 2>(a1, ld1, w2t, ld1, 0, c1, r0, n0, h2);
-      routed_mma<kSub / 2>(gb, am16, c3, r0, w3, ld3, n0, d2);
+    layer2(a1, ld1, w2t, c1, c2, gb, am16, c3, w3, ld3, r0, half,
+           [&](int col, const float (&h2)[4], const float (&d2)[4]) {
+             const float2 bias = at2(v2 + kBias * c2, col);
+             float hv[4], db[4], xh[4], d[4];
 #pragma unroll
-      for (int nt = 0; nt < kSub; ++nt) {
-        const int col = n0 + 8 * nt + 2 * t;
-        const float2 bias = at2(v2 + kBias * c2, col), sc = at2(v2 + kScale * c2, col),
-                     sh = at2(v2 + kShift * c2, col), mean = at2(v2 + kMean * c2, col),
-                     inv = at2(v2 + kInv * c2, col), ta = at2(v2 + kTa * c2, col),
-                     tb = at2(v2 + kTb * c2, col);
-        float d[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float m = e < 2 ? m_lo : m_hi;
-          const float hv = h2[nt][e] + lane2(bias, e);
-          const float db =
-              d2[nt][e] * activate_deriv(hv * lane2(sc, e) + lane2(sh, e), act) * m;
-          const float xh = (hv - lane2(mean, e)) * lane2(inv, e);
-          d[e] = lane2(sc, e) * (db - lane2(ta, e) - xh * lane2(tb, e)) * m;
-        }
-        put2(dh2, ld2, r0 + g, col, d[0], d[1]);
-        put2(dh2, ld2, r0 + g + 8, col, d[2], d[3]);
-      }
-    }
+             for (int e = 0; e < 4; ++e) hv[e] = h2[e] + lane2(bias, e);
+             bn_backward(hv, d2, v2, c2, col, act, m_lo, m_hi, db, xh);
+             bn_dh(db, xh, v2, c2, col, m_lo, m_hi, d);
+             put2(dh2, ld2, r0 + g, col, d[0], d[1]);
+             put2(dh2, ld2, r0 + g + 8, col, d[2], d[3]);
+           });
     __syncthreads();
 
     // layer 1: da1 = dh2 W2^T on h1's columns, dh1 in bf16, its column sums
@@ -346,26 +187,14 @@ __global__ void __launch_bounds__(kThreads, kT1 == 4 && kDw == 1 ? 2 : 1)
 #pragma unroll
       for (int nt = 0; nt < kT1; ++nt) {
         const int col = n1 + 8 * nt + 2 * t;
-        const float2 sc = at2(v1 + kScale * c1, col), sh = at2(v1 + kShift * c1, col),
-                     mean = at2(v1 + kMean * c1, col), inv = at2(v1 + kInv * c1, col),
-                     ta = at2(v1 + kTa * c1, col), tb = at2(v1 + kTb * c1, col);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float m = e < 2 ? m_lo : m_hi;
-          const float hv = h1[nt][e];
-          const float db =
-              d1[nt][e] * activate_deriv(hv * lane2(sc, e) + lane2(sh, e), act) * m;
-          const float xh = (hv - lane2(mean, e)) * lane2(inv, e);
-          d1[nt][e] = lane2(sc, e) * (db - lane2(ta, e) - xh * lane2(tb, e)) * m;
-        }
+        float db[4], xh[4];
+        bn_backward(h1[nt], d1[nt], v1, c1, col, act, m_lo, m_hi, db, xh);
+        bn_dh(db, xh, v1, c1, col, m_lo, m_hi, d1[nt]);
         put2(dh1, ld1, r0 + g, col, d1[nt][0], d1[nt][1]);
         put2(dh1, ld1, r0 + g + 8, col, d1[nt][2], d1[nt][3]);
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {  // the tile's column sums: rows g, g + 8, then over g
-          float s = d1[nt][p] + d1[nt][p + 2];
-          s += __shfl_xor_sync(0xffffffffu, s, 4);
-          s += __shfl_xor_sync(0xffffffffu, s, 8);
-          s += __shfl_xor_sync(0xffffffffu, s, 16);
+        for (int p = 0; p < 2; ++p) {  // the tile's column sums
+          const float s = tile_colsum(d1[nt][p], d1[nt][p + 2]);
           if (g == 0) red[tile * c1 + col + p] = s;
         }
       }
@@ -439,35 +268,20 @@ cudaError_t launch(const void* dense, const void* planes, const void* mask, cons
                    const void* wb, const void* g, const void* amax, void* partial,
                    void* partial_v, void* d_dense, int centroids, int cd, int cp, int kp, int c1,
                    int c2, int c3, int c_out, int act, int max_grid, cudaStream_t stream,
-                   int* grid_out) {
+                   int* grid) {
   const auto kernel = fused_sa_b3_kernel<kT1, kDw>;
   const size_t smem = Layout(round16(cd) + round16(cp), cp, c1, c2, c3).total;
-  int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int blocks = 0;
+  cudaError_t e = persistent_grid(kernel, smem, centroids, max_grid, 1, &blocks);
   if (e != cudaSuccess) return e;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  }
-  if (e != cudaSuccess) return e;
-  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (grid > centroids) grid = centroids;
-  if (grid > max_grid) grid = max_grid;
-  if (grid < 1) grid = 1;  // one block's (zero) slices even for no centroid
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const bf16*>(dense), static_cast<const float*>(planes),
       static_cast<const unsigned char*>(mask), static_cast<const float*>(w),
       static_cast<const bf16*>(wb), static_cast<const float*>(g), static_cast<const int*>(amax),
       static_cast<float*>(partial), static_cast<double*>(partial_v), static_cast<bf16*>(d_dense),
       centroids, cd, cp, kp, c1, c2, c3, c_out, act);
   e = cudaGetLastError();
-  if (e == cudaSuccess) *grid_out = static_cast<int>(grid);
+  if (e == cudaSuccess) grid[0] = grid[1] = blocks;
   return e;
 }
 
@@ -476,19 +290,19 @@ cudaError_t launch(const void* dense, const void* planes, const void* mask, cons
 // B3 in bf16 over B*M = centroids centroids, the arguments of dlbt_fused_sa_b3
 // (csrc/fused_sa_bwd.cu, which checks the shared ones and adds the slices) but w, here
 // the per-column vectors (7 (C1 + C2) f32: b, sc, sh, mean, inv, ta, tb of layer 1,
-// then of layer 2), and wb, the bf16 weight block (laid out as Layout's first three
-// parts); mask, w and wb 16-byte aligned.
+// then of layer 2), and wb, the bf16 weight block (W1^T, W2^T, W3 as fused_sa_mma.cuh
+// lays them out); mask, w and wb 16-byte aligned.
 // Writes each block's dW1 slice (KP x C1 f32) into partial and its db1 slice (C1 f64)
-// into partial_v, and d_dense (B, M, 64, CD) bf16 where CD > 0; *grid (host memory) is
-// the number of slices. C1 64 or 128, C2 and C3 multiples of 64, and at most
-// 8 x kMaxDwTiles of dW1's 16 x 16 tiles.
+// into partial_v, and d_dense (B, M, 64, CD) bf16 where CD > 0; grid (host memory)
+// gets the number of slices of each, grid[0] and grid[1]. C1 64 or 128, C2 and C3
+// multiples of 64, and at most 8 x kMaxDwTiles of dW1's 16 x 16 tiles.
 extern "C" int dlbt_fused_sa_b3_mma(const void* dense, const void* planes, const void* mask,
                                     const void* w, const void* wb, const void* g,
                                     const void* amax, void* partial, void* partial_v,
                                     void* d_dense, int centroids, int cd, int cp, int kp, int c1,
                                     int c2, int c3, int c_out, int act, int max_grid,
                                     void* stream, int* grid) {
-  *grid = 0;
+  grid[0] = grid[1] = 0;
   const int dw_tiles = (round16(cd) + round16(cp)) / 16 * (c1 / 16);
   if ((c1 != 64 && c1 != 128) || c2 % 64 || c3 % 64 || dw_tiles > kWarps * kMaxDwTiles ||
       wb == nullptr || reinterpret_cast<uintptr_t>(wb) % 16 ||

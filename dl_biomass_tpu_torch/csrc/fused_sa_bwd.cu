@@ -15,18 +15,16 @@
 //   B3: dh1 as dh2 for layer 1; dW1 = x^T dh1 over the [dense..., planes...] rows,
 //       db1 = sum(dh1); d(dense) = dh1 W1d^T per edge row (0 for every row of a
 //       centroid with no valid slot).
-// The sums run over every centroid of the batch. In bf16 mode each product takes bf16
-// operands (a1, a2, gs, dh2, dh1, the rows and the weights) with f32 accumulation while
-// the hidden values and the sums stay f32; in f32 mode plain f32 products. B3 in bf16
-// runs on the tensor cores, in its own kernel (csrc/fused_sa_b3.cu); the entry
-// dlbt_fused_sa_b3 launches that one in bf16 and this file's in f32.
+// The sums run over every centroid of the batch. This file's kernel computes in f32
+// (plain f32 products); in bf16 each pass runs on the tensor cores in its own kernel
+// (csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu), which the same
+// entries launch.
 //
 // Bound on the H100: operations. Per edge row the recompute costs 2 (KP C1 + C1 C2)
 // flop, B2 adds 4 C1 C2 (dW2, da1) and B3 4 C1 C2 + 4 KP C1 (da1, dW1, d(dense)); B1's
 // routed products cost 2 C2 C3 per centroid, not per row, since gs has one nonzero per
-// column. At best on the bf16 tensor cores (989 TFLOP/s); this version runs them as f32
-// FMAs on the CUDA cores (67 TFLOP/s), B3 in bf16 excepted. The inputs are read once
-// per pass (SA2's bf16 dense block: 134 MB at 16 x 10240), and B3 writes d(dense) (as
+// column, all as f32 FMAs on the CUDA cores (67 TFLOP/s). The inputs are read once
+// per pass (SA2's f32 dense block: 268 MB at 16 x 10240), and B3 writes d(dense) (as
 // much again).
 //
 // Design: the forward's walk (csrc/fused_sa_tile.cuh): a block of 128 threads takes one
@@ -51,14 +49,19 @@
 
 #include "fused_sa_tile.cuh"
 
-// csrc/fused_sa_b3.cu: B3 in bf16 on the tensor cores, its kernel alone (*grid = its
-// blocks, the slices it wrote); wb is its bf16 weight block.
-extern "C" int dlbt_fused_sa_b3_mma(const void* dense, const void* planes, const void* mask,
-                                    const void* w, const void* wb, const void* g,
-                                    const void* amax, void* partial, void* partial_v,
-                                    void* d_dense, int centroids, int cd, int cp, int kp, int c1,
-                                    int c2, int c3, int c_out, int act, int max_grid,
-                                    void* stream, int* grid);
+// csrc/fused_sa_b1.cu, _b2.cu, _b3.cu: the passes in bf16 on the tensor cores, each
+// kernel alone (grid[0], grid[1]: the weight and the vector slices it wrote); wb is
+// their bf16 weight block.
+#define DLBT_MMA_PASS(name)                                                                 \
+  extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \
+                      const void* wb, const void* g, const void* amax, void* partial,       \
+                      void* partial_v, void* d_dense, int centroids, int cd, int cp, int kp, \
+                      int c1, int c2, int c3, int c_out, int act, int max_grid, void* stream, \
+                      int* grid);
+DLBT_MMA_PASS(dlbt_fused_sa_b1_mma)
+DLBT_MMA_PASS(dlbt_fused_sa_b2_mma)
+DLBT_MMA_PASS(dlbt_fused_sa_b3_mma)
+#undef DLBT_MMA_PASS
 
 namespace {
 
@@ -86,7 +89,6 @@ struct Layout {
 
 // The thread's tile of gs @ W3^T (da2; columns of C2), where gs holds g[c] at row
 // am[c] of column c alone: the terms of each element in ascending c.
-template <bool kBf16>
 __device__ __forceinline__ void routed_dot(const float* g, const int* am, int c3,
                                            const float* __restrict__ w3t, int c2, int col0,
                                            int rg, int cg, float (&acc)[4][8]) {
@@ -98,7 +100,7 @@ __device__ __forceinline__ void routed_dot(const float* g, const int* am, int c3
   for (int c = 0; c < c3; ++c) {
     const int d = am[c] - rg;  // the thread's rows are rg + 16 i
     if (d < 0 || (d & 15)) continue;
-    const float gv = kBf16 ? round_bf16(g[c]) : g[c];
+    const float gv = g[c];
     const float* wr = w3t + static_cast<size_t>(c) * c2 + col0 + cg * 4;
     const float4 lo = __ldg(reinterpret_cast<const float4*>(wr));
     const float4 hi = __ldg(reinterpret_cast<const float4*>(wr + 32));
@@ -228,7 +230,7 @@ __host__ __device__ __forceinline__ int vector_size(int stage, int c1, int c2, i
 // sc2, sh2 (C2), w3 (C2, C3), b3 (C3)), then mean1, inv1 (C1), mean2, inv2 (C2), t2a,
 // t2b (C2), t1a, t1b (C1), w3^T (C3, C2), w2^T (C2, C1) and w1's dense rows
 // transposed (C1, CDP).
-template <int kStage, bool kBf16>
+template <int kStage>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ planes,
                     const unsigned char* __restrict__ mask, const float* __restrict__ w,
@@ -310,7 +312,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
       gs[c] = real ? gout[ci * c_out + c] : 0.0f;
       am[c] = real ? amax[ci * c_out + c] : -1;
     }
-    load_rows<kBf16>(dense, planes, row0, cd, cp, kp, x);
+    load_rows<false>(dense, planes, row0, cd, cp, kp, x);
     __syncthreads();
 
     // recompute: h1 (B2, B3) and a1, then h2
@@ -318,7 +320,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
     for (int col0 = 0; col0 < c1; col0 += 64) {
       tile_layer(x, ldx, kp, w1, b1, c1, col0, rg, cg, h);
       if (kStage >= 2) store_tile<false>(h, col0, rg, cg, h1, ld1);
-      store_act<kBf16>(h, sc1, sh1, act, col0, rg, cg, a1, ld1);
+      store_act<false>(h, sc1, sh1, act, col0, rg, cg, a1, ld1);
     }
     __syncthreads();
     for (int col0 = 0; col0 < c2; col0 += 64) {  // B1, B2: h2 takes the rows' place
@@ -330,14 +332,13 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
     if (kStage == 1) {  // a2 takes a1's place; then dW3 and db3 at the argmax rows
       for (int i = tid; i < kSlots * c2; i += kThreads) {
         const int r = i / c2, k = i - r * c2;
-        const float v = activate(h2[r * ld2 + k] * sc2[k] + sh2[k], act);
-        a2[r * ld2 + k] = kBf16 ? round_bf16(v) : v;
+        a2[r * ld2 + k] = activate(h2[r * ld2 + k] * sc2[k] + sh2[k], act);
       }
       __syncthreads();
       for (int i = tid; i < c2 * c3; i += kThreads) {
         const int k = i / c3, c = i - k * c3;
         const int r = am[c];
-        if (r >= 0) part[i] += a2[r * ld2 + k] * (kBf16 ? round_bf16(gs[c]) : gs[c]);
+        if (r >= 0) part[i] += a2[r * ld2 + k] * gs[c];
       }
       for (int c = tid; c < c3; c += kThreads) {
         if (am[c] >= 0) part_v[c] += gs[c];
@@ -346,7 +347,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
 
     // layer 2's backward: db2n and xhat2 (B1: their sums), dh2 (B2, B3)
     for (int col0 = 0; col0 < c2; col0 += 64) {
-      routed_dot<kBf16>(gs, am, c3, w3t, c2, col0, rg, cg, d);
+      routed_dot(gs, am, c3, w3t, c2, col0, rg, cg, d);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int k = tile_col(col0, cg, j);
@@ -369,7 +370,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
         tile_colsums<true>(d, e, col0, cg, lane, warp, red, c2);
       } else {
         if (kStage == 2) tile_colsums<false>(d, e, col0, cg, lane, warp, red, c2);
-        store_tile<kBf16>(d, col0, rg, cg, dh2, ld2);
+        store_tile<false>(d, col0, rg, cg, dh2, ld2);
       }
     }
     __syncthreads();
@@ -406,7 +407,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
         }
       }
       tile_colsums<kStage == 2>(d, e, col0, cg, lane, warp, red, c1);
-      if (kStage == 3) store_tile<kBf16>(d, col0, rg, cg, dh1, ld1);
+      if (kStage == 3) store_tile<false>(d, col0, rg, cg, dh1, ld1);
     }
     __syncthreads();
     if (kStage == 2) {
@@ -445,25 +446,14 @@ __global__ void reduce_blocks(const T* __restrict__ partial, int blocks, int n,
   out[i] = static_cast<float>(s);
 }
 
-// The f32 template's kernel of a pass: B1 and B2 in either type, B3 in f32 (bf16 B3
-// runs on the tensor cores, csrc/fused_sa_b3.cu).
-template <int kStage>
-auto fma_kernel(int bf16) {
-  if constexpr (kStage == 3) {
-    return fused_sa_bwd_kernel<3, false>;
-  } else {
-    return bf16 ? fused_sa_bwd_kernel<kStage, true> : fused_sa_bwd_kernel<kStage, false>;
-  }
-}
-
-// Launches the f32 template's kernel of a pass; *grid_out = its blocks.
+// Launches this file's kernel of a pass (f32); *grid_out = its blocks.
 template <int kStage>
 cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, const void* w,
                        const void* g, const void* amax, void* partial, void* partial_v,
                        void* d_dense, int centroids, int cd, int cp, int kp, int cdp, int c1,
-                       int c2, int c3, int c_out, int act, int bf16, int max_grid,
+                       int c2, int c3, int c_out, int act, int max_grid,
                        cudaStream_t s, int* grid_out) {
-  const auto kernel = fma_kernel<kStage>(bf16);
+  const auto kernel = fused_sa_bwd_kernel<kStage>;
   const size_t smem = Layout(kStage, kp, c1, c2, c3).total;
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -506,26 +496,29 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int grid = 0;
+  int grid[2] = {0, 0};  // the weight and the vector slices
   cudaError_t e;
-  if (kStage == 3 && bf16) {
-    e = static_cast<cudaError_t>(dlbt_fused_sa_b3_mma(dense, planes, mask, w, wb, g, amax,
-                                                      partial, partial_v, d_dense, centroids, cd,
-                                                      cp, kp, c1, c2, c3, c_out, act, max_grid,
-                                                      stream, &grid));
+  if (bf16) {
+    const auto mma = kStage == 1 ? dlbt_fused_sa_b1_mma
+                     : kStage == 2 ? dlbt_fused_sa_b2_mma
+                                   : dlbt_fused_sa_b3_mma;
+    e = static_cast<cudaError_t>(mma(dense, planes, mask, w, wb, g, amax, partial, partial_v,
+                                     d_dense, centroids, cd, cp, kp, c1, c2, c3, c_out, act,
+                                     max_grid, stream, grid));
   } else {
     e = launch_fma<kStage>(dense, planes, mask, w, g, amax, partial, partial_v, d_dense,
-                           centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid, s,
-                           &grid);
+                           centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, max_grid, s,
+                           &grid[0]);
+    grid[1] = grid[0];
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_w = weight_size(kStage, kp, c1, c2, c3), n_v = vector_size(kStage, c1, c2, c3);
   reduce_blocks<float><<<(n_w + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(partial), grid, n_w, static_cast<float*>(sums));
+      static_cast<const float*>(partial), grid[0], n_w, static_cast<float*>(sums));
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   reduce_blocks<double><<<(n_v + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const double*>(partial_v), grid, n_v,
+      static_cast<const double*>(partial_v), grid[1], n_v,
       static_cast<float*>(sums) + n_w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -538,9 +531,10 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
 // cotangent of the pooled output and amax (B, M, c_out) int32 F3's argmax. Writes
 // sums: the pass's output vector (see weight_size), f32; partial and partial_v are its
 // scratch, (max_grid, weight_size) f32 and (max_grid, vector_size) f64. B3 with CD > 0
-// also writes d_dense (B, M, 64, CD) in the dense block's type. B3 in bf16 takes w as
-// its per-column vectors alone and wb as its bf16 weight block (csrc/fused_sa_b3.cu);
-// B1, B2 and B3 in f32 ignore wb.
+// also writes d_dense (B, M, 64, CD) in the dense block's type. In bf16 every pass takes
+// w as its per-column vectors alone and wb as the bf16 weight block (csrc/fused_sa_b1.cu,
+// csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu) and raises at widths its kernel does not
+// take; in f32 wb is ignored.
 extern "C" int dlbt_fused_sa_b1(const void* dense, const void* planes, const void* mask,
                                 const void* w, const void* wb, const void* g, const void* amax,
                                 void* partial, void* partial_v, void* sums, void* d_dense,

@@ -1,8 +1,8 @@
 // The per-centroid tile arithmetic of kernel 6, shared by its forward
 // (csrc/fused_sa_fwd.cu) and its backward (csrc/fused_sa_bwd.cu), so that the
-// backward recomputes exactly the hidden values the forward computed (bf16 B3,
-// csrc/fused_sa_b3.cu, takes the slot count and the activations from here and
-// recomputes on the tensor cores).
+// backward recomputes exactly the hidden values the forward computed (the bf16
+// backward passes, csrc/fused_sa_mma.cuh, take the slot count and the activations
+// from here and recompute on the tensor cores).
 //
 // A block of 128 threads takes one centroid (its 64 edge rows) at a time. Each
 // thread holds a 4-row x 8-column tile of a 64-column pass: thread (rg, cg) of

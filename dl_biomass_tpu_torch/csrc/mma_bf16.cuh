@@ -1,7 +1,7 @@
 // bf16 tensor-core products of one warp (mma.sync m16n8k16, bf16 in, f32
 // accumulators) and asynchronous copies into shared memory, shared by
-// csrc/sa1_fused_eval.cu (kernel 5), csrc/fused_tail.cu (kernel 7) and
-// csrc/fused_sa_b3.cu (kernel 6-B3). In warp_mma the right-hand operand is
+// csrc/sa1_fused_eval.cu (kernel 5), csrc/fused_tail.cu (kernel 7) and kernel 6's
+// bf16 backward passes (csrc/fused_sa_mma.cuh). In warp_mma the right-hand operand is
 // stored transposed in shared memory, each of its rows (depth + kSkewH) values
 // apart, so that a fragment is one 32-bit load and a warp's fragment loads hit
 // 32 banks; warp_mma_tb reads it untransposed, with ldmatrix.trans, so that

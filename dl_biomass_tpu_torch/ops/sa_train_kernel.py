@@ -35,12 +35,14 @@ centroid has no valid slot.
 ``fused_sa_stage`` (one forward pass) and ``fused_sa_bwd_stage`` (one
 backward pass) launch ``csrc/fused_sa_fwd.cu`` (entries ``dlbt_fused_sa_f1``,
 ``_f2``, ``_f3``) and ``csrc/fused_sa_bwd.cu`` (``dlbt_fused_sa_b1``, ``_b2``,
-``_b3``; B3 in bf16 runs ``csrc/fused_sa_b3.cu`` on the tensor cores, with the
-bf16 weight block of ``_packed_b3``) on a CUDA tensor and run
-``fused_sa_stage_plain`` and ``fused_sa_bwd_stage_plain`` on a CPU tensor.
-``fused_sa_mlp`` chains them as the JAX function does, inside a
-``torch.autograd.Function``; ``fused_sa_mlp_plain`` chains the plain passes
-the same way. The kernels sum in their own order (float32 FMAs or tensor-core
+``_b3``; in bf16 each pass runs on the tensor cores, ``csrc/fused_sa_b1.cu``,
+``_b2.cu``, ``_b3.cu``, with the bf16 weight block of ``_packed_bf16`` and the
+vectors of ``_vectors``, which ``pack_bwd`` makes once per layer's backward)
+on a CUDA tensor and run ``fused_sa_stage_plain`` and
+``fused_sa_bwd_stage_plain`` on a CPU tensor. ``fused_sa_mlp`` chains them as
+the JAX function does, inside a ``torch.autograd.Function``;
+``fused_sa_mlp_plain`` chains the plain passes the same way. The kernels sum
+in their own order (float32 FMAs or tensor-core
 products per row, float32 per block, float64 across blocks), so they agree
 with the plain versions to float32 rounding of the sums (bf16: a value near a
 rounding boundary may round one step the other way).
@@ -192,12 +194,13 @@ def _routed(g: torch.Tensor, amax: torch.Tensor, ft) -> torch.Tensor:
 
 def fused_sa_bwd_stage_plain(stage: int, dense, planes, nbr_mask, params: dict, folds: Folds,
                              stats: Folds, terms: Folds, g: torch.Tensor, amax: torch.Tensor, *,
-                             act: Optional[str] = "ReLU", bf16: bool = False):
+                             act: Optional[str] = "ReLU", bf16: bool = False, packed=None):
     """The plain PyTorch version of one backward pass. ``folds`` = [(sc1, sh1),
     (sc2, sh2)], ``stats`` = [(mean1, inv1), (mean2, inv2)] with inv =
     rsqrt(var + eps), ``terms`` = [(t2a, t2b)] for stage 2 and [(t2a, t2b),
     (t1a, t1b)] for stage 3; ``g`` the cotangent of the pooled output and
-    ``amax`` F3's argmax, both (B, M, C3). The column sums accumulate in
+    ``amax`` F3's argmax, both (B, M, C3); ``packed``, the kernels' block
+    (``pack_bwd``), is not read. The column sums accumulate in
     float64, as the kernel's do (their terms cancel: SA1's db3 is 0 but for
     rounding). Returns, float32 (float64 for float64 inputs):
 
@@ -286,21 +289,21 @@ def _packed_bwd(params: dict, folds: Folds, stats: Folds, terms: Folds, cd: int,
         _mat(params["w1"][:cd].t(), c1p, cdp, ct)])
 
 
-def b3_width(cd: int, cp: int) -> int:
-    """KX, the edge rows' width in bf16 B3: the dense channels, then the planes
-    from CD rounded up to 16, zero-padded to a multiple of 16."""
+def edge_width(cd: int, cp: int) -> int:
+    """KX, the edge rows' width in the bf16 passes: the dense channels, then the
+    planes from CD rounded up to 16, zero-padded to a multiple of 16."""
     return round_up(cd, 16) + round_up(cp, 16)
 
 
-def _packed_b3(params: dict, cd: int, cp: int, c1p: int, c2p: int, c3p: int, device):
-    """bf16 B3's weight block, flat bf16, laid out as its kernel holds it in
-    shared memory: W1^T (C1, KX) with the dense rows' columns at 0 and the
-    planes' at CD rounded up to 16 (``b3_width``), W2^T (C2, C1) and W3 (C2,
-    C3), each zero-padded and each row ``SKEW_H`` zeros longer."""
+def _packed_bf16(params: dict, cd: int, cp: int, c1p: int, c2p: int, c3p: int, device):
+    """The bf16 passes' weight block, flat bf16, laid out as their kernels hold
+    it in shared memory: W1^T (C1, KX) with the dense rows' columns at 0 and
+    the planes' at CD rounded up to 16 (``edge_width``), W2^T (C2, C1) and W3
+    (C2, C3), each zero-padded and each row ``SKEW_H`` zeros longer."""
     cd16 = round_up(cd, 16)
     w1, w2, w3 = (params[k].detach() for k in ("w1", "w2", "w3"))
     c1, c2, c3 = w1.shape[1], w2.shape[1], w3.shape[1]
-    w1t = torch.zeros((c1p, b3_width(cd, cp) + SKEW_H), dtype=torch.bfloat16, device=device)
+    w1t = torch.zeros((c1p, edge_width(cd, cp) + SKEW_H), dtype=torch.bfloat16, device=device)
     w1t[:c1, :cd] = w1[:cd].t()
     w1t[:c1, cd16:cd16 + cp] = w1[cd:].t()
     w2t = torch.zeros((c2p, c1p + SKEW_H), dtype=torch.bfloat16, device=device)
@@ -310,17 +313,67 @@ def _packed_b3(params: dict, cd: int, cp: int, c1p: int, c2p: int, c3p: int, dev
     return torch.cat([w1t.reshape(-1), w2t.reshape(-1), w3p.reshape(-1)])
 
 
-def _vectors_b3(params: dict, folds: Folds, stats: Folds, terms: Folds, c1p: int, c2p: int):
-    """bf16 B3's f32 per-column vectors, as its kernel holds them in shared
-    memory: b1, sc1, sh1, mean1, inv1, t1a, t1b (C1 each), then b2, sc2, sh2,
-    mean2, inv2, t2a, t2b (C2 each), zero-padded."""
+VECS = 7  # per-column vectors of a layer in the bf16 passes: b, sc, sh, mean, inv, ta, tb
+TA = 5  # the row of ta among them (tb follows)
+
+
+def _vectors(params: dict, folds: Folds, stats: Folds, c1p: int, c2p: int):
+    """The bf16 passes' f32 per-column vectors, as their kernels hold them in
+    shared memory: b1, sc1, sh1, mean1, inv1, t1a, t1b (C1 each), then b2, sc2,
+    sh2, mean2, inv2, t2a, t2b (C2 each), zero-padded; the correction terms 0
+    (``_with_terms`` adds them)."""
     (sc1, sh1), (sc2, sh2) = folds
     (mean1, inv1), (mean2, inv2) = stats
-    (t2a, t2b), (t1a, t1b) = terms
-    rows = [(torch.stack([params["b1"], sc1, sh1, mean1, inv1, t1a, t1b]), c1p),
-            (torch.stack([params["b2"], sc2, sh2, mean2, inv2, t2a, t2b]), c2p)]
-    return torch.cat([torch.nn.functional.pad(v.detach().float(), (0, c - v.shape[1]))
-                      .reshape(-1) for v, c in rows])
+    layers = (([params["b1"], sc1, sh1, mean1, inv1], c1p),
+              ([params["b2"], sc2, sh2, mean2, inv2], c2p))
+    rows = []
+    for vs, c in layers:
+        v = torch.stack(vs).detach().float()
+        rows.append(torch.nn.functional.pad(v, (0, c - v.shape[1], 0, VECS - v.shape[0]))
+                    .reshape(-1))
+    return torch.cat(rows)
+
+
+def _with_terms(vectors: torch.Tensor, terms: Folds, c1p: int, c2p: int) -> torch.Tensor:
+    """``vectors`` with the correction terms given so far, [(t2a, t2b)] then
+    (t1a, t1b), in their rows (a new tensor; ``vectors`` unchanged when there
+    are any)."""
+    if not terms:
+        return vectors
+    out = vectors.clone()
+    layers = (out[VECS * c1p:].view(VECS, c2p), out[:VECS * c1p].view(VECS, c1p))
+    for rows, (ta, tb) in zip(layers, terms):
+        rows[TA, :ta.shape[0]] = ta.detach()
+        rows[TA + 1, :tb.shape[0]] = tb.detach()
+    return out
+
+
+def _padded_widths(params: dict):
+    return tuple(round_up(params[f"w{i}"].shape[1], WIDTH_STEP) for i in (1, 2, 3))
+
+
+def pack_bwd(dense, planes, nbr_mask, params: dict, folds: Folds, stats: Folds):
+    """The block the three bf16 backward passes of one layer share: (the bf16
+    weight block of ``_packed_bf16``, the vectors of ``_vectors`` with their
+    correction terms 0). ``fused_sa_bwd_stage(..., bf16=True, packed=...)``
+    takes it and adds the terms; without it the pass packs for itself."""
+    cd, cp = _widths(dense, planes, nbr_mask, params)
+    c1p, c2p, c3p = _padded_widths(params)
+    return (_packed_bf16(params, cd, cp, c1p, c2p, c3p, nbr_mask.device),
+            _vectors(params, folds, stats, c1p, c2p))
+
+
+def _check_packed(packed, kx: int, c1p: int, c2p: int, c3p: int, device):
+    """Refuse a ``pack_bwd`` block made for other widths or another device:
+    the kernels copy as many bytes as this call's widths give."""
+    wb, w = packed
+    want = ((torch.bfloat16, c1p * (kx + SKEW_H) + c2p * (c1p + SKEW_H) + c2p * (c3p + SKEW_H)),
+            (torch.float32, VECS * (c1p + c2p)))
+    for x, (dt, n) in zip((wb, w), want):
+        if x.dtype != dt or x.numel() != n or x.device != device or not x.is_contiguous():
+            raise ValueError(f"fused_sa_bwd_stage: the packed block holds {x.numel()} "
+                             f"{x.dtype} on {x.device}; this call's widths need {n} "
+                             f"contiguous {dt} on {device}")
 
 
 def _on_card(name: str, dense, planes, nbr_mask):
@@ -392,16 +445,22 @@ def _bwd_sizes(stage: int, kp: int, c1p: int, c2p: int, c3p: int):
 def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
                        nbr_mask: torch.Tensor, params: dict, folds: Folds, stats: Folds,
                        terms: Folds, g: torch.Tensor, amax: torch.Tensor, *,
-                       act: Optional[str] = "ReLU", bf16: bool = False):
+                       act: Optional[str] = "ReLU", bf16: bool = False, packed=None):
     """One pass of kernel 6's backward (see ``fused_sa_bwd_stage_plain``; the
     inputs as ``fused_sa_stage`` takes them, and ``g``, ``amax`` (B, M, C3)).
+    ``packed``: the bf16 passes' block of this layer (``pack_bwd`` of the same
+    parameters, folds and statistics), made here when not given; an f32 pass,
+    or a block of other widths or on another device, raises ``ValueError``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float64 raises ``ValueError`` there; so does bf16 B3 at widths its
-    tensor-core kernel does not take: C1 other than 64 or 128 after padding,
-    or more than 72 16 x 16 tiles of dW1)."""
+    (float64 raises ``ValueError`` there; in bf16, the tensor-core kernels
+    raise ``RuntimeError`` at widths they do not take: C1 other than 64 or 128
+    after padding, and for B1 C2 above 128, for B2 more than 64 16 x 16 tiles of
+    dW2, for B3 more than 72 of dW1)."""
     if stage not in BWD_ENTRIES:
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    if packed is not None and not bf16:
+        raise ValueError("fused_sa_bwd_stage: the bf16 passes' packed block reached an f32 pass")
     if nbr_mask.device.type == "cpu":
         return fused_sa_bwd_stage_plain(stage, dense, planes, nbr_mask, params, folds, stats,
                                         terms, g, amax, act=act, bf16=bf16)
@@ -419,12 +478,14 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
         raise ValueError(f"g and amax must be (B, M, C3) = {(b, m, c3)}, got "
                          f"{tuple(g.shape)} and {tuple(amax.shape)}")
     kp = round_up(cd + cp, 4)
-    c1p, c2p, c3p = (round_up(c, WIDTH_STEP) for c in (c1, c2, c3))
+    c1p, c2p, c3p = _padded_widths(params)
     cdp = round_up(cd, WIDTH_STEP)
     wb = None
-    if stage == 3 and bf16:  # the tensor-core kernel: its vectors, its bf16 weights
-        w = _vectors_b3(params, folds, stats, terms, c1p, c2p)
-        wb = _packed_b3(params, cd, cp, c1p, c2p, c3p, dev)
+    if bf16:  # the tensor-core kernels: the bf16 weights, the vectors with this pass's terms
+        if packed is None:
+            packed = pack_bwd(dense, planes, nbr_mask, params, folds, stats)
+        _check_packed(packed, edge_width(cd, cp), c1p, c2p, c3p, dev)
+        wb, w = packed[0], _with_terms(packed[1], terms[:stage - 1], c1p, c2p)
     else:
         w = _packed_bwd(params, folds, stats, terms[:stage - 1], cd, kp, c1p, c2p, c3p, cdp, ct,
                         dev)
@@ -492,11 +553,15 @@ def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, trai
     return out, stats, amax, (folds, norms, cnt)
 
 
-def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf16, train):
+def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf16, train,
+              pack=False):
     """B1 -> B2 -> B3 with the correction terms between them -> (d(dense) or
-    None, {parameter name: gradient})."""
+    None, {parameter name: gradient}); with ``pack`` (the kernels' passes in
+    bf16 on the card) the three passes share one ``pack_bwd`` block."""
     folds, norms, cnt = state
     kw = dict(act=act, bf16=bf16)
+    if pack:
+        kw["packed"] = pack_bwd(dense, planes, nbr_mask, params, folds, norms)
     args = (dense, planes, nbr_mask, params, folds, norms)
     dw3, db3, sdb2, sdb2x = stage_fn(1, *args, [], g, amax, **kw)
     terms = [(sdb2 / cnt, sdb2x / cnt) if train else
@@ -536,7 +601,8 @@ class _FusedSAMLP(torch.autograd.Function):
         params = {k: v.to(ft) for k, v in zip(PARAMS, values)}
         stage_fn = fused_sa_bwd_stage_plain if plain else fused_sa_bwd_stage
         d_dense, grads = _backward(stage_fn, dense, planes, nbr_mask, params, ctx.state, g_out,
-                                   amax, act, bf16, train)
+                                   amax, act, bf16, train,
+                                   pack=bf16 and not plain and nbr_mask.is_cuda)
         need = ctx.needs_input_grad
         d_dense = d_dense.to(dense.dtype) if need[1] and d_dense is not None else None
         return (None, d_dense, None, None, None, None, None, None,

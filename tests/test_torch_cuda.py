@@ -283,7 +283,10 @@ def _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16, seed=1, empty_every=0):
     # dW1 tile a warp) and 40 plane channels at SA1's widths (more than one)
     (2, 40, 0, 4, (128, 128, 256), 0),
     (2, 40, 0, 40, (64, 64, 128), 0),
-], ids=["small-planes", "small-both", "sa1", "sa2", "sa2-empty", "sa1-x2", "wide-planes"])
+    # bf16 B1 splits C3 into groups of 256 columns: 320 leaves a last group of 64
+    (2, 45, 0, 4, (128, 128, 320), 0),
+], ids=["small-planes", "small-both", "sa1", "sa2", "sa2-empty", "sa1-x2", "wide-planes",
+        "b1-groups"])
 def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, empty_every, bf16):
     """Each backward pass against the plain version: every output within
     1e-5 (f32) or 1e-2 (bf16) of its max|.|, d(dense) 0 on every row of each
@@ -307,6 +310,80 @@ def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, empty_ever
         if stage == 3 and cd:
             assert got[2].dtype == (torch.bfloat16 if bf16 else torch.float32)
             assert bool(empty[0, 3]) and bool((got[2][empty] == 0).all())
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_fused_sa_bwd_bf16_refuses_widths_its_kernels_do_not_take(dev, stage):
+    """At C1 = 192 no bf16 pass has a tensor-core kernel: each raises and
+    launches nothing, where the f32 pass runs its CUDA-core kernel."""
+    args = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (192, 64, 64), True)
+    _build.launch_counts.clear()
+    with pytest.raises(RuntimeError, match=f"dlbt_fused_sa_b{stage}"):
+        sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=True)
+    assert not _build.launch_counts
+    f32 = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (192, 64, 64), False)
+    got = sa_train_kernel.fused_sa_bwd_stage(stage, *f32, bf16=False)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {f"dlbt_fused_sa_b{stage}": 1}
+    assert all(x is None or bool(torch.isfinite(x.float()).all()) for x in got)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_fused_sa_bwd_refuses_a_packed_block_of_other_widths(dev, stage):
+    """A bf16 pass handed a ``pack_bwd`` block made for other widths raises
+    ``ValueError`` and launches nothing, where the block of its own widths
+    runs."""
+    args = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (64, 64, 128), True)
+    other = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (64, 64, 192), True)
+    dense, planes, mask, params, folds, stats = other[:6]
+    _build.launch_counts.clear()
+    with pytest.raises(ValueError, match="packed block"):
+        sa_train_kernel.fused_sa_bwd_stage(
+            stage, *args, bf16=True,
+            packed=sa_train_kernel.pack_bwd(dense, planes, mask, params, folds, stats))
+    assert not _build.launch_counts
+    own = sa_train_kernel.pack_bwd(*args[:6])
+    sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=True, packed=own)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {f"dlbt_fused_sa_b{stage}": 1}
+
+
+def test_fused_sa_backward_shares_one_packed_block(dev, monkeypatch):
+    """A bf16 backward through ``fused_sa_mlp`` hands B1, B2 and B3 one packed
+    block, and each pass's outputs, and so the gradients, are bit-identical to
+    those of the same pass called alone (which packs for itself)."""
+    dense, planes, mask, params, _ = _fused_sa_case(dev, 2, 129, 128, 3, (128, 128, 256), True)
+    g = torch.Generator(device=dev).manual_seed(7)
+    for i, c in ((1, 128), (2, 128)):
+        params[f"gamma{i}"] = 0.5 + torch.rand(c, device=dev, generator=g)
+        params[f"beta{i}"] = 0.1 * torch.randn(c, device=dev, generator=g)
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    x = dense.clone().requires_grad_()
+    calls, real = [], sa_train_kernel.fused_sa_bwd_stage
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(sa_train_kernel, "fused_sa_bwd_stage", record)
+    out, _ = sa_train_kernel.fused_sa_mlp(x, planes, mask, leaves, bf16=True)
+    out.backward(torch.randn(out.shape, device=dev, generator=g))
+    torch.cuda.synchronize()
+    assert [c[0][0] for c in calls] == [1, 2, 3]
+    packed = calls[0][1]["packed"]
+    assert packed is not None and all(c[1]["packed"] is packed for c in calls)
+    alone = []
+    for args, kwargs, got in calls:
+        want = real(*args, **{k: v for k, v in kwargs.items() if k != "packed"})
+        assert all(torch.equal(a, b) for a, b in zip(got, want) if b is not None)
+        alone.append(want)
+    torch.cuda.synchronize()
+    (dw3, db3, sdb2, sdb2x), (dw2, db2, sdb1, sdb1x), (dw1, db1, d_dense) = alone
+    for name, want in dict(w3=dw3, b3=db3, gamma2=sdb2x, beta2=sdb2, w2=dw2, b2=db2,
+                           gamma1=sdb1x, beta1=sdb1, w1=dw1, b1=db1).items():
+        assert torch.equal(leaves[name].grad, want), name
+    assert torch.equal(x.grad, d_dense)
 
 
 def test_fused_sa_model_launches_kernel_6(dev):

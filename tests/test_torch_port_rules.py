@@ -91,6 +91,8 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("sa1_fused_eval.cu", "pallas_sa_eval.py sa1_fused_eval"),
     ("fused_sa_fwd.cu", "pallas_sa_train.py fused_sa_mlp"),
     ("fused_sa_bwd.cu", "pallas_sa_train.py fused_sa_mlp, its backward"),
+    ("fused_sa_b1.cu", "pallas_sa_train.py fused_sa_mlp, its backward's first pass"),
+    ("fused_sa_b2.cu", "pallas_sa_train.py fused_sa_mlp, its backward's second pass"),
     ("fused_sa_b3.cu", "pallas_sa_train.py fused_sa_mlp, its backward's last pass"),
     ("fused_tail.cu", "pallas_tail.py fused_tail"),
     ("masked_stats.cu", "tools/bn_stats_bench.py stats_pallas"),

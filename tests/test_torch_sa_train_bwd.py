@@ -224,20 +224,28 @@ def _bf16_rne(x: np.ndarray) -> np.ndarray:
     (5, 3, (8, 24, 40)),  # no width a multiple of 16
 ], ids=["sa1", "sa2", "odd"])
 def test_b3_bf16_weight_pack_unpacks_to_the_rounded_weights(cd, cp, widths):
-    """bf16 B3's weight block (``_packed_b3``), cut into W1^T, W2^T and W3 as
-    its kernel lays them out in shared memory (each part a whole number of
-    16-byte pieces, each row SKEW_H values longer), holds the weights rounded
-    to bf16 (W1's dense rows at columns 0.., its plane rows from CD rounded up
-    to 16) and zeros everywhere else."""
+    """The bf16 passes' shared weight block (``_packed_bf16``, the first part
+    of ``pack_bwd``), cut into W1^T, W2^T and W3 as their kernels lay them out
+    in shared memory (each part a whole number of 16-byte pieces, each row
+    SKEW_H values longer), holds the weights rounded to bf16 (W1's dense rows
+    at columns 0.., its plane rows from CD rounded up to 16) and zeros
+    everywhere else."""
     rng = np.random.default_rng(3)
     dims = (cd + cp,) + widths
     w = [rng.normal(size=dims[i:i + 2]).astype(np.float32) for i in range(3)]
     params = {f"w{i + 1}": torch.from_numpy(w[i]) for i in range(3)}
+    params.update({f"b{i}": torch.zeros(widths[i - 1]) for i in (1, 2, 3)})
     c1, c2, c3 = widths
     c1p, c2p, c3p = (-(-c // 64) * 64 for c in widths)
-    kx, skew = sa_train_kernel.b3_width(cd, cp), sa_train_kernel.SKEW_H
+    kx, skew = sa_train_kernel.edge_width(cd, cp), sa_train_kernel.SKEW_H
     assert kx % 16 == 0 and kx >= cd + cp
-    wb = sa_train_kernel._packed_b3(params, cd, cp, c1p, c2p, c3p, torch.device("cpu"))
+    wb = sa_train_kernel._packed_bf16(params, cd, cp, c1p, c2p, c3p, torch.device("cpu"))
+    mask = torch.ones((1, 1, 64), dtype=torch.bool)
+    dense = torch.zeros((1, 1, 64, cd)) if cd else None
+    ones = [(torch.ones(c), torch.ones(c)) for c in widths[:2]]
+    shared, _ = sa_train_kernel.pack_bwd(dense, torch.zeros((1, 1, 64, cp)), mask, params, ones,
+                                         ones)
+    assert torch.equal(shared, wb)
     shapes = [(c1p, kx + skew), (c2p, c1p + skew), (c2p, c3p + skew)]
     sizes = [r * c for r, c in shapes]
     assert wb.dtype == torch.bfloat16 and wb.numel() == sum(sizes)
@@ -253,10 +261,13 @@ def test_b3_bf16_weight_pack_unpacks_to_the_rounded_weights(cd, cp, widths):
         assert not got.any()  # the padding and the skew
 
 
-def test_b3_bf16_vectors_lie_in_the_kernels_order():
-    """bf16 B3's f32 vector block (``_vectors_b3``): b1, sc1, sh1, mean1, inv1,
-    t1a, t1b, each zero-padded to C1, then the same seven of layer 2 padded to
-    C2, as its kernel reads them."""
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_b3_bf16_vectors_lie_in_the_kernels_order(stage):
+    """The bf16 passes' f32 vector block (``_vectors``, with ``_with_terms``
+    adding the correction terms a pass has): b1, sc1, sh1, mean1, inv1, t1a,
+    t1b, each zero-padded to C1, then the same seven of layer 2 padded to C2,
+    as the kernels read them; the terms a pass does not have yet (B1: both
+    layers', B2: layer 1's) 0, and the shared block unchanged."""
     rng = np.random.default_rng(4)
     c1, c2, c1p, c2p = 40, 24, 64, 64
 
@@ -267,10 +278,82 @@ def test_b3_bf16_vectors_lie_in_the_kernels_order():
     folds = [(vec(c1), vec(c1)), (vec(c2), vec(c2))]
     stats = [(vec(c1), vec(c1)), (vec(c2), vec(c2))]
     terms = [(vec(c2), vec(c2)), (vec(c1), vec(c1))]
-    got = sa_train_kernel._vectors_b3(params, folds, stats, terms, c1p, c2p)
+    shared = sa_train_kernel._vectors(params, folds, stats, c1p, c2p)
+    before = shared.clone()
+    got = sa_train_kernel._with_terms(shared, terms[:stage - 1], c1p, c2p)
+    assert torch.equal(shared, before)
     assert got.dtype == torch.float32 and got.shape == (7 * (c1p + c2p),)
     l1, l2 = got[:7 * c1p].view(7, c1p), got[7 * c1p:].view(7, c2p)
-    for rows, c, want in ((l1, c1, [params["b1"], *folds[0], *stats[0], *terms[1]]),
-                          (l2, c2, [params["b2"], *folds[1], *stats[1], *terms[0]])):
+    zero1, zero2 = (torch.zeros(c) for c in (c1, c2))
+    t2 = terms[0] if stage >= 2 else (zero2, zero2)
+    t1 = terms[1] if stage == 3 else (zero1, zero1)
+    for rows, c, want in ((l1, c1, [params["b1"], *folds[0], *stats[0], *t1]),
+                          (l2, c2, [params["b2"], *folds[1], *stats[1], *t2])):
         assert torch.equal(rows[:, :c], torch.stack(want))
         assert not rows[:, c:].any()
+
+
+def test_packed_block_check_refuses_other_widths():
+    """``_check_packed`` takes the ``pack_bwd`` block of this call's widths and
+    refuses one packed for another C3 or edge width, or in another type: the
+    kernels copy as many bytes as the call's widths give."""
+    rng = np.random.default_rng(5)
+    cd, cp, widths = 0, 4, (64, 64, 128)
+    dims = (cd + cp,) + widths
+    params = {f"w{i + 1}": torch.from_numpy(rng.normal(size=dims[i:i + 2]).astype(np.float32))
+              for i in range(3)}
+    params.update({f"b{i}": torch.zeros(widths[i - 1]) for i in (1, 2, 3)})
+    ones = [(torch.ones(c), torch.ones(c)) for c in widths[:2]]
+    mask = torch.ones((1, 1, 64), dtype=torch.bool)
+    packed = sa_train_kernel.pack_bwd(None, torch.zeros((1, 1, 64, cp)), mask, params, ones, ones)
+    kx, cpu = sa_train_kernel.edge_width(cd, cp), torch.device("cpu")
+    sa_train_kernel._check_packed(packed, kx, 64, 64, 128, cpu)
+    for bad, args in (("c3", (packed, kx, 64, 64, 192)), ("kx", (packed, kx + 16, 64, 64, 128)),
+                      ("type", ((packed[0], packed[1].double()), kx, 64, 64, 128))):
+        with pytest.raises(ValueError, match="packed block"):
+            sa_train_kernel._check_packed(*args, cpu)
+
+
+@pytest.mark.parametrize("bf16,plain", [(True, False), (False, False), (True, True)],
+                         ids=["bf16", "f32", "bf16-plain"])
+def test_backward_packs_once_per_layer(monkeypatch, bf16, plain):
+    """On CPU tensors a layer's backward packs nothing (every pass takes the
+    plain version, which reads no block), in bf16 and f32, through the kernels'
+    passes and the plain chain; ``_backward`` with ``pack`` (as a bf16 backward
+    on the card runs it) packs the shared block once (``pack_bwd``) and hands
+    that one block to B1, B2 and B3, and without it (f32) hands none; the
+    gradients are those of the plain chain."""
+    dense, planes, mask, p, _ = _case(11, 4, 3)
+    calls, seen = [], []
+    real_pack, real_stage = sa_train_kernel.pack_bwd, sa_train_kernel.fused_sa_bwd_stage
+
+    def pack(*args, **kwargs):
+        calls.append(real_pack(*args, **kwargs))
+        return calls[-1]
+
+    def stage(*args, **kwargs):
+        seen.append(kwargs.get("packed"))
+        return real_stage(*args, **kwargs)
+
+    monkeypatch.setattr(sa_train_kernel, "pack_bwd", pack)
+    monkeypatch.setattr(sa_train_kernel, "fused_sa_bwd_stage", stage)
+    r = _cotangent(6, 16)
+    fn = sa_train_kernel.fused_sa_mlp_plain if plain else sa_train_kernel.fused_sa_mlp
+    args = (dense, planes, mask, p, None, r, "ReLU", bf16, True)
+    td, tg = _torch_grads(fn, *args)
+    assert not calls
+    assert len(seen) == (0 if plain else 3) and all(x is None for x in seen)
+    tt = torch.bfloat16 if bf16 else torch.float32
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    x, pl, mk = torch.from_numpy(dense).to(tt), torch.from_numpy(planes), torch.from_numpy(mask)
+    _, _, amax, state = sa_train_kernel._forward(sa_train_kernel.fused_sa_stage_plain, x, pl,
+                                                 mk, tp, None, "ReLU", bf16, True)
+    seen.clear()
+    d, grads = sa_train_kernel._backward(stage, x, pl, mk, tp, state, torch.from_numpy(r), amax,
+                                         "ReLU", bf16, True, pack=bf16)
+    assert len(calls) == int(bf16) and len(seen) == 3
+    assert all(s is (calls[0] if bf16 else None) for s in seen)
+    assert torch.equal(d, td.grad.detach()) and all(torch.equal(grads[k], tg[k]) for k in PARAMS)
+    monkeypatch.undo()
+    pd, pg = _torch_grads(sa_train_kernel.fused_sa_mlp_plain, *args)
+    assert torch.equal(td.grad, pd.grad) and all(torch.equal(tg[k], pg[k]) for k in PARAMS)
