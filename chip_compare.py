@@ -1,0 +1,220 @@
+#!/usr/bin/env python3
+"""Comparisons of kernel 6 (the fused SA MLP) on one NVIDIA card, beside
+``chip_smoke.py``, whose helpers it uses:
+
+    python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
+                                          # F1-F3 (bf16 and f32) at the inputs of one
+                                          # 16 x 10240 train-mode forward, the f32
+                                          # backward passes (ELU) at one step's, and
+                                          # the fused_sa step's ms at B=16 and 36
+    python3 chip_compare.py outputs FILE  # the f32 passes' outputs at the inputs of
+                                          # one f32 step (B=4 x 10240), saved
+    python3 chip_compare.py same A B      # two such files, bit for bit
+    python3 chip_compare.py steps         # the fused_sa step on the kernels against
+                                          # the plain versions, bf16 and f32, by
+                                          # neuron_multiplier and batch (no bounds)
+    python3 chip_compare.py acts          # the bf16 backward passes at SA2 of a step
+                                          # at neuron_multiplier 2 and 3 against their
+                                          # plain versions, with ReLU and with ELU
+
+To compare two commits on one card, unpack the other commit (``git archive``)
+into a directory, copy this script beside its ``chip_smoke.py``, and run
+``time`` or ``outputs`` from each root in turns (other, this, this, other).
+It needs a card and fails without one.
+"""
+
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+
+def _setup():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: no CUDA device is available")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from dl_biomass_tpu_torch.ops import _build
+
+    _build.build()
+    return chip_smoke, torch.device("cuda")
+
+
+def time_passes(tag: str) -> None:
+    """CUDA-core F1-F3 at SA1 and SA2 (``mma_takes`` patched to refuse where
+    the tree has it) and B1-B3 in f32 with ELU, CUDA events, median of 20; the
+    step, host clock, median of 10 after 2."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    model = cs.seeded_model(dev, fused_sa=True)
+    batch = cs.synthetic_batch(16, 10240, seed=1, device=dev)
+    with torch.no_grad():
+        calls = cs.record_kernel_inputs(
+            lambda b: model(b, train=True, generator=cs.train_gen(dev, 0)), batch)["fused_sa_stage"]
+    cores = (mock.patch.object(k6, "mma_takes", lambda *widths: False)
+             if hasattr(k6, "mma_takes") else mock.MagicMock())
+    out = []
+    with cores:
+        for i, ((stage, *args), kw) in enumerate(calls):
+            kw = {k: v for k, v in kw.items() if k != "packed"}
+            for bf16 in (True, False):
+                a = list(args)
+                if not bf16 and a[0] is not None:
+                    a[0] = a[0].float()
+                kwb = dict(kw, bf16=bf16)
+                ms = cs.time_ms(lambda: k6.fused_sa_stage(stage, *a, **kwb), reps=20, warmup=3)
+                out.append(f"F{stage} {'SA1' if i < 3 else 'SA2'} {'bf16' if bf16 else 'f32'} "
+                           f"{ms:.4f}")
+    trainer = Trainer(cs.seeded_model(dev, fused_sa=True), TrainConfig(), dev)
+    bwd = cs.record_kernel_inputs(lambda b: trainer.step(b, cs.train_gen(dev, 0)),
+                                  batch)["fused_sa_bwd_stage"]
+    for i, ((stage, dense, *args), kw) in enumerate(bwd):  # SA2's backward first
+        kw = dict({k: v for k, v in kw.items() if k != "packed"}, bf16=False, act="ELU")
+        dense = None if dense is None else dense.float()
+        ms = cs.time_ms(lambda: k6.fused_sa_bwd_stage(stage, dense, *args, **kw), reps=20,
+                        warmup=3)
+        out.append(f"B{stage} {'SA2' if i < 3 else 'SA1'} f32 {ms:.4f}")
+    for b in (16, 36):
+        steps_batch = cs.synthetic_batch(b, 10240, seed=20, device=dev)
+        gen = cs.train_gen(dev, 5)
+        times = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            trainer.step(steps_batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append(f"step B={b} {statistics.median(times[2:]):.3f}")
+    print(f"{tag} [{cs.card_line()}]: " + " | ".join(out), flush=True)
+
+
+def save_outputs(path: str) -> None:
+    """Every f32 pass of one f32 step (ELU), at the inputs it recorded, with
+    the sum of those inputs beside each, saved with torch.save."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cs.seeded_model(dev, fused_sa=True, compute_dtype="float32",
+                                      activation="ELU"), TrainConfig(), dev)
+    batch = cs.synthetic_batch(4, 10240, seed=40, device=dev)
+    calls = cs.record_kernel_inputs(lambda b: trainer.step(b, cs.train_gen(dev, 1)), batch)
+    out = {}
+    for name, fn in (("fused_sa_stage", k6.fused_sa_stage),
+                     ("fused_sa_bwd_stage", k6.fused_sa_bwd_stage)):
+        for i, (args, kw) in enumerate(calls[name]):
+            got = fn(*args, **{k: v for k, v in kw.items() if k != "packed"})
+            out[f"{name} {i}"] = (
+                sum(float(a.detach().double().sum()) for a in args if isinstance(a, torch.Tensor)),
+                [None if x is None else x.detach().cpu() for x in got])
+    torch.save(out, path)
+    print(f"saved {len(out)} passes to {path}", flush=True)
+
+
+def same(path_a: str, path_b: str) -> None:
+    """Raise unless the two files hold the same inputs and bit-identical outputs."""
+    a, b = torch.load(path_a), torch.load(path_b)
+    if sorted(a) != sorted(b):
+        raise SystemExit(f"chip_compare: the files hold other passes: {sorted(a)} {sorted(b)}")
+    for key in sorted(a):
+        (in_a, out_a), (in_b, out_b) = a[key], b[key]
+        if in_a != in_b:
+            raise SystemExit(f"chip_compare: {key}: the inputs differ ({in_a} vs {in_b})")
+        for j, (x, y) in enumerate(zip(out_a, out_b)):
+            if x is None:
+                continue
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                raise SystemExit(f"chip_compare: {key} output {j}: max|diff| "
+                                 f"{float((x.double() - y.double()).abs().max())}")
+        print(f"{key}: inputs equal, {sum(x is not None for x in out_a)} outputs bit-identical",
+              flush=True)
+    print("all passes bit-identical", flush=True)
+
+
+def steps() -> None:
+    """A fused_sa step on the kernels and on the plain versions from one state
+    and seed: loss and per-gradient relative L2 (the biases whose true
+    gradient is 0 left out), by neuron_multiplier, batch and type."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    for nm, b, bf16, seed in ((1, 4, True, 7), (1, 16, True, 7), (2, 4, True, 7), (2, 16, True, 7),
+                              (3, 4, True, 7), (3, 16, True, 7), (2, 4, False, 7),
+                              (3, 4, False, 7), (2, 16, False, 7), (3, 16, False, 7),
+                              (1, 4, True, 8), (2, 4, True, 8)):
+        kw = {} if bf16 else dict(compute_dtype="float32", activation="ELU")
+        trainer = Trainer(cs.seeded_model(dev, fused_sa=True, neuron_multiplier=nm, **kw),
+                          TrainConfig(), dev)
+        batch = cs.synthetic_batch(b, 10240, seed=30 + nm, device=dev)
+        (loss_k, g_k), (loss_p, g_p) = cs.kernel_and_plain_steps(trainer, batch, seed,
+                                                                 restore=True)
+        l2 = {k: float((g_k[k].double() - g_p[k].double()).norm()
+                       / max(float(g_p[k].double().norm()), 1e-30))
+              for k in g_p if not cs.zero_gradient(k)}
+        worst = max(l2, key=l2.get)
+        top = max(float(g.abs().max()) for g in g_p.values())
+        moved = max(float((g_k[k].double() - g_p[k].double()).abs().max()) for k in g_p) / top
+        print(f"x{nm} B={b} {'bf16' if bf16 else 'f32 (ELU)'} seed {seed}: loss rel "
+              f"{abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)):.3e}, gradients rel L2 "
+              f"at most {l2[worst]:.3e} ({worst}), median {statistics.median(l2.values()):.3e}; "
+              f"max|diff| over the largest |g| {moved:.3e} [{cs.card_line()}]", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def acts() -> None:
+    """SA2's bf16 backward passes at the inputs of one step of the fused_sa
+    model at neuron_multiplier 2 and 3 (B=16 x 10240, the inputs of
+    chip_smoke.py's phase 12), replayed with ReLU and with ELU: each output's
+    max|diff| over the plain version's max|.|."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    for nm in (2, 3):
+        trainer = Trainer(cs.seeded_model(dev, fused_sa=True, neuron_multiplier=nm),
+                          TrainConfig(), dev)
+        batch = cs.synthetic_batch(16, 10240, seed=30 + nm, device=dev)
+        calls = cs.record_kernel_inputs(lambda b: trainer.step(b, cs.train_gen(dev, 5)),
+                                        batch)["fused_sa_bwd_stage"]
+        for act in ("ReLU", "ELU"):
+            for args, kw in calls[:3]:  # autograd runs SA2's backward first
+                kw = dict({k: v for k, v in kw.items() if k != "packed"}, act=act)
+                with torch.no_grad():
+                    got = k6.fused_sa_bwd_stage(*args, **kw)
+                    want = k6.fused_sa_bwd_stage_plain(*args, **kw)
+                rel = [cs.rel_diff(g.float(), w.float()) for g, w in zip(got, want)
+                       if w is not None]
+                print(f"x{nm} SA2 B{args[0]} bf16 {act} on "
+                      f"{k6.pass_source(args[0], True, args[1].shape[-1], args[2].shape[-1], args[4], True)}: "
+                      f"max|diff| / max|plain| per output {', '.join(f'{r:.3e}' for r in rel)} "
+                      f"[{cs.card_line()}]", flush=True)
+        del trainer, calls
+        torch.cuda.empty_cache()
+
+
+def main(argv) -> int:
+    commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
+                "steps": (steps, 0), "acts": (acts, 0)}
+    if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
+        print(__doc__, file=sys.stderr)
+        return 2
+    fn, _ = commands[argv[0]]
+    fn(*argv[1:])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

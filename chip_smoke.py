@@ -52,12 +52,16 @@ Phases, each of which raises on failure (exit code 1):
              points): exact FPS on 2 rows of 16384, index-exact, timed.
 10. kernel 6 — the three passes of the fused SA MLP (F1, F2, F3) at the
              inputs one train-mode and one eval forward of the ``fused_sa``
-             model at 16 x 10240 give them, SA1 and SA2, in bf16 and in f32:
-             statistics and outputs against the plain version (1e-2 of max|y|
-             in bf16, 1e-5 in f32), the argmax equal wherever the winner leads
-             by more, zero rows identical, two launches bit-identical; timed
-             beside their bounds, plain versions and the unfused layer (``MLP``
-             + ``masked_max``) in train and eval mode. Then its three backward
+             model at 16 x 10240 give them, SA1 and SA2, in bf16 and in f32
+             (in bf16 F2 and F3 on the tensor cores, ``csrc/fused_sa_f2.cu``,
+             ``_f3.cu``, on one ``pack_fwd`` block per layer, also timed alone
+             and beside the CUDA-core kernel of ``csrc/fused_sa_fwd.cu`` on the
+             same inputs): statistics and outputs against the plain version
+             (1e-2 of max|y| in bf16, 1e-5 in f32), the argmax equal wherever
+             the winner leads by more, zero rows identical, two launches
+             bit-identical; timed beside their bounds, plain versions and the
+             unfused layer (``MLP`` + ``masked_max``) in train and eval mode.
+             Each pass names the source whose kernel ran it. Then its three backward
              passes (B1, B2, B3; in bf16 on the tensor cores,
              ``csrc/fused_sa_b1.cu``, ``_b2.cu``, ``_b3.cu``) at the inputs one
              training step of that model gives them, SA1 and SA2, bf16, and f32
@@ -82,7 +86,18 @@ Phases, each of which raises on failure (exit code 1):
              relative, gradients 1e-2 in relative L2 norm and 2e-3 of the
              largest |g|; bf16: loss 1e-2, gradients 0.35 in relative L2 norm)
              and a profile of a 16 x 10240 step.
-12. tail_bench, bn_stats_bench, dma_probe and bq_phase_bench — each tool's
+12. fused_sa_x2 and fused_sa_x3 — the ``fused_sa`` model at
+             ``neuron_multiplier`` 2 and 3 (SA1 [4, 128, 128, 256] and
+             [4, 192, 192, 384], SA2 [259, 256, 256, 512] and [387, 384, 384,
+             768]) in bf16 at B=16 x 10240: one train-mode forward (no_grad),
+             one eval forward and one ``Trainer.step``, launches counted, each
+             against the same on the plain versions under phase 11's bounds;
+             then every pass of each layer at the inputs that run gave it, in
+             bf16, and SA2's passes in f32 (ELU), against the plain version as
+             in phase 10, each printed with the kernel that ran it (the
+             routing rule ``sa_train_kernel.mma_takes``: SA1 at 2 on the
+             tensor cores, the rest on the CUDA cores) and its time.
+13. tail_bench, bn_stats_bench, dma_probe and bq_phase_bench — each tool's
              ``main()`` on the card (``dl_biomass_tpu_torch.tools``) with its
              launches counted;
              then kernel 7 (``fused_tail``) forward and backward at SA1
@@ -113,7 +128,7 @@ Phases, each of which raises on failure (exit code 1):
              graph, free of host time) beside the bound, the plain version
              and kernel 3 on the same input, and ``full`` at 1-32 centroids
              per block.
-13. summary — one JSON line of the kernels with their launches by path, the
+14. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -164,6 +179,9 @@ ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlb
            "dlbt_bq_phase", "dlbt_block_copy")
 
 
+ENTRIES_6 = tuple(e for e in ENTRIES if e.startswith("dlbt_fused_sa_"))
+
+
 def per_run(**launches):
     """Launches of every kernel in one forward or step of a path (0 unless given)."""
     return {e: launches.get(e, 0) for e in ENTRIES}
@@ -203,6 +221,12 @@ EXPECTED = {
                               dlbt_gather_aux=1, dlbt_scatter_rows=1, dlbt_fused_sa_f1=2,
                               dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2, dlbt_fused_sa_b1=2,
                               dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2),
+    # the fused_sa model at neuron_multiplier 2 and 3 (phase 12), per run of one
+    # train-mode forward, one eval forward and one step
+    **{f"fused_sa_x{nm}": per_run(dlbt_fps=6, dlbt_ball_group=3, dlbt_ball_query=3,
+                                  dlbt_gather_aux=3, dlbt_scatter_rows=1, dlbt_fused_sa_f1=4,
+                                  dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=6, dlbt_fused_sa_b1=2,
+                                  dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2) for nm in (2, 3)},
     # the tools, per main(): tail_bench times the forward and the forward +
     # backward; bn_stats_bench calls kernel 8 once more per shape for max_rel_s1
     "tail_bench": per_run(dlbt_fused_tail_fwd=2 * chained_calls("tail_bench"),
@@ -257,7 +281,7 @@ FUSED_SA_REPS = 10
 FUSED_STEP_RTOL = {False: dict(loss=1e-5, grad_l2=1e-2, grad_top=2e-3, zero=1e-3),
                    True: dict(loss=1e-2, grad_l2=0.35, grad_top=None, zero=2e-2)}
 
-# phase 12: the tools' paths, each its tool's main() once on the card; kernel 7's
+# phase 13: the tools' paths, each its tool's main() once on the card; kernel 7's
 # shapes (tail_bench's); kernel 8 vs its f32 plain version, of the plain
 # version's largest s1 or s2; CUDA-event timings of the tools' kernels
 TOOL_PATHS = ("tail_bench", "bn_stats_bench", "dma_probe", "bq_phase_bench")
@@ -337,12 +361,14 @@ def synthetic_batch(num: int, n_points: int, seed: int, device, sizes=None):
 
 
 def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa: bool = False,
-                 compute_dtype: str = "bfloat16", activation: str = "ReLU"):
+                 compute_dtype: str = "bfloat16", activation: str = "ReLU",
+                 neuron_multiplier: int = 0):
     """The production model with weights from a seeded ``torch.Generator``:
     torch-default Linear ranges and BatchNorm affine + running statistics away
     from identity, so that folding does real work. ``split_first_layer``,
     ``fused_sa``, ``compute_dtype`` and ``activation`` change the path, not
-    the weights."""
+    the weights; ``neuron_multiplier`` (0 or 1: the production widths) scales
+    every width, as the reference's constructor knob does."""
     import dataclasses
 
     from dl_biomass_tpu_torch.core.config import TrainConfig
@@ -352,8 +378,8 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa
     cfg = TrainConfig()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, split_first_layer=split_first_layer, fused_sa=fused_sa,
-        compute_dtype=compute_dtype), hp=dataclasses.replace(cfg.hp,
-                                                             activation_function=activation))
+        compute_dtype=compute_dtype), hp=dataclasses.replace(
+            cfg.hp, activation_function=activation, neuron_multiplier=neuron_multiplier))
     model = build_model(cfg, num_features=1)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -757,23 +783,27 @@ def profile_calls(fn, calls: int = 3):
     return wall_ms / calls, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
 
 
-def kernel_alone_ms(fn, name: str, calls: int = 5) -> float:
+def kernel_alone_ms(fn, name: str, calls: int = 5, windows: int = 3) -> float:
     """Device time per launch of the kernels whose name holds ``name``, over
     ``calls`` calls of ``fn`` under torch.profiler: their time over the
-    launches it recorded, since a window can miss its first launch."""
+    launches it recorded, since a window can miss its first launch (and has
+    once recorded none of five on an H100: another window is then opened, up
+    to ``windows``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    require(hits, f"the profiler recorded no launch of {name}")
-    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        if hits:
+            return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+    raise PhaseError(f"the profiler recorded no launch of {name} in {windows} windows")
 
 
 def graph_ms(fn, calls: int = TOOL_REPS, replays: int = 5) -> float:
@@ -853,7 +883,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 13: summary
+    # phase 14: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -861,12 +891,14 @@ def main() -> int:
     return 0
 
 
+WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
-         "train_forward_fused_sa", "train_fused_sa") + TOOL_PATHS
+         "train_forward_fused_sa", "train_fused_sa") + tuple(
+             f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + TOOL_PATHS
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-12; returns the kernels' summary rows, with each kernel's
+    """Phases 2-13; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -876,11 +908,16 @@ def drive(device, card: str) -> list:
     check_fps_scratch(device, card)
     rows += check_fused_sa(device, card)
     fused_sa_paths(device, card, launches)
+    wide_fused_sa(device, card, launches)
     rows += tool_paths(device, card, launches)
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
         by_path = {path: launches[path][w] for path in PATHS}
+        if not r["source"].endswith((FWD_SOURCE, BWD_SOURCE)) and w in ENTRIES_6:
+            # kernel 6's entries also run the CUDA-core kernel where mma_takes refuses
+            r["cuda_core_launches_by_path"] = {p: c.get(w, 0) for p, c in
+                                               launches.get("cuda_core", {}).items()}
         kernels.append(dict(name=r.pop("name"), route="cuda", source=r.pop("source"),
                             replaces=r.pop("replaces"), launches=sum(by_path.values()),
                             launches_by_path=by_path, **r))
@@ -1122,6 +1159,11 @@ def train_gen(device, seed):
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def running_stats(model) -> dict:
+    """Copies of the model's BatchNorm running statistics."""
+    return {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+
+
 def train_phases(device, card: str, launches: dict) -> dict:
     """Phases 6 and 7; returns kernel 4b's row and records the launches of
     the training run."""
@@ -1201,7 +1243,9 @@ def check_fps_scratch(device, card: str) -> None:
           f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}), index-exact [{card}]", flush=True)
 
 
-# kernel 6's passes: (row name, the Pallas kernel it replaces)
+# kernel 6's passes: (row name, the Pallas kernel it replaces); the CUDA-core
+# kernels' sources
+FWD_SOURCE, BWD_SOURCE = "csrc/fused_sa_fwd.cu", "csrc/fused_sa_bwd.cu"
 FUSED_SA_STAGES = {1: ("fused_sa_f1", "dl_biomass_tpu/ops/pallas_sa_train.py:245"),
                    2: ("fused_sa_f2", "dl_biomass_tpu/ops/pallas_sa_train.py:266"),
                    3: ("fused_sa_f3", "dl_biomass_tpu/ops/pallas_sa_train.py:289")}
@@ -1221,8 +1265,15 @@ def check_fused_sa_call(label: str, call, bf16: bool, ctx: dict):
     (stage, dense, planes, nbr_mask, params, folds), kwargs = call
     if not bf16 and dense is not None:
         dense = dense.float()
-    kwargs = dict(kwargs, bf16=bf16)
+    # the forward hands F2 and F3 one block packed per layer (none in f32 or
+    # where the layer runs on the CUDA cores): the replay packs it as the
+    # forward does
+    kwargs = dict(kwargs, bf16=bf16,
+                  packed=k6.pack_fwd(dense, planes, nbr_mask, params) if bf16 else None)
     args = (stage, dense, planes, nbr_mask, params, folds)
+    cd = 0 if dense is None else dense.shape[-1]
+    cp = 0 if planes is None else planes.shape[-1]
+    source = k6.pass_source(stage, False, cd, cp, params, bf16)
     got = k6.fused_sa_stage(*args, **kwargs)
     again = k6.fused_sa_stage(*args, **kwargs)
     want = k6.fused_sa_stage_plain(*args, **kwargs)
@@ -1245,7 +1296,8 @@ def check_fused_sa_call(label: str, call, bf16: bool, ctx: dict):
         require(rel <= tol, f"kernel 6 {label}: output vs plain rel {rel} > {tol}")
         require(torch.equal((out == 0).all(-1), (w_out == 0).all(-1))
                 and torch.equal(am == -1, w_am == -1), f"kernel 6 {label}: zero rows differ")
-        h3 = k6.hidden_plain(3, *args[1:], **kwargs).view(b, m, k, -1)
+        h3 = k6.hidden_plain(3, *args[1:], act=kwargs.get("act", "ReLU"), bf16=bf16).view(
+            b, m, k, -1)
         top2 = torch.where(nbr_mask[..., None], h3, float("-inf")).topk(2, dim=2).values
         lead = (top2[:, :, 0] - top2[:, :, 1]) > tol * float(w_out.abs().max())
         require(torch.equal(am[lead], w_am[lead]),
@@ -1254,6 +1306,23 @@ def check_fused_sa_call(label: str, call, bf16: bool, ctx: dict):
         del h3, top2
     t = time_ms(lambda: k6.fused_sa_stage(*args, **kwargs), reps=FUSED_SA_REPS, warmup=2)
     tp = time_ms(lambda: k6.fused_sa_stage_plain(*args, **kwargs), reps=3, warmup=1)
+    alone = fma = fma_alone = None
+    if source != FWD_SOURCE:  # on the tensor cores: the kernel alone, and the CUDA-core
+        alone = kernel_alone_ms(lambda: k6.fused_sa_stage(*args, **kwargs),  # kernel beside it
+                                f"fused_sa_f{stage}_kernel")
+        with mock.patch.object(k6, "mma_takes", lambda *widths: False):
+            fma_kw = dict(kwargs, packed=None)
+            other = k6.fused_sa_stage(*args, **fma_kw)
+            rel_fma = max(rel_diff(a, b) for a, b in (zip(other, want) if stage < 3
+                                                      else [(other[0], want[0])]))
+            require(rel_fma <= tol, f"kernel 6 {label}: the CUDA-core F{stage} vs plain rel "
+                                    f"{rel_fma} > {tol}")
+            fma = time_ms(lambda: k6.fused_sa_stage(*args, **fma_kw), reps=FUSED_SA_REPS,
+                          warmup=2)
+            fma_alone = kernel_alone_ms(lambda: k6.fused_sa_stage(*args, **fma_kw),
+                                        "fused_sa_fwd_kernel")
+        note += (f"; kernel alone {alone:.4f} ms; the CUDA-core kernel ({FWD_SOURCE}) on the "
+                 f"same inputs {fma:.4f} ms, alone {fma_alone:.4f} ms")
     edges = int(nbr_mask.sum())
     per_edge = fused_sa_stage_flops(stage, params)
     flops = edges * per_edge
@@ -1266,15 +1335,15 @@ def check_fused_sa_call(label: str, call, bf16: bool, ctx: dict):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     floor = flops / PEAK_F32_FLOP_PER_S * 1e3
-    print(f"kernel fused_sa F{stage} {label} (B={b} M={m} CD={0 if dense is None else dense.shape[-1]}"
-          f" CP={0 if planes is None else planes.shape[-1]} widths "
+    print(f"kernel fused_sa F{stage} {label} on {source} (B={b} M={m} CD={cd} CP={cp} widths "
           f"{','.join(str(params[f'w{i}'].shape[1]) for i in (1, 2, 3))}): {t:.4f} ms (median of "
           f"{FUSED_SA_REPS}), plain {tp:.4f} ms, bound {bms:.6f} ms ({by}: {edges} valid edges x "
           f"{per_edge} flop at {peak / 1e12:.0f} TFLOP/s, {nbytes} bytes), CUDA-core f32 floor "
           f"{floor:.4f} ms; vs plain max|diff|/max|y| {rel:.3e} (bound {tol}){note}; two "
           f"launches bit-identical", flush=True)
     ctx.setdefault(stage, []).append(dict(bf16=bf16, ms=t, plain_ms=tp, bound_ms=bms,
-                                          bound_by=by, err=err, label=label))
+                                          bound_by=by, err=err, label=label, source=source,
+                                          alone_ms=alone, fma_ms=fma, fma_alone_ms=fma_alone))
     return t
 
 
@@ -1340,15 +1409,23 @@ def check_fused_sa(device, card: str) -> list:
     yard = [y for y in ctx["yardstick"] if y["bf16"]]  # the production type, both layers
     for stage, (name, replaces) in FUSED_SA_STAGES.items():
         runs = [r for r in ctx[stage] if r["bf16"] and r["label"].endswith("train")]
-        row = dict(name=name, source="dl_biomass_tpu_torch/csrc/fused_sa_fwd.cu",
+        require(len({r["source"] for r in runs}) == 1,
+                f"kernel 6 F{stage}: SA1 and SA2 ran {[r['source'] for r in runs]}")
+        row = dict(name=name, source=f"dl_biomass_tpu_torch/{runs[0]['source']}",
                    replaces=replaces, entry=f"dlbt_{name}",
                    max_abs_err=max(r["err"] for r in ctx[stage]),
                    ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
                    bound_ms=sum(r["bound_ms"] for r in runs),
                    bound_by=max(runs, key=lambda r: r["bound_ms"])["bound_by"], library_ms=None,
                    yardstick_train_ms=sum(y["train"] for y in yard))
+        if runs[0]["alone_ms"] is not None:  # on the tensor cores, beside the CUDA-core kernel
+            row.update(kernel_alone_ms=sum(r["alone_ms"] for r in runs),
+                       cuda_core_ms=sum(r["fma_ms"] for r in runs),
+                       cuda_core_kernel_alone_ms=sum(r["fma_alone_ms"] for r in runs))
         if stage == 3:
             row["yardstick_eval_ms"] = sum(y["eval"] for y in yard)
+            evals = [r for r in ctx[stage] if r["bf16"] and r["label"].endswith("eval")]
+            row["eval_ms"] = sum(r["ms"] for r in evals)
         rows.append(row)
     return rows + check_fused_sa_bwd(device, card)
 
@@ -1371,13 +1448,15 @@ def fused_sa_bwd_flops(stage: int, cd: int, params: dict, edges: int, centroids:
     return edges * per_edge + centroids * per_centroid
 
 
-def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
+def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict, elu=None):
     """One backward pass at recorded inputs: kernel vs plain (the weight and
     bias gradients and the sums within the bound of the largest of them:
     some, such as SA1's db3, are 0 but for rounding, since a BatchNorm
     follows; d(dense) within the bound of its own max|.|; zero d(dense) rows
     where a centroid has no valid slot), two launches bit-identical,
-    timings, bound; bf16 on one ``pack_bwd`` block, as the step runs it."""
+    timings, bound; bf16 on one ``pack_bwd`` block, as the step runs it.
+    ``elu`` (by default in f32): the pass with ELU in place of the recorded
+    activation."""
     from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
 
     args, kwargs = call
@@ -1385,15 +1464,19 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
     if not bf16 and dense is not None:
         dense = dense.float()
     args = (stage, dense, planes, nbr_mask) + tuple(args[4:])
+    cd = 0 if dense is None else dense.shape[-1]
+    cp = 0 if planes is None else planes.shape[-1]
+    source = k6.pass_source(stage, True, cd, cp, params, bf16)
     # the step hands bf16 passes a block packed once per layer, from the
     # parameters before the optimizer moved them: the replay packs one as the
     # step does, from the recorded ones, and runs the step's route on it; an
-    # f32 pass takes none
+    # f32 pass, or one at widths the tensor-core kernels do not take, none
     packed = k6.pack_bwd(dense, planes, nbr_mask, params, folds, stats) if bf16 else None
     # float32 runs with ELU, whose derivative is continuous: at a million rows
     # some ReLU inputs lie within rounding of 0, and the kernel's and the plain
     # version's sums of h2 put them on other sides, moving whole elements
-    kwargs = dict(kwargs, bf16=bf16, packed=packed, **({} if bf16 else {"act": "ELU"}))
+    elu = not bf16 if elu is None else elu
+    kwargs = dict(kwargs, bf16=bf16, packed=packed, **({"act": "ELU"} if elu else {}))
     got = k6.fused_sa_bwd_stage(*args, **kwargs)
     again = k6.fused_sa_bwd_stage(*args, **kwargs)
     want = k6.fused_sa_bwd_stage_plain(*args, **kwargs)
@@ -1409,16 +1492,15 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
     err = max(max_abs_err(a, b) for a, b in zip(got, want) if b is not None)
     require(max(rels) <= tol, f"kernel 6 B{stage} {label}: outputs vs plain rel {rels} > {tol}")
     empty = ~nbr_mask.any(-1)
-    cd = 0 if dense is None else dense.shape[-1]
     if stage == 3 and cd:
         require(bool((got[2][empty] == 0).all()) and bool((want[2][empty] == 0).all()),
                 f"kernel 6 B3 {label}: d(dense) rows of centroids without a valid slot are not 0")
     t = time_ms(lambda: k6.fused_sa_bwd_stage(*args, **kwargs), reps=FUSED_SA_REPS, warmup=2)
     tp = time_ms(lambda: k6.fused_sa_bwd_stage_plain(*args, **kwargs), reps=3, warmup=1)
-    alone = None  # the tensor-core kernel alone, without the vectors' copy and the slice sum
+    alone = None  # the kernel alone, without the vectors' copy and the slice sum
     if bf16:
         alone = kernel_alone_ms(lambda: k6.fused_sa_bwd_stage(*args, **kwargs),
-                                f"fused_sa_b{stage}_kernel")
+                                f"{Path(source).stem}_kernel")
     b, m, _ = nbr_mask.shape
     edges, centroids = int(nbr_mask.sum()), int((~empty).sum())
     flops = fused_sa_bwd_flops(stage, cd, params, edges, centroids)
@@ -1431,7 +1513,7 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     floor = flops / PEAK_F32_FLOP_PER_S * 1e3
-    print(f"kernel fused_sa B{stage} {label} (B={b} M={m} CD={cd} "
+    print(f"kernel fused_sa B{stage} {label} on {source} (B={b} M={m} CD={cd} "
           f"CP={0 if planes is None else planes.shape[-1]} widths "
           f"{','.join(str(params[f'w{i}'].shape[1]) for i in (1, 2, 3))}): {t:.4f} ms (median of "
           f"{FUSED_SA_REPS}){'' if alone is None else f', kernel alone {alone:.4f} ms'}, plain "
@@ -1442,7 +1524,8 @@ def check_fused_sa_bwd_call(label: str, call, bf16: bool, ctx: dict):
           f"max) {', '.join(f'{r:.3e}' for r in rels)} (bound {tol}); two launches "
           f"bit-identical", flush=True)
     ctx.setdefault(stage, []).append(dict(bf16=bf16, ms=t, plain_ms=tp, bound_ms=bms,
-                                          bound_by=by, err=err, label=label, alone_ms=alone))
+                                          bound_by=by, err=err, label=label, alone_ms=alone,
+                                          source=source))
     return t
 
 
@@ -1577,13 +1660,13 @@ def fused_sa_paths(device, card: str, launches: dict) -> None:
     out = counted_run("train_forward_fused_sa", forward, launches, 1)
     print(f"train_forward_fused_sa launches in one forward: {launches['train_forward_fused_sa']}",
           flush=True)
-    stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    stats = running_stats(model)
     model.load_state_dict(state)
     with ExitStack() as stack:
         for p in plain_versions():
             stack.enter_context(p)
         out_p = forward()
-    stats_p = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    stats_p = running_stats(model)
     model.load_state_dict(state)
     require(bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(v).all())
                                                     for v in stats.values()),
@@ -1692,6 +1775,126 @@ def train_fused_sa(device, card: str, launches: dict, fused, unfused, reqs) -> N
                   calls=2, n_kernels=14, n_ops=16)
 
 
+
+
+# phase 12: the fused_sa model at the wider widths neuron_multiplier gives it,
+# at the batch of phases 10 and 11, whose bf16 step bound was set there: at
+# B=4 the bf16 step's gradients differ from the plain step's by up to 0.48 in
+# relative L2 norm at neuron_multiplier 2 (0.31 at 1), as rounding order alone
+# moves more of fewer centroids' terms, while in f32 they agree to 1.3e-3
+# (chip_compare.py steps)
+WIDE_BATCH = SMALL
+
+
+def wide_fused_sa(device, card: str, launches: dict) -> None:
+    """Phase 12: the fused_sa model at neuron_multiplier 2 and 3 in bf16, full
+    width, B=16 x 10240 (paths fused_sa_x2, fused_sa_x3: one train-mode
+    forward under no_grad, one eval forward and one Trainer.step, every launch
+    counted): each against the same on the plain versions (the forwards'
+    bounds of phase 11 and its bf16 step bound), then every pass of each layer
+    it ran against its plain version at the inputs it gave it, with the kernel
+    that ran it and its time; and the f32 passes at SA2's widths, likewise."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    for nm in WIDE_MULTIPLIERS:
+        path = f"fused_sa_x{nm}"
+        trainer = Trainer(seeded_model(device, fused_sa=True, neuron_multiplier=nm),
+                          TrainConfig(), device)
+        model = trainer.model
+        widths = [tuple(m.mlp.linears()[i].out_features for i in range(3))
+                  for m in (model.sa1, model.sa2)]
+        batch = synthetic_batch(WIDE_BATCH, N_POINTS, seed=30 + nm, device=device)
+        state = copy.deepcopy(model.state_dict())
+
+        def forward(train: bool):
+            with torch.no_grad():
+                return model(batch, train=train, generator=train_gen(device, 3))
+
+        def bundle():
+            model.load_state_dict(state)
+            out_t = forward(True)
+            stats_t = running_stats(model)
+            model.load_state_dict(state)
+            return out_t, stats_t, forward(False), trainer.step(batch, train_gen(device, 5))
+
+        outs = []
+        calls = counted_run(path, lambda: record_kernel_inputs(lambda _: outs.append(bundle()),
+                                                               batch), launches, 1)
+        (out_t, stats_t, out_e, loss), = outs
+        require(bool(torch.isfinite(out_t).all()) and bool(torch.isfinite(out_e).all())
+                and bool(torch.isfinite(loss)), f"{path}: non-finite output or loss")
+        model.load_state_dict(state)
+        with ExitStack() as stack:
+            for p in plain_versions():
+                stack.enter_context(p)
+            out_tp = forward(True)
+            stats_tp = running_stats(model)
+            model.load_state_dict(state)
+            out_ep = forward(False)
+        rel_t, rel_e = rel_diff(out_t, out_tp), rel_diff(out_e, out_ep)
+        rel_stats = {k: rel_diff(stats_t[k], stats_tp[k]) for k in stats_t}
+        rel_sa = max(v for k, v in rel_stats.items() if k.startswith(("sa1.", "sa2.")))
+        require(rel_sa <= BF16_SERVE_RTOL, f"{path}: SA1/SA2 statistics vs plain rel {rel_sa}")
+        require(rel_t <= FUSED_TRAIN_FORWARD_RTOL
+                and max(rel_stats.values()) <= FUSED_TRAIN_FORWARD_RTOL,
+                f"{path}: train-mode forward vs plain: output rel {rel_t}, statistics "
+                f"{max(rel_stats.values())} > {FUSED_TRAIN_FORWARD_RTOL}")
+        require(rel_e <= FUSED_VS_PLAIN_RTOL,
+                f"{path}: eval forward vs plain rel {rel_e} > {FUSED_VS_PLAIN_RTOL}")
+        step_note = compare_fused_plain_step(trainer, batch, 7, bf16=True)
+        print(f"{path} (widths SA1 {widths[0]}, SA2 {widths[1]}; B={WIDE_BATCH} x {N_POINTS}) "
+              f"launches in one train-mode forward, one eval forward and one step: "
+              f"{launches[path]}; vs plain versions: train-mode forward output {rel_t:.3e}, "
+              f"SA1/SA2 statistics {rel_sa:.3e}, all statistics {max(rel_stats.values()):.3e} "
+              f"(bounds {BF16_SERVE_RTOL}, {FUSED_TRAIN_FORWARD_RTOL}); eval forward "
+              f"{rel_e:.3e} (bound {FUSED_VS_PLAIN_RTOL}); step {step_note} [{card}]",
+              flush=True)
+
+        # the passes at the inputs the run gave them: the step's forward and backward
+        # (autograd runs SA2's backward first), the eval forward's F3
+        fwd, bwd = calls["fused_sa_stage"], calls["fused_sa_bwd_stage"]
+        require([c[0][0] for c in fwd] == [1, 2, 3, 1, 2, 3, 3, 3, 1, 2, 3, 1, 2, 3]
+                and [c[0][0] for c in bwd] == [1, 2, 3, 1, 2, 3],
+                f"{path}: passes {[c[0][0] for c in fwd]} and {[c[0][0] for c in bwd]}")
+        # which kernel each launch of the run went to: the entries count both
+        cores = {}
+        for calls_of, entries, backward in ((fwd, k6.ENTRIES, False), (bwd, k6.BWD_ENTRIES, True)):
+            for (stage, dense, planes, _, params, *_), kw in calls_of:
+                source = k6.pass_source(stage, backward, 0 if dense is None else dense.shape[-1],
+                                        0 if planes is None else planes.shape[-1], params,
+                                        kw.get("bf16", False))
+                if source == (BWD_SOURCE if backward else FWD_SOURCE):
+                    cores[entries[stage]] = cores.get(entries[stage], 0) + 1
+        launches.setdefault("cuda_core", {})[path] = cores
+        print(f"{path}: launches of kernel 6 that ran the CUDA-core kernel ({FWD_SOURCE}, "
+              f"{BWD_SOURCE}): {cores}; the rest ran the tensor-core kernels", flush=True)
+        del calls, outs
+        fctx, bctx = {}, {}
+        with torch.no_grad():
+            for li, layer in enumerate(("SA1", "SA2")):
+                for call in fwd[8 + 3 * li:11 + 3 * li]:
+                    check_fused_sa_call(f"{path} {layer} bf16 train", call, True, fctx)
+                check_fused_sa_call(f"{path} {layer} bf16 eval", fwd[6 + li], True, fctx)
+                # with ELU, as f32 in phase 10: at these widths some ReLU inputs lie
+                # within rounding of 0, where the kernel's and the plain version's
+                # sums fall on either side and move a whole term of d(dense) (2.9e-2
+                # of its max at SA2 x2 on an H100, 2.1e-3 with ELU: chip_compare.py acts)
+                for call in bwd[3 - 3 * li:6 - 3 * li]:
+                    check_fused_sa_bwd_call(f"{path} {layer} bf16 (ELU)", call, True, bctx,
+                                            elu=True)
+            for call in fwd[11:14]:  # f32 at SA2's widths
+                check_fused_sa_call(f"{path} SA2 f32 train", call, False, fctx)
+            for call in bwd[0:3]:
+                check_fused_sa_bwd_call(f"{path} SA2 f32 (ELU)", call, False, bctx)
+        for kind, ctx in (("F", fctx), ("B", bctx)):
+            for stage in (1, 2, 3):
+                for r in ctx[stage]:
+                    print(f"{kind}{stage} {r['label']}: {r['source']}, {r['ms']:.4f} ms, "
+                          f"max|diff| {r['err']:.3e} [{card}]", flush=True)
+        del fwd, bwd, trainer, model
+        torch.cuda.empty_cache()
 
 
 def tail_inputs(shape, device, seed: int):
@@ -2043,7 +2246,7 @@ TOOL_KERNELS = {
 
 
 def tool_paths(device, card: str, launches: dict) -> list:
-    """Phase 12: each tool's main() on the card with its launches counted,
+    """Phase 13: each tool's main() on the card with its launches counted,
     then its kernels at the tool's full shapes against their plain versions,
     timed beside their bounds and yardsticks; returns the kernels' rows."""
     from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe, tail_bench

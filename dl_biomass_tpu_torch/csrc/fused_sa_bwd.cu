@@ -15,10 +15,14 @@
 //   B3: dh1 as dh2 for layer 1; dW1 = x^T dh1 over the [dense..., planes...] rows,
 //       db1 = sum(dh1); d(dense) = dh1 W1d^T per edge row (0 for every row of a
 //       centroid with no valid slot).
-// The sums run over every centroid of the batch. This file's kernel computes in f32
-// (plain f32 products); in bf16 each pass runs on the tensor cores in its own kernel
-// (csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu), which the same
-// entries launch.
+// The sums run over every centroid of the batch. In bf16 mode each product takes bf16
+// operands (a1, a2, gs, dh2, dh1, the rows and the weights) with f32 accumulation while
+// the hidden values and the sums stay f32; in f32 mode plain f32 products. This file's
+// kernel runs every f32 pass, and the bf16 passes at the widths their tensor-core
+// kernels (csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu, which the
+// same entries launch) do not take, such as SA2 at neuron_multiplier 2 and both
+// layers at 3: the wrapper's routing rule (sa_train_kernel.mma_takes) decides from
+// the widths and hands a weight block only to a pass it sends to the tensor cores.
 //
 // Bound on the H100: operations. Per edge row the recompute costs 2 (KP C1 + C1 C2)
 // flop, B2 adds 4 C1 C2 (dW2, da1) and B3 4 C1 C2 + 4 KP C1 (da1, dW1, d(dense)); B1's
@@ -33,7 +37,14 @@
 // keeps two (B1) or four (B2, B3) 64-row buffers in shared memory, reused as the
 // values die: B1 x -> h2 and a1 -> a2; B2 x -> h2, a1, h1, dh2; B3 x, a1 -> dh2, h1,
 // h2 -> dh1 (B2, B3: 139 KiB at SA2, one block per SM, and 71 KiB at SA1, three; B1:
-// 73 KiB at SA2, three, and 37 KiB at SA1, four by registers). gs is never formed:
+// 73 KiB at SA2, three, and 37 KiB at SA1, four by registers). Where the four buffers
+// do not fit a block's 227 KiB (B2 and B3 from SA2 at neuron_multiplier 2: 276 KiB;
+// 407 KiB at 3), the last of them live in the block's slice of a device scratch
+// buffer instead (one block per SM: 132 slices of up to 194 KiB at
+// neuron_multiplier 3, 25 MiB, which the 50 MB L2 can hold), in kernels of their own
+// (kScratch) so that the others keep shared-memory addressing; the host picks the
+// split from the widths (Layout::fit), and the arithmetic, and so each f32 result,
+// is the same bit for bit wherever a buffer lies. gs is never formed:
 // da2 adds, in ascending column order, g[c] W3^T[c] into row amax[c] only, and dW3
 // adds a2[amax[c]] g[c] into column c, C2 C3 work per centroid. The contractions over
 // the 64 rows (dW2, dW1) give each thread a 4 x 8 tile of (in, out) channels summed
@@ -70,25 +81,42 @@ using namespace fused_sa;
 // Byte offsets of one block's shared memory: four 64-row buffers (see Design; the
 // last two only for B2 and B3), the centroid's cotangent and argmax (C3), the
 // per-warp column partials (2 x 4 warps x the wider hidden layer), the slot flags.
+// Buffers from in_smem on lie instead at their offsets in the block's slice of the
+// scratch buffer, slice bytes each.
 struct Layout {
-  size_t buf[4], g, am, red, valid, total;
-  __host__ __device__ Layout(int stage, int kp, int c1, int c2, int c3) {
-    size_t at = 0;
+  size_t buf[4], g, am, red, valid, total, slice;
+  int in_smem;
+  __host__ __device__ Layout(int stage, int kp, int c1, int c2, int c3, int in_smem)
+      : in_smem(in_smem) {
+    size_t at = 0, sl = 0;
     const int wide = imax(c1, c2);
-    buf[0] = take(at, 4ull * kSlots * (imax(kp, c2) + kSkew));
-    buf[1] = take(at, 4ull * kSlots * (wide + kSkew));
-    buf[2] = stage >= 2 ? take(at, 4ull * kSlots * (c1 + kSkew)) : 0;
-    buf[3] = stage >= 2 ? take(at, 4ull * kSlots * (wide + kSkew)) : 0;
+    const size_t bytes[4] = {4ull * kSlots * (imax(kp, c2) + kSkew),
+                             4ull * kSlots * (wide + kSkew),
+                             stage >= 2 ? 4ull * kSlots * (c1 + kSkew) : 0,
+                             stage >= 2 ? 4ull * kSlots * (wide + kSkew) : 0};
+    for (int i = 0; i < 4; ++i) buf[i] = i < in_smem ? take(at, bytes[i]) : take(sl, bytes[i]);
     g = take(at, 4ull * c3);
     am = take(at, 4ull * c3);
     red = take(at, 4ull * 2 * kWarps * wide);
     valid = take(at, 4ull * kSlots);
     total = at;
+    slice = sl;
+  }
+
+  // The layout that keeps the most buffers, in order, within max_smem bytes.
+  static Layout fit(int stage, int kp, int c1, int c2, int c3, size_t max_smem) {
+    for (int n = 4; n > 0; --n) {
+      const Layout l(stage, kp, c1, c2, c3, n);
+      if (l.total <= max_smem) return l;
+    }
+    return Layout(stage, kp, c1, c2, c3, 0);
   }
 };
 
 // The thread's tile of gs @ W3^T (da2; columns of C2), where gs holds g[c] at row
-// am[c] of column c alone: the terms of each element in ascending c.
+// am[c] of column c alone (rounded to bf16 when kBf16): the terms of each element in
+// ascending c.
+template <bool kBf16>
 __device__ __forceinline__ void routed_dot(const float* g, const int* am, int c3,
                                            const float* __restrict__ w3t, int c2, int col0,
                                            int rg, int cg, float (&acc)[4][8]) {
@@ -100,7 +128,7 @@ __device__ __forceinline__ void routed_dot(const float* g, const int* am, int c3
   for (int c = 0; c < c3; ++c) {
     const int d = am[c] - rg;  // the thread's rows are rg + 16 i
     if (d < 0 || (d & 15)) continue;
-    const float gv = g[c];
+    const float gv = kBf16 ? round_bf16(g[c]) : g[c];
     const float* wr = w3t + static_cast<size_t>(c) * c2 + col0 + cg * 4;
     const float4 lo = __ldg(reinterpret_cast<const float4*>(wr));
     const float4 hi = __ldg(reinterpret_cast<const float4*>(wr + 32));
@@ -225,27 +253,32 @@ __host__ __device__ __forceinline__ int vector_size(int stage, int c1, int c2, i
   return stage == 1 ? c3 + 2 * c2 : stage == 2 ? c2 + 2 * c1 : c1;
 }
 
-// kStage 1: B1, 2: B2, 3: B3 (in f32 alone: fma_kernel). w packs, each part
-// zero-padded: the forward's block (w1 (KP, C1), b1, sc1, sh1 (C1), w2 (C1, C2), b2,
-// sc2, sh2 (C2), w3 (C2, C3), b3 (C3)), then mean1, inv1 (C1), mean2, inv2 (C2), t2a,
-// t2b (C2), t1a, t1b (C1), w3^T (C3, C2), w2^T (C2, C1) and w1's dense rows
-// transposed (C1, CDP).
-template <int kStage>
+// kStage 1: B1, 2: B2, 3: B3. w packs, each part zero-padded: the forward's block (w1
+// (KP, C1), b1, sc1, sh1 (C1), w2 (C1, C2), b2, sc2, sh2 (C2), w3 (C2, C3), b3 (C3)),
+// then mean1, inv1 (C1), mean2, inv2 (C2), t2a, t2b (C2), t1a, t1b (C1), w3^T (C3, C2),
+// w2^T (C2, C1) and w1's dense rows transposed (C1, CDP). kScratch: the layout puts
+// buffers in_smem.. in scratch, one slice per block (a template flag, so that every
+// buffer of the other instantiations is a shared-memory address the compiler sees).
+template <int kStage, bool kBf16, bool kScratch>
 __global__ void __launch_bounds__(kThreads)
 fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ planes,
                     const unsigned char* __restrict__ mask, const float* __restrict__ w,
                     const float* __restrict__ gout, const int* __restrict__ amax,
                     float* __restrict__ partial, double* __restrict__ partial_v,
-                    void* __restrict__ d_dense, long long total,
+                    void* __restrict__ d_dense, char* __restrict__ scratch, long long total,
                     int cd, int cp, int kp, int cdp, int c1, int c2, int c3, int c_out,
-                    int act) {
+                    int act, int in_smem) {
   extern __shared__ float4 smem4[];
   char* const smem = reinterpret_cast<char*>(smem4);
-  const Layout L(kStage, kp, c1, c2, c3);
-  float* const buf0 = reinterpret_cast<float*>(smem + L.buf[0]);
-  float* const buf1 = reinterpret_cast<float*>(smem + L.buf[1]);
-  float* const buf2 = reinterpret_cast<float*>(smem + L.buf[2]);
-  float* const buf3 = reinterpret_cast<float*>(smem + L.buf[3]);
+  const Layout L(kStage, kp, c1, c2, c3, kScratch ? in_smem : 4);
+  char* const slice = scratch + static_cast<size_t>(blockIdx.x) * L.slice;
+  const auto buffer = [&](int i) {
+    return reinterpret_cast<float*>((kScratch && i >= L.in_smem ? slice : smem) + L.buf[i]);
+  };
+  float* const buf0 = buffer(0);
+  float* const buf1 = buffer(1);
+  float* const buf2 = buffer(2);
+  float* const buf3 = buffer(3);
   float* const gs = reinterpret_cast<float*>(smem + L.g);
   int* const am = reinterpret_cast<int*>(smem + L.am);
   float* const red = reinterpret_cast<float*>(smem + L.red);
@@ -300,9 +333,13 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
       valid[tid] = ok;
     }
     if (!__syncthreads_or(ok)) {  // no valid slot: no gradient, and rows of 0 in d(dense)
-      if (kStage == 3) {  // f32 alone (fma_kernel)
+      if (kStage == 3) {
         for (int i = tid; i < kSlots * cd; i += kThreads) {
-          static_cast<float*>(d_dense)[row0 * cd + i] = 0.0f;
+          if (kBf16) {
+            static_cast<__nv_bfloat16*>(d_dense)[row0 * cd + i] = __float2bfloat16_rn(0.0f);
+          } else {
+            static_cast<float*>(d_dense)[row0 * cd + i] = 0.0f;
+          }
         }
       }
       continue;
@@ -312,7 +349,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
       gs[c] = real ? gout[ci * c_out + c] : 0.0f;
       am[c] = real ? amax[ci * c_out + c] : -1;
     }
-    load_rows<false>(dense, planes, row0, cd, cp, kp, x);
+    load_rows<kBf16>(dense, planes, row0, cd, cp, kp, x);
     __syncthreads();
 
     // recompute: h1 (B2, B3) and a1, then h2
@@ -320,7 +357,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
     for (int col0 = 0; col0 < c1; col0 += 64) {
       tile_layer(x, ldx, kp, w1, b1, c1, col0, rg, cg, h);
       if (kStage >= 2) store_tile<false>(h, col0, rg, cg, h1, ld1);
-      store_act<false>(h, sc1, sh1, act, col0, rg, cg, a1, ld1);
+      store_act<kBf16>(h, sc1, sh1, act, col0, rg, cg, a1, ld1);
     }
     __syncthreads();
     for (int col0 = 0; col0 < c2; col0 += 64) {  // B1, B2: h2 takes the rows' place
@@ -332,13 +369,14 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
     if (kStage == 1) {  // a2 takes a1's place; then dW3 and db3 at the argmax rows
       for (int i = tid; i < kSlots * c2; i += kThreads) {
         const int r = i / c2, k = i - r * c2;
-        a2[r * ld2 + k] = activate(h2[r * ld2 + k] * sc2[k] + sh2[k], act);
+        const float v = activate(h2[r * ld2 + k] * sc2[k] + sh2[k], act);
+        a2[r * ld2 + k] = kBf16 ? round_bf16(v) : v;
       }
       __syncthreads();
       for (int i = tid; i < c2 * c3; i += kThreads) {
         const int k = i / c3, c = i - k * c3;
         const int r = am[c];
-        if (r >= 0) part[i] += a2[r * ld2 + k] * gs[c];
+        if (r >= 0) part[i] += a2[r * ld2 + k] * (kBf16 ? round_bf16(gs[c]) : gs[c]);
       }
       for (int c = tid; c < c3; c += kThreads) {
         if (am[c] >= 0) part_v[c] += gs[c];
@@ -347,7 +385,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
 
     // layer 2's backward: db2n and xhat2 (B1: their sums), dh2 (B2, B3)
     for (int col0 = 0; col0 < c2; col0 += 64) {
-      routed_dot(gs, am, c3, w3t, c2, col0, rg, cg, d);
+      routed_dot<kBf16>(gs, am, c3, w3t, c2, col0, rg, cg, d);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int k = tile_col(col0, cg, j);
@@ -370,7 +408,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
         tile_colsums<true>(d, e, col0, cg, lane, warp, red, c2);
       } else {
         if (kStage == 2) tile_colsums<false>(d, e, col0, cg, lane, warp, red, c2);
-        store_tile<false>(d, col0, rg, cg, dh2, ld2);
+        store_tile<kBf16>(d, col0, rg, cg, dh2, ld2);
       }
     }
     __syncthreads();
@@ -407,7 +445,7 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
         }
       }
       tile_colsums<kStage == 2>(d, e, col0, cg, lane, warp, red, c1);
-      if (kStage == 3) store_tile<false>(d, col0, rg, cg, dh1, ld1);
+      if (kStage == 3) store_tile<kBf16>(d, col0, rg, cg, dh1, ld1);
     }
     __syncthreads();
     if (kStage == 2) {
@@ -427,7 +465,12 @@ fused_sa_bwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int k = tile_col(col0, cg, j);
-          if (k < cd) static_cast<float*>(d_dense)[row * cd + k] = d[i][j];
+          if (k >= cd) continue;
+          if (kBf16) {
+            static_cast<__nv_bfloat16*>(d_dense)[row * cd + k] = __float2bfloat16_rn(d[i][j]);
+          } else {
+            static_cast<float*>(d_dense)[row * cd + k] = d[i][j];
+          }
         }
       }
     }
@@ -446,23 +489,38 @@ __global__ void reduce_blocks(const T* __restrict__ partial, int blocks, int n,
   out[i] = static_cast<float>(s);
 }
 
-// Launches this file's kernel of a pass (f32); *grid_out = its blocks.
+// The device's shared memory a block may opt in to.
+cudaError_t max_block_smem(int* max_smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return e;
+}
+
+// Launches this file's kernel of a pass; *grid_out = its blocks. scratch: at least
+// max_grid slices of Layout::fit's slice bytes where that is not 0.
 template <int kStage>
 cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, const void* w,
                        const void* g, const void* amax, void* partial, void* partial_v,
-                       void* d_dense, int centroids, int cd, int cp, int kp, int cdp, int c1,
-                       int c2, int c3, int c_out, int act, int max_grid,
-                       cudaStream_t s, int* grid_out) {
-  const auto kernel = fused_sa_bwd_kernel<kStage>;
-  const size_t smem = Layout(kStage, kp, c1, c2, c3).total;
+                       void* d_dense, void* scratch, int centroids, int cd, int cp, int kp,
+                       int cdp, int c1, int c2, int c3, int c_out, int act, int bf16,
+                       int max_grid, cudaStream_t s, int* grid_out) {
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
+  cudaError_t e = max_block_smem(&max_smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  const Layout L = Layout::fit(kStage, kp, c1, c2, c3, static_cast<size_t>(max_smem));
+  if (L.total > static_cast<size_t>(max_smem) || (L.slice > 0 && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto kernel = L.slice > 0 ? (bf16 ? fused_sa_bwd_kernel<kStage, true, true>
+                                          : fused_sa_bwd_kernel<kStage, false, true>)
+                                  : (bf16 ? fused_sa_bwd_kernel<kStage, true, false>
+                                          : fused_sa_bwd_kernel<kStage, false, false>);
+  const size_t smem = L.total;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e == cudaSuccess) {
@@ -476,8 +534,9 @@ cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, 
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
       dense, static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(w), static_cast<const float*>(g), static_cast<const int*>(amax),
-      static_cast<float*>(partial), static_cast<double*>(partial_v), d_dense, centroids, cd, cp,
-      kp, cdp, c1, c2, c3, c_out, act);
+      static_cast<float*>(partial), static_cast<double*>(partial_v), d_dense,
+      static_cast<char*>(scratch), centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act,
+      L.in_smem);
   e = cudaGetLastError();
   if (e == cudaSuccess) *grid_out = static_cast<int>(grid);
   return e;
@@ -486,19 +545,19 @@ cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, 
 template <int kStage>
 int launch_stage(const void* dense, const void* planes, const void* mask, const void* w,
                  const void* wb, const void* g, const void* amax, void* partial,
-                 void* partial_v, void* sums, void* d_dense, int centroids, int cd, int cp,
-                 int kp, int cdp, int c1, int c2, int c3, int c_out, int act, int bf16,
-                 int max_grid, void* stream) {
+                 void* partial_v, void* sums, void* d_dense, void* scratch, int centroids,
+                 int cd, int cp, int kp, int cdp, int c1, int c2, int c3, int c_out, int act,
+                 int bf16, int max_grid, void* stream) {
   if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
       c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || cdp % 64 || cdp < cd ||
       c_out > c3 || act < kNone || act > kElu || max_grid < 1 ||
-      (kStage == 3 && cd > 0 && d_dense == nullptr)) {
+      (kStage == 3 && cd > 0 && d_dense == nullptr) || (wb != nullptr && !bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int grid[2] = {0, 0};  // the weight and the vector slices
   cudaError_t e;
-  if (bf16) {
+  if (wb != nullptr) {  // bf16 on the tensor cores
     const auto mma = kStage == 1 ? dlbt_fused_sa_b1_mma
                      : kStage == 2 ? dlbt_fused_sa_b2_mma
                                    : dlbt_fused_sa_b3_mma;
@@ -507,8 +566,8 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
                                      max_grid, stream, grid));
   } else {
     e = launch_fma<kStage>(dense, planes, mask, w, g, amax, partial, partial_v, d_dense,
-                           centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, max_grid, s,
-                           &grid[0]);
+                           scratch, centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16,
+                           max_grid, s, &grid[0]);
     grid[1] = grid[0];
   }
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -531,39 +590,33 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
 // cotangent of the pooled output and amax (B, M, c_out) int32 F3's argmax. Writes
 // sums: the pass's output vector (see weight_size), f32; partial and partial_v are its
 // scratch, (max_grid, weight_size) f32 and (max_grid, vector_size) f64. B3 with CD > 0
-// also writes d_dense (B, M, 64, CD) in the dense block's type. In bf16 every pass takes
-// w as its per-column vectors alone and wb as the bf16 weight block (csrc/fused_sa_b1.cu,
-// csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu) and raises at widths its kernel does not
-// take; in f32 wb is ignored.
-extern "C" int dlbt_fused_sa_b1(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* wb, const void* g, const void* amax,
-                                void* partial, void* partial_v, void* sums, void* d_dense,
-                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
-                                int c3, int c_out, int act, int bf16, int max_grid,
-                                void* stream) {
-  return launch_stage<1>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
-                         centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
-                         stream);
-}
+// also writes d_dense (B, M, 64, CD) in the dense block's type. wb: null, or in bf16
+// the bf16 weight block that sends the pass to its tensor-core kernel
+// (csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu), w then being its
+// per-column vectors alone; that kernel raises at widths it does not take. scratch:
+// max_grid slices of dlbt_fused_sa_bwd_slice_bytes each (null where that is 0) for
+// this file's kernel.
+#define DLBT_BWD_ENTRY(name, stage)                                                         \
+  extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \
+                      const void* wb, const void* g, const void* amax, void* partial,        \
+                      void* partial_v, void* sums, void* d_dense, void* scratch,            \
+                      int centroids, int cd, int cp, int kp, int cdp, int c1, int c2, int c3, \
+                      int c_out, int act, int bf16, int max_grid, void* stream) {            \
+    return launch_stage<stage>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, \
+                               d_dense, scratch, centroids, cd, cp, kp, cdp, c1, c2, c3,     \
+                               c_out, act, bf16, max_grid, stream);                          \
+  }
+DLBT_BWD_ENTRY(dlbt_fused_sa_b1, 1)
+DLBT_BWD_ENTRY(dlbt_fused_sa_b2, 2)
+DLBT_BWD_ENTRY(dlbt_fused_sa_b3, 3)
+#undef DLBT_BWD_ENTRY
 
-extern "C" int dlbt_fused_sa_b2(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* wb, const void* g, const void* amax,
-                                void* partial, void* partial_v, void* sums, void* d_dense,
-                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
-                                int c3, int c_out, int act, int bf16, int max_grid,
-                                void* stream) {
-  return launch_stage<2>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
-                         centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
-                         stream);
-}
-
-extern "C" int dlbt_fused_sa_b3(const void* dense, const void* planes, const void* mask,
-                                const void* w, const void* wb, const void* g, const void* amax,
-                                void* partial, void* partial_v, void* sums, void* d_dense,
-                                int centroids, int cd, int cp, int kp, int cdp, int c1, int c2,
-                                int c3, int c_out, int act, int bf16, int max_grid,
-                                void* stream) {
-  return launch_stage<3>(dense, planes, mask, w, wb, g, amax, partial, partial_v, sums, d_dense,
-                         centroids, cd, cp, kp, cdp, c1, c2, c3, c_out, act, bf16, max_grid,
-                         stream);
+// The bytes of one block's scratch slice that this file's kernel of pass `stage` needs
+// at these widths on the current device (0: all its buffers fit shared memory), or -1
+// if the device cannot be queried. A host function: it launches nothing.
+extern "C" long long dlbt_fused_sa_bwd_slice_bytes(int stage, int kp, int c1, int c2, int c3) {
+  int max_smem = 0;
+  if (stage < 1 || stage > 3 || max_block_smem(&max_smem) != cudaSuccess) return -1;
+  return static_cast<long long>(
+      Layout::fit(stage, kp, c1, c2, c3, static_cast<size_t>(max_smem)).slice);
 }

@@ -17,7 +17,10 @@
 // Bound on the H100: operations. Per edge row 2 (KP C1) flop for F1,
 // 2 (KP C1 + C1 C2) for F2 and 2 (KP C1 + C1 C2 + C2 C3) for F3 (25,088 at SA1's
 // 4, 64, 64, 128; 131,840 at SA2's 131, 128, 128, 256), at best on the bf16 tensor
-// cores; this version runs them as f32 FMAs on the CUDA cores (67 TFLOP/s). The
+// cores; this file's kernel runs them as f32 FMAs on the CUDA cores (67 TFLOP/s): F1,
+// every f32 pass, and F2 and F3 in bf16 at the widths the tensor-core kernels
+// (csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu, which the same entries launch) do not
+// take, such as SA2 at neuron_multiplier 2 and both layers at 3. The
 // inputs are read once per pass (SA2's bf16 dense block: 134 MB at 16 x 10240), the
 // outputs are (B, M, C3) values and indices.
 //
@@ -33,7 +36,8 @@
 // shared-memory step across the 4 warps. F1 and F2 reduce each centroid's column
 // sums the same way, and add them to the block's f64 sums in centroid order; a
 // second launch adds the blocks' sums in block order. No float atomics: a forward
-// repeats bit for bit on one card.
+// repeats bit for bit on one card. Each pass has a shared-memory layout of its own
+// (Layout), which is what lets SA2 at neuron_multiplier 3 run at all.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,24 +46,38 @@
 
 #include "fused_sa_tile.cuh"
 
+// csrc/fused_sa_f2.cu, _f3.cu: F2 and F3 in bf16 on the tensor cores, each kernel alone
+// (*grid: the slices of partial F2 wrote); wb is their bf16 weight block.
+#define DLBT_MMA_PASS(name)                                                                  \
+  extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \
+                      const void* wb, void* partial, void* out, void* amax, int centroids,   \
+                      int cd, int cp, int c1, int c2, int c3, int c_out, int act,            \
+                      int max_grid, void* stream, int* grid);
+DLBT_MMA_PASS(dlbt_fused_sa_f2_mma)
+DLBT_MMA_PASS(dlbt_fused_sa_f3_mma)
+#undef DLBT_MMA_PASS
+
 namespace {
 
 using namespace fused_sa;
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 
-// Byte offsets of one block's shared memory: the edge rows (KP + 4 floats apart),
-// later a2 (C2 + 4 apart), in one buffer; a1 (C1 + 4 apart); the per-warp column
-// partials (2 x 4 warps x the widest layer); the block's f64 sums; the slot flags.
+// Byte offsets of one block's shared memory, by pass: the edge rows (KP + 4 floats
+// apart; in F3 later a2, C2 + 4 apart, in the same buffer); a1 (C1 + 4 apart; F2, F3);
+// the per-warp column partials (F1, F2: sums and sums of squares, 2 x 4 warps x the
+// summed layer's width; F3: the max and its slot, 2 x 4 warps x C3); the block's f64
+// sums (F1, F2); the slot flags. SA2 at neuron_multiplier 3 (KP 388, C1 = C2 = 384,
+// C3 768) takes 219 KiB in F3, the widest pass.
 struct Layout {
   size_t rows, a1, red, sums, valid, total;
-  __host__ __device__ Layout(int kp, int c1, int c2, int c3) {
+  __host__ __device__ Layout(int stage, int kp, int c1, int c2, int c3) {
     size_t at = 0;
-    const int cmax = imax(c1, imax(c2, c3));
-    rows = take(at, 4ull * kSlots * (imax(kp, c2) + kSkew));
-    a1 = take(at, 4ull * kSlots * (c1 + kSkew));
-    red = take(at, 4ull * 2 * kWarps * cmax);
-    sums = take(at, 8ull * 2 * cmax);
+    const int cw = stage == 1 ? c1 : stage == 2 ? c2 : c3;
+    rows = take(at, 4ull * kSlots * ((stage == 3 ? imax(kp, c2) : kp) + kSkew));
+    a1 = stage >= 2 ? take(at, 4ull * kSlots * (c1 + kSkew)) : 0;
+    red = take(at, 4ull * 2 * kWarps * cw);
+    sums = stage < 3 ? take(at, 8ull * 2 * cw) : 0;
     valid = take(at, 4ull * kSlots);
     total = at;
   }
@@ -139,7 +157,7 @@ fused_sa_fwd_kernel(const void* __restrict__ dense, const float* __restrict__ pl
                     int c2, int c3, int c_out, int act) {
   extern __shared__ float4 smem4[];
   char* const smem = reinterpret_cast<char*>(smem4);
-  const Layout L(kp, c1, c2, c3);
+  const Layout L(kStage, kp, c1, c2, c3);
   float* const rows = reinterpret_cast<float*>(smem + L.rows);
   float* const a1 = reinterpret_cast<float*>(smem + L.a1);
   float* const red = reinterpret_cast<float*>(smem + L.red);
@@ -256,49 +274,66 @@ __global__ void reduce_partials(const double* __restrict__ partial, int blocks, 
   out[i] = static_cast<float>(s);
 }
 
+// Launches this file's kernel of a pass; *grid_out = its blocks.
 template <int kStage>
-int launch_stage(const void* dense, const void* planes, const void* mask, const void* w,
-                 void* partial, void* sums, void* out, void* amax, int centroids, int cd,
-                 int cp, int kp, int c1, int c2, int c3, int c_out, int act, int bf16,
-                 int max_grid, void* stream) {
-  if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
-      c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || c_out > c3 || act < kNone ||
-      act > kElu || max_grid < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+cudaError_t launch_fma(const void* dense, const void* planes, const void* mask, const void* w,
+                       void* partial, void* out, void* amax, int centroids, int cd, int cp,
+                       int kp, int c1, int c2, int c3, int c_out, int act, int bf16,
+                       int max_grid, cudaStream_t s, int* grid_out) {
   auto kernel = bf16 ? fused_sa_fwd_kernel<kStage, true> : fused_sa_fwd_kernel<kStage, false>;
-  const size_t smem = Layout(kp, c1, c2, c3).total;
+  const size_t smem = Layout(kStage, kp, c1, c2, c3).total;
   int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > centroids) grid = centroids;
   if (grid > max_grid) grid = max_grid;
   if (grid < 1) grid = 1;  // F1 and F2 write one block's (zero) sums even for no centroid
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, s>>>(
       dense, static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(w), static_cast<double*>(partial), static_cast<float*>(out),
       static_cast<int*>(amax), centroids, cd, cp, kp, c1, c2, c3, c_out, act);
-  if (kStage < 3) {
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int n = 2 * (kStage == 1 ? c1 : c2);
-    reduce_partials<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        static_cast<const double*>(partial), static_cast<int>(grid), n,
-        static_cast<float*>(sums));
+  e = cudaGetLastError();
+  if (e == cudaSuccess) *grid_out = static_cast<int>(grid);
+  return e;
+}
+
+template <int kStage>
+int launch_stage(const void* dense, const void* planes, const void* mask, const void* w,
+                 const void* wb, void* partial, void* sums, void* out, void* amax,
+                 int centroids, int cd, int cp, int kp, int c1, int c2, int c3, int c_out,
+                 int act, int bf16, int max_grid, void* stream) {
+  if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
+      c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || c_out > c3 || act < kNone ||
+      act > kElu || max_grid < 1 || (wb != nullptr && (!bf16 || kStage == 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  cudaError_t e;
+  if (wb != nullptr) {  // F2 and F3 in bf16 on the tensor cores
+    const auto mma = kStage == 2 ? dlbt_fused_sa_f2_mma : dlbt_fused_sa_f3_mma;
+    e = static_cast<cudaError_t>(mma(dense, planes, mask, w, wb, partial, out, amax, centroids,
+                                     cd, cp, c1, c2, c3, c_out, act, max_grid, stream, &grid));
+  } else {
+    e = launch_fma<kStage>(dense, planes, mask, w, partial, out, amax, centroids, cd, cp, kp,
+                           c1, c2, c3, c_out, act, bf16, max_grid, s, &grid);
+  }
+  if (e != cudaSuccess || kStage == 3) return static_cast<int>(e);
+  const int n = 2 * (kStage == 1 ? c1 : c2);
+  reduce_partials<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      static_cast<const double*>(partial), grid, n, static_cast<float*>(sums));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,26 +347,20 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
 // 2 LeakyReLU (0.01), 3 ELU. F1 and F2 write sums (2, C): the column sums of h1 (of
 // h2) over the valid slots, then the sums of squares; partial is their scratch,
 // (max_grid, 2, C) f64. F3 writes out (B, M, c_out) f32 and amax (B, M, c_out) int32.
-extern "C" int dlbt_fused_sa_f1(const void* dense, const void* planes, const void* mask,
-                                const void* w, void* partial, void* sums, void* out, void* amax,
-                                int centroids, int cd, int cp, int kp, int c1, int c2, int c3,
-                                int c_out, int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<1>(dense, planes, mask, w, partial, sums, out, amax, centroids, cd, cp, kp,
-                         c1, c2, c3, c_out, act, bf16, max_grid, stream);
-}
-
-extern "C" int dlbt_fused_sa_f2(const void* dense, const void* planes, const void* mask,
-                                const void* w, void* partial, void* sums, void* out, void* amax,
-                                int centroids, int cd, int cp, int kp, int c1, int c2, int c3,
-                                int c_out, int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<2>(dense, planes, mask, w, partial, sums, out, amax, centroids, cd, cp, kp,
-                         c1, c2, c3, c_out, act, bf16, max_grid, stream);
-}
-
-extern "C" int dlbt_fused_sa_f3(const void* dense, const void* planes, const void* mask,
-                                const void* w, void* partial, void* sums, void* out, void* amax,
-                                int centroids, int cd, int cp, int kp, int c1, int c2, int c3,
-                                int c_out, int act, int bf16, int max_grid, void* stream) {
-  return launch_stage<3>(dense, planes, mask, w, partial, sums, out, amax, centroids, cd, cp, kp,
-                         c1, c2, c3, c_out, act, bf16, max_grid, stream);
-}
+// wb: null, or for F2 and F3 in bf16 the bf16 weight block that sends the pass to its
+// tensor-core kernel (csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu; the wrapper's routing
+// rule, sa_train_kernel.mma_takes, decides from the widths), w then being the
+// forward's per-column vectors of that kernel and mask 16-byte aligned.
+#define DLBT_FWD_ENTRY(name, stage)                                                         \
+  extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \
+                      const void* wb, void* partial, void* sums, void* out, void* amax,      \
+                      int centroids, int cd, int cp, int kp, int c1, int c2, int c3,          \
+                      int c_out, int act, int bf16, int max_grid, void* stream) {             \
+    return launch_stage<stage>(dense, planes, mask, w, wb, partial, sums, out, amax,        \
+                               centroids, cd, cp, kp, c1, c2, c3, c_out, act, bf16,         \
+                               max_grid, stream);                                            \
+  }
+DLBT_FWD_ENTRY(dlbt_fused_sa_f1, 1)
+DLBT_FWD_ENTRY(dlbt_fused_sa_f2, 2)
+DLBT_FWD_ENTRY(dlbt_fused_sa_f3, 3)
+#undef DLBT_FWD_ENTRY

@@ -1,10 +1,10 @@
-// The tensor-core pieces that kernel 6's three bf16 backward passes share
-// (csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu): the bf16
-// weight block as the wrapper packs it (sa_train_kernel._packed_bf16) and the
-// kernels hold it in shared memory, the per-column vectors, the double buffer
-// of a centroid's inputs filled by cp.async, the recompute of h1 and a1 and of
-// layer 2 beside the routed da2, and the BatchNorm backward of an accumulator
-// tile. A persistent block of 8 warps walks the centroids; warp w takes the 16
+// The tensor-core pieces that kernel 6's bf16 passes share (the backward's
+// csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu and the forward's
+// csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu): the bf16 weight block as the wrapper
+// packs it (sa_train_kernel._packed_bf16) and the kernels hold it in shared memory,
+// the per-column vectors, the double buffer of a centroid's inputs filled by
+// cp.async, the recompute of h1 and a1 and of layer 2 (beside the routed da2 in the
+// backward), and the BatchNorm backward of an accumulator tile. A persistent block of 8 warps walks the centroids; warp w takes the 16
 // slots of row tile w % 4 and half w / 4 of the columns of every row-wise
 // product, on mma.sync m16n8k16 (csrc/mma_bf16.cuh) with f32 accumulators.
 #pragma once
@@ -49,6 +49,10 @@ __host__ __device__ __forceinline__ size_t w3_bytes(int c2, int c3) {
 }
 __host__ __device__ __forceinline__ size_t vec_bytes(int c1, int c2) {
   return 4ull * kVecs * (c1 + c2);
+}
+// The forward's vectors: the backward's, then b3 (C3).
+__host__ __device__ __forceinline__ size_t fwd_vec_bytes(int c1, int c2, int c3) {
+  return vec_bytes(c1, c2) + 4ull * c3;
 }
 
 // Offsets within one buffer of a centroid's inputs: its bf16 edge rows (KX columns,
@@ -236,6 +240,21 @@ __device__ __forceinline__ void layer2(const bf16* a1, int ld1, const bf16* w2t,
     routed_mma<kSub / 2>(gb, am16, n3, r0, w3, ld3, n0, d2);
 #pragma unroll
     for (int nt = 0; nt < kSub; ++nt) epi(n0 + 8 * nt + 2 * t, h2[nt], d2[nt]);
+  }
+}
+
+// Layer 2 of the forward for the warp's rows r0.. and half `half` of C2, 32 columns
+// at a time: h2 = a1 W2 (without b2), each n-tile handed to epi(col, h2).
+template <class Epi>
+__device__ __forceinline__ void layer2_fwd(const bf16* a1, int ld1, const bf16* w2t, int c1,
+                                           int c2, int r0, int half, Epi&& epi) {
+  const int t = threadIdx.x & 3;
+  for (int n0 = half * (c2 / 2); n0 < (half + 1) * (c2 / 2); n0 += 8 * kSub) {
+    float h2[kSub][4];
+    dlbt::zero_acc(h2);
+    dlbt::warp_mma_ldm<kSub / 2>(a1, ld1, w2t, ld1, 0, c1, r0, n0, h2);
+#pragma unroll
+    for (int nt = 0; nt < kSub; ++nt) epi(n0 + 8 * nt + 2 * t, h2[nt]);
   }
 }
 

@@ -35,11 +35,18 @@ centroid has no valid slot.
 ``fused_sa_stage`` (one forward pass) and ``fused_sa_bwd_stage`` (one
 backward pass) launch ``csrc/fused_sa_fwd.cu`` (entries ``dlbt_fused_sa_f1``,
 ``_f2``, ``_f3``) and ``csrc/fused_sa_bwd.cu`` (``dlbt_fused_sa_b1``, ``_b2``,
-``_b3``; in bf16 each pass runs on the tensor cores, ``csrc/fused_sa_b1.cu``,
-``_b2.cu``, ``_b3.cu``, with the bf16 weight block of ``_packed_bf16`` and the
-vectors of ``_vectors``, which ``pack_bwd`` makes once per layer's backward)
-on a CUDA tensor and run ``fused_sa_stage_plain`` and
-``fused_sa_bwd_stage_plain`` on a CPU tensor. ``fused_sa_mlp`` chains them as
+``_b3``) on a CUDA tensor and run ``fused_sa_stage_plain`` and
+``fused_sa_bwd_stage_plain`` on a CPU tensor. Each entry runs one of two
+hand-written kernels, which ``mma_takes`` picks from the layer's widths
+before any launch (``pass_source`` names it): in bf16, where the tensor-core
+kernels' weight block, buffers and register tiles fit (every layer at
+neuron_multiplier 1, SA1 at 2), F2, F3 and B1-B3 run on the tensor cores
+(``csrc/fused_sa_f2.cu``, ``_f3.cu``, ``_b1.cu``, ``_b2.cu``, ``_b3.cu``)
+with the bf16 weight block of ``_packed_bf16``, which ``pack_fwd`` makes once
+per layer's forward and ``pack_bwd`` hands on to its backward; F1, every f32
+pass and the bf16 passes of wider layers run on the CUDA cores
+(``csrc/fused_sa_fwd.cu``, ``csrc/fused_sa_bwd.cu``, whose backward keeps
+the buffers that do not fit shared memory in a device scratch buffer). ``fused_sa_mlp`` chains them as
 the JAX function does, inside a ``torch.autograd.Function``;
 ``fused_sa_mlp_plain`` chains the plain passes the same way. The kernels sum
 in their own order (float32 FMAs or tensor-core
@@ -73,9 +80,10 @@ ACTS = {None: 0, "None": 0, "ReLU": 1, "LeakyReLU": 2, "ELU": 3}
 ENTRIES = {1: "dlbt_fused_sa_f1", 2: "dlbt_fused_sa_f2", 3: "dlbt_fused_sa_f3"}
 BWD_ENTRIES = {1: "dlbt_fused_sa_b1", 2: "dlbt_fused_sa_b2", 3: "dlbt_fused_sa_b3"}
 PARAMS = ("w1", "b1", "gamma1", "beta1", "w2", "b2", "gamma2", "beta2", "w3", "b3")
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 SKEW_H = 8  # csrc/mma_bf16.cuh kSkewH: each bf16 weight row is this many values longer
+SMEM_MAX = 232448  # bytes of shared memory a block may opt in to on an H100 (227 KiB)
 
 Folds = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -162,12 +170,13 @@ def hidden_plain(layer: int, dense, planes, nbr_mask, params: dict, folds: Folds
 
 
 def fused_sa_stage_plain(stage: int, dense, planes, nbr_mask, params: dict, folds: Folds = (),
-                         *, act: Optional[str] = "ReLU", bf16: bool = False):
+                         *, act: Optional[str] = "ReLU", bf16: bool = False, packed=None):
     """The plain PyTorch version of one pass: ``stage`` 1 or 2 -> (s, ss)
     (C,) column sums and sums of squares of h1 (of h2) over the valid slots,
     accumulated in float64 as the kernel's are; 3 -> (out (B, M, C3), argmax
     (B, M, C3) int32). float32, or float64 for float64 inputs. ``folds`` holds
-    (sc1, sh1) for stage 2 and both pairs for stage 3."""
+    (sc1, sh1) for stage 2 and both pairs for stage 3; ``packed``, the
+    kernels' weight block (``pack_fwd``), is not read."""
     h = hidden_plain(stage, dense, planes, nbr_mask, params, folds, act=act, bf16=bf16)
     valid = nbr_mask.reshape(-1, 1)
     if stage < 3:
@@ -352,28 +361,126 @@ def _padded_widths(params: dict):
     return tuple(round_up(params[f"w{i}"].shape[1], WIDTH_STEP) for i in (1, 2, 3))
 
 
-def pack_bwd(dense, planes, nbr_mask, params: dict, folds: Folds, stats: Folds):
-    """The block the three bf16 backward passes of one layer share: (the bf16
-    weight block of ``_packed_bf16``, the vectors of ``_vectors`` with their
-    correction terms 0). ``fused_sa_bwd_stage(..., bf16=True, packed=...)``
-    takes it and adds the terms; without it the pass packs for itself."""
+def _mma_smem(cd: int, cp: int, c1: int, c2: int, c3: int) -> dict:
+    """The shared memory, in bytes, of each tensor-core pass at these padded
+    widths, as the ``Layout`` of its kernel (``csrc/fused_sa_b1.cu``,
+    ``_b2.cu``, ``_b3.cu``, ``_f2.cu``, ``_f3.cu``) lays it out, each region
+    rounded up to 16 bytes."""
+    kx = edge_width(cd, cp)
+    x = 2 * K * (kx + SKEW_H)
+
+    def inputs(c):  # fused_sa_mma.cuh Inputs: edge rows, mask, cotangent, argmax, planes
+        return sum(round_up(n, 16) for n in (x, K, 4 * c, 4 * c, 4 * K * cp))
+
+    def w(rows, cols):  # a bf16 weight matrix, each row SKEW_H longer
+        return 2 * rows * (cols + SKEW_H)
+
+    w12, vec = w(c1, kx) + w(c2, c1), 4 * VECS * (c1 + c2)
+    a1, a2 = 2 * K * (c1 + SKEW_H), 2 * K * (c2 + SKEW_H)
+    n3 = min(c3, 256)  # B1's column group
+    red_b1, red_b2 = 4 * 4 * 2 * c2, 4 * 4 * (c2 + 2 * c1)
+    return {
+        "b1": sum(round_up(n, 16) for n in (w12 + w(c2, n3), vec, 2 * inputs(c3), 2 * n3, 2 * n3,
+                                             a1, a2, 0 if red_b1 <= x else red_b1)),
+        "b2": sum(round_up(n, 16) for n in (w12 + w(c2, c3), vec, 2 * inputs(c3), 2 * c3, 2 * c3,
+                                             a1, a2, 0 if red_b2 <= x else red_b2)),
+        "b3": sum(round_up(n, 16) for n in (w12 + w(c2, c3), vec, 2 * inputs(c3), 2 * c3, 2 * c3,
+                                             a1, a2, 4 * 4 * c1, 8 * c1)),
+        "f2": sum(round_up(n, 16) for n in (w12, vec, 2 * inputs(0), a1,
+                                             0 if 4 * 4 * 2 * c2 <= x else 4 * 4 * 2 * c2)),
+        "f3": sum(round_up(n, 16) for n in (w12 + w(c2, c3), vec + 4 * c3, 2 * inputs(0), a1,
+                                             0 if c2 <= kx else a2, 8 * 4 * c3)),
+    }
+
+
+def mma_takes(cd: int, cp: int, c1p: int, c2p: int, c3p: int) -> bool:
+    """Whether a layer of these widths (CD dense and CP plane channels, the
+    hidden widths padded to 64) runs its bf16 passes F2, F3 and B1-B3 on the
+    tensor cores: each kernel's own checks pass (C1 64 or 128; B1's dW3 tiles
+    and vector slice, so C2 at most 128; B2's dW2 tiles and slice; B3's dW1
+    tiles; F2's slice) and its weight block and buffers fit a block's shared
+    memory. Where not, those passes run on the CUDA-core kernels, in bf16 all
+    the same. Decided from the widths alone, before any launch."""
+    if c1p not in (64, 128) or c2p % 64 or c3p % 64:
+        return False
+    kx, n3 = edge_width(cd, cp), min(c3p, 256)
+    fits = ((n3 // 16) * (c2p // 16) <= 8 * 16 and n3 + 2 * c2p <= 512  # B1
+            and (c1p // 16) * (c2p // 16) <= 8 * 8 and c2p + 2 * c1p <= 512  # B2
+            and (kx // 16) * (c1p // 16) <= 8 * 9  # B3
+            and 2 * c2p <= 512)  # F2
+    return fits and max(_mma_smem(cd, cp, c1p, c2p, c3p).values()) <= SMEM_MAX
+
+
+def _on_tensor_cores(stage: int, backward: bool, cd: int, cp: int, params: dict,
+                     bf16: bool) -> bool:
+    return bf16 and (backward or stage > 1) and mma_takes(cd, cp, *_padded_widths(params))
+
+
+def pass_source(stage: int, backward: bool, cd: int, cp: int, params: dict, bf16: bool) -> str:
+    """The CUDA source whose kernel runs this pass on a card (the routing of
+    ``fused_sa_stage`` and ``fused_sa_bwd_stage``)."""
+    if _on_tensor_cores(stage, backward, cd, cp, params, bf16):
+        return f"csrc/fused_sa_{'b' if backward else 'f'}{stage}.cu"
+    return f"csrc/fused_sa_{'bwd' if backward else 'fwd'}.cu"
+
+
+def _vectors_fwd(params: dict, folds: Folds, c1p: int, c2p: int, c3p: int) -> torch.Tensor:
+    """The tensor-core forward passes' f32 vectors: ``_vectors`` of the folds
+    given so far (the missing ones, the statistics and the terms 0), then b3
+    zero-padded to C3."""
+    zeros = [(torch.zeros_like(params[f"b{i}"]),) * 2 for i in (1, 2)]
+    f = list(folds) + zeros[len(folds):]
+    return torch.cat([_vectors(params, f, zeros, c1p, c2p), _vec(params["b3"], c3p)])
+
+
+def _weight_block(params: dict, cd: int, cp: int):
+    """The bf16 weight block of the tensor-core passes, or None where
+    ``mma_takes`` sends the layer to the CUDA cores."""
+    c1p, c2p, c3p = _padded_widths(params)
+    if not mma_takes(cd, cp, c1p, c2p, c3p):
+        return None
+    return _packed_bf16(params, cd, cp, c1p, c2p, c3p, params["w1"].device)
+
+
+def pack_fwd(dense, planes, nbr_mask, params: dict):
+    """The bf16 weight block that one layer's bf16 forward passes F2 and F3
+    share on the tensor cores (``_packed_bf16``), or None where ``mma_takes``
+    sends the layer to the CUDA cores. Its backward reuses it (``pack_bwd``)."""
+    cd, cp = _widths(dense, planes, nbr_mask, params)
+    return _weight_block(params, cd, cp)
+
+
+def pack_bwd(dense, planes, nbr_mask, params: dict, folds: Folds, stats: Folds, wb=None):
+    """The block the three bf16 backward passes of one layer share on the
+    tensor cores: (the bf16 weight block of ``_packed_bf16``, or ``wb``, the
+    forward's ``pack_fwd`` of the same parameters; the vectors of ``_vectors``
+    with their correction terms 0), or None where ``mma_takes`` sends the
+    layer to the CUDA cores. ``fused_sa_bwd_stage(..., bf16=True,
+    packed=...)`` takes it and adds the terms; without it a tensor-core pass
+    packs for itself."""
     cd, cp = _widths(dense, planes, nbr_mask, params)
     c1p, c2p, c3p = _padded_widths(params)
-    return (_packed_bf16(params, cd, cp, c1p, c2p, c3p, nbr_mask.device),
-            _vectors(params, folds, stats, c1p, c2p))
+    if wb is None:
+        wb = _weight_block(params, cd, cp)
+    return None if wb is None else (wb, _vectors(params, folds, stats, c1p, c2p))
+
+
+def _check_block(x: torch.Tensor, dt, n: int, device) -> None:
+    if x.dtype != dt or x.numel() != n or x.device != device or not x.is_contiguous():
+        raise ValueError(f"fused SA kernel: the packed block holds {x.numel()} {x.dtype} on "
+                         f"{x.device}; this call's widths need {n} contiguous {dt} on {device}")
+
+
+def _weight_block_size(kx: int, c1p: int, c2p: int, c3p: int) -> int:
+    return c1p * (kx + SKEW_H) + c2p * (c1p + SKEW_H) + c2p * (c3p + SKEW_H)
 
 
 def _check_packed(packed, kx: int, c1p: int, c2p: int, c3p: int, device):
     """Refuse a ``pack_bwd`` block made for other widths or another device:
     the kernels copy as many bytes as this call's widths give."""
     wb, w = packed
-    want = ((torch.bfloat16, c1p * (kx + SKEW_H) + c2p * (c1p + SKEW_H) + c2p * (c3p + SKEW_H)),
-            (torch.float32, VECS * (c1p + c2p)))
-    for x, (dt, n) in zip((wb, w), want):
-        if x.dtype != dt or x.numel() != n or x.device != device or not x.is_contiguous():
-            raise ValueError(f"fused_sa_bwd_stage: the packed block holds {x.numel()} "
-                             f"{x.dtype} on {x.device}; this call's widths need {n} "
-                             f"contiguous {dt} on {device}")
+    _check_block(wb, torch.bfloat16, _weight_block_size(kx, c1p, c2p, c3p), device)
+    _check_block(w, torch.float32, VECS * (c1p + c2p), device)
 
 
 def _on_card(name: str, dense, planes, nbr_mask):
@@ -388,16 +495,22 @@ def _on_card(name: str, dense, planes, nbr_mask):
 
 def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
                    nbr_mask: torch.Tensor, params: dict, folds: Folds = (), *,
-                   act: Optional[str] = "ReLU", bf16: bool = False):
+                   act: Optional[str] = "ReLU", bf16: bool = False, packed=None):
     """One pass of kernel 6's forward (see ``fused_sa_stage_plain``): dense
     (B, M, 64, CD) in the compute type or None, planes (B, M, 64, CP) float32 or
     None, nbr_mask (B, M, 64) bool, params {w1 (CD+CP, C1), b1, w2, b2, w3, b3}
-    (the gammas and betas enter through ``folds``).
+    (the gammas and betas enter through ``folds``). ``packed``: this layer's
+    ``pack_fwd`` block (F1 and the CUDA-core passes read none), made here for
+    a tensor-core pass when not given; an f32 pass, a block for a pass on the
+    CUDA cores, or one of other widths or on another device, raises
+    ``ValueError``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float64 raises ``ValueError`` there)."""
+    that ``pass_source`` names (float64 raises ``ValueError`` there)."""
     if stage not in ENTRIES:
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    if packed is not None and not bf16:
+        raise ValueError("fused_sa_stage: the bf16 passes' packed block reached an f32 pass")
     if nbr_mask.device.type == "cpu":
         return fused_sa_stage_plain(stage, dense, planes, nbr_mask, params, folds, act=act,
                                     bf16=bf16)
@@ -411,13 +524,23 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
     ct = torch.bfloat16 if bf16 else torch.float32
     c1, c2, c3 = (params[f"w{i}"].shape[1] for i in (1, 2, 3))
     kp = round_up(cd + cp, 4)
-    c1p, c2p, c3p = (round_up(c, WIDTH_STEP) for c in (c1, c2, c3))
-    w = _packed(params, folds[:stage - 1], kp, c1p, c2p, c3p, ct, dev)
+    c1p, c2p, c3p = _padded_widths(params)
+    wb = None
+    if _on_tensor_cores(stage, False, cd, cp, params, bf16):
+        wb = _weight_block(params, cd, cp) if packed is None else packed
+        _check_block(wb, torch.bfloat16, _weight_block_size(edge_width(cd, cp), c1p, c2p, c3p),
+                     dev)
+        w = _vectors_fwd(params, folds[:stage - 1], c1p, c2p, c3p)
+    elif packed is not None and stage > 1:
+        raise ValueError(f"fused_sa_stage: a tensor-core block reached pass F{stage}, which "
+                         f"runs on the CUDA cores at widths {(c1, c2, c3)}")
+    else:
+        w = _packed(params, folds[:stage - 1], kp, c1p, c2p, c3p, ct, dev)
     dense = None if dense is None else dense.to(ct).contiguous()
     planes = None if planes is None else planes.float().contiguous()
-    nbr_mask = nbr_mask.contiguous()
+    nbr_mask = _build.aligned16(nbr_mask.contiguous())
     _build.check_cuda("fused_sa_stage", nbr_mask, w,
-                      *(x for x in (dense, planes) if x is not None))
+                      *(x for x in (dense, planes, wb) if x is not None))
     partial = sums = out = amax = None
     if stage < 3:
         cw = c1p if stage == 1 else c2p
@@ -427,9 +550,9 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
         out = torch.empty((b, m, c3), dtype=torch.float32, device=dev)
         amax = torch.empty((b, m, c3), dtype=torch.int32, device=dev)
     _build.launch(ENTRIES[stage], _ARGTYPES, _build.ptr(dense), _build.ptr(planes),
-                  nbr_mask.data_ptr(), w.data_ptr(), _build.ptr(partial), _build.ptr(sums),
-                  _build.ptr(out), _build.ptr(amax), b * m, cd, cp, kp, c1p, c2p, c3p, c3,
-                  ACTS[act], int(bf16), MAX_GRID, _build.stream_of(nbr_mask))
+                  nbr_mask.data_ptr(), w.data_ptr(), _build.ptr(wb), _build.ptr(partial),
+                  _build.ptr(sums), _build.ptr(out), _build.ptr(amax), b * m, cd, cp, kp, c1p,
+                  c2p, c3p, c3, ACTS[act], int(bf16), MAX_GRID, _build.stream_of(nbr_mask))
     if stage < 3:
         c = c1 if stage == 1 else c2
         return sums[0, :c], sums[1, :c]
@@ -442,21 +565,35 @@ def _bwd_sizes(stage: int, kp: int, c1p: int, c2p: int, c3p: int):
             3: [kp * c1p, c1p]}[stage]
 
 
+def _bwd_slice_bytes(stage: int, kp: int, c1p: int, c2p: int, c3p: int) -> int:
+    """Bytes of one block's scratch slice that the CUDA-core backward pass
+    needs at these widths on the current card (0: its buffers fit shared
+    memory): ``dlbt_fused_sa_bwd_slice_bytes``, a host function."""
+    fn = _build.library().dlbt_fused_sa_bwd_slice_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    n = fn(stage, kp, c1p, c2p, c3p)
+    if n < 0:
+        raise RuntimeError("dlbt_fused_sa_bwd_slice_bytes: the card could not be queried")
+    return n
+
+
 def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
                        nbr_mask: torch.Tensor, params: dict, folds: Folds, stats: Folds,
                        terms: Folds, g: torch.Tensor, amax: torch.Tensor, *,
                        act: Optional[str] = "ReLU", bf16: bool = False, packed=None):
     """One pass of kernel 6's backward (see ``fused_sa_bwd_stage_plain``; the
     inputs as ``fused_sa_stage`` takes them, and ``g``, ``amax`` (B, M, C3)).
-    ``packed``: the bf16 passes' block of this layer (``pack_bwd`` of the same
-    parameters, folds and statistics), made here when not given; an f32 pass,
-    or a block of other widths or on another device, raises ``ValueError``.
+    ``packed``: the tensor-core passes' block of this layer (``pack_bwd`` of
+    the same parameters, folds and statistics), made here when not given; an
+    f32 pass, a pass that runs on the CUDA cores, or a block of other widths
+    or on another device, raises ``ValueError``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (float64 raises ``ValueError`` there; in bf16, the tensor-core kernels
-    raise ``RuntimeError`` at widths they do not take: C1 other than 64 or 128
-    after padding, and for B1 C2 above 128, for B2 more than 64 16 x 16 tiles of
-    dW2, for B3 more than 72 of dW1)."""
+    that ``pass_source`` names (float64 raises ``ValueError`` there): in bf16
+    the tensor-core kernel where ``mma_takes`` the layer's widths, else, as in
+    f32, the CUDA-core kernel, which keeps the buffers that do not fit shared
+    memory in a scratch buffer on the card."""
     if stage not in BWD_ENTRIES:
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
     if packed is not None and not bf16:
@@ -480,37 +617,44 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
     kp = round_up(cd + cp, 4)
     c1p, c2p, c3p = _padded_widths(params)
     cdp = round_up(cd, WIDTH_STEP)
-    wb = None
-    if bf16:  # the tensor-core kernels: the bf16 weights, the vectors with this pass's terms
+    wb = scratch = None
+    max_grid = MAX_GRID
+    if _on_tensor_cores(stage, True, cd, cp, params, bf16):
+        # the tensor-core kernels: the bf16 weights, the vectors with this pass's terms
         if packed is None:
             packed = pack_bwd(dense, planes, nbr_mask, params, folds, stats)
         _check_packed(packed, edge_width(cd, cp), c1p, c2p, c3p, dev)
         wb, w = packed[0], _with_terms(packed[1], terms[:stage - 1], c1p, c2p)
+    elif packed is not None:
+        raise ValueError(f"fused_sa_bwd_stage: a tensor-core block reached pass B{stage}, which "
+                         f"runs on the CUDA cores at widths {(c1, c2, c3)}")
     else:
         w = _packed_bwd(params, folds, stats, terms[:stage - 1], cd, kp, c1p, c2p, c3p, cdp, ct,
                         dev)
+        slice_bytes = _bwd_slice_bytes(stage, kp, c1p, c2p, c3p)
+        if slice_bytes:  # one slice per block, at most one block per SM
+            max_grid = min(MAX_GRID, torch.cuda.get_device_properties(dev).multi_processor_count)
+            scratch = torch.empty(max_grid * slice_bytes, dtype=torch.uint8, device=dev)
     dense = None if dense is None else dense.to(ct).contiguous()
     planes = None if planes is None else planes.float().contiguous()
     nbr_mask = _build.aligned16(nbr_mask.contiguous())
     g = g.float().contiguous()
     amax = amax.to(torch.int32).contiguous()
     _build.check_cuda("fused_sa_bwd_stage", nbr_mask, w, g, amax,
-                      *(x for x in (dense, planes, wb) if x is not None))
+                      *(x for x in (dense, planes, wb, scratch) if x is not None))
     sizes = _bwd_sizes(stage, kp, c1p, c2p, c3p)
     # the blocks' partial sums: the weight gradient in f32, the rest in f64
-    partial = torch.empty((MAX_GRID, sizes[0]), dtype=torch.float32, device=dev)
-    partial_v = torch.empty((MAX_GRID, sum(sizes[1:])), dtype=torch.float64, device=dev)
+    partial = torch.empty((max_grid, sizes[0]), dtype=torch.float32, device=dev)
+    partial_v = torch.empty((max_grid, sum(sizes[1:])), dtype=torch.float64, device=dev)
     sums = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     d_dense = None
     if stage == 3 and cd:
         d_dense = torch.empty((b, m, K, cd), dtype=ct, device=dev)
     _build.launch(BWD_ENTRIES[stage], _BWD_ARGTYPES, _build.ptr(dense), _build.ptr(planes),
                   nbr_mask.data_ptr(), w.data_ptr(), _build.ptr(wb), g.data_ptr(),
-                  amax.data_ptr(),
-                  partial.data_ptr(), partial_v.data_ptr(), sums.data_ptr(), _build.ptr(d_dense),
-                  b * m, cd, cp, kp,
-                  cdp, c1p, c2p, c3p, c3, ACTS[act], int(bf16), MAX_GRID,
-                  _build.stream_of(nbr_mask))
+                  amax.data_ptr(), partial.data_ptr(), partial_v.data_ptr(), sums.data_ptr(),
+                  _build.ptr(d_dense), _build.ptr(scratch), b * m, cd, cp, kp, cdp, c1p, c2p,
+                  c3p, c3, ACTS[act], int(bf16), max_grid, _build.stream_of(nbr_mask))
     parts = sums.split(sizes)
     if stage == 1:
         return parts[0].view(c2p, c3p)[:c2, :c3], parts[1][:c3], parts[2][:c2], parts[3][:c2]
@@ -529,39 +673,44 @@ def _fold(gamma, beta, mean, var):
     return scale, beta - mean * scale
 
 
-def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train):
+def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train, pack=False):
     """F1 -> F2 -> F3 (train) or F3 alone on the running statistics (eval) ->
     (out, [mean1, var1, mean2, var2], argmax, what the backward needs:
-    (folds, [(mean1, inv1), (mean2, inv2)], cnt))."""
+    (folds, [(mean1, inv1), (mean2, inv2)], cnt, the weight block)); with
+    ``pack`` (the kernels' passes in bf16 on the card) the passes share one
+    ``pack_fwd`` block, which the backward reuses."""
     if not train and running is None:
         raise ValueError("eval mode (train=False) needs the running statistics")
     ft, _ = _types(dense, planes, bf16)
     if ft == torch.float64:
         params = {k: v.to(ft) for k, v in params.items()}
+    wb = pack_fwd(dense, planes, nbr_mask, params) if pack else None
+    kw = dict(act=act, bf16=bf16, packed=wb)
     cnt = torch.clamp_min(nbr_mask.sum().to(ft), 1.0)
     folds, stats, norms = [], [], []
     for layer in (1, 2):
         if train:
-            mean, var = _stats(*stage_fn(layer, dense, planes, nbr_mask, params, folds, act=act,
-                                         bf16=bf16), cnt)
+            mean, var = _stats(*stage_fn(layer, dense, planes, nbr_mask, params, folds, **kw),
+                               cnt)
         else:
             mean, var = (r.to(ft) for r in running[2 * layer - 2:2 * layer])
         folds.append(_fold(params[f"gamma{layer}"], params[f"beta{layer}"], mean, var))
         norms.append((mean, torch.rsqrt(var + EPS)))
         stats += [mean, var]
-    out, amax = stage_fn(3, dense, planes, nbr_mask, params, folds, act=act, bf16=bf16)
-    return out, stats, amax, (folds, norms, cnt)
+    out, amax = stage_fn(3, dense, planes, nbr_mask, params, folds, **kw)
+    return out, stats, amax, (folds, norms, cnt, wb)
 
 
 def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf16, train,
               pack=False):
     """B1 -> B2 -> B3 with the correction terms between them -> (d(dense) or
     None, {parameter name: gradient}); with ``pack`` (the kernels' passes in
-    bf16 on the card) the three passes share one ``pack_bwd`` block."""
-    folds, norms, cnt = state
+    bf16 on the card) the three passes share one ``pack_bwd`` block, on the
+    forward's weight block where it made one."""
+    folds, norms, cnt, wb = state
     kw = dict(act=act, bf16=bf16)
     if pack:
-        kw["packed"] = pack_bwd(dense, planes, nbr_mask, params, folds, norms)
+        kw["packed"] = pack_bwd(dense, planes, nbr_mask, params, folds, norms, wb)
     args = (dense, planes, nbr_mask, params, folds, norms)
     dw3, db3, sdb2, sdb2x = stage_fn(1, *args, [], g, amax, **kw)
     terms = [(sdb2 / cnt, sdb2x / cnt) if train else
@@ -574,6 +723,11 @@ def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf
                          gamma2=sdb2x, beta2=sdb2, w3=dw3, b3=db3)
 
 
+def _packs(plain: bool, bf16: bool, nbr_mask: torch.Tensor) -> bool:
+    """Whether a layer's passes share packed blocks: the kernels' in bf16."""
+    return bf16 and not plain and nbr_mask.is_cuda
+
+
 class _FusedSAMLP(torch.autograd.Function):
     """The forward passes, and the backward passes as the gradient. The
     statistics and the argmax are outputs without a gradient; the forward
@@ -584,7 +738,7 @@ class _FusedSAMLP(torch.autograd.Function):
         params = dict(zip(PARAMS, values))
         stage_fn = fused_sa_stage_plain if plain else fused_sa_stage
         out, stats, amax, state = _forward(stage_fn, dense, planes, nbr_mask, params, running,
-                                           act, bf16, train)
+                                           act, bf16, train, pack=_packs(plain, bf16, nbr_mask))
         if not train:  # the running statistics, as new tensors
             stats = [s.clone() for s in stats]
         ctx.save_for_backward(dense, planes, nbr_mask, amax, *values)
@@ -601,8 +755,7 @@ class _FusedSAMLP(torch.autograd.Function):
         params = {k: v.to(ft) for k, v in zip(PARAMS, values)}
         stage_fn = fused_sa_bwd_stage_plain if plain else fused_sa_bwd_stage
         d_dense, grads = _backward(stage_fn, dense, planes, nbr_mask, params, ctx.state, g_out,
-                                   amax, act, bf16, train,
-                                   pack=bf16 and not plain and nbr_mask.is_cuda)
+                                   amax, act, bf16, train, pack=_packs(plain, bf16, nbr_mask))
         need = ctx.needs_input_grad
         d_dense = d_dense.to(dense.dtype) if need[1] and d_dense is not None else None
         return (None, d_dense, None, None, None, None, None, None,
@@ -620,7 +773,7 @@ def _mlp(plain, dense, planes, nbr_mask, params, running, act, bf16, train, retu
         with torch.no_grad():
             out, stats, amax, _ = _forward(fused_sa_stage_plain if plain else fused_sa_stage,
                                            dense, planes, nbr_mask, params, running, act, bf16,
-                                           train)
+                                           train, pack=_packs(plain, bf16, nbr_mask))
         return out, tuple(stats), amax
     out, amax, *stats = _FusedSAMLP.apply(plain, dense, planes, nbr_mask, running, act, bf16,
                                           train, *(params[k] for k in PARAMS))

@@ -314,18 +314,154 @@ def test_fused_sa_bwd_kernel_matches_plain(dev, b, m, cd, cp, widths, empty_ever
 
 @pytest.mark.parametrize("stage", [1, 2, 3])
 def test_fused_sa_bwd_bf16_refuses_widths_its_kernels_do_not_take(dev, stage):
-    """At C1 = 192 no bf16 pass has a tensor-core kernel: each raises and
-    launches nothing, where the f32 pass runs its CUDA-core kernel."""
-    args = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (192, 64, 64), True)
+    """At C1 = 192 no bf16 pass has a tensor-core kernel (``mma_takes`` says
+    so before any launch): each bf16 pass runs the CUDA-core kernel instead,
+    within 1e-2 of the plain version, its launch counted, as the f32 pass
+    does within 1e-5; a tensor-core block handed to it raises and launches
+    nothing."""
+    for bf16, tol in ((True, 1e-2), (False, 1e-5)):
+        args = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (192, 64, 64), bf16)
+        assert not sa_train_kernel.mma_takes(0, 4, 192, 64, 64)
+        assert sa_train_kernel.pass_source(stage, True, 0, 4, args[3], bf16) == \
+            "csrc/fused_sa_bwd.cu"
+        assert sa_train_kernel.pack_bwd(*args[:6]) is None
+        _build.launch_counts.clear()
+        got = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16)
+        want = sa_train_kernel.fused_sa_bwd_stage_plain(stage, *args, bf16=bf16)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {f"dlbt_fused_sa_b{stage}": 1}
+        for x, z in zip(got, want):
+            if z is not None:
+                assert float((x.float() - z.float()).abs().max()) <= \
+                    tol * float(z.float().abs().max())
+    block = sa_train_kernel._packed_bf16(args[3], 0, 4, 192, 64, 64, dev)
     _build.launch_counts.clear()
-    with pytest.raises(RuntimeError, match=f"dlbt_fused_sa_b{stage}"):
-        sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=True)
+    with pytest.raises(ValueError, match="tensor-core block"):
+        sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=True,
+                                           packed=(block, torch.zeros(7 * 256, device=dev)))
     assert not _build.launch_counts
-    f32 = _fused_sa_bwd_case(dev, 2, 20, 0, 4, (192, 64, 64), False)
-    got = sa_train_kernel.fused_sa_bwd_stage(stage, *f32, bf16=False)
-    torch.cuda.synchronize()
-    assert dict(_build.launch_counts) == {f"dlbt_fused_sa_b{stage}": 1}
-    assert all(x is None or bool(torch.isfinite(x.float()).all()) for x in got)
+
+
+def _planted_ties(dense, planes, mask, every=5):
+    """Empty every ``every``-th centroid; in the others copy slot 1's inputs
+    into slot 40 (both valid), so that the two tie in every column: the
+    later slot may never win. Returns the pairs' centroid mask."""
+    mask[:, ::every] = False
+    tied = mask.any(-1)
+    mask[..., 1] = mask[..., 40] = tied
+    for x in (dense, planes):
+        if x is not None:
+            x[..., 40, :] = x[..., 1, :]
+            x *= mask[..., None]
+    return tied
+
+
+@pytest.mark.parametrize("b,m,cd,cp,widths", [
+    (2, 301, 0, 4, (64, 64, 128)),  # SA1's widths, odd M
+    (3, 129, 128, 3, (128, 128, 256)),  # SA2's
+    (2, 45, 0, 4, (128, 128, 256)),  # SA1 at neuron_multiplier 2
+], ids=["sa1", "sa2", "sa1-x2"])
+def test_fused_sa_forward_tensor_cores_match_plain(dev, b, m, cd, cp, widths):
+    """bf16 F2 and F3 on the tensor cores (``csrc/fused_sa_f2.cu``,
+    ``_f3.cu``; ``mma_takes`` these widths): F2's statistics and F3's output
+    within 1e-2 of the plain version's max|y|, F3's argmax equal wherever the
+    winner leads by more, 0 and -1 at every centroid without a valid slot, a
+    planted tie won by the first slot, and two launches bit-identical, on one
+    ``pack_fwd`` block and on one each pass packs for itself."""
+    dense, planes, mask, params, folds = _fused_sa_case(dev, b, m, cd, cp, widths, True)
+    tied = _planted_ties(dense, planes, mask)
+    empty = ~mask.any(-1)
+    assert sa_train_kernel.mma_takes(cd, cp, *widths)
+    wb = sa_train_kernel.pack_fwd(dense, planes, mask, params)
+    assert wb is not None and wb.dtype == torch.bfloat16
+    for stage in (2, 3):
+        assert sa_train_kernel.pass_source(stage, False, cd, cp, params, True) == \
+            f"csrc/fused_sa_f{stage}.cu"
+        args = (stage, dense, planes, mask, params, folds)
+        _build.launch_counts.clear()
+        got = sa_train_kernel.fused_sa_stage(*args, bf16=True, packed=wb)
+        again = sa_train_kernel.fused_sa_stage(*args, bf16=True)
+        want = sa_train_kernel.fused_sa_stage_plain(*args, bf16=True)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {f"dlbt_fused_sa_f{stage}": 2}
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        scale = float(want[0].abs().max())
+        assert float((got[0] - want[0]).abs().max()) <= 1e-2 * scale
+        if stage == 2:
+            assert float((got[1] - want[1]).abs().max()) <= 1e-2 * float(want[1].abs().max())
+            continue
+        out, am = got
+        assert bool((out[empty] == 0).all()) and bool((am[empty] == -1).all())
+        assert bool((am[~empty] >= 0).all())
+        assert not bool((am[tied] == 40).any()) and not bool((want[1][tied] == 40).any())
+        h3 = sa_train_kernel.hidden_plain(3, *args[1:], bf16=True).view(b, m, 64, -1)
+        top2 = torch.where(mask[..., None], h3, float("-inf")).topk(3, dim=2).values
+        # the planted pair fills the top two where slot 1 wins: compare with the third
+        second = torch.where(top2[:, :, 0] == top2[:, :, 1], top2[:, :, 2], top2[:, :, 1])
+        lead = (top2[:, :, 0] - second) > 1e-2 * scale
+        assert int(lead.sum()) > 0 and torch.equal(am[lead], want[1][lead])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,m,cd,cp,widths", [
+    (2, 20, 0, 4, (192, 192, 384)),  # SA1 at neuron_multiplier 3 (C1 = 192)
+    (2, 21, 256, 3, (256, 256, 512)),  # SA2 at neuron_multiplier 2
+    (1, 13, 384, 3, (384, 384, 768)),  # SA2 at neuron_multiplier 3
+], ids=["sa1-x3", "sa2-x2", "sa2-x3"])
+def test_fused_sa_passes_beyond_the_tensor_cores_match_plain(dev, b, m, cd, cp, widths, bf16):
+    """Every pass at widths the tensor-core kernels do not take runs the
+    CUDA-core kernel (``pass_source`` and the launch counts say which), in
+    bf16 and f32, within 1e-2 (bf16) or 1e-5 (f32) of the plain version, F3's
+    zero rows and d(dense)'s zero rows at the centroid without a valid slot,
+    and two launches bit-identical. At SA2's widths B2 and B3 keep buffers in
+    the scratch buffer (``_bwd_slice_bytes`` > 0); F3 at neuron_multiplier 3
+    takes the widest forward layout. ELU in both types: at these widths some
+    of the 10^5 hidden ReLU inputs lie within rounding of 0, where the kernel's
+    and the plain version's sums fall on either side and move a whole term of
+    d(dense) (with ReLU at SA2 x2 and x3 of the model, 2.9e-2 and 3.0e-2 of its
+    max on an H100; with ELU 2.1e-3: chip_compare.py acts)."""
+    act = "ELU"
+    tol = 1e-2 if bf16 else 1e-5
+    args = _fused_sa_bwd_case(dev, b, m, cd, cp, widths, bf16)
+    dense, planes, mask, params, folds = args[:5]
+    assert not sa_train_kernel.mma_takes(cd, cp, *widths)
+    assert sa_train_kernel.pack_fwd(dense, planes, mask, params) is None
+    if cd:
+        kp = -(-(cd + cp) // 4) * 4
+        assert all(sa_train_kernel._bwd_slice_bytes(s, kp, *widths) > 0 for s in (2, 3))
+    for stage in (1, 2, 3):
+        assert sa_train_kernel.pass_source(stage, False, cd, cp, params, bf16) == \
+            "csrc/fused_sa_fwd.cu"
+        fargs = (stage, dense, planes, mask, params, folds)
+        _build.launch_counts.clear()
+        got = sa_train_kernel.fused_sa_stage(*fargs, bf16=bf16, act=act)
+        again = sa_train_kernel.fused_sa_stage(*fargs, bf16=bf16, act=act)
+        want = sa_train_kernel.fused_sa_stage_plain(*fargs, bf16=bf16, act=act)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {f"dlbt_fused_sa_f{stage}": 2}
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        for x, z in zip(got, want) if stage < 3 else zip(got[:1], want[:1]):
+            assert float((x - z).abs().max()) <= tol * float(z.abs().max()), (stage, "fwd")
+        if stage == 3:
+            assert bool((got[0][0, 3] == 0).all()) and bool((got[1][0, 3] == -1).all())
+    for stage in (1, 2, 3):
+        assert sa_train_kernel.pass_source(stage, True, cd, cp, params, bf16) == \
+            "csrc/fused_sa_bwd.cu"
+        _build.launch_counts.clear()
+        got = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16, act=act)
+        again = sa_train_kernel.fused_sa_bwd_stage(stage, *args, bf16=bf16, act=act)
+        want = sa_train_kernel.fused_sa_bwd_stage_plain(stage, *args, bf16=bf16, act=act)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {f"dlbt_fused_sa_b{stage}": 2}
+        for x, y, z in zip(got, again, want):
+            if z is None:
+                continue
+            assert torch.equal(x, y)
+            err = float((x.float() - z.float()).abs().max())
+            assert err <= tol * float(z.float().abs().max()), (stage, err)
+        if stage == 3 and cd:
+            assert got[2].dtype == (torch.bfloat16 if bf16 else torch.float32)
+            assert bool((got[2][0, 3] == 0).all())
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3])

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port that hold for every file of it.
 
-- No module of ``dl_biomass_tpu_torch``, and not ``chip_smoke.py``, imports
+- No module of ``dl_biomass_tpu_torch``, and neither ``chip_smoke.py`` nor
+  ``chip_compare.py``, imports
   jax, flax or the JAX package (``dl_biomass_tpu`` or its submodules; note
   that ``dl_biomass_tpu_torch`` itself starts with that name).
 - Importing the port leaves jax out of ``sys.modules``.
@@ -22,7 +23,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "dl_biomass_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dl_biomass_tpu")
 
 
@@ -94,6 +95,8 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("fused_sa_b1.cu", "pallas_sa_train.py fused_sa_mlp, its backward's first pass"),
     ("fused_sa_b2.cu", "pallas_sa_train.py fused_sa_mlp, its backward's second pass"),
     ("fused_sa_b3.cu", "pallas_sa_train.py fused_sa_mlp, its backward's last pass"),
+    ("fused_sa_f2.cu", "pallas_sa_train.py fused_sa_mlp, its forward's second pass"),
+    ("fused_sa_f3.cu", "pallas_sa_train.py fused_sa_mlp, its forward's last pass"),
     ("fused_tail.cu", "pallas_tail.py fused_tail"),
     ("masked_stats.cu", "tools/bn_stats_bench.py stats_pallas"),
     ("block_copy.cu", "tools/dma_probe.py pallas_bandwidth"),
