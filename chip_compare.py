@@ -4,9 +4,14 @@
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
                                           # F1-F3 (bf16 and f32) at the inputs of one
-                                          # 16 x 10240 train-mode forward, the f32
-                                          # backward passes (ELU) at one step's, and
-                                          # the fused_sa step's ms at B=16 and 36
+                                          # 16 x 10240 train-mode forward and the bf16
+                                          # passes as the tree routes them, the f32
+                                          # backward passes (ELU) at one step's, kernel
+                                          # 5 at one fused_eval forward's (wrapper,
+                                          # kernel alone, and where the tree has them
+                                          # its occupancy and selection-only time), that
+                                          # engine's ms per batch, and the fused_sa
+                                          # step's ms at B=16 and 36
     python3 chip_compare.py outputs FILE  # the f32 passes' outputs at the inputs of
                                           # one f32 step (B=4 x 10240), saved
     python3 chip_compare.py same A B      # two such files, bit for bit
@@ -75,6 +80,12 @@ def time_passes(tag: str) -> None:
                 ms = cs.time_ms(lambda: k6.fused_sa_stage(stage, *a, **kwb), reps=20, warmup=3)
                 out.append(f"F{stage} {'SA1' if i < 3 else 'SA2'} {'bf16' if bf16 else 'f32'} "
                            f"{ms:.4f}")
+    for i, ((stage, *args), kw) in enumerate(calls):  # bf16 as routed, the forward's block
+        source = (k6.pass_source(stage, False, 0 if args[0] is None else args[0].shape[-1],
+                                 args[1].shape[-1], args[3], True)
+                  if hasattr(k6, "pass_source") else "csrc/fused_sa_fwd.cu")
+        ms = cs.time_ms(lambda: k6.fused_sa_stage(stage, *args, **kw), reps=20, warmup=3)
+        out.append(f"F{stage} {'SA1' if i < 3 else 'SA2'} bf16 routed ({source}) {ms:.4f}")
     trainer = Trainer(cs.seeded_model(dev, fused_sa=True), TrainConfig(), dev)
     bwd = cs.record_kernel_inputs(lambda b: trainer.step(b, cs.train_gen(dev, 0)),
                                   batch)["fused_sa_bwd_stage"]
@@ -84,6 +95,7 @@ def time_passes(tag: str) -> None:
         ms = cs.time_ms(lambda: k6.fused_sa_bwd_stage(stage, dense, *args, **kw), reps=20,
                         warmup=3)
         out.append(f"B{stage} {'SA2' if i < 3 else 'SA1'} f32 {ms:.4f}")
+    out += kernel5(cs, dev)
     for b in (16, 36):
         steps_batch = cs.synthetic_batch(b, 10240, seed=20, device=dev)
         gen = cs.train_gen(dev, 5)
@@ -95,6 +107,36 @@ def time_passes(tag: str) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         out.append(f"step B={b} {statistics.median(times[2:]):.3f}")
     print(f"{tag} [{cs.card_line()}]: " + " | ".join(out), flush=True)
+
+
+def kernel5(cs, dev) -> list:
+    """Kernel 5 at the inputs one fused_eval forward at 16 x 10240 gives it: the
+    wrapper as the engine calls it (CUDA events, median of 20), the kernel alone
+    (torch.profiler), and where the tree has them the wrapper packing for
+    itself, the occupancy and the selection-only instantiation; then the
+    engine's ms per batch (host clock, median of 10)."""
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import sa_eval_kernel as k5
+
+    serve = compile_inference(cs.seeded_model(dev), dev, fused_eval=True)
+    req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
+    (args, kw), = cs.record_kernel_inputs(serve, req)["sa1_fused_eval"]
+    out = [f"K5 {cs.time_ms(lambda: k5.sa1_fused_eval(*args, **kw), reps=20):.4f}",
+           f"K5 alone {cs.kernel_alone_ms(lambda: k5.sa1_fused_eval(*args, **kw), 'sa1_'):.4f}"]
+    if "packed" in kw:
+        unpacked = {k: v for k, v in kw.items() if k != "packed"}
+        out.append(f"K5 packing per call "
+                   f"{cs.time_ms(lambda: k5.sa1_fused_eval(*args, **unpacked), reps=20):.4f}")
+    if hasattr(k5, "occupancy"):
+        widths = [w.shape[1] for w in args[5][0::2]]
+        occ = k5.occupancy(kw["bf16"], *(-(-w // 64) * 64 for w in widths))
+        out.append(f"K5 occupancy {occ}")
+    if hasattr(k5, "selection_only"):
+        sel = {k: v for k, v in kw.items() if k != "out_dtype"}
+        out.append(f"K5 selection only "
+                   f"{cs.time_ms(lambda: k5.selection_only(*args, **sel), reps=20):.4f}")
+    out.append(f"serve_fused_eval B=16 {cs.serve_timing(serve, req):.3f}")
+    return out
 
 
 def save_outputs(path: str) -> None:

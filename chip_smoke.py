@@ -24,15 +24,21 @@ Phases, each of which raises on failure (exit code 1):
              the fused SA1 layer (``fused_eval=True``) at the inputs one
              16 x 10240 forward of their configuration gives them: 4c
              bit-identical to its plain version, 5 within 1e-2 of max|y| (bf16;
-             1e-5 in a small f32 case) with identical zero rows; timed beside
-             their bounds, plain versions and yardsticks (two ``values[b, idx]``
-             ops; the default engine's unfused SA1 segment).
+             1e-5 in a small f32 case) with identical zero rows, on the
+             engine's packed block bit-identical to a repeat and to the
+             wrapper packing for itself; timed beside their bounds, plain
+             versions and yardsticks (two ``values[b, idx]`` ops; the default
+             engine's unfused SA1 segment), 5 also by its kernel alone
+             (``torch.profiler``), packing per call, and its selection and
+             capture alone, with its blocks per SM.
 5. serve_fused_eval and serve_unsplit — the same requests through
              ``compile_inference(fused_eval=True)`` and through the engine of
              the same weights with ``split_first_layer=False``: launches per
              forward, repeat and pad invariance, agreement with the
              plain-version forward, the unfolded module and (fused_eval) the
-             default engine, and ms per batch beside the default engine's.
+             default engine, a profile (fused_eval: its launches per forward
+             and the device's idle share), and ms per batch beside the default
+             engine's.
 6. kernel 4b — the scatter-add backward of the gather at the inputs one
              training step at 16 x 10240 gives it, held bit for bit against
              its plain version and timed (median of 100 launches) beside its
@@ -53,10 +59,11 @@ Phases, each of which raises on failure (exit code 1):
 10. kernel 6 — the three passes of the fused SA MLP (F1, F2, F3) at the
              inputs one train-mode and one eval forward of the ``fused_sa``
              model at 16 x 10240 give them, SA1 and SA2, in bf16 and in f32
-             (in bf16 F2 and F3 on the tensor cores, ``csrc/fused_sa_f2.cu``,
-             ``_f3.cu``, on one ``pack_fwd`` block per layer, also timed alone
-             and beside the CUDA-core kernel of ``csrc/fused_sa_fwd.cu`` on the
-             same inputs): statistics and outputs against the plain version
+             (in bf16 F1, F2 and F3 on the tensor cores, ``csrc/fused_sa_f1.cu``,
+             ``_f2.cu``, ``_f3.cu``, on one ``pack_fwd`` block per layer, also
+             timed alone and beside the CUDA-core kernel of
+             ``csrc/fused_sa_fwd.cu`` on the same inputs): statistics and
+             outputs against the plain version
              (1e-2 of max|y| in bf16, 1e-5 in f32), the argmax equal wherever
              the winner leads by more, zero rows identical, two launches
              bit-identical; timed beside their bounds, plain versions and the
@@ -643,9 +650,15 @@ def check_sa1_fused_eval(calls, device):
     centers, cmask, pos, mask, feat, weights = args
     radius, bf16, out_dtype = kwargs["radius"], kwargs["bf16"], kwargs["out_dtype"]
     require(bf16 and out_dtype == torch.bfloat16, "the production path runs kernel 5 in bf16")
+    require(kwargs.get("packed") is not None, "the fused_eval engine passed kernel 5 no block")
+    unpacked = {k: v for k, v in kwargs.items() if k != "packed"}  # the wrapper packs
     got = sa_eval_kernel.sa1_fused_eval(*args, **kwargs)
+    again = sa_eval_kernel.sa1_fused_eval(*args, **kwargs)
+    alone = sa_eval_kernel.sa1_fused_eval(*args, **unpacked)
     want = sa_eval_kernel.sa1_fused_eval_plain(*args, **kwargs)
     torch.cuda.synchronize()
+    require(same_bits(got, again) and same_bits(got, alone),
+            "sa1_fused_eval: a repeat, or the wrapper packing for itself, changed bits")
     rel = rel_diff(got, want)
     require(rel <= BF16_SERVE_RTOL, f"sa1_fused_eval vs plain: rel {rel} > {BF16_SERVE_RTOL}")
     zero_got, zero_want = (got == 0).all(-1), (want == 0).all(-1)
@@ -672,6 +685,11 @@ def check_sa1_fused_eval(calls, device):
     require(rel_unfused <= BF16_SERVE_RTOL,
             f"sa1_fused_eval vs the unfused segment: rel {rel_unfused} > {BF16_SERVE_RTOL}")
     t = time_ms(lambda: sa_eval_kernel.sa1_fused_eval(*args, **kwargs))
+    t_self = time_ms(lambda: sa_eval_kernel.sa1_fused_eval(*args, **unpacked))
+    t_alone = kernel_alone_ms(lambda: sa_eval_kernel.sa1_fused_eval(*args, **kwargs),
+                              "sa1_eval_mma_kernel")
+    sel_kw = {k: v for k, v in kwargs.items() if k != "out_dtype"}
+    t_sel = time_ms(lambda: sa_eval_kernel.selection_only(*args, **sel_kw))
     tp = time_ms(lambda: sa_eval_kernel.sa1_fused_eval_plain(*args, **kwargs), reps=5, warmup=1)
     tu = time_ms(unfused)
 
@@ -689,18 +707,26 @@ def check_sa1_fused_eval(calls, device):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
     floor = (mlp_flops + tests * DIST_TEST_FLOPS) / PEAK_F32_FLOP_PER_S * 1e3
-    print(f"kernel sa1_fused_eval B={b} M={m} N={n} F={f} widths {h1},{h2},{c} bf16: {t:.4f} ms, "
+    occ = sa_eval_kernel.occupancy(True, *(-(-w // 64) * 64 for w in (h1, h2, c)))
+    print(f"kernel sa1_fused_eval B={b} M={m} N={n} F={f} widths {h1},{h2},{c} bf16: {t:.4f} ms "
+          f"on the engine's packed block (packing per call {t_self:.4f} ms), the kernel alone "
+          f"{t_alone:.4f} ms, its selection and capture alone {t_sel:.4f} ms; "
+          f"{occ['blocks_per_sm']} block(s) of {occ['threads']} threads per SM, "
+          f"{occ['smem_bytes']} bytes of shared memory each; "
           f"plain {tp:.4f} ms, yardstick (default engine's unfused SA1 segment: ball_group, "
           f"3 folded layers, masked_max) {tu:.4f} ms, bound {bms:.6f} ms ({by}: {edges} valid "
           f"edges x {mlp_flops // max(edges, 1)} flop on the bf16 tensor cores, {tests} distance "
           f"tests), CUDA-core f32 floor {floor:.4f} ms; vs plain max|diff|/max|y| {rel:.3e} "
           f"(bound {BF16_SERVE_RTOL}), f32 case {rel32:.3e} (bound {SA1_F32_RTOL}), vs unfused "
           f"segment {rel_unfused:.3e}; zero rows identical "
-          f"({int(zero_want.sum())} of {zero_want.numel()})", flush=True)
+          f"({int(zero_want.sum())} of {zero_want.numel()}); a repeat and the wrapper packing "
+          f"for itself bit-identical", flush=True)
     return dict(name="sa1_fused_eval", source="dl_biomass_tpu_torch/csrc/sa1_fused_eval.cu",
                 replaces="dl_biomass_tpu/ops/pallas_sa_eval.py:176", entry="dlbt_sa1_fused_eval",
                 max_abs_err=max_abs_err(got, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
-                library_ms=None, yardstick_ms=tu)
+                library_ms=None, yardstick_ms=tu, packing_per_call_ms=t_self,
+                kernel_alone_ms=t_alone, selection_only_ms=t_sel,
+                blocks_per_sm=occ["blocks_per_sm"], threads_per_block=occ["threads"])
 
 
 def check_scatter(calls, device):
@@ -839,17 +865,20 @@ def sum_slices_graph_ms(slices: torch.Tensor):
             graph_ms(lambda: torch.sum(slices, 0, dtype=torch.float64)))
 
 
-def print_profile(what: str, fn, calls: int, n_kernels: int = 10, n_ops: int = 12) -> None:
+def print_profile(what: str, fn, calls: int, n_kernels: int = 10, n_ops: int = 12):
+    """Prints the profile of ``fn``; returns (device ms, wall ms) per call, or
+    None where the profiler recorded no device time."""
     wall, busy, by_kernel, by_op = profile_calls(fn, calls)
     if busy <= 0:
         print(f"profile {what}: the profiler recorded no device time (not measured)", flush=True)
-        return
+        return None
     print(f"profile {what}: {busy:.3f} ms of device time in {wall:.3f} ms per call under the "
           f"profiler (device idle {1 - busy / wall:.1%})", flush=True)
     for title, table in (("by kernel", by_kernel[:n_kernels]), ("by operator", by_op[:n_ops])):
         print(f"profile {what} {title}:", flush=True)
         for name, ms, count in table:
             print(f"  {ms:8.4f} ms {ms / busy:6.1%} x{count:<3d} {name[:100]}", flush=True)
+    return busy, wall
 
 
 def main() -> int:
@@ -1049,7 +1078,11 @@ def serve_configs(device, card: str, ctx: dict, launches: dict) -> list:
                     f"fused_eval vs the default engine: rel {rel} > {FUSED_VS_DEFAULT_RTOL}")
             print(f"serve_fused_eval vs the default engine: max|diff|/max|y| = {rel:.3e} "
                   f"(bound {FUSED_VS_DEFAULT_RTOL})", flush=True)
-        print_profile(f"{path} B={SMALL}", lambda: fn(requests[0]), calls=3)
+        prof = print_profile(f"{path} B={SMALL}", lambda: fn(requests[0]), calls=3)
+        if path == "serve_fused_eval":
+            idle = "not measured" if prof is None else f"{1 - prof[0] / prof[1]:.1%}"
+            print(f"serve_fused_eval: {sum(launches[path].values()) / len(requests):g} kernel "
+                  f"launches per forward; B={SMALL} device idle {idle} [{card}]", flush=True)
     for i in MAIN_REQUESTS:  # the three engines in turns, one request at a time
         req = requests[i]
         b, n = req.pos.shape[:2]

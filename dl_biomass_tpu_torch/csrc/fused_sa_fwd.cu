@@ -17,10 +17,10 @@
 // Bound on the H100: operations. Per edge row 2 (KP C1) flop for F1,
 // 2 (KP C1 + C1 C2) for F2 and 2 (KP C1 + C1 C2 + C2 C3) for F3 (25,088 at SA1's
 // 4, 64, 64, 128; 131,840 at SA2's 131, 128, 128, 256), at best on the bf16 tensor
-// cores; this file's kernel runs them as f32 FMAs on the CUDA cores (67 TFLOP/s): F1,
-// every f32 pass, and F2 and F3 in bf16 at the widths the tensor-core kernels
-// (csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu, which the same entries launch) do not
-// take, such as SA2 at neuron_multiplier 2 and both layers at 3. The
+// cores; this file's kernel runs them as f32 FMAs on the CUDA cores (67 TFLOP/s):
+// every f32 pass, and the bf16 passes at the widths the tensor-core kernels
+// (csrc/fused_sa_f1.cu, _f2.cu, _f3.cu, which the same entries launch) do not take,
+// such as SA2 at neuron_multiplier 2 and both layers at 3. The
 // inputs are read once per pass (SA2's bf16 dense block: 134 MB at 16 x 10240), the
 // outputs are (B, M, C3) values and indices.
 //
@@ -46,13 +46,15 @@
 
 #include "fused_sa_tile.cuh"
 
-// csrc/fused_sa_f2.cu, _f3.cu: F2 and F3 in bf16 on the tensor cores, each kernel alone
-// (*grid: the slices of partial F2 wrote); wb is their bf16 weight block.
+// csrc/fused_sa_f1.cu, _f2.cu, _f3.cu: F1, F2 and F3 in bf16 on the tensor cores, each
+// kernel alone (*grid: the slices of partial F1 or F2 wrote); wb is their bf16 weight
+// block.
 #define DLBT_MMA_PASS(name)                                                                  \
   extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \
                       const void* wb, void* partial, void* out, void* amax, int centroids,   \
                       int cd, int cp, int c1, int c2, int c3, int c_out, int act,            \
                       int max_grid, void* stream, int* grid);
+DLBT_MMA_PASS(dlbt_fused_sa_f1_mma)
 DLBT_MMA_PASS(dlbt_fused_sa_f2_mma)
 DLBT_MMA_PASS(dlbt_fused_sa_f3_mma)
 #undef DLBT_MMA_PASS
@@ -316,14 +318,16 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
                  int act, int bf16, int max_grid, void* stream) {
   if (centroids < 0 || cd < 0 || cp < 0 || cd + cp < 1 || kp < cd + cp || kp % 4 || c1 <= 0 ||
       c2 <= 0 || c3 <= 0 || c1 % 64 || c2 % 64 || c3 % 64 || c_out > c3 || act < kNone ||
-      act > kElu || max_grid < 1 || (wb != nullptr && (!bf16 || kStage == 1))) {
+      act > kElu || max_grid < 1 || (wb != nullptr && !bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int grid = 0;
   cudaError_t e;
-  if (wb != nullptr) {  // F2 and F3 in bf16 on the tensor cores
-    const auto mma = kStage == 2 ? dlbt_fused_sa_f2_mma : dlbt_fused_sa_f3_mma;
+  if (wb != nullptr) {  // bf16 on the tensor cores
+    const auto mma = kStage == 1   ? dlbt_fused_sa_f1_mma
+                     : kStage == 2 ? dlbt_fused_sa_f2_mma
+                                   : dlbt_fused_sa_f3_mma;
     e = static_cast<cudaError_t>(mma(dense, planes, mask, w, wb, partial, out, amax, centroids,
                                      cd, cp, c1, c2, c3, c_out, act, max_grid, stream, &grid));
   } else {
@@ -347,9 +351,9 @@ int launch_stage(const void* dense, const void* planes, const void* mask, const 
 // 2 LeakyReLU (0.01), 3 ELU. F1 and F2 write sums (2, C): the column sums of h1 (of
 // h2) over the valid slots, then the sums of squares; partial is their scratch,
 // (max_grid, 2, C) f64. F3 writes out (B, M, c_out) f32 and amax (B, M, c_out) int32.
-// wb: null, or for F2 and F3 in bf16 the bf16 weight block that sends the pass to its
-// tensor-core kernel (csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu; the wrapper's routing
-// rule, sa_train_kernel.mma_takes, decides from the widths), w then being the
+// wb: null, or in bf16 the bf16 weight block that sends the pass to its tensor-core
+// kernel (csrc/fused_sa_f1.cu, csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu; the wrapper's
+// routing rule, sa_train_kernel.mma_takes, decides from the widths), w then being the
 // forward's per-column vectors of that kernel and mask 16-byte aligned.
 #define DLBT_FWD_ENTRY(name, stage)                                                         \
   extern "C" int name(const void* dense, const void* planes, const void* mask, const void* w, \

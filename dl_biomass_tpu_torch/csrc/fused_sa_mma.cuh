@@ -1,12 +1,13 @@
 // The tensor-core pieces that kernel 6's bf16 passes share (the backward's
 // csrc/fused_sa_b1.cu, csrc/fused_sa_b2.cu, csrc/fused_sa_b3.cu and the forward's
-// csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu): the bf16 weight block as the wrapper
-// packs it (sa_train_kernel._packed_bf16) and the kernels hold it in shared memory,
-// the per-column vectors, the double buffer of a centroid's inputs filled by
-// cp.async, the recompute of h1 and a1 and of layer 2 (beside the routed da2 in the
-// backward), and the BatchNorm backward of an accumulator tile. A persistent block of 8 warps walks the centroids; warp w takes the 16
-// slots of row tile w % 4 and half w / 4 of the columns of every row-wise
-// product, on mma.sync m16n8k16 (csrc/mma_bf16.cuh) with f32 accumulators.
+// csrc/fused_sa_f1.cu, csrc/fused_sa_f2.cu, csrc/fused_sa_f3.cu): the bf16 weight block
+// as the wrapper packs it (sa_train_kernel._packed_bf16) and the kernels hold it in
+// shared memory, the per-column vectors, the double buffer of a centroid's inputs
+// filled by cp.async, the recompute of h1 and a1 and of layer 2 (beside the routed
+// da2 in the backward), and the BatchNorm backward of an accumulator tile. A
+// persistent block of 8 warps walks the centroids; warp w takes the 16 slots of row
+// tile w % 4 and half w / 4 of the columns of every row-wise product, on mma.sync
+// m16n8k16 (csrc/mma_bf16.cuh) with f32 accumulators.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,13 +187,12 @@ __device__ __forceinline__ float tile_colsum(float v_lo, float v_hi) {
 }
 
 // h1 = (dense rows' product + planes' product) + b1 for the warp's rows r0.. and its
-// kT1 n-tiles from column n1, kept in h1; a1 = act(h1 sc1 + sh1) into rows a1 as bf16.
-// v1: layer 1's per-column vectors (Vec order, C1 apart).
+// kT1 n-tiles from column n1, kept in h1 (b1: C1 f32).
 template <int kT1>
-__device__ __forceinline__ void layer1(const bf16* x, int ldx, const bf16* w1t, int cd16, int kx,
-                                       int cp, const float* v1, int c1, int act, bf16* a1,
-                                       int ld1, int r0, int n1, float (&h1)[kT1][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void layer1_h1(const bf16* x, int ldx, const bf16* w1t, int cd16,
+                                          int kx, int cp, const float* b1, int n1,
+                                          int r0, float (&h1)[kT1][4]) {
+  const int t = threadIdx.x & 3;
   dlbt::zero_acc(h1);
   dlbt::warp_mma_ldm<kT1 / 2>(x, ldx, w1t, ldx, 0, cd16, r0, n1, h1);
   if (cp > 0) {
@@ -210,15 +210,27 @@ __device__ __forceinline__ void layer1(const bf16* x, int ldx, const bf16* w1t, 
   }
 #pragma unroll
   for (int nt = 0; nt < kT1; ++nt) {
+    const float2 bias = at2(b1, n1 + 8 * nt + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h1[nt][e] += lane2(bias, e);
+  }
+}
+
+// layer1_h1, then a1 = act(h1 sc1 + sh1) into rows a1 as bf16. v1: layer 1's
+// per-column vectors (Vec order, C1 apart).
+template <int kT1>
+__device__ __forceinline__ void layer1(const bf16* x, int ldx, const bf16* w1t, int cd16, int kx,
+                                       int cp, const float* v1, int c1, int act, bf16* a1,
+                                       int ld1, int r0, int n1, float (&h1)[kT1][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  layer1_h1<kT1>(x, ldx, w1t, cd16, kx, cp, v1 + kBias * c1, n1, r0, h1);
+#pragma unroll
+  for (int nt = 0; nt < kT1; ++nt) {
     const int col = n1 + 8 * nt + 2 * t;
-    const float2 bias = at2(v1 + kBias * c1, col), sc = at2(v1 + kScale * c1, col),
-                 sh = at2(v1 + kShift * c1, col);
+    const float2 sc = at2(v1 + kScale * c1, col), sh = at2(v1 + kShift * c1, col);
     float a[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      h1[nt][e] += lane2(bias, e);
-      a[e] = activate(h1[nt][e] * lane2(sc, e) + lane2(sh, e), act);
-    }
+    for (int e = 0; e < 4; ++e) a[e] = activate(h1[nt][e] * lane2(sc, e) + lane2(sh, e), act);
     put2(a1, ld1, r0 + g, col, a[0], a[1]);
     put2(a1, ld1, r0 + g + 8, col, a[2], a[3]);
   }

@@ -17,51 +17,63 @@
 // discards them, so they are not reproduced here.
 //
 // Bound on the H100: operations. The MLP is 2*(P*H1 + H1*H2 + H2*C) flops per
-// edge (25,088 at P=4, 64, 64, 128), on the bf16 tensor cores at best, plus
-// the distance tests of the selection (8 flops each, f32); the output is the
-// only sizeable traffic (B*M*C values).
+// valid edge (25,088 at P=4, 64, 64, 128), on the bf16 tensor cores at best,
+// plus the distance tests of the selection (8 flops each, f32); the output is
+// the only sizeable traffic (B*M*C values).
 //
-// Design: a block of 128 threads takes one centroid at a time and loops over
-// centroids (grid: as many blocks as fit on the card), so that the folded
-// weights (already rounded to the compute type by the caller) are copied into
-// shared memory once per block. Per centroid: the 128 threads find the bucket
-// minima (dlbt::bucket_first) and threads 0..63 capture the slots' edge rows
-// into shared memory. Then, in bf16, each warp runs the three layers for its
-// 16 slots on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators;
-// the weights are stored transposed in bf16 so that a fragment is one 32-bit
-// load, and rows are padded by 8 values so that a warp's fragment loads hit
-// 32 banks), keeping each hidden layer's bf16 rows to itself. In f32 the
-// layers run as 64-column passes on the CUDA cores (f32 FMAs), every thread
-// holding a 4-row x 8-column tile and reading 16-byte vectors. The last
-// layer's tiles are reduced to a per-column max over the valid rows with warp
-// shuffles and one shared-memory step across the 4 warps.
+// Design: in bf16 the scan dominates. Each of a centroid's 128 residue buckets is
+// walked until its first in-radius point, most of the way through a cloud: point
+// loads, in chains a thread cannot shorten. So a group of 128 threads (one per
+// bucket) scans for kQuad centroids of one cloud at once (bucket_first_multi), each
+// point loaded once and tested against all four, kScanDepth points in flight per
+// thread. Threads then capture the 4 x 64 slots' edge rows, each centroid's valid
+// slots packed to its first rows (a ballot per warp), so the MLP runs only
+// ceil(valid / 16) row tiles of 16. Warp k of the group takes centroid k: per row
+// tile the three layers on mma.sync m16n8k16 (bf16 in, f32 accumulators), a1 and a2
+// never leaving registers (an accumulator tile, biased, rectified and rounded, is
+// the A fragment of the next product), the last layer's tiles folded into a running
+// max over the rows the lane holds; one shuffle reduction per centroid, then the
+// bias (max(h + b) = max(h) + b, rounding being monotone). A persistent block of
+// kGroups groups copies the weight block, packed once per engine in the layout it
+// keeps (sa_eval_kernel.pack_sa1_eval: each matrix transposed in bf16, rows 8 values
+// longer so that ldmatrix hits 32 banks, the biases f32), into shared memory once
+// with cp.async; each group walks its own quads with its own buffers and named
+// barrier, so one group's scan runs beside another's MLP. Shared memory at the
+// production widths: 31 KiB of weights and 14 KiB per group.
+// In f32 a block of 128 threads takes one centroid at a time (bucket_first, then the
+// capture), and runs the layers as 64-column passes of f32 FMAs on the CUDA cores,
+// every thread holding a 4-row x 8-column tile and reading 16-byte vectors, a1 and
+// a2 in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "stratified_select.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using dlbt::kBuckets;
+using dlbt::kSkewH;  // bf16 rows are (depth + 8) values apart (mma_bf16.cuh)
 using dlbt::kSlots;
 
-constexpr int kThreads = kBuckets;  // one thread per residue bucket
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroup = kBuckets;  // threads of a group: one per residue bucket
+constexpr int kGroupWarps = kGroup / 32;
+constexpr int kQuad = kGroupWarps;  // centroids a group scans together, one per warp after
+constexpr int kGroups = 4;          // groups per block of the bf16 kernel, one block per SM
+constexpr int kScanDepth = 4;       // points a bf16 scan thread loads before it tests them
 constexpr int kInPad = 8;   // f32 layer-1 input: [feat..., dx, dy, dz] padded with zeros to 8
 constexpr int kInMma = 16;  // bf16 layer-1 input: padded to one MMA step
-constexpr int kSkew = 4;    // f32 rows are (width + 4) floats apart: 16-byte aligned, and the
-                            // 4 row groups of a warp fall in other banks
-using dlbt::kSkewH;  // bf16 rows are (depth + 8) values apart (mma_bf16.cuh)
-using dlbt::warp_mma64;
+constexpr int kEdgeLd = kInMma + kSkewH;  // bf16 edge rows' stride
+constexpr int kSkew = 4;    // f32 rows are (width + 4) floats apart: 16-byte aligned, and
+                            // the 4 row groups of a warp fall in other banks
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
   const size_t offset = at;
@@ -69,44 +81,275 @@ __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
   return offset;
 }
 
-// Byte offsets of one block's shared memory. f32: the weights as the caller
-// packs them (w1 (8, H1), b1, w2 (H1, H2), b2, w3 (H2, C), b3: one contiguous
-// copy), activation rows of (width + 4) floats. bf16: each weight matrix
-// transposed, (width, depth + 8) bf16, the biases f32, activation rows of
-// (depth + 8) bf16. Then the per-warp column maxima, slot flags, bucket minima.
-struct Layout {
-  size_t w1, b1, w2, b2, w3, b3, edge, a1, a2, red, valid, first, total;
-  __host__ __device__ Layout(bool bf16, int h1, int h2, int c) {
+// The weight block, as sa_eval_kernel.pack_sa1_eval packs it and the kernels keep it
+// at the start of their shared memory. bf16: W1^T (H1, 16 + 8), b1 (H1 f32), W2^T
+// (H2, H1 + 8), b2, W3^T (C, H2 + 8), b3, the matrices bf16. f32: w1 (8, H1), b1,
+// w2 (H1, H2), b2, w3 (H2, C), b3. Each part a whole number of 16-byte pieces.
+struct Weights {
+  size_t w1, b1, w2, b2, w3, b3, total;
+  __host__ __device__ Weights(bool bf16, int h1, int h2, int c) {
     size_t at = 0;
-    if (bf16) {
-      w1 = take(at, 2ull * h1 * (kInMma + kSkewH));
-      b1 = take(at, 4ull * h1);
-      w2 = take(at, 2ull * h2 * (h1 + kSkewH));
-      b2 = take(at, 4ull * h2);
-      w3 = take(at, 2ull * c * (h2 + kSkewH));
-      b3 = take(at, 4ull * c);
-      edge = take(at, 2ull * kSlots * (kInMma + kSkewH));
-      a1 = take(at, 2ull * kSlots * (h1 + kSkewH));
-      a2 = take(at, 2ull * kSlots * (h2 + kSkewH));
-    } else {
-      w1 = take(at, 4ull * kInPad * h1);
-      b1 = take(at, 4ull * h1);
-      w2 = take(at, 4ull * h1 * h2);
-      b2 = take(at, 4ull * h2);
-      w3 = take(at, 4ull * h2 * c);
-      b3 = take(at, 4ull * c);
-      edge = take(at, 4ull * kSlots * (kInPad + kSkew));
-      a1 = take(at, 4ull * kSlots * (h1 + kSkew));
-      a2 = take(at, 4ull * kSlots * (h2 + kSkew));
-    }
-    red = take(at, 4ull * kWarps * c);
-    valid = take(at, 4ull * kSlots);
-    first = take(at, 4ull * kBuckets);
+    const size_t e = bf16 ? 2 : 4;
+    w1 = take(at, bf16 ? e * h1 * kEdgeLd : e * kInPad * h1);
+    b1 = take(at, 4ull * h1);
+    w2 = take(at, bf16 ? e * h2 * (h1 + kSkewH) : e * h1 * h2);
+    b2 = take(at, 4ull * h2);
+    w3 = take(at, bf16 ? e * c * (h2 + kSkewH) : e * h2 * c);
+    b3 = take(at, 4ull * c);
     total = at;
   }
 };
 
-// ---- f32: CUDA-core FMAs ----------------------------------------------------
+// Copies the weight block into shared memory with cp.async, and waits for it.
+__device__ __forceinline__ void load_weights(char* smem, const char* w, size_t bytes) {
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
+    dlbt::cp_async16(smem + 16 * i, w + 16 * i);
+  }
+  dlbt::cp_async_commit();
+  dlbt::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Slot j's edge row (depth values: the features, the offsets, zeros) of point sel
+// of the planes at px, or zeros.
+template <typename E>
+__device__ __forceinline__ void capture(E* e, const float* px, int n, int f, int sel, bool ok,
+                                        float cx, float cy, float cz, int depth) {
+  const float* py = px + n;
+  const float* pz = py + n;
+  for (int q = 0; q < f; ++q) {
+    put(e + q, ok ? px[(3 + q) * static_cast<long long>(n) + sel] : 0.0f);
+  }
+  put(e + f, ok ? __fsub_rn(px[sel], cx) : 0.0f);
+  put(e + f + 1, ok ? __fsub_rn(py[sel], cy) : 0.0f);
+  put(e + f + 2, ok ? __fsub_rn(pz[sel], cz) : 0.0f);
+  for (int q = f + 3; q < depth; ++q) put(e + q, 0.0f);
+}
+
+__device__ __forceinline__ void store_out(void* out, long long at, float v, int out_bf16) {
+  if (out_bf16) {
+    static_cast<bf16*>(out)[at] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(out)[at] = v;
+  }
+}
+
+// ---- bf16: tensor-core MMA, a1 and a2 in registers ----------------------------
+
+// The group's barrier: named barrier `bar` over its 128 threads.
+__device__ __forceinline__ void group_sync(int bar) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(kGroup) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_relu(float v0, float b0, float v1, float b1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(fmaxf(v0 + b0, 0.0f), fmaxf(v1 + b1, 0.0f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A hidden layer's 64 columns from 64q, accumulator tiles (8 n-tiles, the lane's
+// rows g and g + 8), biased, rectified and rounded to bf16, as the A fragments of the
+// next product's k-steps 4q .. 4q + 3: tile nt's C fragment (columns 2t, 2t + 1) is
+// the A fragment's half at columns 8 (nt % 2) + 2t of step nt / 2.
+template <int kSteps>
+__device__ __forceinline__ void to_fragments(const float (&acc)[8][4], const float* bias, int q,
+                                             uint32_t (&af)[kSteps][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nt = 2 * s + h, col = 64 * q + 8 * nt + 2 * t;
+      const float b0 = bias[col], b1 = bias[col + 1];
+      af[4 * q + s][2 * h] = pack_relu(acc[nt][0], b0, acc[nt][1], b1);
+      af[4 * q + s][2 * h + 1] = pack_relu(acc[nt][2], b0, acc[nt][3], b1);
+    }
+  }
+}
+
+// acc = 16 rows, A as kSteps k-steps of fragments, @ columns n0 .. n0 + 63 of the
+// transposed weights wt (rows ldw apart), B fragments by ldmatrix.
+template <int kSteps>
+__device__ __forceinline__ void mma_from_regs(const uint32_t (&af)[kSteps][4], const bf16* wt,
+                                              int ldw, int n0, float (&acc)[8][4]) {
+  dlbt::zero_acc(acc);
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b0[2], b1[2];
+      dlbt::load_b_ldm(b0, b1, wt, ldw, 16 * s, n0 + 16 * np);
+      dlbt::mma_bf16(acc[2 * np], af[s], b0);
+      dlbt::mma_bf16(acc[2 * np + 1], af[s], b1);
+    }
+  }
+}
+
+// One warp's centroid: the three layers over its first nv edge rows (valid ones,
+// packed), ceil(nv / 16) row tiles, then the max over those rows of each column of
+// the last layer, plus b3, into row ci of out (c_out columns). kK = H1 / 16 = H2 / 16
+// (the k-steps of layers 2 and 3), kN3 = C / 64.
+template <int kK, int kN3>
+__device__ __forceinline__ void warp_mlp(const char* smem, const Weights& W, const bf16* edge,
+                                         int nv, void* out, long long ci, int c_out,
+                                         int out_bf16) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const auto h = [smem](size_t off) { return reinterpret_cast<const bf16*>(smem + off); };
+  const auto f = [smem](size_t off) { return reinterpret_cast<const float*>(smem + off); };
+  float mx[8 * kN3][2];  // the lane's max over its rows so far: n-tile j, columns 2t, 2t + 1
+#pragma unroll
+  for (int j = 0; j < 8 * kN3; ++j) mx[j][0] = mx[j][1] = neg_inf();
+  for (int r0 = 0; r0 < nv; r0 += 16) {
+    uint32_t a2[kK][4];
+    {
+      uint32_t a1[kK][4];
+      uint32_t ae[1][4];  // the edge rows: one k-step
+      dlbt::load_a_ldm(ae[0], edge, kEdgeLd, r0, 0);
+#pragma unroll
+      for (int q = 0; q < kK / 4; ++q) {
+        float acc[8][4];
+        mma_from_regs<1>(ae, h(W.w1), kEdgeLd, 64 * q, acc);
+        to_fragments<kK>(acc, f(W.b1), q, a1);
+      }
+#pragma unroll
+      for (int q = 0; q < kK / 4; ++q) {
+        float acc[8][4];
+        mma_from_regs<kK>(a1, h(W.w2), 16 * kK + kSkewH, 64 * q, acc);
+        to_fragments<kK>(acc, f(W.b2), q, a2);
+      }
+    }
+    const bool v0 = r0 + g < nv, v1 = r0 + g + 8 < nv;  // the packed rows past nv are stale
+#pragma unroll
+    for (int q = 0; q < kN3; ++q) {
+      float acc[8][4];
+      mma_from_regs<kK>(a2, h(W.w3), 16 * kK + kSkewH, 64 * q, acc);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mx[8 * q + nt][e] = fmaxf(mx[8 * q + nt][e], fmaxf(v0 ? acc[nt][e] : neg_inf(),
+                                                             v1 ? acc[nt][e + 2] : neg_inf()));
+        }
+      }
+    }
+  }
+  const float* b3 = f(W.b3);
+#pragma unroll
+  for (int j = 0; j < 8 * kN3; ++j) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {  // over the 8 row pairs (lane bits 2..4)
+      mx[j][0] = fmaxf(mx[j][0], __shfl_xor_sync(0xffffffffu, mx[j][0], off));
+      mx[j][1] = fmaxf(mx[j][1], __shfl_xor_sync(0xffffffffu, mx[j][1], off));
+    }
+    if ((j & 7) == g) {  // every lane of a t holds the column's max: lane g writes n-tile j
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < c_out) store_out(out, ci * c_out + col, mx[j][e] + b3[col], out_bf16);
+      }
+    }
+  }
+}
+
+// Byte offsets of one group's buffers after the weights: its quad's bucket minima
+// (kQuad x 128), the ballots of valid slots (two per centroid) and the edge rows
+// (kQuad x 64, bf16, kEdgeLd apart).
+struct Group {
+  size_t first, ballot, edge, stride;
+  __host__ __device__ Group() {
+    size_t at = 0;
+    first = take(at, 4ull * kQuad * kBuckets);
+    ballot = take(at, 4ull * 2 * kQuad);
+    edge = take(at, 2ull * kQuad * kSlots * kEdgeLd);
+    stride = at;
+  }
+};
+
+// kSelectOnly: the selection and the capture alone, each row of the output the count
+// of its centroid's valid slots (a measurement of the scan's share; no path runs it).
+template <int kK, int kN3, bool kSelectOnly>
+__global__ void __launch_bounds__(kGroups * kGroup, 1)
+    sa1_eval_mma_kernel(const float* __restrict__ centers,
+                        const unsigned char* __restrict__ cmask,
+                        const float* __restrict__ planes, const unsigned char* __restrict__ mask,
+                        const char* __restrict__ weights, void* __restrict__ out, int b, int m,
+                        int n, int f, int c, int c_out, float r2, int out_bf16) {
+  extern __shared__ __align__(16) char smem[];
+  const Weights W(true, 16 * kK, 16 * kK, c);
+  const Group G;
+  const int group = threadIdx.x / kGroup, tg = threadIdx.x % kGroup, bar = 1 + group;
+  const int lane = tg & 31, warp = tg >> 5;
+  char* const mine = smem + W.total + group * G.stride;
+  int* const first = reinterpret_cast<int*>(mine + G.first);  // [kQuad][128]
+  unsigned* const ballot = reinterpret_cast<unsigned*>(mine + G.ballot);
+  bf16* const edge = reinterpret_cast<bf16*>(mine + G.edge);  // [kQuad][64][kEdgeLd]
+
+  load_weights(smem, weights, W.total);  // once per block
+
+  const int quads = (m + kQuad - 1) / kQuad;  // per cloud
+  const long long total = static_cast<long long>(b) * quads;
+  for (long long qi = static_cast<long long>(blockIdx.x) * kGroups + group; qi < total;
+       qi += static_cast<long long>(gridDim.x) * kGroups) {
+    const long long bi = qi / quads;
+    const int m0 = static_cast<int>(qi - bi * quads) * kQuad;  // the quad's first centroid
+    const float* px = planes + bi * (3 + f) * static_cast<long long>(n);
+    const long long c0 = bi * m + m0;  // its index in centers and out
+    float cen[kQuad][3];
+    unsigned live = 0;
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) {
+      const bool there = m0 + k < m;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) cen[k][d] = there ? centers[3 * (c0 + k) + d] : 0.0f;
+      if (there && cmask[c0 + k]) live |= 1u << k;
+    }
+    int fk[kQuad];
+    dlbt::bucket_first_multi<kQuad, kScanDepth>(px, px + n, px + 2 * n, mask + bi * n, n, cen,
+                                                r2, live, tg, fk);
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) first[k * kBuckets + tg] = fk[k];
+    group_sync(bar);
+
+    // slots (k, j) = (s / 64, s % 64), s = tg and tg + 128: the ballots of valid
+    // ones, then each valid slot's edge row at its rank among its centroid's
+    int sel[2];
+    bool ok[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int s = tg + p * kGroup;
+      sel[p] = dlbt::pair_select(first + (s / kSlots) * kBuckets, s % kSlots);
+      ok[p] = sel[p] < n;
+      const unsigned bits = __ballot_sync(0xffffffffu, ok[p]);
+      if (lane == 0) ballot[s / 32] = bits;
+    }
+    group_sync(bar);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int s = tg + p * kGroup, k = s / kSlots;
+      if (ok[p]) {
+        const unsigned below = ballot[s / 32] & ((1u << lane) - 1u);
+        const int row = __popc(below) + (s % kSlots >= 32 ? __popc(ballot[s / 32 - 1]) : 0);
+        capture(edge + (k * kSlots + row) * kEdgeLd, px, n, f, sel[p], true, cen[k][0],
+                cen[k][1], cen[k][2], kInMma);
+      }
+    }
+    group_sync(bar);
+
+    // warp k: centroid k of the quad
+    if (m0 + warp >= m) continue;
+    const int nv = __popc(ballot[2 * warp]) + __popc(ballot[2 * warp + 1]);
+    if (kSelectOnly || nv == 0) {  // no valid slot (or a masked centroid): the row is 0
+      for (int col = lane; col < c_out; col += 32) {
+        store_out(out, (c0 + warp) * c_out + col, static_cast<float>(kSelectOnly ? nv : 0),
+                  out_bf16);
+      }
+      continue;
+    }
+    warp_mlp<kK, kN3>(smem, W, edge + warp * kSlots * kEdgeLd, nv, out, c0 + warp, c_out,
+                      out_bf16);
+  }
+}
+
+// ---- f32: CUDA-core FMAs --------------------------------------------------------
 
 __device__ __forceinline__ float lane_of(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
@@ -173,21 +416,38 @@ __device__ __forceinline__ void fma_hidden(const float* in, int in_stride, int i
   }
 }
 
+// Byte offsets of the f32 kernel's shared memory after the weights: the edge rows,
+// a1, a2 (rows (width + 4) floats apart), the warps' column maxima, the slots'
+// flags and the bucket minima.
+struct Fma {
+  size_t edge, a1, a2, red, valid, first, total;
+  __host__ __device__ Fma(int h1, int h2, int c) {
+    size_t at = Weights(false, h1, h2, c).total;
+    edge = take(at, 4ull * kSlots * (kInPad + kSkew));
+    a1 = take(at, 4ull * kSlots * (h1 + kSkew));
+    a2 = take(at, 4ull * kSlots * (h2 + kSkew));
+    red = take(at, 4ull * kGroupWarps * c);
+    valid = take(at, 4ull * kSlots);
+    first = take(at, 4ull * kBuckets);
+    total = at;
+  }
+};
+
 // The three layers in f32; red[warp * c + col] = the warp's max over its valid rows.
-__device__ void fma_mlp(char* smem, const Layout& L, const int* valid, float* red, int h1,
-                        int h2, int c) {
+__device__ void fma_mlp(char* smem, const Weights& W, const Fma& L, const int* valid, float* red,
+                        int h1, int h2, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cg = lane & 7, rg = warp * 4 + (lane >> 3);
   const auto at = [smem](size_t off) { return reinterpret_cast<float*>(smem + off); };
-  fma_hidden(at(L.edge), kInPad + kSkew, kInPad, at(L.w1), at(L.b1), h1, at(L.a1), h1 + kSkew,
+  fma_hidden(at(L.edge), kInPad + kSkew, kInPad, at(W.w1), at(W.b1), h1, at(L.a1), h1 + kSkew,
              rg, cg);
   __syncthreads();
-  fma_hidden(at(L.a1), h1 + kSkew, h1, at(L.w2), at(L.b2), h2, at(L.a2), h2 + kSkew, rg, cg);
+  fma_hidden(at(L.a1), h1 + kSkew, h1, at(W.w2), at(W.b2), h2, at(L.a2), h2 + kSkew, rg, cg);
   __syncthreads();
-  const float* b3 = at(L.b3);
+  const float* b3 = at(W.b3);
   for (int col0 = 0; col0 < c; col0 += 64) {
     float acc[4][8];
-    tile_dot(at(L.a2), h2 + kSkew, h2, at(L.w3), c, col0, rg, cg, acc);
+    tile_dot(at(L.a2), h2 + kSkew, h2, at(W.w3), c, col0, rg, cg, acc);
     float mx[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -208,215 +468,183 @@ __device__ void fma_mlp(char* smem, const Layout& L, const int* valid, float* re
   }
 }
 
-// ---- bf16: tensor-core MMA (mma_bf16.cuh) ------------------------------------
-
-// The warp's 16 rows of out = bf16(relu(in @ w + bias)), rows (width + 8) apart.
-__device__ __forceinline__ void mma_hidden(const __nv_bfloat16* in, int depth,
-                                           const __nv_bfloat16* wt, const float* bias,
-                                           int width, __nv_bfloat16* out, int r0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int lda = depth + kSkewH, ldo = width + kSkewH;
-  for (int n0 = 0; n0 < width; n0 += 64) {
-    float acc[8][4];
-    warp_mma64(in, lda, wt, depth, r0, n0, acc);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = n0 + nt * 8 + 2 * t;
-      const float b0 = bias[col], b1 = bias[col + 1];
-      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + g) * ldo + col) = __floats2bfloat162_rn(
-          fmaxf(acc[nt][0] + b0, 0.0f), fmaxf(acc[nt][1] + b1, 0.0f));
-      *reinterpret_cast<__nv_bfloat162*>(out + (r0 + g + 8) * ldo + col) = __floats2bfloat162_rn(
-          fmaxf(acc[nt][2] + b0, 0.0f), fmaxf(acc[nt][3] + b1, 0.0f));
-    }
-  }
-}
-
-// The three layers in bf16, each warp on its own 16 rows from the edge rows on
-// (a warp reads back only the hidden rows it wrote); red as in fma_mlp.
-__device__ void mma_mlp(char* smem, const Layout& L, const int* valid, float* red, int h1,
-                        int h2, int c) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-  const auto h = [smem](size_t off) { return reinterpret_cast<__nv_bfloat16*>(smem + off); };
-  const auto f = [smem](size_t off) { return reinterpret_cast<float*>(smem + off); };
-  mma_hidden(h(L.edge), kInMma, h(L.w1), f(L.b1), h1, h(L.a1), r0);
-  __syncwarp();
-  mma_hidden(h(L.a1), h1, h(L.w2), f(L.b2), h2, h(L.a2), r0);
-  __syncwarp();
-  const float* b3 = f(L.b3);
-  const bool v0 = valid[r0 + g], v1 = valid[r0 + g + 8];
-  for (int n0 = 0; n0 < c; n0 += 64) {
-    float acc[8][4];
-    warp_mma64(h(L.a2), h2 + kSkewH, h(L.w3), h2, r0, n0, acc);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = n0 + nt * 8 + 2 * t;
-      float m0 = fmaxf(v0 ? acc[nt][0] + b3[col] : neg_inf(),
-                       v1 ? acc[nt][2] + b3[col] : neg_inf());
-      float m1 = fmaxf(v0 ? acc[nt][1] + b3[col + 1] : neg_inf(),
-                       v1 ? acc[nt][3] + b3[col + 1] : neg_inf());
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {  // over the 8 row pairs (lane bits 2..4)
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-      }
-      if (g == 0) {
-        red[warp * c + col] = m0;
-        red[warp * c + col + 1] = m1;
-      }
-    }
-  }
-}
-
-// wt (width, ld) bf16 = the transpose of w (rows, width) f32, zero for depths >= rows;
-// consecutive threads read consecutive columns of w.
-__device__ void store_transposed(__nv_bfloat16* wt, const float* __restrict__ w, int rows,
-                                 int width, int ld) {
-  for (int i = threadIdx.x; i < width * ld; i += kThreads) {
-    const int k = i / width, n = i - k * width;
-    wt[n * ld + k] = __float2bfloat16_rn(k < rows ? w[i] : 0.0f);
-  }
-}
-
-template <bool kBf16>
-__device__ void load_weights(char* smem, const Layout& L, const float* __restrict__ w, int h1,
-                             int h2, int c) {
-  const float* w1 = w;
-  const float* b1 = w1 + kInPad * h1;
-  const float* w2 = b1 + h1;
-  const float* b2 = w2 + h1 * h2;
-  const float* w3 = b2 + h2;
-  const float* b3 = w3 + h2 * c;
-  if constexpr (kBf16) {
-    const auto h = [smem](size_t off) { return reinterpret_cast<__nv_bfloat16*>(smem + off); };
-    store_transposed(h(L.w1), w1, kInPad, h1, kInMma + kSkewH);
-    store_transposed(h(L.w2), w2, h1, h2, h1 + kSkewH);
-    store_transposed(h(L.w3), w3, h2, c, h2 + kSkewH);
-    const auto f = [smem](size_t off) { return reinterpret_cast<float*>(smem + off); };
-    for (int i = threadIdx.x; i < h1; i += kThreads) f(L.b1)[i] = b1[i];
-    for (int i = threadIdx.x; i < h2; i += kThreads) f(L.b2)[i] = b2[i];
-    for (int i = threadIdx.x; i < c; i += kThreads) f(L.b3)[i] = b3[i];
-  } else {  // the packed block is the layout's prefix (every part a multiple of 16 bytes)
-    const int n4 = static_cast<int>((b3 + c - w1) / 4);
-    const float4* src = reinterpret_cast<const float4*>(w);
-    float4* dst = reinterpret_cast<float4*>(smem);
-    for (int i = threadIdx.x; i < n4; i += kThreads) dst[i] = src[i];
-  }
-}
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-sa1_fused_eval_kernel(const float* __restrict__ centers, const unsigned char* __restrict__ cmask,
-                      const float* __restrict__ planes, const unsigned char* __restrict__ mask,
-                      const float* __restrict__ weights, void* __restrict__ out, int b, int m,
-                      int n, int f, int h1, int h2, int c, int c_out, float r2, int out_bf16) {
-  using E = std::conditional_t<kBf16, __nv_bfloat16, float>;  // an edge value
-  constexpr int kEdgeDepth = kBf16 ? kInMma : kInPad;
-  constexpr int kEdgeLd = kEdgeDepth + (kBf16 ? kSkewH : kSkew);
-  extern __shared__ float4 smem4[];
-  char* const smem = reinterpret_cast<char*>(smem4);
-  const Layout L(kBf16, h1, h2, c);
-  E* const edge = reinterpret_cast<E*>(smem + L.edge);
+__global__ void __launch_bounds__(kGroup)
+    sa1_eval_fma_kernel(const float* __restrict__ centers,
+                        const unsigned char* __restrict__ cmask,
+                        const float* __restrict__ planes, const unsigned char* __restrict__ mask,
+                        const char* __restrict__ weights, void* __restrict__ out, int b, int m,
+                        int n, int f, int h1, int h2, int c, int c_out, float r2, int out_bf16) {
+  extern __shared__ __align__(16) char smem[];
+  const Weights W(false, h1, h2, c);
+  const Fma L(h1, h2, c);
+  float* const edge = reinterpret_cast<float*>(smem + L.edge);
   float* const red = reinterpret_cast<float*>(smem + L.red);
   int* const valid = reinterpret_cast<int*>(smem + L.valid);
   int* const first = reinterpret_cast<int*>(smem + L.first);
   const int tid = threadIdx.x;
 
-  load_weights<kBf16>(smem, L, weights, h1, h2, c);
-  __syncthreads();
+  load_weights(smem, weights, W.total);  // once per block
 
   const long long total = static_cast<long long>(b) * m;
   for (long long ci = blockIdx.x; ci < total; ci += gridDim.x) {
     const long long bi = ci / m;
     const float* px = planes + bi * (3 + f) * static_cast<long long>(n);
-    const float* py = px + n;
-    const float* pz = py + n;
     const float cx = centers[3 * ci], cy = centers[3 * ci + 1], cz = centers[3 * ci + 2];
-
-    first[tid] = cmask[ci] ? dlbt::bucket_first(px, py, pz, mask + bi * n, n, cx, cy, cz, r2, tid)
+    first[tid] = cmask[ci] ? dlbt::bucket_first(px, px + n, px + 2 * n, mask + bi * n, n, cx, cy,
+                                                cz, r2, tid)
                            : n;
     __syncthreads();
-    int ok = 0;
+    bool ok = false;
     if (tid < kSlots) {
       const int sel = dlbt::pair_select(first, tid);
       ok = sel < n;
-      E* e = edge + tid * kEdgeLd;
-      for (int q = 0; q < f; ++q) {
-        put(e + q, ok ? px[(3 + q) * static_cast<long long>(n) + sel] : 0.0f);
-      }
-      put(e + f, ok ? __fsub_rn(px[sel], cx) : 0.0f);
-      put(e + f + 1, ok ? __fsub_rn(py[sel], cy) : 0.0f);
-      put(e + f + 2, ok ? __fsub_rn(pz[sel], cz) : 0.0f);
-      for (int q = f + 3; q < kEdgeDepth; ++q) put(e + q, 0.0f);
+      capture(edge + tid * (kInPad + kSkew), px, n, f, sel, ok, cx, cy, cz, kInPad);
       valid[tid] = ok;
     }
     if (!__syncthreads_or(ok)) {  // no valid slot (or a masked centroid): the row is 0
-      for (int col = tid; col < c_out; col += kThreads) {
-        if (out_bf16) {
-          static_cast<__nv_bfloat16*>(out)[ci * c_out + col] = __float2bfloat16_rn(0.0f);
-        } else {
-          static_cast<float*>(out)[ci * c_out + col] = 0.0f;
-        }
+      for (int col = tid; col < c_out; col += kGroup) {
+        store_out(out, ci * c_out + col, 0.0f, out_bf16);
       }
       continue;
     }
-    if constexpr (kBf16) {
-      mma_mlp(smem, L, valid, red, h1, h2, c);
-    } else {
-      fma_mlp(smem, L, valid, red, h1, h2, c);
-    }
+    fma_mlp(smem, W, L, valid, red, h1, h2, c);
     __syncthreads();
-    for (int col = tid; col < c_out; col += kThreads) {
+    for (int col = tid; col < c_out; col += kGroup) {
       float v = red[col];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) v = fmaxf(v, red[w * c + col]);
-      if (out_bf16) {
-        static_cast<__nv_bfloat16*>(out)[ci * c_out + col] = __float2bfloat16_rn(v);
-      } else {
-        static_cast<float*>(out)[ci * c_out + col] = v;
-      }
+      for (int w = 1; w < kGroupWarps; ++w) v = fmaxf(v, red[w * c + col]);
+      store_out(out, ci * c_out + col, v, out_bf16);
     }
   }
+}
+
+// ---- launch ----------------------------------------------------------------------
+
+using Kernel = void (*)(const float*, const unsigned char*, const float*, const unsigned char*,
+                        const char*, void*, int, int, int, int, int, int, float, int);
+
+// The bf16 kernel at these widths: SA1's at neuron_multiplier 1 (64, 64, 128) or 2
+// (128, 128, 256); the selection-only one at the first.
+template <bool kSelectOnly>
+Kernel mma_kernel(int h) {
+  if (kSelectOnly) return sa1_eval_mma_kernel<4, 2, true>;
+  return h == 64 ? sa1_eval_mma_kernel<4, 2, false> : sa1_eval_mma_kernel<8, 4, false>;
+}
+
+// Opts the kernel in to smem bytes of shared memory; *per_sm its blocks one SM holds
+// at once with `threads` each, *sms the card's SMs.
+cudaError_t prepare(const void* kernel, size_t smem, int threads, int* sms, int* per_sm) {
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+  }
+  return e;
+}
+
+bool widths_ok(int f, int h1, int h2, int c, int c_out, int bf16) {
+  if (f < 0 || f + 3 > kInPad || c <= 0 || c % 64 || c_out < 0 || c_out > c) return false;
+  if (bf16) return (h1 == 64 || h1 == 128) && h2 == h1 && c == 2 * h1;
+  return h1 > 0 && h2 > 0 && h1 % 64 == 0 && h2 % 64 == 0;
+}
+
+// The kernel of these arguments, its shared memory and its threads per block.
+template <bool kSelectOnly>
+Kernel kernel_of(int h1, int h2, int c, int bf16, size_t* smem, int* threads) {
+  if (bf16) {
+    *smem = Weights(true, h1, h2, c).total + kGroups * Group().stride;
+    *threads = kGroups * kGroup;
+    return mma_kernel<kSelectOnly>(h1);
+  }
+  *smem = Fma(h1, h2, c).total;
+  *threads = kGroup;
+  return nullptr;
+}
+
+template <bool kSelectOnly>
+int launch(const void* centers, const void* cmask, const void* planes, const void* mask,
+           const void* weights, void* out, int b, int m, int n, int f, int h1, int h2, int c,
+           int c_out, float r2, int bf16, int out_bf16, void* stream) {
+  if (!widths_ok(f, h1, h2, c, c_out, bf16) || (kSelectOnly && (!bf16 || out_bf16 || h1 != 64)) ||
+      reinterpret_cast<uintptr_t>(weights) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(b) * m;
+  if (total == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* cen = static_cast<const float*>(centers);
+  const auto* cm = static_cast<const unsigned char*>(cmask);
+  const auto* pl = static_cast<const float*>(planes);
+  const auto* mk = static_cast<const unsigned char*>(mask);
+  const auto* w = static_cast<const char*>(weights);
+  size_t smem = 0;
+  int threads = 0, sms = 0, per_sm = 0;
+  const Kernel kernel = kernel_of<kSelectOnly>(h1, h2, c, bf16, &smem, &threads);
+  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel)
+                        : reinterpret_cast<const void*>(sa1_eval_fma_kernel);
+  const cudaError_t e = prepare(fn, smem, threads, &sms, &per_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (bf16) {
+    const long long quads = b * static_cast<long long>((m + kQuad - 1) / kQuad);
+    if (grid > (quads + kGroups - 1) / kGroups) grid = (quads + kGroups - 1) / kGroups;
+    kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(cen, cm, pl, mk, w, out, b, m, n, f,
+                                                              c, c_out, r2, out_bf16);
+  } else {
+    if (grid > total) grid = total;
+    sa1_eval_fma_kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
+        cen, cm, pl, mk, w, out, b, m, n, f, h1, h2, c, c_out, r2, out_bf16);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3+F, N) f32 [x, y, z, features],
-// mask (B, N) bool, weights f32 [w1 (8, H1) with rows F+3.. zero, b1 (H1), w2 (H1, H2),
-// b2 (H2), w3 (H2, C), b3 (C)], each already rounded to the compute type (bf16 != 0:
-// bf16, else f32) -> out (B, M, c_out) bf16 (out_bf16 != 0) or f32. H1, H2 and C are
-// multiples of 64 (zero-padded by the caller), F + 3 <= 8, c_out <= C.
+// mask (B, N) bool, weights the weight block (Weights; bf16 != 0: the bf16 layout,
+// else the f32 one), 16-byte aligned -> out (B, M, c_out) bf16 (out_bf16 != 0) or f32.
+// H1, H2 and C are multiples of 64 (zero-padded by the caller), in bf16 (64, 64, 128)
+// or (128, 128, 256); F + 3 <= 8, c_out <= C.
 extern "C" int dlbt_sa1_fused_eval(const void* centers, const void* cmask, const void* planes,
                                    const void* mask, const void* weights, void* out, int b,
                                    int m, int n, int f, int h1, int h2, int c, int c_out,
                                    float r2, int bf16, int out_bf16, void* stream) {
-  if (f < 0 || f + 3 > kInPad || h1 <= 0 || h2 <= 0 || c <= 0 || h1 % 64 || h2 % 64 ||
-      c % 64 || c_out > c) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long total = static_cast<long long>(b) * m;
-  if (total == 0) return 0;
-  auto kernel = bf16 ? sa1_fused_eval_kernel<true> : sa1_fused_eval_kernel<false>;
-  const size_t smem = Layout(bf16 != 0, h1, h2, c).total;
-  int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (grid > total) grid = total;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
-      static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(weights), out, b, m, n, f, h1, h2, c, c_out, r2, out_bf16);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(centers, cmask, planes, mask, weights, out, b, m, n, f, h1, h2, c, c_out,
+                       r2, bf16, out_bf16, stream);
+}
+
+// The bf16 kernel's selection and capture alone, with dlbt_sa1_fused_eval's arguments
+// at the production widths (out f32: each row the count of its centroid's valid
+// slots, 0 where none; the weight block copied, not read): a measurement of the
+// scan's share, which no path launches.
+extern "C" int dlbt_sa1_fused_eval_select(const void* centers, const void* cmask,
+                                          const void* planes, const void* mask,
+                                          const void* weights, void* out, int b, int m, int n,
+                                          int f, int h1, int h2, int c, int c_out, float r2,
+                                          int bf16, int out_bf16, void* stream) {
+  return launch<true>(centers, cmask, planes, mask, weights, out, b, m, n, f, h1, h2, c, c_out,
+                      r2, bf16, out_bf16, stream);
+}
+
+// A host query: how many blocks of dlbt_sa1_fused_eval's kernel one SM holds at once at
+// these widths (*per_sm), its threads per block and its shared memory per block.
+extern "C" int dlbt_sa1_fused_eval_occupancy(int bf16, int h1, int h2, int c, int* per_sm,
+                                             int* threads, int* smem_bytes) {
+  *per_sm = *threads = *smem_bytes = 0;
+  if (!widths_ok(0, h1, h2, c, c, bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  int sms = 0;
+  const Kernel kernel = kernel_of<false>(h1, h2, c, bf16, &smem, threads);
+  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel)
+                        : reinterpret_cast<const void*>(sa1_eval_fma_kernel);
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(prepare(fn, smem, *threads, &sms, per_sm));
 }

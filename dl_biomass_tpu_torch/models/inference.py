@@ -71,7 +71,8 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
     ``device=None`` means the card, and raises without one; ``device="cpu"``
     runs the plain PyTorch versions of the kernels. The folded weights are
-    made once, here, on ``device``.
+    made once, here, on ``device``, and so is kernel 5's weight block under
+    ``fused_eval``.
 
     ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
     and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
@@ -98,6 +99,10 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
     with torch.no_grad():
         sa1, sa2, sa3, head = (prepare(model.sa1.mlp), prepare(model.sa2.mlp),
                                prepare(model.sa3.mlp), prepare(model.head))
+        sa1_block = None
+        if fused_eval:  # kernel 5's weight block, packed once per engine
+            sa1_block = sa_eval_kernel.pack_sa1_eval([w for wb in sa1 for w in wb],
+                                                     ct == torch.bfloat16, dev)
     r1, r2 = model.sa1_radius, model.sa2_radius
     sectored = model.fast_fps and not model.exact_selection
 
@@ -115,7 +120,8 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
         if stratified and fused_eval:
             h1 = sa_eval_kernel.sa1_fused_eval(c1, cm1, pos, mask, feat,
                                                [w for wb in sa1 for w in wb], radius=r1,
-                                               bf16=(ct == torch.bfloat16), out_dtype=ct)
+                                               bf16=(ct == torch.bfloat16), out_dtype=ct,
+                                               packed=sa1_block)
         else:
             if stratified:
                 _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,

@@ -15,18 +15,22 @@ runs ``sa1_fused_eval_plain`` (kernel 2's plain version, the three layers
 and ``masked_max``) on a CPU tensor. The kernel sums each dot product in its
 own order (bf16 on the tensor cores, float32 in FMAs on the CUDA cores), so it
 agrees with the plain version to float32 rounding of the sums (bf16: a hidden
-value near a rounding boundary may round one step the other way). The Pallas
-kernel's private ``stage=`` timing bisect is a TPU profiling aid and is not
-ported.
+value near a rounding boundary may round one step the other way). The kernel
+keeps the weights in a block's shared memory in the layout ``pack_sa1_eval``
+gives them, made once (the serving engine packs when it is built) and handed
+in as ``packed=``; without it the wrapper packs for itself. ``selection_only``
+(the kernel's scan and capture alone) and ``occupancy`` measure the kernel;
+no path calls them. The Pallas kernel's private ``stage=`` timing bisect is a
+TPU profiling aid and is not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from dl_biomass_tpu_torch.core.cloud import round_up
 from dl_biomass_tpu_torch.ops import _build
@@ -34,6 +38,8 @@ from dl_biomass_tpu_torch.ops.ball_group_kernel import _radius2, ball_group_plai
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 
 IN_PAD = 8  # the kernel's layer-1 input width: F + 3 <= 8
+MMA_DEPTH = 16  # the bf16 kernel's layer-1 depth: F + 3 padded to one MMA step
+SKEW_H = 8  # csrc/mma_bf16.cuh kSkewH: each bf16 weight row is this many values longer
 WIDTH_STEP = 64  # the kernel's hidden and output widths are multiples of 64
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -58,9 +64,10 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def sa1_fused_eval_plain(centers, center_mask, pos, mask, feat, folded_weights, *,
-                         radius: float, bf16: bool = False, out_dtype=torch.float32):
+                         radius: float, bf16: bool = False, out_dtype=torch.float32,
+                         packed=None):
     """The plain PyTorch version: ``ball_group_plain``, the three folded layers,
-    ``masked_max``."""
+    ``masked_max``; ``packed``, the kernel's weight block, is not read."""
     f = 0 if feat is None else feat.shape[-1]
     layers = _layers(folded_weights, f)
     ct = torch.bfloat16 if bf16 else torch.float32
@@ -74,58 +81,127 @@ def sa1_fused_eval_plain(centers, center_mask, pos, mask, feat, folded_weights, 
     return masked_max(x.view(*shp, -1), nbr_mask, dim=2).to(out_dtype)
 
 
-def _pad(w: torch.Tensor, *size: int) -> torch.Tensor:
-    """``w`` zero-padded at the end of each dimension to ``size``."""
-    pads = []
-    for have, want in zip(reversed(w.shape), reversed(size)):
-        pads += [0, want - have]
-    return F.pad(w, pads)
+def _block_parts(h1: int, h2: int, c: int, bf16: bool):
+    """The weight block's parts in order, (dtype, shape) each, at padded widths
+    (``csrc/sa1_fused_eval.cu`` ``Weights``): in bf16 W1^T (H1, 16 + SKEW_H),
+    b1 (H1), W2^T (H2, H1 + SKEW_H), b2, W3^T (C, H2 + SKEW_H), b3, the
+    matrices bf16 and the biases float32; in float32 w1 (8, H1), b1, w2 (H1,
+    H2), b2, w3 (H2, C), b3."""
+    f32 = torch.float32
+    if bf16:
+        bf = torch.bfloat16
+        return [(bf, (h1, MMA_DEPTH + SKEW_H)), (f32, (h1,)), (bf, (h2, h1 + SKEW_H)),
+                (f32, (h2,)), (bf, (c, h2 + SKEW_H)), (f32, (c,))]
+    return [(f32, (IN_PAD, h1)), (f32, (h1,)), (f32, (h1, h2)), (f32, (h2,)), (f32, (h2, c)),
+            (f32, (c,))]
 
 
-def sa1_fused_eval(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor,
-                   mask: torch.Tensor, feat: Optional[torch.Tensor],
-                   folded_weights: Sequence[torch.Tensor], *, radius: float, bf16: bool = False,
-                   out_dtype=torch.float32) -> torch.Tensor:
-    """centers (B, M, 3), center_mask (B, M), pos (B, N, 3), mask (B, N), feat
-    (B, N, F) with F <= 4 or None; ``folded_weights`` = [w1 (F+3, H1), b1, w2
-    (H1, H2), b2, w3 (H2, C), b3] -> (B, M, C) in ``out_dtype``.
+def block_bytes(h1: int, h2: int, c: int, bf16: bool) -> int:
+    """Bytes of the weight block at these padded widths."""
+    return sum(math.prod(shape) * (2 if dt == torch.bfloat16 else 4)
+               for dt, shape in _block_parts(h1, h2, c, bf16))
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    The kernel keeps the weights in a block's shared memory, which holds the
-    production widths (64, 64, 128) but not twice them: its launch is refused
-    (RuntimeError) for widths that do not fit."""
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if pos.device.type == "cpu":
-        return sa1_fused_eval_plain(centers, center_mask, pos, mask, feat, folded_weights,
-                                    radius=radius, bf16=bf16, out_dtype=out_dtype)
+
+def pack_sa1_eval(folded_weights: Sequence[torch.Tensor], bf16: bool, device) -> torch.Tensor:
+    """The kernel's weight block for the folded weights [w1 (F+3, H1), b1, w2
+    (H1, H2), b2, w3 (H2, C), b3], made once (the serving engine packs it when
+    it is built): flat bytes (uint8) on ``device`` in the layout the kernel
+    keeps in shared memory (``_block_parts``), the widths zero-padded to 64,
+    each matrix rounded to the compute type (bf16: transposed, each row
+    ``SKEW_H`` zeros longer), every part a whole number of 16 bytes."""
+    w1, b1, w2, b2, w3, b3 = [w.detach().float().to(device) for w in folded_weights]
+    h1p, h2p, cp = (round_up(w.shape[1], WIDTH_STEP) for w in (w1, w2, w3))
+    parts = []
+    for (dt, shape), w in zip(_block_parts(h1p, h2p, cp, bf16), (w1, b1, w2, b2, w3, b3)):
+        if bf16 and w.dim() == 2:
+            w = w.t()  # (out, in): the kernel's B fragments are its rows
+        part = torch.zeros(shape, dtype=dt, device=device)
+        part[tuple(slice(0, k) for k in w.shape)] = w.to(dt)
+        parts.append(part.reshape(-1).view(torch.uint8))
+    return torch.cat(parts)
+
+
+def _check_block(packed: torch.Tensor, h1: int, h2: int, c: int, bf16: bool, device) -> None:
+    n = block_bytes(h1, h2, c, bf16)
+    if (packed.dtype != torch.uint8 or packed.numel() != n or packed.device != device
+            or not packed.is_contiguous()):
+        raise ValueError(f"sa1_fused_eval: the packed block holds {packed.numel()} "
+                         f"{packed.dtype} on {packed.device}; widths {(h1, h2, c)} in "
+                         f"{'bf16' if bf16 else 'float32'} need {n} contiguous uint8 on {device}")
+
+
+def _launch(entry: str, centers, center_mask, pos, mask, feat, folded_weights, radius, bf16,
+            out_dtype, packed):
     if pos.device.type != "cuda":
         raise RuntimeError(f"sa1_fused_eval runs on cuda or cpu tensors, got {pos.device}")
     f = 0 if feat is None else feat.shape[-1]
     if f + 3 > IN_PAD:
         raise ValueError(f"sa1_fused_eval takes at most {IN_PAD - 3} features, got {f}")
-    (w1, b1), (w2, b2), (w3, b3) = _layers(folded_weights, f)
+    (w1, _), (w2, _), (w3, _) = _layers(folded_weights, f)
     b, m, _ = centers.shape
     n = pos.shape[1]
     c = w3.shape[1]
     h1p, h2p, cp = (round_up(w.shape[1], WIDTH_STEP) for w in (w1, w2, w3))
-    ct = torch.bfloat16 if bf16 else torch.float32
-
-    def rounded(w):  # the compute type's values, carried as float32
-        return w.to(ct).float()
-
-    weights = torch.cat([
-        _pad(rounded(w1), IN_PAD, h1p).reshape(-1), _pad(b1, h1p),
-        _pad(rounded(w2), h1p, h2p).reshape(-1), _pad(b2, h2p),
-        _pad(rounded(w3), h2p, cp).reshape(-1), _pad(b3, cp)]).to(pos.device)
+    if packed is None:
+        packed = pack_sa1_eval(folded_weights, bf16, pos.device)
+    _check_block(packed, h1p, h2p, cp, bf16, pos.device)
     planes = pos.transpose(1, 2) if feat is None else torch.cat([pos, feat.float()],
                                                                 -1).transpose(1, 2)
     planes = planes.contiguous()  # (B, 3+F, N): x, y, z, features
     centers, center_mask, mask = centers.contiguous(), center_mask.contiguous(), mask.contiguous()
-    _build.check_cuda("sa1_fused_eval", centers, center_mask, planes, mask, weights)
+    packed = _build.aligned16(packed)
+    _build.check_cuda("sa1_fused_eval", centers, center_mask, planes, mask, packed)
     out = torch.empty((b, m, c), dtype=out_dtype, device=pos.device)
-    _build.launch("dlbt_sa1_fused_eval", _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
-                  planes.data_ptr(), mask.data_ptr(), weights.data_ptr(), out.data_ptr(),
+    _build.launch(entry, _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
+                  planes.data_ptr(), mask.data_ptr(), packed.data_ptr(), out.data_ptr(),
                   b, m, n, f, h1p, h2p, cp, c, _radius2(radius), int(bf16),
                   int(out_dtype == torch.bfloat16), _build.stream_of(pos))
     return out
+
+
+def sa1_fused_eval(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor,
+                   mask: torch.Tensor, feat: Optional[torch.Tensor],
+                   folded_weights: Sequence[torch.Tensor], *, radius: float, bf16: bool = False,
+                   out_dtype=torch.float32, packed: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """centers (B, M, 3), center_mask (B, M), pos (B, N, 3), mask (B, N), feat
+    (B, N, F) with F <= 4 or None; ``folded_weights`` = [w1 (F+3, H1), b1, w2
+    (H1, H2), b2, w3 (H2, C), b3] -> (B, M, C) in ``out_dtype``. ``packed``:
+    ``pack_sa1_eval`` of the same weights at the same ``bf16``, made here when
+    not given; a block of other widths, compute type or device raises
+    ``ValueError``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    Padded to 64, the bf16 kernel takes the SA1 widths at neuron_multiplier 1
+    and 2, (64, 64, 128) and (128, 128, 256), the float32 kernel the widths
+    whose weights fit a block's shared memory (the production widths, not
+    twice them); its launch is refused (RuntimeError) otherwise."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if pos.device.type == "cpu":
+        return sa1_fused_eval_plain(centers, center_mask, pos, mask, feat, folded_weights,
+                                    radius=radius, bf16=bf16, out_dtype=out_dtype)
+    return _launch("dlbt_sa1_fused_eval", centers, center_mask, pos, mask, feat, folded_weights,
+                   radius, bf16, out_dtype, packed)
+
+
+def selection_only(centers, center_mask, pos, mask, feat, folded_weights, *, radius: float,
+                   bf16: bool = False, packed=None) -> torch.Tensor:
+    """The kernel's selection and capture alone, on the card: (B, M, C)
+    float32, each row the count of its centroid's valid slots (0 where none).
+    A measurement of the scan's share of the kernel; no path runs it."""
+    return _launch("dlbt_sa1_fused_eval_select", centers, center_mask, pos, mask, feat,
+                   folded_weights, radius, bf16, torch.float32, packed)
+
+
+def occupancy(bf16: bool, h1: int, h2: int, c: int) -> dict:
+    """The kernel's launch at these padded widths on the current card: blocks
+    per SM, threads per block, shared memory per block (bytes)."""
+    fn = _build.library().dlbt_sa1_fused_eval_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    per_sm, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(int(bf16), h1, h2, c, ctypes.byref(per_sm), ctypes.byref(threads), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"dlbt_sa1_fused_eval_occupancy failed ({rc})")
+    return dict(blocks_per_sm=per_sm.value, threads=threads.value, smem_bytes=smem.value)

@@ -40,11 +40,11 @@ backward pass) launch ``csrc/fused_sa_fwd.cu`` (entries ``dlbt_fused_sa_f1``,
 hand-written kernels, which ``mma_takes`` picks from the layer's widths
 before any launch (``pass_source`` names it): in bf16, where the tensor-core
 kernels' weight block, buffers and register tiles fit (every layer at
-neuron_multiplier 1, SA1 at 2), F2, F3 and B1-B3 run on the tensor cores
-(``csrc/fused_sa_f2.cu``, ``_f3.cu``, ``_b1.cu``, ``_b2.cu``, ``_b3.cu``)
-with the bf16 weight block of ``_packed_bf16``, which ``pack_fwd`` makes once
-per layer's forward and ``pack_bwd`` hands on to its backward; F1, every f32
-pass and the bf16 passes of wider layers run on the CUDA cores
+neuron_multiplier 1, SA1 at 2), F1-F3 and B1-B3 run on the tensor cores
+(``csrc/fused_sa_f1.cu``, ``_f2.cu``, ``_f3.cu``, ``_b1.cu``, ``_b2.cu``,
+``_b3.cu``) with the bf16 weight block of ``_packed_bf16``, which ``pack_fwd``
+makes once per layer's forward and ``pack_bwd`` hands on to its backward;
+every f32 pass and the bf16 passes of wider layers run on the CUDA cores
 (``csrc/fused_sa_fwd.cu``, ``csrc/fused_sa_bwd.cu``, whose backward keeps
 the buffers that do not fit shared memory in a device scratch buffer). ``fused_sa_mlp`` chains them as
 the JAX function does, inside a ``torch.autograd.Function``;
@@ -364,8 +364,8 @@ def _padded_widths(params: dict):
 def _mma_smem(cd: int, cp: int, c1: int, c2: int, c3: int) -> dict:
     """The shared memory, in bytes, of each tensor-core pass at these padded
     widths, as the ``Layout`` of its kernel (``csrc/fused_sa_b1.cu``,
-    ``_b2.cu``, ``_b3.cu``, ``_f2.cu``, ``_f3.cu``) lays it out, each region
-    rounded up to 16 bytes."""
+    ``_b2.cu``, ``_b3.cu``, ``_f1.cu``, ``_f2.cu``, ``_f3.cu``) lays it out,
+    each region rounded up to 16 bytes."""
     kx = edge_width(cd, cp)
     x = 2 * K * (kx + SKEW_H)
 
@@ -386,6 +386,7 @@ def _mma_smem(cd: int, cp: int, c1: int, c2: int, c3: int) -> dict:
                                              a1, a2, 0 if red_b2 <= x else red_b2)),
         "b3": sum(round_up(n, 16) for n in (w12 + w(c2, c3), vec, 2 * inputs(c3), 2 * c3, 2 * c3,
                                              a1, a2, 4 * 4 * c1, 8 * c1)),
+        "f1": sum(round_up(n, 16) for n in (w(c1, kx), 4 * c1, 2 * inputs(0), 4 * 4 * 2 * c1)),
         "f2": sum(round_up(n, 16) for n in (w12, vec, 2 * inputs(0), a1,
                                              0 if 4 * 4 * 2 * c2 <= x else 4 * 4 * 2 * c2)),
         "f3": sum(round_up(n, 16) for n in (w12 + w(c2, c3), vec + 4 * c3, 2 * inputs(0), a1,
@@ -395,12 +396,13 @@ def _mma_smem(cd: int, cp: int, c1: int, c2: int, c3: int) -> dict:
 
 def mma_takes(cd: int, cp: int, c1p: int, c2p: int, c3p: int) -> bool:
     """Whether a layer of these widths (CD dense and CP plane channels, the
-    hidden widths padded to 64) runs its bf16 passes F2, F3 and B1-B3 on the
+    hidden widths padded to 64) runs its bf16 passes F1-F3 and B1-B3 on the
     tensor cores: each kernel's own checks pass (C1 64 or 128; B1's dW3 tiles
     and vector slice, so C2 at most 128; B2's dW2 tiles and slice; B3's dW1
-    tiles; F2's slice) and its weight block and buffers fit a block's shared
-    memory. Where not, those passes run on the CUDA-core kernels, in bf16 all
-    the same. Decided from the widths alone, before any launch."""
+    tiles; F2's slice; F1's block is a part of F2's) and its weight block and
+    buffers fit a block's shared memory. Where not, those passes run on the
+    CUDA-core kernels, in bf16 all the same. Decided from the widths alone,
+    before any launch."""
     if c1p not in (64, 128) or c2p % 64 or c3p % 64:
         return False
     kx, n3 = edge_width(cd, cp), min(c3p, 256)
@@ -411,15 +413,14 @@ def mma_takes(cd: int, cp: int, c1p: int, c2p: int, c3p: int) -> bool:
     return fits and max(_mma_smem(cd, cp, c1p, c2p, c3p).values()) <= SMEM_MAX
 
 
-def _on_tensor_cores(stage: int, backward: bool, cd: int, cp: int, params: dict,
-                     bf16: bool) -> bool:
-    return bf16 and (backward or stage > 1) and mma_takes(cd, cp, *_padded_widths(params))
+def _on_tensor_cores(cd: int, cp: int, params: dict, bf16: bool) -> bool:
+    return bf16 and mma_takes(cd, cp, *_padded_widths(params))
 
 
 def pass_source(stage: int, backward: bool, cd: int, cp: int, params: dict, bf16: bool) -> str:
     """The CUDA source whose kernel runs this pass on a card (the routing of
     ``fused_sa_stage`` and ``fused_sa_bwd_stage``)."""
-    if _on_tensor_cores(stage, backward, cd, cp, params, bf16):
+    if _on_tensor_cores(cd, cp, params, bf16):
         return f"csrc/fused_sa_{'b' if backward else 'f'}{stage}.cu"
     return f"csrc/fused_sa_{'bwd' if backward else 'fwd'}.cu"
 
@@ -443,9 +444,10 @@ def _weight_block(params: dict, cd: int, cp: int):
 
 
 def pack_fwd(dense, planes, nbr_mask, params: dict):
-    """The bf16 weight block that one layer's bf16 forward passes F2 and F3
-    share on the tensor cores (``_packed_bf16``), or None where ``mma_takes``
-    sends the layer to the CUDA cores. Its backward reuses it (``pack_bwd``)."""
+    """The bf16 weight block that one layer's bf16 forward passes share on
+    the tensor cores (``_packed_bf16``; F1 reads its W1^T, F2 W1^T and W2^T,
+    F3 all of it), or None where ``mma_takes`` sends the layer to the CUDA
+    cores. Its backward reuses it (``pack_bwd``)."""
     cd, cp = _widths(dense, planes, nbr_mask, params)
     return _weight_block(params, cd, cp)
 
@@ -500,10 +502,10 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
     (B, M, 64, CD) in the compute type or None, planes (B, M, 64, CP) float32 or
     None, nbr_mask (B, M, 64) bool, params {w1 (CD+CP, C1), b1, w2, b2, w3, b3}
     (the gammas and betas enter through ``folds``). ``packed``: this layer's
-    ``pack_fwd`` block (F1 and the CUDA-core passes read none), made here for
-    a tensor-core pass when not given; an f32 pass, a block for a pass on the
-    CUDA cores, or one of other widths or on another device, raises
-    ``ValueError``.
+    ``pack_fwd`` block (F1-F3 on the tensor cores read it, the CUDA-core
+    passes none), made here for a tensor-core pass when not given; an f32
+    pass, a block for a pass on the CUDA cores, or one of other widths or on
+    another device, raises ``ValueError``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     that ``pass_source`` names (float64 raises ``ValueError`` there)."""
@@ -526,12 +528,12 @@ def fused_sa_stage(stage: int, dense: Optional[torch.Tensor], planes: Optional[t
     kp = round_up(cd + cp, 4)
     c1p, c2p, c3p = _padded_widths(params)
     wb = None
-    if _on_tensor_cores(stage, False, cd, cp, params, bf16):
+    if _on_tensor_cores(cd, cp, params, bf16):
         wb = _weight_block(params, cd, cp) if packed is None else packed
         _check_block(wb, torch.bfloat16, _weight_block_size(edge_width(cd, cp), c1p, c2p, c3p),
                      dev)
         w = _vectors_fwd(params, folds[:stage - 1], c1p, c2p, c3p)
-    elif packed is not None and stage > 1:
+    elif packed is not None:
         raise ValueError(f"fused_sa_stage: a tensor-core block reached pass F{stage}, which "
                          f"runs on the CUDA cores at widths {(c1, c2, c3)}")
     else:
@@ -619,7 +621,7 @@ def fused_sa_bwd_stage(stage: int, dense: Optional[torch.Tensor], planes: Option
     cdp = round_up(cd, WIDTH_STEP)
     wb = scratch = None
     max_grid = MAX_GRID
-    if _on_tensor_cores(stage, True, cd, cp, params, bf16):
+    if _on_tensor_cores(cd, cp, params, bf16):
         # the tensor-core kernels: the bf16 weights, the vectors with this pass's terms
         if packed is None:
             packed = pack_bwd(dense, planes, nbr_mask, params, folds, stats)

@@ -122,6 +122,34 @@ def test_sa1_fused_eval_kernel_matches_plain(dev, bf16, widths, tol):
     assert err <= tol * float(want.float().abs().max())
 
 
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_sa1_fused_eval_packed_block_is_the_wrappers_own(dev, bf16):
+    """Kernel 5 on a ``pack_sa1_eval`` block made once gives the bits it gives
+    when the wrapper packs for itself, within 1e-2 (bf16) of the plain
+    version; a block of other widths, dtype or device raises ``ValueError``
+    and launches nothing."""
+    pos, mask, feat = _cloud(dev)
+    centers, cmask = pos[:, :300].contiguous(), mask[:, :300].contiguous()
+    ws = _sa_weights(dev, (64, 64, 128))
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(radius=2.0, bf16=bf16, out_dtype=out_dtype)
+    block = sa_eval_kernel.pack_sa1_eval(ws, bf16, dev)
+    got = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, packed=block, **kw)
+    again = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, packed=block, **kw)
+    alone = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, **kw)
+    want = sa_eval_kernel.sa1_fused_eval_plain(centers, cmask, pos, mask, feat, ws, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, alone)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (1e-2 if bf16 else 1e-5) * float(want.float().abs().max())
+    for bad in (sa_eval_kernel.pack_sa1_eval(_sa_weights(dev, (64, 64, 192)), bf16, dev),
+                sa_eval_kernel.pack_sa1_eval(ws, not bf16, dev), block.cpu()):
+        _build.launch_counts.clear()
+        with pytest.raises(ValueError, match="packed block"):
+            sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, packed=bad, **kw)
+        assert not _build.launch_counts
+
+
 @pytest.mark.parametrize("dtype,n,c", [(torch.bfloat16, 500, 128), (torch.float32, 300, 24),
                                        (torch.bfloat16, 2048, 128)])
 def test_scatter_kernel_matches_plain_bit_for_bit(dev, dtype, n, c):
@@ -362,8 +390,9 @@ def _planted_ties(dense, planes, mask, every=5):
     (2, 45, 0, 4, (128, 128, 256)),  # SA1 at neuron_multiplier 2
 ], ids=["sa1", "sa2", "sa1-x2"])
 def test_fused_sa_forward_tensor_cores_match_plain(dev, b, m, cd, cp, widths):
-    """bf16 F2 and F3 on the tensor cores (``csrc/fused_sa_f2.cu``,
-    ``_f3.cu``; ``mma_takes`` these widths): F2's statistics and F3's output
+    """bf16 F1, F2 and F3 on the tensor cores (``csrc/fused_sa_f1.cu``,
+    ``_f2.cu``, ``_f3.cu``; ``mma_takes`` these widths): F1's and F2's
+    statistics and F3's output
     within 1e-2 of the plain version's max|y|, F3's argmax equal wherever the
     winner leads by more, 0 and -1 at every centroid without a valid slot, a
     planted tie won by the first slot, and two launches bit-identical, on one
@@ -374,7 +403,7 @@ def test_fused_sa_forward_tensor_cores_match_plain(dev, b, m, cd, cp, widths):
     assert sa_train_kernel.mma_takes(cd, cp, *widths)
     wb = sa_train_kernel.pack_fwd(dense, planes, mask, params)
     assert wb is not None and wb.dtype == torch.bfloat16
-    for stage in (2, 3):
+    for stage in (1, 2, 3):
         assert sa_train_kernel.pass_source(stage, False, cd, cp, params, True) == \
             f"csrc/fused_sa_f{stage}.cu"
         args = (stage, dense, planes, mask, params, folds)
@@ -387,7 +416,7 @@ def test_fused_sa_forward_tensor_cores_match_plain(dev, b, m, cd, cp, widths):
         assert all(torch.equal(x, y) for x, y in zip(got, again))
         scale = float(want[0].abs().max())
         assert float((got[0] - want[0]).abs().max()) <= 1e-2 * scale
-        if stage == 2:
+        if stage < 3:
             assert float((got[1] - want[1]).abs().max()) <= 1e-2 * float(want[1].abs().max())
             continue
         out, am = got
@@ -400,6 +429,25 @@ def test_fused_sa_forward_tensor_cores_match_plain(dev, b, m, cd, cp, widths):
         second = torch.where(top2[:, :, 0] == top2[:, :, 1], top2[:, :, 2], top2[:, :, 1])
         lead = (top2[:, :, 0] - second) > 1e-2 * scale
         assert int(lead.sum()) > 0 and torch.equal(am[lead], want[1][lead])
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_fused_sa_forward_refuses_a_packed_block_of_other_widths(dev, stage):
+    """A bf16 forward pass on the tensor cores handed a ``pack_fwd`` block made
+    for other widths raises ``ValueError`` and launches nothing, where the
+    block of its own widths runs."""
+    dense, planes, mask, params, folds = _fused_sa_case(dev, 2, 20, 0, 4, (64, 64, 128), True)
+    other = _fused_sa_case(dev, 2, 20, 0, 4, (64, 64, 192), True)
+    args = (stage, dense, planes, mask, params, folds)
+    _build.launch_counts.clear()
+    with pytest.raises(ValueError, match="packed block"):
+        sa_train_kernel.fused_sa_stage(*args, bf16=True,
+                                       packed=sa_train_kernel.pack_fwd(*other[:4]))
+    assert not _build.launch_counts
+    sa_train_kernel.fused_sa_stage(*args, bf16=True,
+                                   packed=sa_train_kernel.pack_fwd(dense, planes, mask, params))
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {f"dlbt_fused_sa_f{stage}": 1}
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

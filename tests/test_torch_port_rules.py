@@ -95,6 +95,7 @@ def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
     ("fused_sa_b1.cu", "pallas_sa_train.py fused_sa_mlp, its backward's first pass"),
     ("fused_sa_b2.cu", "pallas_sa_train.py fused_sa_mlp, its backward's second pass"),
     ("fused_sa_b3.cu", "pallas_sa_train.py fused_sa_mlp, its backward's last pass"),
+    ("fused_sa_f1.cu", "pallas_sa_train.py fused_sa_mlp, its forward's first pass"),
     ("fused_sa_f2.cu", "pallas_sa_train.py fused_sa_mlp, its forward's second pass"),
     ("fused_sa_f3.cu", "pallas_sa_train.py fused_sa_mlp, its forward's last pass"),
     ("fused_tail.cu", "pallas_tail.py fused_tail"),

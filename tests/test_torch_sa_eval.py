@@ -110,3 +110,70 @@ def test_fused_eval_engine_matches_the_default_engine():
     fused = compile_inference(tm, device="cpu", fused_eval=True)(tb)
     default = compile_inference(tm, device="cpu")(tb)
     assert rel_err(fused.numpy(), default.numpy()) <= 1e-5
+
+
+def _unpack(block, parts):
+    """The block's parts, (dtype, shape) each in order, as float32 numpy."""
+    out, at = [], 0
+    for dt, shape in parts:
+        n = int(np.prod(shape)) * (2 if dt == torch.bfloat16 else 4)
+        out.append(block[at:at + n].view(dt).view(shape).float().numpy().copy())
+        at += n
+    assert at == block.numel()
+    return out
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("f,widths", [(1, (64, 64, 128)), (4, (16, 48, 32))],
+                         ids=["production", "padded"])
+def test_pack_sa1_eval_lays_out_the_kernels_block(f, widths, bf16):
+    """``pack_sa1_eval`` is the layout ``csrc/sa1_fused_eval.cu`` keeps in
+    shared memory: in bf16 W1^T (H1 x 16), W2^T, W3^T rounded to bf16, each
+    row 8 values longer, the biases float32 between them; in float32 w1 (8 x
+    H1), w2, w3 as given, the biases beside each; the widths zero-padded to 64,
+    zeros in the padding and the skew, every part a whole number of 16 bytes."""
+    ws = _weights(3 + f, f + 3, *widths)
+    block = sa_eval_kernel.pack_sa1_eval([torch.from_numpy(w) for w in ws], bf16, "cpu")
+    h1, h2, c = (-(-w // 64) * 64 for w in widths)
+    skew, bf, f32 = sa_eval_kernel.SKEW_H, torch.bfloat16, torch.float32
+    if bf16:
+        parts = [(bf, (h1, 16 + skew)), (f32, (h1,)), (bf, (h2, h1 + skew)), (f32, (h2,)),
+                 (bf, (c, h2 + skew)), (f32, (c,))]
+    else:
+        parts = [(f32, (8, h1)), (f32, (h1,)), (f32, (h1, h2)), (f32, (h2,)), (f32, (h2, c)),
+                 (f32, (c,))]
+    assert block.dtype == torch.uint8
+    assert block.numel() == sa_eval_kernel.block_bytes(h1, h2, c, bf16)
+    assert all(np.prod(shape) * (2 if dt == bf else 4) % 16 == 0 for dt, shape in parts)
+    got = _unpack(block, parts)
+    for i, (part, w) in enumerate(zip(got, ws)):
+        if w.ndim == 2:
+            w = torch.from_numpy(w).to(bf).float().numpy().T if bf16 else w
+        np.testing.assert_array_equal(part[tuple(slice(0, k) for k in w.shape)], w)
+        part[tuple(slice(0, k) for k in w.shape)] = 0.0
+        assert not part.any(), i  # the padding and the skew
+
+
+def test_fused_eval_engine_packs_once(monkeypatch):
+    """The fused_eval engine packs kernel 5's weight block once, when it is
+    built, and hands that block to the kernel in every ``serve``."""
+    packs, blocks = [], []
+    real_pack, real_k5 = sa_eval_kernel.pack_sa1_eval, sa_eval_kernel.sa1_fused_eval
+
+    def pack(*args, **kwargs):
+        packs.append(real_pack(*args, **kwargs))
+        return packs[-1]
+
+    def k5(*args, **kwargs):
+        blocks.append(kwargs["packed"])
+        return real_k5(*args, **kwargs)
+
+    monkeypatch.setattr(sa_eval_kernel, "pack_sa1_eval", pack)
+    monkeypatch.setattr(sa_eval_kernel, "sa1_fused_eval", k5)
+    _, tb = batches(6, 2, 640, [640, 517])
+    _, _, tm = models("production", "bfloat16", batches(6, 2, 640, [640, 517])[0])
+    serve = compile_inference(tm, device="cpu", fused_eval=True)
+    assert len(packs) == 1 and packs[0].dtype == torch.uint8
+    outs = [serve(tb) for _ in range(3)]
+    assert len(packs) == 1 and len(blocks) == 3 and all(b is packs[0] for b in blocks)
+    assert all(torch.equal(o, outs[0]) for o in outs)

@@ -48,9 +48,9 @@ def _model_widths(nm):
 
 @pytest.mark.parametrize("nm", [1, 2, 3])
 def test_mma_takes_gives_the_widths_tables_verdicts(nm):
-    """Every layer at neuron_multiplier 1 and SA1 at 2 run their bf16 passes F2,
-    F3 and B1-B3 on the tensor cores; SA2 at 2 and both layers at 3 (C1 of 192
-    or more) on the CUDA cores. F1 and every f32 pass run on the CUDA cores at
+    """Every layer at neuron_multiplier 1 and SA1 at 2 run their bf16 passes
+    F1-F3 and B1-B3 on the tensor cores; SA2 at 2 and both layers at 3 (C1 of
+    192 or more) on the CUDA cores. Every f32 pass runs on the CUDA cores at
     any width."""
     widths = _model_widths(nm)
     assert widths["SA1"] == (64 * nm, 64 * nm, 128 * nm)
@@ -63,12 +63,36 @@ def test_mma_takes_gives_the_widths_tables_verdicts(nm):
         for stage in (1, 2, 3):
             for backward in (False, True):
                 kind = "b" if backward else "f"
-                on_cores = takes and (backward or stage > 1)
+                on_cores = takes
                 want = (f"csrc/fused_sa_{kind}{stage}.cu" if on_cores else
                         f"csrc/fused_sa_{'bwd' if backward else 'fwd'}.cu")
                 assert sa_train_kernel.pass_source(stage, backward, cd, cp, params, True) == want
                 assert sa_train_kernel.pass_source(stage, backward, cd, cp, params, False) == \
                     f"csrc/fused_sa_{'bwd' if backward else 'fwd'}.cu"
+
+
+@pytest.mark.parametrize("layer", ["SA1", "SA2"])
+@pytest.mark.parametrize("nm", [1, 2, 3])
+def test_f1_runs_where_the_rule_takes_the_layer(nm, layer):
+    """F1 in bf16 names ``csrc/fused_sa_f1.cu`` wherever ``mma_takes`` holds
+    (both layers at neuron_multiplier 1, SA1 at 2) and ``csrc/fused_sa_fwd.cu``
+    elsewhere and in f32; its shared memory, W1^T, b1, two input buffers and
+    the sums, is never more than F2's."""
+    cd, cp = FORMS[layer](nm)
+    widths = _model_widths(nm)[layer]
+    params = {f"w{i + 1}": torch.zeros(1, c) for i, c in enumerate(widths)}
+    takes = sa_train_kernel.mma_takes(cd, cp, *widths)
+    assert takes == VERDICTS[nm][layer]
+    assert sa_train_kernel.pass_source(1, False, cd, cp, params, True) == (
+        "csrc/fused_sa_f1.cu" if takes else "csrc/fused_sa_fwd.cu")
+    assert sa_train_kernel.pass_source(1, False, cd, cp, params, False) == "csrc/fused_sa_fwd.cu"
+    smem = sa_train_kernel._mma_smem(cd, cp, *widths)
+    assert smem["f1"] <= smem["f2"]
+    # csrc/fused_sa_f1.cu's Layout: W1^T, b1, two input buffers, the sums
+    want = {(1, "SA1"): 3072 + 256 + 2 * 4160 + 2048, (1, "SA2"): 38912 + 512 + 2 * 20288 + 4096,
+            (2, "SA1"): 6144 + 512 + 2 * 4160 + 4096}
+    if (nm, layer) in want:
+        assert smem["f1"] == want[nm, layer]
 
 
 def test_mma_takes_holds_each_kernels_limits():
