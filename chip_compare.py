@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Comparisons of kernel 6 (the fused SA MLP) on one NVIDIA card, beside
-``chip_smoke.py``, whose helpers it uses:
+"""Comparisons of kernels 6 (the fused SA MLP), 5 and 1 (FPS) on one NVIDIA
+card, beside ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
                                           # F1-F3 (bf16 and f32) at the inputs of one
@@ -21,10 +21,22 @@
     python3 chip_compare.py acts          # the bf16 backward passes at SA2 of a step
                                           # at neuron_multiplier 2 and 3 against their
                                           # plain versions, with ReLU and with ELU
+    python3 chip_compare.py fps TAG       # kernel 1 (FPS) at every shape of
+                                          # chip_smoke.FPS_SHAPES: its registers and
+                                          # spills (nvcc -Xptxas -v), blocks per SM,
+                                          # and chip_smoke.time_fps's times
+    python3 chip_compare.py paths TAG     # device time per call (and kernel 1's part)
+                                          # of serve, serve_fused_eval and eval_fused_sa
+                                          # at B=16 x 10240 and a train step at 36 x 7168,
+                                          # beside each one's wall time
+    python3 chip_compare.py fpstune TAG   # kernel 1 at the sectored shapes under other
+                                          # plans: P_MAX (block rows) and
+                                          # ROWS_PER_WARP_BLOCK (one-warp rows) swept
 
 To compare two commits on one card, unpack the other commit (``git archive``)
-into a directory, copy this script beside its ``chip_smoke.py``, and run
-``time`` or ``outputs`` from each root in turns (other, this, this, other).
+into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
+and ``paths``, this ``chip_smoke.py`` too: ``fps`` reads its FPS_SHAPES), and
+run the command from each root in turns (other, this, this, other).
 It needs a card and fails without one.
 """
 
@@ -247,9 +259,103 @@ def acts() -> None:
         torch.cuda.empty_cache()
 
 
+def ptxas_lines(source: str) -> list:
+    """What ``nvcc -Xptxas -v`` says of each kernel of one source: registers,
+    shared memory, spills."""
+    import subprocess
+    import tempfile
+
+    from dl_biomass_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                              str(_build.CSRC_DIR / source), "-o", str(Path(tmp) / "k.o")],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return [line.strip() for line in out.stdout.splitlines()
+            if "Compiling entry" in line or "registers" in line or "spill" in line]
+
+
+def fps(tag: str) -> None:
+    """Kernel 1 at every shape of chip_smoke.FPS_SHAPES (chip_smoke.time_fps),
+    with its blocks per SM at each, after its ptxas report."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import fps_kernel
+
+    card = cs.card_line()
+    for line in ptxas_lines("fps.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    for label, args in cs.fps_inputs(serve, dev):
+        res = cs.time_fps(label, args, card)
+        occ = fps_kernel.occupancy(res["n"]) if hasattr(fps_kernel, "occupancy") else None
+        print(f"{tag} fps {label}: " + " ".join(f"{key}={val}" for key, val in res.items()
+                                                if key != "label")
+              + f" occupancy={occ} [{card}]", flush=True)
+
+
+def fps_tune(tag: str) -> None:
+    """Kernel 1 at the sectored shapes of chip_smoke.FPS_SHAPES under other
+    values of ``fps_kernel.P_MAX`` (rows of more than one warp) and
+    ``ROWS_PER_WARP_BLOCK`` (rows of one warp): index-exact against the plain
+    version, then the graph replay's ms (chip_smoke.graph_ms)."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import fps_kernel
+
+    card = cs.card_line()
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    cases = [(label, args, fps_kernel.fps_rows_plain(*args))
+             for label, args in cs.fps_inputs(serve, dev) if "SA" in label]
+    for name, values in (("P_MAX", (4, 6, 8, 10, 12)), ("ROWS_PER_WARP_BLOCK", (1, 2, 4, 8))):
+        for value in values:
+            out = []
+            with mock.patch.object(fps_kernel, name, value):
+                for label, args, want in cases:
+                    n = args[0].shape[1]
+                    if (name == "P_MAX") == (fps_kernel.plan(n).path == "warp"):
+                        continue
+                    cs.require(torch.equal(fps_kernel.fps_rows(*args), want),
+                               f"{name}={value}: kernel differs from plain at {label}")
+                    ms = cs.graph_ms(lambda: fps_kernel.fps_rows(*args))
+                    out.append(f"{label} {tuple(fps_kernel.plan(n))} {ms:.4f}")
+            print(f"{tag} {name}={value}: " + " | ".join(out) + f" [{card}]", flush=True)
+
+
+def paths(tag: str) -> None:
+    """Device time per call of the paths kernel 1 runs on (a torch.profiler
+    window of 3 calls, chip_smoke.profile_calls) and kernel 1's part of it:
+    the default and the fused_eval engines and the fused_sa model's predict
+    at 16 x 10240, and a training step at 36 x 7168; beside each, its wall
+    time by host clock (median of 10 after 2, each ending in a synchronize)."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    card = cs.card_line()
+    req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
+    batch = cs.synthetic_batch(36, 7168, seed=12, device=dev)
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    fused = compile_inference(cs.seeded_model(dev), dev, fused_eval=True)
+    fused_sa = Trainer(cs.seeded_model(dev, fused_sa=True), TrainConfig(), dev)
+    trainer = Trainer(cs.seeded_model(dev), TrainConfig(), dev)
+    gen = cs.train_gen(dev, 3)
+    for name, fn in (("serve B=16", lambda: serve(req)),
+                     ("serve_fused_eval B=16", lambda: fused(req)),
+                     ("eval_fused_sa B=16", lambda: fused_sa.predict([req])),
+                     ("train 36 x 7168", lambda: trainer.step(batch, gen))):
+        _, busy, kernels, _ = cs.profile_calls(fn, 3)
+        k1 = sum(ms for key, ms, _ in kernels if "fps" in key)
+        wall = cs.serve_timing(lambda _: fn(), None)
+        print(f"{tag} {name}: {busy:.3f} ms of device time per call, kernel 1 {k1:.4f} ms; "
+              f"wall {wall:.3f} ms [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
-                "steps": (steps, 0), "acts": (acts, 0)}
+                "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
+                "fpstune": (fps_tune, 1), "paths": (paths, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

@@ -11,7 +11,12 @@ Phases, each of which raises on failure (exit code 1):
              version on the card (index-exact selection, bit-identical
              captured planes and gather) and timed with CUDA events (median
              of 25 launches), beside its bound and, where one PyTorch call
-             computes the same function, that call's time.
+             computes the same function, that call's time. Then kernel 1 at
+             every shape the paths give it (FPS_SHAPES: SA1 and SA2 of 16 and
+             36 x 10240 and 36 x 7168, exact FPS on 16 x 10240 and 2 x
+             16384): index-exact, two launches identical, ``fps_kernel.plan``'s
+             choice, and its time by events, from a CUDA-graph replay and
+             alone (``torch.profiler``), per step, and its chain-only loop's.
 3. serve   — the full-width production ``PointNet2Regressor`` (bf16,
              fast_group, fast_fps, split_first_layer; seeded random weights
              and non-trivial BatchNorm statistics) behind ``compile_inference``
@@ -54,8 +59,9 @@ Phases, each of which raises on failure (exit code 1):
              ``predict`` at 24 and 28 x 7168; a profile of a 16 x 10240 step.
 8. train_unsplit — the same checks for 12 steps of the model with
              ``split_first_layer=False`` at 16 x 10240 (kernels 4c and 4b).
-9. fps scratch — kernel 1's global-scratch variant (rows of more than 10240
-             points): exact FPS on 2 rows of 16384, index-exact, timed.
+9. fps scratch — kernel 1's global-scratch variant (rows beyond the
+             registers, more than 10240 points): exact FPS on 2 rows of
+             16384, index-exact, timed.
 10. kernel 6 — the three passes of the fused SA MLP (F1, F2, F3) at the
              inputs one train-mode and one eval forward of the ``fused_sa``
              model at 16 x 10240 give them, SA1 and SA2, in bf16 and in f32
@@ -252,6 +258,15 @@ SCATTER_REPS = 100
 TRAIN_SHAPES = ((16, N_POINTS), (36, N_POINTS), (36, SHORT_POINTS))
 # kernel 1's global-scratch variant: rows of more than 10240 points
 SCRATCH_ROWS, SCRATCH_POINTS = 2, 16384
+# kernel 1 at every shape the paths give it, phase 2: (label, clouds, points,
+# seed, selection); "sectored" records both FPS launches of one serving forward
+# (SA1, SA2), "exact" is one exact FPS over whole clouds at SA1's ratio, as
+# exact_selection and phase 9 run it
+FPS_SHAPES = (("16 x 10240", SMALL, N_POINTS, 1, "sectored"),
+              ("36 x 10240", LARGE, N_POINTS, 2, "sectored"),
+              ("36 x 7168", LARGE, SHORT_POINTS, 12, "sectored"),
+              ("exact 16 x 10240", SMALL, N_POINTS, 1, "exact"),
+              ("phase 9", SCRATCH_ROWS, SCRATCH_POINTS, 30, "exact"))
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # kernel step vs plain-version step from one state and seed: every kernel is
 # exact against its plain version, so the two steps should be identical; the
@@ -499,7 +514,7 @@ def check_kernels(calls, device):
         cb = r * n * 13 + r * 4 + r * k * 4
         cf = r * n * 5 + r * (k - 1) * n * FPS_FLOPS_PER_POINT_STEP
         print(f"kernel fps rows={r} n={n} k={k}: {t:.4f} ms, plain {tp:.4f} ms, "
-              f"bound {bound(cb, cf)[0]:.6f} ms, index-exact", flush=True)
+              f"bound {fps_bound(r, n, k)[0]:.6f} ms, index-exact", flush=True)
         ms, plain_ms, nbytes, flops = ms + t, plain_ms + tp, nbytes + cb, flops + cf
     bms, by = bound(nbytes, flops)
     rows.append(dict(name="fps_rows", source="dl_biomass_tpu_torch/csrc/fps.cu",
@@ -599,6 +614,64 @@ def check_kernels(calls, device):
                      entry="dlbt_gather", max_abs_err=max_abs_err(got, want), ms=t,
                      plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl))
     return rows
+
+
+def fps_inputs(serve, device) -> list:
+    """(label, (pos, mask, starts, k)) of kernel 1 at each of FPS_SHAPES."""
+    out = []
+    for label, b, n, seed, how in FPS_SHAPES:
+        batch = synthetic_batch(b, n, seed=seed, device=device)
+        if how == "sectored":
+            sa1, sa2 = [args for args, _ in record_kernel_inputs(serve, batch)["fps_rows"]]
+            out += [(f"{label} SA1", sa1), (f"{label} SA2", sa2)]
+        else:
+            starts = torch.zeros(b, dtype=torch.int32, device=device)
+            out.append((label, (batch.pos, batch.mask, starts, math.ceil(0.2 * n))))
+    return out
+
+
+def fps_bound(rows: int, n: int, k: int):
+    """Kernel 1's bound: each point read once (xyz and mask), the picks written
+    once, and FPS_FLOPS_PER_POINT_STEP on every point at every step."""
+    return bound(rows * n * 13 + rows * 4 + rows * k * 4,
+                 rows * n * 5 + rows * (k - 1) * n * FPS_FLOPS_PER_POINT_STEP)
+
+
+def time_fps(label: str, args, card: str) -> dict:
+    """Kernel 1 at one shape: index-exact against its plain version and
+    bit-identical across two launches, then timed by CUDA events around the
+    wrapper (median of 25), replayed from a CUDA graph (free of host time) and
+    alone from a torch.profiler window, with the time per step, the chain-only
+    instantiation's graph time where the tree has it, and the bound."""
+    from dl_biomass_tpu_torch.ops import fps_kernel
+
+    pos, mask, starts, k = args
+    r, n, _ = pos.shape
+    got = fps_kernel.fps_rows(pos, mask, starts, k)
+    again = fps_kernel.fps_rows(pos, mask, starts, k)
+    want = fps_kernel.fps_rows_plain(pos, mask, starts, k)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"FPS kernel differs from plain at {label} ({r} x {n}, k={k})")
+    require(torch.equal(got, again), f"FPS kernel: two launches differ at {label}")
+    res = dict(label=label, rows=r, n=n, k=k,
+               plan=(fps_kernel.plan(n)._asdict() if hasattr(fps_kernel, "plan")
+                     else "parent: one block per row, planes in shared memory or scratch"),
+               ms=time_ms(lambda: fps_kernel.fps_rows(pos, mask, starts, k)),
+               graph_ms=graph_ms(lambda: fps_kernel.fps_rows(pos, mask, starts, k)),
+               alone_ms=kernel_alone_ms(lambda: fps_kernel.fps_rows(pos, mask, starts, k), "fps"))
+    res["us_per_step"] = res["graph_ms"] * 1e3 / max(k - 1, 1)
+    if hasattr(fps_kernel, "chain_only"):
+        res["chain_graph_ms"] = graph_ms(lambda: fps_kernel.chain_only(pos, mask, starts, k))
+        res["chain_us_per_step"] = res["chain_graph_ms"] * 1e3 / max(k - 1, 1)
+    res["bound_ms"], res["bound_by"] = fps_bound(r, n, k)
+    print(f"kernel fps {label} rows={r} n={n} k={k} plan {res['plan']}: events "
+          f"{res['ms']:.4f} ms, graph {res['graph_ms']:.4f} ms, alone {res['alone_ms']:.4f} ms, "
+          f"{res['us_per_step']:.4f} us/step (graph)"
+          + (f", chain only {res['chain_graph_ms']:.4f} ms ({res['chain_us_per_step']:.4f} "
+             "us/step)" if "chain_graph_ms" in res else "")
+          + f", bound {res['bound_ms']:.6f} ms ({res['bound_by']}); index-exact, repeats "
+          f"identical [{card}]", flush=True)
+    return res
 
 
 def check_gather_aux(calls, device):
@@ -1037,6 +1110,8 @@ def run(device, card: str, launches: dict):
     requests = serving_requests(device)
     calls = record_kernel_inputs(serve, requests[0])
     rows = check_kernels(calls, device)
+    for label, args in fps_inputs(serve, device):
+        time_fps(label, args, card)
 
     # phase 3: serve, with every launch of the main path counted
     outs = check_serving("serve", serve, model, requests, launches)
@@ -1255,11 +1330,11 @@ def train_unsplit(device, card: str, launches: dict) -> None:
 
 def check_fps_scratch(device, card: str) -> None:
     """Phase 9: kernel 1's global-scratch variant, exact FPS (SA1's ratio) on
-    rows of more than 10240 points, index-exact against its plain version."""
+    rows beyond the registers, index-exact against its plain version."""
     from dl_biomass_tpu_torch.ops import fps_kernel
 
     r, n = SCRATCH_ROWS, SCRATCH_POINTS
-    require(5 * n * 4 > fps_kernel._SMEM_BYTES, f"rows of {n} points fit shared memory")
+    require(fps_kernel.plan(n).path == "planes", f"rows of {n} points fit the registers")
     batch = synthetic_batch(r, n, seed=30, device=device)
     pos, mask = batch.pos, batch.mask
     k = math.ceil(0.2 * n)
@@ -1270,8 +1345,7 @@ def check_fps_scratch(device, card: str) -> None:
     require(torch.equal(got, want), f"FPS scratch variant differs from plain at {r} x {n}")
     t = time_ms(lambda: fps_kernel.fps_rows(pos, mask, starts, k), reps=5, warmup=1)
     tp = time_ms(lambda: fps_kernel.fps_rows_plain(pos, mask, starts, k), reps=1, warmup=0)
-    bms, by = bound(r * n * 13 + r * 4 + r * k * 4,
-                    r * n * 5 + r * (k - 1) * n * FPS_FLOPS_PER_POINT_STEP)
+    bms, by = fps_bound(r, n, k)
     print(f"kernel fps rows={r} n={n} k={k} (global-scratch variant): {t:.4f} ms (median of 5), "
           f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}), index-exact [{card}]", flush=True)
 

@@ -20,6 +20,7 @@ from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kern
                                       gather_kernel, sa_eval_kernel, sa_train_kernel,
                                       sum_slices_kernel, tail_kernel)
 from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe
+from fps_cases import EDGE_CASES, edge_case
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -40,12 +41,31 @@ def _cloud(dev, b=2, n=1000, seed=0):
     return pos, mask, feat
 
 
-@pytest.mark.parametrize("n,k", [(1280, 256), (12000, 64)])  # shared memory; global scratch
-def test_fps_kernel_matches_plain(dev, n, k):
-    pos, mask, _ = _cloud(dev, n=n)
-    starts = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+# kernel 1 on each path of fps_kernel.plan: one warp a row (P 2 and 8, five
+# rows so a block of four is left part-filled), 4 to 32 warps a row (the 7168
+# splits, 1434 and 3584, fill no whole number of the row's threads), and the
+# planes in scratch; then each edge case of tests/fps_cases.py on each path
+FPS_SHAPES = [("gauss", 1, 1), ("gauss", 33, 8), ("gauss", 256, 64), ("gauss", 1280, 256),
+              ("gauss", 1434, 359), ("gauss", 3584, 717), ("gauss", 10240, 128),
+              ("gauss", 12000, 64)] + [(case, n, None) for case in EDGE_CASES
+                                        for n in (64, 1434, 12000)]
+
+
+@pytest.mark.parametrize("case,n,k", FPS_SHAPES)
+def test_fps_kernel_matches_plain(dev, case, n, k):
+    if case == "gauss":
+        rng = np.random.default_rng(n)
+        pos = torch.from_numpy((rng.normal(size=(5, n, 3)) * 3).astype(np.float32)).to(dev)
+        valid = torch.tensor([n, n * 3 // 4, n // 2, 1, n], device=dev)
+        mask = torch.arange(n, device=dev)[None] < valid[:, None]
+        starts = torch.from_numpy(rng.integers(0, n, size=5).astype(np.int32)).to(dev)
+    else:
+        pos, mask, starts, k = (torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+                                for a in edge_case(case, n))
     got = fps_kernel.fps_rows(pos, mask, starts, k)
+    again = fps_kernel.fps_rows(pos, mask, starts, k)
     assert torch.equal(got, fps_kernel.fps_rows_plain(pos, mask, starts, k))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
