@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Comparisons of kernels 6 (the fused SA MLP), 5 and 1 (FPS) on one NVIDIA
-card, beside ``chip_smoke.py``, whose helpers it uses:
+"""Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS) and 2 (ball group)
+on one NVIDIA card, beside ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
                                           # F1-F3 (bf16 and f32) at the inputs of one
@@ -25,13 +25,23 @@ card, beside ``chip_smoke.py``, whose helpers it uses:
                                           # chip_smoke.FPS_SHAPES: its registers and
                                           # spills (nvcc -Xptxas -v), blocks per SM,
                                           # and chip_smoke.time_fps's times
-    python3 chip_compare.py paths TAG     # device time per call (and kernel 1's part)
+    python3 chip_compare.py paths TAG     # device time per call (and kernels 1's and 2's part)
                                           # of serve, serve_fused_eval and eval_fused_sa
                                           # at B=16 x 10240 and a train step at 36 x 7168,
                                           # beside each one's wall time
     python3 chip_compare.py fpstune TAG   # kernel 1 at the sectored shapes under other
                                           # plans: P_MAX (block rows) and
                                           # ROWS_PER_WARP_BLOCK (one-warp rows) swept
+    python3 chip_compare.py group TAG     # kernel 2 (ball group) at every shape the
+                                          # paths give it (chip_smoke.GROUP_SHAPES), bf16
+                                          # and f32 out: its ptxas report, blocks per SM,
+                                          # events, CUDA-graph and profiler times, the
+                                          # lane-tests issued beside the tests the data
+                                          # needs, and its scan-only and full-scan
+                                          # instantiations where the tree has them
+    python3 chip_compare.py grouptune TAG # kernel 2 at those shapes (bf16 out) under
+                                          # every plan its instantiations take:
+                                          # centroids a block, points a thread a chunk
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -322,9 +332,56 @@ def fps_tune(tag: str) -> None:
             print(f"{tag} {name}={value}: " + " | ".join(out) + f" [{card}]", flush=True)
 
 
+def group(tag: str) -> None:
+    """Kernel 2 at every shape of chip_smoke.GROUP_SHAPES in bf16 and f32 out
+    (chip_smoke.time_group), after its ptxas report."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+
+    card = cs.card_line()
+    for line in ptxas_lines("ball_group.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    for label, args, kwargs in cs.group_inputs(serve, dev):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            res = cs.time_group(label, args, dict(kwargs, out_dtype=out_dtype), card)
+            print(f"{tag} group {label} {res.pop('dtype')}: "
+                  + " ".join(f"{key}={val}" for key, val in res.items() if key != "label")
+                  + f" [{card}]", flush=True)
+
+
+def group_tune(tag: str) -> None:
+    """Kernel 2 at every shape of chip_smoke.GROUP_SHAPES (bf16 out, as the
+    default engine runs it) under every plan of ``ball_group_kernel``'s
+    instantiations: index-exact and bit-identical against the plain version,
+    then the graph replay's ms (chip_smoke.graph_ms), with blocks per SM."""
+    import itertools
+
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import ball_group_kernel as k2
+
+    card = cs.card_line()
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    cases = [(label, args, kwargs, k2.ball_group_plain(*args, **kwargs))
+             for label, args, kwargs in cs.group_inputs(serve, dev)]
+    for values in itertools.product(k2.CENTROIDS, k2.CHUNK_POINTS):
+        p = k2.Plan(*values)
+        out = []
+        with mock.patch.object(k2, "plan", lambda n, m: p):
+            for label, args, kwargs, want in cases:
+                got = k2.ball_group(*args, **kwargs)
+                cs.require(torch.equal(got[1], want[1]) and cs.same_bits(got[2], want[2]),
+                           f"plan {tuple(p)}: kernel differs from plain at {label}")
+                out.append(f"{label} {cs.graph_ms(lambda: k2.ball_group(*args, **kwargs)):.4f}")
+            occ = k2.occupancy(args[2].shape[1], args[0].shape[1])
+        print(f"{tag} plan {tuple(p)} blocks/SM {occ['blocks_per_sm']}: " + " | ".join(out)
+              + f" [{card}]", flush=True)
+
+
 def paths(tag: str) -> None:
-    """Device time per call of the paths kernel 1 runs on (a torch.profiler
-    window of 3 calls, chip_smoke.profile_calls) and kernel 1's part of it:
+    """Device time per call of the paths kernels 1 and 2 run on (a torch.profiler
+    window of 3 calls, chip_smoke.profile_calls) and those kernels' part of it:
     the default and the fused_eval engines and the fused_sa model's predict
     at 16 x 10240, and a training step at 36 x 7168; beside each, its wall
     time by host clock (median of 10 after 2, each ending in a synchronize)."""
@@ -347,15 +404,17 @@ def paths(tag: str) -> None:
                      ("train 36 x 7168", lambda: trainer.step(batch, gen))):
         _, busy, kernels, _ = cs.profile_calls(fn, 3)
         k1 = sum(ms for key, ms, _ in kernels if "fps" in key)
+        k2 = sum(ms for key, ms, _ in kernels if "ball_group" in key)
         wall = cs.serve_timing(lambda _: fn(), None)
-        print(f"{tag} {name}: {busy:.3f} ms of device time per call, kernel 1 {k1:.4f} ms; "
-              f"wall {wall:.3f} ms [{card}]", flush=True)
+        print(f"{tag} {name}: {busy:.3f} ms of device time per call, kernel 1 {k1:.4f} ms, "
+              f"kernel 2 {k2:.4f} ms; wall {wall:.3f} ms [{card}]", flush=True)
 
 
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
-                "fpstune": (fps_tune, 1), "paths": (paths, 1)}
+                "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
+                "grouptune": (group_tune, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

@@ -11,7 +11,9 @@ Phases, each of which raises on failure (exit code 1):
              version on the card (index-exact selection, bit-identical
              captured planes and gather) and timed with CUDA events (median
              of 25 launches), beside its bound and, where one PyTorch call
-             computes the same function, that call's time. Then kernel 1 at
+             computes the same function, that call's time; kernel 2 also
+             with ``ball_group_kernel.plan``'s choice, its time replayed from
+             a CUDA graph and its CUDA-core floor. Then kernel 1 at
              every shape the paths give it (FPS_SHAPES: SA1 and SA2 of 16 and
              36 x 10240 and 36 x 7168, exact FPS on 16 x 10240 and 2 x
              16384): index-exact, two launches identical, ``fps_kernel.plan``'s
@@ -267,6 +269,16 @@ FPS_SHAPES = (("16 x 10240", SMALL, N_POINTS, 1, "sectored"),
               ("36 x 7168", LARGE, SHORT_POINTS, 12, "sectored"),
               ("exact 16 x 10240", SMALL, N_POINTS, 1, "exact"),
               ("phase 9", SCRATCH_ROWS, SCRATCH_POINTS, 30, "exact"))
+# kernel 2 at every shape the paths give it (chip_compare.py group): (label,
+# clouds, points, seed) of the serving requests and the 36 x 7168 training batch
+GROUP_SHAPES = (("16 x 10240", SMALL, N_POINTS, 1), ("36 x 10240", LARGE, N_POINTS, 2),
+                ("24 x 7168", FAULT_BATCHES[0], SHORT_POINTS, 4),
+                ("28 x 7168", FAULT_BATCHES[1], SHORT_POINTS, 5),
+                ("36 x 7168", LARGE, SHORT_POINTS, 12))
+# kernel 2's CUDA-core floor: a distance test is 9 instructions with no FMA (3
+# sub, 3 mul, 2 add, a compare: csrc/stratified_select.cuh), at 128 FP32 lanes
+# an SM a cycle
+TEST_INSTRUCTIONS, FP32_LANES_PER_SM = 9, 128
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # kernel step vs plain-version step from one state and seed: every kernel is
 # exact against its plain version, so the two steps should be identical; the
@@ -490,6 +502,90 @@ def bucket_scan_lengths(centers, cmask, pos, mask, r2, chunk=128):
     return total
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_floor_ms(tests: int) -> float:
+    """Kernel 2's CUDA-core floor for ``tests`` distance tests: TEST_INSTRUCTIONS
+    each at FP32_LANES_PER_SM lanes on every SM at the highest clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return tests * TEST_INSTRUCTIONS / (FP32_LANES_PER_SM * sms * sm_clock_hz()) * 1e3
+
+
+def group_bound(centers, cmask, pos, mask, feat, radius: float, out_dtype):
+    """Kernel 2's bound (bytes: the inputs read once, the outputs written once;
+    operations: the distance tests the data needs), with those tests."""
+    from dl_biomass_tpu_torch.ops import ball_group_kernel
+
+    b, m, _ = centers.shape
+    n, f = pos.shape[1], (0 if feat is None else feat.shape[-1])
+    tests = bucket_scan_lengths(centers, cmask, pos, mask, ball_group_kernel._radius2(radius))
+    esize = torch.empty((), dtype=out_dtype).element_size()
+    bms, by = bound(b * n * (12 + 4 * f + 1) + b * m * 13 + b * m * 64 * ((f + 3) * esize + 1),
+                    tests * DIST_TEST_FLOPS)
+    return bms, by, tests
+
+
+def group_inputs(serve, device) -> list:
+    """(label, args, kwargs) of kernel 2 in one forward of ``serve`` at each
+    of GROUP_SHAPES."""
+    out = []
+    for label, b, n, seed in GROUP_SHAPES:
+        batch = synthetic_batch(b, n, seed=seed, device=device)
+        (args, kwargs), = record_kernel_inputs(serve, batch)["ball_group"]
+        out.append((label, args, kwargs))
+    return out
+
+
+def time_group(label: str, args, kwargs, card: str) -> dict:
+    """Kernel 2 at one shape: index-exact and bit-identical against its plain
+    version and across two launches, then timed by CUDA events around the
+    wrapper (median of 25), replayed from a CUDA graph and alone from a
+    torch.profiler window; the lane-tests a full scan issues (B*M*N) beside
+    the tests the data needs, the CUDA-core floor of each, the bound, and
+    where the tree has them the plan, blocks per SM and the graph times of
+    the scan-only and full-scan instantiations."""
+    from dl_biomass_tpu_torch.ops import ball_group_kernel as k2
+
+    centers, cmask, pos, mask, feat = args
+    b, m, _ = centers.shape
+    n = pos.shape[1]
+    out_dtype = kwargs["out_dtype"]
+    got = k2.ball_group(*args, **kwargs)
+    again = k2.ball_group(*args, **kwargs)
+    want = k2.ball_group_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    for x, y, what in ((got, want, "plain"), (got, again, "a second launch")):
+        require(torch.equal(x[1], y[1]) and same_bits(x[2], y[2])
+                and (x[0] is None or torch.equal(x[0], y[0])),
+                f"ball group differs from {what} at {label} {out_dtype}")
+    res = dict(label=label, dtype=str(out_dtype).replace("torch.", ""), b=b, m=m, n=n,
+               plan=(tuple(k2.plan(n, m)) if hasattr(k2, "plan")
+                     else "parent: one 128-thread block per centroid"))
+
+    def fn():
+        return k2.ball_group(*args, **kwargs)
+
+    res.update(ms=time_ms(fn), graph_ms=graph_ms(fn), alone_ms=kernel_alone_ms(fn, "ball_group"))
+    if hasattr(k2, "probe"):
+        for mode in ("scan_only", "full_scan"):
+            res[f"{mode}_graph_ms"] = graph_ms(lambda: k2.probe(
+                *args, radius=kwargs["radius"], mode=mode, out_dtype=out_dtype))
+    if hasattr(k2, "occupancy"):
+        res["occupancy"] = k2.occupancy(n, m)
+    res["bound_ms"], res["bound_by"], res["tests"] = group_bound(*args, kwargs["radius"],
+                                                                 out_dtype)
+    res["lane_tests"] = b * m * n
+    res["floor_tests_ms"] = scan_floor_ms(res["tests"])
+    res["floor_full_ms"] = scan_floor_ms(res["lane_tests"])
+    return res
+
+
 def check_kernels(calls, device):
     """Phase 2: each kernel against its plain version, timed, with its bound."""
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
@@ -550,13 +646,12 @@ def check_kernels(calls, device):
     t, tp = time_ms(bg), time_ms(bg_plain)
     b, m, _ = centers.shape
     n, f = pos.shape[1], feat.shape[-1]
-    tests = bucket_scan_lengths(centers, cmask, pos, mask, ball_group_kernel._radius2(radius))
-    esize = torch.empty((), dtype=out_dtype).element_size()
-    bms, by = bound(b * n * (12 + 4 * f + 1) + b * m * 13 + b * m * 64 * ((f + 3) * esize + 1),
-                    tests * DIST_TEST_FLOPS)
-    print(f"kernel ball_group B={b} M={m} N={n} F={f} {out_dtype}: {t:.4f} ms, plain "
-          f"{tp:.4f} ms, bound {bms:.6f} ms ({tests} distance tests), selection index-exact, "
-          f"planes bit-identical (bf16 and f32)", flush=True)
+    bms, by, tests = group_bound(*args, radius, out_dtype)
+    print(f"kernel ball_group B={b} M={m} N={n} F={f} {out_dtype} plan "
+          f"{tuple(ball_group_kernel.plan(n, m))}: {t:.4f} ms, CUDA graph {graph_ms(bg):.4f} ms, "
+          f"plain {tp:.4f} ms, bound {bms:.6f} ms ({tests} distance tests; CUDA-core floor "
+          f"{scan_floor_ms(tests):.4f} ms, full scan {scan_floor_ms(b * m * n):.4f}), "
+          f"selection index-exact, planes bit-identical (bf16 and f32)", flush=True)
     rows.append(dict(name="ball_group", source="dl_biomass_tpu_torch/csrc/ball_group.cu",
                      replaces="dl_biomass_tpu/ops/pallas_group.py:139", entry="dlbt_ball_group",
                      max_abs_err=err, ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,

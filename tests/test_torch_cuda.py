@@ -21,6 +21,9 @@ from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kern
                                       sum_slices_kernel, tail_kernel)
 from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe
 from fps_cases import EDGE_CASES, edge_case
+from group_cases import CASES as GROUP_CASES
+from group_cases import RADIUS as GROUP_RADIUS
+from group_cases import group_case
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -78,6 +81,47 @@ def test_ball_group_kernel_matches_plain(dev, dtype):
                                               out_dtype=dtype)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
+
+
+def _same_group(got, want):
+    assert torch.equal(got[1], want[1])
+    assert (got[0] is None and want[0] is None) or torch.equal(got[0], want[0])
+    bits = torch.int16 if got[2].dtype == torch.bfloat16 else torch.int32
+    assert got[2].dtype == want[2].dtype and torch.equal(got[2].view(bits), want[2].view(bits))
+
+
+# kernel 2 on each edge case of tests/group_cases.py with 0, 1 and 4 features,
+# bf16 and f32 out, with and without indices: bit-identical to the plain
+# version and across two launches
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+@pytest.mark.parametrize("f", [0, 1, 4])
+def test_ball_group_edge_cases_match_plain(dev, case, f):
+    centers, cmask, pos, mask, _ = (torch.from_numpy(a).to(dev) if a is not None else None
+                                    for a in group_case(case))
+    rng = np.random.default_rng(f)
+    feat = (torch.from_numpy(rng.normal(size=(*pos.shape[:2], f)).astype(np.float32)).to(dev)
+            if f else None)
+    for dtype in (torch.bfloat16, torch.float32):
+        for need_idx in (True, False):
+            kw = dict(radius=GROUP_RADIUS, out_dtype=dtype, need_idx=need_idx)
+            got = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, **kw)
+            again = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, **kw)
+            _same_group(got, ball_group_kernel.ball_group_plain(centers, cmask, pos, mask, feat,
+                                                                **kw))
+            _same_group(got, again)
+
+
+# the paths' cloud sizes (each of ball_group_kernel.plan's chunks), 20608 points
+# beyond what one shared-memory cloud would hold, and garbage in masked points
+@pytest.mark.parametrize("n", [7168, 10240, 20608])
+def test_ball_group_kernel_at_path_widths_matches_plain(dev, n):
+    pos, mask, feat = _cloud(dev, n=n, seed=n)
+    pos = torch.where(mask[..., None], pos, torch.full_like(pos, 1e4))
+    centers, cmask = pos[:, :300].contiguous(), mask[:, :300].contiguous()
+    for dtype in (torch.bfloat16, torch.float32):
+        kw = dict(radius=2.0, out_dtype=dtype, need_idx=True)
+        _same_group(ball_group_kernel.ball_group(centers, cmask, pos, mask, feat, **kw),
+                    ball_group_kernel.ball_group_plain(centers, cmask, pos, mask, feat, **kw))
 
 
 def test_ball_query_kernel_matches_plain(dev):
