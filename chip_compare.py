@@ -42,6 +42,21 @@ on one NVIDIA card, beside ``chip_smoke.py``, whose helpers it uses:
     python3 chip_compare.py grouptune TAG # kernel 2 at those shapes (bf16 out) under
                                           # every plan its instantiations take:
                                           # centroids a block, points a thread a chunk
+    python3 chip_compare.py scatter TAG   # kernel 4b (the gather's scatter-add
+                                          # backward) at the inputs a training step
+                                          # gives it at 16 and 36 x 10240, and the
+                                          # unsplit model's at 16 x 10240: its ptxas
+                                          # report, bit-exactness, events and CUDA-graph
+                                          # times beside index_add_, each of its
+                                          # launches alone and with the pad slots
+                                          # taken out where the tree has its probe, the
+                                          # segment lengths; then kernels 3, 4a and 4c
+                                          # by graph at one 16 x 10240 forward's inputs
+    python3 chip_compare.py eval5 TAG     # kernel 5 at every width the fused_eval
+                                          # engine serves (neuron_multiplier 1, 2, 3;
+                                          # bf16 and f32) at one 16 x 10240 forward's
+                                          # inputs: against its plain version, by CUDA
+                                          # graph, with its launch (blocks per SM)
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -410,11 +425,100 @@ def paths(tag: str) -> None:
               f"kernel 2 {k2:.4f} ms; wall {wall:.3f} ms [{card}]", flush=True)
 
 
+def scatter(tag: str) -> None:
+    """Kernel 4b (chip_smoke.time_scatter) at the inputs one training step
+    gives it at 16 and 36 x 10240 (the batches of chip_smoke.py's phase 7) and
+    one step of the unsplit model at 16 x 10240 (kernel 4c's backward, phase
+    8), after its ptxas report; then kernels 3, 4a and 4c by CUDA graph
+    (chip_smoke.graph_ms) at one 16 x 10240 serving forward's inputs."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+    from dl_biomass_tpu_torch.ops import gather_kernel as k4
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    card = cs.card_line()
+    for line in ptxas_lines("gather_bwd.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    for label, b, seed, split in (("train 16 x 10240", 16, 10, True),
+                                  ("train 36 x 10240", 36, 11, True),
+                                  ("train_unsplit 16 x 10240", 16, 10, False)):
+        trainer = Trainer(cs.seeded_model(dev, split_first_layer=split), TrainConfig(), dev)
+        batch = cs.synthetic_batch(b, 10240, seed=seed, device=dev)
+        calls = cs.record_kernel_inputs(lambda x: trainer.step(x, cs.train_gen(dev, 0)), batch)
+        res = cs.time_scatter(*cs.scatter_case(calls))
+        print(f"{tag} scatter {label}: " + " ".join(f"{key}={val}" for key, val in res.items())
+              + f" [{card}]", flush=True)
+        del trainer, calls
+        torch.cuda.empty_cache()
+    req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
+    calls = cs.record_kernel_inputs(compile_inference(cs.seeded_model(dev), dev), req)
+    unsplit = cs.record_kernel_inputs(
+        compile_inference(cs.seeded_model(dev, split_first_layer=False), dev), req)
+    (a3, kw3), = calls["ball_query_first_k"]
+    a4, = [a for a, _ in calls["gather_rows_forward"]]
+    a4c, = [a for a, _ in unsplit["gather_rows_aux"]]
+    out = [f"kernel 3 {cs.graph_ms(lambda: k3.ball_query_first_k(*a3, **kw3)):.4f}",
+           f"kernel 4a {cs.graph_ms(lambda: k4.gather_rows_forward(*a4)):.4f}",
+           f"kernel 4c {cs.graph_ms(lambda: k4.gather_rows_aux(*a4c)):.4f}"]
+    print(f"{tag} graph ms at one 16 x 10240 forward's inputs: " + " | ".join(out)
+          + f" [{card}]", flush=True)
+
+
+def eval5(tag: str) -> None:
+    """Kernel 5 at the inputs one fused_eval forward at 16 x 10240 gives it, for
+    the seeded model at neuron_multiplier 1, 2 and 3 in bf16 and in f32 (the
+    inputs recorded with the plain version in the kernel's place): held
+    against the plain version (max|diff| / max|y|), then the wrapper as the
+    engine calls it replayed from a CUDA graph, with its blocks per SM; a
+    width the tree refuses is printed as such."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import sa_eval_kernel as k5
+
+    card = cs.card_line()
+    for line in ptxas_lines("sa1_fused_eval.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
+    for nm in (1, 2, 3):
+        for dtype in ("bfloat16", "float32"):
+            label = f"x{nm} {dtype}"
+            try:
+                serve = compile_inference(cs.seeded_model(dev, neuron_multiplier=nm,
+                                                          compute_dtype=dtype),
+                                          dev, fused_eval=True)
+            except NotImplementedError as e:
+                print(f"{tag} eval5 {label}: the engine refuses: {e} [{card}]", flush=True)
+                continue
+            with mock.patch.object(k5, "sa1_fused_eval", k5.sa1_fused_eval_plain):
+                (args, kw), = cs.record_kernel_inputs(serve, req)["sa1_fused_eval"]
+            widths = [-(-w.shape[1] // 64) * 64 for w in args[5][0::2]]
+            try:
+                got = k5.sa1_fused_eval(*args, **kw)
+            except RuntimeError as e:
+                print(f"{tag} eval5 {label} widths {widths}: the kernel refuses: {e} [{card}]",
+                      flush=True)
+                continue
+            want = k5.sa1_fused_eval_plain(*args, **kw)
+            again = k5.sa1_fused_eval(*args, **kw)
+            torch.cuda.synchronize()
+            ms = cs.graph_ms(lambda: k5.sa1_fused_eval(*args, **kw))
+            occ = k5.occupancy(kw["bf16"], *widths)
+            print(f"{tag} eval5 {label} widths {widths}: graph {ms:.4f} ms, vs plain "
+                  f"{cs.rel_diff(got.float(), want.float()):.3e}, repeat bit-identical "
+                  f"{cs.same_bits(got, again)}, zero rows equal "
+                  f"{bool(torch.equal((got == 0).all(-1), (want == 0).all(-1)))}, launch {occ} "
+                  f"[{card}]", flush=True)
+            del serve, args, kw, got, want, again
+            torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
-                "grouptune": (group_tune, 1)}
+                "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

@@ -666,6 +666,7 @@ def check_kernels(calls, device):
             "ball query kernel differs from plain")
     err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
     t = time_ms(lambda: ball_query_kernel.ball_query_first_k(*args, **kwargs))
+    tg = graph_ms(lambda: ball_query_kernel.ball_query_first_k(*args, **kwargs))
     tp = time_ms(lambda: ball_query_kernel.ball_query_plain(*args, **kwargs))
     centers, cmask, pos, mask = args
     k = kwargs["k"]
@@ -675,13 +676,16 @@ def check_kernels(calls, device):
     scan = torch.where(nbr[..., k - 1], idx[..., k - 1].long() + 1, torch.full_like(
         idx[..., k - 1], n, dtype=torch.long))
     tests = int((scan * cmask).sum())
-    bms, by = bound(b * n * 13 + b * m * 13 + b * m * k * 5, tests * DIST_TEST_FLOPS)
-    print(f"kernel ball_query B={b} M={m} N={n} K={k}: {t:.4f} ms, plain {tp:.4f} ms, "
-          f"bound {bms:.6f} ms ({tests} distance tests), index-exact", flush=True)
+    nbytes, flops = b * n * 13 + b * m * 13 + b * m * k * 5, tests * DIST_TEST_FLOPS
+    bms, by = bound(nbytes, flops)
+    print(f"kernel ball_query B={b} M={m} N={n} K={k}: {t:.4f} ms, CUDA graph {tg:.4f} ms, "
+          f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}; bytes {bound(nbytes, 0)[0]:.6f} ms, "
+          f"operations {bound(0, flops)[0]:.6f} ms: {tests} distance tests), index-exact",
+          flush=True)
     rows.append(dict(name="ball_query_first_k", source="dl_biomass_tpu_torch/csrc/ball_query.cu",
                      replaces="dl_biomass_tpu/ops/pallas_ballquery.py:142",
                      entry="dlbt_ball_query", max_abs_err=err, ms=t, plain_ms=tp,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     bound_ms=bms, bound_by=by, library_ms=None, graph_ms=tg))
 
     # kernel 4: row gather
     (args, kwargs), = calls["gather_rows_forward"]
@@ -695,19 +699,22 @@ def check_kernels(calls, device):
     require(same_bits(got, lib), "gather kernel differs from advanced indexing in bits")
     idx_l = idx.long()
     t = time_ms(lambda: gather_kernel.gather_rows(values, idx))
+    tg = graph_ms(lambda: gather_kernel.gather_rows(values, idx))
     tp = time_ms(lambda: gather_kernel.gather_rows_plain(values, idx))
     tl = time_ms(lambda: values[b_ar, idx_l])
+    tlg = graph_ms(lambda: values[b_ar, idx_l])
     b, n, c = values.shape
     _, m, k = idx.shape
     es = values.element_size()
     bms, by = bound(b * m * k * c * es + b * m * k * 4 + b * n * c * es, 0)
-    print(f"kernel gather B={b} N={n} C={c} M={m} K={k} {values.dtype}: {t:.4f} ms, plain "
-          f"{tp:.4f} ms, library (values[b, idx]) {tl:.4f} ms, bound {bms:.6f} ms, "
-          f"bit-identical", flush=True)
+    print(f"kernel gather B={b} N={n} C={c} M={m} K={k} {values.dtype}: {t:.4f} ms, CUDA "
+          f"graph {tg:.4f} ms, plain {tp:.4f} ms, library (values[b, idx]) {tl:.4f} ms (graph "
+          f"{tlg:.4f}), bound {bms:.6f} ms, bit-identical", flush=True)
     rows.append(dict(name="gather_rows_forward", source="dl_biomass_tpu_torch/csrc/gather.cu",
                      replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:191",
                      entry="dlbt_gather", max_abs_err=max_abs_err(got, want), ms=t,
-                     plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl))
+                     plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl, graph_ms=tg,
+                     library_graph_ms=tlg))
     return rows
 
 
@@ -785,20 +792,24 @@ def check_gather_aux(calls, device):
     require(same_bits(got[0], values[b_ar, idx_l]) and same_bits(got[1], aux[b_ar, idx_l]),
             "aux gather kernel differs from advanced indexing in bits")
     t = time_ms(lambda: gather_kernel.gather_rows_aux(values, idx, aux))
+    tg = graph_ms(lambda: gather_kernel.gather_rows_aux(values, idx, aux))
     tp = time_ms(lambda: gather_kernel.gather_rows_aux_plain(values, idx, aux))
     tl = time_ms(lambda: (values[b_ar, idx_l], aux[b_ar, idx_l]))
+    tlg = graph_ms(lambda: (values[b_ar, idx_l], aux[b_ar, idx_l]))
     b, n, c = values.shape
     _, m, k = idx.shape
     c2 = aux.shape[-1]
     es = values.element_size()
     bms, by = bound(b * m * k * (c * es + c2 * 4 + 4) + b * n * (c * es + c2 * 4), 0)
     print(f"kernel gather_rows_aux B={b} N={n} C={c} {values.dtype} + aux C2={c2} f32, M={m} "
-          f"K={k}: {t:.4f} ms, plain {tp:.4f} ms, yardstick (values[b, idx] and aux[b, idx]) "
-          f"{tl:.4f} ms, bound {bms:.6f} ms, bit-identical", flush=True)
+          f"K={k}: {t:.4f} ms, CUDA graph {tg:.4f} ms, plain {tp:.4f} ms, yardstick "
+          f"(values[b, idx] and aux[b, idx]) {tl:.4f} ms (graph {tlg:.4f}), bound {bms:.6f} ms, "
+          f"bit-identical", flush=True)
     return dict(name="gather_rows_aux", source="dl_biomass_tpu_torch/csrc/gather.cu",
                 replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:263", entry="dlbt_gather_aux",
                 max_abs_err=max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])),
-                ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl)
+                ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, library_ms=tl, graph_ms=tg,
+                library_graph_ms=tlg)
 
 
 def rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -897,21 +908,57 @@ def check_sa1_fused_eval(calls, device):
                 blocks_per_sm=occ["blocks_per_sm"], threads_per_block=occ["threads"])
 
 
-def check_scatter(calls, device):
-    """Phase 6: kernel 4b against its plain version, timed, with its bound."""
-    from dl_biomass_tpu_torch.ops import gather_kernel
+def scatter_case(calls):
+    """(ct, idx, n, nbr) of kernel 4b in a recorded step: its inputs, and the
+    ball query's mask of the same index (False at the pad slots, which point
+    at row 0)."""
+    from dl_biomass_tpu_torch.ops import ball_query_kernel
 
-    (args, kwargs), = calls["scatter_rows"]
+    (args, _), = calls["scatter_rows"]
     ct, idx, n = args
-    got = gather_kernel.scatter_rows(ct, idx, n)
-    want = gather_kernel.scatter_rows_plain(ct, idx, n)
+    (bq_args, bq_kwargs), = calls["ball_query_first_k"]
+    bq_idx, nbr = ball_query_kernel.ball_query_first_k(*bq_args, **bq_kwargs)
+    require(torch.equal(bq_idx.to(idx.dtype), idx), "the gather's index is not the ball query's")
+    return ct, idx, n, nbr
+
+
+def scatter_segments(idx, n: int, nbr) -> dict:
+    """Members of each output row of kernel 4b (its segment): mean, 99th
+    percentile and longest over the rows, the longest row 0 (which also takes
+    a cloud's pad slots) and the longest over true neighbours alone."""
+    b = idx.shape[0]
+
+    def counts(ok):
+        keys = (idx.long() + torch.arange(b, device=idx.device).view(b, 1, 1) * n)[ok]
+        return torch.bincount(keys, minlength=b * n).view(b, n).float()
+
+    ok = (idx >= 0) & (idx < n)
+    cnt, true = counts(ok), counts(ok & nbr)
+    return dict(mean=round(float(cnt.mean()), 2), p99=float(torch.quantile(cnt.flatten(), 0.99)),
+                longest=int(cnt.max()), longest_row0=int(cnt[:, 0].max()),
+                longest_true=int(true.max()), pads=int((ok & ~nbr).sum()))
+
+
+def time_scatter(ct, idx, n: int, nbr) -> dict:
+    """Kernel 4b at one input: bit-identical against its plain version and
+    across two launches, then timed by CUDA events (median of SCATTER_REPS)
+    and replayed from a CUDA graph beside one ``index_add_`` (float atomics:
+    a yardstick only), with its bound; where the tree has them, each of its
+    launches alone (``gather_kernel.probe``) from a graph, also on the
+    index with the pad slots taken out (-1: they then add nothing)."""
+    from dl_biomass_tpu_torch.ops import gather_kernel as k4
+
+    got = k4.scatter_rows(ct, idx, n)
+    again = k4.scatter_rows(ct, idx, n)
+    want = k4.scatter_rows_plain(ct, idx, n)
     torch.cuda.synchronize()
     require(same_bits(got, want), "scatter kernel differs from plain in bits")
+    require(same_bits(got, again), "scatter kernel: a second launch changed bits")
     b, m, k, c = ct.shape
     ok = (idx >= 0) & (idx < n)
-    keys = (idx.long() + torch.arange(b, device=device).view(b, 1, 1) * n)[ok]
+    keys = (idx.long() + torch.arange(b, device=ct.device).view(b, 1, 1) * n)[ok]
     src = ct.reshape(b, m, k, c)[ok].float()  # the f32 image of the rows that count
-    buf = torch.empty((b * n, c), dtype=torch.float32, device=device)
+    buf = torch.empty((b * n, c), dtype=torch.float32, device=ct.device)
 
     def library():  # float atomics: a yardstick only, not deterministic
         buf.zero_()
@@ -919,21 +966,48 @@ def check_scatter(calls, device):
 
     lib = library().view(b, n, c)
     torch.cuda.synchronize()
-    lib_err = max_abs_err(lib, want)
-    t = time_ms(lambda: gather_kernel.scatter_rows(ct, idx, n), reps=SCATTER_REPS)
-    tp = time_ms(lambda: gather_kernel.scatter_rows_plain(ct, idx, n), reps=3, warmup=1)
-    tl = time_ms(library, reps=SCATTER_REPS)
+
+    def kernel():
+        return k4.scatter_rows(ct, idx, n)
+
     valid = int(ok.sum())
     bms, by = bound(ct.numel() * ct.element_size() + idx.numel() * 4
                     + b * n * c * ct.element_size(), valid * c)
-    print(f"kernel scatter_rows B={b} M={m} K={k} C={c} N={n} {ct.dtype}: {t:.4f} ms "
-          f"(median of {SCATTER_REPS}), plain {tp:.4f} ms, library (index_add_ of the f32 rows, "
-          f"float atomics) {tl:.4f} ms, bound {bms:.6f} ms ({valid} rows), bit-identical; "
-          f"library max|diff| {lib_err:.3e}", flush=True)
+    res = dict(b=b, m=m, k=k, c=c, n=n, dtype=str(ct.dtype).replace("torch.", ""),
+               ms=time_ms(kernel, reps=SCATTER_REPS), graph_ms=graph_ms(kernel),
+               library_ms=time_ms(library, reps=SCATTER_REPS), library_graph_ms=graph_ms(library),
+               library_max_abs_diff=max_abs_err(lib, want), bound_ms=bms, bound_by=by,
+               rows=valid, err=max_abs_err(got, want), segments=scatter_segments(idx, n, nbr))
+    if hasattr(k4, "probe"):
+        no_pads = torch.where(nbr, idx, torch.full_like(idx, -1))
+        for tag, index in (("", idx), ("no_pads_", no_pads)):
+            scratch = k4.probe_scratch(ct, index, n)
+            for mode in k4.PROBE_MODES:
+                res[f"{tag}{mode}_graph_ms"] = graph_ms(
+                    lambda: k4.probe(ct, index, n, mode, scratch))
+            res[f"{tag}kernel_graph_ms"] = graph_ms(lambda: k4.scatter_rows(ct, index, n))
+    return res
+
+
+def check_scatter(calls, device):
+    """Phase 6: kernel 4b against its plain version, timed, with its bound."""
+    from dl_biomass_tpu_torch.ops import gather_kernel
+
+    ct, idx, n, nbr = scatter_case(calls)
+    res = time_scatter(ct, idx, n, nbr)
+    tp = time_ms(lambda: gather_kernel.scatter_rows_plain(ct, idx, n), reps=3, warmup=1)
+    print(f"kernel scatter_rows B={res['b']} M={res['m']} K={res['k']} C={res['c']} N={n} "
+          f"{ct.dtype}: {res['ms']:.4f} ms (median of {SCATTER_REPS}), CUDA graph "
+          f"{res['graph_ms']:.4f} ms, plain {tp:.4f} ms, library (index_add_ of the f32 rows, "
+          f"float atomics) {res['library_ms']:.4f} ms (graph {res['library_graph_ms']:.4f}), "
+          f"bound {res['bound_ms']:.6f} ms ({res['rows']} rows), bit-identical to plain and "
+          f"across two launches; library max|diff| {res['library_max_abs_diff']:.3e}; segments "
+          f"{res['segments']}", flush=True)
     return dict(name="scatter_rows", source="dl_biomass_tpu_torch/csrc/gather_bwd.cu",
                 replaces="dl_biomass_tpu/ops/pallas_mxu_gather.py:164", entry="dlbt_scatter_rows",
-                max_abs_err=max_abs_err(got, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
-                library_ms=tl)
+                max_abs_err=res["err"], ms=res["ms"], plain_ms=tp, bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=res["library_ms"],
+                graph_ms=res["graph_ms"], library_graph_ms=res["library_graph_ms"])
 
 
 def serve_timing(serve, batch, reps: int = SERVE_REPS) -> float:

@@ -224,6 +224,32 @@ cudaError_t launch_sum(const void* ct, const int* offsets, const int* rows, void
   return cudaGetLastError();
 }
 
+// The two launches, or one of them (mode 1: the CSR pass alone; mode 2: the
+// segment sum alone, on the offsets and rows a previous launch left).
+int run(const void* ct, const void* idx, void* offsets, void* rows, void* out, int b, int r,
+        int n, int c, int dtype, int warps, int mode, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || n < 1 || c < 1 || r < 0 || warps < 1 || warps > 32 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaSuccess;
+  if (mode != 2) {
+    const int smem = (warps + 1) * n * static_cast<int>(sizeof(int));
+    e = cudaFuncSetAttribute(csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    csr_kernel<<<b, warps * 32, smem, s>>>(static_cast<const int*>(idx),
+                                           static_cast<int*>(offsets), static_cast<int*>(rows),
+                                           r, n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || mode == 1) return static_cast<int>(e);
+  }
+  const int* off = static_cast<const int*>(offsets);
+  const int* rw = static_cast<const int*>(rows);
+  e = dtype == 0 ? launch_sum<float>(ct, off, rw, out, b, r, n, c, s)
+                 : launch_sum<__nv_bfloat16>(ct, off, rw, out, b, r, n, c, s);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // ct (B, R=M*K, C) of dtype 0 = float32 or 1 = bfloat16, idx (B, R) int32 ->
@@ -233,22 +259,14 @@ cudaError_t launch_sum(const void* ct, const int* offsets, const int* rows, void
 extern "C" int dlbt_scatter_rows(const void* ct, const void* idx, void* offsets, void* rows,
                                  void* out, int b, int r, int n, int c, int dtype, int warps,
                                  void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (b < 1 || n < 1 || c < 1 || r < 0 || warps < 1 || warps > 32 || (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int smem = (warps + 1) * n * static_cast<int>(sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  csr_kernel<<<b, warps * 32, smem, s>>>(static_cast<const int*>(idx),
-                                         static_cast<int*>(offsets), static_cast<int*>(rows),
-                                         r, n);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int* off = static_cast<const int*>(offsets);
-  const int* rw = static_cast<const int*>(rows);
-  e = dtype == 0 ? launch_sum<float>(ct, off, rw, out, b, r, n, c, s)
-                 : launch_sum<__nv_bfloat16>(ct, off, rw, out, b, r, n, c, s);
-  return static_cast<int>(e);
+  return run(ct, idx, offsets, rows, out, b, r, n, c, dtype, warps, 0, stream);
+}
+
+// dlbt_scatter_rows's arguments and a mode: 1 the CSR pass alone, 2 the segment
+// sum alone on the scratch a previous launch filled. A measurement; no path
+// launches it.
+extern "C" int dlbt_scatter_rows_probe(const void* ct, const void* idx, void* offsets,
+                                       void* rows, void* out, int b, int r, int n, int c,
+                                       int dtype, int warps, int mode, void* stream) {
+  return run(ct, idx, offsets, rows, out, b, r, n, c, dtype, warps, mode, stream);
 }

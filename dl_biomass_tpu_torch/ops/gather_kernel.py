@@ -44,7 +44,11 @@ _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # the CSR pass of the backward keeps one int32 histogram of the N rows per
 # warp, plus one of totals, in a block's shared memory
 _BWD_SMEM_BYTES = 200 * 1024
+_PROBE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's launches, each alone (probe): the CSR pass, and the segment sum
+# on the CSR a previous launch left
+PROBE_MODES = {"csr": 1, "sum": 2}
 
 
 def _check(values, idx):
@@ -186,12 +190,7 @@ def _bwd_warps(n: int) -> int:
     return min(32, _BWD_SMEM_BYTES // (4 * n) - 1)
 
 
-def scatter_rows(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """ct (B, M, K, C) float32 or bfloat16, idx (B, M, K) -> (B, N, C) in ct's dtype.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if ct.device.type == "cpu":
-        return scatter_rows_plain(ct, idx, n)
+def _scatter_launch(ct, idx, n, scratch=None, mode=0):
     if ct.device.type != "cuda":
         raise RuntimeError(f"scatter_rows runs on cuda or cpu tensors, got {ct.device}")
     _check_scatter(ct, idx, n)
@@ -205,13 +204,41 @@ def scatter_rows(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     ct = ct.contiguous()
     idx = idx.to(torch.int32).contiguous()
     _build.check_cuda("scatter_rows", ct, idx)
-    out = torch.empty((b, n, c), dtype=ct.dtype, device=ct.device)
-    offsets = torch.empty((b, n + 1), dtype=torch.int32, device=ct.device)
-    rows = torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device)
-    _build.launch("dlbt_scatter_rows", _BWD_ARGTYPES, ct.data_ptr(), idx.data_ptr(),
-                  offsets.data_ptr(), rows.data_ptr(), out.data_ptr(), b, r, n, c,
-                  _DTYPE_CODES[ct.dtype], warps, _build.stream_of(ct))
-    return out
+    if scratch is None:
+        scratch = dict(out=torch.empty((b, n, c), dtype=ct.dtype, device=ct.device),
+                       offsets=torch.empty((b, n + 1), dtype=torch.int32, device=ct.device),
+                       rows=torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device))
+    args = (ct.data_ptr(), idx.data_ptr(), scratch["offsets"].data_ptr(),
+            scratch["rows"].data_ptr(), scratch["out"].data_ptr(), b, r, n, c,
+            _DTYPE_CODES[ct.dtype], warps)
+    if mode == 0:
+        _build.launch("dlbt_scatter_rows", _BWD_ARGTYPES, *args, _build.stream_of(ct))
+    else:
+        _build.launch("dlbt_scatter_rows_probe", _PROBE_ARGTYPES, *args, mode,
+                      _build.stream_of(ct))
+    return scratch
+
+
+def scatter_rows(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """ct (B, M, K, C) float32 or bfloat16, idx (B, M, K) -> (B, N, C) in ct's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    if ct.device.type == "cpu":
+        return scatter_rows_plain(ct, idx, n)
+    return _scatter_launch(ct, idx, n)["out"]
+
+
+def probe_scratch(ct: torch.Tensor, idx: torch.Tensor, n: int) -> dict:
+    """The kernel's output and scratch after one launch on ``ct`` and ``idx``,
+    for ``probe``."""
+    return _scatter_launch(ct, idx, n)
+
+
+def probe(ct: torch.Tensor, idx: torch.Tensor, n: int, mode: str, scratch: dict) -> None:
+    """One of the kernel's launches alone, on the card, into ``scratch``
+    (``probe_scratch`` of the same inputs): ``mode`` one of ``PROBE_MODES``. A
+    measurement of that launch's share; no path calls it."""
+    _scatter_launch(ct, idx, n, scratch, PROBE_MODES[mode])
 
 
 class _GatherRows(torch.autograd.Function):
