@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS) and 2 (ball group)
-on one NVIDIA card, beside ``chip_smoke.py``, whose helpers it uses:
+"""Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group)
+and 4b (the gather's scatter-add backward) on one NVIDIA card, beside
+``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
                                           # F1-F3 (bf16 and f32) at the inputs of one
@@ -25,10 +26,11 @@ on one NVIDIA card, beside ``chip_smoke.py``, whose helpers it uses:
                                           # chip_smoke.FPS_SHAPES: its registers and
                                           # spills (nvcc -Xptxas -v), blocks per SM,
                                           # and chip_smoke.time_fps's times
-    python3 chip_compare.py paths TAG     # device time per call (and kernels 1's and 2's part)
-                                          # of serve, serve_fused_eval and eval_fused_sa
-                                          # at B=16 x 10240 and a train step at 36 x 7168,
-                                          # beside each one's wall time
+    python3 chip_compare.py paths TAG     # device time per call (and kernels 1's, 2's and
+                                          # 4b's part) of serve, serve_fused_eval and
+                                          # eval_fused_sa at B=16 x 10240, train and
+                                          # train_fused_sa steps at 16 x 10240 and a train
+                                          # step at 36 x 7168, beside each one's wall time
     python3 chip_compare.py fpstune TAG   # kernel 1 at the sectored shapes under other
                                           # plans: P_MAX (block rows) and
                                           # ROWS_PER_WARP_BLOCK (one-warp rows) swept
@@ -394,12 +396,19 @@ def group_tune(tag: str) -> None:
               + f" [{card}]", flush=True)
 
 
+# the kernels of kernel 4b (csrc/gather_bwd.cu; csr_kernel before its redesign)
+SCATTER_KERNELS = ("csr_kernel", "count_kernel", "scan_kernel", "place_kernel",
+                   "segment_sum_kernel")
+
+
 def paths(tag: str) -> None:
-    """Device time per call of the paths kernels 1 and 2 run on (a torch.profiler
-    window of 3 calls, chip_smoke.profile_calls) and those kernels' part of it:
-    the default and the fused_eval engines and the fused_sa model's predict
-    at 16 x 10240, and a training step at 36 x 7168; beside each, its wall
-    time by host clock (median of 10 after 2, each ending in a synchronize)."""
+    """Device time per call of the paths kernels 1, 2 and 4b run on (a
+    torch.profiler window of 3 calls, chip_smoke.profile_calls) and those
+    kernels' part of it: the default and the fused_eval engines and the
+    fused_sa model's predict at 16 x 10240, the train and train_fused_sa steps
+    at 16 x 10240 (the batch of chip_smoke.py's phases 7 and 11) and a
+    training step at 36 x 7168; beside each, its wall time by host clock
+    (median of 10 after 2, each ending in a synchronize)."""
     cs, dev = _setup()
     from dl_biomass_tpu_torch.core.config import TrainConfig
     from dl_biomass_tpu_torch.models.inference import compile_inference
@@ -408,6 +417,7 @@ def paths(tag: str) -> None:
     card = cs.card_line()
     req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
     batch = cs.synthetic_batch(36, 7168, seed=12, device=dev)
+    batch16 = cs.synthetic_batch(16, 10240, seed=10, device=dev)
     serve = compile_inference(cs.seeded_model(dev), dev)
     fused = compile_inference(cs.seeded_model(dev), dev, fused_eval=True)
     fused_sa = Trainer(cs.seeded_model(dev, fused_sa=True), TrainConfig(), dev)
@@ -416,13 +426,17 @@ def paths(tag: str) -> None:
     for name, fn in (("serve B=16", lambda: serve(req)),
                      ("serve_fused_eval B=16", lambda: fused(req)),
                      ("eval_fused_sa B=16", lambda: fused_sa.predict([req])),
+                     ("train B=16", lambda: trainer.step(batch16, gen)),
+                     ("train_fused_sa B=16", lambda: fused_sa.step(batch16, gen)),
                      ("train 36 x 7168", lambda: trainer.step(batch, gen))):
         _, busy, kernels, _ = cs.profile_calls(fn, 3)
         k1 = sum(ms for key, ms, _ in kernels if "fps" in key)
         k2 = sum(ms for key, ms, _ in kernels if "ball_group" in key)
+        k4b = sum(ms for key, ms, _ in kernels if any(k in key for k in SCATTER_KERNELS))
         wall = cs.serve_timing(lambda _: fn(), None)
         print(f"{tag} {name}: {busy:.3f} ms of device time per call, kernel 1 {k1:.4f} ms, "
-              f"kernel 2 {k2:.4f} ms; wall {wall:.3f} ms [{card}]", flush=True)
+              f"kernel 2 {k2:.4f} ms, kernel 4b {k4b:.4f} ms; wall {wall:.3f} ms [{card}]",
+              flush=True)
 
 
 def scatter(tag: str) -> None:

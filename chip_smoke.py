@@ -11,9 +11,10 @@ Phases, each of which raises on failure (exit code 1):
              version on the card (index-exact selection, bit-identical
              captured planes and gather) and timed with CUDA events (median
              of 25 launches), beside its bound and, where one PyTorch call
-             computes the same function, that call's time; kernel 2 also
-             with ``ball_group_kernel.plan``'s choice, its time replayed from
-             a CUDA graph and its CUDA-core floor. Then kernel 1 at
+             computes the same function, that call's time; kernels 2, 3 and
+             4a also replayed from a CUDA graph, kernel 2 with
+             ``ball_group_kernel.plan``'s choice and its CUDA-core floor, kernel
+             3 with both parts of its bound. Then kernel 1 at
              every shape the paths give it (FPS_SHAPES: SA1 and SA2 of 16 and
              36 x 10240 and 36 x 7168, exact FPS on 16 x 10240 and 2 x
              16384): index-exact, two launches identical, ``fps_kernel.plan``'s
@@ -37,7 +38,8 @@ Phases, each of which raises on failure (exit code 1):
              versions and yardsticks (two ``values[b, idx]`` ops; the default
              engine's unfused SA1 segment), 5 also by its kernel alone
              (``torch.profiler``), packing per call, and its selection and
-             capture alone, with its blocks per SM.
+             capture alone, with its blocks per SM; 4c also from a CUDA
+             graph.
 5. serve_fused_eval and serve_unsplit — the same requests through
              ``compile_inference(fused_eval=True)`` and through the engine of
              the same weights with ``split_first_layer=False``: launches per
@@ -48,8 +50,11 @@ Phases, each of which raises on failure (exit code 1):
              engine's.
 6. kernel 4b — the scatter-add backward of the gather at the inputs one
              training step at 16 x 10240 gives it, held bit for bit against
-             its plain version and timed (median of 100 launches) beside its
-             bound and one ``index_add_`` as the library yardstick.
+             its plain version and a second launch, timed (median of 100
+             launches, and replayed from a CUDA graph) beside its bound and one
+             ``index_add_`` as the library yardstick, each of its four launches
+             alone from a graph (``gather_kernel.probe``), also with the pad
+             slots taken out, and the lengths of its segments.
 7. train   — ``Trainer`` on the same production model (Adam, lr, weight decay,
              head dropout 0.5; FPS starts and dropout from a seeded
              ``torch.Generator``) takes 12 steps on each fixed batch of
@@ -111,7 +116,14 @@ Phases, each of which raises on failure (exit code 1):
              bf16, and SA2's passes in f32 (ELU), against the plain version as
              in phase 10, each printed with the kernel that ran it (the
              routing rule ``sa_train_kernel.mma_takes``: SA1 at 2 on the
-             tensor cores, the rest on the CUDA cores) and its time.
+             tensor cores, the rest on the CUDA cores) and its time. Then
+             ``serve_fused_eval_wide``: ``compile_inference(fused_eval=True)``
+             for the seeded model at neuron_multiplier 2 and 3 in bf16 and 2 in
+             float32 (kernel 5 at (128, 128, 256) and (192, 192, 384), each
+             as ``sa_eval_kernel.plan`` names it) answers 16 x 10240 and the
+             partial request, launches counted, against the same engine on
+             the plain versions (1e-2 of max|y|, and 1e-4 in float32) and the
+             unfolded module, timed beside the default engine of that model.
 13. tail_bench, bn_stats_bench, dma_probe and bq_phase_bench — each tool's
              ``main()`` on the card (``dl_biomass_tpu_torch.tools``) with its
              launches counted;
@@ -238,6 +250,9 @@ EXPECTED = {
                               dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2),
     # the fused_sa model at neuron_multiplier 2 and 3 (phase 12), per run of one
     # train-mode forward, one eval forward and one step
+    # the fused_eval engine at the wider widths (phase 12), per forward
+    "serve_fused_eval_wide": per_run(dlbt_fps=2, dlbt_sa1_fused_eval=1, dlbt_ball_query=1,
+                                     dlbt_gather=1),
     **{f"fused_sa_x{nm}": per_run(dlbt_fps=6, dlbt_ball_group=3, dlbt_ball_query=3,
                                   dlbt_gather_aux=3, dlbt_scatter_rows=1, dlbt_fused_sa_f1=4,
                                   dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=6, dlbt_fused_sa_b1=2,
@@ -1165,7 +1180,8 @@ def main() -> int:
 WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
          "train_forward_fused_sa", "train_fused_sa") + tuple(
-             f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + TOOL_PATHS
+             f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + (
+                 "serve_fused_eval_wide",) + TOOL_PATHS
 
 
 def drive(device, card: str) -> list:
@@ -1180,6 +1196,7 @@ def drive(device, card: str) -> list:
     rows += check_fused_sa(device, card)
     fused_sa_paths(device, card, launches)
     wide_fused_sa(device, card, launches)
+    wide_fused_eval(device, card, launches)
     rows += tool_paths(device, card, launches)
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
@@ -2171,6 +2188,63 @@ def wide_fused_sa(device, card: str, launches: dict) -> None:
                           f"max|diff| {r['err']:.3e} [{card}]", flush=True)
         del fwd, bwd, trainer, model
         torch.cuda.empty_cache()
+
+
+# the fused_eval engine at the wider widths (phase 12): (neuron_multiplier,
+# compute dtype) of each model, and the bound of its float32 engine against
+# the plain versions (kernel 5 sums each dot product in another order: 1e-7 of
+# max|y| at SA1 on an H100, chip_compare.py eval5)
+WIDE_FUSED_EVAL = ((2, "bfloat16"), (3, "bfloat16"), (2, "float32"))
+F32_SERVE_RTOL = 1e-4
+
+
+def wide_fused_eval(device, card: str, launches: dict) -> None:
+    """Phase 12, path serve_fused_eval_wide: the fused_eval engine of the seeded
+    model at each of WIDE_FUSED_EVAL answers the 16 x 10240 and the partial
+    request (every launch counted), held against the same engine on the plain
+    versions and the unfolded module, and timed beside the default engine."""
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import sa_eval_kernel
+
+    requests = serving_requests(device)
+    reqs = [requests[0], requests[2]]  # 16 x 10240, and 5 clouds of 7000-10240 points
+    engines = []
+    for nm, dtype in WIDE_FUSED_EVAL:
+        model = seeded_model(device, neuron_multiplier=nm, compute_dtype=dtype)
+        widths = [model.sa1.mlp.linears()[i].out_features for i in range(3)]
+        engines.append((nm, dtype, widths, model, compile_inference(model, device,
+                                                                    fused_eval=True)))
+    outs = counted_run("serve_fused_eval_wide",
+                       lambda: [[fn(r) for r in reqs] for *_, fn in engines], launches,
+                       len(reqs) * len(engines))
+    for (nm, dtype, widths, model, fn), got in zip(engines, outs):
+        bound = BF16_SERVE_RTOL if dtype == "bfloat16" else F32_SERVE_RTOL
+        for out, req in zip(got, reqs):
+            require(tuple(out.shape) == (req.pos.shape[0], 4) and bool(torch.isfinite(out).all()),
+                    f"fused_eval x{nm} {dtype}: output {tuple(out.shape)} or not finite")
+        with ExitStack() as stack:
+            for p in plain_versions():
+                stack.enter_context(p)
+            plain = [fn(r) for r in reqs]
+        rel = max(rel_diff(g, p) for g, p in zip(got, plain))
+        require(rel <= bound, f"fused_eval x{nm} {dtype} vs plain: rel {rel} > {bound}")
+        with torch.inference_mode():
+            rel_module = max(rel_diff(g, model(r)) for g, r in zip(got, reqs))
+        require(rel_module <= FOLDED_VS_MODULE_RTOL,
+                f"fused_eval x{nm} {dtype} vs the module: rel {rel_module}")
+        default = compile_inference(model, device)
+        ms, ms_default = serve_timing(fn, reqs[0]), serve_timing(default, reqs[0])
+        plan = sa_eval_kernel.plan(*(-(-w // 64) * 64 for w in widths), dtype == "bfloat16")
+        print(f"serve_fused_eval_wide x{nm} {dtype} (SA1 widths {tuple(widths)}, kernel 5 plan "
+              f"{tuple(plan)}): vs plain-version engine max|diff|/max|y| {rel:.3e} (bound "
+              f"{bound}), vs unfolded module {rel_module:.3e} (bound {FOLDED_VS_MODULE_RTOL}); "
+              f"B={SMALL} x {N_POINTS} {ms:.3f} ms/batch, default engine {ms_default:.3f} "
+              f"[{card}]", flush=True)
+        del default
+    print(f"serve_fused_eval_wide launches over {len(reqs) * len(engines)} forwards: "
+          f"{launches['serve_fused_eval_wide']}", flush=True)
+    del engines, outs
+    torch.cuda.empty_cache()
 
 
 def tail_inputs(shape, device, seed: int):

@@ -21,6 +21,9 @@
 // plus the distance tests of the selection (8 flops each, f32); the output is
 // the only sizeable traffic (B*M*C values).
 //
+// Widths: SA1's at neuron_multiplier 1, 2 and 3, (64, 64, 128), (128, 128, 256) and
+// (192, 192, 384), in bf16 and in f32 (sa_eval_kernel.plan mirrors plan_of below).
+//
 // Design: in bf16 the scan dominates. Each of a centroid's 128 residue buckets is
 // walked until its first in-radius point, most of the way through a cloud: point
 // loads, in chains a thread cannot shorten. So a group of 128 threads (one per
@@ -39,11 +42,21 @@
 // longer so that ldmatrix hits 32 banks, the biases f32), into shared memory once
 // with cp.async; each group walks its own quads with its own buffers and named
 // barrier, so one group's scan runs beside another's MLP. Shared memory at the
-// production widths: 31 KiB of weights and 14 KiB per group.
+// production widths: 31 KiB of weights and 14 KiB per group, four groups a block (at
+// twice and three times the widths a1, a2 and the running max spill some of their
+// registers: four groups still beat two, whose 255 registers spill less). Three times
+// the widths' weights (237 KiB) do not fit a block, so layer 3's 384 columns are
+// split in two over gridDim.y: each block holds W1, W2 and its 192 columns of W3 and
+// recomputes the selection, a1 and a2 for them. Columns are independent and the max
+// is per column, so every output is the same value as from one block.
 // In f32 a block of 128 threads takes one centroid at a time (bucket_first, then the
 // capture), and runs the layers as 64-column passes of f32 FMAs on the CUDA cores,
 // every thread holding a 4-row x 8-column tile and reading 16-byte vectors, a1 and
-// a2 in shared memory.
+// a2 in shared memory. Where the whole weight block does not fit beside them (at
+// twice and three times the production widths: 278 and 532 KiB), W1 and the biases
+// stay in shared memory and W2 and W3 stream through two buffers, 64 columns at a
+// time (cp.async, the next chunk in flight while one is used): each pass reads the
+// same columns in the same order as from a resident block, so the sums are the same.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,11 +113,16 @@ struct Weights {
   }
 };
 
-// Copies the weight block into shared memory with cp.async, and waits for it.
-__device__ __forceinline__ void load_weights(char* smem, const char* w, size_t bytes) {
+// Starts a cp.async copy of bytes (a multiple of 16) from global w to shared smem.
+__device__ __forceinline__ void copy_async(char* smem, const char* w, size_t bytes) {
   for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
     dlbt::cp_async16(smem + 16 * i, w + 16 * i);
   }
+}
+
+// Copies the weight block into shared memory with cp.async, and waits for it.
+__device__ __forceinline__ void load_weights(char* smem, const char* w, size_t bytes) {
+  copy_async(smem, w, bytes);
   dlbt::cp_async_commit();
   dlbt::cp_async_wait<0>();
   __syncthreads();
@@ -185,12 +203,13 @@ __device__ __forceinline__ void mma_from_regs(const uint32_t (&af)[kSteps][4], c
 }
 
 // One warp's centroid: the three layers over its first nv edge rows (valid ones,
-// packed), ceil(nv / 16) row tiles, then the max over those rows of each column of
-// the last layer, plus b3, into row ci of out (c_out columns). kK = H1 / 16 = H2 / 16
-// (the k-steps of layers 2 and 3), kN3 = C / 64.
+// packed), ceil(nv / 16) row tiles, then the max over those rows of each of the
+// block's columns of the last layer, plus b3, into row ci of out (c_out columns; the
+// block's start at col0). kK = H1 / 16 = H2 / 16 (the k-steps of layers 2 and 3),
+// kN3 = the block's columns of layer 3 / 64.
 template <int kK, int kN3>
 __device__ __forceinline__ void warp_mlp(const char* smem, const Weights& W, const bf16* edge,
-                                         int nv, void* out, long long ci, int c_out,
+                                         int nv, void* out, long long ci, int c_out, int col0,
                                          int out_bf16) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const auto h = [smem](size_t off) { return reinterpret_cast<const bf16*>(smem + off); };
@@ -244,7 +263,9 @@ __device__ __forceinline__ void warp_mlp(const char* smem, const Weights& W, con
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t + e;
-        if (col < c_out) store_out(out, ci * c_out + col, mx[j][e] + b3[col], out_bf16);
+        if (col0 + col < c_out) {
+          store_out(out, ci * c_out + col0 + col, mx[j][e] + b3[col], out_bf16);
+        }
       }
     }
   }
@@ -264,8 +285,9 @@ struct Group {
   }
 };
 
-// kSelectOnly: the selection and the capture alone, each row of the output the count
-// of its centroid's valid slots (a measurement of the scan's share; no path runs it).
+// The block's kN3 * 64 columns of layer 3 start at blockIdx.y * kN3 * 64. kSelectOnly:
+// the selection and the capture alone, each row of the output the count of its
+// centroid's valid slots (a measurement of the scan's share; no path runs it).
 template <int kK, int kN3, bool kSelectOnly>
 __global__ void __launch_bounds__(kGroups * kGroup, 1)
     sa1_eval_mma_kernel(const float* __restrict__ centers,
@@ -274,7 +296,10 @@ __global__ void __launch_bounds__(kGroups * kGroup, 1)
                         const char* __restrict__ weights, void* __restrict__ out, int b, int m,
                         int n, int f, int c, int c_out, float r2, int out_bf16) {
   extern __shared__ __align__(16) char smem[];
-  const Weights W(true, 16 * kK, 16 * kK, c);
+  constexpr int kCols = 64 * kN3, kH = 16 * kK;
+  const Weights W(true, kH, kH, kCols);  // the block's: W1, b1, W2, b2, its columns of W3, b3
+  const Weights P(true, kH, kH, c);      // the packed block's
+  const int col0 = blockIdx.y * kCols;
   const Group G;
   const int group = threadIdx.x / kGroup, tg = threadIdx.x % kGroup, bar = 1 + group;
   const int lane = tg & 31, warp = tg >> 5;
@@ -283,7 +308,10 @@ __global__ void __launch_bounds__(kGroups * kGroup, 1)
   unsigned* const ballot = reinterpret_cast<unsigned*>(mine + G.ballot);
   bf16* const edge = reinterpret_cast<bf16*>(mine + G.edge);  // [kQuad][64][kEdgeLd]
 
-  load_weights(smem, weights, W.total);  // once per block
+  // once per block: W1, b1, W2 and b2 lie at the same offsets in both layouts
+  copy_async(smem, weights, W.w3);
+  copy_async(smem + W.w3, weights + P.w3 + 2ull * col0 * (kH + kSkewH), W.b3 - W.w3);
+  load_weights(smem + W.b3, weights + P.b3 + 4ull * col0, W.total - W.b3);
 
   const int quads = (m + kQuad - 1) / kQuad;  // per cloud
   const long long total = static_cast<long long>(b) * quads;
@@ -338,13 +366,13 @@ __global__ void __launch_bounds__(kGroups * kGroup, 1)
     if (m0 + warp >= m) continue;
     const int nv = __popc(ballot[2 * warp]) + __popc(ballot[2 * warp + 1]);
     if (kSelectOnly || nv == 0) {  // no valid slot (or a masked centroid): the row is 0
-      for (int col = lane; col < c_out; col += 32) {
+      for (int col = col0 + lane; col < min(c_out, col0 + kCols); col += 32) {
         store_out(out, (c0 + warp) * c_out + col, static_cast<float>(kSelectOnly ? nv : 0),
                   out_bf16);
       }
       continue;
     }
-    warp_mlp<kK, kN3>(smem, W, edge + warp * kSlots * kEdgeLd, nv, out, c0 + warp, c_out,
+    warp_mlp<kK, kN3>(smem, W, edge + warp * kSlots * kEdgeLd, nv, out, c0 + warp, c_out, col0,
                       out_bf16);
   }
 }
@@ -397,32 +425,74 @@ __device__ __forceinline__ int tile_col(int col0, int cg, int j) {
   return col0 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + (j - 4));
 }
 
-// out = relu(in @ w + bias), 64 x out_dim, rows out_stride apart.
-__device__ __forceinline__ void fma_hidden(const float* in, int in_stride, int in_dim,
-                                           const float* w, const float* bias, int out_dim,
-                                           float* out, int out_stride, int rg, int cg) {
-  for (int col0 = 0; col0 < out_dim; col0 += 64) {
-    float acc[4][8];
-    tile_dot(in, in_stride, in_dim, w, out_dim, col0, rg, cg, acc);
+// Columns col0 .. col0 + 63 of relu(in @ w + bias), 64 rows, into out (rows out_stride
+// apart): w's row k holds those columns from wcol on, w_cols apart.
+__device__ __forceinline__ void hidden_block(const float* in, int in_stride, int in_dim,
+                                             const float* w, int w_cols, int wcol,
+                                             const float* bias, int col0, float* out,
+                                             int out_stride, int rg, int cg) {
+  float acc[4][8];
+  tile_dot(in, in_stride, in_dim, w, w_cols, wcol, rg, cg, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[8];
+  for (int i = 0; i < 4; ++i) {
+    float v[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + bias[tile_col(col0, cg, j)], 0.0f);
-      float* o = out + (rg + 16 * i) * out_stride + col0 + cg * 4;
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(o + 32) = make_float4(v[4], v[5], v[6], v[7]);
-    }
+    for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + bias[tile_col(col0, cg, j)], 0.0f);
+    float* o = out + (rg + 16 * i) * out_stride + col0 + cg * 4;
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o + 32) = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
-// Byte offsets of the f32 kernel's shared memory after the weights: the edge rows,
-// a1, a2 (rows (width + 4) floats apart), the warps' column maxima, the slots'
-// flags and the bucket minima.
+// Columns col0 .. col0 + 63 of the last layer (w as in hidden_block): red[warp * c +
+// col] = the warp's max of in @ w + b3 over its valid rows.
+__device__ __forceinline__ void last_block(const float* in, int in_stride, int in_dim,
+                                           const float* w, int w_cols, int wcol, const float* b3,
+                                           int col0, const int* valid, float* red, int c, int rg,
+                                           int cg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[4][8];
+  tile_dot(in, in_stride, in_dim, w, w_cols, wcol, rg, cg, acc);
+  float mx[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float bias = b3[tile_col(col0, cg, j)];
+    mx[j] = neg_inf();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (valid[rg + 16 * i]) mx[j] = fmaxf(mx[j], acc[i][j] + bias);
+    }
+    // the warp's 4 row groups differ in lane bits 3 and 4
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 8));
+    mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 16));
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[warp * c + tile_col(col0, cg, j)] = mx[j];
+  }
+}
+
+// Byte offsets of the f32 kernel's shared memory. Resident (the whole weight block
+// first, as packed): the weights, then the edge rows, a1, a2 (rows (width + 4) floats
+// apart), the warps' column maxima, the slots' flags and the bucket minima. Streamed:
+// w1, b1, b2, b3, two buffers of 64 columns of W2 or W3 (max(H1, H2) rows of 64
+// floats), then the same.
 struct Fma {
-  size_t edge, a1, a2, red, valid, first, total;
-  __host__ __device__ Fma(int h1, int h2, int c) {
-    size_t at = Weights(false, h1, h2, c).total;
+  size_t w1, b1, b2, b3, buf0, buf1, edge, a1, a2, red, valid, first, total;
+  __host__ __device__ Fma(int h1, int h2, int c, bool stream) {
+    size_t at = 0;
+    if (stream) {
+      w1 = take(at, 4ull * kInPad * h1);
+      b1 = take(at, 4ull * h1);
+      b2 = take(at, 4ull * h2);
+      b3 = take(at, 4ull * c);
+      buf0 = take(at, 4ull * (h1 > h2 ? h1 : h2) * 64);
+      buf1 = take(at, 4ull * (h1 > h2 ? h1 : h2) * 64);
+    } else {
+      const Weights W(false, h1, h2, c);
+      w1 = W.w1, b1 = W.b1, b2 = W.b2, b3 = W.b3, buf0 = buf1 = 0;
+      at = W.total;
+    }
     edge = take(at, 4ull * kSlots * (kInPad + kSkew));
     a1 = take(at, 4ull * kSlots * (h1 + kSkew));
     a2 = take(at, 4ull * kSlots * (h2 + kSkew));
@@ -433,41 +503,79 @@ struct Fma {
   }
 };
 
-// The three layers in f32; red[warp * c + col] = the warp's max over its valid rows.
+// The three layers in f32 on a resident weight block; red[warp * c + col] = the
+// warp's max over its valid rows.
 __device__ void fma_mlp(char* smem, const Weights& W, const Fma& L, const int* valid, float* red,
                         int h1, int h2, int c) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cg = lane & 7, rg = warp * 4 + (lane >> 3);
   const auto at = [smem](size_t off) { return reinterpret_cast<float*>(smem + off); };
-  fma_hidden(at(L.edge), kInPad + kSkew, kInPad, at(W.w1), at(W.b1), h1, at(L.a1), h1 + kSkew,
-             rg, cg);
+  for (int col0 = 0; col0 < h1; col0 += 64) {
+    hidden_block(at(L.edge), kInPad + kSkew, kInPad, at(W.w1), h1, col0, at(W.b1), col0,
+                 at(L.a1), h1 + kSkew, rg, cg);
+  }
   __syncthreads();
-  fma_hidden(at(L.a1), h1 + kSkew, h1, at(W.w2), at(W.b2), h2, at(L.a2), h2 + kSkew, rg, cg);
+  for (int col0 = 0; col0 < h2; col0 += 64) {
+    hidden_block(at(L.a1), h1 + kSkew, h1, at(W.w2), h2, col0, at(W.b2), col0, at(L.a2),
+                 h2 + kSkew, rg, cg);
+  }
   __syncthreads();
-  const float* b3 = at(W.b3);
   for (int col0 = 0; col0 < c; col0 += 64) {
-    float acc[4][8];
-    tile_dot(at(L.a2), h2 + kSkew, h2, at(W.w3), c, col0, rg, cg, acc);
-    float mx[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float bias = b3[tile_col(col0, cg, j)];
-      mx[j] = neg_inf();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (valid[rg + 16 * i]) mx[j] = fmaxf(mx[j], acc[i][j] + bias);
-      }
-      // the warp's 4 row groups differ in lane bits 3 and 4
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 8));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 16));
-    }
-    if (lane < 8) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) red[warp * c + tile_col(col0, cg, j)] = mx[j];
-    }
+    last_block(at(L.a2), h2 + kSkew, h2, at(W.w3), c, col0, at(W.b3), col0, valid, red, c, rg,
+               cg);
   }
 }
 
+// Starts the copy of chunk j of the streamed weights into buf: j < H2 / 64 the 64
+// columns of W2 from 64 j (H1 rows), after them those of W3 (H2 rows), from the
+// packed block w (layout P).
+__device__ __forceinline__ void stream_chunk(float* buf, const char* w, const Weights& P, int j,
+                                             int h1, int h2, int c) {
+  const bool second = j >= h2 / 64;
+  const int rows = second ? h2 : h1, cols = second ? c : h2;
+  const int col0 = 64 * (second ? j - h2 / 64 : j);
+  const float* src = reinterpret_cast<const float*>(w + (second ? P.w3 : P.w2)) + col0;
+  for (int i = threadIdx.x; i < rows * 16; i += blockDim.x) {  // 16 pieces of 16 bytes a row
+    const int k = i / 16, q = i % 16;
+    dlbt::cp_async16(buf + 64 * k + 4 * q, src + static_cast<size_t>(k) * cols + 4 * q);
+  }
+  dlbt::cp_async_commit();
+}
+
+// The three layers in f32 with W2 and W3 streamed 64 columns at a time through two
+// buffers; the same sums and maxima as fma_mlp.
+__device__ void fma_mlp_stream(char* smem, const char* w, const Weights& P, const Fma& L,
+                               const int* valid, float* red, int h1, int h2, int c) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = lane & 7, rg = warp * 4 + (lane >> 3);
+  const auto at = [smem](size_t off) { return reinterpret_cast<float*>(smem + off); };
+  const int n2 = h2 / 64, chunks = n2 + c / 64;
+  stream_chunk(at(L.buf0), w, P, 0, h1, h2, c);
+  for (int col0 = 0; col0 < h1; col0 += 64) {
+    hidden_block(at(L.edge), kInPad + kSkew, kInPad, at(L.w1), h1, col0, at(L.b1), col0,
+                 at(L.a1), h1 + kSkew, rg, cg);
+  }
+  for (int j = 0; j < chunks; ++j) {
+    if (j + 1 < chunks) {  // the next chunk into the buffer the last pass freed
+      stream_chunk(at((j + 1) & 1 ? L.buf1 : L.buf0), w, P, j + 1, h1, h2, c);
+      dlbt::cp_async_wait<1>();
+    } else {
+      dlbt::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk j in place; a1 (j = 0) or a2 (j = n2) complete
+    const float* buf = at(j & 1 ? L.buf1 : L.buf0);
+    if (j < n2) {
+      hidden_block(at(L.a1), h1 + kSkew, h1, buf, 64, 0, at(L.b2), 64 * j, at(L.a2),
+                   h2 + kSkew, rg, cg);
+    } else {
+      last_block(at(L.a2), h2 + kSkew, h2, buf, 64, 0, at(L.b3), 64 * (j - n2), valid,
+                 red, c, rg, cg);
+    }
+    __syncthreads();  // before the buffer is filled again
+  }
+}
+
+template <bool kStream>
 __global__ void __launch_bounds__(kGroup)
     sa1_eval_fma_kernel(const float* __restrict__ centers,
                         const unsigned char* __restrict__ cmask,
@@ -475,15 +583,21 @@ __global__ void __launch_bounds__(kGroup)
                         const char* __restrict__ weights, void* __restrict__ out, int b, int m,
                         int n, int f, int h1, int h2, int c, int c_out, float r2, int out_bf16) {
   extern __shared__ __align__(16) char smem[];
-  const Weights W(false, h1, h2, c);
-  const Fma L(h1, h2, c);
+  const Weights W(false, h1, h2, c);  // the packed block's layout (resident: also the block's)
+  const Fma L(h1, h2, c, kStream);
   float* const edge = reinterpret_cast<float*>(smem + L.edge);
   float* const red = reinterpret_cast<float*>(smem + L.red);
   int* const valid = reinterpret_cast<int*>(smem + L.valid);
   int* const first = reinterpret_cast<int*>(smem + L.first);
   const int tid = threadIdx.x;
 
-  load_weights(smem, weights, W.total);  // once per block
+  if (kStream) {  // once per block: w1 and b1 (contiguous in the packed block), b2, b3
+    copy_async(smem + L.w1, weights + W.w1, W.w2 - W.w1);
+    copy_async(smem + L.b2, weights + W.b2, W.w3 - W.b2);
+    load_weights(smem + L.b3, weights + W.b3, W.total - W.b3);
+  } else {
+    load_weights(smem, weights, W.total);
+  }
 
   const long long total = static_cast<long long>(b) * m;
   for (long long ci = blockIdx.x; ci < total; ci += gridDim.x) {
@@ -507,7 +621,11 @@ __global__ void __launch_bounds__(kGroup)
       }
       continue;
     }
-    fma_mlp(smem, W, L, valid, red, h1, h2, c);
+    if (kStream) {
+      fma_mlp_stream(smem, weights, W, L, valid, red, h1, h2, c);
+    } else {
+      fma_mlp(smem, W, L, valid, red, h1, h2, c);
+    }
     __syncthreads();
     for (int col = tid; col < c_out; col += kGroup) {
       float v = red[col];
@@ -522,58 +640,94 @@ __global__ void __launch_bounds__(kGroup)
 
 using Kernel = void (*)(const float*, const unsigned char*, const float*, const unsigned char*,
                         const char*, void*, int, int, int, int, int, int, float, int);
+using FmaKernel = void (*)(const float*, const unsigned char*, const float*, const unsigned char*,
+                           const char*, void*, int, int, int, int, int, int, int, int, float, int);
 
-// The bf16 kernel at these widths: SA1's at neuron_multiplier 1 (64, 64, 128) or 2
-// (128, 128, 256); the selection-only one at the first.
+// The launch of these widths (sa_eval_kernel.plan mirrors it): kind 0 none, 1 the
+// bf16 kernel (layer 3's columns in col_groups over gridDim.y), 2 the f32 kernel on a
+// resident weight block, 3 the f32 kernel with W2 and W3 streamed; smem its shared
+// memory, which must fit max_smem.
+struct Plan {
+  int kind = 0, col_groups = 1;
+  size_t smem = 0;
+};
+
+Plan plan_of(int f, int h1, int h2, int c, int c_out, int bf16, size_t max_smem) {
+  Plan p;
+  if (f < 0 || f + 3 > kInPad || c <= 0 || c % 64 || c_out < 0 || c_out > c || h1 <= 0 ||
+      h2 <= 0 || h1 % 64 || h2 % 64) {
+    return p;
+  }
+  if (bf16) {
+    if (h2 != h1 || c != 2 * h1 || (h1 != 64 && h1 != 128 && h1 != 192)) return p;
+    p.col_groups = h1 == 192 ? 2 : 1;
+    p.smem = Weights(true, h1, h2, c / p.col_groups).total + kGroups * Group().stride;
+    p.kind = 1;
+  } else if (Fma(h1, h2, c, false).total <= max_smem) {
+    p.kind = 2;
+    p.smem = Fma(h1, h2, c, false).total;
+  } else {
+    p.kind = 3;
+    p.smem = Fma(h1, h2, c, true).total;
+  }
+  if (p.smem > max_smem) p.kind = 0;
+  return p;
+}
+
+// The bf16 kernel of these widths: SA1's at neuron_multiplier 1, 2 and 3; the
+// selection-only one at the first.
 template <bool kSelectOnly>
 Kernel mma_kernel(int h) {
   if (kSelectOnly) return sa1_eval_mma_kernel<4, 2, true>;
-  return h == 64 ? sa1_eval_mma_kernel<4, 2, false> : sa1_eval_mma_kernel<8, 4, false>;
+  if (h == 64) return sa1_eval_mma_kernel<4, 2, false>;
+  return h == 128 ? sa1_eval_mma_kernel<8, 4, false> : sa1_eval_mma_kernel<12, 3, false>;
+}
+
+FmaKernel fma_kernel(const Plan& p) {
+  return p.kind == 2 ? sa1_eval_fma_kernel<false> : sa1_eval_fma_kernel<true>;
+}
+
+template <bool kSelectOnly>
+const void* kernel_of(const Plan& p, int h1) {
+  return p.kind == 1 ? reinterpret_cast<const void*>(mma_kernel<kSelectOnly>(h1))
+                     : reinterpret_cast<const void*>(fma_kernel(p));
+}
+
+// The card's SMs and the shared memory a block may opt in to.
+cudaError_t card(int* sms, size_t* max_smem) {
+  int dev = 0, smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  *max_smem = static_cast<size_t>(smem);
+  return e;
 }
 
 // Opts the kernel in to smem bytes of shared memory; *per_sm its blocks one SM holds
-// at once with `threads` each, *sms the card's SMs.
-cudaError_t prepare(const void* kernel, size_t smem, int threads, int* sms, int* per_sm) {
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+// at once with `threads` each.
+cudaError_t prepare(const void* kernel, size_t smem, int threads, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
   }
   return e;
 }
 
-bool widths_ok(int f, int h1, int h2, int c, int c_out, int bf16) {
-  if (f < 0 || f + 3 > kInPad || c <= 0 || c % 64 || c_out < 0 || c_out > c) return false;
-  if (bf16) return (h1 == 64 || h1 == 128) && h2 == h1 && c == 2 * h1;
-  return h1 > 0 && h2 > 0 && h1 % 64 == 0 && h2 % 64 == 0;
-}
-
-// The kernel of these arguments, its shared memory and its threads per block.
-template <bool kSelectOnly>
-Kernel kernel_of(int h1, int h2, int c, int bf16, size_t* smem, int* threads) {
-  if (bf16) {
-    *smem = Weights(true, h1, h2, c).total + kGroups * Group().stride;
-    *threads = kGroups * kGroup;
-    return mma_kernel<kSelectOnly>(h1);
-  }
-  *smem = Fma(h1, h2, c).total;
-  *threads = kGroup;
-  return nullptr;
-}
+int threads_of(const Plan& p) { return p.kind == 1 ? kGroups * kGroup : kGroup; }
 
 template <bool kSelectOnly>
 int launch(const void* centers, const void* cmask, const void* planes, const void* mask,
            const void* weights, void* out, int b, int m, int n, int f, int h1, int h2, int c,
            int c_out, float r2, int bf16, int out_bf16, void* stream) {
-  if (!widths_ok(f, h1, h2, c, c_out, bf16) || (kSelectOnly && (!bf16 || out_bf16 || h1 != 64)) ||
+  int sms = 0, per_sm = 0;
+  size_t max_smem = 0;
+  cudaError_t e = card(&sms, &max_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Plan p = plan_of(f, h1, h2, c, c_out, bf16, max_smem);
+  if (p.kind == 0 || (kSelectOnly && (!bf16 || out_bf16 || h1 != 64)) ||
       reinterpret_cast<uintptr_t>(weights) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -585,22 +739,21 @@ int launch(const void* centers, const void* cmask, const void* planes, const voi
   const auto* pl = static_cast<const float*>(planes);
   const auto* mk = static_cast<const unsigned char*>(mask);
   const auto* w = static_cast<const char*>(weights);
-  size_t smem = 0;
-  int threads = 0, sms = 0, per_sm = 0;
-  const Kernel kernel = kernel_of<kSelectOnly>(h1, h2, c, bf16, &smem, &threads);
-  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel)
-                        : reinterpret_cast<const void*>(sa1_eval_fma_kernel);
-  const cudaError_t e = prepare(fn, smem, threads, &sms, &per_sm);
+  e = prepare(kernel_of<kSelectOnly>(p, h1), p.smem, threads_of(p), &per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
   long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (bf16) {
+  if (p.kind == 1) {
+    // the column groups run side by side, each over every quad
+    grid = grid / p.col_groups > 0 ? grid / p.col_groups : 1;
     const long long quads = b * static_cast<long long>((m + kQuad - 1) / kQuad);
     if (grid > (quads + kGroups - 1) / kGroups) grid = (quads + kGroups - 1) / kGroups;
-    kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(cen, cm, pl, mk, w, out, b, m, n, f,
-                                                              c, c_out, r2, out_bf16);
+    const dim3 blocks(static_cast<unsigned>(grid), p.col_groups);
+    mma_kernel<kSelectOnly>(h1)<<<blocks, threads_of(p), p.smem, s>>>(cen, cm, pl, mk, w, out, b,
+                                                                       m, n, f, c, c_out, r2,
+                                                                       out_bf16);
   } else {
     if (grid > total) grid = total;
-    sa1_eval_fma_kernel<<<static_cast<unsigned>(grid), threads, smem, s>>>(
+    fma_kernel(p)<<<static_cast<unsigned>(grid), kGroup, p.smem, s>>>(
         cen, cm, pl, mk, w, out, b, m, n, f, h1, h2, c, c_out, r2, out_bf16);
   }
   return static_cast<int>(cudaGetLastError());
@@ -611,8 +764,9 @@ int launch(const void* centers, const void* cmask, const void* planes, const voi
 // centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3+F, N) f32 [x, y, z, features],
 // mask (B, N) bool, weights the weight block (Weights; bf16 != 0: the bf16 layout,
 // else the f32 one), 16-byte aligned -> out (B, M, c_out) bf16 (out_bf16 != 0) or f32.
-// H1, H2 and C are multiples of 64 (zero-padded by the caller), in bf16 (64, 64, 128)
-// or (128, 128, 256); F + 3 <= 8, c_out <= C.
+// H1, H2 and C are multiples of 64 (zero-padded by the caller) that plan_of takes:
+// in bf16 (64, 64, 128), (128, 128, 256) or (192, 192, 384), in f32 any whose streamed
+// layout fits a block; F + 3 <= 8, c_out <= C.
 extern "C" int dlbt_sa1_fused_eval(const void* centers, const void* cmask, const void* planes,
                                    const void* mask, const void* weights, void* out, int b,
                                    int m, int n, int f, int h1, int h2, int c, int c_out,
@@ -634,17 +788,23 @@ extern "C" int dlbt_sa1_fused_eval_select(const void* centers, const void* cmask
                       r2, bf16, out_bf16, stream);
 }
 
-// A host query: how many blocks of dlbt_sa1_fused_eval's kernel one SM holds at once at
-// these widths (*per_sm), its threads per block and its shared memory per block.
-extern "C" int dlbt_sa1_fused_eval_occupancy(int bf16, int h1, int h2, int c, int* per_sm,
-                                             int* threads, int* smem_bytes) {
-  *per_sm = *threads = *smem_bytes = 0;
-  if (!widths_ok(0, h1, h2, c, c, bf16)) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
+// A host query: the launch of dlbt_sa1_fused_eval at these widths (no features) on
+// the current card: its kind (1 bf16, 2 f32 resident, 3 f32 streamed), column groups
+// (gridDim.y), threads and shared memory per block, and the blocks one SM holds at
+// once (*per_sm).
+extern "C" int dlbt_sa1_fused_eval_occupancy(int bf16, int h1, int h2, int c, int* kind,
+                                             int* col_groups, int* per_sm, int* threads,
+                                             int* smem_bytes) {
+  *kind = *col_groups = *per_sm = *threads = *smem_bytes = 0;
   int sms = 0;
-  const Kernel kernel = kernel_of<false>(h1, h2, c, bf16, &smem, threads);
-  const void* fn = bf16 ? reinterpret_cast<const void*>(kernel)
-                        : reinterpret_cast<const void*>(sa1_eval_fma_kernel);
-  *smem_bytes = static_cast<int>(smem);
-  return static_cast<int>(prepare(fn, smem, *threads, &sms, per_sm));
+  size_t max_smem = 0;
+  cudaError_t e = card(&sms, &max_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Plan p = plan_of(0, h1, h2, c, c, bf16, max_smem);
+  if (p.kind == 0) return static_cast<int>(cudaErrorInvalidValue);
+  *kind = p.kind;
+  *col_groups = p.col_groups;
+  *threads = threads_of(p);
+  *smem_bytes = static_cast<int>(p.smem);
+  return static_cast<int>(prepare(kernel_of<false>(p, h1), p.smem, *threads, per_sm));
 }

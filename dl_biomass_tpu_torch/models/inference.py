@@ -76,7 +76,9 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
     ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
     and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
-    in the JAX package."""
+    in the JAX package, and SA1 widths the kernel takes (``sa_eval_kernel.plan``:
+    those of ``neuron_multiplier`` 1, 2 and 3 in bf16 and float32); others
+    raise ``NotImplementedError`` here, when the engine is built."""
     if mesh is not None:
         raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
     if not isinstance(model, PointNet2Regressor):
@@ -101,6 +103,7 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
                                prepare(model.sa3.mlp), prepare(model.head))
         sa1_block = None
         if fused_eval:  # kernel 5's weight block, packed once per engine
+            sa_eval_kernel.check_widths([w for wb in sa1 for w in wb], ct == torch.bfloat16)
             sa1_block = sa_eval_kernel.pack_sa1_eval([w for wb in sa1 for w in wb],
                                                      ct == torch.bfloat16, dev)
     r1, r2 = model.sa1_radius, model.sa2_radius

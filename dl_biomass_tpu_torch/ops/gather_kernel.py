@@ -19,7 +19,10 @@ float32 sum of the cotangent rows whose index points at it, rounded once to
 the cotangent's dtype; an index outside [0, N) contributes nothing, and a pad
 slot (index 0) contributes its cotangent (zero on the model's path). The sum
 runs in ascending flat-row order, so the kernel and its plain version agree
-bit for bit and a run repeats exactly: no float atomics.
+bit for bit and a run repeats exactly: no float atomics. ``scatter_plan``
+names the kernel's launch (the blocks a cloud of its count and place passes,
+the warps a place block) and the wrapper raises where it gives None;
+``probe`` runs one of its four launches alone, a measurement no path makes.
 
 ``gather_rows`` is the differentiable op the model calls. Its forward is
 ``gather_rows_forward`` (``gather_rows_aux`` with an aux table) and its
@@ -32,7 +35,7 @@ CUDA tensor and runs its plain version (``gather_rows_plain``,
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,15 +43,26 @@ from dl_biomass_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _AUX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# the CSR pass of the backward keeps one int32 histogram of the N rows per
-# warp, plus one of totals, in a block's shared memory
-_BWD_SMEM_BYTES = 200 * 1024
-_PROBE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_PROBE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward's launches, each alone (probe): the CSR pass, and the segment sum
-# on the CSR a previous launch left
-PROBE_MODES = {"csr": 1, "sum": 2}
+# the backward's count and place passes (csrc/gather_bwd.cu): a block takes
+# CSR_ROWS rows of a cloud; a place block keeps the chunk's keys, their ranks
+# and one int32 histogram of the N rows a warp in at most PLACE_SMEM_BYTES of
+# shared memory, with at most MAX_PLACE_WARPS warps; the scan (a block a
+# cloud) keeps two int32 arrays of the N rows in as much
+CSR_ROWS = 2048
+MAX_PLACE_WARPS = 8
+PLACE_SMEM_BYTES = 200 * 1024
+# the backward's launches, each alone (probe), on the scratch the launches
+# before it left: the count, the scan, the place pass, the sum
+PROBE_MODES = {"count": 1, "scan": 2, "place": 3, "sum": 4}
+
+
+class ScatterPlan(NamedTuple):
+    chunks: int  # blocks a cloud of the count and place passes (S)
+    warps: int  # warps a block of the place pass
+    smem_bytes: int  # shared memory of a place block
 
 
 def _check(values, idx):
@@ -186,8 +200,17 @@ def scatter_rows_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Ten
     return acc.to(ct.dtype).view(b, n, c)
 
 
-def _bwd_warps(n: int) -> int:
-    return min(32, _BWD_SMEM_BYTES // (4 * n) - 1)
+def scatter_plan(r: int, n: int) -> Optional[ScatterPlan]:
+    """The backward kernel's launch for clouds of ``r`` = M*K cotangent rows
+    onto ``n`` output rows (``csrc/gather_bwd.cu`` mirrors it): ceil(r /
+    CSR_ROWS) blocks a cloud of the count and place passes, at least one; the
+    most warps up to MAX_PLACE_WARPS whose place block fits PLACE_SMEM_BYTES.
+    None where the scan's or one warp's shared memory does not fit (n beyond
+    25600)."""
+    if n < 1 or r < 0 or 8 * n > PLACE_SMEM_BYTES:
+        return None
+    warps = min(MAX_PLACE_WARPS, (PLACE_SMEM_BYTES // 4 - 2 * CSR_ROWS) // n)
+    return ScatterPlan(max(1, -(-r // CSR_ROWS)), warps, 4 * (2 * CSR_ROWS + warps * n))
 
 
 def _scatter_launch(ct, idx, n, scratch=None, mode=0):
@@ -196,21 +219,24 @@ def _scatter_launch(ct, idx, n, scratch=None, mode=0):
     _check_scatter(ct, idx, n)
     if ct.dtype not in _DTYPE_CODES:
         raise ValueError(f"scatter_rows takes float32 or bfloat16, got {ct.dtype}")
-    warps = _bwd_warps(n)
-    if warps < 1:
-        raise ValueError(f"scatter_rows: n={n} rows do not fit the CSR pass's shared memory")
     b, m, k, c = ct.shape
     r = m * k
+    p = scatter_plan(r, n)
+    if p is None:
+        raise ValueError(f"scatter_rows: n={n} rows do not fit the place pass's shared memory")
     ct = ct.contiguous()
     idx = idx.to(torch.int32).contiguous()
     _build.check_cuda("scatter_rows", ct, idx)
     if scratch is None:
+        i32 = dict(dtype=torch.int32, device=ct.device)
         scratch = dict(out=torch.empty((b, n, c), dtype=ct.dtype, device=ct.device),
-                       offsets=torch.empty((b, n + 1), dtype=torch.int32, device=ct.device),
-                       rows=torch.empty((b, max(r, 1)), dtype=torch.int32, device=ct.device))
-    args = (ct.data_ptr(), idx.data_ptr(), scratch["offsets"].data_ptr(),
-            scratch["rows"].data_ptr(), scratch["out"].data_ptr(), b, r, n, c,
-            _DTYPE_CODES[ct.dtype], warps)
+                       # the counts, each chunk's first slots, the list's two counters
+                       cnt=torch.empty((2 * b * p.chunks * n + 2,), **i32),
+                       recs=torch.empty((b * n, 4), **i32),  # (row, start, end, cloud) each
+                       rows=torch.empty((b, max(r, 1)), **i32))
+    args = (ct.data_ptr(), idx.data_ptr(), scratch["cnt"].data_ptr(),
+            scratch["recs"].data_ptr(), scratch["rows"].data_ptr(), scratch["out"].data_ptr(),
+            b, r, n, c, _DTYPE_CODES[ct.dtype], p.warps)
     if mode == 0:
         _build.launch("dlbt_scatter_rows", _BWD_ARGTYPES, *args, _build.stream_of(ct))
     else:

@@ -18,17 +18,21 @@ agrees with the plain version to float32 rounding of the sums (bf16: a hidden
 value near a rounding boundary may round one step the other way). The kernel
 keeps the weights in a block's shared memory in the layout ``pack_sa1_eval``
 gives them, made once (the serving engine packs when it is built) and handed
-in as ``packed=``; without it the wrapper packs for itself. ``selection_only``
-(the kernel's scan and capture alone) and ``occupancy`` measure the kernel;
-no path calls them. The Pallas kernel's private ``stage=`` timing bisect is a
-TPU profiling aid and is not ported.
+in as ``packed=``; without it the wrapper packs for itself. ``plan`` names
+the kernel's launch at the engine's widths, as ``csrc/sa1_fused_eval.cu``
+``plan_of`` does: SA1's at ``neuron_multiplier`` 1, 2 and 3 in bf16 and in
+f32; the serving engine refuses a model whose widths it does not take when it
+is built, and the wrapper raises on a CUDA tensor. ``selection_only`` (the
+kernel's scan and capture alone) and ``occupancy`` measure the kernel; no path
+calls them. The Pallas kernel's private ``stage=`` timing bisect is a TPU
+profiling aid and is not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -41,6 +45,15 @@ IN_PAD = 8  # the kernel's layer-1 input width: F + 3 <= 8
 MMA_DEPTH = 16  # the bf16 kernel's layer-1 depth: F + 3 padded to one MMA step
 SKEW_H = 8  # csrc/mma_bf16.cuh kSkewH: each bf16 weight row is this many values longer
 WIDTH_STEP = 64  # the kernel's hidden and output widths are multiples of 64
+# the launch (csrc/sa1_fused_eval.cu plan_of): a block's shared memory on the H100
+# (the kernel asks the card), the bf16 kernel's four 128-thread groups a block and
+# the hidden widths it takes, each part of a layout rounded up to 16 bytes
+SMEM_MAX = 232448
+GROUP, GROUPS = 128, 4
+MMA_WIDTHS = (64, 128, 192)
+F32_SKEW = 4  # f32 rows of the edge, a1 and a2 are (width + 4) floats apart
+SLOTS = 64
+_ROUTE = "ROADMAP C.2"
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -102,6 +115,74 @@ def block_bytes(h1: int, h2: int, c: int, bf16: bool) -> int:
                for dt, shape in _block_parts(h1, h2, c, bf16))
 
 
+def _parts_bytes(*sizes: int) -> int:
+    return sum(-(-x // 16) * 16 for x in sizes)
+
+
+# a group of the bf16 kernel: its four centroids' bucket minima, the ballots of
+# their valid slots (two each), their edge rows (bf16, MMA_DEPTH + SKEW_H apart)
+GROUP_BYTES = _parts_bytes(4 * 4 * GROUP, 4 * 2 * 4, 2 * 4 * SLOTS * (MMA_DEPTH + SKEW_H))
+
+
+def _fma_bytes(h1: int, h2: int, c: int, stream: bool) -> int:
+    """The f32 kernel's shared memory: the weight block (resident) or W1, the
+    biases and two 64-column buffers of W2 or W3 (streamed), then the edge
+    rows, a1, a2, the four warps' column maxima, the slots' flags and the
+    bucket minima."""
+    weights = (_parts_bytes(4 * IN_PAD * h1, 4 * h1, 4 * h2, 4 * c,
+                            *(2 * [4 * max(h1, h2) * 64])) if stream
+               else block_bytes(h1, h2, c, False))
+    return weights + _parts_bytes(4 * SLOTS * (IN_PAD + F32_SKEW), 4 * SLOTS * (h1 + F32_SKEW),
+                                  4 * SLOTS * (h2 + F32_SKEW), 4 * 4 * c, 4 * SLOTS, 4 * GROUP)
+
+
+class Plan(NamedTuple):
+    kernel: str  # "mma" (bf16), "fma" (f32, resident weights) or "fma_stream" (f32, streamed)
+    column_groups: int  # gridDim.y: layer 3's columns split over the blocks
+    smem_bytes: int  # shared memory a block
+
+
+def plan(h1: int, h2: int, c: int, bf16: bool) -> Optional[Plan]:
+    """The kernel's launch at these padded widths (multiples of 64), or None
+    where it takes none. bf16: H1 = H2 in (64, 128, 192) and C = 2 H1, SA1's
+    widths at neuron_multiplier 1, 2 and 3, four groups a block; at 192 layer
+    3's columns in two halves over gridDim.y, as the whole weight block does
+    not fit. f32: the weight block resident where it fits SMEM_MAX beside the
+    buffers, else W2 and W3 streamed."""
+    if min(h1, h2, c) < 1 or any(w % WIDTH_STEP for w in (h1, h2, c)):
+        return None
+    if bf16:
+        if h2 != h1 or c != 2 * h1 or h1 not in MMA_WIDTHS:
+            return None
+        cols = 2 if h1 == 192 else 1
+        p = Plan("mma", cols, block_bytes(h1, h2, c // cols, True) + GROUPS * GROUP_BYTES)
+    elif _fma_bytes(h1, h2, c, False) <= SMEM_MAX:
+        p = Plan("fma", 1, _fma_bytes(h1, h2, c, False))
+    else:
+        p = Plan("fma_stream", 1, _fma_bytes(h1, h2, c, True))
+    return p if p.smem_bytes <= SMEM_MAX else None
+
+
+def padded_widths(folded_weights: Sequence[torch.Tensor]):
+    """(H1, H2, C) of the folded weights, each rounded up to WIDTH_STEP."""
+    return tuple(round_up(folded_weights[i].shape[1], WIDTH_STEP) for i in (0, 2, 4))
+
+
+def check_widths(folded_weights: Sequence[torch.Tensor], bf16: bool) -> Plan:
+    """``plan`` of the folded weights' widths; raises ``NotImplementedError``
+    (citing ROADMAP C.2) where the kernel takes none, or where F + 3 exceeds
+    its IN_PAD input columns."""
+    f3 = folded_weights[0].shape[0]
+    widths = padded_widths(folded_weights)
+    p = plan(*widths, bf16)
+    if p is None or f3 > IN_PAD:
+        raise NotImplementedError(
+            f"sa1_fused_eval (kernel 5) takes no SA1 of input width {f3} and widths "
+            f"{tuple(folded_weights[i].shape[1] for i in (0, 2, 4))} (padded {widths}) in "
+            f"{'bf16' if bf16 else 'float32'}: {_ROUTE}")
+    return p
+
+
 def pack_sa1_eval(folded_weights: Sequence[torch.Tensor], bf16: bool, device) -> torch.Tensor:
     """The kernel's weight block for the folded weights [w1 (F+3, H1), b1, w2
     (H1, H2), b2, w3 (H2, C), b3], made once (the serving engine packs it when
@@ -137,11 +218,12 @@ def _launch(entry: str, centers, center_mask, pos, mask, feat, folded_weights, r
     f = 0 if feat is None else feat.shape[-1]
     if f + 3 > IN_PAD:
         raise ValueError(f"sa1_fused_eval takes at most {IN_PAD - 3} features, got {f}")
-    (w1, _), (w2, _), (w3, _) = _layers(folded_weights, f)
+    _layers(folded_weights, f)  # raises unless w1 takes F + 3 rows
+    check_widths(folded_weights, bf16)
     b, m, _ = centers.shape
     n = pos.shape[1]
-    c = w3.shape[1]
-    h1p, h2p, cp = (round_up(w.shape[1], WIDTH_STEP) for w in (w1, w2, w3))
+    c = folded_weights[4].shape[1]
+    h1p, h2p, cp = padded_widths(folded_weights)
     if packed is None:
         packed = pack_sa1_eval(folded_weights, bf16, pos.device)
     _check_block(packed, h1p, h2p, cp, bf16, pos.device)
@@ -171,11 +253,11 @@ def sa1_fused_eval(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.
     not given; a block of other widths, compute type or device raises
     ``ValueError``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
-    Padded to 64, the bf16 kernel takes the SA1 widths at neuron_multiplier 1
-    and 2, (64, 64, 128) and (128, 128, 256), the float32 kernel the widths
-    whose weights fit a block's shared memory (the production widths, not
-    twice them); its launch is refused (RuntimeError) otherwise."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel at
+    the widths ``plan`` takes (padded to 64: in bf16 SA1's at neuron_multiplier
+    1, 2 and 3, (64, 64, 128), (128, 128, 256) and (192, 192, 384); in float32
+    those and any whose streamed layout fits a block) and raises
+    ``NotImplementedError`` at others."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     if pos.device.type == "cpu":
@@ -195,13 +277,16 @@ def selection_only(centers, center_mask, pos, mask, feat, folded_weights, *, rad
 
 
 def occupancy(bf16: bool, h1: int, h2: int, c: int) -> dict:
-    """The kernel's launch at these padded widths on the current card: blocks
-    per SM, threads per block, shared memory per block (bytes)."""
+    """The kernel's launch at these padded widths on the current card, as its C
+    side plans it: the kernel (``Plan.kernel``), column groups, threads and
+    shared memory per block (bytes), and blocks per SM."""
     fn = _build.library().dlbt_sa1_fused_eval_occupancy
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 5
     fn.restype = ctypes.c_int
-    per_sm, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(int(bf16), h1, h2, c, ctypes.byref(per_sm), ctypes.byref(threads), ctypes.byref(smem))
+    out = [ctypes.c_int() for _ in range(5)]
+    rc = fn(int(bf16), h1, h2, c, *(ctypes.byref(x) for x in out))
     if rc != 0:
         raise RuntimeError(f"dlbt_sa1_fused_eval_occupancy failed ({rc})")
-    return dict(blocks_per_sm=per_sm.value, threads=threads.value, smem_bytes=smem.value)
+    kind, cols, per_sm, threads, smem = (x.value for x in out)
+    return dict(kernel={1: "mma", 2: "fma", 3: "fma_stream"}[kind], column_groups=cols,
+                blocks_per_sm=per_sm, threads=threads, smem_bytes=smem)

@@ -7,6 +7,8 @@ kernels from ``dl_biomass_tpu_torch/csrc`` and runs these; ``chip_smoke.py``
 holds the same comparisons at the serving shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import torch
 from dl_biomass_tpu_torch.core.cloud import CloudBatch
 from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.models.inference import compile_inference
-from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
+from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor, build_model
 from dl_biomass_tpu_torch.train.trainer import Trainer
 from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
                                       gather_kernel, sa_eval_kernel, sa_train_kernel,
@@ -226,6 +228,106 @@ def test_scatter_kernel_matches_plain_bit_for_bit(dev, dtype, n, c):
     want = gather_kernel.scatter_rows_plain(ct, idx, n)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# kernel 4b at the cases the model's index gives it: row 0 takes a cloud's pad
+# slots beside its true neighbours (a segment of about 500 rows), a cloud with
+# no contribution, N no multiple of 32, the training batch of 36 clouds (R =
+# 32768 rows: eight blocks a cloud of the count and place passes); each also
+# bit-identical across two launches
+SCATTER_CASES = {"row0_500": (2, 100, 300, 128), "empty_cloud": (3, 37, 500, 128),
+                 "n_odd": (2, 70, 1003, 24), "b36": (36, 512, 2048, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_kernel_at_the_models_cases(dev, case, dtype):
+    """Bit for bit the plain version's, and a second launch's; no float atomics."""
+    b, m, n, c = SCATTER_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    ct = torch.randn(b, m, 64, c, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, n, (b, m, 64), device=dev, dtype=torch.int32, generator=g)
+    if case == "row0_500":  # true neighbours of row 0 and about 510 pad slots (index 0)
+        idx[0, :, 62:] = 0
+        idx[0, 95:] = 0
+        assert int((idx[0] == 0).sum()) >= 500
+    if case == "empty_cloud":
+        idx[1] = -1  # out of range: contributes nothing
+        idx[2] = 0  # every slot a pad
+    got = gather_kernel.scatter_rows(ct, idx, n)
+    again = gather_kernel.scatter_rows(ct, idx, n)
+    want = gather_kernel.scatter_rows_plain(ct, idx, n)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (b, n, c)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(got, again)
+    if case == "empty_cloud":
+        assert not got[1].any()
+
+
+# kernel 5 at the widths neuron_multiplier 2 and 3 give SA1, in bf16 (at 3
+# layer 3 split over gridDim.y) and f32 (W2 and W3 streamed)
+WIDE_SA1 = [(True, (128, 128, 256)), (True, (192, 192, 384)), (False, (128, 128, 256)),
+            (False, (192, 192, 384))]
+
+
+@pytest.mark.parametrize("bf16,widths", WIDE_SA1, ids=["bf16x2", "bf16x3", "f32x2", "f32x3"])
+def test_sa1_fused_eval_kernel_at_wide_widths(dev, bf16, widths):
+    """Against the plain version (1e-2 of max|y| in bf16, 1e-5 in f32) at an odd
+    M, masked and isolated centroids 0 in both, a repeat bit-identical, and the
+    launch the card reports the one ``plan`` names."""
+    pos, mask, feat = _cloud(dev)
+    centers, cmask = pos[:, :201].clone(), mask[:, :201].clone()
+    cmask[:, 150:] = False
+    centers[0, 0] = 50.0
+    ws = _sa_weights(dev, widths, seed=3)
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
+    kw = dict(radius=2.0, bf16=bf16, out_dtype=out_dtype)
+    got = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, **kw)
+    again = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, **kw)
+    want = sa_eval_kernel.sa1_fused_eval_plain(centers, cmask, pos, mask, feat, ws, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape == (2, 201, widths[2])
+    assert torch.equal(got, again)
+    for out in (got, want):
+        assert bool((out[:, 150:] == 0).all()) and bool((out[0, 0] == 0).all())
+    assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= (1e-2 if bf16 else 1e-5) * float(want.float().abs().max())
+    occ = sa_eval_kernel.occupancy(bf16, *widths)
+    p = sa_eval_kernel.plan(*widths, bf16)
+    assert (occ["kernel"], occ["column_groups"], occ["smem_bytes"]) == \
+        (p.kernel, p.column_groups, p.smem_bytes)
+    assert occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("nm", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_fused_eval_engine_at_wide_widths_matches_the_plain_engine(dev, nm, dtype):
+    """``compile_inference(fused_eval=True)`` serves the model at
+    neuron_multiplier 2 and 3 through kernel 5, within the serving bound of
+    the plain-version engine of the same weights (the engine on the CPU): 1e-2
+    of max|y| in bf16, 1e-4 in f32."""
+    rng = np.random.default_rng(nm)
+    pos = [rng.normal(size=(1024, 3)).astype(np.float32) * 3 for _ in range(2)]
+    feat = [rng.normal(size=(1024, 1)).astype(np.float32) for _ in range(2)]
+    y = rng.normal(size=(2, 4)).astype(np.float32)
+    torch.manual_seed(nm)
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=str(dtype).replace("torch.", "")), hp=dataclasses.replace(
+            cfg.hp, neuron_multiplier=nm))
+    model = build_model(cfg, num_features=1).eval()  # the production flags at these widths
+    batch = CloudBatch.from_numpy(pos, feat, y, capacity=1024, device=dev)
+    serve = compile_inference(model.to(dev), dev, fused_eval=True)
+    _build.launch_counts.clear()
+    got = serve(batch)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["dlbt_sa1_fused_eval"] == 1
+    plain = compile_inference(model.cpu(), "cpu", fused_eval=True)(batch.to("cpu"))
+    rel = float((got.cpu() - plain).abs().max() / plain.abs().max())
+    assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_train_step_launches_every_kernel(dev):

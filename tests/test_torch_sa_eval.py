@@ -177,3 +177,87 @@ def test_fused_eval_engine_packs_once(monkeypatch):
     outs = [serve(tb) for _ in range(3)]
     assert len(packs) == 1 and len(blocks) == 3 and all(b is packs[0] for b in blocks)
     assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+# ---- the widths the fused_eval engine serves (neuron_multiplier 1, 2, 3) ------
+
+# (neuron_multiplier, bf16) -> sa_eval_kernel.plan: the kernel, layer 3's column
+# groups over gridDim.y and the shared memory of a block, as the card's own
+# planner (csrc/sa1_fused_eval.cu plan_of) reported them on an H100
+# (chip_compare.py eval5)
+PLANS = {(1, True): ("mma", 1, 89216), (2, True): ("mma", 1, 170112),
+         (3, True): ("mma", 2, 222592), (1, False): ("fma", 1, 92928),
+         (2, False): ("fma_stream", 1, 147200), (3, False): ("fma_stream", 1, 217856)}
+
+
+@pytest.mark.parametrize("nm,bf16", list(PLANS))
+def test_plan_names_the_launch_at_every_width(nm, bf16):
+    """SA1's widths at neuron_multiplier 1-3 (64, 64, 128) x nm each have a
+    launch that fits a block's shared memory: bf16 on the tensor cores, at 3
+    with layer 3 in two column groups; f32 with the weight block resident at 1
+    and W2 and W3 streamed above."""
+    p = sa_eval_kernel.plan(64 * nm, 64 * nm, 128 * nm, bf16)
+    assert (p.kernel, p.column_groups, p.smem_bytes) == PLANS[nm, bf16]
+    assert p.smem_bytes <= sa_eval_kernel.SMEM_MAX
+
+
+@pytest.mark.parametrize("widths,bf16", [
+    ((256, 256, 512), True), ((256, 256, 512), False),  # neuron_multiplier 4
+    ((64, 128, 128), True),  # H2 other than H1
+    ((128, 128, 128), True),  # C other than 2 H1
+    ((64, 64, 100), False),  # no multiple of 64
+])
+def test_plan_refuses_widths_no_launch_takes(widths, bf16):
+    assert sa_eval_kernel.plan(*widths, bf16) is None
+
+
+def _wide_model(nm, dtype):
+    import dataclasses
+
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype),
+                              hp=dataclasses.replace(cfg.hp, neuron_multiplier=nm))
+    torch.manual_seed(nm)
+    return build_model(cfg, num_features=1).eval()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_engine_refuses_widths_the_kernel_does_not_take_when_built(dtype):
+    """At neuron_multiplier 4 kernel 5 has no launch: ``compile_inference``
+    raises when the engine is built, citing ROADMAP C.2, not at its first
+    ``serve``; the default engine of the same model builds."""
+    model = _wide_model(4, dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP C.2"):
+        compile_inference(model, device="cpu", fused_eval=True)
+    compile_inference(model, device="cpu")
+
+
+@pytest.mark.parametrize("nm", [2, 3])
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_fused_eval_engine_serves_the_wide_widths(nm, dtype, rtol):
+    """The fused_eval engine of the model at neuron_multiplier 2 and 3 builds
+    and serves (the plain versions on the CPU), and computes what the default
+    engine computes: float32 to rounding of the sums, bf16 within JAX's bound
+    of the fused kernel against the unfused chain."""
+    _, tb = batches(7, 2, 640, [640, 517])
+    model = _wide_model(nm, dtype)
+    fused = compile_inference(model, device="cpu", fused_eval=True)(tb)
+    default = compile_inference(model, device="cpu")(tb)
+    assert fused.shape == (2, 4) and bool(torch.isfinite(fused).all())
+    assert rel_err(fused.numpy(), default.numpy()) <= rtol
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("nm", [2, 3])
+def test_plain_version_at_wide_widths_matches_jax_interpret(nm, bf16):
+    """The plain version at SA1's neuron_multiplier 2 and 3 widths, (128, 128,
+    256) and (192, 192, 384), against the JAX package's sa1_fused_eval in
+    interpret mode: one cloud, 8 centroids."""
+    pos, mask, feat, centers, cmask = _cloud(40 + nm, b=1, n=256, m=8)
+    ws = _weights(50 + nm, 4, 64 * nm, 64 * nm, 128 * nm)
+    got, want = _both(pos, mask, feat, centers, cmask, ws, 0.9, bf16)
+    assert got.shape == (1, 8, 128 * nm) and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, atol=TOL[bf16], rtol=TOL[bf16])
