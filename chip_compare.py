@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group)
-and 4b (the gather's scatter-add backward) on one NVIDIA card, beside
+"""Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group),
+4b (the gather's scatter-add backward) and 3 (exact ball query) on one NVIDIA
+card, beside
 ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
@@ -26,8 +27,8 @@ and 4b (the gather's scatter-add backward) on one NVIDIA card, beside
                                           # chip_smoke.FPS_SHAPES: its registers and
                                           # spills (nvcc -Xptxas -v), blocks per SM,
                                           # and chip_smoke.time_fps's times
-    python3 chip_compare.py paths TAG     # device time per call (and kernels 1's, 2's and
-                                          # 4b's part) of serve, serve_fused_eval and
+    python3 chip_compare.py paths TAG     # device time per call (and kernels 1's, 2's, 3's
+                                          # and 4b's part) of serve, serve_fused_eval and
                                           # eval_fused_sa at B=16 x 10240, train and
                                           # train_fused_sa steps at 16 x 10240 and a train
                                           # step at 36 x 7168, beside each one's wall time
@@ -59,6 +60,12 @@ and 4b (the gather's scatter-add backward) on one NVIDIA card, beside
                                           # bf16 and f32) at one 16 x 10240 forward's
                                           # inputs: against its plain version, by CUDA
                                           # graph, with its launch (blocks per SM)
+    python3 chip_compare.py query TAG     # kernel 3 (exact ball query) at every shape of
+                                          # chip_smoke.QUERY_SHAPES: its ptxas report, then
+                                          # chip_smoke.time_query's events, CUDA-graph and
+                                          # profiler times, the transpose copy alone, the
+                                          # full-scan instantiation, the scan lengths the
+                                          # data needs and the bound
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -402,7 +409,7 @@ SCATTER_KERNELS = ("csr_kernel", "count_kernel", "scan_kernel", "place_kernel",
 
 
 def paths(tag: str) -> None:
-    """Device time per call of the paths kernels 1, 2 and 4b run on (a
+    """Device time per call of the paths kernels 1, 2, 3 and 4b run on (a
     torch.profiler window of 3 calls, chip_smoke.profile_calls) and those
     kernels' part of it: the default and the fused_eval engines and the
     fused_sa model's predict at 16 x 10240, the train and train_fused_sa steps
@@ -432,11 +439,12 @@ def paths(tag: str) -> None:
         _, busy, kernels, _ = cs.profile_calls(fn, 3)
         k1 = sum(ms for key, ms, _ in kernels if "fps" in key)
         k2 = sum(ms for key, ms, _ in kernels if "ball_group" in key)
+        k3 = sum(ms for key, ms, _ in kernels if "ball_query" in key)
         k4b = sum(ms for key, ms, _ in kernels if any(k in key for k in SCATTER_KERNELS))
         wall = cs.serve_timing(lambda _: fn(), None)
         print(f"{tag} {name}: {busy:.3f} ms of device time per call, kernel 1 {k1:.4f} ms, "
-              f"kernel 2 {k2:.4f} ms, kernel 4b {k4b:.4f} ms; wall {wall:.3f} ms [{card}]",
-              flush=True)
+              f"kernel 2 {k2:.4f} ms, kernel 3 {k3:.4f} ms, kernel 4b {k4b:.4f} ms; wall "
+              f"{wall:.3f} ms [{card}]", flush=True)
 
 
 def scatter(tag: str) -> None:
@@ -528,11 +536,28 @@ def eval5(tag: str) -> None:
             torch.cuda.empty_cache()
 
 
+def query(tag: str) -> None:
+    """Kernel 3 at every shape of chip_smoke.QUERY_SHAPES (chip_smoke.time_query),
+    after its ptxas report."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+
+    card = cs.card_line()
+    for line in ptxas_lines("ball_query.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    for label, args, kwargs in cs.query_inputs(serve, dev):
+        res = cs.time_query(label, args, kwargs, card)
+        print(f"{tag} query {label}: graph {res['graph_ms']:.4f} ms, alone {res['alone_ms']:.4f} "
+              f"ms, events {res['ms']:.4f} ms [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
-                "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1)}
+                "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
+                "query": (query, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

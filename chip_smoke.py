@@ -290,6 +290,18 @@ GROUP_SHAPES = (("16 x 10240", SMALL, N_POINTS, 1), ("36 x 10240", LARGE, N_POIN
                 ("24 x 7168", FAULT_BATCHES[0], SHORT_POINTS, 4),
                 ("28 x 7168", FAULT_BATCHES[1], SHORT_POINTS, 5),
                 ("36 x 7168", LARGE, SHORT_POINTS, 12))
+# kernel 3 at every shape the paths give it (phase 2, chip_compare.py query):
+# (label, clouds, points, seed, path). "SA2" records the default engine's
+# query (sectored FPS, r=8); "parity SA1" the SA1 query of the parity preset's
+# engine (TrainConfig.apply_parity: exact FPS, no fast_group, r=2); 2 x 20608
+# is SA2 beyond 4096 SA1 centroids (M=1031 of N=4122)
+QUERY_SHAPES = (("SA2 16 x 10240", SMALL, N_POINTS, 1, "SA2"),
+                ("SA2 36 x 10240", LARGE, N_POINTS, 2, "SA2"),
+                ("SA2 24 x 7168", FAULT_BATCHES[0], SHORT_POINTS, 4, "SA2"),
+                ("SA2 28 x 7168", FAULT_BATCHES[1], SHORT_POINTS, 5, "SA2"),
+                ("SA2 36 x 7168", LARGE, SHORT_POINTS, 12, "SA2"),
+                ("parity SA1 16 x 10240", SMALL, N_POINTS, 1, "parity SA1"),
+                ("SA2 2 x 20608", 2, 20608, 31, "SA2"))
 # kernel 2's CUDA-core floor: a distance test is 9 instructions with no FMA (3
 # sub, 3 mul, 2 add, a compare: csrc/stratified_select.cuh), at 128 FP32 lanes
 # an SM a cycle
@@ -601,6 +613,106 @@ def time_group(label: str, args, kwargs, card: str) -> dict:
     return res
 
 
+def query_inputs(serve, device) -> list:
+    """(label, args, kwargs) of kernel 3 at each of QUERY_SHAPES: the call one
+    forward of ``serve`` (the default engine) makes, or of the parity preset's
+    engine (its first call, SA1's)."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+
+    engines = {"SA2": serve}
+    if any(path == "parity SA1" for *_, path in QUERY_SHAPES):
+        parity = build_model(TrainConfig().apply_parity(), num_features=1).to(device)
+        engines["parity SA1"] = compile_inference(parity, device)
+    out = []
+    for label, b, n, seed, path in QUERY_SHAPES:
+        batch = synthetic_batch(b, n, seed=seed, device=device)
+        args, kwargs = record_kernel_inputs(engines[path], batch)["ball_query_first_k"][0]
+        out.append((label, args, kwargs))
+    return out
+
+
+def query_scan(args, kwargs, want) -> dict:
+    """The points each valid centroid's exact scan tests (up to its K-th hit,
+    else all N), from the plain version's output ``want``: their sum (the
+    distance tests the data needs), mean, p99 and longest, in points and in
+    passes of 32, and the centroids that scan all N."""
+    centers, cmask, pos, mask = args
+    k, n = kwargs["k"], pos.shape[1]
+    idx, nbr = want
+    scan = torch.where(nbr[..., k - 1], idx[..., k - 1].long() + 1,
+                       torch.full_like(idx[..., k - 1], n, dtype=torch.long))[cmask]
+    if scan.numel() == 0:
+        return dict(tests=0)
+    passes = (scan + 31) // 32
+    return dict(tests=int(scan.sum()), scan_mean=float(scan.double().mean()),
+                scan_p99=float(torch.quantile(scan.double(), 0.99)), scan_max=int(scan.max()),
+                passes_mean=float(passes.double().mean()),
+                passes_p99=float(torch.quantile(passes.double(), 0.99)),
+                passes_max=int(passes.max()), full_scans=int((scan >= n).sum()),
+                centroids=int(scan.numel()))
+
+
+def query_bound(args, kwargs, tests: int):
+    """Kernel 3's bound in both parts: bytes (points and centroids read once,
+    the (B, M, K) int32 and bool outputs written once) and operations (the
+    distance tests the data needs)."""
+    centers, _, pos, _ = args
+    b, m, _ = centers.shape
+    nbytes = b * pos.shape[1] * 13 + b * m * 13 + b * m * kwargs["k"] * 5
+    return bound(nbytes, tests * DIST_TEST_FLOPS), bound(nbytes, 0)[0], bound(0, tests *
+                                                                              DIST_TEST_FLOPS)[0]
+
+
+def time_query(label: str, args, kwargs, card: str, plain: bool = False) -> dict:
+    """Kernel 3 at one shape: index-exact against its plain version and
+    identical across two launches, then timed by CUDA events around the
+    wrapper (median of 25), replayed from a CUDA graph and alone from a
+    torch.profiler window, beside the bound in both its parts, the scan the
+    data needs and its CUDA-core floor, the transpose copy the parent's
+    wrapper made alone (by graph), and where the tree has them the plan, the
+    launch's blocks per SM and the full-scan instantiation's graph time;
+    ``plain`` adds the plain version's time by events."""
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+
+    centers, cmask, pos, mask = args
+    b, m, _ = centers.shape
+    n = pos.shape[1]
+    got = k3.ball_query_first_k(*args, **kwargs)
+    again = k3.ball_query_first_k(*args, **kwargs)
+    want = k3.ball_query_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    for x, what in ((want, "plain"), (again, "a second launch")):
+        require(torch.equal(got[0], x[0]) and torch.equal(got[1], x[1]),
+                f"ball query differs from {what} at {label}")
+
+    def fn():
+        return k3.ball_query_first_k(*args, **kwargs)
+
+    res = dict(label=label, b=b, m=m, n=n, k=kwargs["k"], radius=kwargs["radius"],
+               plan=(k3.plan(n, m, kwargs["k"])._asdict() if hasattr(k3, "plan")
+                     else "parent: one warp a centroid, four a block, planes from L2"))
+    res.update(ms=time_ms(fn), graph_ms=graph_ms(fn), alone_ms=kernel_alone_ms(fn, "ball_query"))
+    if plain:
+        res["plain_ms"] = time_ms(lambda: k3.ball_query_plain(*args, **kwargs))
+    res["transpose_graph_ms"] = graph_ms(lambda: pos.transpose(1, 2).contiguous())
+    if hasattr(k3, "probe"):
+        res["full_scan_graph_ms"] = graph_ms(lambda: k3.probe(*args, **kwargs,
+                                                              mode="full_scan"))
+    if hasattr(k3, "occupancy"):
+        res["occupancy"] = k3.occupancy(n, m, kwargs["k"])
+    res.update(query_scan(args, kwargs, want))
+    (res["bound_ms"], res["bound_by"]), res["bytes_ms"], res["operations_ms"] = query_bound(
+        args, kwargs, res["tests"])
+    res["floor_tests_ms"] = scan_floor_ms(res["tests"])
+    res["floor_full_ms"] = scan_floor_ms(res.get("centroids", 0) * n)
+    print(f"kernel ball_query {label}: " + " ".join(
+        f"{key}={round(val, 6) if isinstance(val, float) else val}" for key, val in res.items()
+        if key != "label") + f"; index-exact, repeats identical [{card}]", flush=True)
+    return res
+
+
 def check_kernels(calls, device):
     """Phase 2: each kernel against its plain version, timed, with its bound."""
     from dl_biomass_tpu_torch.ops import (ball_group_kernel, ball_query_kernel, fps_kernel,
@@ -672,35 +784,15 @@ def check_kernels(calls, device):
                      max_abs_err=err, ms=t, plain_ms=tp, bound_ms=bms, bound_by=by,
                      library_ms=None))
 
-    # kernel 3: exact ball query
+    # kernel 3: exact ball query (every shape of QUERY_SHAPES follows in run)
     (args, kwargs), = calls["ball_query_first_k"]
-    got = ball_query_kernel.ball_query_first_k(*args, **kwargs)
-    want = ball_query_kernel.ball_query_plain(*args, **kwargs)
-    torch.cuda.synchronize()
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            "ball query kernel differs from plain")
-    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    t = time_ms(lambda: ball_query_kernel.ball_query_first_k(*args, **kwargs))
-    tg = graph_ms(lambda: ball_query_kernel.ball_query_first_k(*args, **kwargs))
-    tp = time_ms(lambda: ball_query_kernel.ball_query_plain(*args, **kwargs))
-    centers, cmask, pos, mask = args
-    k = kwargs["k"]
-    b, m, _ = centers.shape
-    n = pos.shape[1]
-    idx, nbr = want
-    scan = torch.where(nbr[..., k - 1], idx[..., k - 1].long() + 1, torch.full_like(
-        idx[..., k - 1], n, dtype=torch.long))
-    tests = int((scan * cmask).sum())
-    nbytes, flops = b * n * 13 + b * m * 13 + b * m * k * 5, tests * DIST_TEST_FLOPS
-    bms, by = bound(nbytes, flops)
-    print(f"kernel ball_query B={b} M={m} N={n} K={k}: {t:.4f} ms, CUDA graph {tg:.4f} ms, "
-          f"plain {tp:.4f} ms, bound {bms:.6f} ms ({by}; bytes {bound(nbytes, 0)[0]:.6f} ms, "
-          f"operations {bound(0, flops)[0]:.6f} ms: {tests} distance tests), index-exact",
-          flush=True)
+    res = time_query("serve 16 x 10240", args, kwargs, card_line(), plain=True)
     rows.append(dict(name="ball_query_first_k", source="dl_biomass_tpu_torch/csrc/ball_query.cu",
                      replaces="dl_biomass_tpu/ops/pallas_ballquery.py:142",
-                     entry="dlbt_ball_query", max_abs_err=err, ms=t, plain_ms=tp,
-                     bound_ms=bms, bound_by=by, library_ms=None, graph_ms=tg))
+                     entry="dlbt_ball_query", max_abs_err=0.0, ms=res["ms"],
+                     plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                     bound_by=res["bound_by"], library_ms=None, graph_ms=res["graph_ms"],
+                     alone_ms=res["alone_ms"]))
 
     # kernel 4: row gather
     (args, kwargs), = calls["gather_rows_forward"]
@@ -1296,6 +1388,8 @@ def run(device, card: str, launches: dict):
     requests = serving_requests(device)
     calls = record_kernel_inputs(serve, requests[0])
     rows = check_kernels(calls, device)
+    for label, args, kwargs in query_inputs(serve, device):
+        time_query(label, args, kwargs, card)
     for label, args in fps_inputs(serve, device):
         time_fps(label, args, card)
 

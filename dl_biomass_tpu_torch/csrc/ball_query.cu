@@ -18,6 +18,8 @@
 // coalesced load per plane), __ballot_sync collects the hits, and a lane's
 // slot is the count so far plus the __popc of the hits below it. The scan
 // stops when K slots are filled; the lanes then fill the rest with index 0.
+// A measurement instantiation (full = 1, ``ball_query_kernel.probe``) scans
+// every point, with no early exit, and stores the same slots.
 
 #include <cuda_runtime.h>
 
@@ -30,7 +32,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 ball_query_kernel(const float* __restrict__ centers, const unsigned char* __restrict__ cmask,
                   const float* __restrict__ planes, const unsigned char* __restrict__ mask,
                   int* __restrict__ idx, unsigned char* __restrict__ nbr_mask,
-                  int m, int n, int k, float r2) {
+                  int m, int n, int k, float r2, int full) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int b = blockIdx.y;
@@ -45,7 +47,7 @@ ball_query_kernel(const float* __restrict__ centers, const unsigned char* __rest
     const float* pz = py + n;
     const unsigned char* mk = mask + static_cast<size_t>(b) * n;
     const float cx = centers[3 * ci], cy = centers[3 * ci + 1], cz = centers[3 * ci + 2];
-    for (int base = 0; base < n && cnt < k; base += 32) {
+    for (int base = 0; base < n && (full || cnt < k); base += 32) {
       const int i = base + lane;
       bool ok = false;
       if (i < n && mk[i]) {
@@ -76,14 +78,15 @@ ball_query_kernel(const float* __restrict__ centers, const unsigned char* __rest
 }  // namespace
 
 // centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3, N) f32 [x, y, z], mask (B, N)
-// bool -> idx (B, M, K) int32, nbr_mask (B, M, K) bool.
+// bool -> idx (B, M, K) int32, nbr_mask (B, M, K) bool. full: 0 on every path, 1
+// for the full-scan measurement.
 extern "C" int dlbt_ball_query(const void* centers, const void* cmask, const void* planes,
                                const void* mask, void* idx, void* nbr_mask, int b, int m,
-                               int n, int k, float r2, void* stream) {
+                               int n, int k, float r2, int full, void* stream) {
   const dim3 grid((m + kWarpsPerBlock - 1) / kWarpsPerBlock, b);
   ball_query_kernel<<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
       static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
-      static_cast<int*>(idx), static_cast<unsigned char*>(nbr_mask), m, n, k, r2);
+      static_cast<int*>(idx), static_cast<unsigned char*>(nbr_mask), m, n, k, r2, full);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@ drops neighbours when one residue bucket holds more than 8 of the first 64,
 both versions here are exact.
 
 ``ball_query_first_k`` launches ``csrc/ball_query.cu`` on a CUDA tensor and
-runs ``ball_query_plain`` on a CPU tensor.
+runs ``ball_query_plain`` on a CPU tensor. ``probe`` runs the kernel's
+full-scan instantiation (no early exit) to measure it; no path calls it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from dl_biomass_tpu_torch.ops import _build
 from dl_biomass_tpu_torch.ops.grouping import in_radius
 
 CHUNK = 256  # centroids per block of the plain version
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
+             + [ctypes.c_void_p])
+MODES = {"kernel": 0, "full_scan": 1}
 
 
 def _radius2(radius: float) -> float:
@@ -77,6 +80,17 @@ def ball_query_first_k(centers: torch.Tensor, center_mask: torch.Tensor, pos: to
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
     if pos.device.type == "cpu":
         return ball_query_plain(centers, center_mask, pos, mask, radius=radius, k=k)
+    return _launch(centers, center_mask, pos, mask, radius, k, "kernel")
+
+
+def probe(centers, center_mask, pos, mask, *, radius: float, k: int = 64, mode: str):
+    """The kernel on the card with ``mode`` "full_scan": every centroid scans
+    every point, with no early exit, and stores the same slots. A
+    measurement; no path calls it."""
+    return _launch(centers, center_mask, pos, mask, radius, k, mode)
+
+
+def _launch(centers, center_mask, pos, mask, radius, k, mode):
     if pos.device.type != "cuda":
         raise RuntimeError(f"ball_query runs on cuda or cpu tensors, got {pos.device}")
     _check(centers, center_mask, pos, mask, k)
@@ -89,6 +103,5 @@ def ball_query_first_k(centers: torch.Tensor, center_mask: torch.Tensor, pos: to
     nbr_mask = torch.empty((b, m, k), dtype=torch.bool, device=pos.device)
     _build.launch("dlbt_ball_query", _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
                   planes.data_ptr(), mask.data_ptr(), idx.data_ptr(), nbr_mask.data_ptr(),
-                  b, m, n, k, _radius2(radius), _build.stream_of(pos))
+                  b, m, n, k, _radius2(radius), MODES[mode], _build.stream_of(pos))
     return idx, nbr_mask
-
