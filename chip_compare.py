@@ -66,6 +66,16 @@ card, beside
                                           # profiler times, the transpose copy alone, the
                                           # full-scan instantiation, the scan lengths the
                                           # data needs and the bound
+    python3 chip_compare.py querytune TAG # kernel 3 at those shapes under other plans:
+                                          # warps and centroids a block and chunks
+                                          # tested ahead (whole clouds), warps, points
+                                          # a chunk and chunks ahead (chunked), by
+                                          # CUDA graph
+    python3 chip_compare.py querylat TAG  # kernel 3's scan latency: one block of
+                                          # 32 warps, one cloud of 2048 or 10240
+                                          # points, every centroid scanning all of
+                                          # it with no hit, or with a hit in every
+                                          # lane (full scan), beside the staging alone
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -552,12 +562,84 @@ def query(tag: str) -> None:
               f"ms, events {res['ms']:.4f} ms [{card}]", flush=True)
 
 
+def query_tune(tag: str) -> None:
+    """Kernel 3 at every shape of chip_smoke.QUERY_SHAPES under other plans
+    (``ball_query_kernel.plan`` patched): index-exact against the plain
+    version, then the graph replay's ms (chip_smoke.graph_ms)."""
+    import itertools
+
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.cloud import round_up
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+
+    card = cs.card_line()
+    serve = compile_inference(cs.seeded_model(dev), dev)
+    for label, args, kwargs in cs.query_inputs(serve, dev):
+        want = k3.ball_query_plain(*args, **kwargs)
+        n, m, k = args[2].shape[1], args[0].shape[1], kwargs["k"]
+        base = k3.plan(n, m, k)
+        if base.whole:
+            plans = [k3.Plan(min(w * r, round_up(m, w)), w, round_up(n, 32 * a), True, a)
+                     for w, r, a in itertools.product((8, 16, 32), (1, 2, 4, 8), k3.AHEADS)]
+        else:
+            plans = [k3.Plan(w, w, pts, False, a) for w, pts, a in
+                     itertools.product((16, 32), (2048, 4096, 8192), k3.AHEADS)]
+        plans = [p for p in plans if k3.smem_bytes(p, k) <= k3.SMEM_PER_BLOCK]
+        out = {}
+        for p in dict.fromkeys([base] + plans):
+            with mock.patch.object(k3, "plan", lambda *_: p):
+                got = k3.ball_query_first_k(*args, **kwargs)
+                cs.require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                           f"plan {tuple(p)}: kernel differs from plain at {label}")
+                out[p] = cs.graph_ms(lambda: k3.ball_query_first_k(*args, **kwargs))
+        best = sorted(out, key=out.get)
+        print(f"{tag} querytune {label}: plan {tuple(base)} {out.get(base, float('nan')):.4f} ms; "
+              f"fastest " + ", ".join(f"{tuple(p)} {out[p]:.4f}" for p in best[:6])
+              + f"; slowest {tuple(best[-1])} {out[best[-1]]:.4f} [{card}]", flush=True)
+
+
+def query_latency(tag: str) -> None:
+    """Kernel 3 on one block (32 warps, one centroid each) over one cloud of
+    uniform points, by CUDA graph: every centroid far from the cloud (no hit:
+    each warp tests every chunk and places nothing), inside it with a radius
+    that takes every point (every chunk placed, full-scan mode), and the
+    staging alone; the difference over the groups of 32 * ahead points a
+    warp scans is one group's time on a warp."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.cloud import round_up
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+
+    card = cs.card_line()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for n in (2048, 10240):
+        pos = torch.rand((1, n, 3), device=dev, generator=gen) * 10
+        mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+        cmask = torch.ones((1, 32), dtype=torch.bool, device=dev)
+        far, inside = torch.full((1, 32, 3), 100.0, device=dev), pos[:, :32].contiguous()
+        for a in k3.AHEADS:
+            p = k3.Plan(32, 32, round_up(n, 32 * a), True, a)
+            groups = p.points // (32 * a)
+            with mock.patch.object(k3, "plan", lambda *_: p):
+                none = cs.graph_ms(lambda: k3.ball_query_first_k(far, cmask, pos, mask,
+                                                                 radius=1.0, k=64))
+                every = cs.graph_ms(lambda: k3.probe(inside, cmask, pos, mask, radius=100.0,
+                                                     k=64, mode="full_scan"))
+                staged = cs.graph_ms(lambda: k3.probe(far, cmask, pos, mask, radius=1.0, k=64,
+                                                      mode="stage_only"))
+            print(f"{tag} querylat n={n} ahead={a}: no hit {none:.4f} ms, every lane a hit "
+                  f"{every:.4f} ms, staging alone {staged:.4f} ms; a group of {32 * a} points "
+                  f"{(none - staged) * 1e6 / groups:.1f} ns with no hit, "
+                  f"{(every - staged) * 1e6 / groups:.1f} ns placed [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
-                "query": (query, 1)}
+                "query": (query, 1), "querytune": (query_tune, 1),
+                "querylat": (query_latency, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

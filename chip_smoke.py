@@ -13,8 +13,17 @@ Phases, each of which raises on failure (exit code 1):
              of 25 launches), beside its bound and, where one PyTorch call
              computes the same function, that call's time; kernels 2, 3 and
              4a also replayed from a CUDA graph, kernel 2 with
-             ``ball_group_kernel.plan``'s choice and its CUDA-core floor, kernel
-             3 with both parts of its bound. Then kernel 1 at
+             ``ball_group_kernel.plan``'s choice and its CUDA-core floor. Then
+             kernel 3 at every shape the paths give it (QUERY_SHAPES: SA2 of
+             16 and 36 x 10240, of 24, 28 and 36 x 7168 and of 2 x 20608,
+             the parity preset's SA1 of 16 and 2 x 20608): index-exact against
+             its plain version, two launches identical,
+             ``ball_query_kernel.plan``'s choice and blocks per SM, timed by
+             events, from a CUDA graph and alone (``torch.profiler``) beside
+             its measurement modes (no early exit, the staging alone, no
+             writing), the transpose copy its parent's wrapper made, the scan
+             lengths the data needs, its CUDA-core floor and both parts of its
+             bound. Then kernel 1 at
              every shape the paths give it (FPS_SHAPES: SA1 and SA2 of 16 and
              36 x 10240 and 36 x 7168, exact FPS on 16 x 10240 and 2 x
              16384): index-exact, two launches identical, ``fps_kernel.plan``'s
@@ -294,14 +303,16 @@ GROUP_SHAPES = (("16 x 10240", SMALL, N_POINTS, 1), ("36 x 10240", LARGE, N_POIN
 # (label, clouds, points, seed, path). "SA2" records the default engine's
 # query (sectored FPS, r=8); "parity SA1" the SA1 query of the parity preset's
 # engine (TrainConfig.apply_parity: exact FPS, no fast_group, r=2); 2 x 20608
-# is SA2 beyond 4096 SA1 centroids (M=1031 of N=4122)
+# is SA2 beyond 4096 SA1 centroids (M=1031 of N=4122) and, under the parity
+# preset, SA1 on clouds too large for one block's shared memory
 QUERY_SHAPES = (("SA2 16 x 10240", SMALL, N_POINTS, 1, "SA2"),
                 ("SA2 36 x 10240", LARGE, N_POINTS, 2, "SA2"),
                 ("SA2 24 x 7168", FAULT_BATCHES[0], SHORT_POINTS, 4, "SA2"),
                 ("SA2 28 x 7168", FAULT_BATCHES[1], SHORT_POINTS, 5, "SA2"),
                 ("SA2 36 x 7168", LARGE, SHORT_POINTS, 12, "SA2"),
                 ("parity SA1 16 x 10240", SMALL, N_POINTS, 1, "parity SA1"),
-                ("SA2 2 x 20608", 2, 20608, 31, "SA2"))
+                ("SA2 2 x 20608", 2, 20608, 31, "SA2"),
+                ("parity SA1 2 x 20608", 2, 20608, 31, "parity SA1"))
 # kernel 2's CUDA-core floor: a distance test is 9 instructions with no FMA (3
 # sub, 3 mul, 2 add, a compare: csrc/stratified_select.cuh), at 128 FP32 lanes
 # an SM a cycle
@@ -672,7 +683,8 @@ def time_query(label: str, args, kwargs, card: str, plain: bool = False) -> dict
     torch.profiler window, beside the bound in both its parts, the scan the
     data needs and its CUDA-core floor, the transpose copy the parent's
     wrapper made alone (by graph), and where the tree has them the plan, the
-    launch's blocks per SM and the full-scan instantiation's graph time;
+    launch's blocks per SM and the graph time of each measurement mode (no
+    early exit; the staging alone; no writing);
     ``plain`` adds the plain version's time by events."""
     from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
 
@@ -697,9 +709,9 @@ def time_query(label: str, args, kwargs, card: str, plain: bool = False) -> dict
     if plain:
         res["plain_ms"] = time_ms(lambda: k3.ball_query_plain(*args, **kwargs))
     res["transpose_graph_ms"] = graph_ms(lambda: pos.transpose(1, 2).contiguous())
-    if hasattr(k3, "probe"):
-        res["full_scan_graph_ms"] = graph_ms(lambda: k3.probe(*args, **kwargs,
-                                                              mode="full_scan"))
+    for mode in getattr(k3, "MODES", ()):
+        if mode != "kernel":
+            res[f"{mode}_graph_ms"] = graph_ms(lambda: k3.probe(*args, **kwargs, mode=mode))
     if hasattr(k3, "occupancy"):
         res["occupancy"] = k3.occupancy(n, m, kwargs["k"])
     res.update(query_scan(args, kwargs, want))

@@ -26,6 +26,9 @@ from fps_cases import EDGE_CASES, edge_case
 from group_cases import CASES as GROUP_CASES
 from group_cases import RADIUS as GROUP_RADIUS
 from group_cases import group_case
+from query_cases import CASES as QUERY_CASES
+from query_cases import RADIUS as QUERY_RADIUS
+from query_cases import query_case
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -126,12 +129,50 @@ def test_ball_group_kernel_at_path_widths_matches_plain(dev, n):
                     ball_group_kernel.ball_group_plain(centers, cmask, pos, mask, feat, **kw))
 
 
+def _same_query(args, radius, k):
+    """Kernel 3 index-exact against its plain version, two launches identical,
+    and its full-scan instantiation equal to both."""
+    got = ball_query_kernel.ball_query_first_k(*args, radius=radius, k=k)
+    again = ball_query_kernel.ball_query_first_k(*args, radius=radius, k=k)
+    full = ball_query_kernel.probe(*args, radius=radius, k=k, mode="full_scan")
+    want = ball_query_kernel.ball_query_plain(*args, radius=radius, k=k)
+    torch.cuda.synchronize()
+    for x in (want, again, full):
+        assert torch.equal(got[0], x[0]) and torch.equal(got[1], x[1])
+
+
 def test_ball_query_kernel_matches_plain(dev):
     pos, mask, _ = _cloud(dev)
     centers, cmask = pos[:, :300].contiguous(), mask[:, :300].contiguous()
-    got = ball_query_kernel.ball_query_first_k(centers, cmask, pos, mask, radius=3.0, k=64)
-    want = ball_query_kernel.ball_query_plain(centers, cmask, pos, mask, radius=3.0, k=64)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _same_query((centers, cmask, pos, mask), 3.0, 64)
+
+
+@pytest.mark.parametrize("case", list(QUERY_CASES))
+def test_ball_query_kernel_cases_match_plain(dev, case):
+    """Each case of tests/query_cases.py (N on either side of 32 and 128, k
+    below and above N, empty, full and coincident balls, masked points,
+    clouds and centroids, points a rounding step either side of the radius)."""
+    centers, cmask, pos, mask, k = query_case(case)
+    _same_query([torch.from_numpy(a).to(dev) for a in (centers, cmask, pos, mask)],
+                QUERY_RADIUS, k)
+
+
+# the largest cloud ball_query_kernel.plan stages whole at k=64
+QUERY_WHOLE_EDGE = max(n for n in range(128, 20608, 128)
+                       if ball_query_kernel.plan(n, 300, 64).whole)
+
+
+# whole clouds (2048, 10240 and the largest a block stages) and clouds staged
+# in chunks (one point more, and 20609 points: no multiple of 32 or of the
+# chunk), at SA1's and SA2's radius, with garbage in the masked points
+@pytest.mark.parametrize("n", [2048, 10240, QUERY_WHOLE_EDGE, QUERY_WHOLE_EDGE + 1, 20609])
+@pytest.mark.parametrize("radius", [2.0, 8.0])
+def test_ball_query_kernel_at_path_widths_matches_plain(dev, n, radius):
+    pos, mask, _ = _cloud(dev, n=n, seed=n)
+    pos = torch.where(mask[..., None], pos, torch.full_like(pos, 1e4))
+    centers, cmask = pos[:, :300].contiguous(), mask[:, :300].contiguous()
+    assert ball_query_kernel.plan(n, 300, 64).whole == (n <= QUERY_WHOLE_EDGE)
+    _same_query((centers, cmask, pos, mask), radius, 64)
 
 
 @pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 128), (torch.float32, 3)])
