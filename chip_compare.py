@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group),
-4b (the gather's scatter-add backward) and 3 (exact ball query) on one NVIDIA
-card, beside
+4b (the gather's scatter-add backward), 3 (exact ball query) and 7 (the fused
+tail's forward) on one NVIDIA card, beside
 ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
@@ -76,6 +76,14 @@ card, beside
                                           # points, every centroid scanning all of
                                           # it with no hit, or with a hit in every
                                           # lane (full scan), beside the staging alone
+    python3 chip_compare.py tail TAG      # kernel 7's forward at tail_bench's SA1 and
+                                          # SA2 shapes: its ptxas report, its launch
+                                          # (blocks per SM, registers, spills), CUDA-graph,
+                                          # profiler and event times with and without the
+                                          # argmax, its measurement modes (staging only,
+                                          # products only) by graph, the bound; 7-B and Σ
+                                          # by graph at the same inputs; then tail_bench's
+                                          # main()
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -633,13 +641,67 @@ def query_latency(tag: str) -> None:
                   f"{(every - staged) * 1e6 / groups:.1f} ns placed [{card}]", flush=True)
 
 
+def tail(tag: str) -> None:
+    """Kernel 7's forward at chip_smoke.TAIL_SHAPES (tail_bench's), on the
+    inputs phase 13 gives it: against its plain version, then by CUDA graph,
+    alone (profiler) and by events, with and without the argmax, and each
+    measurement mode the tree has by graph; 7-B and Σ by graph on the same
+    inputs; then tail_bench.main()."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss, tail_kernel as k7
+    from dl_biomass_tpu_torch.tools import tail_bench
+
+    card = cs.card_line()
+    for line in ptxas_lines("fused_tail.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    for name, shape in cs.TAIL_SHAPES.items():
+        a2, mask, w3, b3, g = cs.tail_inputs(shape, dev, seed=7)
+        b, m, _, c2 = a2.shape
+        c3 = w3.shape[1]
+        launch = k7.occupancy(c2, c3) if hasattr(k7, "occupancy") else None
+        plan = k7.plan(c2, c3) if hasattr(k7, "plan") else None
+        with torch.no_grad():
+            out, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+            want, w_am = k7.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
+            lead = cs.bf16_lead(a2, mask, w3, b3)
+            rel = cs.rel_diff(out, want)
+            am_same = bool(torch.equal(am[lead], w_am[lead]))
+            del want, w_am, lead
+            row = {}
+            for argmax in (False, True):
+                fn = (lambda am_=argmax: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=am_))
+                key = "argmax" if argmax else "max"
+                row[f"graph_{key}"] = cs.graph_ms(fn)
+                row[f"alone_{key}"] = cs.kernel_alone_ms(fn, "fused_tail_fwd")
+                row[f"events_{key}"] = cs.time_ms(fn, reps=cs.TOOL_REPS)
+            if hasattr(k7, "probe"):
+                for mode in k7.FWD_MODES:
+                    if mode != "full":
+                        row[f"graph_{mode}"] = cs.graph_ms(
+                            lambda mode_=mode: k7.probe(a2, mask, w3, b3, mode_))
+        gb = g.to(torch.bfloat16)
+        row["graph_bwd"] = cs.graph_ms(lambda: k7.fused_tail_bwd_slices(a2, gb, am, w3))
+        _, slices = k7.fused_tail_bwd_slices(a2, gb, am, w3)
+        row["graph_sum"] = cs.graph_ms(lambda: ss.sum_slices(slices))
+        bms, by, nbytes, flops = cs.tail_fwd_bound(a2, mask, w3)
+        print(f"{tag} tail {name} (B={b} M={m} C2={c2} C3={c3}): "
+              + " ".join(f"{key}={val:.4f}" for key, val in row.items())
+              + f" ms; bound {bms:.4f} ms ({by}: {nbytes} bytes, {flops} flop); vs plain "
+              f"{rel:.3e}, argmax equal where the winner leads {am_same}; launch {launch}; "
+              f"plan {plan} [{card}]", flush=True)
+        del a2, mask, w3, b3, g, gb, out, am, slices
+        torch.cuda.empty_cache()
+    for row in tail_bench.main(device=dev):
+        print(f"{tag} tail_bench {row} [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
                 "query": (query, 1), "querytune": (query_tune, 1),
-                "querylat": (query_latency, 1)}
+                "querylat": (query_latency, 1), "tail": (tail, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

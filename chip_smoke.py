@@ -2382,6 +2382,18 @@ def bf16_lead(a2, mask, w3, b3) -> torch.Tensor:
     return (top2[:, :, 0] - top2[:, :, 1]) > ulp
 
 
+def tail_fwd_bound(a2, mask, w3):
+    """Kernel 7's forward bound: (ms, "bytes" or "operations", bytes, flop).
+    It reads a2, the mask, W3 and b3 once and writes out (B, M, C3) bf16; its
+    products are dense, 2 B M 64 C2 C3 flop at bf16's peak."""
+    b, m, k, c2 = a2.shape
+    c3 = w3.shape[1]
+    flops = 2 * b * m * k * c2 * c3
+    nbytes = a2.numel() * 2 + mask.numel() + w3.numel() * 4 + c3 * 4 + b * m * c3 * 2
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    return bms, by, nbytes, flops
+
+
 def check_tail_fwd(name: str, args, ctx: dict) -> None:
     """Kernel 7's forward at one shape: vs plain (output, argmax where the
     winner leads, zero rows), junk at invalid slots, two launches, timings."""
@@ -2419,9 +2431,7 @@ def check_tail_fwd(name: str, args, ctx: dict) -> None:
         tu = time_ms(lambda: unfused(a2, mask, w3, b3), reps=3, warmup=1)
     b, m, k, c2 = a2.shape
     c3 = w3.shape[1]
-    flops = 2 * b * m * k * c2 * c3
-    nbytes = a2.numel() * 2 + mask.numel() + w3.numel() * 4 + c3 * 4 + b * m * c3 * 2
-    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    bms, by, nbytes, flops = tail_fwd_bound(a2, mask, w3)
     print(f"kernel fused_tail_fwd {name} (B={b} M={m} C2={c2} C3={c3}): {t:.4f} ms (median of "
           f"{TOOL_REPS}; {t_am:.4f} ms with the argmax), plain {tp:.4f} ms, unfused pair "
           f"(dot_f32 + masked_max) {tu:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} bytes, "

@@ -72,10 +72,11 @@ __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
   return offset;
 }
 
-// (v, i) takes (ov, oi) if ov is larger, or equal at a smaller slot: the max
-// with the first-slot tie rule, whatever order the pairs are merged in.
+// (v, i) takes (ov, oi) if ov is NaN or larger, or equal at a smaller slot: the
+// NaN-propagating max with the first-slot tie rule, whatever order the pairs are
+// merged in (a NaN comes with slot 64, so a NaN max gives argmax 64).
 __device__ __forceinline__ void keep_first_max(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
+  if (ov != ov || ov > v || (ov == v && oi < i)) {
     v = ov;
     i = oi;
   }
@@ -124,6 +125,13 @@ struct FwdLayout {
   }
 };
 
+// The forward's instantiations: the kernel, and two measurements of it (no path
+// launches them): the staging and the writing of the outputs alone (every
+// output 0), and the staging with the products, whose accumulators are folded
+// into a checksum that is written in place of the masked max.
+enum FwdMode { kFwdFull = 0, kFwdStageOnly = 1, kFwdMmaOnly = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(32 * kFwdMaxWarps)
     fused_tail_fwd_kernel(const __nv_bfloat16* __restrict__ a2,
                           const unsigned char* __restrict__ mask, const float* __restrict__ w3,
@@ -158,6 +166,20 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
     const unsigned char* mk = reinterpret_cast<const unsigned char*>(smem + L.mask[b]);
     const bool any = __any_sync(kFull, mk[lane] | mk[lane + 32]);
     for (int n0 = warp * kFwdCols; n0 < c3; n0 += warps * kFwdCols) {
+      if (kMode == kFwdStageOnly) {
+        if (g == 0) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long o = cen * c3 + n0 + nt * 8 + 2 * t + h;
+              out[o] = __float2bfloat16_rn(0.0f);
+              if (amax != nullptr) amax[o] = 0;
+            }
+          }
+        }
+        continue;
+      }
       // z for all 64 rows x the 32 columns: each B fragment serves the 4 row groups
       float acc[kRowGroups][4][4];
 #pragma unroll
@@ -185,6 +207,16 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
           for (int nt = 0; nt < 4; ++nt) dlbt::mma_bf16(acc[rg][nt], af, bf[nt]);
         }
       }
+      if (kMode == kFwdMmaOnly) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int rg = 0; rg < kRowGroups; ++rg) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) sum += acc[rg][nt][0];
+        }
+        if (g == 0) out[cen * c3 + n0 + 2 * t] = __float2bfloat16_rn(sum);
+        continue;
+      }
       // each lane's rows (g and g + 8 of each row group) folded into a running
       // (max, first slot) pair per column, in ascending row order
       float best[4][2];
@@ -205,8 +237,10 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
             const float bb = bias[n0 + nt * 8 + 2 * t + h];
             const float z0 = v0 ? round_bf16(acc[rg][nt][h] + bb) : neg_inf();
             const float z1 = v1 ? round_bf16(acc[rg][nt][2 + h] + bb) : neg_inf();
-            keep_first_max(best[nt][h], arg[nt][h], z0, z0 == neg_inf() ? kSlots : r0);
-            keep_first_max(best[nt][h], arg[nt][h], z1, z1 == neg_inf() ? kSlots : r1);
+            keep_first_max(best[nt][h], arg[nt][h], z0,
+                           z0 == neg_inf() || z0 != z0 ? kSlots : r0);
+            keep_first_max(best[nt][h], arg[nt][h], z1,
+                           z1 == neg_inf() || z1 != z1 ? kSlots : r1);
           }
         }
       }
@@ -378,30 +412,71 @@ cudaError_t grid_for(Kernel kernel, int threads, size_t smem, long long cap, int
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <int kMode>
+int launch_fwd(const void* a2, const void* mask, const void* w3, const void* b3, void* out,
+               void* amax, int centroids, int c2, int c3, cudaStream_t stream) {
+  const int warps = c3 / kFwdCols < kFwdMaxWarps ? c3 / kFwdCols : kFwdMaxWarps;
+  const size_t smem = FwdLayout(c2, c3).total;
+  int grid = 0;
+  cudaError_t e = grid_for(fused_tail_fwd_kernel<kMode>, 32 * warps, smem, centroids, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_tail_fwd_kernel<kMode><<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a2), static_cast<const unsigned char*>(mask),
+      static_cast<const float*>(w3), static_cast<const float*>(b3),
+      static_cast<__nv_bfloat16*>(out), static_cast<int*>(amax), centroids, c2, c3);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Forward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16 and mask
 // (centroids, 64) bool, both 16-byte aligned; w3 (C2, C3) and b3 (C3) f32.
 // Writes out (centroids, C3) bf16 and, unless amax is null, amax (centroids,
-// C3) int32. C2 a multiple of 16, C3 of 32.
+// C3) int32. C2 a multiple of 16, C3 of 32. mode: FwdMode (0 on every path).
 extern "C" int dlbt_fused_tail_fwd(const void* a2, const void* mask, const void* w3,
                                    const void* b3, void* out, void* amax, int centroids, int c2,
-                                   int c3, void* stream) {
+                                   int c3, int mode, void* stream) {
   if (centroids < 0 || c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols || !aligned16(a2) ||
-      !aligned16(mask)) {
+      !aligned16(mask) || mode < kFwdFull || mode > kFwdMmaOnly) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (centroids == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kFwdStageOnly:
+      return launch_fwd<kFwdStageOnly>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
+    case kFwdMmaOnly:
+      return launch_fwd<kFwdMmaOnly>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
+    default:
+      return launch_fwd<kFwdFull>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
+  }
+}
+
+// The full forward's launch at widths (C2, C3) on the current card: out[0]
+// blocks per SM, out[1] threads a block, out[2] shared memory a block (bytes),
+// out[3] registers a thread, out[4] local memory a thread (bytes: spills).
+extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int* out) {
+  if (c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int warps = c3 / kFwdCols < kFwdMaxWarps ? c3 / kFwdCols : kFwdMaxWarps;
   const size_t smem = FwdLayout(c2, c3).total;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fused_tail_fwd_kernel<kFwdFull>);
   int grid = 0;
-  cudaError_t e = grid_for(fused_tail_fwd_kernel, 32 * warps, smem, centroids, &grid);
+  if (e == cudaSuccess) {
+    e = grid_for(fused_tail_fwd_kernel<kFwdFull>, 32 * warps, smem, 1 << 30, &grid);
+  }
+  int dev = 0, sms = 1;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_tail_fwd_kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a2), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(w3), static_cast<const float*>(b3),
-      static_cast<__nv_bfloat16*>(out), static_cast<int*>(amax), centroids, c2, c3);
-  return static_cast<int>(cudaGetLastError());
+  out[0] = grid / sms;
+  out[1] = 32 * warps;
+  out[2] = static_cast<int>(smem);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // Backward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16, gb

@@ -39,11 +39,13 @@ from typing import Tuple
 import torch
 
 from dl_biomass_tpu_torch.ops import _build, sum_slices_kernel
-from dl_biomass_tpu_torch.ops.pooling import _max_only, first_argmax
+from dl_biomass_tpu_torch.ops.pooling import _max_only
 from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
 
 K = 64  # neighbour slots
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the forward's instantiations: the kernel, and its measurements (probe)
+FWD_MODES = {"full": 0, "stage_only": 1, "mma_only": 2}
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
@@ -58,9 +60,11 @@ def _check(a2, nbr_mask, w3):
 
 
 def _argmax(filled: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
-    """The first slot equal to the max, and K where the max is the -inf fill
-    (no valid slot): the JAX kernel's rule, not ``first_argmax``'s 0."""
-    am = first_argmax(filled, raw, dim=2).to(torch.int32)
+    """The first slot equal to the max; K where no slot equals it (the max
+    is NaN: a NaN at a valid slot) or where the max is -inf (no valid slot):
+    the JAX kernel's rule, not ``first_argmax``'s 0."""
+    lane = torch.arange(K, dtype=torch.int16, device=filled.device).view(1, 1, K, 1)
+    am = torch.where(filled == raw.unsqueeze(2), lane, K).amin(dim=2).to(torch.int32)
     return torch.where(raw == float("-inf"), K, am)
 
 
@@ -87,6 +91,35 @@ def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
     if a2.device.type == "cpu":
         return fused_tail_fwd_plain(a2, nbr_mask, w3, b3, with_argmax)
+    return _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, "full")
+
+
+def probe(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+          mode: str, with_argmax: bool = False):
+    """The forward kernel on the card in a measurement ``mode`` (its own
+    instantiation): "stage_only" (the copies into shared memory and the
+    writing of the outputs, every output 0) or "mma_only" (the copies and the
+    products, a checksum of the accumulators written in place of the max);
+    "full" is the kernel. No path calls it."""
+    return _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode)
+
+
+def occupancy(c2: int, c3: int) -> dict:
+    """The forward's launch at widths (C2, C3) on the current card: blocks
+    per SM, threads and shared memory (bytes) a block, registers and local
+    memory (bytes: spills) a thread."""
+    fn = _build.library().dlbt_fused_tail_fwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 5)()
+    rc = fn(c2, c3, vals)
+    if rc != 0:
+        raise RuntimeError(f"dlbt_fused_tail_fwd_occupancy failed ({rc})")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"),
+                    list(vals)))
+
+
+def _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode):
     if a2.device.type != "cuda":
         raise RuntimeError(f"fused_tail_fwd runs on cuda or cpu tensors, got {a2.device}")
     _check(a2, nbr_mask, w3)
@@ -102,7 +135,7 @@ def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
     am = torch.empty((b, m, c3), dtype=torch.int32, device=a2.device) if with_argmax else None
     _build.launch("dlbt_fused_tail_fwd", _FWD_ARGTYPES, a2.data_ptr(), nbr_mask.data_ptr(),
                   w3.data_ptr(), b3.data_ptr(), out.data_ptr(), _build.ptr(am), b * m, c2, c3,
-                  _build.stream_of(a2))
+                  FWD_MODES[mode], _build.stream_of(a2))
     return out, am
 
 

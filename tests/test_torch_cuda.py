@@ -856,6 +856,71 @@ def test_fused_tail_kernel_matches_plain(dev, b, m, c2, c3):
     assert bool((da2[~hit[:, :, :64]] == 0).all())  # invalid slots among them
 
 
+TAIL_WIDTHS = [(16, 32), (64, 128), (128, 256), (96, 160)]
+
+
+def _tail_case(dev, m, c2, c3, seed=3):
+    """Three clouds of m centroids: NaN junk at every invalid slot, NaN at
+    valid slots (one feature of one slot of centroid (0, 0), and every valid
+    slot of centroid (1, 0)), and one row with no valid slot (the last of
+    cloud 2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a2 = torch.randn((3, m, 64, c2), device=dev, generator=g).to(torch.bfloat16)
+    mask = torch.rand((3, m, 64), device=dev, generator=g) > 0.3
+    mask[2, m - 1] = False
+    mask[0, 0, 5] = True
+    a2 = torch.where(mask[..., None], a2, torch.tensor(float("nan"), dtype=a2.dtype, device=dev))
+    a2[0, 0, 5, c2 // 2] = float("nan")
+    a2[1, 0, :, 1] = float("nan")  # every slot, so every valid one
+    w3 = 0.1 * torch.randn((c2, c3), device=dev, generator=g)
+    b3 = 0.1 * torch.randn((c3,), device=dev, generator=g)
+    return a2, mask, w3, b3
+
+
+def _tail_lead(a2, mask, w3, b3):
+    """Where the plain max leads the second value by more than one bf16 step:
+    there the kernel's argmax, summed in another order, must agree."""
+    b, m, k, c2 = a2.shape
+    z = ((a2.float().reshape(-1, c2) @ w3.to(torch.bfloat16).float()) + b3).to(torch.bfloat16)
+    z = torch.where(mask[..., None], z.view(b, m, k, -1), float("-inf"))
+    top2 = z.topk(2, dim=2).values.float()
+    _, e = torch.frexp(top2[:, :, 0])
+    return (top2[:, :, 0] - top2[:, :, 1]) > torch.ldexp(torch.ones_like(top2[:, :, 0]), e - 8)
+
+
+@pytest.mark.parametrize("m", [1, 13, 500])
+@pytest.mark.parametrize("c2,c3", TAIL_WIDTHS)
+def test_fused_tail_forward_kernel_cases(dev, c2, c3, m):
+    """Kernel 7's forward on the plan's widths against its plain version:
+    NaN exactly where the plain version's is, with argmax 64 (the JAX rule);
+    0 and 64 on the row with no valid slot; the rest within 1e-2 of the
+    largest, the argmax equal where the winner leads; the output the same
+    bits with and without the argmax and across two launches."""
+    a2, mask, w3, b3 = _tail_case(dev, m, c2, c3)
+    want, w_am = tail_kernel.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
+    out, am = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    again, am_again = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    alone, none = tail_kernel.fused_tail_fwd(a2, mask, w3, b3)
+    alone_again, _ = tail_kernel.fused_tail_fwd(a2, mask, w3, b3)
+    torch.cuda.synchronize()
+    assert none is None
+    for x in (again, alone, alone_again):
+        assert torch.equal(out.view(torch.int16), x.view(torch.int16))
+    assert torch.equal(am, am_again)
+    nan = want.isnan()
+    assert bool(nan[0, 0].all()) and bool(nan[1, 0].all())
+    assert torch.equal(out.isnan(), nan) and bool((am[nan] == 64).all())
+    assert torch.equal(w_am[nan], am[nan])
+    assert bool((out[2, m - 1] == 0).all()) and bool((am[2, m - 1] == 64).all())
+    assert torch.equal(w_am[2, m - 1], am[2, m - 1])
+    ok = ~nan
+    err = float((out[ok].float() - want[ok].float()).abs().max())
+    assert err <= 1e-2 * float(want[ok].float().abs().max())
+    lead = _tail_lead(a2, mask, w3, b3) & ok
+    assert torch.equal(am[lead], w_am[lead])
+    assert m == 1 or float(lead.float().mean()) > 0.5
+
+
 def test_fused_tail_autograd_launches_kernel_7(dev):
     a2, mask, w3, b3 = _tail_inputs(dev, 2, 40, 64, 128)
     leaves = [t.requires_grad_() for t in (a2, w3, b3)]

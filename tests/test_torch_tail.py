@@ -135,3 +135,71 @@ def test_backward_routes_to_the_argmax_slot_only():
     np.testing.assert_allclose(dw3.numpy(), np.einsum("bmkc,bmkd->cd", a2t.float().numpy(), gs),
                                rtol=1e-4, atol=1e-4)
     assert np.all(da2.float().numpy()[0, 3] == 0.0)
+
+
+def _nan_case(where):
+    """The JAX test's data with NaN in a2 at valid slots: "one" puts a NaN in
+    one feature of valid slot 5 of centroid (0, 0) (so every column of that
+    centroid is NaN there), "every" one in each valid slot of centroid (1, 2)."""
+    a2, mask, w3, b3 = _data("jax_test")
+    a2 = a2.copy()
+    if where == "one":
+        mask[0, 0, 5] = True
+        a2[0, 0, 5, 3] = np.nan
+    else:
+        a2[1, 2, mask[1, 2], 7] = np.nan
+    return a2, mask, w3, b3
+
+
+@pytest.mark.parametrize("where", ["one", "every"])
+def test_nan_at_valid_slots_matches_jax(where):
+    """A column whose max is NaN: out NaN and argmax 64, as the TPU kernel
+    takes ``jnp.max`` (NaN-propagating) and then the first slot equal to it
+    (none); every other centroid as without the NaN."""
+    a2, mask, w3, b3 = _nan_case(where)
+    out, am = _run_fwd(jnp.asarray(a2, jnp.bfloat16), jnp.asarray(mask), jnp.asarray(w3),
+                       jnp.asarray(b3), with_argmax=True, interpret=True)
+    want, want_am = np.asarray(out, np.float32), np.asarray(am)
+    t = torch.from_numpy
+    args = (t(a2).to(torch.bfloat16), t(mask), t(w3), t(b3))
+    got, got_am = tail_kernel.fused_tail_fwd(*args, with_argmax=True)
+    assert torch.equal(tail_kernel.fused_tail(*args).isnan(), got.isnan())
+    got, got_am = got.float().numpy(), got_am.numpy()
+    bm = (0, 0) if where == "one" else (1, 2)
+    assert np.isnan(want[bm]).all() and (want_am[bm] == 64).all()
+    np.testing.assert_array_equal(got, want)  # NaN where JAX's is NaN
+    np.testing.assert_array_equal(got_am, want_am)
+    clean, clean_am = _jax_forward("jax_test")
+    others = np.ones(mask.shape[:2], bool)
+    others[bm] = False
+    np.testing.assert_array_equal(got[others], clean[others])
+    np.testing.assert_array_equal(got_am[others], clean_am[others])
+
+
+@pytest.mark.parametrize("where", ["one", "every"])
+def test_nan_at_valid_slots_grads_match_jax(where):
+    """The NaN centroid routes nothing (argmax 64), though its cotangent is
+    finite: da2 is 0 there, db3 leaves its columns out, and dW3 holds the NaN that the dense a2^T gs makes of
+    0 x NaN, as JAX's does."""
+    a2, mask, w3, b3 = _nan_case(where)
+    b, m, _, c3 = CASES["jax_test"]
+    ct = np.random.default_rng(1).normal(size=(b, m, c3)).astype(np.float32)
+    leaves = [torch.from_numpy(a2).to(torch.bfloat16).requires_grad_(),
+              torch.from_numpy(w3).requires_grad_(), torch.from_numpy(b3).requires_grad_()]
+    out = tail_kernel.fused_tail(leaves[0], torch.from_numpy(mask), leaves[1], leaves[2])
+    (out.float() * torch.from_numpy(ct)).sum().backward()  # a NaN loss, finite cotangent
+    jm = jnp.asarray(mask)
+
+    def loss(a, w, bb):
+        return jnp.sum(jax_fused_tail(a, jm, w, bb, True) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(a2, jnp.bfloat16), jnp.asarray(w3),
+                                             jnp.asarray(b3))
+    got = [t.grad.float().numpy() for t in leaves]
+    want = [np.asarray(w, np.float32) for w in want]
+    bm = (0, 0) if where == "one" else (1, 2)
+    assert (got[0][bm] == 0.0).all() and np.isnan(want[1]).any()
+    np.testing.assert_allclose(got[0], want[0], rtol=0.02, atol=1e-3)
+    np.testing.assert_allclose(got[1], want[1], rtol=0.02, atol=1e-2)  # NaN rows equal
+    np.testing.assert_allclose(got[2], want[2], rtol=0.02, atol=1e-2)
+    assert np.isfinite(got[2]).all()
