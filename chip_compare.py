@@ -84,6 +84,12 @@ tail's forward) on one NVIDIA card, beside
                                           # products only) by graph, the bound; 7-B and Σ
                                           # by graph at the same inputs; then tail_bench's
                                           # main()
+    python3 chip_compare.py tailtune TAG  # kernel 7's forward at those shapes under other
+                                          # launches (tail_kernel.plan patched): ring
+                                          # stages, W3 in registers or in shared memory,
+                                          # warps a block; each bit-identical to the
+                                          # plan's, by CUDA graph with and without the
+                                          # argmax
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -695,13 +701,57 @@ def tail(tag: str) -> None:
         print(f"{tag} tail_bench {row} [{card}]", flush=True)
 
 
+def tail_tune(tag: str) -> None:
+    """Kernel 7's forward at chip_smoke.TAIL_SHAPES under every launch the
+    source takes (``tail_kernel.plan`` patched): 2-6 ring stages, W3 in
+    registers where the widths allow or in shared memory, warps a block;
+    the same bits as the plan's launch, then CUDA-graph ms with and without
+    the argmax."""
+    import itertools
+
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import tail_kernel as k7
+
+    card = cs.card_line()
+    for name, shape in cs.TAIL_SHAPES.items():
+        a2, mask, w3, b3, _ = cs.tail_inputs(shape, dev, seed=7)
+        c2, c3 = a2.shape[3], w3.shape[1]
+        base = k7.plan(c2, c3)
+        want, w_am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+        plans = []
+        for stages, regs, warps in itertools.product((2, 3, 4, 5, 6), (True, False),
+                                                     (c3 // 64, c3 // 32)):
+            if regs and warps != c3 // 32:
+                continue
+            smem = k7.smem_bytes(c2, c3, regs, stages)
+            if smem <= k7.SMEM_PER_BLOCK:
+                plans.append(k7.Plan(warps, stages, regs, smem,
+                                     k7.ACC_REGISTERS + k7.fragment_registers(c2, regs)))
+        out = {}
+        for p in dict.fromkeys([base] + plans):
+            with mock.patch.object(k7, "plan", lambda *_: p):
+                got, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+                cs.require(cs.same_bits(got, want) and torch.equal(am, w_am),
+                           f"plan {tuple(p)}: kernel 7 differs from the plan's launch at {name}")
+                out[p] = (cs.graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3)),
+                          cs.graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3,
+                                                                with_argmax=True)))
+        for p in sorted(out, key=lambda q: out[q][0]):
+            print(f"{tag} tailtune {name}: warps {p.warps} stages {p.stages} w3 in registers "
+                  f"{p.w3_in_registers}: {out[p][0]:.4f} ms, with the argmax {out[p][1]:.4f} ms"
+                  f"{' (the plan)' if p == base else ''} [{card}]", flush=True)
+        del a2, mask, w3, b3, want, w_am
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
                 "query": (query, 1), "querytune": (query_tune, 1),
-                "querylat": (query_latency, 1), "tail": (tail, 1)}
+                "querylat": (query_latency, 1), "tail": (tail, 1),
+                "tailtune": (tail_tune, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

@@ -2396,17 +2396,20 @@ def tail_fwd_bound(a2, mask, w3):
 
 def check_tail_fwd(name: str, args, ctx: dict) -> None:
     """Kernel 7's forward at one shape: vs plain (output, argmax where the
-    winner leads, zero rows), junk at invalid slots, two launches, timings."""
+    winner leads, zero rows), junk at invalid slots, NaN at valid slots, two
+    launches, its plan and launch, timings (events and CUDA graph)."""
     from dl_biomass_tpu_torch.ops import tail_kernel as k7
     from dl_biomass_tpu_torch.tools.tail_bench import unfused
 
     a2, mask, w3, b3, _ = args
     out, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
     again = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    alone = k7.fused_tail_fwd(a2, mask, w3, b3)[0]
     want, w_am = k7.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
     torch.cuda.synchronize()
-    require(same_bits(out, again[0]) and torch.equal(am, again[1]),
-            f"kernel 7 {name}: two launches differ in bits")
+    require(same_bits(out, again[0]) and torch.equal(am, again[1]) and same_bits(out, alone),
+            f"kernel 7 {name}: two launches, or the launches with and without the argmax, "
+            f"differ in bits")
     rel = rel_diff(out, want)
     require(rel <= BF16_SERVE_RTOL,
             f"kernel 7 {name}: output vs plain rel {rel} > {BF16_SERVE_RTOL}")
@@ -2424,25 +2427,69 @@ def check_tail_fwd(name: str, args, ctx: dict) -> None:
         require(same_bits(got[0], out) and torch.equal(got[1], am),
                 f"kernel 7 {name}: junk {junk} at invalid slots changed the output")
         del dirty, got
+    nan_rows = check_tail_nan(name, a2, mask, w3, b3, out, am)
+    b, m, k, c2 = a2.shape
+    c3 = w3.shape[1]
+    plan, launch = k7.plan(c2, c3), k7.occupancy(c2, c3, with_argmax=True)
+    require(launch["smem_bytes"] == plan.smem_bytes and launch["threads"] == 32 * plan.warps,
+            f"kernel 7 {name}: launch {launch} is not the plan's {plan}")
     t = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3), reps=TOOL_REPS)
     t_am = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True), reps=TOOL_REPS)
+    tg = graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3))
+    tg_am = graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True))
     tp = time_ms(lambda: k7.fused_tail_fwd_plain(a2, mask, w3, b3), reps=3, warmup=1)
     with torch.no_grad():
         tu = time_ms(lambda: unfused(a2, mask, w3, b3), reps=3, warmup=1)
-    b, m, k, c2 = a2.shape
-    c3 = w3.shape[1]
     bms, by, nbytes, flops = tail_fwd_bound(a2, mask, w3)
     print(f"kernel fused_tail_fwd {name} (B={b} M={m} C2={c2} C3={c3}): {t:.4f} ms (median of "
-          f"{TOOL_REPS}; {t_am:.4f} ms with the argmax), plain {tp:.4f} ms, unfused pair "
+          f"{TOOL_REPS}; {t_am:.4f} ms with the argmax), CUDA graph {tg:.4f} ms ({tg_am:.4f} "
+          f"with the argmax), plain {tp:.4f} ms, unfused pair "
           f"(dot_f32 + masked_max) {tu:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} bytes, "
           f"{flops} flop at {PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff|/max|y| "
           f"{rel:.3e} (bound {BF16_SERVE_RTOL}); argmax equal where the winner leads "
           f"({int(lead.sum())} of {lead.numel()}); {int(empty.sum())} empty rows 0 with argmax "
-          f"64; NaN, Inf and 1e4 junk at invalid slots: same bits; two launches bit-identical",
-          flush=True)
+          f"64; NaN, Inf and 1e4 junk at invalid slots: same bits; NaN at valid slots of "
+          f"{nan_rows} rows: NaN with argmax 64 as the plain version, the rest the same bits; "
+          f"two launches bit-identical; plan {tuple(plan)}, launch {launch}", flush=True)
     ctx.setdefault("fused_tail_fwd", []).append(dict(
-        err=max_abs_err(out, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, yard=tu))
+        err=max_abs_err(out, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, yard=tu,
+        graph_ms=tg))
     ctx.setdefault("am", {})[name] = am
+
+
+def check_tail_nan(name: str, a2, mask, w3, b3, out, am) -> int:
+    """Kernel 7's forward with NaN at valid slots (one feature of one valid
+    slot in every 97th row, every valid slot of every 101st) against its plain
+    version: NaN and argmax 64 on exactly those rows, as the JAX kernel has
+    it, and every other row the same bits as without the NaN. Returns the
+    number of NaN rows."""
+    from dl_biomass_tpu_torch.ops import tail_kernel as k7
+
+    b, m = mask.shape[:2]
+    rows = torch.zeros((b, m), dtype=torch.bool, device=a2.device)
+    rows.view(-1)[::97] = True
+    rows.view(-1)[::101] = True
+    rows &= mask.any(-1)
+    one = rows.clone()
+    one.view(-1)[::101] = False
+    first = mask.float().argmax(-1)  # a valid slot of each row that has one
+    dirty = a2.clone()
+    bi, mi = one.nonzero(as_tuple=True)
+    dirty[bi, mi, first[bi, mi], 0] = float("nan")
+    every = rows & ~one
+    dirty[..., 1] = torch.where(every[..., None], torch.tensor(float("nan"), dtype=a2.dtype,
+                                                               device=a2.device), dirty[..., 1])
+    got, got_am = k7.fused_tail_fwd(dirty, mask, w3, b3, with_argmax=True)
+    want, w_am = k7.fused_tail_fwd_plain(dirty, mask, w3, b3, with_argmax=True)
+    torch.cuda.synchronize()
+    nan = rows[..., None].expand_as(got)
+    require(torch.equal(got.isnan(), nan) and torch.equal(want.isnan(), nan),
+            f"kernel 7 {name}: NaN at valid slots: NaN outputs differ from the NaN rows")
+    require(bool((got_am[nan] == 64).all()) and bool((w_am[nan] == 64).all()),
+            f"kernel 7 {name}: NaN at valid slots: argmax not 64 on the NaN rows")
+    require(same_bits(got[~nan], out[~nan]) and torch.equal(got_am[~nan], am[~nan]),
+            f"kernel 7 {name}: NaN at valid slots changed other rows")
+    return int(rows.sum())
 
 
 def check_tail_bwd(name: str, args, ctx: dict) -> None:
@@ -2757,8 +2804,9 @@ def tool_paths(device, card: str, launches: dict) -> list:
                    library_ms=(sum(r["library"] for r in runs) if "library" in runs[0] else None))
         if yard_key:
             row[yard_key] = sum(r["yard"] for r in runs)
-        if "library_graph_ms" in runs[0]:  # kernel 10 and Σ: both also from CUDA graphs
+        if "graph_ms" in runs[0]:  # 7-F, 10 and Σ: also from CUDA graphs
             row["graph_ms"] = sum(r["graph_ms"] for r in runs)
+        if "library_graph_ms" in runs[0]:
             row["library_graph_ms"] = sum(r["library_graph_ms"] for r in runs)
         if "variant" in runs[0]:
             row["by_variant"] = {r["variant"]: {key: r[key] for key in (

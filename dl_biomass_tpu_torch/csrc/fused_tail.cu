@@ -8,10 +8,10 @@
 // Replaces: dl_biomass_tpu/ops/pallas_tail.py fused_tail (_fwd_kernel, _bwd_kernel).
 // Semantics of the forward: masking is a true select, where(valid, z, -inf), so
 // NaN or Inf junk in a2 at an invalid slot never leaks; the max is over the
-// bf16 values (carried exactly in f32, so -0.0 and +0.0 compare equal); the
-// argmax is the smallest slot whose value equals the max, and 64 where the max
-// is -inf (no valid slot); the output is 0 where no slot is valid. Backward:
-// gs holds gb (the cotangent in bf16) at row amax[c] of column c (nothing for
+// bf16 values and propagates NaN; the argmax is the smallest slot whose value
+// equals the max (-0.0 and +0.0 equal), and 64 where none does (a NaN max) or
+// the max is -inf (no valid slot); the output is 0 where no slot is valid.
+// Backward: gs holds gb (the cotangent in bf16) at row amax[c] of column c (nothing for
 // 64), then da2 = bf16(gs W3^T) and dW3 = a2^T gs, bf16 products with f32 sums,
 // dense over the 64 slots as in the TPU kernel (so, as there, a non-finite a2
 // value at a slot that no column routes to reaches dW3 as 0 x junk). db3 is
@@ -24,18 +24,32 @@
 // SA1, 0.37 ms); its two dense products are twice the forward's flop (0.16
 // ms), and the routed work they stand for is 4*C2*C3 flop per centroid.
 //
-// Design: both kernels keep a block on one centroid at a time with a grid
-// stride, and copy the next centroid's inputs (a2's 64 rows, and the mask or
-// the cotangent and argmax) into a second shared-memory buffer with cp.async
-// while they compute on the current one. W3 is rounded to bf16 in shared
-// memory once per block. All products run on the tensor cores
-// (mma_bf16.cuh). Forward: each warp takes 32 output columns at a time for all
-// 64 rows (its accumulators cover the 4 row tiles, so each B fragment read
-// from shared memory serves 4 products), rounds z to bf16, selects -inf at
-// invalid slots and folds its rows into a (max, first slot) pair per column
-// in registers, then merges the 8 row groups of its lanes with shuffles and
-// writes the columns. Backward: the
-// block scatters gb into a zeroed bf16 gs tile (64 x C3) in shared memory;
+// Forward design (redesigned for the H100): a persistent grid; each block keeps
+// a ring of `stages` centroids in shared memory (a2's 64 rows, C2 + 8 bf16
+// apart, and the 64 slot flags), copied by cp.async stages - 1 centroids ahead,
+// one barrier a centroid. Each warp owns 32 output columns: at C2 = 64 and 128
+// with C3 <= 256 (tail_bench's SA1 and SA2) one slice a warp, its W3 B
+// fragments rounded to bf16 once and held in registers for all the block's
+// centroids; at other widths W3^T in shared memory, read by ldmatrix, the
+// warps taking the slices in turn. A fragments by ldmatrix.x4; the warp's
+// 64 x 32 product on mma.sync (m16n8k16) in 64 accumulators that start at b3 (the
+// first step's C operand: one more order of the same f32 sum). Epilogue: each
+// lane takes the NaN-propagating max of z over its 8 valid rows in f32 (one
+// max.NaN.f32 a value, the row's flag as a predicate), rounds it once a column pair (rounding is
+// monotone, so this is the max of the bf16 z), and the 8 lanes of a column
+// merge with 3 shuffles and max.NaN.bf16x2; 16 lanes store the 32 columns as
+// 64 contiguous bytes. The argmax is its own instantiation, formed as the TPU
+// kernel forms it: the column's max is broadcast, each lane finds its first
+// valid row whose bf16 z equals it (set.eq.u32.bf16x2 on z rounded a pair at a
+// time, 16-bit slots kept two a register), the lanes take the min by shuffles,
+// and a max of -inf gives 64; 16 lanes store 128 contiguous bytes. Two more
+// instantiations measure it (staging only; staging and products).
+//
+// Backward design: a block keeps one centroid at a time with a grid stride
+// and copies the next centroid's inputs (a2's 64 rows, the cotangent and
+// argmax) into a second shared-memory buffer with cp.async while it computes
+// on the current one. W3 is rounded to bf16 in shared memory once per block.
+// The block scatters gb into a zeroed bf16 gs tile (64 x C3) in shared memory;
 // warps take da2's 16 x 32 tiles (gs W3^T, rounded to bf16 and written out),
 // and each warp keeps two 16 x 64 tiles of dW3 in registers for all its
 // block's centroids (a2^T gs, fragments loaded transposed with ldmatrix); the
@@ -60,30 +74,15 @@ constexpr int kSlots = 64;
 constexpr int kRowGroups = kSlots / 16;  // the 16-row tiles of a centroid's slots
 constexpr int kFwdCols = 32;             // the forward's columns per warp task
 constexpr int kFwdMaxWarps = 8;
+constexpr int kFwdMaxStages = 6;         // centroids in the forward's ring
 constexpr int kTilesPerWarp = 2;         // the backward's 16 x 64 dW3 tiles per warp
 constexpr int kBwdMaxThreads = 512;      // 128 registers a thread
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 
 __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
   const size_t offset = at;
   at += (bytes + 15) / 16 * 16;
   return offset;
-}
-
-// (v, i) takes (ov, oi) if ov is NaN or larger, or equal at a smaller slot: the
-// NaN-propagating max with the first-slot tie rule, whatever order the pairs are
-// merged in (a NaN comes with slot 64, so a NaN max gives argmax 64).
-__device__ __forceinline__ void keep_first_max(float& v, int& i, float ov, int oi) {
-  if (ov != ov || ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Start the copies of centroid `cen`'s 64 rows of a2 (C2 bf16 each) into a
@@ -109,102 +108,202 @@ __device__ __forceinline__ void load_w3(__nv_bfloat16* w, const float* __restric
   }
 }
 
-// The forward's shared memory: W3^T in bf16 (C3 rows of C2 + 8), b3, and two
-// buffers of a centroid's a2 rows (64 rows of C2 + 8 bf16) and slot flags.
+// The forward's shared memory: W3^T in bf16 (C3 rows of C2 + 8) unless the
+// warps hold W3 in registers, b3, and a ring of `stages` buffers, each one
+// centroid's a2 rows (64 rows of C2 + 8 bf16) followed by its 64 slot flags.
 struct FwdLayout {
-  size_t wt, bias, a[2], mask[2], total;
-  __host__ __device__ FwdLayout(int c2, int c3) {
+  size_t wt, bias, ring, stage_bytes, flags, total;
+  __host__ __device__ FwdLayout(int c2, int c3, bool w3_in_registers, int stages) {
     size_t at = 0;
-    wt = take(at, 2ull * c3 * (c2 + kSkewH));
+    wt = take(at, w3_in_registers ? 0 : 2ull * c3 * (c2 + kSkewH));
     bias = take(at, 4ull * c3);
-    for (int b = 0; b < 2; ++b) {
-      a[b] = take(at, 2ull * kSlots * (c2 + kSkewH));
-      mask[b] = take(at, kSlots);
-    }
+    flags = 2ull * kSlots * (c2 + kSkewH);  // within a buffer
+    stage_bytes = flags + kSlots;
+    ring = take(at, stages * stage_bytes);
     total = at;
   }
 };
 
-// The forward's instantiations: the kernel, and two measurements of it (no path
-// launches them): the staging and the writing of the outputs alone (every
-// output 0), and the staging with the products, whose accumulators are folded
-// into a checksum that is written in place of the masked max.
-enum FwdMode { kFwdFull = 0, kFwdStageOnly = 1, kFwdMmaOnly = 2 };
+// The forward's instantiations: the kernel, and three measurements of it (no
+// path launches them): the staging and the writing of the outputs alone (every
+// output 0); the staging with the products, a checksum of the accumulators
+// written in place of the max; and the products and the max with the ring
+// filled once and never refilled (no device-memory reads after the first
+// centroids: each block recomputes on stale buffers).
+enum FwdMode { kFwdFull = 0, kFwdStageOnly = 1, kFwdMmaOnly = 2, kFwdComputeOnly = 3 };
 
-template <int kMode>
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_nan_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 0xffff in each half where a's bf16 equals b's (so -0 == +0, NaN equals nothing).
+__device__ __forceinline__ uint32_t eq_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// d = a b + (c0, c1, c0, c1): mma.m16n8k16 whose accumulators start at a bias (c0
+// for the even column of the lane's pair, c1 for the odd), so nothing zeroes them
+// and no add follows the product.
+__device__ __forceinline__ void mma_bf16_bias(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2], float c0, float c1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c0), "f"(c1),
+        "f"(c0), "f"(c1));
+}
+
+// lo and hi rounded to bf16 by one cvt.rn.bf16x2.f32: lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Wait until at most n (< kFwdMaxStages - 1) of this thread's newest copy groups
+// are in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: dlbt::cp_async_wait<0>(); break;
+    case 1: dlbt::cp_async_wait<1>(); break;
+    case 2: dlbt::cp_async_wait<2>(); break;
+    case 3: dlbt::cp_async_wait<3>(); break;
+    default: dlbt::cp_async_wait<4>(); break;
+  }
+}
+
+// KS > 0: C2 = 16 KS, one 32-column slice a warp (C3 = 32 warps), the warp's W3
+// fragments held in registers for all its centroids; KS = 0: any C2, W3^T in
+// shared memory, read by ldmatrix at every step, the warps taking the slices in
+// turn. kArgmax: also the argmax (its own instantiation).
+template <int KS, bool kArgmax, int kMode>
 __global__ void __launch_bounds__(32 * kFwdMaxWarps)
     fused_tail_fwd_kernel(const __nv_bfloat16* __restrict__ a2,
                           const unsigned char* __restrict__ mask, const float* __restrict__ w3,
                           const float* __restrict__ b3, __nv_bfloat16* __restrict__ out,
-                          int* __restrict__ amax, int centroids, int c2, int c3) {
+                          int* __restrict__ amax, int centroids, int c2, int c3, int stages) {
+  constexpr bool kRegs = KS > 0;
   extern __shared__ __align__(16) char smem[];
-  const FwdLayout L(c2, c3);
+  const FwdLayout L(c2, c3, kRegs, stages);
   __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem + L.wt);
   float* bias = reinterpret_cast<float*>(smem + L.bias);
   const int lda = c2 + kSkewH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int warps = blockDim.x >> 5;
 
-  auto stage = [&](long long cen, int b) {
-    stage_rows(reinterpret_cast<__nv_bfloat16*>(smem + L.a[b]), lda, a2, cen, c2);
+  auto buffer = [&](int s) { return smem + L.ring + s * L.stage_bytes; };
+  auto stage = [&](long long cen, int s) {
+    char* buf = buffer(s);
+    stage_rows(reinterpret_cast<__nv_bfloat16*>(buf), lda, a2, cen, c2);
     if (threadIdx.x < kSlots / 16) {
-      dlbt::cp_async16(smem + L.mask[b] + 16 * threadIdx.x, mask + cen * kSlots + 16 * threadIdx.x);
+      dlbt::cp_async16(buf + L.flags + 16 * threadIdx.x, mask + cen * kSlots + 16 * threadIdx.x);
     }
   };
-  if (static_cast<int>(blockIdx.x) < centroids) stage(blockIdx.x, 0);
-  dlbt::cp_async_commit();
-  load_w3(wt, w3, c2, c3, lda, true);
-  for (int i = threadIdx.x; i < c3; i += blockDim.x) bias[i] = b3[i];
-
-  int b = 0;
-  for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x, b ^= 1) {
-    if (cen + gridDim.x < centroids) stage(cen + gridDim.x, b ^ 1);
+  // the first stages - 1 centroids in flight, one copy group each
+  for (int s = 0; s < stages - 1; ++s) {
+    const long long cen = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (cen < centroids) stage(cen, s);
     dlbt::cp_async_commit();
-    dlbt::cp_async_wait<1>();  // this centroid's copies have landed
-    __syncthreads();
-    const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(smem + L.a[b]);
-    const unsigned char* mk = reinterpret_cast<const unsigned char*>(smem + L.mask[b]);
-    const bool any = __any_sync(kFull, mk[lane] | mk[lane + 32]);
+  }
+  if (!kRegs && kMode != kFwdStageOnly) load_w3(wt, w3, c2, c3, lda, true);
+  for (int i = threadIdx.x; i < c3; i += blockDim.x) bias[i] = b3[i];
+  // B fragments of the warp's slice (mma.m16n8k16: depths 2t, 2t+1 and 2t+8,
+  // 2t+9 of column g), rounded to bf16 once
+  uint32_t wf[kRegs ? KS : 1][4][2];
+  if (kRegs && kMode != kFwdStageOnly) {
+#pragma unroll
+    for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* w = w3 + static_cast<size_t>(ks * 16 + 2 * t) * c3 + warp * kFwdCols +
+                         nt * 8 + g;
+        wf[ks][nt][0] = pack_bf16x2(w[0], w[c3]);
+        wf[ks][nt][1] = pack_bf16x2(w[8 * c3], w[9 * c3]);
+      }
+    }
+  }
+
+  int s = 0;
+  for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x) {
+    cp_async_wait_upto(stages - 2);  // this centroid's copies (this thread's) have landed
+    __syncthreads();  // ... every thread's, and the buffer refilled below has been consumed
+    {
+      const long long next = cen + static_cast<long long>(stages - 1) * gridDim.x;
+      const int sn = s == 0 ? stages - 1 : s - 1;
+      if (next < centroids && kMode != kFwdComputeOnly) stage(next, sn);
+      dlbt::cp_async_commit();
+    }
+    const char* buf = buffer(s);
+    if (++s == stages) s = 0;
+    const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(buf);
+    const unsigned char* flag = reinterpret_cast<const unsigned char*>(buf + L.flags);
+    // slot r is valid where bit r of (hi:lo) is set
+    const uint32_t lo = __ballot_sync(kFull, flag[lane] != 0);
+    const uint32_t hi = __ballot_sync(kFull, flag[lane + 32] != 0);
+    const bool any = (lo | hi) != 0u;
+    // row rg 16 + h 8 + g of the lane valid: bit (rg & 1) 16 + h 8 of vb[rg >> 1]
+    const uint32_t vb[2] = {lo >> g, hi >> g};
     for (int n0 = warp * kFwdCols; n0 < c3; n0 += warps * kFwdCols) {
+      uint32_t* out_pair = reinterpret_cast<uint32_t*>(out + cen * c3 + n0 + 8 * (g & 3) + 2 * t);
       if (kMode == kFwdStageOnly) {
-        if (g == 0) {
+        if (g < 4) *out_pair = 0u;
+        continue;
+      }
+      float2 bl[4];  // b3 at the lane's column pairs
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < 4; ++nt) {
+        bl[nt] = *reinterpret_cast<const float2*>(bias + n0 + nt * 8 + 2 * t);
+      }
+      // z in f32 for all 64 rows x the 32 columns, b3 + the product (the first
+      // step's accumulators start at b3: one more order of the same f32 sum):
+      // acc[rg][nt] holds rows rg 16 + g (j = 0, 1) and rg 16 + g + 8 (j = 2, 3),
+      // columns n0 + 8 nt + 2t (+1)
+      float acc[kRowGroups][4][4];
+      if (kRegs) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const long long o = cen * c3 + n0 + nt * 8 + 2 * t + h;
-              out[o] = __float2bfloat16_rn(0.0f);
-              if (amax != nullptr) amax[o] = 0;
+        for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
+#pragma unroll
+          for (int rg = 0; rg < kRowGroups; ++rg) {
+            uint32_t af[4];
+            dlbt::load_a_ldm(af, a, lda, rg * 16, ks * 16);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              if (ks == 0) {
+                mma_bf16_bias(acc[rg][nt], af, wf[ks][nt], bl[nt].x, bl[nt].y);
+              } else {
+                dlbt::mma_bf16(acc[rg][nt], af, wf[ks][nt]);
+              }
             }
           }
         }
-        continue;
-      }
-      // z for all 64 rows x the 32 columns: each B fragment serves the 4 row groups
-      float acc[kRowGroups][4][4];
+      } else {
+        for (int k0 = 0; k0 < c2; k0 += 16) {
+          uint32_t bf[4][2];
+          dlbt::load_b_ldm(bf[0], bf[1], wt, lda, k0, n0);
+          dlbt::load_b_ldm(bf[2], bf[3], wt, lda, k0, n0 + 16);
 #pragma unroll
-      for (int rg = 0; rg < kRowGroups; ++rg) {
+          for (int rg = 0; rg < kRowGroups; ++rg) {
+            uint32_t af[4];
+            dlbt::load_a_ldm(af, a, lda, rg * 16, k0);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[rg][nt][j] = 0.0f;
-        }
-      }
-      for (int k0 = 0; k0 < c2; k0 += 16) {
-        uint32_t bf[4][2];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const __nv_bfloat16* br = wt + (n0 + nt * 8 + g) * lda + k0 + 2 * t;
-          bf[nt][0] = dlbt::ld32(br);
-          bf[nt][1] = dlbt::ld32(br + 8);
-        }
-#pragma unroll
-        for (int rg = 0; rg < kRowGroups; ++rg) {
-          const __nv_bfloat16* ar = a + (rg * 16 + g) * lda + k0 + 2 * t;
-          const uint32_t af[4] = {dlbt::ld32(ar), dlbt::ld32(ar + 8 * lda), dlbt::ld32(ar + 8),
-                                  dlbt::ld32(ar + 8 * lda + 8)};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) dlbt::mma_bf16(acc[rg][nt], af, bf[nt]);
+            for (int nt = 0; nt < 4; ++nt) {
+              if (k0 == 0) {
+                mma_bf16_bias(acc[rg][nt], af, bf[nt], bl[nt].x, bl[nt].y);
+              } else {
+                dlbt::mma_bf16(acc[rg][nt], af, bf[nt]);
+              }
+            }
+          }
         }
       }
       if (kMode == kFwdMmaOnly) {
@@ -214,55 +313,84 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) sum += acc[rg][nt][0];
         }
-        if (g == 0) out[cen * c3 + n0 + 2 * t] = __float2bfloat16_rn(sum);
+        if (g < 4) *out_pair = pack_bf16x2(sum, sum);
         continue;
       }
-      // each lane's rows (g and g + 8 of each row group) folded into a running
-      // (max, first slot) pair per column, in ascending row order
-      float best[4][2];
-      int arg[4][2];
+      // the max of z over the lane's valid rows in f32, NaN-propagating: rounding
+      // to bf16 is monotone, so the bf16 of this max is the max of the bf16 z
+      float mx[4][2];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        best[nt][0] = best[nt][1] = neg_inf();
-        arg[nt][0] = arg[nt][1] = kSlots;
-      }
+      for (int nt = 0; nt < 4; ++nt) mx[nt][0] = mx[nt][1] = -__int_as_float(0x7f800000);
 #pragma unroll
       for (int rg = 0; rg < kRowGroups; ++rg) {
-        const int r0 = rg * 16 + g, r1 = r0 + 8;
-        const bool v0 = mk[r0] != 0, v1 = mk[r1] != 0;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // the lane's two columns
-            const float bb = bias[n0 + nt * 8 + 2 * t + h];
-            const float z0 = v0 ? round_bf16(acc[rg][nt][h] + bb) : neg_inf();
-            const float z1 = v1 ? round_bf16(acc[rg][nt][2 + h] + bb) : neg_inf();
-            keep_first_max(best[nt][h], arg[nt][h], z0,
-                           z0 == neg_inf() || z0 != z0 ? kSlots : r0);
-            keep_first_max(best[nt][h], arg[nt][h], z1,
-                           z1 == neg_inf() || z1 != z1 ? kSlots : r1);
-          }
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float v = best[nt][h];
-          int i = arg[nt][h];
+          if ((vb[rg >> 1] >> ((rg & 1) * 16 + h * 8)) & 1u) {
 #pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {  // over the 8 row groups (lane bits 2..4)
-            keep_first_max(v, i, __shfl_xor_sync(kFull, v, off), __shfl_xor_sync(kFull, i, off));
-          }
-          if (g == 0) {
-            const long long o = cen * c3 + n0 + nt * 8 + 2 * t + h;
-            out[o] = __float2bfloat16_rn(any ? v : 0.0f);
-            if (amax != nullptr) amax[o] = i;
+            for (int nt = 0; nt < 4; ++nt) {
+              mx[nt][0] = max_nan(mx[nt][0], acc[rg][nt][2 * h]);
+              mx[nt][1] = max_nan(mx[nt][1], acc[rg][nt][2 * h + 1]);
+            }
           }
         }
       }
+      // rounded once a column pair, then merged over the 8 lanes of a column
+      uint32_t zmax[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        zmax[nt] = pack_bf16x2(mx[nt][0], mx[nt][1]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          zmax[nt] = max_nan_bf16x2(zmax[nt], __shfl_xor_sync(kFull, zmax[nt], off));
+        }
+      }
+      // lanes g < 4 write columns n0 + 8 g + 2t, 2t + 1: 64 bytes a warp
+      const int q = g & 3;
+      const uint32_t mine = q == 0 ? zmax[0] : q == 1 ? zmax[1] : q == 2 ? zmax[2] : zmax[3];
+      if (g < 4) *out_pair = any ? mine : 0u;
+      if (kArgmax) {
+        // the first slot whose z equals the column's max, as the TPU kernel forms
+        // it: the lane's rows in descending order, a 16-bit slot a column
+        uint32_t first[4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) first[nt] = kSlots * 0x10001u;
+#pragma unroll
+        for (int rg = kRowGroups - 1; rg >= 0; --rg) {
+#pragma unroll
+          for (int h = 1; h >= 0; --h) {
+            const uint32_t r = rg * 16 + h * 8 + g;
+            if ((vb[rg >> 1] >> ((rg & 1) * 16 + h * 8)) & 1u) {
+#pragma unroll
+              for (int nt = 0; nt < 4; ++nt) {
+                const uint32_t eq =
+                    eq_bf16x2(pack_bf16x2(acc[rg][nt][2 * h], acc[rg][nt][2 * h + 1]), zmax[nt]);
+                first[nt] = (r * 0x10001u & eq) | (first[nt] & ~eq);
+              }
+            }
+          }
+        }
+        int am[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          am[nt][0] = static_cast<int>(first[nt] & 0xffffu);
+          am[nt][1] = static_cast<int>(first[nt] >> 16);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            am[nt][0] = min(am[nt][0], __shfl_xor_sync(kFull, am[nt][0], off));
+            am[nt][1] = min(am[nt][1], __shfl_xor_sync(kFull, am[nt][1], off));
+          }
+          // a max of -inf (no valid slot, or -inf at every valid one) routes nothing
+          if ((zmax[nt] & 0xffffu) == 0xff80u) am[nt][0] = kSlots;
+          if ((zmax[nt] >> 16) == 0xff80u) am[nt][1] = kSlots;
+        }
+        // lanes g >= 4 write columns n0 + 8 (g - 4) + 2t, 2t + 1: 128 bytes a warp
+        const int2 pair = q == 0 ? make_int2(am[0][0], am[0][1])
+                          : q == 1 ? make_int2(am[1][0], am[1][1])
+                          : q == 2 ? make_int2(am[2][0], am[2][1])
+                                   : make_int2(am[3][0], am[3][1]);
+        if (g >= 4) *reinterpret_cast<int2*>(amax + cen * c3 + n0 + 8 * q + 2 * t) = pair;
+      }
     }
-    __syncthreads();  // the buffer is consumed before the copies of the centroid after next
   }
   dlbt::cp_async_wait<0>();
 }
@@ -412,19 +540,45 @@ cudaError_t grid_for(Kernel kernel, int threads, size_t smem, long long cap, int
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int kMode>
-int launch_fwd(const void* a2, const void* mask, const void* w3, const void* b3, void* out,
-               void* amax, int centroids, int c2, int c3, cudaStream_t stream) {
-  const int warps = c3 / kFwdCols < kFwdMaxWarps ? c3 / kFwdCols : kFwdMaxWarps;
-  const size_t smem = FwdLayout(c2, c3).total;
-  int grid = 0;
-  cudaError_t e = grid_for(fused_tail_fwd_kernel<kMode>, 32 * warps, smem, centroids, &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  fused_tail_fwd_kernel<kMode><<<grid, 32 * warps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a2), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(w3), static_cast<const float*>(b3),
-      static_cast<__nv_bfloat16*>(out), static_cast<int*>(amax), centroids, c2, c3);
-  return static_cast<int>(cudaGetLastError());
+using FwdKernel = void (*)(const __nv_bfloat16*, const unsigned char*, const float*, const float*,
+                           __nv_bfloat16*, int*, int, int, int, int);
+
+// The instantiation of (ks, argmax, mode); the measurements take no argmax.
+FwdKernel fwd_kernel(int ks, bool argmax, int mode) {
+  switch (mode) {
+    case kFwdStageOnly:
+      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdStageOnly>
+             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdStageOnly>
+                       : fused_tail_fwd_kernel<0, false, kFwdStageOnly>;
+    case kFwdMmaOnly:
+      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdMmaOnly>
+             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdMmaOnly>
+                       : fused_tail_fwd_kernel<0, false, kFwdMmaOnly>;
+    case kFwdComputeOnly:
+      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdComputeOnly>
+             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdComputeOnly>
+                       : fused_tail_fwd_kernel<0, false, kFwdComputeOnly>;
+    default:
+      if (argmax) {
+        return ks == 4 ? fused_tail_fwd_kernel<4, true, kFwdFull>
+               : ks == 8 ? fused_tail_fwd_kernel<8, true, kFwdFull>
+                         : fused_tail_fwd_kernel<0, true, kFwdFull>;
+      }
+      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdFull>
+             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdFull>
+                       : fused_tail_fwd_kernel<0, false, kFwdFull>;
+  }
+}
+
+// The launch (warps, stages, ks) at widths (C2, C3), as ops/tail_kernel.plan
+// names it: warps 1-8 and at most C3 / 32; stages 2-kFwdMaxStages; ks 0, or 4
+// or 8 with C2 = 16 ks and C3 = 32 warps (one slice a warp).
+bool fwd_launch_ok(int c2, int c3, int warps, int stages, int ks, int mode) {
+  return c2 > 0 && c3 > 0 && c2 % 16 == 0 && c3 % kFwdCols == 0 && warps >= 1 &&
+         warps <= kFwdMaxWarps && warps * kFwdCols <= c3 && stages >= 2 &&
+         stages <= kFwdMaxStages && (ks == 0 || ((ks == 4 || ks == 8) && c2 == 16 * ks &&
+                                                 c3 == kFwdCols * warps)) &&
+         mode >= kFwdFull && mode <= kFwdComputeOnly;
 }
 
 }  // namespace
@@ -432,42 +586,44 @@ int launch_fwd(const void* a2, const void* mask, const void* w3, const void* b3,
 // Forward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16 and mask
 // (centroids, 64) bool, both 16-byte aligned; w3 (C2, C3) and b3 (C3) f32.
 // Writes out (centroids, C3) bf16 and, unless amax is null, amax (centroids,
-// C3) int32. C2 a multiple of 16, C3 of 32. mode: FwdMode (0 on every path).
+// C3) int32. C2 a multiple of 16, C3 of 32; (warps, stages, ks) the launch
+// (fwd_launch_ok); mode: FwdMode (0 on every path; the others write no amax).
 extern "C" int dlbt_fused_tail_fwd(const void* a2, const void* mask, const void* w3,
                                    const void* b3, void* out, void* amax, int centroids, int c2,
-                                   int c3, int mode, void* stream) {
-  if (centroids < 0 || c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols || !aligned16(a2) ||
-      !aligned16(mask) || mode < kFwdFull || mode > kFwdMmaOnly) {
+                                   int c3, int warps, int stages, int ks, int mode,
+                                   void* stream) {
+  if (centroids < 0 || !fwd_launch_ok(c2, c3, warps, stages, ks, mode) || !aligned16(a2) ||
+      !aligned16(mask)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (centroids == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kFwdStageOnly:
-      return launch_fwd<kFwdStageOnly>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
-    case kFwdMmaOnly:
-      return launch_fwd<kFwdMmaOnly>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
-    default:
-      return launch_fwd<kFwdFull>(a2, mask, w3, b3, out, amax, centroids, c2, c3, st);
-  }
+  const FwdKernel kernel = fwd_kernel(ks, amax != nullptr, mode);
+  const size_t smem = FwdLayout(c2, c3, ks > 0, stages).total;
+  int grid = 0;
+  cudaError_t e = grid_for(kernel, 32 * warps, smem, centroids, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a2), static_cast<const unsigned char*>(mask),
+      static_cast<const float*>(w3), static_cast<const float*>(b3),
+      static_cast<__nv_bfloat16*>(out), static_cast<int*>(amax), centroids, c2, c3, stages);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The full forward's launch at widths (C2, C3) on the current card: out[0]
-// blocks per SM, out[1] threads a block, out[2] shared memory a block (bytes),
-// out[3] registers a thread, out[4] local memory a thread (bytes: spills).
-extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int* out) {
-  if (c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols) {
+// The full forward's launch (warps, stages, ks, with or without the argmax) at
+// widths (C2, C3) on the current card: out[0] blocks per SM, out[1] threads a
+// block, out[2] shared memory a block (bytes), out[3] registers a thread,
+// out[4] local memory a thread (bytes: spills).
+extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int warps, int stages, int ks,
+                                             int argmax, int* out) {
+  if (!fwd_launch_ok(c2, c3, warps, stages, ks, kFwdFull)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int warps = c3 / kFwdCols < kFwdMaxWarps ? c3 / kFwdCols : kFwdMaxWarps;
-  const size_t smem = FwdLayout(c2, c3).total;
+  const FwdKernel kernel = fwd_kernel(ks, argmax != 0, kFwdFull);
+  const size_t smem = FwdLayout(c2, c3, ks > 0, stages).total;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fused_tail_fwd_kernel<kFwdFull>);
-  int grid = 0;
-  if (e == cudaSuccess) {
-    e = grid_for(fused_tail_fwd_kernel<kFwdFull>, 32 * warps, smem, 1 << 30, &grid);
-  }
-  int dev = 0, sms = 1;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  int grid = 0, dev = 0, sms = 1;
+  if (e == cudaSuccess) e = grid_for(kernel, 32 * warps, smem, 1 << 30, &grid);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -3,11 +3,12 @@ over the 64 neighbour slots, forward and backward (port of
 ``dl_biomass_tpu/ops/pallas_tail.py`` fused_tail).
 
 Forward: ``z = bf16(bf16(a2) bf16(W3) [float32 sum] + b3)``, then
-``where(mask, z, -inf)``, its max over the slots and the first slot that
-equals the max; the output is 0 and the argmax 64 (= K) on a row with no
-valid slot. Masking is a true select, so NaN or Inf junk in ``a2`` at an
-invalid slot never reaches the output. The (B, M, 64, C3) tensor z never
-reaches device memory.
+``where(mask, z, -inf)``, its max over the slots (NaN if a valid slot's z
+is NaN) and the first slot that equals the max; the output is 0 and the
+argmax 64 (= K) on a row with no valid slot, and the argmax is 64 too where
+no slot equals the max (a NaN max), as the TPU kernel forms it. Masking is a
+true select, so NaN or Inf junk in ``a2`` at an invalid slot never reaches
+the output. The (B, M, 64, C3) tensor z never reaches device memory.
 
 Backward: the cotangent, rounded to bf16 (``gb``), goes to the argmax slot of
 its column (an argmax of 64 routes nothing), and is contracted at once:
@@ -22,7 +23,11 @@ with jnp. The mask gets no gradient, and an invalid slot gets exactly 0.
 blocks' dW3 slices: ``ops/sum_slices_kernel``) on a CUDA tensor and run
 ``fused_tail_fwd_plain`` and ``fused_tail_bwd_plain`` on a CPU tensor.
 ``fused_tail`` is the differentiable op, a ``torch.autograd.Function``
-around the two. Like the JAX function, it is wired into no model: the tool
+around the two. ``plan(c2, c3)`` names the forward's launch (warps, ring
+stages, W3 held in registers or in shared memory, shared memory, registers
+budgeted), mirroring the source, and the wrapper raises where it gives None;
+``probe`` (the forward's staging alone, or its staging and products) and
+``occupancy`` measure it, and no path calls them. Like the JAX function, it is wired into no model: the tool
 ``dl_biomass_tpu_torch.tools.tail_bench`` times it beside the unfused pair.
 The kernels sum in their own order, so they agree with the plain versions to
 float32 rounding of the sums (a bf16 value near a rounding boundary may round
@@ -34,7 +39,7 @@ M works.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,9 +48,27 @@ from dl_biomass_tpu_torch.ops.pooling import _max_only
 from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
 
 K = 64  # neighbour slots
-_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the forward's instantiations: the kernel, and its measurements (probe)
-FWD_MODES = {"full": 0, "stage_only": 1, "mma_only": 2}
+FWD_MODES = {"full": 0, "stage_only": 1, "mma_only": 2, "compute_only": 3}
+# the forward's launch (csrc/fused_tail.cu): warps of COLS output columns each,
+# at most MAX_WARPS a block and MAX_STAGES centroids in its ring; W3 held in
+# registers at these C2 (the kernel's instantiations); rows C2 + SKEW apart
+COLS = 32
+MAX_WARPS = 8
+MAX_STAGES = 4
+REGISTER_WIDTHS = (64, 128)
+SKEW = 8
+ACC_REGISTERS = 64  # a lane's accumulators: 64 rows x 32 columns over 32 lanes
+SMEM_PER_BLOCK = 232448  # the shared memory a block may have on an H100 (227 KB)
+
+
+class Plan(NamedTuple):
+    warps: int  # warps a block, each 32 output columns at a time
+    stages: int  # centroids in the block's shared-memory ring
+    w3_in_registers: bool  # each warp holds its slice's W3 fragments (else W3^T in shared memory)
+    smem_bytes: int  # shared memory a block
+    registers: int  # a lane's registers for its accumulators and B fragments
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
@@ -94,39 +117,86 @@ def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
     return _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, "full")
 
 
+def plan(c2: int, c3: int) -> Optional[Plan]:
+    """The forward's launch at widths (C2, C3), or None where the kernel takes
+    none. W3 is held in registers where C2 is 64 or 128 and the block's warps
+    (at most MAX_WARPS) take one 32-column slice each; else W3^T sits in shared
+    memory. The ring holds as many centroids as fit, at most MAX_STAGES and at
+    least 2."""
+    if c2 < 16 or c3 < COLS or c2 % 16 or c3 % COLS:
+        return None
+    warps = min(c3 // COLS, MAX_WARPS)
+    in_regs = c2 in REGISTER_WIDTHS and c3 == COLS * warps
+    for stages in range(MAX_STAGES, 1, -1):
+        smem = smem_bytes(c2, c3, in_regs, stages)
+        if smem <= SMEM_PER_BLOCK:
+            return Plan(warps, stages, in_regs, smem, ACC_REGISTERS + fragment_registers(c2, in_regs))
+    return None
+
+
+def fragment_registers(c2: int, w3_in_registers: bool) -> int:
+    """The B fragments a lane holds: W3's for its slice, two registers for each
+    8 columns of each 16-deep step, or one step's when read from shared memory."""
+    return (c2 // 16 if w3_in_registers else 1) * (COLS // 8) * 2
+
+
+def smem_bytes(c2: int, c3: int, w3_in_registers: bool, stages: int) -> int:
+    """A block's shared memory (the source's FwdLayout): W3^T in bf16 (C3 rows
+    of C2 + 8) unless held in registers, b3, and the ring, each buffer 64 rows
+    of C2 + 8 bf16 and 64 slot flags."""
+    wt = 0 if w3_in_registers else 2 * c3 * (c2 + SKEW)
+    return wt + 4 * c3 + stages * (2 * K * (c2 + SKEW) + K)
+
+
+def launch_plan(c2: int, c3: int) -> Plan:
+    """``plan(c2, c3)``, or ValueError where the kernel takes no such widths."""
+    p = plan(c2, c3)
+    if p is None:
+        raise ValueError(f"fused_tail_fwd: the kernel takes no widths C2={c2}, C3={c3} (C2 a "
+                         f"multiple of 16 and C3 of 32, whose W3^T and two buffers fit "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory)")
+    return p
+
+
 def probe(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
-          mode: str, with_argmax: bool = False):
+          mode: str) -> torch.Tensor:
     """The forward kernel on the card in a measurement ``mode`` (its own
-    instantiation): "stage_only" (the copies into shared memory and the
-    writing of the outputs, every output 0) or "mma_only" (the copies and the
-    products, a checksum of the accumulators written in place of the max);
-    "full" is the kernel. No path calls it."""
-    return _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode)
+    instantiation, on ``plan``'s launch): "stage_only" (the copies into shared
+    memory and the writing of the output, every output 0), "mma_only" (the
+    copies and the products, a checksum of the accumulators written in place
+    of the max) or "compute_only" (the products and the max, the ring filled
+    once and never refilled: stale outputs); "full" is the kernel. No path
+    calls it."""
+    return _launch_fwd(a2, nbr_mask, w3, b3, False, mode)[0]
 
 
-def occupancy(c2: int, c3: int) -> dict:
-    """The forward's launch at widths (C2, C3) on the current card: blocks
-    per SM, threads and shared memory (bytes) a block, registers and local
-    memory (bytes: spills) a thread."""
+def occupancy(c2: int, c3: int, with_argmax: bool = False) -> dict:
+    """``plan(c2, c3)``'s launch on the current card: blocks per SM, threads
+    and shared memory (bytes) a block, registers and local memory (bytes:
+    spills) a thread."""
+    p = launch_plan(c2, c3)
     fn = _build.library().dlbt_fused_tail_fwd_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 5)()
-    rc = fn(c2, c3, vals)
+    rc = fn(c2, c3, p.warps, p.stages, _ks(c2, p), int(with_argmax), vals)
     if rc != 0:
         raise RuntimeError(f"dlbt_fused_tail_fwd_occupancy failed ({rc})")
     return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"),
                     list(vals)))
 
 
+def _ks(c2: int, p: Plan) -> int:
+    return c2 // 16 if p.w3_in_registers else 0
+
+
 def _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode):
-    if a2.device.type != "cuda":
-        raise RuntimeError(f"fused_tail_fwd runs on cuda or cpu tensors, got {a2.device}")
     _check(a2, nbr_mask, w3)
     b, m, k, c2 = a2.shape
     c3 = w3.shape[1]
-    if c2 % 16 or c3 % 32:
-        raise ValueError(f"the kernel takes C2 a multiple of 16 and C3 of 32, got {c2}, {c3}")
+    p = launch_plan(c2, c3)
+    if a2.device.type != "cuda":
+        raise RuntimeError(f"fused_tail_fwd runs on cuda or cpu tensors, got {a2.device}")
     a2 = _build.aligned16(a2.to(torch.bfloat16).contiguous())
     nbr_mask = _build.aligned16(nbr_mask.to(torch.bool).contiguous())
     w3, b3 = w3.float().contiguous(), b3.float().contiguous()
@@ -135,7 +205,7 @@ def _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode):
     am = torch.empty((b, m, c3), dtype=torch.int32, device=a2.device) if with_argmax else None
     _build.launch("dlbt_fused_tail_fwd", _FWD_ARGTYPES, a2.data_ptr(), nbr_mask.data_ptr(),
                   w3.data_ptr(), b3.data_ptr(), out.data_ptr(), _build.ptr(am), b * m, c2, c3,
-                  FWD_MODES[mode], _build.stream_of(a2))
+                  p.warps, p.stages, _ks(c2, p), FWD_MODES[mode], _build.stream_of(a2))
     return out, am
 
 

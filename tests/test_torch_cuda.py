@@ -856,7 +856,8 @@ def test_fused_tail_kernel_matches_plain(dev, b, m, c2, c3):
     assert bool((da2[~hit[:, :, :64]] == 0).all())  # invalid slots among them
 
 
-TAIL_WIDTHS = [(16, 32), (64, 128), (128, 256), (96, 160)]
+TAIL_WIDTHS = [(16, 32), (64, 128), (128, 256), (96, 160),
+               (704, 32), (16, 4320)]  # the widest the plan takes in C2 and in C3
 
 
 def _tail_case(dev, m, c2, c3, seed=3):
@@ -919,6 +920,26 @@ def test_fused_tail_forward_kernel_cases(dev, c2, c3, m):
     lead = _tail_lead(a2, mask, w3, b3) & ok
     assert torch.equal(am[lead], w_am[lead])
     assert m == 1 or float(lead.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("c2,c3", TAIL_WIDTHS)
+def test_fused_tail_forward_launch_is_the_plans(dev, c2, c3):
+    """The launch ``tail_kernel.plan`` names is the one the source makes (its
+    shared memory and threads), with and without the argmax; the measurement
+    modes run on it: staging alone writes zeros, staging and products a
+    finite checksum."""
+    p = tail_kernel.plan(c2, c3)
+    for argmax in (False, True):
+        occ = tail_kernel.occupancy(c2, c3, argmax)
+        assert occ["smem_bytes"] == p.smem_bytes and occ["threads"] == 32 * p.warps
+        assert occ["blocks_per_sm"] >= 1
+    a2, mask, w3, b3 = _tail_inputs(dev, 2, 40, c2, c3)
+    _build.launch_counts.clear()
+    staged = tail_kernel.probe(a2, mask, w3, b3, "stage_only")
+    summed = tail_kernel.probe(a2, mask, w3, b3, "mma_only")
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"dlbt_fused_tail_fwd": 2}
+    assert bool((staged == 0).all()) and bool(torch.isfinite(summed).all())
 
 
 def test_fused_tail_autograd_launches_kernel_7(dev):
