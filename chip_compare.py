@@ -85,11 +85,11 @@ tail's forward) on one NVIDIA card, beside
                                           # by graph at the same inputs; then tail_bench's
                                           # main()
     python3 chip_compare.py tailtune TAG  # kernel 7's forward at those shapes under other
-                                          # launches (tail_kernel.plan patched): ring
-                                          # stages, W3 in registers or in shared memory,
-                                          # warps a block; each bit-identical to the
-                                          # plan's, by CUDA graph with and without the
-                                          # argmax
+                                          # launches (tail_kernel.plan patched): wgmma,
+                                          # or mma.sync with W3 in registers or shared
+                                          # memory; ring stages, warps a block; each
+                                          # against the plan's, by CUDA graph with and
+                                          # without the argmax
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -666,6 +666,8 @@ def tail(tag: str) -> None:
         c3 = w3.shape[1]
         launch = k7.occupancy(c2, c3) if hasattr(k7, "occupancy") else None
         plan = k7.plan(c2, c3) if hasattr(k7, "plan") else None
+        if hasattr(k7, "KINDS"):  # the argmax's instantiation is its own
+            launch = (launch, k7.occupancy(c2, c3, True))
         with torch.no_grad():
             out, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
             want, w_am = k7.fused_tail_fwd_plain(a2, mask, w3, b3, with_argmax=True)
@@ -703,10 +705,11 @@ def tail(tag: str) -> None:
 
 def tail_tune(tag: str) -> None:
     """Kernel 7's forward at chip_smoke.TAIL_SHAPES under every launch the
-    source takes (``tail_kernel.plan`` patched): 2-6 ring stages, W3 in
-    registers where the widths allow or in shared memory, warps a block;
-    the same bits as the plan's launch, then CUDA-graph ms with and without
-    the argmax."""
+    source takes (``tail_kernel.plan`` patched), with and without the
+    argmax: wgmma, mma.sync with W3 in registers or in shared memory, 2-6
+    ring stages, warps a block; each against the plan's launch (within the
+    bf16 bound; the argmax equal where the winner leads by more than one bf16
+    step), then CUDA-graph ms."""
     import itertools
 
     cs, dev = _setup()
@@ -716,31 +719,38 @@ def tail_tune(tag: str) -> None:
     for name, shape in cs.TAIL_SHAPES.items():
         a2, mask, w3, b3, _ = cs.tail_inputs(shape, dev, seed=7)
         c2, c3 = a2.shape[3], w3.shape[1]
-        base = k7.plan(c2, c3)
         want, w_am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
-        plans = []
-        for stages, regs, warps in itertools.product((2, 3, 4, 5, 6), (True, False),
-                                                     (c3 // 64, c3 // 32)):
-            if regs and warps != c3 // 32:
-                continue
-            smem = k7.smem_bytes(c2, c3, regs, stages)
-            if smem <= k7.SMEM_PER_BLOCK:
-                plans.append(k7.Plan(warps, stages, regs, smem,
-                                     k7.ACC_REGISTERS + k7.fragment_registers(c2, regs)))
+        lead = cs.bf16_lead(a2, mask, w3, b3)
         out = {}
-        for p in dict.fromkeys([base] + plans):
-            with mock.patch.object(k7, "plan", lambda *_: p):
-                got, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
-                cs.require(cs.same_bits(got, want) and torch.equal(am, w_am),
-                           f"plan {tuple(p)}: kernel 7 differs from the plan's launch at {name}")
-                out[p] = (cs.graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3)),
-                          cs.graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3,
-                                                                with_argmax=True)))
-        for p in sorted(out, key=lambda q: out[q][0]):
-            print(f"{tag} tailtune {name}: warps {p.warps} stages {p.stages} w3 in registers "
-                  f"{p.w3_in_registers}: {out[p][0]:.4f} ms, with the argmax {out[p][1]:.4f} ms"
-                  f"{' (the plan)' if p == base else ''} [{card}]", flush=True)
-        del a2, mask, w3, b3, want, w_am
+        base = k7.plan(c2, c3)
+        for argmax in (False, True):
+            kinds = ("wgmma", "mma_registers", "mma_shared")
+            plans = []
+            for kind, stages, warps in itertools.product(kinds, (2, 3, 4, 5, 6),
+                                                         (c3 // 64, c3 // 32)):
+                if kind == "wgmma":
+                    warps = k7.WGMMA_WARPS
+                elif kind == "mma_registers" and (warps != c3 // 32 or warps > k7.MAX_WARPS
+                                                  or c2 not in k7.REGISTER_WIDTHS):
+                    continue
+                smem = k7.smem_bytes(c2, c3, kind, stages)
+                if smem <= k7.SMEM_PER_BLOCK and (kind != "wgmma" or (c2, c3) in k7.WGMMA_WIDTHS):
+                    plans.append(k7.Plan(kind, min(warps, k7.MAX_WARPS), stages, smem, 0))
+            for p in dict.fromkeys([base] + plans):
+                with mock.patch.object(k7, "plan", lambda *_: p):
+                    got, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=argmax)
+                    cs.require(cs.rel_diff(got, want) <= cs.BF16_SERVE_RTOL
+                               and (not argmax or torch.equal(am[lead], w_am[lead])),
+                               f"plan {tuple(p)}: kernel 7 differs from the plan's at {name}")
+                    out[(argmax, p)] = cs.graph_ms(
+                        lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=argmax))
+                    out[(argmax, p, "base")] = p == base
+        for key in sorted((k for k in out if len(k) == 2), key=lambda k: (k[0], out[k])):
+            argmax, p = key
+            print(f"{tag} tailtune {name} {'with the argmax' if argmax else 'max'}: {p.kind} "
+                  f"warps {p.warps} stages {p.stages}: {out[key]:.4f} ms"
+                  f"{' (the plan)' if out[(argmax, p, 'base')] else ''} [{card}]", flush=True)
+        del a2, mask, w3, b3, want, w_am, lead
         torch.cuda.empty_cache()
 
 

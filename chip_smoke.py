@@ -2430,9 +2430,12 @@ def check_tail_fwd(name: str, args, ctx: dict) -> None:
     nan_rows = check_tail_nan(name, a2, mask, w3, b3, out, am)
     b, m, k, c2 = a2.shape
     c3 = w3.shape[1]
-    plan, launch = k7.plan(c2, c3), k7.occupancy(c2, c3, with_argmax=True)
-    require(launch["smem_bytes"] == plan.smem_bytes and launch["threads"] == 32 * plan.warps,
-            f"kernel 7 {name}: launch {launch} is not the plan's {plan}")
+    plan, launches = k7.plan(c2, c3), {}
+    for argmax in (False, True):
+        launch = k7.occupancy(c2, c3, argmax)
+        require(launch["smem_bytes"] == plan.smem_bytes and launch["threads"] == 32 * plan.warps,
+                f"kernel 7 {name}: launch {launch} is not the plan's {plan}")
+        launches["with the argmax" if argmax else "max"] = launch
     t = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3), reps=TOOL_REPS)
     t_am = time_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True), reps=TOOL_REPS)
     tg = graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3))
@@ -2450,7 +2453,7 @@ def check_tail_fwd(name: str, args, ctx: dict) -> None:
           f"({int(lead.sum())} of {lead.numel()}); {int(empty.sum())} empty rows 0 with argmax "
           f"64; NaN, Inf and 1e4 junk at invalid slots: same bits; NaN at valid slots of "
           f"{nan_rows} rows: NaN with argmax 64 as the plain version, the rest the same bits; "
-          f"two launches bit-identical; plan {tuple(plan)}, launch {launch}", flush=True)
+          f"two launches bit-identical; plan {tuple(plan)}, launches {launches}", flush=True)
     ctx.setdefault("fused_tail_fwd", []).append(dict(
         err=max_abs_err(out, want), ms=t, plain_ms=tp, bound_ms=bms, bound_by=by, yard=tu,
         graph_ms=tg))

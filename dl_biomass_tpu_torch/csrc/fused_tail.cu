@@ -25,25 +25,35 @@
 // ms), and the routed work they stand for is 4*C2*C3 flop per centroid.
 //
 // Forward design (redesigned for the H100): a persistent grid; each block keeps
-// a ring of `stages` centroids in shared memory (a2's 64 rows, C2 + 8 bf16
-// apart, and the 64 slot flags), copied by cp.async stages - 1 centroids ahead,
-// one barrier a centroid. Each warp owns 32 output columns: at C2 = 64 and 128
-// with C3 <= 256 (tail_bench's SA1 and SA2) one slice a warp, its W3 B
-// fragments rounded to bf16 once and held in registers for all the block's
-// centroids; at other widths W3^T in shared memory, read by ldmatrix, the
-// warps taking the slices in turn. A fragments by ldmatrix.x4; the warp's
-// 64 x 32 product on mma.sync (m16n8k16) in 64 accumulators that start at b3 (the
-// first step's C operand: one more order of the same f32 sum). Epilogue: each
-// lane takes the NaN-propagating max of z over its 8 valid rows in f32 (one
-// max.NaN.f32 a value, the row's flag as a predicate), rounds it once a column pair (rounding is
-// monotone, so this is the max of the bf16 z), and the 8 lanes of a column
-// merge with 3 shuffles and max.NaN.bf16x2; 16 lanes store the 32 columns as
-// 64 contiguous bytes. The argmax is its own instantiation, formed as the TPU
-// kernel forms it: the column's max is broadcast, each lane finds its first
-// valid row whose bf16 z equals it (set.eq.u32.bf16x2 on z rounded a pair at a
-// time, 16-bit slots kept two a register), the lanes take the min by shuffles,
-// and a max of -inf gives 64; 16 lanes store 128 contiguous bytes. Two more
-// instantiations measure it (staging only; staging and products).
+// a ring of `stages` centroids in shared memory (a2's 64 rows and the 64 slot
+// flags), copied by cp.async stages - 1 centroids ahead, one barrier a
+// centroid. Three launches (ops/tail_kernel.plan names one; with and without
+// the argmax it is of the same kind, so the two give the same bits):
+//  - wgmma, at (C2, C3) = (64, 128) and (128, 256), tail_bench's SA1 and SA2:
+//    the product taken transposed, z^T = W3^T a2^T, so that the 64 slots are
+//    the N of a wgmma.m64n64k16 and each lane holds 16 slots of each of its
+//    two columns. Two warpgroups share each centroid, one 64-column block of
+//    W3^T each (two at SA2); W3^T and the tile sit K-major in the 128-byte
+//    swizzle, the tile copied 16 bytes a thread into it. The max of z over a
+//    column's valid slots is bf16(max(acc) + b3), rounding and adding a
+//    finite b3 being monotone (a b3 of +inf takes acc + b3 first): a fold of
+//    16 predicated max.NaN.f32 in four chains, two shuffles, one add.
+//  - mma.sync with W3 in registers, at C2 = 64 and 128 and C3 <= 256: each
+//    warp owns 32 output columns, its W3 B fragments rounded to bf16 once and
+//    held for all the block's centroids; A by ldmatrix.x4; the accumulators
+//    start at b3 (the first step's C operand, one more order of the same f32
+//    sum). Each lane folds its 8 valid rows into a max in f32 (max.NaN.f32,
+//    the row's flag a predicate), rounds once a column pair, and the 8 lanes of
+//    a column merge with 3 shuffles and max.NaN.bf16x2.
+//  - mma.sync with W3^T in shared memory, read by ldmatrix, at every other
+//    width: the warps take the 32-column slices in turn.
+// The argmax, an instantiation of each, is formed as the TPU kernel forms it:
+// the column's max is known to the lanes that hold it, each finds its first
+// valid slot whose bf16 z equals it (set.eq.u32.bf16x2 on z rounded a pair at
+// a time), the lanes take the min, and a max of -inf gives 64 (a NaN max
+// equals nothing: 64). Measurement instantiations (staging only; staging and
+// products; products and epilogue on a ring filled once) exist for the wgmma
+// and shared-memory launches.
 //
 // Backward design: a block keeps one centroid at a time with a grid stride
 // and copies the next centroid's inputs (a2's 64 rows, the cotangent and
@@ -63,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -395,6 +406,271 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
   dlbt::cp_async_wait<0>();
 }
 
+// d (64 x 64 f32, the warpgroup's fragment: d[4 j + i] at row 16 w + g + 8 (i / 2),
+// column 8 j + 2 t + i % 2) = A B (+ d where accumulate), A 64 x 16 and B 16 x 64
+// bf16 from shared memory, both K-major, by their descriptors.
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The wgmma forward, at C2 = 16 KS and C3 = 128 MB (tail_bench's SA1: KS 4, MB 1;
+// SA2: KS 8, MB 2). The product is taken transposed, z^T = W3^T a2^T: a block's
+// kWgGroups warpgroups share each centroid, warpgroup q the output columns
+// 64 (q MB + mb) .. + 63 for mb < MB, one wgmma.m64n64k16 each a 16-deep step.
+// W3^T (the M operand) and the centroid's a2 tile (the N operand: its 64 slots)
+// sit in shared memory, K-major in the 128-byte swizzle (atoms of 8 rows x 128
+// bytes, 64 depths; the 16-byte chunk c of row r at chunk c ^ (r % 8)), from a
+// 1024-byte-aligned base; then the ring's slot flags and b3. A lane holds 16
+// slots of each of its two columns a block, so the max is a fold in registers
+// and two shuffles.
+constexpr int kWgThreads = 128;
+constexpr int kWgGroups = 2;
+
+struct WgLayout {
+  size_t wt, tiles, flags, bias, total;
+  __host__ __device__ WgLayout(int c2, int c3, int stages) {
+    size_t at = 0;
+    wt = take(at, 2ull * c3 * c2);  // a multiple of 1024 bytes: the tiles stay aligned
+    tiles = take(at, 2ull * stages * kSlots * c2);
+    flags = take(at, 1ull * stages * kSlots);
+    bias = take(at, 4ull * c3);
+    total = at + 1024;  // the base is aligned up to 1024 bytes inside the allocation
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (depths 8 c .. 8 c + 7) of row r of a K-major
+// operand of `rows` rows in the 128-byte swizzle.
+__device__ __forceinline__ int swizzled(int r, int c, int rows) {
+  return (c >> 3) * (rows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// The wgmma descriptor of a K-major operand in the 128-byte swizzle at p
+// (1024-byte-aligned atoms; 8-row groups 1024 bytes apart).
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3ffff) >> 4) | 1ull << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// Keeps the compiler from moving accesses of d across the wgmma fences.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The least float whose bf16 rounding (to nearest, ties to even) equals the
+// finite or +inf bf16 value z (bits zb), -0.0 and +0.0 equal: past the midpoint
+// to the next value toward -inf, or on it where z is even.
+__device__ __forceinline__ float least_rounding_to(uint32_t zb) {
+  if ((zb & 0x7fffu) == 0u) return -__uint_as_float(0x00008000u);  // half the least subnormal
+  const uint32_t f = zb << 16;
+  return __uint_as_float(zb & 0x8000u ? f + 0x8000u - (zb & 1u) : f - 0x8000u + (zb & 1u));
+}
+
+template <int KS, int MB, bool kArgmax, int kMode>
+__global__ void __launch_bounds__(kWgThreads * kWgGroups, 2)
+    fused_tail_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ a2,
+                                const unsigned char* __restrict__ mask,
+                                const float* __restrict__ w3, const float* __restrict__ b3,
+                                __nv_bfloat16* __restrict__ out, int* __restrict__ amax,
+                                int centroids, int stages) {
+  constexpr int C2 = 16 * KS, C3 = 128 * MB, CH = C2 / 8;  // CH: 16-byte chunks of a row
+  constexpr int kTileBytes = kSlots * 2 * C2;
+  constexpr int kThreads = kWgThreads * kWgGroups;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const WgLayout L(C2, C3, stages);
+  char* wt = smem + L.wt;
+  const float* bias = reinterpret_cast<const float*>(smem + L.bias);
+  const int q = threadIdx.x / kWgThreads, warp = (threadIdx.x % kWgThreads) >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  auto tile = [&](int s) { return smem + L.tiles + s * kTileBytes; };
+  auto flags = [&](int s) { return smem + L.flags + s * kSlots; };
+  // 8 threads copy a 128-byte piece of a row, written as one swizzled row of an atom
+  auto stage = [&](long long cen, int s) {
+#pragma unroll
+    for (int j = 0; j < kSlots * CH / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads, r = i / CH, c = i % CH;
+      dlbt::cp_async16(tile(s) + swizzled(r, c, kSlots), a2 + (cen * kSlots + r) * C2 + c * 8);
+    }
+    if (threadIdx.x < kSlots / 16) {
+      dlbt::cp_async16(flags(s) + 16 * threadIdx.x, mask + cen * kSlots + 16 * threadIdx.x);
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) {
+    const long long cen = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (cen < centroids) stage(cen, s);
+    dlbt::cp_async_commit();
+  }
+  if (kMode != kFwdStageOnly) {
+    for (int i = threadIdx.x; i < C2 * C3; i += kThreads) {  // coalesced reads of W3
+      const int k = i / C3, n = i % C3;
+      *reinterpret_cast<__nv_bfloat16*>(wt + swizzled(n, k >> 3, C3) + (k & 7) * 2) =
+          __float2bfloat16_rn(w3[i]);
+    }
+  }
+  for (int i = threadIdx.x; i < C3; i += kThreads) {
+    reinterpret_cast<float*>(smem + L.bias)[i] = b3[i];
+  }
+
+  int s = 0;
+  for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x) {
+    cp_async_wait_upto(stages - 2);  // this centroid's copies (this thread's) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();  // ... every thread's, and the buffer refilled below has been consumed
+    {
+      const long long next = cen + static_cast<long long>(stages - 1) * gridDim.x;
+      const int sn = s == 0 ? stages - 1 : s - 1;
+      if (next < centroids && kMode != kFwdComputeOnly) stage(next, sn);
+      dlbt::cp_async_commit();
+    }
+    const char* tl = tile(s);
+    const unsigned char* flag = reinterpret_cast<const unsigned char*>(flags(s));
+    if (++s == stages) s = 0;
+    __nv_bfloat16* y = out + cen * C3;
+    if (kMode == kFwdStageOnly) {
+      for (int j = threadIdx.x; j < C3 / 2; j += kThreads) {
+        reinterpret_cast<uint32_t*>(y)[j] = 0u;
+      }
+      continue;
+    }
+    // d[mb]: output columns (rows of z^T) 64 (q MB + mb) + 16 warp + g (d[4 j], d[4 j + 1])
+    // and + 8 (d[4 j + 2], d[4 j + 3]), slots 8 j + 2t, 2t + 1
+    float d[MB][32];
+    const uint64_t db = wg_desc(tl);
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(d[mb]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const uint64_t da = wg_desc(wt + (q * MB + mb) * 64 * 128);
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {  // 32 bytes a step within an atom, then the next atom
+        const int a_off = (ks >> 2) * (C3 * 128) + (ks & 3) * 32;
+        const int b_off = (ks >> 2) * (kSlots * 128) + (ks & 3) * 32;
+        wgmma_bf16_n64(d[mb], da + (a_off >> 4), db + (b_off >> 4), ks > 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) fence_regs(d[mb]);
+    if (kMode == kFwdMmaOnly) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 4) sum += d[mb][i];
+      }
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        if (t < 2) y[(q * MB + mb) * 64 + 16 * warp + g + 8 * t] = __float2bfloat16_rn(sum);
+      }
+      continue;
+    }
+    const uint32_t lo = __ballot_sync(kFull, flag[lane] != 0);
+    const uint32_t hi = __ballot_sync(kFull, flag[lane + 32] != 0);
+    const bool any = (lo | hi) != 0u;
+    // the lane's slots 8 j + 2t + e valid: bit 8 (j % 4) + e of vw[j / 4]
+    const uint32_t vw[2] = {(lo >> (2 * t)) & 0x03030303u, (hi >> (2 * t)) & 0x03030303u};
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const int c0 = (q * MB + mb) * 64 + 16 * warp + g, c1 = c0 + 8;
+      const float b0 = bias[c0], b1 = bias[c1];
+      // the max of z over the valid slots: rounding and adding a finite b3 are
+      // monotone, so it is bf16(max(acc) + b3); a b3 of +inf turns an acc of
+      // -inf into NaN, so there b3 is added to each acc first. Four partial
+      // maxima a column keep the chain of dependent max short.
+      const bool exact = __float_as_uint(b0) == 0x7f800000u || __float_as_uint(b1) == 0x7f800000u;
+      float m0[4], m1[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) m0[p] = m1[p] = -__int_as_float(0x7f800000);
+      auto fold = [&](auto with_bias) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if ((vw[j >> 2] >> (8 * (j & 3) + e)) & 1u) {
+              const int p = (j & 1) * 2 + e;
+              float x0 = d[mb][4 * j + e], x1 = d[mb][4 * j + 2 + e];
+              if constexpr (decltype(with_bias)::value) {
+                x0 += b0;
+                x1 += b1;
+              }
+              m0[p] = max_nan(m0[p], x0);
+              m1[p] = max_nan(m1[p], x1);
+            }
+          }
+        }
+      };
+      if (exact) {
+        fold(std::true_type());
+      } else {
+        fold(std::false_type());
+      }
+      float r0 = max_nan(max_nan(m0[0], m0[1]), max_nan(m0[2], m0[3]));
+      float r1 = max_nan(max_nan(m1[0], m1[1]), max_nan(m1[2], m1[3]));
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the column's 4 lanes
+        r0 = max_nan(r0, __shfl_xor_sync(kFull, r0, off));
+        r1 = max_nan(r1, __shfl_xor_sync(kFull, r1, off));
+      }
+      if (!exact) {
+        r0 += b0;
+        r1 += b1;
+      }
+      const __nv_bfloat16 z0 = __float2bfloat16_rn(r0), z1 = __float2bfloat16_rn(r1);
+      if (t == 0) y[c0] = any ? z0 : __float2bfloat16_rn(0.0f);
+      if (t == 1) y[c1] = any ? z1 : __float2bfloat16_rn(0.0f);
+      if (kArgmax) {
+        // the first slot whose z equals the column's max: its bf16 equals the
+        // max's exactly where acc + b3 is at least the least float that rounds
+        // to the max (every valid z is at most the max); the lane's slots in
+        // descending order, then the 4 lanes
+        const float l0 = least_rounding_to(__bfloat16_as_ushort(z0));
+        const float l1 = least_rounding_to(__bfloat16_as_ushort(z1));
+        int f0 = kSlots, f1 = kSlots;
+#pragma unroll
+        for (int j = 7; j >= 0; --j) {
+#pragma unroll
+          for (int e = 1; e >= 0; --e) {
+            const bool valid = (vw[j >> 2] >> (8 * (j & 3) + e)) & 1u;
+            const int slot = 8 * j + 2 * t + e;
+            f0 = valid && d[mb][4 * j + e] + b0 >= l0 ? slot : f0;
+            f1 = valid && d[mb][4 * j + 2 + e] + b1 >= l1 ? slot : f1;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          f0 = min(f0, __shfl_xor_sync(kFull, f0, off));
+          f1 = min(f1, __shfl_xor_sync(kFull, f1, off));
+        }
+        // a max of -inf (no valid slot, or -inf at every valid one) routes nothing
+        if (t == 0) amax[cen * C3 + c0] = __bfloat16_as_ushort(z0) == 0xff80u ? kSlots : f0;
+        if (t == 1) amax[cen * C3 + c1] = __bfloat16_as_ushort(z1) == 0xff80u ? kSlots : f1;
+      }
+    }
+  }
+  dlbt::cp_async_wait<0>();
+}
+
 // The backward's shared memory: bf16(W3) as it is (C2 rows of C3 + 8), the gs
 // tile (64 rows of C3 + 8 bf16, zero but where routed), and two buffers of a
 // centroid's a2 rows (64 rows of C2 + 8 bf16), argmax (C3 int32) and
@@ -542,94 +818,154 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 using FwdKernel = void (*)(const __nv_bfloat16*, const unsigned char*, const float*, const float*,
                            __nv_bfloat16*, int*, int, int, int, int);
+using WgKernel = void (*)(const __nv_bfloat16*, const unsigned char*, const float*, const float*,
+                          __nv_bfloat16*, int*, int, int);
 
-// The instantiation of (ks, argmax, mode); the measurements take no argmax.
+// The forward's launches: mma.sync with W3^T in shared memory, mma.sync with
+// W3's fragments in registers, or wgmma.
+enum FwdKind { kMmaShared = 0, kMmaRegisters = 1, kWgmma = 2 };
+
+// The mma.sync instantiation of (ks, argmax, mode): ks 0 (W3 in shared memory)
+// with its measurements, 4 and 8 (W3 in registers) the kernel alone.
 FwdKernel fwd_kernel(int ks, bool argmax, int mode) {
+  if (ks == 4) {
+    return argmax ? fused_tail_fwd_kernel<4, true, kFwdFull>
+                  : fused_tail_fwd_kernel<4, false, kFwdFull>;
+  }
+  if (ks == 8) {
+    return argmax ? fused_tail_fwd_kernel<8, true, kFwdFull>
+                  : fused_tail_fwd_kernel<8, false, kFwdFull>;
+  }
   switch (mode) {
-    case kFwdStageOnly:
-      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdStageOnly>
-             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdStageOnly>
-                       : fused_tail_fwd_kernel<0, false, kFwdStageOnly>;
-    case kFwdMmaOnly:
-      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdMmaOnly>
-             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdMmaOnly>
-                       : fused_tail_fwd_kernel<0, false, kFwdMmaOnly>;
-    case kFwdComputeOnly:
-      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdComputeOnly>
-             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdComputeOnly>
-                       : fused_tail_fwd_kernel<0, false, kFwdComputeOnly>;
+    case kFwdStageOnly: return fused_tail_fwd_kernel<0, false, kFwdStageOnly>;
+    case kFwdMmaOnly: return fused_tail_fwd_kernel<0, false, kFwdMmaOnly>;
+    case kFwdComputeOnly: return fused_tail_fwd_kernel<0, false, kFwdComputeOnly>;
     default:
-      if (argmax) {
-        return ks == 4 ? fused_tail_fwd_kernel<4, true, kFwdFull>
-               : ks == 8 ? fused_tail_fwd_kernel<8, true, kFwdFull>
-                         : fused_tail_fwd_kernel<0, true, kFwdFull>;
-      }
-      return ks == 4 ? fused_tail_fwd_kernel<4, false, kFwdFull>
-             : ks == 8 ? fused_tail_fwd_kernel<8, false, kFwdFull>
-                       : fused_tail_fwd_kernel<0, false, kFwdFull>;
+      return argmax ? fused_tail_fwd_kernel<0, true, kFwdFull>
+                    : fused_tail_fwd_kernel<0, false, kFwdFull>;
   }
 }
 
-// The launch (warps, stages, ks) at widths (C2, C3), as ops/tail_kernel.plan
-// names it: warps 1-8 and at most C3 / 32; stages 2-kFwdMaxStages; ks 0, or 4
-// or 8 with C2 = 16 ks and C3 = 32 warps (one slice a warp).
-bool fwd_launch_ok(int c2, int c3, int warps, int stages, int ks, int mode) {
-  return c2 > 0 && c3 > 0 && c2 % 16 == 0 && c3 % kFwdCols == 0 && warps >= 1 &&
-         warps <= kFwdMaxWarps && warps * kFwdCols <= c3 && stages >= 2 &&
-         stages <= kFwdMaxStages && (ks == 0 || ((ks == 4 || ks == 8) && c2 == 16 * ks &&
-                                                 c3 == kFwdCols * warps)) &&
-         mode >= kFwdFull && mode <= kFwdComputeOnly;
+template <int KS, int MB>
+WgKernel wg_kernel_of(bool argmax, int mode) {
+  switch (mode) {
+    case kFwdStageOnly: return fused_tail_fwd_wgmma_kernel<KS, MB, false, kFwdStageOnly>;
+    case kFwdMmaOnly: return fused_tail_fwd_wgmma_kernel<KS, MB, false, kFwdMmaOnly>;
+    case kFwdComputeOnly: return fused_tail_fwd_wgmma_kernel<KS, MB, false, kFwdComputeOnly>;
+    default:
+      return argmax ? fused_tail_fwd_wgmma_kernel<KS, MB, true, kFwdFull>
+                    : fused_tail_fwd_wgmma_kernel<KS, MB, false, kFwdFull>;
+  }
 }
+
+// The launch (warps, stages, kind) at widths (C2, C3), as ops/tail_kernel.plan
+// names it: stages 2-kFwdMaxStages; wgmma at (C2, C3) = (64, 128) and (128, 256)
+// (its instantiations), two warpgroups; mma.sync warps 1-8 and at most C3 / 32,
+// in registers with C2 64 or 128 and C3 = 32 warps (one slice a warp, and no
+// measurement modes); the argmax only with the kernel itself.
+bool fwd_launch_ok(int c2, int c3, int warps, int stages, int kind, int mode, bool argmax) {
+  if (c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols || stages < 2 || stages > kFwdMaxStages ||
+      mode < kFwdFull || mode > kFwdComputeOnly || (argmax && mode != kFwdFull)) {
+    return false;
+  }
+  switch (kind) {
+    case kWgmma:
+      return ((c2 == 64 && c3 == 128) || (c2 == 128 && c3 == 256)) &&
+             warps == kWgGroups * kWgThreads / 32;
+    case kMmaRegisters:
+      return (c2 == 64 || c2 == 128) && c3 == kFwdCols * warps && warps <= kFwdMaxWarps &&
+             mode == kFwdFull;
+    case kMmaShared:
+      return warps >= 1 && warps <= kFwdMaxWarps && warps * kFwdCols <= c3;
+    default:
+      return false;
+  }
+}
+
+// A launch's kernel and shared memory.
+struct FwdLaunch {
+  const void* fn;
+  size_t smem;
+  FwdLaunch(int c2, int c3, int stages, int kind, int mode, bool argmax) {
+    if (kind == kWgmma) {
+      fn = reinterpret_cast<const void*>(c2 == 64 ? wg_kernel_of<4, 1>(argmax, mode)
+                                                  : wg_kernel_of<8, 2>(argmax, mode));
+      smem = WgLayout(c2, c3, stages).total;
+    } else {
+      fn = reinterpret_cast<const void*>(
+          fwd_kernel(kind == kMmaRegisters ? c2 / 16 : 0, argmax, mode));
+      smem = FwdLayout(c2, c3, kind == kMmaRegisters, stages).total;
+    }
+  }
+};
 
 }  // namespace
 
 // Forward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16 and mask
 // (centroids, 64) bool, both 16-byte aligned; w3 (C2, C3) and b3 (C3) f32.
 // Writes out (centroids, C3) bf16 and, unless amax is null, amax (centroids,
-// C3) int32. C2 a multiple of 16, C3 of 32; (warps, stages, ks) the launch
+// C3) int32. C2 a multiple of 16, C3 of 32; (warps, stages, kind) the launch
 // (fwd_launch_ok); mode: FwdMode (0 on every path; the others write no amax).
 extern "C" int dlbt_fused_tail_fwd(const void* a2, const void* mask, const void* w3,
                                    const void* b3, void* out, void* amax, int centroids, int c2,
-                                   int c3, int warps, int stages, int ks, int mode,
+                                   int c3, int warps, int stages, int kind, int mode,
                                    void* stream) {
-  if (centroids < 0 || !fwd_launch_ok(c2, c3, warps, stages, ks, mode) || !aligned16(a2) ||
-      !aligned16(mask)) {
+  const bool argmax = amax != nullptr;
+  if (centroids < 0 || !fwd_launch_ok(c2, c3, warps, stages, kind, mode, argmax) ||
+      !aligned16(a2) || !aligned16(mask)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (centroids == 0) return 0;
-  const FwdKernel kernel = fwd_kernel(ks, amax != nullptr, mode);
-  const size_t smem = FwdLayout(c2, c3, ks > 0, stages).total;
+  const FwdLaunch launch(c2, c3, stages, kind, mode, argmax);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const __nv_bfloat16*>(a2);
+  const auto* m = static_cast<const unsigned char*>(mask);
+  const auto* w = static_cast<const float*>(w3);
+  const auto* b = static_cast<const float*>(b3);
+  auto* y = static_cast<__nv_bfloat16*>(out);
+  auto* am = static_cast<int*>(amax);
   int grid = 0;
-  cudaError_t e = grid_for(kernel, 32 * warps, smem, centroids, &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a2), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(w3), static_cast<const float*>(b3),
-      static_cast<__nv_bfloat16*>(out), static_cast<int*>(amax), centroids, c2, c3, stages);
+  cudaError_t e;
+  if (kind == kWgmma) {
+    const auto kernel = reinterpret_cast<WgKernel>(const_cast<void*>(launch.fn));
+    e = grid_for(kernel, 32 * warps, launch.smem, centroids, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, 32 * warps, launch.smem, st>>>(x, m, w, b, y, am, centroids, stages);
+  } else {
+    const auto kernel = reinterpret_cast<FwdKernel>(const_cast<void*>(launch.fn));
+    e = grid_for(kernel, 32 * warps, launch.smem, centroids, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<grid, 32 * warps, launch.smem, st>>>(x, m, w, b, y, am, centroids, c2, c3, stages);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The full forward's launch (warps, stages, ks, with or without the argmax) at
-// widths (C2, C3) on the current card: out[0] blocks per SM, out[1] threads a
-// block, out[2] shared memory a block (bytes), out[3] registers a thread,
+// The full forward's launch (warps, stages, kind, with or without the argmax)
+// at widths (C2, C3) on the current card: out[0] blocks per SM, out[1] threads
+// a block, out[2] shared memory a block (bytes), out[3] registers a thread,
 // out[4] local memory a thread (bytes: spills).
-extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int warps, int stages, int ks,
+extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int warps, int stages, int kind,
                                              int argmax, int* out) {
-  if (!fwd_launch_ok(c2, c3, warps, stages, ks, kFwdFull)) {
+  if (!fwd_launch_ok(c2, c3, warps, stages, kind, kFwdFull, argmax != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const FwdKernel kernel = fwd_kernel(ks, argmax != 0, kFwdFull);
-  const size_t smem = FwdLayout(c2, c3, ks > 0, stages).total;
+  const FwdLaunch launch(c2, c3, stages, kind, kFwdFull, argmax != 0);
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t e = cudaFuncGetAttributes(&attr, launch.fn);
   int grid = 0, dev = 0, sms = 1;
-  if (e == cudaSuccess) e = grid_for(kernel, 32 * warps, smem, 1 << 30, &grid);
+  if (e == cudaSuccess) {
+    e = kind == kWgmma
+            ? grid_for(reinterpret_cast<WgKernel>(const_cast<void*>(launch.fn)), 32 * warps,
+                       launch.smem, 1 << 30, &grid)
+            : grid_for(reinterpret_cast<FwdKernel>(const_cast<void*>(launch.fn)), 32 * warps,
+                       launch.smem, 1 << 30, &grid);
+  }
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = grid / sms;
   out[1] = 32 * warps;
-  out[2] = static_cast<int>(smem);
+  out[2] = static_cast<int>(launch.smem);
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
   return 0;

@@ -23,11 +23,13 @@ with jnp. The mask gets no gradient, and an invalid slot gets exactly 0.
 blocks' dW3 slices: ``ops/sum_slices_kernel``) on a CUDA tensor and run
 ``fused_tail_fwd_plain`` and ``fused_tail_bwd_plain`` on a CPU tensor.
 ``fused_tail`` is the differentiable op, a ``torch.autograd.Function``
-around the two. ``plan(c2, c3)`` names the forward's launch (warps, ring
-stages, W3 held in registers or in shared memory, shared memory, registers
-budgeted), mirroring the source, and the wrapper raises where it gives None;
-``probe`` (the forward's staging alone, or its staging and products) and
-``occupancy`` measure it, and no path calls them. Like the JAX function, it is wired into no model: the tool
+around the two. ``plan(c2, c3)`` names the forward's launch (wgmma, or
+mma.sync with W3 in registers or in shared memory; warps, ring stages,
+shared memory, registers budgeted), mirroring the source, and the wrapper
+raises where it gives None; with and without the argmax a launch is of the
+same kind, so the two give the same output bits. ``probe`` (the forward's
+measurement modes) and ``occupancy`` measure it, and no path calls them.
+Like the JAX function, it is wired into no model: the tool
 ``dl_biomass_tpu_torch.tools.tail_bench`` times it beside the unfused pair.
 The kernels sum in their own order, so they agree with the plain versions to
 float32 rounding of the sums (a bf16 value near a rounding boundary may round
@@ -51,24 +53,34 @@ K = 64  # neighbour slots
 _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the forward's instantiations: the kernel, and its measurements (probe)
 FWD_MODES = {"full": 0, "stage_only": 1, "mma_only": 2, "compute_only": 3}
-# the forward's launch (csrc/fused_tail.cu): warps of COLS output columns each,
-# at most MAX_WARPS a block and MAX_STAGES centroids in its ring; W3 held in
-# registers at these C2 (the kernel's instantiations); rows C2 + SKEW apart
+# the forward's launch (csrc/fused_tail.cu): wgmma at these (C2, C3) (its
+# instantiations: tail_bench's SA1 and SA2), else mma.sync with each warp's W3
+# fragments in registers (at these C2) or with W3^T in shared memory; mma.sync
+# warps of COLS output columns each, at most MAX_WARPS a block; wgmma two
+# warpgroups; at most MAX_STAGES centroids in a block's ring; mma.sync rows
+# C2 + SKEW apart
+KINDS = {"mma_shared": 0, "mma_registers": 1, "wgmma": 2}
 COLS = 32
 MAX_WARPS = 8
 MAX_STAGES = 4
 REGISTER_WIDTHS = (64, 128)
+WGMMA_WIDTHS = ((64, 128), (128, 256))
+WGMMA_WARPS = 8
 SKEW = 8
-ACC_REGISTERS = 64  # a lane's accumulators: 64 rows x 32 columns over 32 lanes
+ACC_REGISTERS = 64  # an mma.sync lane's accumulators: 64 rows x 32 columns over 32 lanes
 SMEM_PER_BLOCK = 232448  # the shared memory a block may have on an H100 (227 KB)
+SMEM_PER_SM = 233472  # an SM's, 228 KB, of which each block holds SMEM_RESERVED more
+SMEM_RESERVED = 1024
 
 
 class Plan(NamedTuple):
-    warps: int  # warps a block, each 32 output columns at a time
-    stages: int  # centroids in the block's shared-memory ring
-    w3_in_registers: bool  # each warp holds its slice's W3 fragments (else W3^T in shared memory)
+    kind: str  # "wgmma", "mma_registers" or "mma_shared" (KINDS)
+    warps: int  # warps a block
+    stages: int  # steps in the block's shared-memory ring
     smem_bytes: int  # shared memory a block
     registers: int  # a lane's registers for its accumulators and B fragments
+
+
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
@@ -119,32 +131,44 @@ def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
 
 def plan(c2: int, c3: int) -> Optional[Plan]:
     """The forward's launch at widths (C2, C3), or None where the kernel takes
-    none. W3 is held in registers where C2 is 64 or 128 and the block's warps
-    (at most MAX_WARPS) take one 32-column slice each; else W3^T sits in shared
-    memory. The ring holds as many centroids as fit, at most MAX_STAGES and at
-    least 2."""
+    none. At (C2, C3) = (64, 128) and (128, 256) it runs on wgmma (two
+    warpgroups sharing each centroid, W3^T and the tiles in shared memory).
+    Otherwise mma.sync: W3 held in registers where C2 is 64 or 128 and the block's warps (at most
+    MAX_WARPS) take one 32-column slice each, else W3^T in shared memory. The
+    ring holds as many steps as fit, at most MAX_STAGES and at least 2."""
     if c2 < 16 or c3 < COLS or c2 % 16 or c3 % COLS:
         return None
+    if (c2, c3) in WGMMA_WIDTHS:  # the most stages that leave room for two blocks an SM
+        fits = [st for st in range(MAX_STAGES, 1, -1)
+                if 2 * (smem_bytes(c2, c3, "wgmma", st) + SMEM_RESERVED) <= SMEM_PER_SM]
+        stages = fits[0] if fits else 2
+        return Plan("wgmma", WGMMA_WARPS, stages, smem_bytes(c2, c3, "wgmma", stages),
+                    32 * (c3 // 128))
     warps = min(c3 // COLS, MAX_WARPS)
-    in_regs = c2 in REGISTER_WIDTHS and c3 == COLS * warps
+    kind = "mma_registers" if c2 in REGISTER_WIDTHS and c3 == COLS * warps else "mma_shared"
     for stages in range(MAX_STAGES, 1, -1):
-        smem = smem_bytes(c2, c3, in_regs, stages)
+        smem = smem_bytes(c2, c3, kind, stages)
         if smem <= SMEM_PER_BLOCK:
-            return Plan(warps, stages, in_regs, smem, ACC_REGISTERS + fragment_registers(c2, in_regs))
+            return Plan(kind, warps, stages, smem, ACC_REGISTERS + fragment_registers(c2, kind))
     return None
 
 
-def fragment_registers(c2: int, w3_in_registers: bool) -> int:
-    """The B fragments a lane holds: W3's for its slice, two registers for each
-    8 columns of each 16-deep step, or one step's when read from shared memory."""
-    return (c2 // 16 if w3_in_registers else 1) * (COLS // 8) * 2
+def fragment_registers(c2: int, kind: str) -> int:
+    """The B fragments an mma.sync lane holds: W3's for its slice, two
+    registers for each 8 columns of each 16-deep step, or one step's when read
+    from shared memory."""
+    return (c2 // 16 if kind == "mma_registers" else 1) * (COLS // 8) * 2
 
 
-def smem_bytes(c2: int, c3: int, w3_in_registers: bool, stages: int) -> int:
-    """A block's shared memory (the source's FwdLayout): W3^T in bf16 (C3 rows
-    of C2 + 8) unless held in registers, b3, and the ring, each buffer 64 rows
-    of C2 + 8 bf16 and 64 slot flags."""
-    wt = 0 if w3_in_registers else 2 * c3 * (c2 + SKEW)
+def smem_bytes(c2: int, c3: int, kind: str, stages: int) -> int:
+    """A block's shared memory (the source's FwdLayout and WgLayout). mma.sync:
+    W3^T in bf16 (C3 rows of C2 + 8) unless held in registers, b3, and the
+    ring, each buffer 64 rows of C2 + 8 bf16 and 64 slot flags. wgmma, from a
+    base aligned to 1024 bytes inside the allocation: W3^T in bf16 (C3 rows of
+    C2), the ring's tiles (64 rows of C2 bf16), their 64 flags each, and b3."""
+    if kind == "wgmma":
+        return 2 * c3 * c2 + stages * (2 * K * c2 + K) + 4 * c3 + 1024
+    wt = 0 if kind == "mma_registers" else 2 * c3 * (c2 + SKEW)
     return wt + 4 * c3 + stages * (2 * K * (c2 + SKEW) + K)
 
 
@@ -161,33 +185,31 @@ def launch_plan(c2: int, c3: int) -> Plan:
 def probe(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
           mode: str) -> torch.Tensor:
     """The forward kernel on the card in a measurement ``mode`` (its own
-    instantiation, on ``plan``'s launch): "stage_only" (the copies into shared
-    memory and the writing of the output, every output 0), "mma_only" (the
-    copies and the products, a checksum of the accumulators written in place
-    of the max) or "compute_only" (the products and the max, the ring filled
-    once and never refilled: stale outputs); "full" is the kernel. No path
-    calls it."""
+    instantiation, on the launch ``plan`` names, a wgmma or shared-memory
+    one): "stage_only" (the copies into shared memory and the
+    writing of the output, every output 0), "mma_only" (the copies and the
+    products, a checksum of the accumulators written in place of the max) or
+    "compute_only" (the products and the max, the ring filled once and never
+    refilled: stale outputs); "full" is the kernel. No path calls it."""
+    if mode != "full" and launch_plan(a2.shape[3], w3.shape[1]).kind == "mma_registers":
+        raise ValueError("fused_tail_fwd: the register launch has no measurement modes")
     return _launch_fwd(a2, nbr_mask, w3, b3, False, mode)[0]
 
 
 def occupancy(c2: int, c3: int, with_argmax: bool = False) -> dict:
-    """``plan(c2, c3)``'s launch on the current card: blocks per SM, threads
-    and shared memory (bytes) a block, registers and local memory (bytes:
-    spills) a thread."""
+    """``plan(c2, c3)``'s launch on the current card, with or without the
+    argmax (its own instantiation): blocks per SM, threads and shared memory
+    (bytes) a block, registers and local memory (bytes: spills) a thread."""
     p = launch_plan(c2, c3)
     fn = _build.library().dlbt_fused_tail_fwd_occupancy
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 5)()
-    rc = fn(c2, c3, p.warps, p.stages, _ks(c2, p), int(with_argmax), vals)
+    rc = fn(c2, c3, p.warps, p.stages, KINDS[p.kind], int(with_argmax), vals)
     if rc != 0:
         raise RuntimeError(f"dlbt_fused_tail_fwd_occupancy failed ({rc})")
     return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"),
                     list(vals)))
-
-
-def _ks(c2: int, p: Plan) -> int:
-    return c2 // 16 if p.w3_in_registers else 0
 
 
 def _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode):
@@ -205,7 +227,7 @@ def _launch_fwd(a2, nbr_mask, w3, b3, with_argmax, mode):
     am = torch.empty((b, m, c3), dtype=torch.int32, device=a2.device) if with_argmax else None
     _build.launch("dlbt_fused_tail_fwd", _FWD_ARGTYPES, a2.data_ptr(), nbr_mask.data_ptr(),
                   w3.data_ptr(), b3.data_ptr(), out.data_ptr(), _build.ptr(am), b * m, c2, c3,
-                  p.warps, p.stages, _ks(c2, p), FWD_MODES[mode], _build.stream_of(a2))
+                  p.warps, p.stages, KINDS[p.kind], FWD_MODES[mode], _build.stream_of(a2))
     return out, am
 
 

@@ -1,8 +1,9 @@
-"""Kernel 7's forward launch, ``ops/tail_kernel.plan``: the warps, ring
-stages, shared memory and registers it names at tail_bench's widths and at
-the edges, the wrapper's refusal where it names none, and every width the
-first kernel took (its W3^T and two buffers within a block's shared memory)
-still planned."""
+"""Kernel 7's forward launch, ``ops/tail_kernel.plan``: the kind (wgmma, or
+mma.sync with W3 in registers or in shared memory), warps, ring stages,
+shared memory and registers it names at tail_bench's widths and at the
+edges, the wrapper's refusal where it names none, and every width the first
+kernel took (its W3^T and two buffers within a block's shared memory) still
+planned."""
 
 import pytest
 import torch
@@ -21,17 +22,20 @@ def first_kernel_took(c2: int, c3: int) -> bool:
 
 
 @pytest.mark.parametrize("c2,c3,want", [
-    (64, 128, k7.Plan(4, 4, True, 37632, 96)),  # SA1: W3 in registers, four warps
-    (128, 256, k7.Plan(8, 4, True, 70912, 128)),  # SA2: eight warps
-    (16, 32, k7.Plan(1, 4, False, 14208, 72)),  # the narrowest: one warp
-    (96, 160, k7.Plan(5, 4, False, 87424, 72)),  # a width with W3 in shared memory
-    (64, 512, k7.Plan(8, 4, False, 112896, 72)),  # more slices than warps
-    (256, 256, k7.Plan(8, 2, False, 203904, 72)),  # two stages fit, three do not
+    (64, 128, k7.Plan("wgmma", 8, 4, 50944, 32)),  # SA1: wgmma, two warpgroups
+    (128, 256, k7.Plan("wgmma", 8, 2, 100480, 64)),  # SA2: two stages, two blocks an SM
+    (64, 256, k7.Plan("mma_registers", 8, 4, 38144, 96)),  # no wgmma instantiation
+    (128, 128, k7.Plan("mma_registers", 4, 4, 70400, 128)),  # W3 in registers
+    (64, 96, k7.Plan("mma_registers", 3, 4, 37504, 96)),
+    (16, 32, k7.Plan("mma_shared", 1, 4, 14208, 72)),  # the narrowest: one warp
+    (96, 160, k7.Plan("mma_shared", 5, 4, 87424, 72)),  # W3 in shared memory
+    (64, 512, k7.Plan("mma_shared", 8, 4, 112896, 72)),  # more slices than warps
+    (256, 256, k7.Plan("mma_shared", 8, 2, 203904, 72)),  # two stages fit, three do not
 ])
 def test_plan_at_named_widths(c2, c3, want):
     p = k7.plan(c2, c3)
     assert p == want
-    assert p.smem_bytes == k7.smem_bytes(c2, c3, p.w3_in_registers, p.stages) <= SMEM
+    assert p.smem_bytes == k7.smem_bytes(c2, c3, p.kind, p.stages) <= SMEM
     assert p.registers <= 255 - 64  # fragments and accumulators leave room for the rest
 
 
@@ -42,7 +46,7 @@ def test_widest_c3_planned_at_each_c2(c2):
     c3 = max(c for c in range(32, 8192, 32) if k7.plan(c2, c) is not None)
     p = k7.plan(c2, c3)
     assert p.stages >= 2 and p.smem_bytes <= SMEM
-    assert k7.smem_bytes(c2, c3 + 32, False, 2) > SMEM and k7.plan(c2, c3 + 32) is None
+    assert k7.smem_bytes(c2, c3 + 32, "mma_shared", 2) > SMEM and k7.plan(c2, c3 + 32) is None
 
 
 def test_plan_takes_every_width_the_first_kernel_took():
@@ -52,9 +56,12 @@ def test_plan_takes_every_width_the_first_kernel_took():
     for c2, c3 in took:
         p = k7.plan(c2, c3)
         assert p is not None, (c2, c3)
-        assert 1 <= p.warps <= min(8, c3 // 32) and 2 <= p.stages <= k7.MAX_STAGES
-        assert p.smem_bytes <= SMEM
-        assert p.w3_in_registers == (c2 in (64, 128) and c3 == 32 * p.warps)
+        assert 2 <= p.stages <= k7.MAX_STAGES and p.smem_bytes <= SMEM
+        if p.kind == "wgmma":
+            assert (c2, c3) in ((64, 128), (128, 256)) and p.warps == 8
+        else:
+            assert 1 <= p.warps <= min(8, c3 // 32)
+            assert (p.kind == "mma_registers") == (c2 in (64, 128) and c3 == 32 * p.warps)
     # and nothing the first kernel refused: its two buffers were the least
     for c2, c3 in [(720, 32), (16, 4352), (64, 1472)]:
         assert not first_kernel_took(c2, c3) and k7.plan(c2, c3) is None
@@ -81,3 +88,16 @@ def test_wrapper_plans_then_wants_a_card():
     w3, b3 = torch.empty((64, 128), device="meta"), torch.empty((128,), device="meta")
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        k7.probe(a2, mask, w3, b3, "compute_only")
+
+
+def test_probe_refuses_the_register_launch():
+    """The register launch (mma.sync, W3 in registers) has no measurement
+    instantiations: probing a width whose max runs on it raises."""
+    a2 = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device="meta")
+    mask = torch.empty((1, 2, 64), dtype=torch.bool, device="meta")
+    w3, b3 = torch.empty((64, 96), device="meta"), torch.empty((96,), device="meta")
+    assert k7.plan(64, 96).kind == "mma_registers"
+    with pytest.raises(ValueError, match="no measurement modes"):
+        k7.probe(a2, mask, w3, b3, "stage_only")
