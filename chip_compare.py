@@ -85,11 +85,10 @@ tail's forward) on one NVIDIA card, beside
                                           # by graph at the same inputs; then tail_bench's
                                           # main()
     python3 chip_compare.py tailtune TAG  # kernel 7's forward at those shapes under other
-                                          # launches (tail_kernel.plan patched): wgmma,
-                                          # or mma.sync with W3 in registers or shared
-                                          # memory; ring stages, warps a block; each
-                                          # against the plan's, by CUDA graph with and
-                                          # without the argmax
+                                          # launches (tail_kernel.plan patched): wgmma
+                                          # or mma.sync, ring stages, warps a block;
+                                          # each against the plan's, by CUDA graph with
+                                          # and without the argmax
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -706,8 +705,8 @@ def tail(tag: str) -> None:
 def tail_tune(tag: str) -> None:
     """Kernel 7's forward at chip_smoke.TAIL_SHAPES under every launch the
     source takes (``tail_kernel.plan`` patched), with and without the
-    argmax: wgmma, mma.sync with W3 in registers or in shared memory, 2-6
-    ring stages, warps a block; each against the plan's launch (within the
+    argmax: wgmma or mma.sync, 2-6 ring stages, warps a block; each against
+    the plan's launch (within the
     bf16 bound; the argmax equal where the winner leads by more than one bf16
     step), then CUDA-graph ms."""
     import itertools
@@ -724,15 +723,11 @@ def tail_tune(tag: str) -> None:
         out = {}
         base = k7.plan(c2, c3)
         for argmax in (False, True):
-            kinds = ("wgmma", "mma_registers", "mma_shared")
             plans = []
-            for kind, stages, warps in itertools.product(kinds, (2, 3, 4, 5, 6),
+            for kind, stages, warps in itertools.product(k7.KINDS, (2, 3, 4, 5, 6),
                                                          (c3 // 64, c3 // 32)):
                 if kind == "wgmma":
                     warps = k7.WGMMA_WARPS
-                elif kind == "mma_registers" and (warps != c3 // 32 or warps > k7.MAX_WARPS
-                                                  or c2 not in k7.REGISTER_WIDTHS):
-                    continue
                 smem = k7.smem_bytes(c2, c3, kind, stages)
                 if smem <= k7.SMEM_PER_BLOCK and (kind != "wgmma" or (c2, c3) in k7.WGMMA_WIDTHS):
                     plans.append(k7.Plan(kind, min(warps, k7.MAX_WARPS), stages, smem, 0))

@@ -27,7 +27,7 @@
 // Forward design (redesigned for the H100): a persistent grid; each block keeps
 // a ring of `stages` centroids in shared memory (a2's 64 rows and the 64 slot
 // flags), copied by cp.async stages - 1 centroids ahead, one barrier a
-// centroid. Three launches (ops/tail_kernel.plan names one; with and without
+// centroid. Two launches (ops/tail_kernel.plan names one; with and without
 // the argmax it is of the same kind, so the two give the same bits):
 //  - wgmma, at (C2, C3) = (64, 128) and (128, 256), tail_bench's SA1 and SA2:
 //    the product taken transposed, z^T = W3^T a2^T, so that the 64 slots are
@@ -38,22 +38,18 @@
 //    column's valid slots is bf16(max(acc) + b3), rounding and adding a
 //    finite b3 being monotone (a b3 of +inf takes acc + b3 first): a fold of
 //    16 predicated max.NaN.f32 in four chains, two shuffles, one add.
-//  - mma.sync with W3 in registers, at C2 = 64 and 128 and C3 <= 256: each
-//    warp owns 32 output columns, its W3 B fragments rounded to bf16 once and
-//    held for all the block's centroids; A by ldmatrix.x4; the accumulators
-//    start at b3 (the first step's C operand, one more order of the same f32
-//    sum). Each lane folds its 8 valid rows into a max in f32 (max.NaN.f32,
-//    the row's flag a predicate), rounds once a column pair, and the 8 lanes of
-//    a column merge with 3 shuffles and max.NaN.bf16x2.
-//  - mma.sync with W3^T in shared memory, read by ldmatrix, at every other
-//    width: the warps take the 32-column slices in turn.
+//  - mma.sync at every other width: each warp owns 32 output columns at a
+//    time, W3^T in shared memory and A by ldmatrix.x4; the accumulators start
+//    at b3 (the first step's C operand, one more order of the same f32 sum).
+//    Each lane folds its 8 valid rows into a max in f32 (max.NaN.f32, the
+//    row's flag a predicate), rounds once a column pair, and the 8 lanes of a
+//    column merge with 3 shuffles and max.NaN.bf16x2.
 // The argmax, an instantiation of each, is formed as the TPU kernel forms it:
 // the column's max is known to the lanes that hold it, each finds its first
 // valid slot whose bf16 z equals it (set.eq.u32.bf16x2 on z rounded a pair at
 // a time), the lanes take the min, and a max of -inf gives 64 (a NaN max
 // equals nothing: 64). Measurement instantiations (staging only; staging and
-// products; products and epilogue on a ring filled once) exist for the wgmma
-// and shared-memory launches.
+// products; products and epilogue on a ring filled once) exist for both.
 //
 // Backward design: a block keeps one centroid at a time with a grid stride
 // and copies the next centroid's inputs (a2's 64 rows, the cotangent and
@@ -119,14 +115,14 @@ __device__ __forceinline__ void load_w3(__nv_bfloat16* w, const float* __restric
   }
 }
 
-// The forward's shared memory: W3^T in bf16 (C3 rows of C2 + 8) unless the
-// warps hold W3 in registers, b3, and a ring of `stages` buffers, each one
-// centroid's a2 rows (64 rows of C2 + 8 bf16) followed by its 64 slot flags.
+// The mma.sync forward's shared memory: W3^T in bf16 (C3 rows of C2 + 8), b3,
+// and a ring of `stages` buffers, each one centroid's a2 rows (64 rows of C2 + 8
+// bf16) followed by its 64 slot flags.
 struct FwdLayout {
   size_t wt, bias, ring, stage_bytes, flags, total;
-  __host__ __device__ FwdLayout(int c2, int c3, bool w3_in_registers, int stages) {
+  __host__ __device__ FwdLayout(int c2, int c3, int stages) {
     size_t at = 0;
-    wt = take(at, w3_in_registers ? 0 : 2ull * c3 * (c2 + kSkewH));
+    wt = take(at, 2ull * c3 * (c2 + kSkewH));
     bias = take(at, 4ull * c3);
     flags = 2ull * kSlots * (c2 + kSkewH);  // within a buffer
     stage_bytes = flags + kSlots;
@@ -193,19 +189,17 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   }
 }
 
-// KS > 0: C2 = 16 KS, one 32-column slice a warp (C3 = 32 warps), the warp's W3
-// fragments held in registers for all its centroids; KS = 0: any C2, W3^T in
-// shared memory, read by ldmatrix at every step, the warps taking the slices in
-// turn. kArgmax: also the argmax (its own instantiation).
-template <int KS, bool kArgmax, int kMode>
+// The mma.sync forward, at any C2 and C3: W3^T in shared memory, read by
+// ldmatrix at every step, the warps taking the 32-column slices in turn.
+// kArgmax: also the argmax (its own instantiation).
+template <bool kArgmax, int kMode>
 __global__ void __launch_bounds__(32 * kFwdMaxWarps)
     fused_tail_fwd_kernel(const __nv_bfloat16* __restrict__ a2,
                           const unsigned char* __restrict__ mask, const float* __restrict__ w3,
                           const float* __restrict__ b3, __nv_bfloat16* __restrict__ out,
                           int* __restrict__ amax, int centroids, int c2, int c3, int stages) {
-  constexpr bool kRegs = KS > 0;
   extern __shared__ __align__(16) char smem[];
-  const FwdLayout L(c2, c3, kRegs, stages);
+  const FwdLayout L(c2, c3, stages);
   __nv_bfloat16* wt = reinterpret_cast<__nv_bfloat16*>(smem + L.wt);
   float* bias = reinterpret_cast<float*>(smem + L.bias);
   const int lda = c2 + kSkewH;
@@ -226,23 +220,8 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
     if (cen < centroids) stage(cen, s);
     dlbt::cp_async_commit();
   }
-  if (!kRegs && kMode != kFwdStageOnly) load_w3(wt, w3, c2, c3, lda, true);
+  if (kMode != kFwdStageOnly) load_w3(wt, w3, c2, c3, lda, true);
   for (int i = threadIdx.x; i < c3; i += blockDim.x) bias[i] = b3[i];
-  // B fragments of the warp's slice (mma.m16n8k16: depths 2t, 2t+1 and 2t+8,
-  // 2t+9 of column g), rounded to bf16 once
-  uint32_t wf[kRegs ? KS : 1][4][2];
-  if (kRegs && kMode != kFwdStageOnly) {
-#pragma unroll
-    for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* w = w3 + static_cast<size_t>(ks * 16 + 2 * t) * c3 + warp * kFwdCols +
-                         nt * 8 + g;
-        wf[ks][nt][0] = pack_bf16x2(w[0], w[c3]);
-        wf[ks][nt][1] = pack_bf16x2(w[8 * c3], w[9 * c3]);
-      }
-    }
-  }
 
   int s = 0;
   for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x) {
@@ -280,39 +259,20 @@ __global__ void __launch_bounds__(32 * kFwdMaxWarps)
       // acc[rg][nt] holds rows rg 16 + g (j = 0, 1) and rg 16 + g + 8 (j = 2, 3),
       // columns n0 + 8 nt + 2t (+1)
       float acc[kRowGroups][4][4];
-      if (kRegs) {
+      for (int k0 = 0; k0 < c2; k0 += 16) {
+        uint32_t bf[4][2];
+        dlbt::load_b_ldm(bf[0], bf[1], wt, lda, k0, n0);
+        dlbt::load_b_ldm(bf[2], bf[3], wt, lda, k0, n0 + 16);
 #pragma unroll
-        for (int ks = 0; ks < (kRegs ? KS : 1); ++ks) {
+        for (int rg = 0; rg < kRowGroups; ++rg) {
+          uint32_t af[4];
+          dlbt::load_a_ldm(af, a, lda, rg * 16, k0);
 #pragma unroll
-          for (int rg = 0; rg < kRowGroups; ++rg) {
-            uint32_t af[4];
-            dlbt::load_a_ldm(af, a, lda, rg * 16, ks * 16);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              if (ks == 0) {
-                mma_bf16_bias(acc[rg][nt], af, wf[ks][nt], bl[nt].x, bl[nt].y);
-              } else {
-                dlbt::mma_bf16(acc[rg][nt], af, wf[ks][nt]);
-              }
-            }
-          }
-        }
-      } else {
-        for (int k0 = 0; k0 < c2; k0 += 16) {
-          uint32_t bf[4][2];
-          dlbt::load_b_ldm(bf[0], bf[1], wt, lda, k0, n0);
-          dlbt::load_b_ldm(bf[2], bf[3], wt, lda, k0, n0 + 16);
-#pragma unroll
-          for (int rg = 0; rg < kRowGroups; ++rg) {
-            uint32_t af[4];
-            dlbt::load_a_ldm(af, a, lda, rg * 16, k0);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              if (k0 == 0) {
-                mma_bf16_bias(acc[rg][nt], af, bf[nt], bl[nt].x, bl[nt].y);
-              } else {
-                dlbt::mma_bf16(acc[rg][nt], af, bf[nt]);
-              }
+          for (int nt = 0; nt < 4; ++nt) {
+            if (k0 == 0) {
+              mma_bf16_bias(acc[rg][nt], af, bf[nt], bl[nt].x, bl[nt].y);
+            } else {
+              dlbt::mma_bf16(acc[rg][nt], af, bf[nt]);
             }
           }
         }
@@ -821,28 +781,18 @@ using FwdKernel = void (*)(const __nv_bfloat16*, const unsigned char*, const flo
 using WgKernel = void (*)(const __nv_bfloat16*, const unsigned char*, const float*, const float*,
                           __nv_bfloat16*, int*, int, int);
 
-// The forward's launches: mma.sync with W3^T in shared memory, mma.sync with
-// W3's fragments in registers, or wgmma.
-enum FwdKind { kMmaShared = 0, kMmaRegisters = 1, kWgmma = 2 };
+// The forward's launches: mma.sync, or wgmma at tail_bench's widths.
+enum FwdKind { kMma = 0, kWgmma = 1 };
 
-// The mma.sync instantiation of (ks, argmax, mode): ks 0 (W3 in shared memory)
-// with its measurements, 4 and 8 (W3 in registers) the kernel alone.
-FwdKernel fwd_kernel(int ks, bool argmax, int mode) {
-  if (ks == 4) {
-    return argmax ? fused_tail_fwd_kernel<4, true, kFwdFull>
-                  : fused_tail_fwd_kernel<4, false, kFwdFull>;
-  }
-  if (ks == 8) {
-    return argmax ? fused_tail_fwd_kernel<8, true, kFwdFull>
-                  : fused_tail_fwd_kernel<8, false, kFwdFull>;
-  }
+// The mma.sync instantiation of (argmax, mode).
+FwdKernel fwd_kernel(bool argmax, int mode) {
   switch (mode) {
-    case kFwdStageOnly: return fused_tail_fwd_kernel<0, false, kFwdStageOnly>;
-    case kFwdMmaOnly: return fused_tail_fwd_kernel<0, false, kFwdMmaOnly>;
-    case kFwdComputeOnly: return fused_tail_fwd_kernel<0, false, kFwdComputeOnly>;
+    case kFwdStageOnly: return fused_tail_fwd_kernel<false, kFwdStageOnly>;
+    case kFwdMmaOnly: return fused_tail_fwd_kernel<false, kFwdMmaOnly>;
+    case kFwdComputeOnly: return fused_tail_fwd_kernel<false, kFwdComputeOnly>;
     default:
-      return argmax ? fused_tail_fwd_kernel<0, true, kFwdFull>
-                    : fused_tail_fwd_kernel<0, false, kFwdFull>;
+      return argmax ? fused_tail_fwd_kernel<true, kFwdFull>
+                    : fused_tail_fwd_kernel<false, kFwdFull>;
   }
 }
 
@@ -860,26 +810,18 @@ WgKernel wg_kernel_of(bool argmax, int mode) {
 
 // The launch (warps, stages, kind) at widths (C2, C3), as ops/tail_kernel.plan
 // names it: stages 2-kFwdMaxStages; wgmma at (C2, C3) = (64, 128) and (128, 256)
-// (its instantiations), two warpgroups; mma.sync warps 1-8 and at most C3 / 32,
-// in registers with C2 64 or 128 and C3 = 32 warps (one slice a warp, and no
-// measurement modes); the argmax only with the kernel itself.
+// (its instantiations), two warpgroups; mma.sync warps 1-8 and at most C3 / 32;
+// the argmax only with the kernel itself.
 bool fwd_launch_ok(int c2, int c3, int warps, int stages, int kind, int mode, bool argmax) {
   if (c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % kFwdCols || stages < 2 || stages > kFwdMaxStages ||
       mode < kFwdFull || mode > kFwdComputeOnly || (argmax && mode != kFwdFull)) {
     return false;
   }
-  switch (kind) {
-    case kWgmma:
-      return ((c2 == 64 && c3 == 128) || (c2 == 128 && c3 == 256)) &&
-             warps == kWgGroups * kWgThreads / 32;
-    case kMmaRegisters:
-      return (c2 == 64 || c2 == 128) && c3 == kFwdCols * warps && warps <= kFwdMaxWarps &&
-             mode == kFwdFull;
-    case kMmaShared:
-      return warps >= 1 && warps <= kFwdMaxWarps && warps * kFwdCols <= c3;
-    default:
-      return false;
+  if (kind == kWgmma) {
+    return ((c2 == 64 && c3 == 128) || (c2 == 128 && c3 == 256)) &&
+           warps == kWgGroups * kWgThreads / 32;
   }
+  return kind == kMma && warps >= 1 && warps <= kFwdMaxWarps && warps * kFwdCols <= c3;
 }
 
 // A launch's kernel and shared memory.
@@ -892,9 +834,8 @@ struct FwdLaunch {
                                                   : wg_kernel_of<8, 2>(argmax, mode));
       smem = WgLayout(c2, c3, stages).total;
     } else {
-      fn = reinterpret_cast<const void*>(
-          fwd_kernel(kind == kMmaRegisters ? c2 / 16 : 0, argmax, mode));
-      smem = FwdLayout(c2, c3, kind == kMmaRegisters, stages).total;
+      fn = reinterpret_cast<const void*>(fwd_kernel(argmax, mode));
+      smem = FwdLayout(c2, c3, stages).total;
     }
   }
 };

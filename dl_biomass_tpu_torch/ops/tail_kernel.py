@@ -23,11 +23,10 @@ with jnp. The mask gets no gradient, and an invalid slot gets exactly 0.
 blocks' dW3 slices: ``ops/sum_slices_kernel``) on a CUDA tensor and run
 ``fused_tail_fwd_plain`` and ``fused_tail_bwd_plain`` on a CPU tensor.
 ``fused_tail`` is the differentiable op, a ``torch.autograd.Function``
-around the two. ``plan(c2, c3)`` names the forward's launch (wgmma, or
-mma.sync with W3 in registers or in shared memory; warps, ring stages,
-shared memory, registers budgeted), mirroring the source, and the wrapper
-raises where it gives None; with and without the argmax a launch is of the
-same kind, so the two give the same output bits. ``probe`` (the forward's
+around the two. ``plan(c2, c3)`` names the forward's launch (wgmma or
+mma.sync; warps, ring stages, shared memory, registers budgeted), mirroring
+the source, and the wrapper raises where it gives None; with and without the
+argmax a launch is of the same kind, so the two give the same output bits. ``probe`` (the forward's
 measurement modes) and ``occupancy`` measure it, and no path calls them.
 Like the JAX function, it is wired into no model: the tool
 ``dl_biomass_tpu_torch.tools.tail_bench`` times it beside the unfused pair.
@@ -54,31 +53,27 @@ _FWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the forward's instantiations: the kernel, and its measurements (probe)
 FWD_MODES = {"full": 0, "stage_only": 1, "mma_only": 2, "compute_only": 3}
 # the forward's launch (csrc/fused_tail.cu): wgmma at these (C2, C3) (its
-# instantiations: tail_bench's SA1 and SA2), else mma.sync with each warp's W3
-# fragments in registers (at these C2) or with W3^T in shared memory; mma.sync
-# warps of COLS output columns each, at most MAX_WARPS a block; wgmma two
-# warpgroups; at most MAX_STAGES centroids in a block's ring; mma.sync rows
-# C2 + SKEW apart
-KINDS = {"mma_shared": 0, "mma_registers": 1, "wgmma": 2}
+# instantiations: tail_bench's SA1 and SA2), two warpgroups; else mma.sync,
+# warps of COLS output columns each, at most MAX_WARPS a block, rows C2 + SKEW
+# apart; at most MAX_STAGES centroids in a block's ring
+KINDS = {"mma": 0, "wgmma": 1}
 COLS = 32
 MAX_WARPS = 8
 MAX_STAGES = 4
-REGISTER_WIDTHS = (64, 128)
 WGMMA_WIDTHS = ((64, 128), (128, 256))
 WGMMA_WARPS = 8
 SKEW = 8
-ACC_REGISTERS = 64  # an mma.sync lane's accumulators: 64 rows x 32 columns over 32 lanes
 SMEM_PER_BLOCK = 232448  # the shared memory a block may have on an H100 (227 KB)
 SMEM_PER_SM = 233472  # an SM's, 228 KB, of which each block holds SMEM_RESERVED more
 SMEM_RESERVED = 1024
 
 
 class Plan(NamedTuple):
-    kind: str  # "wgmma", "mma_registers" or "mma_shared" (KINDS)
+    kind: str  # "wgmma" or "mma" (KINDS)
     warps: int  # warps a block
-    stages: int  # steps in the block's shared-memory ring
+    stages: int  # centroids in the block's shared-memory ring
     smem_bytes: int  # shared memory a block
-    registers: int  # a lane's registers for its accumulators and B fragments
+    registers: int  # a lane's accumulators (and, on mma.sync, one step's B fragments)
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -132,44 +127,36 @@ def fused_tail_fwd(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
 def plan(c2: int, c3: int) -> Optional[Plan]:
     """The forward's launch at widths (C2, C3), or None where the kernel takes
     none. At (C2, C3) = (64, 128) and (128, 256) it runs on wgmma (two
-    warpgroups sharing each centroid, W3^T and the tiles in shared memory).
-    Otherwise mma.sync: W3 held in registers where C2 is 64 or 128 and the block's warps (at most
-    MAX_WARPS) take one 32-column slice each, else W3^T in shared memory. The
-    ring holds as many steps as fit, at most MAX_STAGES and at least 2."""
+    warpgroups sharing each centroid, W3^T and the tiles in shared memory;
+    the most stages that leave room for two blocks an SM). Elsewhere on
+    mma.sync with W3^T in shared memory, the block's warps (at most
+    MAX_WARPS) taking the 32-column slices in turn, and as many stages as
+    fit, at most MAX_STAGES and at least 2."""
     if c2 < 16 or c3 < COLS or c2 % 16 or c3 % COLS:
         return None
-    if (c2, c3) in WGMMA_WIDTHS:  # the most stages that leave room for two blocks an SM
+    if (c2, c3) in WGMMA_WIDTHS:
         fits = [st for st in range(MAX_STAGES, 1, -1)
                 if 2 * (smem_bytes(c2, c3, "wgmma", st) + SMEM_RESERVED) <= SMEM_PER_SM]
         stages = fits[0] if fits else 2
         return Plan("wgmma", WGMMA_WARPS, stages, smem_bytes(c2, c3, "wgmma", stages),
                     32 * (c3 // 128))
-    warps = min(c3 // COLS, MAX_WARPS)
-    kind = "mma_registers" if c2 in REGISTER_WIDTHS and c3 == COLS * warps else "mma_shared"
     for stages in range(MAX_STAGES, 1, -1):
-        smem = smem_bytes(c2, c3, kind, stages)
+        smem = smem_bytes(c2, c3, "mma", stages)
         if smem <= SMEM_PER_BLOCK:
-            return Plan(kind, warps, stages, smem, ACC_REGISTERS + fragment_registers(c2, kind))
+            # 64 rows x 32 columns of accumulators over 32 lanes, and a step's B fragments
+            return Plan("mma", min(c3 // COLS, MAX_WARPS), stages, smem, 64 + 8)
     return None
-
-
-def fragment_registers(c2: int, kind: str) -> int:
-    """The B fragments an mma.sync lane holds: W3's for its slice, two
-    registers for each 8 columns of each 16-deep step, or one step's when read
-    from shared memory."""
-    return (c2 // 16 if kind == "mma_registers" else 1) * (COLS // 8) * 2
 
 
 def smem_bytes(c2: int, c3: int, kind: str, stages: int) -> int:
     """A block's shared memory (the source's FwdLayout and WgLayout). mma.sync:
-    W3^T in bf16 (C3 rows of C2 + 8) unless held in registers, b3, and the
-    ring, each buffer 64 rows of C2 + 8 bf16 and 64 slot flags. wgmma, from a
-    base aligned to 1024 bytes inside the allocation: W3^T in bf16 (C3 rows of
-    C2), the ring's tiles (64 rows of C2 bf16), their 64 flags each, and b3."""
+    W3^T in bf16 (C3 rows of C2 + 8), b3, and the ring, each buffer 64 rows of
+    C2 + 8 bf16 and 64 slot flags. wgmma, from a base aligned to 1024 bytes
+    inside the allocation: W3^T in bf16 (C3 rows of C2), the ring's tiles (64
+    rows of C2 bf16), their 64 flags each, and b3."""
     if kind == "wgmma":
         return 2 * c3 * c2 + stages * (2 * K * c2 + K) + 4 * c3 + 1024
-    wt = 0 if kind == "mma_registers" else 2 * c3 * (c2 + SKEW)
-    return wt + 4 * c3 + stages * (2 * K * (c2 + SKEW) + K)
+    return 2 * c3 * (c2 + SKEW) + 4 * c3 + stages * (2 * K * (c2 + SKEW) + K)
 
 
 def launch_plan(c2: int, c3: int) -> Plan:
@@ -185,14 +172,11 @@ def launch_plan(c2: int, c3: int) -> Plan:
 def probe(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
           mode: str) -> torch.Tensor:
     """The forward kernel on the card in a measurement ``mode`` (its own
-    instantiation, on the launch ``plan`` names, a wgmma or shared-memory
-    one): "stage_only" (the copies into shared memory and the
+    instantiation, on the launch ``plan`` names): "stage_only" (the copies into shared memory and the
     writing of the output, every output 0), "mma_only" (the copies and the
     products, a checksum of the accumulators written in place of the max) or
     "compute_only" (the products and the max, the ring filled once and never
     refilled: stale outputs); "full" is the kernel. No path calls it."""
-    if mode != "full" and launch_plan(a2.shape[3], w3.shape[1]).kind == "mma_registers":
-        raise ValueError("fused_tail_fwd: the register launch has no measurement modes")
     return _launch_fwd(a2, nbr_mask, w3, b3, False, mode)[0]
 
 

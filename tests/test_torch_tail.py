@@ -179,8 +179,8 @@ def test_nan_at_valid_slots_matches_jax(where):
 @pytest.mark.parametrize("where", ["one", "every"])
 def test_nan_at_valid_slots_grads_match_jax(where):
     """The NaN centroid routes nothing (argmax 64), though its cotangent is
-    finite: da2 is 0 there, db3 leaves its columns out, and dW3 holds the NaN that the dense a2^T gs makes of
-    0 x NaN, as JAX's does."""
+    finite: da2 is 0 there, db3 leaves its columns out, and dW3 holds the NaN
+    that the dense a2^T gs makes of 0 x NaN, as JAX's does."""
     a2, mask, w3, b3 = _nan_case(where)
     b, m, _, c3 = CASES["jax_test"]
     ct = np.random.default_rng(1).normal(size=(b, m, c3)).astype(np.float32)

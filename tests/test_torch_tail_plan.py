@@ -5,6 +5,7 @@ edges, the wrapper's refusal where it names none, and every width the first
 kernel took (its W3^T and two buffers within a block's shared memory) still
 planned."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,13 +25,11 @@ def first_kernel_took(c2: int, c3: int) -> bool:
 @pytest.mark.parametrize("c2,c3,want", [
     (64, 128, k7.Plan("wgmma", 8, 4, 50944, 32)),  # SA1: wgmma, two warpgroups
     (128, 256, k7.Plan("wgmma", 8, 2, 100480, 64)),  # SA2: two stages, two blocks an SM
-    (64, 256, k7.Plan("mma_registers", 8, 4, 38144, 96)),  # no wgmma instantiation
-    (128, 128, k7.Plan("mma_registers", 4, 4, 70400, 128)),  # W3 in registers
-    (64, 96, k7.Plan("mma_registers", 3, 4, 37504, 96)),
-    (16, 32, k7.Plan("mma_shared", 1, 4, 14208, 72)),  # the narrowest: one warp
-    (96, 160, k7.Plan("mma_shared", 5, 4, 87424, 72)),  # W3 in shared memory
-    (64, 512, k7.Plan("mma_shared", 8, 4, 112896, 72)),  # more slices than warps
-    (256, 256, k7.Plan("mma_shared", 8, 2, 203904, 72)),  # two stages fit, three do not
+    (64, 256, k7.Plan("mma", 8, 4, 75008, 72)),  # no wgmma instantiation
+    (16, 32, k7.Plan("mma", 1, 4, 14208, 72)),  # the narrowest: one warp
+    (96, 160, k7.Plan("mma", 5, 4, 87424, 72)),
+    (64, 512, k7.Plan("mma", 8, 4, 112896, 72)),  # more slices than warps
+    (256, 256, k7.Plan("mma", 8, 2, 203904, 72)),  # two stages fit, three do not
 ])
 def test_plan_at_named_widths(c2, c3, want):
     p = k7.plan(c2, c3)
@@ -46,7 +45,7 @@ def test_widest_c3_planned_at_each_c2(c2):
     c3 = max(c for c in range(32, 8192, 32) if k7.plan(c2, c) is not None)
     p = k7.plan(c2, c3)
     assert p.stages >= 2 and p.smem_bytes <= SMEM
-    assert k7.smem_bytes(c2, c3 + 32, "mma_shared", 2) > SMEM and k7.plan(c2, c3 + 32) is None
+    assert k7.smem_bytes(c2, c3 + 32, "mma", 2) > SMEM and k7.plan(c2, c3 + 32) is None
 
 
 def test_plan_takes_every_width_the_first_kernel_took():
@@ -60,8 +59,7 @@ def test_plan_takes_every_width_the_first_kernel_took():
         if p.kind == "wgmma":
             assert (c2, c3) in ((64, 128), (128, 256)) and p.warps == 8
         else:
-            assert 1 <= p.warps <= min(8, c3 // 32)
-            assert (p.kind == "mma_registers") == (c2 in (64, 128) and c3 == 32 * p.warps)
+            assert p.kind == "mma" and 1 <= p.warps <= min(8, c3 // 32)
     # and nothing the first kernel refused: its two buffers were the least
     for c2, c3 in [(720, 32), (16, 4352), (64, 1472)]:
         assert not first_kernel_took(c2, c3) and k7.plan(c2, c3) is None
@@ -92,12 +90,24 @@ def test_wrapper_plans_then_wants_a_card():
         k7.probe(a2, mask, w3, b3, "compute_only")
 
 
-def test_probe_refuses_the_register_launch():
-    """The register launch (mma.sync, W3 in registers) has no measurement
-    instantiations: probing a width whose max runs on it raises."""
-    a2 = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device="meta")
-    mask = torch.empty((1, 2, 64), dtype=torch.bool, device="meta")
-    w3, b3 = torch.empty((64, 96), device="meta"), torch.empty((96,), device="meta")
-    assert k7.plan(64, 96).kind == "mma_registers"
-    with pytest.raises(ValueError, match="no measurement modes"):
-        k7.probe(a2, mask, w3, b3, "stage_only")
+def least_rounding_to(zb: np.ndarray) -> np.ndarray:
+    """csrc/fused_tail.cu's least_rounding_to, in numpy: the f32 bits of the
+    least float whose bf16 rounding equals the bf16 value of bits zb."""
+    f = zb << 16
+    bits = np.where(zb & 0x8000, f + 0x8000 - (zb & 1), f - 0x8000 + (zb & 1))
+    return np.where((zb & 0x7FFF) == 0, np.uint32(0x80008000), bits).astype(np.uint32)
+
+
+def test_argmax_threshold_is_the_least_float_rounding_to_the_max():
+    """The wgmma argmax takes a slot where acc + b3 is at least
+    least_rounding_to(max): for every bf16 value but NaN and -inf (those give
+    argmax 64 on their own), that float rounds to the value (torch's
+    round-to-nearest-even, -0.0 == +0.0) and the float below it does not."""
+    zb = np.arange(65536, dtype=np.uint32)
+    z = torch.from_numpy(zb.astype(np.int32).astype(np.int16)).view(torch.bfloat16).float()
+    low = torch.from_numpy(least_rounding_to(zb).view(np.float32))
+    below = torch.nextafter(low, torch.tensor(float("-inf")))
+    ok = ~torch.isnan(z) & (z != float("-inf"))
+    assert int(ok.sum()) == 65536 - 2 * 127 - 1  # the NaN patterns and -inf left out
+    assert bool((low.to(torch.bfloat16).float() == z)[ok].all())
+    assert not bool((below.to(torch.bfloat16).float() == z)[ok].any())
