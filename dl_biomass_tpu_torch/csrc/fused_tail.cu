@@ -24,7 +24,7 @@
 // SA1, 0.37 ms); its two dense products are twice the forward's flop (0.16
 // ms), and the routed work they stand for is 4*C2*C3 flop per centroid.
 //
-// Forward design (redesigned for the H100): a persistent grid; each block keeps
+// Design: the forward, redesigned for the H100: a persistent grid; each block keeps
 // a ring of `stages` centroids in shared memory (a2's 64 rows and the 64 slot
 // flags), copied by cp.async stages - 1 centroids ahead, one barrier a
 // centroid. Two launches (ops/tail_kernel.plan names one; with and without
@@ -51,7 +51,7 @@
 // equals nothing: 64). Measurement instantiations (staging only; staging and
 // products; products and epilogue on a ring filled once) exist for both.
 //
-// Backward design: a block keeps one centroid at a time with a grid stride
+// The backward: a block keeps one centroid at a time with a grid stride
 // and copies the next centroid's inputs (a2's 64 rows, the cotangent and
 // argmax) into a second shared-memory buffer with cp.async while it computes
 // on the current one. W3 is rounded to bf16 in shared memory once per block.
