@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group),
 4b (the gather's scatter-add backward), 3 (exact ball query) and 7 (the fused
-tail's forward) on one NVIDIA card, beside
+tail, forward and backward) on one NVIDIA card, beside
 ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
@@ -84,6 +84,13 @@ tail's forward) on one NVIDIA card, beside
                                           # products only) by graph, the bound; 7-B and Σ
                                           # by graph at the same inputs; then tail_bench's
                                           # main()
+    python3 chip_compare.py tailbwd TAG   # kernel 7's backward (7-B) at tail_bench's SA1
+                                          # and SA2 shapes: its ptxas report, its launch
+                                          # (bwd_plan, blocks per SM, registers, spills),
+                                          # CUDA-graph, profiler and event times, each
+                                          # measurement mode by graph, the bound, the
+                                          # slice sum for its slice count and 7-F by
+                                          # graph; then tail_bench's main()
     python3 chip_compare.py tailtune TAG  # kernel 7's forward at those shapes under other
                                           # launches (tail_kernel.plan patched): wgmma
                                           # or mma.sync, ring stages, warps a block;
@@ -702,6 +709,64 @@ def tail(tag: str) -> None:
         print(f"{tag} tail_bench {row} [{card}]", flush=True)
 
 
+def tail_bwd(tag: str) -> None:
+    """Kernel 7's backward at chip_smoke.TAIL_SHAPES, on the argmax and
+    cotangent phase 13 gives it: against its plain version, then by CUDA
+    graph, alone (profiler) and by events, each measurement mode the tree has
+    by graph, the slice sum of its slices by graph, and 7-F by graph on the
+    same inputs; then tail_bench.main()."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss, tail_kernel as k7
+    from dl_biomass_tpu_torch.tools import tail_bench
+
+    card = cs.card_line()
+    for line in ptxas_lines("fused_tail.cu"):
+        if "bwd" in line or "registers" in line or "spill" in line:
+            print(f"{tag} ptxas: {line}", flush=True)
+    for name, shape in cs.TAIL_SHAPES.items():
+        a2, mask, w3, b3, g = cs.tail_inputs(shape, dev, seed=7)
+        b, m, _, c2 = a2.shape
+        c3 = w3.shape[1]
+        plan = k7.bwd_plan(c2, c3) if hasattr(k7, "bwd_plan") else None
+        launch = k7.occupancy_bwd(c2, c3) if hasattr(k7, "occupancy_bwd") else None
+        row = {}
+        with torch.no_grad():
+            _, am = k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+            row["graph_fwd"] = cs.graph_ms(lambda: k7.fused_tail_fwd(a2, mask, w3, b3))
+            row["graph_fwd_argmax"] = cs.graph_ms(
+                lambda: k7.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True))
+        gb = g.to(torch.bfloat16)
+        da2, dw3 = k7.fused_tail_bwd(a2, gb, am, w3)
+        w_da2, w_dw3 = k7.fused_tail_bwd_plain(a2, gb, am, w3)
+        rels = (cs.rel_diff(da2, w_da2), cs.rel_diff(dw3, w_dw3))
+        del da2, dw3, w_da2, w_dw3
+        fn = lambda: k7.fused_tail_bwd_slices(a2, gb, am, w3)  # noqa: E731
+        row["graph"] = cs.graph_ms(fn)
+        row["alone"] = cs.kernel_alone_ms(fn, "fused_tail_bwd")
+        row["events"] = cs.time_ms(fn, reps=cs.TOOL_REPS)
+        if hasattr(k7, "probe_bwd"):
+            for mode in k7.BWD_MODES:
+                if mode != "full":
+                    row[f"graph_{mode}"] = cs.graph_ms(
+                        lambda mode_=mode: k7.probe_bwd(a2, gb, am, w3, mode_))
+        _, slices = fn()
+        row["graph_sum"] = cs.graph_ms(lambda: ss.sum_slices(slices))
+        routed = int((am < 64).sum())
+        flops = 4 * c2 * routed
+        nbytes = 2 * a2.numel() * 2 + b * m * c3 * (2 + 4) + 2 * c2 * c3 * 4
+        bms, by = cs.bound(nbytes, flops)
+        print(f"{tag} tailbwd {name} (B={b} M={m} C2={c2} C3={c3}): "
+              + " ".join(f"{key}={val:.4f}" for key, val in row.items())
+              + f" ms; {slices.shape[0]} slices; bound {bms:.4f} ms ({by}: {nbytes} bytes, "
+              f"{flops} flop over {routed} routed columns); vs plain da2, dW3 "
+              f"{rels[0]:.3e}, {rels[1]:.3e}; plan {plan}; launch {launch} [{card}]",
+              flush=True)
+        del a2, mask, w3, b3, g, gb, am, slices
+        torch.cuda.empty_cache()
+    for row in tail_bench.main(device=dev):
+        print(f"{tag} tail_bench {row} [{card}]", flush=True)
+
+
 def tail_tune(tag: str) -> None:
     """Kernel 7's forward at chip_smoke.TAIL_SHAPES under every launch the
     source takes (``tail_kernel.plan`` patched), with and without the
@@ -755,7 +820,7 @@ def main(argv) -> int:
                 "fpstune": (fps_tune, 1), "paths": (paths, 1), "group": (group, 1),
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
                 "query": (query, 1), "querytune": (query_tune, 1),
-                "querylat": (query_latency, 1), "tail": (tail, 1),
+                "querylat": (query_latency, 1), "tail": (tail, 1), "tailbwd": (tail_bwd, 1),
                 "tailtune": (tail_tune, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)

@@ -654,6 +654,13 @@ __host__ __device__ __forceinline__ int bwd_warps(int c2, int c3) {
   return (c2 / 16) * (c3 / 64) / kTilesPerWarp;
 }
 
+// The backward's instantiations: the kernel, and three measurements of it (no
+// path launches them): the staging alone (da2 written as zeros, no products);
+// the staging with da2's product (no dW3); the staging with dW3's product (da2
+// written as zeros).
+enum BwdMode { kBwdFull = 0, kBwdStageOnly = 1, kBwdStageDa2 = 2, kBwdStageDw3 = 3 };
+
+template <int kMode>
 __global__ void __launch_bounds__(kBwdMaxThreads)
     fused_tail_bwd_kernel(const __nv_bfloat16* __restrict__ a2,
                           const __nv_bfloat16* __restrict__ gb, const int* __restrict__ amax,
@@ -707,14 +714,16 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
     const int c = threadIdx.x;
     const int r = c < c3 ? reinterpret_cast<const int*>(smem + L.am[b])[c] : kSlots;
     const bool routed = r >= 0 && r < kSlots;
-    if (routed) gs[r * ldg + c] = reinterpret_cast<const __nv_bfloat16*>(smem + L.g[b])[c];
+    if (routed && kMode != kBwdStageOnly) {
+      gs[r * ldg + c] = reinterpret_cast<const __nv_bfloat16*>(smem + L.g[b])[c];
+    }
     __syncthreads();
     const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(smem + L.a[b]);
     // da2 = bf16(gs W3^T), 16 x 32 tiles: rows r, columns j
     for (int task = warp; task < kRowGroups * (c2 / 32); task += warps) {
       const int r0 = (task % kRowGroups) * 16, j0 = (task / kRowGroups) * 32;
-      float d[4][4];
-      dlbt::warp_mma<4>(gs, ldg, w, c3, r0, j0, d);
+      float d[4][4] = {};
+      if (kMode == kBwdFull || kMode == kBwdStageDa2) dlbt::warp_mma<4>(gs, ldg, w, c3, r0, j0, d);
       __nv_bfloat16* dst = da2 + cen * kSlots * c2 + j0 + 2 * t;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -725,14 +734,16 @@ __global__ void __launch_bounds__(kBwdMaxThreads)
       }
     }
     // dW3 += a2^T gs on the warp's tiles: rows j, columns c
+    if (kMode == kBwdFull || kMode == kBwdStageDw3) {
 #pragma unroll
-    for (int tt = 0; tt < kTilesPerWarp; ++tt) {
-      const int tile = warp * kTilesPerWarp + tt;
-      dlbt::warp_mma64_tn(a, lda, gs, ldg, kSlots, (tile / col_tiles) * 16,
-                          (tile % col_tiles) * 64, acc[tt]);
+      for (int tt = 0; tt < kTilesPerWarp; ++tt) {
+        const int tile = warp * kTilesPerWarp + tt;
+        dlbt::warp_mma64_tn(a, lda, gs, ldg, kSlots, (tile / col_tiles) * 16,
+                            (tile % col_tiles) * 64, acc[tt]);
+      }
     }
     __syncthreads();  // gs and the buffer are consumed
-    if (routed) gs[r * ldg + c] = __float2bfloat16_rn(0.0f);
+    if (routed && kMode != kBwdStageOnly) gs[r * ldg + c] = __float2bfloat16_rn(0.0f);
   }
   dlbt::cp_async_wait<0>();
   float* slice = partial + static_cast<size_t>(blockIdx.x) * c2 * c3;
@@ -912,33 +923,76 @@ extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int warps, int stag
   return 0;
 }
 
+using BwdKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const int*, const float*,
+                           float*, __nv_bfloat16*, int, int, int);
+
+static BwdKernel bwd_kernel(int mode) {
+  switch (mode) {
+    case kBwdStageOnly: return fused_tail_bwd_kernel<kBwdStageOnly>;
+    case kBwdStageDa2: return fused_tail_bwd_kernel<kBwdStageDa2>;
+    case kBwdStageDw3: return fused_tail_bwd_kernel<kBwdStageDw3>;
+    default: return fused_tail_bwd_kernel<kBwdFull>;
+  }
+}
+
+static bool bwd_widths_ok(int c2, int c3) {
+  return c2 > 0 && c3 > 0 && c2 % 64 == 0 && c3 % 64 == 0 &&
+         32 * bwd_warps(c2, c3) <= kBwdMaxThreads;
+}
+
 // Backward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16, gb
 // (centroids, C3) bf16 and amax (centroids, C3) int32, the forward's argmax,
 // all 16-byte aligned; w3 (C2, C3) f32. Writes da2 (centroids, 64, C2) bf16 and
 // each block's dW3 slice, (C2, C3) f32, into partial (max_grid, C2 * C3);
 // *grid_out (host memory) is the number of slices written, for dlbt_sum_slices
-// (csrc/sum_slices.cu). C2 and C3 multiples of 64, (C2/16)(C3/64) <= 32.
+// (csrc/sum_slices.cu). C2 and C3 multiples of 64, (C2/16)(C3/64) <= 32; mode:
+// BwdMode (0 on every path).
 extern "C" int dlbt_fused_tail_bwd(const void* a2, const void* gb, const void* amax,
                                    const void* w3, void* partial, void* da2, int centroids,
-                                   int c2, int c3, int max_grid, int* grid_out, void* stream) {
+                                   int c2, int c3, int max_grid, int mode, int* grid_out,
+                                   void* stream) {
   *grid_out = 0;
-  if (centroids < 0 || c2 <= 0 || c3 <= 0 || c2 % 64 || c3 % 64 ||
-      32 * bwd_warps(c2, c3) > kBwdMaxThreads || max_grid < 1 || !aligned16(a2) ||
-      !aligned16(gb) || !aligned16(amax)) {
+  if (centroids < 0 || !bwd_widths_ok(c2, c3) || mode < kBwdFull || mode > kBwdStageDw3 ||
+      max_grid < 1 || !aligned16(a2) || !aligned16(gb) || !aligned16(amax)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (centroids == 0) return 0;
   const int threads = 32 * bwd_warps(c2, c3);
   const size_t smem = BwdLayout(c2, c3).total;
+  const BwdKernel kernel = bwd_kernel(mode);
   int grid = 0;
   const long long cap = centroids < max_grid ? centroids : max_grid;
-  cudaError_t e = grid_for(fused_tail_bwd_kernel, threads, smem, cap, &grid);
+  cudaError_t e = grid_for(kernel, threads, smem, cap, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_tail_bwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a2), static_cast<const __nv_bfloat16*>(gb),
       static_cast<const int*>(amax), static_cast<const float*>(w3),
       static_cast<float*>(partial), static_cast<__nv_bfloat16*>(da2), centroids, c2, c3);
   e = cudaGetLastError();
   if (e == cudaSuccess) *grid_out = grid;
   return static_cast<int>(e);
+}
+
+// The backward's launch at widths (C2, C3) on the current card, as
+// dlbt_fused_tail_fwd_occupancy gives the forward's: out[0] blocks per SM,
+// out[1] threads a block, out[2] shared memory a block (bytes), out[3]
+// registers a thread, out[4] local memory a thread (bytes: spills).
+extern "C" int dlbt_fused_tail_bwd_occupancy(int c2, int c3, int* out) {
+  if (!bwd_widths_ok(c2, c3)) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * bwd_warps(c2, c3);
+  const size_t smem = BwdLayout(c2, c3).total;
+  const BwdKernel kernel = bwd_kernel(kBwdFull);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  int grid = 0, dev = 0, sms = 1;
+  if (e == cudaSuccess) e = grid_for(kernel, threads, smem, 1 << 30, &grid);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = grid / sms;
+  out[1] = threads;
+  out[2] = static_cast<int>(smem);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

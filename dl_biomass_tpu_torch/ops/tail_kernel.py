@@ -76,9 +76,20 @@ class Plan(NamedTuple):
     registers: int  # a lane's accumulators (and, on mma.sync, one step's B fragments)
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
+# the backward's instantiations: the kernel, and its measurements (probe_bwd)
+BWD_MODES = {"full": 0, "stage_only": 1, "stage_da2": 2, "stage_dw3": 3}
+
+
+class BwdPlan(NamedTuple):
+    threads: int  # threads a block
+    groups_j: int  # blocks sharing each centroid over gridDim.y, by features (dW3's rows)
+    groups_c: int  # ... and by dW3's columns
+    stages: int  # centroids in the block's shared-memory buffers
+    smem_bytes: int  # shared memory a block
+    registers: int  # a thread's dW3 accumulators
 
 
 def _check(a2, nbr_mask, w3):
@@ -247,21 +258,70 @@ def _check_bwd(a2, gb, am, w3):
                          f"{tuple(gb.shape)}, {tuple(am.shape)} and {tuple(w3.shape)}")
 
 
+def bwd_plan(c2: int, c3: int) -> Optional[BwdPlan]:
+    """The backward's launch at widths (C2, C3), or None where the kernel
+    takes none: C2 and C3 multiples of 64 with (C2 / 16)(C3 / 64) <= 32, one
+    thread a column, warps of two 16 x 64 dW3 tiles, two buffers."""
+    if c2 < 64 or c3 < 64 or c2 % 64 or c3 % 64 or (c2 // 16) * (c3 // 64) > 32:
+        return None
+    threads = 32 * (c2 // 16) * (c3 // 64) // 2
+    smem = 2 * c2 * (c3 + SKEW) + 2 * K * (c3 + SKEW) + 2 * (2 * K * (c2 + SKEW) + 6 * c3)
+    return BwdPlan(threads, 1, 1, 2, smem, 64)
+
+
+def launch_bwd_plan(c2: int, c3: int) -> BwdPlan:
+    """``bwd_plan(c2, c3)``, or ValueError where the kernel takes no such widths."""
+    p = bwd_plan(c2, c3)
+    if p is None:
+        raise ValueError(f"fused_tail_bwd: the kernel takes no widths C2={c2}, C3={c3} (C2 "
+                         f"and C3 multiples of 64 with C2 * C3 <= 32768)")
+    return p
+
+
+def probe_bwd(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor, w3: torch.Tensor,
+              mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel on the card in a measurement ``mode`` (its own
+    instantiation, on the launch ``bwd_plan`` names): "stage_only" (the
+    copies into shared memory, da2 written as zeros, no products),
+    "stage_da2" (the copies and da2, no dW3) or "stage_dw3" (the copies and
+    dW3, da2 written as zeros); "full" is the kernel. Returns (da2, slices)
+    as ``fused_tail_bwd_slices``. No path calls it."""
+    return _launch_bwd(a2, gb, am, w3, mode)
+
+
+def occupancy_bwd(c2: int, c3: int) -> dict:
+    """``bwd_plan(c2, c3)``'s launch on the current card: blocks per SM,
+    threads and shared memory (bytes) a block, registers and local memory
+    (bytes: spills) a thread."""
+    launch_bwd_plan(c2, c3)
+    fn = _build.library().dlbt_fused_tail_bwd_occupancy
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 5)()
+    rc = fn(c2, c3, vals)
+    if rc != 0:
+        raise RuntimeError(f"dlbt_fused_tail_bwd_occupancy failed ({rc})")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"),
+                    list(vals)))
+
+
 def fused_tail_bwd_slices(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor,
                           w3: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward's first launch (``dlbt_fused_tail_bwd``), on CUDA tensors
     only: da2 and the blocks' dW3 slices, (blocks, C2 * C3) float32, each the
     sum over its block's centroids."""
-    if a2.device.type != "cuda":
-        raise RuntimeError(f"fused_tail_bwd_slices runs on cuda tensors, got {a2.device}")
+    return _launch_bwd(a2, gb, am, w3, "full")
+
+
+def _launch_bwd(a2, gb, am, w3, mode):
     _check_bwd(a2, gb, am, w3)
-    if a2.dtype != torch.bfloat16:
-        raise ValueError(f"a2 must be bf16, got {a2.dtype}")
     b, m, _, c2 = a2.shape
     c3 = w3.shape[1]
-    if c2 % 64 or c3 % 64 or (c2 // 16) * (c3 // 64) > 32:
-        raise ValueError(f"the kernel takes C2 and C3 multiples of 64 with C2 * C3 <= 32768, "
-                         f"got {c2}, {c3}")
+    launch_bwd_plan(c2, c3)
+    if a2.device.type != "cuda":
+        raise RuntimeError(f"fused_tail_bwd_slices runs on cuda tensors, got {a2.device}")
+    if a2.dtype != torch.bfloat16:
+        raise ValueError(f"a2 must be bf16, got {a2.dtype}")
     dev = a2.device
     a2 = _build.aligned16(a2.contiguous())
     gb = _build.aligned16(gb.to(torch.bfloat16).contiguous())
@@ -274,7 +334,7 @@ def fused_tail_bwd_slices(a2: torch.Tensor, gb: torch.Tensor, am: torch.Tensor,
     grid = ctypes.c_int(0)
     _build.launch("dlbt_fused_tail_bwd", _BWD_ARGTYPES, a2.data_ptr(), gb.data_ptr(),
                   am.data_ptr(), w3.data_ptr(), partial.data_ptr(), da2.data_ptr(), b * m, c2,
-                  c3, max_grid, ctypes.byref(grid), _build.stream_of(a2))
+                  c3, max_grid, BWD_MODES[mode], ctypes.byref(grid), _build.stream_of(a2))
     return da2, partial[:grid.value]
 
 
@@ -316,5 +376,7 @@ def fused_tail(a2: torch.Tensor, nbr_mask: torch.Tensor, w3: torch.Tensor,
     memory: (B, M, 64, C2) -> (B, M, C3) bf16, differentiable in a2, w3 and
     b3. Without a gradient to take, the forward skips the argmax."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a2, w3, b3)):
+        if a2.device.type != "cpu":  # never a forward whose backward the kernel refuses
+            launch_bwd_plan(a2.shape[-1], w3.shape[-1])
         return _FusedTail.apply(a2, nbr_mask, w3, b3)
     return fused_tail_fwd(a2, nbr_mask, w3, b3)[0]
