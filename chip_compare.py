@@ -720,8 +720,10 @@ def tail_bwd(tag: str) -> None:
     from dl_biomass_tpu_torch.tools import tail_bench
 
     card = cs.card_line()
+    ours = False  # the lines of the backward's entries
     for line in ptxas_lines("fused_tail.cu"):
-        if "bwd" in line or "registers" in line or "spill" in line:
+        ours = "bwd" in line if "Compiling entry" in line else ours
+        if ours:
             print(f"{tag} ptxas: {line}", flush=True)
     for name, shape in cs.TAIL_SHAPES.items():
         a2, mask, w3, b3, g = cs.tail_inputs(shape, dev, seed=7)

@@ -144,7 +144,10 @@ Phases, each of which raises on failure (exit code 1):
              slots changing no bit; da2 and dW3 within 1e-2 of their largest,
              exactly 0 at every slot no column routes to (invalid slots
              among them), the autograd op's da2, dW3 and db3 likewise; two
-             launches bit-identical; timed beside the bound, the plain version
+             launches bit-identical; with NaN and Inf in a2, the cotangent
+             and W3, da2 and dW3 NaN and +-Inf exactly where the plain
+             (dense) version's are; the backward's launch the one
+             ``tail_kernel.bwd_plan`` names; timed beside the bound, the plain version
              and the unfused pair (forward, autograd backward). Kernel 8
              (``stats_kernel``) at (36, 2048, 64, 64) and (36, 512, 64, 128):
              s1 and s2 within 1e-5 of the plain version's largest, two
@@ -2534,6 +2537,10 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
             f"kernel 7 autograd {name}: da2, dW3, db3 vs plain rel {rel_auto} > {BF16_SERVE_RTOL}")
     err = max(max_abs_err(da2, w_da2), max_abs_err(dw3, w_dw3))
     del grads, out, leaves, w_da2, again
+    plan, launch = k7.bwd_plan(c2, c3), k7.occupancy_bwd(c2, c3)
+    require(launch["smem_bytes"] == plan.smem_bytes and launch["threads"] == plan.threads,
+            f"kernel 7 backward {name}: launch {launch} is not the plan's {plan}")
+    nonfinite = check_tail_bwd_nonfinite(name, args)
     t = time_ms(lambda: k7.fused_tail_bwd(a2, gb, am, w3), reps=TOOL_REPS)
     t_slices = time_ms(lambda: k7.fused_tail_bwd_slices(a2, gb, am, w3), reps=TOOL_REPS)
     t_sum = time_ms(lambda: ss.sum_slices(slices), reps=TOOL_REPS)
@@ -2563,13 +2570,70 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
           f"{PEAK_F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); vs plain max|diff| over the largest: "
           f"da2 {rels[0]:.3e}, dW3 {rels[1]:.3e} (bound {BF16_SERVE_RTOL}), slice sum "
           f"{rel_sum:.3e}; autograd op da2, dW3, db3 {', '.join(f'{r:.3e}' for r in rel_auto)};"
-          f" slots no column routes to exactly 0; two launches bit-identical", flush=True)
+          f" slots no column routes to exactly 0; two launches bit-identical; NaN and Inf in "
+          f"a2, the cotangent and W3: {nonfinite}; plan {tuple(plan)}, launch {launch}",
+          flush=True)
     ctx.setdefault("fused_tail_bwd", []).append(dict(
         err=err, ms=t_slices, plain_ms=tp,
         bound_ms=bms, bound_by=by, yard=tu))
     ctx.setdefault("sum_slices", []).append(dict(
         err=max_abs_err(dw3, w_sum), ms=t_sum, plain_ms=tsp, bound_ms=bms_sum, bound_by=by_sum,
         yard=None, library=tsl, graph_ms=t_sum_g, library_graph_ms=tsl_g))
+
+
+def check_tail_bwd_nonfinite(name: str, args) -> str:
+    """Kernel 7's backward with NaN and Inf in its inputs against its plain
+    (dense) version: NaN at an invalid slot of a row with no valid slot (its
+    columns route nothing), +Inf at a valid slot (the columns it wins route
+    there, the rest elsewhere), NaN and -Inf in the cotangent, then also +Inf
+    in one W3 entry. da2 and dW3 must be NaN, +Inf and -Inf exactly where the
+    plain version's are, the rest within BF16_SERVE_RTOL of the largest
+    finite value, da2 exactly 0 at every slot no column routes to where W3 is
+    finite, and two launches the same bits. Returns what it saw."""
+    from dl_biomass_tpu_torch.ops import tail_kernel as k7
+
+    a2, mask, w3, b3, g = args
+    a2 = a2.clone()
+    a2[0, 0, 10, 3] = float("nan")  # mask[0, :2] is all False
+    valid = int(mask[1, 7].float().argmax())
+    a2[1, 7, valid, 5] = float("inf")
+    gb = g.to(torch.bfloat16)
+    gb[2, 9, 17], gb[3, 11, 40] = float("nan"), float("-inf")
+    seen = []
+    for w_bad in (False, True):
+        w = w3.clone()
+        if w_bad:
+            w[7, 33] = float("inf")
+        with torch.no_grad():
+            _, am = k7.fused_tail_fwd(a2, mask, w, b3, with_argmax=True)
+        got, again = k7.fused_tail_bwd(a2, gb, am, w), k7.fused_tail_bwd(a2, gb, am, w)
+        want = k7.fused_tail_bwd_plain(a2, gb, am, w)
+        torch.cuda.synchronize()
+        require(all(same_bits(x, y) for x, y in zip(got, again)),
+                f"kernel 7 backward {name}, non-finite inputs: two launches differ in bits")
+        counts = []
+        for label, x, y in zip(("da2", "dW3"), got, want):
+            x, y = x.float(), y.float()
+            require(all(torch.equal(f(x), f(y)) for f in (torch.isnan, torch.isposinf,
+                                                           torch.isneginf)),
+                    f"kernel 7 backward {name}, non-finite inputs (W3 "
+                    f"{'with' if w_bad else 'without'} Inf): {label}'s NaN or Inf differ")
+            ok = y.isfinite()
+            rel = rel_diff(x[ok], y[ok])
+            require(rel <= BF16_SERVE_RTOL, f"kernel 7 backward {name}, non-finite inputs: "
+                                            f"{label} vs plain rel {rel} > {BF16_SERVE_RTOL}")
+            counts.append(f"{label} {int(y.isnan().sum())} NaN, {int(y.isinf().sum())} Inf, "
+                          f"rest rel {rel:.3e}")
+        if not w_bad:
+            b, m, k, _ = a2.shape
+            hit = torch.zeros((b, m, k + 1), dtype=torch.bool, device=a2.device)
+            hit.scatter_(2, am.long(), True)
+            require(bool((got[0][~hit[:, :, :k]] == 0).all()),
+                    f"kernel 7 backward {name}, non-finite inputs: gradient at a slot no "
+                    f"column routes to")
+        seen.append(f"W3 {'with' if w_bad else 'without'} Inf: " + "; ".join(counts))
+        del got, again, want, am
+    return " | ".join(seen) + " (as the plain version's)"
 
 
 def check_masked_stats(name: str, shape, device, ctx: dict) -> None:

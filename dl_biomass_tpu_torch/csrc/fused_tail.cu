@@ -12,17 +12,22 @@
 // equals the max (-0.0 and +0.0 equal), and 64 where none does (a NaN max) or
 // the max is -inf (no valid slot); the output is 0 where no slot is valid.
 // Backward: gs holds gb (the cotangent in bf16) at row amax[c] of column c (nothing for
-// 64), then da2 = bf16(gs W3^T) and dW3 = a2^T gs, bf16 products with f32 sums,
-// dense over the 64 slots as in the TPU kernel (so, as there, a non-finite a2
-// value at a slot that no column routes to reaches dW3 as 0 x junk). db3 is
-// summed from the f32 cotangent outside the kernel.
+// 64); da2 = bf16(gs W3^T) and dW3 = a2^T gs with f32 sums, which the TPU kernel
+// takes densely over the 64 slots. Here only the routed terms are formed, and
+// what the dense sums make of non-finite values is added back: 0 x NaN and
+// 0 x Inf are NaN, so a non-finite a2 value at a slot that column c does not
+// route to makes dW3[:, c] NaN on that feature, and a non-finite bf16(W3)
+// value of a column routed to another slot (or to none) makes that feature of
+// a slot's da2 NaN. da2 and dW3 are thus non-finite exactly where the dense
+// sums are. db3 is summed from the f32 cotangent outside the kernel.
 //
 // Bound on the H100: bytes. The forward reads a2 once (B*M*64*C2 bf16: 604 MB
 // at SA1's 36 x 2048 x 64 x 64) and the mask, and writes (B, M, C3) bf16; its
 // 2*B*M*64*C2*C3 flop (77.3 G at SA1) take 0.078 ms on the bf16 tensor cores
-// against 0.187 ms of bytes. The backward reads a2 and writes da2 (1.2 GB at
-// SA1, 0.37 ms); its two dense products are twice the forward's flop (0.16
-// ms), and the routed work they stand for is 4*C2*C3 flop per centroid.
+// against 0.187 ms of bytes. The backward reads a2, the argmax and the
+// cotangent once and writes da2 (1.26 GB at SA1, 0.378 ms); its routed work,
+// 4*C2 flop per routed column (2.4 GFLOP at SA1, 0.036 ms at the f32 rate), is
+// about 2 flop a byte: a streaming pass, on the CUDA cores, no tensor cores.
 //
 // Design: the forward, redesigned for the H100: a persistent grid; each block keeps
 // a ring of `stages` centroids in shared memory (a2's 64 rows and the 64 slot
@@ -51,19 +56,41 @@
 // equals nothing: 64). Measurement instantiations (staging only; staging and
 // products; products and epilogue on a ring filled once) exist for both.
 //
-// The backward: a block keeps one centroid at a time with a grid stride
-// and copies the next centroid's inputs (a2's 64 rows, the cotangent and
-// argmax) into a second shared-memory buffer with cp.async while it computes
-// on the current one. W3 is rounded to bf16 in shared memory once per block.
-// The block scatters gb into a zeroed bf16 gs tile (64 x C3) in shared memory;
-// warps take da2's 16 x 32 tiles (gs W3^T, rounded to bf16 and written out),
-// and each warp keeps two 16 x 64 tiles of dW3 in registers for all its
-// block's centroids (a2^T gs, fragments loaded transposed with ldmatrix); the
-// tile's scattered entries are zeroed again after use, by the threads that
-// routed them, from the rows they kept in registers. No float atomics: each
-// block writes its dW3 slice, summed over its centroids in order, and a second
-// launch (dlbt_sum_slices, csrc/sum_slices.cu) adds the slices in block order
-// in f64, so a backward repeats bit for bit on one card.
+// The backward, redesigned for the H100 as a routed contraction whose speed
+// should be set by bytes: a persistent block of 256 threads keeps a ring of
+// `stages` centroids in shared memory (its features of a2's 64 rows, the
+// argmax and the cotangent), copied by cp.async stages - 1 centroids ahead;
+// bf16(W3)^T goes into shared memory once a block, held as f32. Two barriers a
+// centroid:
+//  - buckets: each column sets its bit in its slot's 32-bit mask for its 32
+//    columns (an integer atomicOr: the same masks in any order), in one of two
+//    tables used in turn, the other zeroed for the next centroid;
+//  - da2: a thread takes a slot and 8 features, walks the slot's masks in
+//    ascending column order, sums gb[c] W3[j, c] in f32, rounds once and
+//    writes 16 bytes (zeros where no column routes to the slot);
+//  - dW3: a thread keeps 8 features of up to 8 columns in registers across
+//    its block's centroids and adds a2[am[c], j] gb[c] from the staged tile
+//    each centroid; no float atomics: each block writes its slice, summed over
+//    its centroids in order, and a second launch (dlbt_sum_slices,
+//    csrc/sum_slices.cu) adds the slices in block order in f64, so a backward
+//    repeats bit for bit on one card;
+//  - the non-finite rule: each thread tests its 16-byte chunks of the tile
+//    (one OR'd add a word) and a block vote says whether any value is NaN or
+//    Inf; only then are N_j (the slots whose a2 is non-finite, per feature)
+//    counted, and a compact pass marks dW3[j, c] NaN where N_j less the routed
+//    slot's own is above 0 (a bit mask a thread, applied when the slice is
+//    written). bf16(W3)'s non-finite values are counted per feature once a
+//    block, and a slot's da2 made NaN where that count less its bucket's is
+//    above 0.
+// gridDim.y splits each centroid over groups_j x groups_c blocks (ops/
+// tail_kernel.bwd_plan): by features where a thread would keep more than 8
+// columns (tail_bench's SA2: two groups of 64 features, two blocks an SM), and
+// by dW3's columns, with the slots of da2, where features alone do not do
+// (C2 = 16 at C3 = 4320). The measured limit is issue, not bytes: the bucket
+// walk of da2 (a warp's four slots walk their masks in step, each 32-column
+// chunk costing the longest of the four) and a block's instruction stream per
+// centroid; see PERF.md. Measurement instantiations (staging only; staging and
+// da2; staging and dW3) exist behind the same entry.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,8 +109,6 @@ constexpr int kRowGroups = kSlots / 16;  // the 16-row tiles of a centroid's slo
 constexpr int kFwdCols = 32;             // the forward's columns per warp task
 constexpr int kFwdMaxWarps = 8;
 constexpr int kFwdMaxStages = 6;         // centroids in the forward's ring
-constexpr int kTilesPerWarp = 2;         // the backward's 16 x 64 dW3 tiles per warp
-constexpr int kBwdMaxThreads = 512;      // 128 registers a thread
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
@@ -631,132 +656,320 @@ __global__ void __launch_bounds__(kWgThreads * kWgGroups, 2)
   dlbt::cp_async_wait<0>();
 }
 
-// The backward's shared memory: bf16(W3) as it is (C2 rows of C3 + 8), the gs
-// tile (64 rows of C3 + 8 bf16, zero but where routed), and two buffers of a
-// centroid's a2 rows (64 rows of C2 + 8 bf16), argmax (C3 int32) and
-// cotangent (C3 bf16).
+// The backward, a routed contraction on the CUDA cores. A block walks its
+// centroids with a grid stride, a ring of `stages` of them in shared memory
+// (its features of a2's 64 rows, the argmax and the cotangent), copied by
+// cp.async stages - 1 centroids ahead. gridDim.y splits each centroid over
+// groups_j x groups_c blocks: group (fj, fc) takes the features J0 .. J0 + J - 1
+// (J = C2 / groups_j: its columns of da2 and rows of dW3), the slots r with
+// r % groups_c == fc (its rows of da2) and a range of C3 / groups_c columns
+// (its columns of dW3). Where groups_c is 1, as at tail_bench's widths, each
+// a2 byte is read once. The loop is issue-bound before it is bound by bytes,
+// so it is kept lean: J / 8 (the lanes of a slot) is a power of two, and every
+// index in the loop is a shift, a mask or an add.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxStages = 4;
+
+// The backward's instantiations: the kernel, and three measurements of it (no
+// path launches them): the staging alone (da2 written as zeros, no products);
+// the staging with da2 (no dW3); the staging with dW3 (da2 written as zeros).
+enum BwdMode { kBwdFull = 0, kBwdStageOnly = 1, kBwdStageDa2 = 2, kBwdStageDw3 = 3 };
+
+// The backward's shared memory: bf16(W3)^T on the group's features in f32 (C3
+// rows of J), the count of W3's non-finite values on each feature, the count
+// of a centroid's non-finite a2 values on each feature, two bucket tables
+// (32-bit masks of the columns routed to each of the group's slots, per 32
+// columns), and the ring, each buffer a centroid's 64 rows of J + 8 bf16, its
+// argmax (C3 int32) and its cotangent (C3 bf16).
 struct BwdLayout {
-  size_t w, gs, a[2], am[2], g[2], total;
-  __host__ __device__ BwdLayout(int c2, int c3) {
+  size_t wt, wn, nj, table, ring, stage_bytes, am, g, total;
+  int j, rows, chunks, lda;
+  __host__ __device__ BwdLayout(int c2, int c3, int groups_j, int groups_c, int stages) {
+    j = c2 / groups_j;
+    rows = ((kSlots + groups_c - 1) / groups_c + 3) / 4 * 4;  // a group's slots, padded
+    chunks = c3 / 32;
+    lda = j + kSkewH;
     size_t at = 0;
-    w = take(at, 2ull * c2 * (c3 + kSkewH));
-    gs = take(at, 2ull * kSlots * (c3 + kSkewH));
-    for (int b = 0; b < 2; ++b) {
-      a[b] = take(at, 2ull * kSlots * (c2 + kSkewH));
-      am[b] = take(at, 4ull * c3);
-      g[b] = take(at, 2ull * c3);
-    }
+    wt = take(at, 4ull * c3 * j);
+    wn = take(at, 4ull * j);
+    nj = take(at, 4ull * j);
+    table = take(at, 2ull * 4 * chunks * rows);
+    am = 2ull * kSlots * lda;  // within a buffer
+    g = am + 4ull * c3;
+    stage_bytes = g + 2ull * c3;
+    ring = take(at, stages * stage_bytes);
     total = at;
   }
 };
 
-__host__ __device__ __forceinline__ int bwd_warps(int c2, int c3) {
-  return (c2 / 16) * (c3 / 64) / kTilesPerWarp;
+// 8 bf16 (16 bytes) as 8 floats.
+__device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-// The backward's instantiations: the kernel, and three measurements of it (no
-// path launches them): the staging alone (da2 written as zeros, no products);
-// the staging with da2's product (no dW3); the staging with dW3's product (da2
-// written as zeros).
-enum BwdMode { kBwdFull = 0, kBwdStageOnly = 1, kBwdStageDa2 = 2, kBwdStageDw3 = 3 };
+__device__ __forceinline__ bool nonfinite_bf16(uint32_t h) { return (h & 0x7f80u) == 0x7f80u; }
+__device__ __forceinline__ bool nonfinite_f32(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
 
-template <int kMode>
-__global__ void __launch_bounds__(kBwdMaxThreads)
+// Bit 15 of a half set where that bf16 is NaN or +-Inf (its exponent all ones).
+__device__ __forceinline__ uint32_t nonfinite_bits(uint32_t w) {
+  return ((w & 0x7f807f80u) + 0x00800080u) & 0x80008000u;
+}
+
+// The dense da2's 0 x (a non-finite bf16(W3) value of a column routed to
+// another slot, or to none): bit e set where W3's count on feature e (wn) less
+// the slot's bucket's (its masks mk, `rows` apart, a chunk of 32 columns each)
+// is above 0. w: W3^T at the thread's features, rows J apart.
+__device__ __noinline__ uint32_t da2_nan(const uint32_t* mk, int rows, int chunks,
+                                         const float* w, int J, const int* wn) {
+  int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int k = 0; k < chunks; ++k, mk += rows) {
+    for (uint32_t m = *mk; m; m &= m - 1) {
+      const float* wr = w + (32 * k + __ffs(m) - 1) * J;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) cnt[e] += nonfinite_f32(wr[e]);
+    }
+  }
+  uint32_t bits = 0;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) bits |= static_cast<uint32_t>(wn[e] - cnt[e] > 0) << e;
+  return bits;
+}
+
+// The dense dW3's 0 x (a non-finite a2 value at a slot other than the routed
+// one): for the thread's columns c = c_first + k P < c_end (k < NC) and
+// features e, bit 8 k + e set where N_j (nbad[e]) less the routed slot's own
+// non-finite value is above 0.
+template <int NC>
+__device__ __noinline__ unsigned long long dw3_nan(const __nv_bfloat16* tile, int lda,
+                                                   const int* am, const int* nbad, int q,
+                                                   int c_first, int c_end, int P) {
+  unsigned long long bits = 0;
+#pragma unroll 1
+  for (int k = 0; k < NC; ++k) {
+    const int c = c_first + k * P;
+    if (c >= c_end) break;
+    const int r = am[c];
+    const bool routed = r >= 0 && r < kSlots;
+    for (int e = 0; e < 8; ++e) {
+      const int own = routed && nonfinite_bf16(__bfloat16_as_ushort(tile[r * lda + 8 * q + e]));
+      if (nbad[e] - own > 0) bits |= 1ull << (8 * k + e);
+    }
+  }
+  return bits;
+}
+
+// NC: the most dW3 columns a thread accumulates (8 features each), C3 /
+// groups_c over the threads of a feature chunk (kBwdThreads / (J / 8)).
+template <int NC, int kMode>
+__global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 3 : 2)
     fused_tail_bwd_kernel(const __nv_bfloat16* __restrict__ a2,
                           const __nv_bfloat16* __restrict__ gb, const int* __restrict__ amax,
                           const float* __restrict__ w3, float* __restrict__ partial,
-                          __nv_bfloat16* __restrict__ da2, int centroids, int c2, int c3) {
+                          __nv_bfloat16* __restrict__ da2, int centroids, int c2, int c3,
+                          int groups_j, int groups_c, int stages) {
   extern __shared__ __align__(16) char smem[];
-  const BwdLayout L(c2, c3);
-  __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem + L.gs);
-  const int lda = c2 + kSkewH, ldg = c3 + kSkewH;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const int warps = blockDim.x >> 5;
-  const int col_tiles = c3 / 64;
+  constexpr bool kDa2 = kMode == kBwdFull || kMode == kBwdStageDa2;
+  constexpr bool kDw3 = kMode == kBwdFull || kMode == kBwdStageDw3;
+  const BwdLayout L(c2, c3, groups_j, groups_c, stages);
+  const int J = L.j, lda = L.lda, chunks = L.chunks, rows = L.rows;
+  const int jc_log = __ffs(J / 8) - 1, jc = 1 << jc_log;  // J / 8 chunks of 8 features
+  const int fj = blockIdx.y % groups_j, fc = blockIdx.y / groups_j;
+  const int j0 = fj * J;
+  const int cw = (c3 + groups_c - 1) / groups_c, col0 = fc * cw;
+  const int col1 = min(c3, col0 + cw);
+  const int my_rows = (kSlots - fc + groups_c - 1) / groups_c;  // slots fc, fc + groups_c, ...
+  const int tid = threadIdx.x;
+  const int q = tid & (jc - 1), p = tid >> jc_log;  // this thread's feature chunk, its lane group
+  const int P = kBwdThreads >> jc_log;              // lane groups: rows (or columns) a pass
+  float* wt = reinterpret_cast<float*>(smem + L.wt);
+  int* wn = reinterpret_cast<int*>(smem + L.wn);
+  int* nj = reinterpret_cast<int*>(smem + L.nj);
+  uint32_t* tables = reinterpret_cast<uint32_t*>(smem + L.table);
+  const int table_words = chunks * rows;
 
-  auto stage = [&](long long cen, int b) {
-    stage_rows(reinterpret_cast<__nv_bfloat16*>(smem + L.a[b]), lda, a2, cen, c2);
+  auto buffer = [&](int s) { return smem + L.ring + s * L.stage_bytes; };
+  // a centroid's J features of its 64 rows (thread: chunk q of rows p, p + P, ...),
+  // argmax and cotangent, 16 bytes a copy
+  auto stage = [&](long long cen, int s) {
+    char* buf = buffer(s);
+    const __nv_bfloat16* src = a2 + (cen * kSlots + p) * c2 + j0 + 8 * q;
+    char* dst = buf + 2 * (p * lda + 8 * q);
+    for (int r = p; r < kSlots; r += P, src += P * c2, dst += 2 * P * lda) {
+      dlbt::cp_async16(dst, src);
+    }
     const char* am_src = reinterpret_cast<const char*>(amax + cen * c3);
     const char* g_src = reinterpret_cast<const char*>(gb + cen * c3);
-    for (int i = threadIdx.x; i < c3 / 4; i += blockDim.x) {
-      dlbt::cp_async16(smem + L.am[b] + 16 * i, am_src + 16 * i);
+    for (int i = tid; i < c3 / 4; i += kBwdThreads) {
+      dlbt::cp_async16(buf + L.am + 16 * i, am_src + 16 * i);
     }
-    for (int i = threadIdx.x; i < c3 / 8; i += blockDim.x) {
-      dlbt::cp_async16(smem + L.g[b] + 16 * i, g_src + 16 * i);
+    for (int i = tid; i < c3 / 8; i += kBwdThreads) {
+      dlbt::cp_async16(buf + L.g + 16 * i, g_src + 16 * i);
     }
   };
-  if (static_cast<int>(blockIdx.x) < centroids) stage(blockIdx.x, 0);
-  dlbt::cp_async_commit();
-  load_w3(w, w3, c2, c3, ldg, false);
-  for (int i = threadIdx.x; i < kSlots * ldg / 2; i += blockDim.x) {
-    reinterpret_cast<uint32_t*>(gs)[i] = 0u;
-  }
-  float acc[kTilesPerWarp][8][4];
-#pragma unroll
-  for (int tt = 0; tt < kTilesPerWarp; ++tt) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[tt][nt][j] = 0.0f;
-    }
-  }
-
-  int b = 0;
-  for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x, b ^= 1) {
-    if (cen + gridDim.x < centroids) stage(cen + gridDim.x, b ^ 1);
+  for (int s = 0; s < stages - 1; ++s) {
+    const long long cen = blockIdx.x + static_cast<long long>(s) * gridDim.x;
+    if (cen < centroids) stage(cen, s);
     dlbt::cp_async_commit();
-    dlbt::cp_async_wait<1>();  // this centroid's copies have landed
-    __syncthreads();           // ... for every thread, and gs is clean again
-    // thread c routes column c (blockDim.x = C2 C3 / 64 >= C3) and keeps its
-    // row, to clear it below without reading the buffer that the next
-    // centroid's copies refill
-    const int c = threadIdx.x;
-    const int r = c < c3 ? reinterpret_cast<const int*>(smem + L.am[b])[c] : kSlots;
-    const bool routed = r >= 0 && r < kSlots;
-    if (routed && kMode != kBwdStageOnly) {
-      gs[r * ldg + c] = reinterpret_cast<const __nv_bfloat16*>(smem + L.g[b])[c];
-    }
-    __syncthreads();
-    const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(smem + L.a[b]);
-    // da2 = bf16(gs W3^T), 16 x 32 tiles: rows r, columns j
-    for (int task = warp; task < kRowGroups * (c2 / 32); task += warps) {
-      const int r0 = (task % kRowGroups) * 16, j0 = (task / kRowGroups) * 32;
-      float d[4][4] = {};
-      if (kMode == kBwdFull || kMode == kBwdStageDa2) dlbt::warp_mma<4>(gs, ldg, w, c3, r0, j0, d);
-      __nv_bfloat16* dst = da2 + cen * kSlots * c2 + j0 + 2 * t;
+  }
+  // bf16(W3)^T on the group's features, held as f32, and its non-finite values per feature
+  for (int i = tid; i < J; i += kBwdThreads) wn[i] = 0;
+  for (int i = tid; i < 2 * table_words; i += kBwdThreads) tables[i] = 0u;
+  __syncthreads();
+  bool w_bad = false;
+  for (int i = tid; i < J * (c3 / 4); i += kBwdThreads) {  // 4 columns a thread, lanes on j
+    const int cq = i / J, jj = i - cq * J;
+    const float4 w4 = *reinterpret_cast<const float4*>(w3 + static_cast<size_t>(j0 + jj) * c3 +
+                                                       4 * cq);
+    const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g) * c2 + nt * 8) =
-            __floats2bfloat162_rn(d[nt][0], d[nt][1]);
-        *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g + 8) * c2 + nt * 8) =
-            __floats2bfloat162_rn(d[nt][2], d[nt][3]);
+    for (int e = 0; e < 4; ++e) {
+      const float w = __bfloat162float(__float2bfloat16_rn(wv[e]));
+      wt[(4 * cq + e) * J + jj] = w;
+      if (nonfinite_f32(w)) {
+        atomicAdd(&wn[jj], 1);
+        w_bad = true;
       }
     }
-    // dW3 += a2^T gs on the warp's tiles: rows j, columns c
-    if (kMode == kBwdFull || kMode == kBwdStageDw3) {
+  }
+  const bool w_any = __syncthreads_or(w_bad) != 0;
+
+  // dW3: thread (p, q) keeps features j0 + 8q .. + 7 of columns col0 + p + k P
+  float acc[NC][8];
 #pragma unroll
-      for (int tt = 0; tt < kTilesPerWarp; ++tt) {
-        const int tile = warp * kTilesPerWarp + tt;
-        dlbt::warp_mma64_tn(a, lda, gs, ldg, kSlots, (tile / col_tiles) * 16,
-                            (tile % col_tiles) * 64, acc[tt]);
+  for (int k = 0; k < NC; ++k) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[k][e] = 0.0f;
+  }
+  unsigned long long nan_bits = 0;  // bit 8 k + e: acc[k][e] is NaN (the non-finite rule)
+
+  int s = 0, par = 0;
+  for (long long cen = blockIdx.x; cen < centroids; cen += gridDim.x, par ^= 1) {
+    cp_async_wait_upto(stages - 2);  // this centroid's copies (this thread's) have landed
+    __syncthreads();  // ... every thread's; the buffer refilled below and the other table are free
+    {
+      const long long next = cen + static_cast<long long>(stages - 1) * gridDim.x;
+      const int sn = s == 0 ? stages - 1 : s - 1;
+      if (next < centroids) stage(next, sn);
+      dlbt::cp_async_commit();
+    }
+    const char* buf = buffer(s);
+    if (++s == stages) s = 0;
+    const __nv_bfloat16* tile = reinterpret_cast<const __nv_bfloat16*>(buf);
+    const int* am = reinterpret_cast<const int*>(buf + L.am);
+    const unsigned short* g = reinterpret_cast<const unsigned short*>(buf + L.g);
+    uint32_t* table = tables + par * table_words;
+    if (kDa2) {
+      // the other table, read last centroid, zeroed for the next
+      uint4* other = reinterpret_cast<uint4*>(tables + (par ^ 1) * table_words);
+      for (int i = tid; i < table_words / 4; i += kBwdThreads) other[i] = make_uint4(0, 0, 0, 0);
+      // the buckets: column c sets bit c % 32 of its slot's mask for columns
+      // 32 (c / 32) .. + 31 (an integer OR: the same masks in any order)
+      for (int c = tid; c < c3; c += kBwdThreads) {
+        const int r = am[c];
+        if (r >= 0 && r < kSlots) {
+          if (groups_c == 1) {
+            atomicOr(&table[(c >> 5) * rows + r], 1u << (c & 31));
+          } else if (r % groups_c == fc) {
+            atomicOr(&table[(c >> 5) * rows + r / groups_c], 1u << (c & 31));
+          }
+        }
       }
     }
-    __syncthreads();  // gs and the buffer are consumed
-    if (routed && kMode != kBwdStageOnly) gs[r * ldg + c] = __float2bfloat16_rn(0.0f);
+    // a non-finite a2 value anywhere in the tile (then counted per feature)
+    uint32_t bad = 0u;
+    if (kDw3) {
+      for (int r = p; r < kSlots; r += P) {
+        const uint4 v = *reinterpret_cast<const uint4*>(tile + r * lda + 8 * q);
+        bad |= nonfinite_bits(v.x) | nonfinite_bits(v.y) | nonfinite_bits(v.z) |
+               nonfinite_bits(v.w);
+      }
+    }
+    const bool a_any = __syncthreads_or(bad != 0u) != 0;
+    if (a_any) {  // N_j: the slots whose a2 is non-finite, per feature
+      for (int jj = tid; jj < J; jj += kBwdThreads) {
+        int n = 0;
+        for (int r = 0; r < kSlots; ++r) {
+          n += nonfinite_bf16(__bfloat16_as_ushort(tile[r * lda + jj]));
+        }
+        nj[jj] = n;
+      }
+      __syncthreads();
+    }
+
+    // da2, slot r and features 8q .. + 7 (thread (p, q): the group's slots p,
+    // p + P, ...): the sum over its bucket in ascending column order of gb[c]
+    // W3[:, c] in f32, rounded once and written in 16 bytes (zeros where no
+    // column routes to the slot)
+    for (int i = p; i < my_rows; i += P) {
+      float d[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (kDa2) {
+        const uint32_t* mk = table + i;
+        for (int k = 0; k < chunks; ++k, mk += rows) {
+          for (uint32_t m = *mk; m; m &= m - 1) {
+            const int c = 32 * k + __ffs(m) - 1;
+            const float gv = __uint_as_float(static_cast<uint32_t>(g[c]) << 16);
+            const float4* wr = reinterpret_cast<const float4*>(wt + c * J + 8 * q);
+            const float4 w0 = wr[0], w1 = wr[1];
+            const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) d[e] = fmaf(gv, w[e], d[e]);
+          }
+        }
+        if (w_any) {
+          const uint32_t bits = da2_nan(table + i, rows, chunks, wt + 8 * q, J, wn + 8 * q);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if ((bits >> e) & 1u) d[e] = __int_as_float(0x7fffffff);
+          }
+        }
+      }
+      uint4 out;
+      out.x = pack_bf16x2(d[0], d[1]);
+      out.y = pack_bf16x2(d[2], d[3]);
+      out.z = pack_bf16x2(d[4], d[5]);
+      out.w = pack_bf16x2(d[6], d[7]);
+      const int r = fc + i * groups_c;
+      *reinterpret_cast<uint4*>(da2 + (cen * kSlots + r) * c2 + j0 + 8 * q) = out;
+    }
+
+    // dW3 += a2[am[c], j] gb[c] on the thread's columns, in the block's centroid order
+    if (kDw3) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int c = col0 + p + k * P;
+        const int r = c < col1 ? am[c] : kSlots;
+        if (r >= 0 && r < kSlots) {
+          float x[8];
+          unpack8(*reinterpret_cast<const uint4*>(tile + r * lda + 8 * q), x);
+          const float gv = __uint_as_float(static_cast<uint32_t>(g[c]) << 16);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[k][e] = fmaf(x[e], gv, acc[k][e]);
+        }
+      }
+      if (a_any) {
+        nan_bits |= dw3_nan<NC>(tile, lda, am, nj + 8 * q, q, col0 + p, col1, P);
+      }
+    }
   }
   dlbt::cp_async_wait<0>();
   float* slice = partial + static_cast<size_t>(blockIdx.x) * c2 * c3;
 #pragma unroll
-  for (int tt = 0; tt < kTilesPerWarp; ++tt) {
-    const int tile = warp * kTilesPerWarp + tt;
-    const int j = (tile / col_tiles) * 16 + g, c0 = (tile % col_tiles) * 64 + 2 * t;
+  for (int k = 0; k < NC; ++k) {
+    const int c = col0 + p + k * P;
+    if (c < col1) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<float2*>(slice + static_cast<size_t>(j) * c3 + c0 + nt * 8) =
-          make_float2(acc[tt][nt][0], acc[tt][nt][1]);
-      *reinterpret_cast<float2*>(slice + static_cast<size_t>(j + 8) * c3 + c0 + nt * 8) =
-          make_float2(acc[tt][nt][2], acc[tt][nt][3]);
+      for (int e = 0; e < 8; ++e) {
+        const bool nan = (nan_bits >> (8 * k + e)) & 1u;
+        slice[static_cast<size_t>(j0 + 8 * q + e) * c3 + c] =
+            nan ? __int_as_float(0x7fffffff) : acc[k][e];
+      }
     }
   }
 }
@@ -851,6 +1064,40 @@ struct FwdLaunch {
   }
 };
 
+using BwdKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const int*, const float*,
+                           float*, __nv_bfloat16*, int, int, int, int, int, int);
+
+template <int NC>
+BwdKernel bwd_kernel_of(int mode) {
+  switch (mode) {
+    case kBwdStageOnly: return fused_tail_bwd_kernel<NC, kBwdStageOnly>;
+    case kBwdStageDa2: return fused_tail_bwd_kernel<NC, kBwdStageDa2>;
+    case kBwdStageDw3: return fused_tail_bwd_kernel<NC, kBwdStageDw3>;
+    default: return fused_tail_bwd_kernel<NC, kBwdFull>;
+  }
+}
+
+// The backward's launch (threads, groups_j, groups_c, stages) at widths (C2,
+// C3), as ops/tail_kernel.bwd_plan names it: C2 a multiple of 16 and C3 of 32;
+// J = C2 / groups_j, J / 8 a power of two up to 32; each thread at most 8 dW3
+// columns of 8 features. Returns its kernel, or null.
+BwdKernel bwd_launch(int c2, int c3, int threads, int groups_j, int groups_c, int stages,
+                     int mode) {
+  if (c2 <= 0 || c3 <= 0 || c2 % 16 || c3 % 32 || threads != kBwdThreads || groups_j < 1 ||
+      groups_c < 1 || groups_c > kSlots || c2 % (8 * groups_j) || stages < 2 ||
+      stages > kBwdMaxStages || mode < kBwdFull || mode > kBwdStageDw3) {
+    return nullptr;
+  }
+  const int jc = c2 / groups_j / 8;  // a power of two, at most 32
+  if (jc > 32 || (jc & (jc - 1))) return nullptr;
+  const int per_pass = kBwdThreads / jc, cw = (c3 + groups_c - 1) / groups_c;
+  const int nc = (cw + per_pass - 1) / per_pass;
+  if (nc <= 2) return bwd_kernel_of<2>(mode);
+  if (nc <= 4) return bwd_kernel_of<4>(mode);
+  if (nc <= 8) return bwd_kernel_of<8>(mode);
+  return nullptr;
+}
+
 }  // namespace
 
 // Forward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16 and mask
@@ -923,73 +1170,65 @@ extern "C" int dlbt_fused_tail_fwd_occupancy(int c2, int c3, int warps, int stag
   return 0;
 }
 
-using BwdKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const int*, const float*,
-                           float*, __nv_bfloat16*, int, int, int);
-
-static BwdKernel bwd_kernel(int mode) {
-  switch (mode) {
-    case kBwdStageOnly: return fused_tail_bwd_kernel<kBwdStageOnly>;
-    case kBwdStageDa2: return fused_tail_bwd_kernel<kBwdStageDa2>;
-    case kBwdStageDw3: return fused_tail_bwd_kernel<kBwdStageDw3>;
-    default: return fused_tail_bwd_kernel<kBwdFull>;
-  }
-}
-
-static bool bwd_widths_ok(int c2, int c3) {
-  return c2 > 0 && c3 > 0 && c2 % 64 == 0 && c3 % 64 == 0 &&
-         32 * bwd_warps(c2, c3) <= kBwdMaxThreads;
-}
-
 // Backward over B*M = centroids centroids: a2 (centroids, 64, C2) bf16, gb
 // (centroids, C3) bf16 and amax (centroids, C3) int32, the forward's argmax,
-// all 16-byte aligned; w3 (C2, C3) f32. Writes da2 (centroids, 64, C2) bf16 and
-// each block's dW3 slice, (C2, C3) f32, into partial (max_grid, C2 * C3);
-// *grid_out (host memory) is the number of slices written, for dlbt_sum_slices
-// (csrc/sum_slices.cu). C2 and C3 multiples of 64, (C2/16)(C3/64) <= 32; mode:
-// BwdMode (0 on every path).
+// w3 (C2, C3) f32 and da2 all 16-byte aligned. Writes da2 (centroids, 64, C2)
+// bf16 and each of the grid's gridDim.x slices of dW3, (C2, C3) f32, into
+// partial (max_grid, C2 * C3); *grid_out (host memory) is the number of slices
+// written, for dlbt_sum_slices (csrc/sum_slices.cu). (threads, groups_j,
+// groups_c, stages): the launch (bwd_launch); mode: BwdMode (0 on every path).
 extern "C" int dlbt_fused_tail_bwd(const void* a2, const void* gb, const void* amax,
                                    const void* w3, void* partial, void* da2, int centroids,
-                                   int c2, int c3, int max_grid, int mode, int* grid_out,
+                                   int c2, int c3, int threads, int groups_j, int groups_c,
+                                   int stages, int max_grid, int mode, int* grid_out,
                                    void* stream) {
   *grid_out = 0;
-  if (centroids < 0 || !bwd_widths_ok(c2, c3) || mode < kBwdFull || mode > kBwdStageDw3 ||
-      max_grid < 1 || !aligned16(a2) || !aligned16(gb) || !aligned16(amax)) {
+  const BwdKernel kernel = bwd_launch(c2, c3, threads, groups_j, groups_c, stages, mode);
+  if (centroids < 0 || kernel == nullptr || max_grid < 1 || !aligned16(a2) || !aligned16(gb) ||
+      !aligned16(amax) || !aligned16(w3) || !aligned16(da2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (centroids == 0) return 0;
-  const int threads = 32 * bwd_warps(c2, c3);
-  const size_t smem = BwdLayout(c2, c3).total;
-  const BwdKernel kernel = bwd_kernel(mode);
-  int grid = 0;
-  const long long cap = centroids < max_grid ? centroids : max_grid;
-  cudaError_t e = grid_for(kernel, threads, smem, cap, &grid);
+  const size_t smem = BwdLayout(c2, c3, groups_j, groups_c, stages).total;
+  // the full kernel's blocks on the card at once, shared by the groups of each
+  // centroid: every mode then writes the same slices
+  int resident = 0, mode_resident = 0;
+  cudaError_t e = grid_for(bwd_launch(c2, c3, threads, groups_j, groups_c, stages, kBwdFull),
+                           threads, smem, 1 << 30, &resident);
+  if (e == cudaSuccess) e = grid_for(kernel, threads, smem, 1 << 30, &mode_resident);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  long long grid = resident / (groups_j * groups_c);
+  if (grid < 1) grid = 1;
+  if (grid > centroids) grid = centroids;
+  if (grid > max_grid) grid = max_grid;
+  kernel<<<dim3(static_cast<unsigned>(grid), groups_j * groups_c), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a2), static_cast<const __nv_bfloat16*>(gb),
       static_cast<const int*>(amax), static_cast<const float*>(w3),
-      static_cast<float*>(partial), static_cast<__nv_bfloat16*>(da2), centroids, c2, c3);
+      static_cast<float*>(partial), static_cast<__nv_bfloat16*>(da2), centroids, c2, c3,
+      groups_j, groups_c, stages);
   e = cudaGetLastError();
-  if (e == cudaSuccess) *grid_out = grid;
+  if (e == cudaSuccess) *grid_out = static_cast<int>(grid);
   return static_cast<int>(e);
 }
 
-// The backward's launch at widths (C2, C3) on the current card, as
+// The full backward's launch at widths (C2, C3) on the current card, as
 // dlbt_fused_tail_fwd_occupancy gives the forward's: out[0] blocks per SM,
 // out[1] threads a block, out[2] shared memory a block (bytes), out[3]
 // registers a thread, out[4] local memory a thread (bytes: spills).
-extern "C" int dlbt_fused_tail_bwd_occupancy(int c2, int c3, int* out) {
-  if (!bwd_widths_ok(c2, c3)) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 32 * bwd_warps(c2, c3);
-  const size_t smem = BwdLayout(c2, c3).total;
-  const BwdKernel kernel = bwd_kernel(kBwdFull);
+extern "C" int dlbt_fused_tail_bwd_occupancy(int c2, int c3, int threads, int groups_j,
+                                             int groups_c, int stages, int* out) {
+  const BwdKernel kernel = bwd_launch(c2, c3, threads, groups_j, groups_c, stages, kBwdFull);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = BwdLayout(c2, c3, groups_j, groups_c, stages).total;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
-  int grid = 0, dev = 0, sms = 1;
-  if (e == cudaSuccess) e = grid_for(kernel, threads, smem, 1 << 30, &grid);
+  int resident = 0, dev = 0, sms = 1;
+  if (e == cudaSuccess) e = grid_for(kernel, threads, smem, 1 << 30, &resident);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  out[0] = grid / sms;
+  out[0] = resident / sms;
   out[1] = threads;
   out[2] = static_cast<int>(smem);
   out[3] = attr.numRegs;

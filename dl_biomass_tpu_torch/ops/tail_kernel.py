@@ -15,7 +15,12 @@ its column (an argmax of 64 routes nothing), and is contracted at once:
 ``da2 = bf16(gs W3^T)`` in a2's dtype, ``dW3 = a2^T gs`` with float32 sums.
 ``db3`` is the float32 sum of the cotangent over the rows whose argmax is
 below 64, taken with torch ops outside the kernel as the JAX function takes it
-with jnp. The mask gets no gradient, and an invalid slot gets exactly 0.
+with jnp. The mask gets no gradient, and an invalid slot gets exactly 0 where
+W3 is finite. The plain version takes both products densely over the 64
+slots, as the TPU kernel does; the kernel forms only the routed terms (each
+slot's bucket of columns for da2, ``a2[am[c], j] gb[c]`` for dW3, on the CUDA
+cores) and adds back the NaN that the dense sums make of 0 x NaN and 0 x Inf,
+so that both are NaN or +-Inf at the same places.
 
 ``fused_tail_fwd`` and ``fused_tail_bwd`` launch ``csrc/fused_tail.cu``
 (entries ``dlbt_fused_tail_fwd``; ``dlbt_fused_tail_bwd``, wrapper
@@ -28,6 +33,10 @@ mma.sync; warps, ring stages, shared memory, registers budgeted), mirroring
 the source, and the wrapper raises where it gives None; with and without the
 argmax a launch is of the same kind, so the two give the same output bits. ``probe`` (the forward's
 measurement modes) and ``occupancy`` measure it, and no path calls them.
+``bwd_plan(c2, c3)`` names the backward's launch at every width the forward
+takes (its feature and column groups over gridDim.y, ring stages, shared
+memory), the wrapper raises where it gives None, and ``fused_tail`` checks it
+before its forward; ``probe_bwd`` and ``occupancy_bwd`` measure it.
 Like the JAX function, it is wired into no model: the tool
 ``dl_biomass_tpu_torch.tools.tail_bench`` times it beside the unfused pair.
 The kernels sum in their own order, so they agree with the plain versions to
@@ -76,9 +85,15 @@ class Plan(NamedTuple):
     registers: int  # a lane's accumulators (and, on mma.sync, one step's B fragments)
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                  + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 BLOCKS_PER_SM = 4  # the backward's grid is at most this many blocks per SM
+# the backward's launch (csrc/fused_tail.cu): BWD_THREADS threads a block, each
+# keeping at most BWD_MAX_COLS dW3 columns of 8 features (instantiations of 2,
+# 4 and 8), at most BWD_MAX_STAGES centroids in a block's ring
+BWD_THREADS = 256
+BWD_MAX_COLS = 8
+BWD_MAX_STAGES = 4
 # the backward's instantiations: the kernel, and its measurements (probe_bwd)
 BWD_MODES = {"full": 0, "stage_only": 1, "stage_da2": 2, "stage_dw3": 3}
 
@@ -260,21 +275,54 @@ def _check_bwd(a2, gb, am, w3):
 
 def bwd_plan(c2: int, c3: int) -> Optional[BwdPlan]:
     """The backward's launch at widths (C2, C3), or None where the kernel
-    takes none: C2 and C3 multiples of 64 with (C2 / 16)(C3 / 64) <= 32, one
-    thread a column, warps of two 16 x 64 dW3 tiles, two buffers."""
-    if c2 < 64 or c3 < 64 or c2 % 64 or c3 % 64 or (c2 // 16) * (c3 // 64) > 32:
+    takes none (C2 a multiple of 16 and C3 of 32, as the forward). Each
+    centroid is split over groups_j x groups_c blocks (gridDim.y): groups_j
+    by features (each group J = C2 / groups_j of them, J / 8 a power of two
+    up to 32),
+    groups_c by dW3's columns (and da2's slots), the fewest column groups
+    first, then the fewest feature groups, such that a thread keeps at most
+    BWD_MAX_COLS columns of 8 features; then the most stages (at most
+    BWD_MAX_STAGES) that leave room for two blocks an SM, else for one."""
+    if c2 < 16 or c3 < 32 or c2 % 16 or c3 % 32:
         return None
-    threads = 32 * (c2 // 16) * (c3 // 64) // 2
-    smem = 2 * c2 * (c3 + SKEW) + 2 * K * (c3 + SKEW) + 2 * (2 * K * (c2 + SKEW) + 6 * c3)
-    return BwdPlan(threads, 1, 1, 2, smem, 64)
+    for groups_c in range(1, K + 1):
+        for groups_j in (d for d in range(1, c2 // 8 + 1) if c2 // 8 % d == 0):
+            jc = c2 // groups_j // 8  # 8-feature chunks a group
+            if jc > 32 or jc & (jc - 1):
+                continue
+            cols = -(-(-(-c3 // groups_c)) // (BWD_THREADS // jc))
+            if cols > BWD_MAX_COLS:
+                continue
+            sizes = {st: bwd_smem_bytes(c2, c3, groups_j, groups_c, st)
+                     for st in range(BWD_MAX_STAGES, 1, -1)}
+            two = [st for st, b in sizes.items() if 2 * (b + SMEM_RESERVED) <= SMEM_PER_SM]
+            one = [st for st, b in sizes.items() if b <= SMEM_PER_BLOCK]
+            if not (two or one):
+                continue
+            stages = (two or one)[0]
+            nc = next(n for n in (2, 4, 8) if cols <= n)  # the instantiation
+            return BwdPlan(BWD_THREADS, groups_j, groups_c, stages, sizes[stages], 8 * nc)
+    return None
+
+
+def bwd_smem_bytes(c2: int, c3: int, groups_j: int, groups_c: int, stages: int) -> int:
+    """A backward block's shared memory (the source's BwdLayout): bf16(W3)^T
+    held in float32 on the group's J = C2 / groups_j features (C3 rows of J),
+    two counts per feature, two bucket tables (a 32-bit mask per 32 columns
+    per slot of the group, its slots padded to a multiple of 4), and the
+    ring, each buffer 64 rows of J + 8 bf16, the argmax (C3 int32) and the
+    cotangent (C3 bf16)."""
+    j = c2 // groups_j
+    rows = (-(-K // groups_c) + 3) // 4 * 4
+    return 4 * c3 * j + 8 * j + 8 * (c3 // 32) * rows + stages * (2 * K * (j + SKEW) + 6 * c3)
 
 
 def launch_bwd_plan(c2: int, c3: int) -> BwdPlan:
     """``bwd_plan(c2, c3)``, or ValueError where the kernel takes no such widths."""
     p = bwd_plan(c2, c3)
     if p is None:
-        raise ValueError(f"fused_tail_bwd: the kernel takes no widths C2={c2}, C3={c3} (C2 "
-                         f"and C3 multiples of 64 with C2 * C3 <= 32768)")
+        raise ValueError(f"fused_tail_bwd: the kernel takes no widths C2={c2}, C3={c3} (C2 a "
+                         f"multiple of 16 and C3 of 32)")
     return p
 
 
@@ -293,12 +341,12 @@ def occupancy_bwd(c2: int, c3: int) -> dict:
     """``bwd_plan(c2, c3)``'s launch on the current card: blocks per SM,
     threads and shared memory (bytes) a block, registers and local memory
     (bytes: spills) a thread."""
-    launch_bwd_plan(c2, c3)
+    p = launch_bwd_plan(c2, c3)
     fn = _build.library().dlbt_fused_tail_bwd_occupancy
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 5)()
-    rc = fn(c2, c3, vals)
+    rc = fn(c2, c3, p.threads, p.groups_j, p.groups_c, p.stages, vals)
     if rc != 0:
         raise RuntimeError(f"dlbt_fused_tail_bwd_occupancy failed ({rc})")
     return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "registers", "local_bytes"),
@@ -317,7 +365,7 @@ def _launch_bwd(a2, gb, am, w3, mode):
     _check_bwd(a2, gb, am, w3)
     b, m, _, c2 = a2.shape
     c3 = w3.shape[1]
-    launch_bwd_plan(c2, c3)
+    p = launch_bwd_plan(c2, c3)
     if a2.device.type != "cuda":
         raise RuntimeError(f"fused_tail_bwd_slices runs on cuda tensors, got {a2.device}")
     if a2.dtype != torch.bfloat16:
@@ -326,7 +374,7 @@ def _launch_bwd(a2, gb, am, w3, mode):
     a2 = _build.aligned16(a2.contiguous())
     gb = _build.aligned16(gb.to(torch.bfloat16).contiguous())
     am = _build.aligned16(am.to(torch.int32).contiguous())
-    w3 = w3.float().contiguous()
+    w3 = _build.aligned16(w3.float().contiguous())
     _build.check_cuda("fused_tail_bwd", a2, gb, am, w3)
     max_grid = BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty((max_grid, c2 * c3), dtype=torch.float32, device=dev)
@@ -334,7 +382,8 @@ def _launch_bwd(a2, gb, am, w3, mode):
     grid = ctypes.c_int(0)
     _build.launch("dlbt_fused_tail_bwd", _BWD_ARGTYPES, a2.data_ptr(), gb.data_ptr(),
                   am.data_ptr(), w3.data_ptr(), partial.data_ptr(), da2.data_ptr(), b * m, c2,
-                  c3, max_grid, BWD_MODES[mode], ctypes.byref(grid), _build.stream_of(a2))
+                  c3, p.threads, p.groups_j, p.groups_c, p.stages, max_grid, BWD_MODES[mode],
+                  ctypes.byref(grid), _build.stream_of(a2))
     return da2, partial[:grid.value]
 
 

@@ -944,6 +944,108 @@ def test_fused_tail_forward_launch_is_the_plans(dev, c2, c3):
     assert bool((staged == 0).all()) and bool(torch.isfinite(summed).all())
 
 
+def _bwd_case(dev, m, c2, c3, junk, w_bad):
+    """``_tail_case`` with Inf in a2 (+Inf at a slot of centroid (2, 0), -Inf at
+    one of (1, m - 1)), NaN and Inf in the cotangent, and, where ``w_bad``, one
+    Inf in W3; ``junk`` "nan" keeps its NaN at every invalid slot (every dW3
+    entry is then NaN, as the dense sum makes it), "1e4" puts 1e4 there, so
+    that only the features with a NaN or Inf slot carry them. Returns a2,
+    mask, w3, b3, the forward kernel's argmax and the bf16 cotangent."""
+    a2, mask, w3, b3 = _tail_case(dev, m, c2, c3)
+    if junk == "1e4":
+        a2 = torch.where(mask[..., None], a2, torch.tensor(1e4, dtype=a2.dtype, device=dev))
+    a2[2, 0, 7, 2] = float("inf")
+    a2[1, m - 1, 9, 0] = float("-inf")
+    if w_bad:
+        w3[c2 // 3, c3 // 2] = float("inf")
+    with torch.no_grad():
+        _, am = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    gb = torch.randn((3, m, c3), device=dev, generator=g).to(torch.bfloat16)
+    gb[0, m - 1, c3 // 3] = float("nan")
+    gb[2, 0, 0] = float("inf")
+    return a2, mask, w3, b3, am, gb
+
+
+def _same_nonfinite(got, want):
+    """NaN, +Inf and -Inf at the same positions; the rest within 1e-2 of the
+    largest finite value."""
+    got, want = got.float(), want.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isposinf(), want.isposinf())
+    assert torch.equal(got.isneginf(), want.isneginf())
+    ok = want.isfinite()
+    if bool(ok.any()):
+        err = float((got[ok] - want[ok]).abs().max())
+        assert err <= 1e-2 * max(float(want[ok].abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("w_bad", [False, True])
+@pytest.mark.parametrize("junk", ["nan", "1e4"])
+@pytest.mark.parametrize("m", [1, 13, 500])
+@pytest.mark.parametrize("c2,c3", TAIL_WIDTHS)
+def test_fused_tail_backward_kernel_cases(dev, c2, c3, m, junk, w_bad):
+    """Kernel 7's backward at the forward's widths against its plain (dense)
+    version, with NaN and Inf in a2 (at invalid, unrouted valid and routed
+    slots), in the cotangent and in W3: da2 and dW3 NaN or +-Inf exactly where
+    the plain version's are, the rest within 1e-2 of the largest; da2 exactly
+    0 at every slot no column routes to where W3 is finite; two launches
+    bit-identical; the autograd op's gradients the same."""
+    a2, mask, w3, b3, am, gb = _bwd_case(dev, m, c2, c3, junk, w_bad)
+    da2, dw3 = tail_kernel.fused_tail_bwd(a2, gb, am, w3)
+    da2_b, dw3_b = tail_kernel.fused_tail_bwd(a2, gb, am, w3)
+    w_da2, w_dw3 = tail_kernel.fused_tail_bwd_plain(a2, gb, am, w3)
+    torch.cuda.synchronize()
+    assert torch.equal(da2.view(torch.int16), da2_b.view(torch.int16))
+    assert torch.equal(dw3.view(torch.int32), dw3_b.view(torch.int32))
+    _same_nonfinite(da2, w_da2)
+    _same_nonfinite(dw3, w_dw3)
+    if junk == "nan":
+        assert bool(w_dw3.isnan().all())
+    else:
+        assert bool(w_dw3.isnan().any()) and bool(w_dw3.isfinite().any())
+    hit = torch.zeros((3, m, 65), dtype=torch.bool, device=dev).scatter_(2, am.long(), True)
+    if not w_bad:
+        assert bool((da2[~hit[:, :, :64]] == 0).all())
+    else:
+        assert bool(w_da2[..., c2 // 3].isnan().any())
+    leaves = [a2.clone().requires_grad_(), w3.clone().requires_grad_(),
+              b3.clone().requires_grad_()]
+    out = tail_kernel.fused_tail(leaves[0], mask, leaves[1], leaves[2])
+    grads = torch.autograd.grad(out, leaves, gb)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0].view(torch.int16), da2.view(torch.int16))
+    assert torch.equal(grads[1].view(torch.int32), dw3.view(torch.int32))
+
+
+@pytest.mark.parametrize("c2,c3", TAIL_WIDTHS)
+def test_fused_tail_backward_launch_is_the_plans(dev, c2, c3):
+    """The launch ``tail_kernel.bwd_plan`` names is the one the source makes
+    (its shared memory and threads); the measurement modes run on it:
+    staging alone writes zeros, staging and da2 the kernel's da2 and zero
+    slices, staging and dW3 zero da2 and the kernel's slices."""
+    p = tail_kernel.bwd_plan(c2, c3)
+    occ = tail_kernel.occupancy_bwd(c2, c3)
+    assert occ["smem_bytes"] == p.smem_bytes and occ["threads"] == p.threads
+    assert occ["blocks_per_sm"] >= 1
+    a2, mask, w3, b3 = _tail_inputs(dev, 2, 40, c2, c3)
+    _, am = tail_kernel.fused_tail_fwd(a2, mask, w3, b3, with_argmax=True)
+    gb = torch.randn((2, 40, c3), device=dev).to(torch.bfloat16)
+    _build.launch_counts.clear()
+    da2, slices = tail_kernel.fused_tail_bwd_slices(a2, gb, am, w3)
+    runs = {mode: tail_kernel.probe_bwd(a2, gb, am, w3, mode)
+            for mode in ("stage_only", "stage_da2", "stage_dw3")}
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"dlbt_fused_tail_bwd": 4}
+    zero_da2, zero_sl = torch.zeros_like(da2), torch.zeros_like(slices)
+    for mode, (want_da2, want_sl) in (("stage_only", (zero_da2, zero_sl)),
+                                      ("stage_da2", (da2, zero_sl)),
+                                      ("stage_dw3", (zero_da2, slices))):
+        got_da2, got_sl = runs[mode]
+        assert torch.equal(got_da2.view(torch.int16), want_da2.view(torch.int16)), mode
+        assert torch.equal(got_sl.view(torch.int32), want_sl.view(torch.int32)), mode
+
+
 def test_fused_tail_autograd_launches_kernel_7(dev):
     a2, mask, w3, b3 = _tail_inputs(dev, 2, 40, 64, 128)
     leaves = [t.requires_grad_() for t in (a2, w3, b3)]

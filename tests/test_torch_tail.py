@@ -203,3 +203,106 @@ def test_nan_at_valid_slots_grads_match_jax(where):
     np.testing.assert_allclose(got[1], want[1], rtol=0.02, atol=1e-2)  # NaN rows equal
     np.testing.assert_allclose(got[2], want[2], rtol=0.02, atol=1e-2)
     assert np.isfinite(got[2]).all()
+
+
+@pytest.mark.parametrize("junk", [1e4, np.nan, np.inf])
+def test_junk_at_invalid_slots_grads_match_jax(junk):
+    """Junk at every invalid slot through the backward: the forward masks it,
+    but the dense a2^T gs of the TPU kernel makes 0 x NaN and 0 x Inf into
+    NaN, so with NaN or Inf junk every dW3 entry is NaN in ``jax.grad`` and in
+    the port; with 1e4 junk both are finite and agree. da2 and db3 never see
+    the junk."""
+    a2, mask, w3, b3 = _data("jax_test")
+    a2 = np.where(mask[..., None], a2, np.float32(junk))
+    b, m, _, c3 = CASES["jax_test"]
+    ct = np.random.default_rng(1).normal(size=(b, m, c3)).astype(np.float32)
+    leaves = [torch.from_numpy(a2).to(torch.bfloat16).requires_grad_(),
+              torch.from_numpy(w3).requires_grad_(), torch.from_numpy(b3).requires_grad_()]
+    out = tail_kernel.fused_tail(leaves[0], torch.from_numpy(mask), leaves[1], leaves[2])
+    (out.float() * torch.from_numpy(ct)).sum().backward()
+    jm = jnp.asarray(mask)
+
+    def loss(a, w, bb):
+        return jnp.sum(jax_fused_tail(a, jm, w, bb, True) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(a2, jnp.bfloat16), jnp.asarray(w3),
+                                             jnp.asarray(b3))
+    got = [t.grad.float().numpy() for t in leaves]
+    want = [np.asarray(w, np.float32) for w in want]
+    assert np.isnan(want[1]).all() == (not np.isfinite(junk))
+    assert np.isfinite(got[0]).all() and np.isfinite(got[2]).all()
+    np.testing.assert_allclose(got[0], want[0], rtol=0.02, atol=1e-3)
+    np.testing.assert_allclose(got[1], want[1], rtol=0.02, atol=1e-2)  # NaN where JAX's is
+    np.testing.assert_allclose(got[2], want[2], rtol=0.02, atol=1e-2)
+    assert np.all(got[0][~mask] == 0.0)
+
+
+def _routed_bwd(a2, gb, am, w3):
+    """The backward as csrc/fused_tail.cu forms it, in float32: da2 of slot r
+    the sum over its bucket (the columns whose argmax is r) of gb[c] W3[:, c],
+    dW3 the routed terms a2[am[c], j] gb[c]; then the NaN that the dense sums
+    make of 0 x NaN and 0 x Inf, from counts: per feature j, N_j (the slots
+    of a centroid whose a2 is not finite) less the routed slot's own for
+    dW3, and W3's non-finite values on j less the bucket's for da2."""
+    a, g = a2.float(), gb.float()
+    w = w3.to(torch.bfloat16).float()
+    b, m, k, c2 = a.shape
+    slot = torch.arange(k).view(1, 1, k, 1)
+    bucket = am.long().unsqueeze(2) == slot  # (B, M, 64, C3): column c routed to slot r
+    terms = torch.where(bucket.unsqueeze(3), g[:, :, None, None, :] * w, 0.0)
+    da2 = terms.sum(-1)
+    w_bad = ~w.isfinite()
+    in_bucket = (bucket.unsqueeze(3) & w_bad).sum(-1)  # (B, M, 64, C2)
+    da2 = torch.where(w_bad.sum(1) - in_bucket > 0, float("nan"), da2)
+    routed = am < k
+    rows = am.long().clamp(max=k - 1)
+    ar = torch.gather(a, 2, rows.unsqueeze(-1).expand(b, m, am.shape[2], c2))  # (B, M, C3, C2)
+    term = torch.where(routed.unsqueeze(-1), ar * g.unsqueeze(-1), 0.0)
+    n_bad = (~a.isfinite()).sum(2)  # (B, M, C2)
+    own = routed.unsqueeze(-1) & ~ar.isfinite()
+    term = torch.where(n_bad.unsqueeze(2) - own.int() > 0, float("nan"), term)
+    return da2.to(torch.bfloat16), term.sum((0, 1)).t()
+
+
+@pytest.mark.parametrize("where", ["unrouted", "invalid", "routed", "cotangent", "w3", "all"])
+def test_routed_formulation_keeps_the_dense_sums_nonfinite_values(where):
+    """The kernel's routed formulation (``_routed_bwd``) against the plain,
+    dense backward with NaN and +-Inf in a2 at slots no column routes to
+    (valid or invalid: an argmax never names an invalid slot), at routed
+    slots, in the cotangent and in W3: NaN, +Inf and -Inf at the same
+    positions, the finite values equal to float32 rounding."""
+    rng = np.random.default_rng(4)
+    b, m, c2, c3 = 2, 8, 16, 32
+    a2 = torch.from_numpy(rng.normal(size=(b, m, 64, c2)).astype(np.float32)).to(torch.bfloat16)
+    am = torch.from_numpy(rng.integers(0, 48, size=(b, m, c3)).astype(np.int32))
+    am[0, 1, :5] = 64  # columns that route nothing
+    am[1, 2] = 64  # a centroid that routes nothing (a NaN max)
+    gb = torch.from_numpy(rng.normal(size=(b, m, c3)).astype(np.float32)).to(torch.bfloat16)
+    w3 = torch.from_numpy((rng.normal(size=(c2, c3)) * 0.1).astype(np.float32))
+    nan, inf = float("nan"), float("inf")
+    if where in ("unrouted", "all"):  # slots 48-63 take no column: valid but unrouted
+        a2[0, 0, 50, 3], a2[1, 5, 60, 7], a2[1, 2, 0, 9] = nan, inf, -inf
+    if where in ("invalid", "all"):
+        a2[0, 3, 63, 1] = nan
+        a2[1, 1, 62, 5] = -inf
+    if where in ("routed", "all"):
+        r = int(am[0, 4, 6])
+        a2[0, 4, r, 2], a2[1, 6, int(am[1, 6, 0]), 11] = inf, nan
+        a2[0, 5, int(am[0, 5, 3]), 4] = 0.0
+        gb[0, 5, 3] = inf  # 0 x Inf at a routed slot
+    if where in ("cotangent", "all"):
+        gb[0, 0, 1], gb[1, 3, 7], gb[0, 1, 2] = nan, -inf, nan  # the last routes nothing
+    if where in ("w3", "all"):
+        w3[5, 9], w3[12, 20], w3[0, 3] = inf, nan, 0.0
+        gb[1, 4, 3] = inf  # Inf x 0 in da2
+    got = _routed_bwd(a2, gb, am, w3)
+    want = tail_kernel.fused_tail_bwd_plain(a2, gb, am, w3)
+    assert any(bool((~t.float().isfinite()).any()) for t in want)
+    for g_, w_ in zip(got, want):
+        g_, w_ = g_.float(), w_.float()
+        assert torch.equal(g_.isnan(), w_.isnan())
+        assert torch.equal(g_.isposinf(), w_.isposinf())
+        assert torch.equal(g_.isneginf(), w_.isneginf())
+        ok = w_.isfinite()
+        scale = float(w_[ok].abs().max())
+        assert float((g_[ok] - w_[ok]).abs().max()) <= 1e-2 * scale  # bf16 da2; f32 dW3
