@@ -1,11 +1,14 @@
 // bf16 tensor-core products of one warp (mma.sync m16n8k16, bf16 in, f32
 // accumulators) and asynchronous copies into shared memory, shared by
 // csrc/sa1_fused_eval.cu (kernel 5), csrc/fused_tail.cu (kernel 7) and kernel 6's
-// bf16 backward passes (csrc/fused_sa_mma.cuh). In warp_mma the right-hand operand is
-// stored transposed in shared memory, each of its rows (depth + kSkewH) values
-// apart, so that a fragment is one 32-bit load and a warp's fragment loads hit
-// 32 banks; warp_mma_tb reads it untransposed, with ldmatrix.trans, so that
-// one copy of a weight matrix serves both x W and x W^T.
+// bf16 backward passes (csrc/fused_sa_mma.cuh). In warp_mma_ldm the right-hand
+// operand is stored transposed in shared memory, each of its rows (depth +
+// kSkewH) values apart, so that a warp's fragment loads hit 32 banks;
+// warp_mma_tb reads it untransposed, with ldmatrix.trans, so that one copy of
+// a weight matrix serves both x W and x W^T. Fragment layouts of
+// mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and g + 8, depths
+// 2t, 2t+1 and 2t+8, 2t+9; B depths 2t, 2t+1 and 2t+8, 2t+9 of column g; C
+// rows g and g + 8, columns 2t, 2t+1.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,40 +31,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[nt] = rows r0..r0+15 of a (depth values per row, rows lda apart) @ columns
-// n0 + 8 nt .. n0 + 8 nt + 7 of the transposed weights wt (rows depth + 8 apart),
-// nt < NT. Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4): A holds
-// rows g and g + 8, depths 2t, 2t+1 and 2t+8, 2t+9; B depths 2t, 2t+1 and 2t+8,
-// 2t+9 of column g; C rows g and g + 8, columns 2t, 2t+1.
-template <int NT>
-__device__ __forceinline__ void warp_mma(const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* wt, int depth, int r0, int n0,
-                                         float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int ldw = depth + kSkewH;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = 0.0f;
-  }
-  for (int k0 = 0; k0 < depth; k0 += 16) {
-    const __nv_bfloat16* ar = a + (r0 + g) * lda + k0 + 2 * t;
-    const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * lda), ld32(ar + 8), ld32(ar + 8 * lda + 8)};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* br = wt + (n0 + nt * 8 + g) * ldw + k0 + 2 * t;
-      const uint32_t bf[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16(acc[nt], af, bf);
-    }
-  }
-}
-
-__device__ __forceinline__ void warp_mma64(const __nv_bfloat16* a, int lda,
-                                           const __nv_bfloat16* wt, int depth, int r0, int n0,
-                                           float (&acc)[8][4]) {
-  warp_mma<8>(a, lda, wt, depth, r0, n0, acc);
 }
 
 // Four 8x8 bf16 matrices from shared memory: lanes 8q..8q+7 give the addresses of
@@ -106,7 +75,7 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
   }
 }
 
-// warp_mma's A fragment (rows r0..r0+15, depths k0..k0+15 of a, rows lda apart and
+// The A fragment of rows r0..r0+15, depths k0..k0+15 of a (rows lda apart and
 // 16-byte aligned) by one ldmatrix.
 __device__ __forceinline__ void load_a_ldm(uint32_t (&af)[4], const __nv_bfloat16* a, int lda,
                                            int r0, int k0) {
@@ -115,7 +84,7 @@ __device__ __forceinline__ void load_a_ldm(uint32_t (&af)[4], const __nv_bfloat1
 }
 
 // The B fragments of n-tiles n0..n0+7 and n0+8..n0+15 at depths k0..k0+15 of wt,
-// stored transposed as warp_mma reads it (rows ldw apart, 16-byte aligned).
+// stored transposed (a row an n, rows ldw apart, 16-byte aligned).
 __device__ __forceinline__ void load_b_ldm(uint32_t (&b0)[2], uint32_t (&b1)[2],
                                            const __nv_bfloat16* wt, int ldw, int k0, int n0) {
   const int lane = threadIdx.x & 31, q = lane >> 3, i = lane & 7;
@@ -127,8 +96,9 @@ __device__ __forceinline__ void load_b_ldm(uint32_t (&b0)[2], uint32_t (&b1)[2],
   b1[1] = r[3];
 }
 
-// acc[nt] += warp_mma's product over depths k_begin..k_end - 1 (multiples of 16)
-// alone, wt's rows ldw apart, for NP pairs of n-tiles, every fragment by ldmatrix.
+// acc[nt] += rows r0..r0+15 of a @ columns n0 + 8 nt .. n0 + 8 nt + 7 of the
+// transposed weights wt (rows ldw apart) over depths k_begin..k_end - 1
+// (multiples of 16), for NP pairs of n-tiles, every fragment by ldmatrix.
 template <int NP>
 __device__ __forceinline__ void warp_mma_ldm(const __nv_bfloat16* a, int lda,
                                              const __nv_bfloat16* wt, int ldw, int k_begin,
@@ -192,12 +162,6 @@ __device__ __forceinline__ void warp_mma_tn(const __nv_bfloat16* x, int ldx,
       mma_bf16(acc[2 * np + 1], af, b1);
     }
   }
-}
-
-__device__ __forceinline__ void warp_mma64_tn(const __nv_bfloat16* x, int ldx,
-                                              const __nv_bfloat16* y, int ldy, int depth, int j0,
-                                              int n0, float (&acc)[8][4]) {
-  warp_mma_tn<4>(x, ldx, y, ldy, depth, j0, n0, acc);
 }
 
 // Asynchronous 16-byte copy from device to shared memory (both 16-byte
