@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group),
-4b (the gather's scatter-add backward), 3 (exact ball query) and 7 (the fused
-tail, forward and backward) on one NVIDIA card, beside
+4b (the gather's scatter-add backward), 3 (exact ball query), 7 (the fused
+tail, forward and backward), 9 (the tool's ball query) and the slice sum on
+one NVIDIA card, beside
 ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
@@ -96,6 +97,24 @@ tail, forward and backward) on one NVIDIA card, beside
                                           # or mma.sync, ring stages, warps a block;
                                           # each against the plan's, by CUDA graph with
                                           # and without the argmax
+    python3 chip_compare.py bqphase TAG   # kernel 9 (the tool's rank-scatter ball query)
+                                          # on the tool's data (36 x 512 x 2048, K=64)
+                                          # and chip_smoke.bq_cap_case: its ptxas
+                                          # report, then each variant bit-exact against
+                                          # its plain version, by CUDA graph (the wrapper's
+                                          # call), alone (profiler) and in each
+                                          # measurement mode, beside its bound, the
+                                          # wrapper's transpose copy where it makes one,
+                                          # kernel 3 on the same input, the launch by cm
+                                          # and the plan where the tree has one; then
+                                          # bq_phase_bench's main()
+    python3 chip_compare.py sumslices TAG # the slice sum at its four shapes (7-B's
+                                          # 396 x 8192 and 132 x 32768, kernel 8's
+                                          # 660 x 128 and 660 x 256): its ptxas report,
+                                          # against its plain version and a repeat, by
+                                          # CUDA graph beside an empty launch of its grid,
+                                          # torch.sum in f64 and the bound, with the
+                                          # plan where the tree has one
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -816,6 +835,98 @@ def tail_tune(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+def bq_phase(tag: str) -> None:
+    """Kernel 9 on the tool's data and on chip_smoke.bq_cap_case, every
+    variant: bit-exact against its plain version, then by CUDA graph (the
+    wrapper's call), alone (profiler) and in each measurement mode the tree
+    has, beside its bound (chip_smoke.bq_bound); the wrapper's transpose copy
+    where the tree makes one, kernel 3 on the same input, ``full`` by cm, the
+    plan where the tree has one; then bq_phase_bench.main()."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+    from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
+
+    card = cs.card_line()
+    for line in ptxas_lines("bq_phase.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    b, m, n = cs.BQ_SHAPE
+    k, radius = cs.BQ_K, k9.RADIUS
+    modes = [mode for mode in getattr(k9, "MODES", {}) if mode != "kernel"]
+    cases = {"tool": k9.tool_data(b, m, n, dev), "cap": cs.bq_cap_case(dev)}
+    for label, args in cases.items():
+        pos = args[2]
+        row = {"kernel 3": cs.graph_ms(lambda: k3.ball_query_first_k(*args, radius=radius, k=k)),
+               "transpose": cs.graph_ms(lambda: pos.transpose(1, 2).contiguous())}
+        print(f"{tag} bqphase {label} (B={b} M={m} N={n} K={k}): "
+              + ", ".join(f"{key} {val:.4f}" for key, val in row.items())
+              + f" ms by graph; plan {k9.plan(n, m, k) if hasattr(k9, 'plan') else None} "
+              f"[{card}]", flush=True)
+        for phase in k9.PHASES:
+            call = lambda: k9.bq(*args, radius=radius, k=k, phase=phase)  # noqa: E731
+            cs.require(torch.equal(call(), k9.bq_plain(*args, radius=radius, k=k, phase=phase)),
+                       f"kernel 9 {phase} ({label}): differs from plain")
+            row = {"graph": cs.graph_ms(call), "alone": cs.kernel_alone_ms(call, "bq_phase")}
+            for mode in modes:
+                row[mode] = cs.graph_ms(
+                    lambda mode_=mode: k9.probe(*args, radius=radius, k=k, phase=phase,
+                                                mode=mode_))
+            bms, by, nbytes, tests = cs.bq_bound(args, radius, k, phase)
+            print(f"{tag} bqphase {label} {phase}: "
+                  + " ".join(f"{key}={val:.4f}" for key, val in row.items())
+                  + f" ms; bound {bms:.6f} ms ({by}: {nbytes} bytes, {tests} tests) [{card}]",
+                  flush=True)
+    args = cases["tool"]
+    by_cm = {cm: cs.graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=cm))
+             for cm in cs.BQ_CMS}
+    print(f"{tag} bqphase tool full by cm, graph: "
+          f"{ {cm: round(ms, 4) for cm, ms in by_cm.items()} } ms [{card}]", flush=True)
+    for row in k9.main(device=dev):
+        print(f"{tag} bq_phase_bench {row} [{card}]", flush=True)
+
+
+# the slice sum's shapes (slices, values a slice): kernel 7-B's at tail_bench's
+# SA1 and SA2, kernel 8's at bn_stats_bench's two widths
+SUM_SHAPES = {"7-B SA1": (396, 8192), "7-B SA2": (132, 32768), "8 C=128": (660, 128),
+              "8 C=256": (660, 256)}
+
+
+def sum_slices(tag: str) -> None:
+    """The slice sum at SUM_SHAPES on seeded normal slices: within 1e-6 of its
+    plain version (relative to the largest value) and bit-identical on a
+    repeat, then by CUDA graph beside an empty launch of its grid where the
+    tree has one, torch.sum in f64 and the bound; with its plan where the tree
+    has one."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
+
+    card = cs.card_line()
+    for line in ptxas_lines("sum_slices.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    total = {}
+    for label, (blocks, n) in SUM_SHAPES.items():
+        slices = torch.randn((blocks, n), device=dev, generator=gen)
+        got, again = ss.sum_slices(slices), ss.sum_slices(slices)
+        rel = cs.rel_diff(got, ss.sum_slices_plain(slices))
+        cs.require(rel <= 1e-6, f"slice sum {label}: vs plain rel {rel} > 1e-6")
+        cs.require(cs.same_bits(got, again), f"slice sum {label}: two launches differ in bits")
+        row = {"graph": cs.graph_ms(lambda: ss.sum_slices(slices))}
+        if hasattr(ss, "empty"):
+            row["empty launch"] = cs.graph_ms(lambda: ss.empty(slices))
+        row["torch.sum f64"] = cs.graph_ms(lambda: torch.sum(slices, 0, dtype=torch.float64))
+        bms, by = cs.bound(slices.numel() * 4 + n * 4, slices.numel())
+        for key, val in row.items():
+            total[key] = total.get(key, 0.0) + val
+        total["bound"] = total.get("bound", 0.0) + bms
+        plan = ss.plan(blocks, n) if hasattr(ss, "plan") else None
+        print(f"{tag} sumslices {label} ({blocks} x {n}): "
+              + ", ".join(f"{key} {val:.4f}" for key, val in row.items())
+              + f" ms; bound {bms:.6f} ms ({by}); vs plain {rel:.3e}, repeat bit-identical; "
+              f"plan {plan} [{card}]", flush=True)
+    print(f"{tag} sumslices the four: " + ", ".join(f"{key} {val:.4f}" for key, val in
+                                                   total.items()) + f" ms [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
@@ -823,7 +934,8 @@ def main(argv) -> int:
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
                 "query": (query, 1), "querytune": (query_tune, 1),
                 "querylat": (query_latency, 1), "tail": (tail, 1), "tailbwd": (tail_bwd, 1),
-                "tailtune": (tail_tune, 1)}
+                "tailtune": (tail_tune, 1), "bqphase": (bq_phase, 1),
+                "sumslices": (sum_slices, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

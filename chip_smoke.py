@@ -2730,6 +2730,31 @@ def bq_cap_case(device):
     return pos[:, :BQ_SHAPE[1]].contiguous(), cmask, pos, mask
 
 
+def bq_bound(args, radius: float, k: int, phase: str):
+    """Kernel 9's bound for the variant ``phase`` on ``args``: (ms, what bounds
+    it, bytes, distance tests). The bytes: the points (12 bytes and a mask
+    byte each) and centroids read once, the (B, M, K) int32 output written
+    once. The tests the data needs, over the valid centroids: all N for
+    ``dist``, up to the first hit for ``rank`` and ``extract``, up to the K-th
+    for the writing variants (none where a cap of 0 writes nothing), read
+    from kernel 3's first K."""
+    from dl_biomass_tpu_torch.ops import ball_query_kernel as k3
+    from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
+
+    centers, cmask, pos, _ = args
+    (b, m, _), n = centers.shape, pos.shape[1]
+    mode, cap = k9.variant(phase)
+    if mode == k9.DIST:
+        scan = torch.full((b, m), n, device=pos.device)
+    else:
+        idx, nbr = k3.ball_query_first_k(*args, radius=radius, k=k)
+        last = 0 if mode in (k9.RANK, k9.EXTRACT) else k - 1
+        scan = torch.where(nbr[..., last], idx[..., last] + 1, n)
+    tests = 0 if cap == 0 else int((scan * cmask).sum())
+    nbytes = b * n * 13 + b * m * 13 + b * m * k * 4
+    return (*bound(nbytes, tests * DIST_TEST_FLOPS), nbytes, tests)
+
+
 def check_bq_phase(device, card: str, ctx: dict) -> None:
     """Kernel 9 at the tool's shape, every variant: bit-exact against its
     plain version on the tool's data and on the cap case, two launches
@@ -2749,9 +2774,6 @@ def check_bq_phase(device, card: str, ctx: dict) -> None:
         idx, nbr = k3.ball_query_first_k(*args, radius=radius, k=k)
         exact = torch.where(nbr, idx, n)
         first = torch.where(nbr[..., :1], idx[..., :1], k9.INT_BIG)
-        if label == "tool":  # points scanned up to the first and the K-th hit
-            scan_first = torch.where(nbr[..., 0], idx[..., 0] + 1, n)
-            scan_last = torch.where(nbr[..., k - 1], idx[..., k - 1] + 1, n)
         dropped = {}
         for phase in k9.PHASES:
             got = k9.bq(*args, radius=radius, k=k, cm=32, phase=phase)
@@ -2781,20 +2803,12 @@ def check_bq_phase(device, card: str, ctx: dict) -> None:
     args = cases["tool"]
     t3 = time_ms(lambda: k3.ball_query_first_k(*args, radius=radius, k=k), reps=TOOL_REPS)
     d3 = graph_ms(lambda: k3.ball_query_first_k(*args, radius=radius, k=k))
-    nbytes = b * n * 13 + b * m * 13 + b * m * k * 4
     for phase in k9.PHASES:
-        mode, cap = k9.variant(phase)
         t = time_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=32, phase=phase), reps=TOOL_REPS)
         tp = time_ms(lambda: k9.bq_plain(*args, radius=radius, k=k, phase=phase), reps=3,
                      warmup=1)
         dev_ms = graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=32, phase=phase))
-        # the distance tests this data needs: all N for dist, up to the first
-        # hit for rank and extract, up to the K-th for the writing variants
-        # (none where a cap of 0 writes nothing)
-        scan = {k9.DIST: torch.full_like(scan_first, n), k9.RANK: scan_first,
-                k9.EXTRACT: scan_first}.get(mode, scan_last)
-        tests = 0 if cap == 0 else int((scan * args[1]).sum())
-        bms, by = bound(nbytes, tests * DIST_TEST_FLOPS)
+        bms, by, nbytes, tests = bq_bound(args, radius, k, phase)
         print(f"kernel bq_phase {phase} (tool data, B={b} M={m} N={n} K={k}, cm=32): {t:.4f} ms "
               f"(median of {TOOL_REPS}; {dev_ms:.4f} ms replayed from a CUDA graph), plain "
               f"{tp:.4f} ms, kernel 3 (ball_query_first_k) on the same input {t3:.4f} ms (graph "

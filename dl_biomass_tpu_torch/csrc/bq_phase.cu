@@ -34,6 +34,9 @@
 // per-lane count, one warp sum); kRank those plus the ballot ranking (the least
 // packed key); kExtract those plus the bucket counts (the least key among the
 // hits within the first 8 of their bucket).
+// Measurement modes (bq_phase_bench.probe): no early exit; the loads of every
+// point alone, with the outputs written as for no hit; the scan without the
+// writing of the outputs.
 
 #include <cuda_runtime.h>
 
@@ -44,12 +47,14 @@ constexpr int kKeyBits = 24;
 constexpr int kIntBig = 0x7fffffff;
 constexpr int kSteps = 4;  // 32-point steps per iteration: 128 points, one per bucket
 enum Mode { kDist = 0, kRank = 1, kExtract = 2, kWrite = 3 };
+// the measurement modes (bq_phase_bench.probe); kKernel on every path
+constexpr int kKernel = 0, kFullScan = 1, kLoadsOnly = 2, kNoStore = 3;
 
 template <int kMode>
 __global__ void __launch_bounds__(1024)
 bq_phase_kernel(const float* __restrict__ centers, const unsigned char* __restrict__ cmask,
                 const float* __restrict__ planes, const unsigned char* __restrict__ mask,
-                int* __restrict__ out, int m, int n, int k, int cap, float r2) {
+                int* __restrict__ out, int m, int n, int k, int cap, float r2, int probe) {
   extern __shared__ int slots[];  // kWrite: (warps, k)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -74,7 +79,15 @@ bq_phase_kernel(const float* __restrict__ centers, const unsigned char* __restri
   int counts[kSteps] = {};  // kept hits so far in buckets lane + 32 q
   int acc = kMode == kDist ? 0 : kIntBig;
   for (int base = 0; base < end; base += 32 * kSteps) {
-    if (kMode == kWrite && cnt >= k) break;
+    if (kMode == kWrite && cnt >= k && probe != kFullScan) break;
+    if (probe == kLoadsOnly) {  // the loads alone, kept by an empty asm
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q) {
+        const int i = base + 32 * q + lane;
+        if (i < n) asm volatile("" ::"f"(px[i]), "f"(py[i]), "f"(pz[i]), "r"(int(mk[i])));
+      }
+      continue;
+    }
     bool ok[kSteps];
 #pragma unroll
     for (int q = 0; q < kSteps; ++q) {  // all loads of the 128 points first
@@ -115,23 +128,29 @@ bq_phase_kernel(const float* __restrict__ centers, const unsigned char* __restri
   }
   if constexpr (kMode == kWrite) {
     __syncwarp();
-    for (int j = lane; j < k; j += 32) o[j] = s[j];
+    if (probe != kNoStore) {
+      for (int j = lane; j < k; j += 32) o[j] = s[j];
+    }
   } else {
     const int v = kMode == kDist
                       ? static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(acc)))
                       : static_cast<int>(__reduce_min_sync(kFull, static_cast<unsigned>(acc)));
-    for (int j = lane; j < k; j += 32) o[j] = v;
+    if (probe == kNoStore) {
+      asm volatile("" ::"r"(v));
+    } else {
+      for (int j = lane; j < k; j += 32) o[j] = v;
+    }
   }
 }
 
 template <int kMode>
 cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t stream,
                    const void* centers, const void* cmask, const void* planes, const void* mask,
-                   void* out, int m, int n, int k, int cap, float r2) {
+                   void* out, int m, int n, int k, int cap, float r2, int probe) {
   bq_phase_kernel<kMode><<<grid, threads, smem, stream>>>(
       static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
       static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
-      static_cast<int*>(out), m, n, k, cap, r2);
+      static_cast<int*>(out), m, n, k, cap, r2, probe);
   return cudaGetLastError();
 }
 
@@ -139,12 +158,13 @@ cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t stre
 
 // centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3, N) f32 [x, y, z], mask (B, N)
 // bool -> out (B, M, K) int32. cm centroids (warps) per block, 1-32; k 1-127; n < 2^24;
-// mode kDist/kRank/kExtract/kWrite; cap 0-k (kExtract 8).
+// mode kDist/kRank/kExtract/kWrite; cap 0-k (kExtract 8); probe kKernel, or a
+// measurement mode.
 extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void* planes,
                              const void* mask, void* out, int b, int m, int n, int k, int cm,
-                             int mode, int cap, float r2, void* stream) {
+                             int mode, int cap, float r2, int probe, void* stream) {
   if (b < 1 || m < 1 || n < 0 || k < 1 || k > 127 || n >= (1 << kKeyBits) || cm < 1 ||
-      cm > 32 || cap < 0 || cap > 127) {
+      cm > 32 || cap < 0 || cap > 127 || probe < kKernel || probe > kNoStore) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((m + cm - 1) / cm, b);
@@ -153,16 +173,16 @@ extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void*
   switch (mode) {
     case kDist:
       return static_cast<int>(launch<kDist>(grid, threads, 0, st, centers, cmask, planes, mask,
-                                            out, m, n, k, cap, r2));
+                                            out, m, n, k, cap, r2, probe));
     case kRank:
       return static_cast<int>(launch<kRank>(grid, threads, 0, st, centers, cmask, planes, mask,
-                                            out, m, n, k, cap, r2));
+                                            out, m, n, k, cap, r2, probe));
     case kExtract:
       return static_cast<int>(launch<kExtract>(grid, threads, 0, st, centers, cmask, planes,
-                                               mask, out, m, n, k, cap, r2));
+                                               mask, out, m, n, k, cap, r2, probe));
     case kWrite:
       return static_cast<int>(launch<kWrite>(grid, threads, sizeof(int) * cm * k, st, centers,
-                                             cmask, planes, mask, out, m, n, k, cap, r2));
+                                             cmask, planes, mask, out, m, n, k, cap, r2, probe));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,7 +13,8 @@
 //
 // Design: one thread per output value runs over the slices in block order, so
 // consecutive threads read consecutive values of a slice. No float atomics:
-// the result repeats bit for bit on one card.
+// the result repeats bit for bit on one card. dlbt_sum_slices_empty launches
+// an empty kernel on the same grid: the floor a launch sets.
 
 #include <cuda_runtime.h>
 
@@ -30,6 +31,8 @@ __global__ void sum_slices_kernel(const float* __restrict__ partial, int blocks,
   out[i] = static_cast<float>(s);
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // out (n) f32 = the sum of the first `blocks` slices of partial (blocks, n)
@@ -40,5 +43,15 @@ extern "C" int dlbt_sum_slices(const void* partial, void* out, int blocks, int n
   sum_slices_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(partial),
                                                            blocks, n, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on the grid and block that dlbt_sum_slices launches for
+// (blocks, n); it reads and writes nothing (a measurement: no path calls it).
+extern "C" int dlbt_sum_slices_empty(int blocks, int n, void* stream) {
+  if (blocks < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  empty_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

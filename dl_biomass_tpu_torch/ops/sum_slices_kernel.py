@@ -2,7 +2,8 @@
 float32 slices that a kernel's blocks write, added in block order in float64
 and rounded once to float32, so the sum repeats bit for bit without float
 atomics. ``sum_slices`` launches ``dlbt_sum_slices`` on a CUDA tensor and runs
-``sum_slices_plain`` on a CPU tensor."""
+``sum_slices_plain`` on a CPU tensor. ``empty`` measures the floor a launch
+sets; no path calls it."""
 
 from __future__ import annotations
 
@@ -36,3 +37,10 @@ def sum_slices(slices: torch.Tensor) -> torch.Tensor:
     _build.launch("dlbt_sum_slices", _ARGTYPES, slices.data_ptr(), out.data_ptr(),
                   slices.shape[0], slices.shape[1], _build.stream_of(slices))
     return out
+
+
+def empty(slices: torch.Tensor) -> None:
+    """An empty kernel on the CUDA grid and block that ``sum_slices`` launches
+    for these slices (``dlbt_sum_slices_empty``): the floor a launch sets."""
+    _build.launch("dlbt_sum_slices_empty", [ctypes.c_int] * 2 + [ctypes.c_void_p],
+                  slices.shape[0], slices.shape[1], _build.stream_of(slices))

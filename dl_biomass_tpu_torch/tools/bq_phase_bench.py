@@ -61,8 +61,11 @@ _KEY_BITS = 24
 INT_BIG = 0x7FFFFFFF
 # kernel 9's modes, as csrc/bq_phase.cu numbers them
 DIST, RANK, EXTRACT, WRITE = range(4)
+# the kernel on every path, and the measurements: no early exit, the loads of
+# every point alone (the outputs as for no hit), the scan without the writing
+MODES = {"kernel": 0, "full_scan": 1, "loads_only": 2, "no_store": 3}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def variant(phase: str) -> Tuple[int, Optional[int]]:
@@ -155,6 +158,19 @@ def bq(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor, mask
     (``dlbt_bq_phase``)."""
     if pos.device.type == "cpu":
         return bq_plain(centers, center_mask, pos, mask, radius=radius, k=k, cm=cm, phase=phase)
+    return _launch(centers, center_mask, pos, mask, radius, k, cm, phase, "kernel")
+
+
+def probe(centers, center_mask, pos, mask, *, radius: float, k: int = 64, cm: int = 32,
+          phase: str = "full", mode: str) -> torch.Tensor:
+    """Kernel 9 on the card in a measurement ``mode``: "full_scan" (no early
+    exit; the same output), "loads_only" (every point loaded, no test: the
+    output of a centroid with no hit) or "no_store" (the scan, the output
+    left unwritten). No path calls it."""
+    return _launch(centers, center_mask, pos, mask, radius, k, cm, phase, mode)
+
+
+def _launch(centers, center_mask, pos, mask, radius, k, cm, phase, probe_mode):
     if pos.device.type != "cuda":
         raise RuntimeError(f"bq runs on cuda or cpu tensors, got {pos.device}")
     mode, cap = _check(centers, center_mask, pos, mask, k, cm, phase)
@@ -173,7 +189,7 @@ def bq(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor, mask
     eff_cap = k if cap is None else min(cap, k)
     _build.launch("dlbt_bq_phase", _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
                   planes.data_ptr(), mask.data_ptr(), out.data_ptr(), b, m, n, k, cm, mode,
-                  eff_cap, radius2(radius), _build.stream_of(pos))
+                  eff_cap, radius2(radius), MODES[probe_mode], _build.stream_of(pos))
     return out
 
 
