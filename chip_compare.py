@@ -108,6 +108,10 @@ one NVIDIA card, beside
                                           # kernel 3 on the same input, the launch by cm
                                           # and the plan where the tree has one; then
                                           # bq_phase_bench's main()
+    python3 chip_compare.py bqtune TAG    # kernel 9 on the tool's data under other
+                                          # plans (warps, centroids a block, chunks
+                                          # ahead; the cloud whole), each bit-exact,
+                                          # by CUDA graph for dist, rank, full and dyn
     python3 chip_compare.py sumslices TAG # the slice sum at its four shapes (7-B's
                                           # 396 x 8192 and 132 x 32768, kernel 8's
                                           # 660 x 128 and 660 x 256): its ptxas report,
@@ -115,6 +119,8 @@ one NVIDIA card, beside
                                           # CUDA graph beside an empty launch of its grid,
                                           # torch.sum in f64 and the bound, with the
                                           # plan where the tree has one
+    python3 chip_compare.py sumtune TAG   # the slice sum at those shapes under every
+                                          # tile width (8-256 values a block), by graph
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -835,6 +841,9 @@ def tail_tune(tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+BQ_CMS = (1, 4, 8, 16, 32)  # the TPU tool's centroids per block
+
+
 def bq_phase(tag: str) -> None:
     """Kernel 9 on the tool's data and on chip_smoke.bq_cap_case, every
     variant: bit-exact against its plain version, then by CUDA graph (the
@@ -859,7 +868,8 @@ def bq_phase(tag: str) -> None:
                "transpose": cs.graph_ms(lambda: pos.transpose(1, 2).contiguous())}
         print(f"{tag} bqphase {label} (B={b} M={m} N={n} K={k}): "
               + ", ".join(f"{key} {val:.4f}" for key, val in row.items())
-              + f" ms by graph; plan {k9.plan(n, m, k) if hasattr(k9, 'plan') else None} "
+              + f" ms by graph; plan {k9.plan(n, m, k) if hasattr(k9, 'plan') else None}, "
+              f"launch {k9.launch_of(b, n, m, k) if hasattr(k9, 'launch_of') else None} "
               f"[{card}]", flush=True)
         for phase in k9.PHASES:
             call = lambda: k9.bq(*args, radius=radius, k=k, phase=phase)  # noqa: E731
@@ -877,11 +887,47 @@ def bq_phase(tag: str) -> None:
                   flush=True)
     args = cases["tool"]
     by_cm = {cm: cs.graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=cm))
-             for cm in cs.BQ_CMS}
+             for cm in BQ_CMS}
     print(f"{tag} bqphase tool full by cm, graph: "
           f"{ {cm: round(ms, 4) for cm, ms in by_cm.items()} } ms [{card}]", flush=True)
     for row in k9.main(device=dev):
         print(f"{tag} bq_phase_bench {row} [{card}]", flush=True)
+
+
+def bq_tune(tag: str) -> None:
+    """Kernel 9 on the tool's data under other plans (``bq_phase_bench.plan``
+    patched): warps and centroids a block and chunks tested ahead, the cloud
+    whole; each bit-exact against the plain version, then the graph replay's
+    ms (chip_smoke.graph_ms) of ``dist``, ``rank``, ``full`` and ``dyn``."""
+    import itertools
+
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.core.cloud import round_up
+    from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
+
+    card = cs.card_line()
+    b, m, n = cs.BQ_SHAPE
+    k, radius = cs.BQ_K, k9.RADIUS
+    args = k9.tool_data(b, m, n, dev)
+    phases = ("dist", "rank", "full", "dyn")
+    want = {ph: k9.bq_plain(*args, radius=radius, k=k, phase=ph) for ph in phases}
+    base = k9.plan(n, m, k)
+    plans = [k9.Plan(w * r, w, round_up(n, 32 * a), True, a)
+             for w, r, a in itertools.product((4, 8, 16, 32), (1, 2, 4, 8), k9.AHEADS)]
+    plans = [p for p in plans if k9.smem_bytes(p, k) <= k9.SMEM_PER_BLOCK]
+    out = {}
+    for p in dict.fromkeys([base] + plans):
+        with mock.patch.object(k9, "plan", lambda *_: p):
+            for ph in phases:
+                call = lambda: k9.bq(*args, radius=radius, k=k, phase=ph)  # noqa: E731
+                cs.require(torch.equal(call(), want[ph]),
+                           f"plan {tuple(p)}: kernel 9 {ph} differs from plain")
+                out[(ph, p)] = cs.graph_ms(call)
+    for ph in phases:
+        best = sorted((p for q, p in out if q == ph), key=lambda p: out[(ph, p)])
+        print(f"{tag} bqtune {ph}: plan {tuple(base)} {out[(ph, base)]:.4f} ms; fastest "
+              + ", ".join(f"{tuple(p)} {out[(ph, p)]:.4f}" for p in best[:6])
+              + f"; slowest {tuple(best[-1])} {out[(ph, best[-1])]:.4f} [{card}]", flush=True)
 
 
 # the slice sum's shapes (slices, values a slice): kernel 7-B's at tail_bench's
@@ -927,6 +973,36 @@ def sum_slices(tag: str) -> None:
                                                    total.items()) + f" ms [{card}]", flush=True)
 
 
+def sum_tune(tag: str) -> None:
+    """The slice sum at SUM_SHAPES under every tile width the source takes
+    (``sum_slices_kernel.plan`` patched: 8 to 256 values a block, the runs
+    filling 256 threads): each within 1e-6 of its plain version, then by CUDA
+    graph."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
+
+    card = cs.card_line()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for label, (blocks, n) in SUM_SHAPES.items():
+        slices = torch.randn((blocks, n), device=dev, generator=gen)
+        want = ss.sum_slices_plain(slices)
+        base = ss.plan(blocks, n)
+        out = {}
+        for cols in (8, 16, 32, 64, 128, 256):
+            groups = max(1, min(ss.MAX_THREADS * base.vec // cols, blocks))
+            p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
+                              grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)
+            with mock.patch.object(ss, "plan", lambda *_: p):
+                rel = cs.rel_diff(ss.sum_slices(slices), want)
+                cs.require(rel <= 1e-6, f"slice sum {label} at {cols} values a block: vs "
+                                        f"plain rel {rel} > 1e-6")
+                out[p] = cs.graph_ms(lambda: ss.sum_slices(slices))
+        print(f"{tag} sumtune {label} ({blocks} x {n}): "
+              + ", ".join(f"{p.cols} values x {p.groups} runs ({p.grid} blocks) {ms:.4f}"
+                          + (" (the plan)" if p == base else "") for p, ms in out.items())
+              + f" ms [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
@@ -934,8 +1010,8 @@ def main(argv) -> int:
                 "grouptune": (group_tune, 1), "scatter": (scatter, 1), "eval5": (eval5, 1),
                 "query": (query, 1), "querytune": (query_tune, 1),
                 "querylat": (query_latency, 1), "tail": (tail, 1), "tailbwd": (tail_bwd, 1),
-                "tailtune": (tail_tune, 1), "bqphase": (bq_phase, 1),
-                "sumslices": (sum_slices, 1)}
+                "tailtune": (tail_tune, 1), "bqphase": (bq_phase, 1), "bqtune": (bq_tune, 1),
+                "sumslices": (sum_slices, 1), "sumtune": (sum_tune, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

@@ -153,8 +153,10 @@ Phases, each of which raises on failure (exit code 1):
              s1 and s2 within 1e-5 of the plain version's largest, two
              launches bit-identical, timed. The slice sum that ends kernels
              7-B and 8 (``sum_slices``) against its plain version on both
-             kernels' slices, timed beside one ``torch.sum`` in f64, both by
-             events and replayed from a CUDA graph. Kernel 10
+             kernels' slices (within 1e-6, a repeat bit-identical), with the
+             launch ``sum_slices_kernel.plan`` names, timed beside one
+             ``torch.sum`` in f64, both by events and replayed from a CUDA
+             graph. Kernel 10
              (``block_copy``) at 128 blocks of 256 KB, 1 MB and 4 MB:
              bit-identical to x + 1.0, timed beside ``torch.add`` likewise. Kernel 9
              (``bq``) at the tool's 36 x 512 x 2048, K=64, r=8, every one of
@@ -165,8 +167,8 @@ Phases, each of which raises on failure (exit code 1):
              ``rank`` and ``extract`` equal to its first slot; timed (CUDA
              events around the call, and its launches replayed from a CUDA
              graph, free of host time) beside the bound, the plain version
-             and kernel 3 on the same input, and ``full`` at 1-32 centroids
-             per block.
+             and kernel 3 on the same input; its launch the one
+             ``bq_phase_bench.plan`` names.
 14. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -365,7 +367,6 @@ STATS_RTOL = 1e-5  # kernel 8 vs its f32 plain version, of the plain version's l
 TOOL_REPS = 10
 # kernel 9 at the JAX tool's shape: (B, M, N), K; the cap case's far cluster
 BQ_SHAPE, BQ_K, BQ_FAR = (36, 512, 2048), 64, 100.0
-BQ_CMS = (1, 4, 8, 16, 32)  # centroids per block: the TPU tool's tile, as the port reads it
 
 
 class PhaseError(RuntimeError):
@@ -2520,6 +2521,8 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
             f"kernel 7 backward {name}: da2, dW3 vs plain rel {rels} > {BF16_SERVE_RTOL}")
     rel_sum = rel_diff(dw3, w_sum)
     require(rel_sum <= 1e-6, f"kernel 7 slice sum {name}: vs plain rel {rel_sum} > 1e-6")
+    require(same_bits(ss.sum_slices(slices).view(w3.shape), dw3),
+            f"kernel 7 slice sum {name}: two launches differ in bits")
     b, m, k, c2 = a2.shape
     c3 = w3.shape[1]
     hit = torch.zeros((b, m, k + 1), dtype=torch.bool, device=a2.device)
@@ -2562,7 +2565,8 @@ def check_tail_bwd(name: str, args, ctx: dict) -> None:
     bms_sum, by_sum = bound(n_sum * 4 + c2 * c3 * 4, n_sum)
     print(f"kernel fused_tail_bwd {name} (B={b} M={m} C2={c2} C3={c3}): {t_slices:.4f} ms "
           f"(median of {TOOL_REPS}; {t:.4f} ms with the slice sum; the sum of "
-          f"{slices.shape[0]} slices alone {t_sum:.4f} ms (graph {t_sum_g:.4f}), its plain "
+          f"{slices.shape[0]} slices alone {t_sum:.4f} ms (graph {t_sum_g:.4f}; plan "
+          f"{tuple(ss.plan(*slices.shape))}, repeat bit-identical), its plain "
           f"version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms (graph {tsl_g:.4f}), bound "
           f"{bms_sum:.6f} ms), plain "
           f"{tp:.4f} ms, the unfused pair's autograd backward {tu:.4f} ms, bound {bms:.6f} ms "
@@ -2657,6 +2661,8 @@ def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
     require(max(rels) <= STATS_RTOL, f"kernel 8 {name}: s1, s2 vs plain rel {rels} > {STATS_RTOL}")
     rel_sum = rel_diff(s_sum, w_sum)
     require(rel_sum <= 1e-6, f"slice sum of kernel 8 {name}: vs plain rel {rel_sum} > 1e-6")
+    require(same_bits(ss.sum_slices(slices), s_sum),
+            f"slice sum of kernel 8 {name}: two launches differ in bits")
     t = time_ms(lambda: bn.stats_kernel(x, m3), reps=TOOL_REPS)
     tp = time_ms(lambda: bn.stats_current(x, m3), reps=TOOL_REPS)
     t_slices = time_ms(lambda: bn.stats_slices(x, m3), reps=TOOL_REPS)
@@ -2670,7 +2676,8 @@ def check_masked_stats(name: str, shape, device, ctx: dict) -> None:
     print(f"kernel masked_stats {name} (B={b} M={m} K={k} C={c}): {t_slices:.4f} ms (median "
           f"of {TOOL_REPS}, {x.numel() * 2 / t_slices / 1e6:.1f} GB/s of x; {t:.4f} ms with the "
           f"slice sum; the sum of {slices.shape[0]} slices alone {t_sum:.4f} ms (graph "
-          f"{t_sum_g:.4f}), its plain version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms (graph "
+          f"{t_sum_g:.4f}; plan {tuple(ss.plan(*slices.shape))}, repeat bit-identical), its "
+          f"plain version {tsp:.4f} ms, torch.sum in f64 {tsl:.4f} ms (graph "
           f"{tsl_g:.4f}), bound {bms_sum:.6f} ms), plain "
           f"(stats_current, the yardstick) {tp:.4f} ms, bound {bms:.6f} ms ({by}: {nbytes} "
           f"bytes); vs plain max|diff| over the largest s1 {rels[0]:.3e}, s2 {rels[1]:.3e} (bound {STATS_RTOL}), slice sum "
@@ -2817,9 +2824,13 @@ def check_bq_phase(device, card: str, ctx: dict) -> None:
         ctx.setdefault("bq_phase", []).append(dict(err=0.0, ms=t, plain_ms=tp, bound_ms=bms,
                                                    bound_by=by, yard=t3, variant=phase,
                                                    graph_ms=dev_ms, yard_graph_ms=d3))
-    by_cm = {cm: graph_ms(lambda: k9.bq(*args, radius=radius, k=k, cm=cm)) for cm in BQ_CMS}
-    print(f"kernel bq_phase full by cm (centroids per block), from a CUDA graph: "
-          f"{ {cm: round(ms, 4) for cm, ms in by_cm.items()} } ms [{card}]", flush=True)
+    plan, launch = k9.plan(n, m, k), k9.launch_of(b, n, m, k)
+    require(launch["threads"] == 32 * plan.warps
+            and launch["smem_bytes"] == k9.dynamic_smem(plan, k)
+            and launch["grid"] == (-(-m // plan.centroids), b),
+            f"kernel 9: launch {launch} is not the plan's {plan}")
+    print(f"kernel bq_phase launch (B={b} M={m} N={n} K={k}): the plan's, {tuple(plan)}: "
+          f"{launch} [{card}]", flush=True)
 
 
 # the tools' kernels: (row name, source, the TPU kernel it replaces, what its

@@ -1,5 +1,5 @@
 // Kernel 9: the rank-scatter ball query of the TPU tool's phase bisection,
-// with its phase stubs, one warp per centroid.
+// with its phase stubs.
 //
 // Replaces: tools/bq_phase_bench.py bq (kernels _bq_kernel and _bq_kernel_when).
 // Semantics: for a valid centroid, the in-radius points are the valid points
@@ -17,26 +17,39 @@
 // points, K=64): the (B, M, K) int32 output, 4.7 MB, over the 1.3 MB of input;
 // the distance tests the data needs (8 flops each: up to the K-th hit for the
 // writing modes, the first hit for kRank and kExtract, all N for kDist) come
-// to less, except kDist's all-N scan, which is bound by operations.
+// to less, except kDist's all-N scan, which is bound by operations (on the
+// CUDA cores, with no FMA, 9 instructions a test).
 //
-// Design: the TPU kernel ranks hits with prefix products on the MXU and pulls
-// each bucket's first 8 in 8 extraction rounds; here one warp scans its
-// centroid's points in index order from the (B, 3, N) planes (coalesced loads),
-// 128 points an iteration: the loads of four 32-point steps are issued first,
-// then each step's hits are ranked in order by __ballot_sync and __popc. An
-// iteration starts at a multiple of 128, so in step q lane l always sees bucket
-// l + 32 q: each lane keeps its four bucket counts in registers, counting only
-// kept hits (a count stays <= cap). kWrite scatters kept hits into the warp's
-// k slots in shared memory (set to n first, so holes and the tail stay n),
-// stops after the iteration that holds the K-th hit and writes the slots out
-// coalesced. Each stub computes the TPU stub's value from its own phase's work,
-// so none of it can be dropped: kDist the distance tests over all N (a
-// per-lane count, one warp sum); kRank those plus the ballot ranking (the least
-// packed key); kExtract those plus the bucket counts (the least key among the
-// hits within the first 8 of their bucket).
-// Measurement modes (bq_phase_bench.probe): no early exit; the loads of every
-// point alone, with the outputs written as for no hit; the scan without the
-// writing of the outputs.
+// Design, kernel 3's (csrc/ball_query.cu), with a copy of its staging and
+// scan: a block takes one cloud and a tile of its centroids and stages the
+// cloud's points in shared memory once, as float4 (x, y, z, 0) read straight
+// from pos (B, N, 3) and mask (B, N); a masked point, or a pad slot past N,
+// holds NaN in x, so it fails every test and the scan needs no bounds or mask
+// test. A warp scans one centroid in index order, AHEAD chunks of 32 points at
+// a time: every test of the group, then AHEAD ballots, then each chunk that
+// hit ranked by __popc prefixes; the hit count is read once per 32 * AHEAD
+// points. A chunk starts at a multiple of 32 and a group at a multiple of 128,
+// so lane l of chunk t sees bucket 32 (t % 4) + l: each lane keeps four counts
+// of kept hits in registers (a count stays <= cap), carried across chunks of
+// the cloud. The modes:
+// - kWrite puts each kept hit of rank < k in the warp's k slots in shared
+//   memory (n before the scan, so holes and the tail stay n), stops after the
+//   group that holds the K-th hit and writes the row out once, coalesced,
+//   setting the slots back to n as it reads them.
+// - kDist tests all N points: a count a lane, one warp sum.
+// - kRank and kExtract (one instantiation) stop at the first group with a
+//   hit: the least packed key is the first hit's, rank 0, its index (kept
+//   under any cap >= 1; kExtract with cap 0 keeps nothing).
+// Whole (the padded cloud and the warps' slots fit a block's shared memory):
+// a warp that is done takes the tile's next centroid from a counter in shared
+// memory (its coordinates loaded before it scans the one it holds). Chunked
+// (larger N): the block stages the cloud 8192 points at a time, one centroid a
+// warp, and moves to the next chunk while any of its warps still needs points
+// (__syncthreads_or). bq_phase_bench.plan mirrors the launch: centroids a
+// block, warps, points staged at once, whole or chunked, and AHEAD; cm is not
+// read. Measurement modes (bq_phase_bench.probe): no early exit; the staging
+// and the writing of the outputs alone (as for no hit); the scan without the
+// writing.
 
 #include <cuda_runtime.h>
 
@@ -45,145 +58,322 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kKeyBits = 24;
 constexpr int kIntBig = 0x7fffffff;
-constexpr int kSteps = 4;  // 32-point steps per iteration: 128 points, one per bucket
+constexpr int kMaxThreads = 1024;
+// the API's modes, and the kernel's instantiations (kRank and kExtract share kFirst)
 enum Mode { kDist = 0, kRank = 1, kExtract = 2, kWrite = 3 };
+constexpr int kFirst = kRank;
 // the measurement modes (bq_phase_bench.probe); kKernel on every path
 constexpr int kKernel = 0, kFullScan = 1, kLoadsOnly = 2, kNoStore = 3;
 
-template <int kMode>
-__global__ void __launch_bounds__(1024)
-bq_phase_kernel(const float* __restrict__ centers, const unsigned char* __restrict__ cmask,
-                const float* __restrict__ planes, const unsigned char* __restrict__ mask,
-                int* __restrict__ out, int m, int n, int k, int cap, float r2, int probe) {
-  extern __shared__ int slots[];  // kWrite: (warps, k)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * (blockDim.x >> 5) + warp;
-  const int b = blockIdx.y;
-  if (c >= m) return;  // whole warps leave together; no block barrier follows
-  const size_t ci = static_cast<size_t>(b) * m + c;
-  int* o = out + ci * k;
-  int* s = slots + warp * k;
-  if constexpr (kMode == kWrite) {
-    for (int j = lane; j < k; j += 32) s[j] = n;
-    __syncwarp();
-  }
-  const float* px = planes + static_cast<size_t>(b) * 3 * n;
-  const float* py = px + n;
-  const float* pz = py + n;
-  const unsigned char* mk = mask + static_cast<size_t>(b) * n;
-  const float cx = centers[3 * ci], cy = centers[3 * ci + 1], cz = centers[3 * ci + 2];
-  const int end = cmask[ci] ? n : 0;
-  const unsigned below = (1u << lane) - 1u;
-  int cnt = 0;               // hits before this step, the same in every lane
-  int counts[kSteps] = {};  // kept hits so far in buckets lane + 32 q
-  int acc = kMode == kDist ? 0 : kIntBig;
-  for (int base = 0; base < end; base += 32 * kSteps) {
-    if (kMode == kWrite && cnt >= k && probe != kFullScan) break;
-    if (probe == kLoadsOnly) {  // the loads alone, kept by an empty asm
+__device__ __forceinline__ float nan_x() { return __int_as_float(0x7fc00000); }
+
+// Points first .. first + count - 1 of one cloud into pts[0 .. count): (x, y, z,
+// 0), x NaN where the point is masked or past n. A thread loads kStage points
+// before it stores any, from clamped indices, so that the loads do not wait on
+// one another or on the mask.
+constexpr int kStage = 4;
+
+__device__ __forceinline__ void stage(float4* pts, const float* __restrict__ pos,
+                                      const unsigned char* __restrict__ mask, int first,
+                                      int count, int n) {
+  for (int i0 = threadIdx.x; i0 < count; i0 += kStage * blockDim.x) {
+    float4 p[kStage];
 #pragma unroll
-      for (int q = 0; q < kSteps; ++q) {
-        const int i = base + 32 * q + lane;
-        if (i < n) asm volatile("" ::"f"(px[i]), "f"(py[i]), "f"(pz[i]), "r"(int(mk[i])));
-      }
-      continue;
-    }
-    bool ok[kSteps];
-#pragma unroll
-    for (int q = 0; q < kSteps; ++q) {  // all loads of the 128 points first
-      const int i = base + 32 * q + lane;
-      ok[q] = false;
-      if (i < n) {
-        const float dx = __fsub_rn(px[i], cx);
-        const float dy = __fsub_rn(py[i], cy);
-        const float dz = __fsub_rn(pz[i], cz);
-        const float d2 =
-            __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        ok[q] = mk[i] && d2 <= r2;
-      }
+    for (int u = 0; u < kStage; ++u) {
+      const int j = first + i0 + u * blockDim.x;
+      const int jc = min(j, n - 1);  // n >= 1 wherever count >= 1
+      const float* q = pos + 3 * static_cast<size_t>(jc);
+      p[u] = make_float4(__ldg(q), __ldg(q + 1), __ldg(q + 2), 0.f);
+      if (j >= n || !__ldg(mask + jc)) p[u].x = nan_x();
     }
 #pragma unroll
-    for (int q = 0; q < kSteps; ++q) {
-      if constexpr (kMode == kDist) {
-        acc += ok[q];
-      } else {
-        const int i = base + 32 * q + lane;
-        const unsigned hits = __ballot_sync(kFull, ok[q]);
-        const int rank = cnt + __popc(hits & below);
-        cnt += __popc(hits);
-        const int key = (min(rank, k) << kKeyBits) | i;
-        if constexpr (kMode == kRank) {
-          if (ok[q]) acc = min(acc, key);
-        } else {
-          const bool kept = ok[q] && counts[q] < cap;
-          counts[q] += kept;
-          if constexpr (kMode == kExtract) {
-            if (kept) acc = min(acc, key);
-          } else {
-            if (kept && rank < k) s[rank] = i;
-          }
-        }
-      }
-    }
-  }
-  if constexpr (kMode == kWrite) {
-    __syncwarp();
-    if (probe != kNoStore) {
-      for (int j = lane; j < k; j += 32) o[j] = s[j];
-    }
-  } else {
-    const int v = kMode == kDist
-                      ? static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(acc)))
-                      : static_cast<int>(__reduce_min_sync(kFull, static_cast<unsigned>(acc)));
-    if (probe == kNoStore) {
-      asm volatile("" ::"r"(v));
-    } else {
-      for (int j = lane; j < k; j += 32) o[j] = v;
+    for (int u = 0; u < kStage; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < count) pts[i] = p[u];
     }
   }
 }
 
+struct Args {
+  const float* centers;
+  const unsigned char* cmask;
+  const float* pos;
+  const unsigned char* mask;
+  int* out;
+  int m, n, k, cap;
+  float r2;
+  int tile;   // centroids a block (whole)
+  int count;  // points staged at once: the padded cloud (whole) or a chunk
+  int probe;  // kKernel on every path; the others measure
+};
+
+// One centroid of a warp: its coordinates; whether it is in the warp's tile
+// (in) and still needs points (need); hits so far (cnt); each lane's counts of
+// kept hits in buckets 32 q + lane (kWrite); the lane's in-radius count
+// (kDist) or the least key found (kFirst).
+struct Centroid {
+  float x, y, z;
+  int cnt, acc;
+  int counts[4];
+  bool in, need;
+};
+
+// Centroid c of cloud b, if it is below c1; the loads are issued here and
+// waited for at the first use.
 template <int kMode>
-cudaError_t launch(const dim3& grid, int threads, size_t smem, cudaStream_t stream,
-                   const void* centers, const void* cmask, const void* planes, const void* mask,
-                   void* out, int m, int n, int k, int cap, float r2, int probe) {
-  bq_phase_kernel<kMode><<<grid, threads, smem, stream>>>(
-      static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
-      static_cast<const float*>(planes), static_cast<const unsigned char*>(mask),
-      static_cast<int*>(out), m, n, k, cap, r2, probe);
-  return cudaGetLastError();
+__device__ __forceinline__ Centroid load(const Args& a, int b, int c, int c1) {
+  const size_t ci = static_cast<size_t>(b) * a.m + min(c, a.m - 1);
+  Centroid w;
+  w.in = c < c1;
+  w.need = w.in && a.cmask[ci] && a.probe != kLoadsOnly;
+  w.x = a.centers[3 * ci];
+  w.y = a.centers[3 * ci + 1];
+  w.z = a.centers[3 * ci + 2];
+  w.cnt = 0;
+  w.acc = kMode == kDist ? 0 : kIntBig;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) w.counts[q] = 0;
+  return w;
+}
+
+// One warp scans pts[0 .. count) (count a multiple of 32 * AHEAD; pts[0] is
+// point `first` of the cloud, a multiple of 128) for its centroid, as its mode
+// says, until its value is settled or the points end.
+template <int kMode, int AHEAD>
+__device__ __forceinline__ void scan(const float4* pts, int count, int first, Centroid& w,
+                                     const Args& a, int* slots, int lane) {
+  static_assert(AHEAD % 4 == 0, "a group must start at a multiple of 128");
+  const unsigned below = (1u << lane) - 1u;
+  const float r2 = a.r2;
+  const int k = a.k;
+  // the slots' shared-memory address, held in one register
+  const unsigned row = static_cast<unsigned>(__cvta_generic_to_shared(slots));
+  for (int s = 0; s < count && w.need; s += 32 * AHEAD) {
+    // every test of the group before any ballot: the ballot's convergence
+    // check would otherwise hold the later chunks' loads behind the first
+    bool ok[AHEAD];
+#pragma unroll
+    for (int t = 0; t < AHEAD; ++t) {
+      const float4 p = pts[s + 32 * t + lane];
+      const float dx = __fsub_rn(p.x, w.x);
+      const float dy = __fsub_rn(p.y, w.y);
+      const float dz = __fsub_rn(p.z, w.z);
+      const float d2 =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      ok[t] = d2 <= r2;
+    }
+    if constexpr (kMode == kDist) {
+#pragma unroll
+      for (int t = 0; t < AHEAD; ++t) w.acc += ok[t];
+      continue;
+    }
+    unsigned hits[AHEAD], any = 0;
+#pragma unroll
+    for (int t = 0; t < AHEAD; ++t) {
+      hits[t] = __ballot_sync(kFull, ok[t]);
+      any |= hits[t];
+    }
+    if (any == 0) continue;
+    if constexpr (kMode == kFirst) {
+      // the first hit: rank 0, so its key is its index
+      int key = kIntBig;
+#pragma unroll
+      for (int t = AHEAD - 1; t >= 0; --t) {
+        if (hits[t] != 0) key = first + s + 32 * t + __ffs(hits[t]) - 1;
+      }
+      if (a.cap > 0) w.acc = min(w.acc, key);
+      w.need = a.probe == kFullScan;
+    } else {
+#pragma unroll
+      for (int t = 0; t < AHEAD; ++t) {
+        const int rank = w.cnt + __popc(hits[t] & below);
+        const bool kept = ok[t] && w.counts[t % 4] < a.cap;
+        w.counts[t % 4] += kept;
+        if (kept && rank < k) {
+          asm volatile("st.shared.u32 [%0], %1;" ::"r"(row + 4 * rank),
+                       "r"(first + s + 32 * t + lane)
+                       : "memory");
+        }
+        w.cnt += __popc(hits[t]);
+      }
+      w.need = a.probe == kFullScan || w.cnt < k;
+    }
+  }
+}
+
+// The warp's centroid c, if in its tile: its k slots written out (kWrite: the
+// slots, each set back to n as it is read; the stubs: the warp's value).
+template <int kMode>
+__device__ __forceinline__ void write_out(const Centroid& w, const Args& a, int b, int c,
+                                          int* slots, int lane) {
+  int v = w.acc;
+  if constexpr (kMode == kDist) {
+    v = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(v)));
+  } else if constexpr (kMode == kFirst) {
+    v = static_cast<int>(__reduce_min_sync(kFull, static_cast<unsigned>(v)));
+  }
+  __syncwarp();  // the slots other lanes placed
+  const bool store = w.in && a.probe != kNoStore;
+  int* o = a.out + (static_cast<size_t>(b) * a.m + c) * a.k;
+  for (int j = lane; j < a.k; j += 32) {
+    if constexpr (kMode == kWrite) {
+      v = slots[j];
+      slots[j] = a.n;
+    }
+    if (store) o[j] = v;
+  }
+  if (!store) asm volatile("" ::"r"(v));
+  __syncwarp();  // before the slots are placed again
+}
+
+// The cloud staged whole; the block's warps take the tile's centroids from a
+// shared counter, and load the next one before they scan.
+template <int kMode, int AHEAD>
+__global__ void __launch_bounds__(kMaxThreads) bq_whole(Args a) {
+  extern __shared__ float4 pts[];
+  __shared__ int next;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int c0 = blockIdx.x * a.tile, c1 = min(a.m, c0 + a.tile);
+  int* slots = reinterpret_cast<int*>(pts + a.count) + a.k * warp;
+  for (int j = lane; j < a.k; j += 32) slots[j] = a.n;
+  int c = c0 + warp;
+  Centroid cur = load<kMode>(a, b, c, c1);
+  stage(pts, a.pos + static_cast<size_t>(b) * 3 * a.n, a.mask + static_cast<size_t>(b) * a.n,
+        0, a.count, a.n);
+  if (threadIdx.x == 0) next = c0 + warps;
+  __syncthreads();
+  while (c < c1) {
+    int taken = 0;
+    if (lane == 0) taken = atomicAdd(&next, 1);
+    const int nc = __shfl_sync(kFull, taken, 0);
+    const Centroid nx = load<kMode>(a, b, nc, c1);
+    scan<kMode, AHEAD>(pts, a.count, 0, cur, a, slots, lane);
+    write_out<kMode>(cur, a, b, c, slots, lane);
+    c = nc;
+    cur = nx;
+  }
+}
+
+// The cloud staged a chunk at a time, one centroid a warp.
+template <int kMode, int AHEAD>
+__global__ void __launch_bounds__(kMaxThreads) bq_chunked(Args a) {
+  extern __shared__ float4 pts[];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int c = blockIdx.x * warps + warp;
+  int* slots = reinterpret_cast<int*>(pts + a.count) + a.k * warp;
+  for (int j = lane; j < a.k; j += 32) slots[j] = a.n;
+  Centroid w = load<kMode>(a, b, c, a.m);
+  const int n_pad = (a.n + 32 * AHEAD - 1) / (32 * AHEAD) * (32 * AHEAD);
+  const float* pos = a.pos + static_cast<size_t>(b) * 3 * a.n;
+  const unsigned char* mask = a.mask + static_cast<size_t>(b) * a.n;
+  for (int first = 0; first < n_pad; first += a.count) {
+    const int count = min(a.count, n_pad - first);
+    stage(pts, pos, mask, first, count, a.n);
+    __syncthreads();
+    scan<kMode, AHEAD>(pts, count, first, w, a, slots, lane);
+    if (!__syncthreads_or(w.need)) break;  // and off this chunk
+  }
+  write_out<kMode>(w, a, b, c, slots, lane);
+}
+
+// A block's dynamic shared memory: the staged points, then each warp's slots.
+size_t smem_bytes(int count, int warps, int k) {
+  return static_cast<size_t>(count) * sizeof(float4) +
+         static_cast<size_t>(warps) * k * sizeof(int);
+}
+
+using Kernel = void (*)(Args);
+
+template <int kMode>
+Kernel pick_mode(int whole, int ahead) {
+  switch (ahead) {
+    case 4: return whole ? bq_whole<kMode, 4> : bq_chunked<kMode, 4>;
+    case 8: return whole ? bq_whole<kMode, 8> : bq_chunked<kMode, 8>;
+    default: return nullptr;
+  }
+}
+
+Kernel pick(int mode, int whole, int ahead) {
+  switch (mode) {
+    case kDist: return pick_mode<kDist>(whole, ahead);
+    case kRank:
+    case kExtract: return pick_mode<kFirst>(whole, ahead);
+    case kWrite: return pick_mode<kWrite>(whole, ahead);
+    default: return nullptr;
+  }
+}
+
+// The launch of a plan: the kernel, its shared memory (set as the kernel's
+// limit) and its grid.
+cudaError_t prepare(int mode, int b, int m, int n, int k, int tile, int warps, int count,
+                    int whole, int ahead, Kernel* kernel, size_t* smem, dim3* grid) {
+  *kernel = pick(mode, whole, ahead);  // nullptr unless ahead is 4 or 8
+  if (*kernel == nullptr || b < 1 || m < 1 || n < 0 || k < 1 || k > 127 ||
+      n >= (1 << kKeyBits) || warps < 1 || 32 * warps > kMaxThreads || tile < 1 || count < 0 ||
+      count % (32 * ahead) != 0 || (whole && count < n) || (!whole && count < 1)) {
+    return cudaErrorInvalidValue;
+  }
+  *smem = smem_bytes(count, warps, k);
+  *grid = dim3(whole ? (m + tile - 1) / tile : (m + warps - 1) / warps, b);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
 }
 
 }  // namespace
 
-// centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3, N) f32 [x, y, z], mask (B, N)
-// bool -> out (B, M, K) int32. cm centroids (warps) per block, 1-32; k 1-127; n < 2^24;
-// mode kDist/kRank/kExtract/kWrite; cap 0-k (kExtract 8); probe kKernel, or a
-// measurement mode.
-extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void* planes,
-                             const void* mask, void* out, int b, int m, int n, int k, int cm,
-                             int mode, int cap, float r2, int probe, void* stream) {
-  if (b < 1 || m < 1 || n < 0 || k < 1 || k > 127 || n >= (1 << kKeyBits) || cm < 1 ||
-      cm > 32 || cap < 0 || cap > 127 || probe < kKernel || probe > kNoStore) {
+// centers (B, M, 3) f32, cmask (B, M) bool, pos (B, N, 3) f32, mask (B, N) bool
+// -> out (B, M, K) int32. k 1-127; n < 2^24; mode kDist/kRank/kExtract/kWrite;
+// cap 0-127 (a cap of k or more caps nothing). The plan (bq_phase_bench.plan):
+// tile centroids a block (whole; one a warp where chunked), warps a block,
+// count points staged at once (the cloud padded to 32 * ahead where whole, a
+// multiple of it where chunked), ahead 4 or 8 chunks tested before the hit
+// count is read. probe kKernel, or a measurement mode.
+extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void* pos,
+                             const void* mask, void* out, int b, int m, int n, int k, int mode,
+                             int cap, float r2, int tile, int warps, int count, int whole,
+                             int ahead, int probe, void* stream) {
+  if (cap < 0 || cap > 127 || probe < kKernel || probe > kNoStore) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((m + cm - 1) / cm, b);
-  const int threads = 32 * cm;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kDist:
-      return static_cast<int>(launch<kDist>(grid, threads, 0, st, centers, cmask, planes, mask,
-                                            out, m, n, k, cap, r2, probe));
-    case kRank:
-      return static_cast<int>(launch<kRank>(grid, threads, 0, st, centers, cmask, planes, mask,
-                                            out, m, n, k, cap, r2, probe));
-    case kExtract:
-      return static_cast<int>(launch<kExtract>(grid, threads, 0, st, centers, cmask, planes,
-                                               mask, out, m, n, k, cap, r2, probe));
-    case kWrite:
-      return static_cast<int>(launch<kWrite>(grid, threads, sizeof(int) * cm * k, st, centers,
-                                             cmask, planes, mask, out, m, n, k, cap, r2, probe));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  Kernel kernel;
+  size_t smem;
+  dim3 grid;
+  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, ahead, &kernel, &smem,
+                          &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Args a{static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
+               static_cast<const float*>(pos), static_cast<const unsigned char*>(mask),
+               static_cast<int*>(out), m, n, k, cap, r2, tile, count, probe};
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A plan's launch on the current card, as dlbt_bq_phase makes it: out[0]
+// blocks per SM, out[1] threads a block, out[2] shared memory a block (bytes,
+// dynamic), out[3] and out[4] the grid, out[5] registers a thread, out[6]
+// local memory a thread (bytes: spills).
+extern "C" int dlbt_bq_phase_launch(int mode, int b, int m, int n, int k, int tile, int warps,
+                                    int count, int whole, int ahead, int* out) {
+  Kernel kernel;
+  size_t smem;
+  dim3 grid;
+  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, ahead, &kernel, &smem,
+                          &grid);
+  cudaFuncAttributes attr;
+  int per_sm = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps, smem);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = per_sm;
+  out[1] = 32 * warps;
+  out[2] = static_cast<int>(smem);
+  out[3] = static_cast<int>(grid.x);
+  out[4] = static_cast<int>(grid.y);
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }

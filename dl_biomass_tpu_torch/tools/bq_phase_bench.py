@@ -21,8 +21,16 @@ residue bucket is ``index % 128``. The variants (``phase``):
   ``2**31 - 1`` where there is none.
 
 An invalid centroid gives ``n`` in every slot (``dist`` 0, ``rank`` and
-``extract`` ``2**31 - 1``). ``cm`` is the number of centroids, one warp each,
-per CUDA block (1-32); it changes no result.
+``extract`` ``2**31 - 1``). ``cm`` is the TPU tool's centroids per block
+(1-32): checked, it changes no result, and the launch no longer reads it.
+
+``plan(n, m, k)`` names kernel 9's launch, the design of kernel 3
+(``ops/ball_query_kernel.py``): the centroids a block, its warps, the points
+staged in shared memory at once, whether the cloud is staged whole (the warps
+then take the block's centroids from a shared counter) or a chunk at a time
+(one centroid a warp), and the chunks of 32 points a warp tests before it
+reads its hit count. ``probe`` (no early exit, the staging alone, no writing)
+and ``launch_of`` measure the kernel; no path calls them.
 
 ``main`` times ``full``, ``mstatic`` and ``munroll`` at ``cm=32`` on the JAX
 tool's data, each as a chain of ``LOOPS`` dependent calls (the centroids
@@ -37,7 +45,7 @@ import ctypes
 import re
 import sys
 from functools import partial
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,11 +69,72 @@ _KEY_BITS = 24
 INT_BIG = 0x7FFFFFFF
 # kernel 9's modes, as csrc/bq_phase.cu numbers them
 DIST, RANK, EXTRACT, WRITE = range(4)
-# the kernel on every path, and the measurements: no early exit, the loads of
-# every point alone (the outputs as for no hit), the scan without the writing
+# the kernel on every path, and the measurements: no early exit, the staging
+# of the cloud alone (the outputs as for no hit), the scan without the writing
 MODES = {"kernel": 0, "full_scan": 1, "loads_only": 2, "no_store": 3}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+# The launch (csrc/bq_phase.cu), as kernel 3's: chunks of 32 points a warp
+# tests before it reads its hit count (4 or 8; a group starts at a multiple of
+# 128, where the lanes' bucket counts line up); where the padded cloud fits a
+# block (whole), the warps and centroids a block where two blocks fit an SM's
+# shared memory (SHARED), and where one fills it (ALONE); larger clouds are
+# staged CHUNK_POINTS at a time, one centroid a warp
+AHEADS = (4, 8)
+AHEAD = 8
+SHARED_WARPS, SHARED_CENTROIDS = 16, 32
+ALONE_WARPS, ALONE_CENTROIDS = 32, 256
+CHUNK_WARPS, CHUNK_POINTS = 32, 8192
+POINT_BYTES = 16  # one float4 a staged point
+SLOT_BYTES = 4  # a warp's slots: k int32 in shared memory
+STATIC_SMEM = 16  # the whole kernel's centroid counter, rounded up
+SMEM_PER_BLOCK = 232448  # the shared memory a block may have on an H100 (227 KB)
+MAX_POINTS = (1 << 24) - 1  # the packed key's 24 index bits
+
+
+class Plan(NamedTuple):
+    centroids: int  # centroids a block (one a warp where chunked)
+    warps: int  # warps a block
+    points: int  # points staged in shared memory at once
+    whole: bool  # the cloud staged whole (else a chunk of `points` at a time)
+    ahead: int  # chunks of 32 points tested before the hit count is read
+
+
+def smem_bytes(p: Plan, k: int) -> int:
+    """A block's shared memory: its staged points, each warp's k slots, and
+    the whole kernel's counter."""
+    return dynamic_smem(p, k) + (STATIC_SMEM if p.whole else 0)
+
+
+def dynamic_smem(p: Plan, k: int) -> int:
+    """The part of it the launch asks for: the staged points and the slots."""
+    return p.points * POINT_BYTES + p.warps * k * SLOT_BYTES
+
+
+def plan(n: int, m: int, k: int) -> Optional[Plan]:
+    """The launch for clouds of ``n`` points (0 to 2**24 - 1), ``m``
+    centroids (at least 1) and ``k`` slots (1-127), or None where the kernel
+    takes no such clouds."""
+    if not (0 <= n <= MAX_POINTS and m >= 1 and 1 <= k <= 127):
+        return None
+    n_pad = round_up(n, 32 * AHEAD)
+    shared = Plan(SHARED_CENTROIDS, SHARED_WARPS, n_pad, True, AHEAD)
+    if 2 * smem_bytes(shared, k) <= SMEM_PER_BLOCK:  # blocks share an SM
+        return shared
+    alone = Plan(ALONE_CENTROIDS, ALONE_WARPS, n_pad, True, AHEAD)
+    if smem_bytes(alone, k) <= SMEM_PER_BLOCK:  # one block fills an SM
+        return alone
+    return Plan(CHUNK_WARPS, CHUNK_WARPS, CHUNK_POINTS, False, AHEAD)
+
+
+def launch_plan(n: int, m: int, k: int) -> Plan:
+    """``plan(n, m, k)``, or ValueError where the kernel takes no such clouds."""
+    p = plan(n, m, k)
+    if p is None:
+        raise ValueError(f"bq: the kernel takes no clouds of {n} points, {m} centroids and "
+                         f"k={k} (0 to {MAX_POINTS} points, at least 1 centroid, 1-127 slots)")
+    return p
 
 
 def variant(phase: str) -> Tuple[int, Optional[int]]:
@@ -155,7 +224,8 @@ def bq(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor, mask
     docstring.
 
     A CPU tensor takes the plain version; a CUDA tensor launches kernel 9
-    (``dlbt_bq_phase``)."""
+    (``dlbt_bq_phase``) once, as ``plan`` names it, on the points as they
+    are (no copy)."""
     if pos.device.type == "cpu":
         return bq_plain(centers, center_mask, pos, mask, radius=radius, k=k, cm=cm, phase=phase)
     return _launch(centers, center_mask, pos, mask, radius, k, cm, phase, "kernel")
@@ -164,10 +234,29 @@ def bq(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor, mask
 def probe(centers, center_mask, pos, mask, *, radius: float, k: int = 64, cm: int = 32,
           phase: str = "full", mode: str) -> torch.Tensor:
     """Kernel 9 on the card in a measurement ``mode``: "full_scan" (no early
-    exit; the same output), "loads_only" (every point loaded, no test: the
+    exit; the same output), "loads_only" (the cloud staged, no test: the
     output of a centroid with no hit) or "no_store" (the scan, the output
     left unwritten). No path calls it."""
     return _launch(centers, center_mask, pos, mask, radius, k, cm, phase, mode)
+
+
+def launch_of(b: int, n: int, m: int, k: int, phase: str = "full") -> dict:
+    """The launch ``bq`` makes for B clouds of ``n`` points, ``m`` centroids
+    and ``k`` slots on the current card, as the kernel's source computes it
+    from ``plan(n, m, k)``: blocks per SM, threads and dynamic shared memory
+    (bytes) a block, the grid, registers and local memory (bytes: spills) a
+    thread."""
+    p = launch_plan(n, m, k)
+    fn = _build.library().dlbt_bq_phase_launch
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 7)()
+    rc = fn(variant(phase)[0], b, m, n, k, p.centroids, p.warps, p.points, int(p.whole),
+            p.ahead, vals)
+    if rc != 0:
+        raise RuntimeError(f"dlbt_bq_phase_launch failed ({rc})")
+    return dict(blocks_per_sm=vals[0], threads=vals[1], smem_bytes=vals[2],
+                grid=(vals[3], vals[4]), registers=vals[5], local_bytes=vals[6])
 
 
 def _launch(centers, center_mask, pos, mask, radius, k, cm, phase, probe_mode):
@@ -176,20 +265,21 @@ def _launch(centers, center_mask, pos, mask, radius, k, cm, phase, probe_mode):
     mode, cap = _check(centers, center_mask, pos, mask, k, cm, phase)
     b, m, _ = centers.shape
     n = pos.shape[1]
-    planes = pos.transpose(1, 2).contiguous()  # (B, 3, N)
-    centers = centers.contiguous()
+    centers, pos = centers.contiguous(), pos.contiguous()
     center_mask = center_mask.to(torch.bool).contiguous()
     mask = mask.to(torch.bool).contiguous()
-    _build.check_cuda("bq", centers, center_mask, planes, mask)
+    _build.check_cuda("bq", centers, center_mask, pos, mask)
     out = torch.empty((b, m, k), dtype=torch.int32, device=pos.device)
     if out.numel() == 0:
         return out
+    p = launch_plan(n, m, k)
     # a bucket's count before a written point is at most its rank (< k): a cap
     # of k or more caps nothing, and the kernel's counters stay below 128
     eff_cap = k if cap is None else min(cap, k)
     _build.launch("dlbt_bq_phase", _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
-                  planes.data_ptr(), mask.data_ptr(), out.data_ptr(), b, m, n, k, cm, mode,
-                  eff_cap, radius2(radius), MODES[probe_mode], _build.stream_of(pos))
+                  pos.data_ptr(), mask.data_ptr(), out.data_ptr(), b, m, n, k, mode, eff_cap,
+                  radius2(radius), p.centroids, p.warps, p.points, int(p.whole), p.ahead,
+                  MODES[probe_mode], _build.stream_of(pos))
     return out
 
 

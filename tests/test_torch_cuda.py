@@ -29,6 +29,7 @@ from group_cases import group_case
 from query_cases import CASES as QUERY_CASES
 from query_cases import RADIUS as QUERY_RADIUS
 from query_cases import query_case
+from test_torch_sum_plan import planned_sum
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -1073,13 +1074,19 @@ def test_masked_stats_kernel_matches_plain(dev, c):
         assert float((p - r).abs().max()) <= 1e-5 * float(r.abs().max())
 
 
-def test_sum_slices_kernel_matches_plain(dev):
+@pytest.mark.parametrize("blocks,n", [(0, 300), (1, 300), (660, 128), (660, 256), (396, 8192),
+                                      (132, 32768), (133, 5000), (7, 1001)])
+def test_sum_slices_kernel_matches_plain(dev, blocks, n):
+    """Within 1e-6 of the plain version, a repeat bit-identical, and bit for
+    bit the planned order's numpy emulation."""
     g = torch.Generator(device=dev).manual_seed(2)
-    slices = torch.randn((133, 5000), device=dev, generator=g)
+    slices = torch.randn((blocks, n), device=dev, generator=g)
     got = sum_slices_kernel.sum_slices(slices)
     assert torch.equal(got.view(torch.int32), sum_slices_kernel.sum_slices(slices).view(torch.int32))
     want = sum_slices_kernel.sum_slices_plain(slices)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    ordered = torch.from_numpy(planned_sum(slices.cpu().numpy())).to(dev)
+    assert torch.equal(got.view(torch.int32), ordered.view(torch.int32))
 
 
 @pytest.mark.parametrize("blocks,rows", [
@@ -1111,21 +1118,51 @@ def _bq_case(dev, b, m, n, seed, cluster):
     return pos[:, :m].contiguous(), cmask, pos, mask
 
 
-@pytest.mark.parametrize("b,m,n,cm,cluster", [(2, 37, 300, 1, False), (3, 100, 1300, 7, True),
-                                              (4, 512, 2048, 32, True)])
-def test_bq_phase_kernel_matches_plain(dev, b, m, n, cm, cluster):
+# M no multiple of the tile (37, 100), whole clouds (300, 1200, 1300, 2048)
+# and a chunked one (20608), k 1, 64 and 127
+@pytest.mark.parametrize("b,m,n,k,cm,cluster", [
+    (2, 37, 300, 64, 1, False), (3, 100, 1300, 64, 7, True), (4, 512, 2048, 64, 32, True),
+    (2, 70, 1200, 1, 32, True), (2, 70, 1200, 127, 32, True), (2, 45, 20608, 64, 32, True),
+    (1, 33, 20608, 127, 32, False)])
+def test_bq_phase_kernel_matches_plain(dev, b, m, n, k, cm, cluster):
+    """Every variant, when127 too, bit-exact against the plain version, two
+    launches identical, and the launch the plan's."""
     args = _bq_case(dev, b, m, n, seed=b, cluster=cluster)
     dropped = False
-    for phase in bq_phase_bench.PHASES:
+    for phase in bq_phase_bench.PHASES + ("when127",):
         _build.launch_counts.clear()
-        got = bq_phase_bench.bq(*args, radius=8.0, cm=cm, phase=phase)
-        again = bq_phase_bench.bq(*args, radius=8.0, cm=cm, phase=phase)
+        got = bq_phase_bench.bq(*args, radius=8.0, k=k, cm=cm, phase=phase)
+        again = bq_phase_bench.bq(*args, radius=8.0, k=k, cm=cm, phase=phase)
         torch.cuda.synchronize()
         assert _build.launch_counts["dlbt_bq_phase"] == 2
-        want = bq_phase_bench.bq_plain(*args, radius=8.0, cm=cm, phase=phase)
+        want = bq_phase_bench.bq_plain(*args, radius=8.0, k=k, cm=cm, phase=phase)
         assert torch.equal(got, want), phase
         assert torch.equal(got, again), phase
         if phase == "full":
-            exact = bq_phase_bench.bq_plain(*args, radius=8.0, phase="dyn")
+            exact = bq_phase_bench.bq_plain(*args, radius=8.0, k=k, phase="dyn")
             dropped = not torch.equal(got, exact)
-    assert dropped == cluster
+    assert dropped == (cluster and k > 8)  # the cap drops only past a bucket's 8th
+    p = bq_phase_bench.plan(n, m, k)
+    launch = bq_phase_bench.launch_of(b, n, m, k)
+    assert (p.whole, p.points) == ((True, -(-n // 256) * 256) if n < 13824 else (False, 8192))
+    assert launch["threads"] == 32 * p.warps and launch["grid"] == (-(-m // p.centroids), b)
+    assert launch["smem_bytes"] == bq_phase_bench.dynamic_smem(p, k)
+    assert launch["blocks_per_sm"] >= 1 and launch["local_bytes"] == 0
+
+
+def test_bq_phase_is_one_launch_a_call(dev):
+    """No copy of the points beside the kernel: one launch, by the counts and
+    by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _bq_case(dev, 2, 64, 2048, seed=5, cluster=True)
+    bq_phase_bench.bq(*args, radius=8.0)
+    torch.cuda.synchronize()
+    for phase in ("full", "dist", "rank"):
+        _build.launch_counts.clear()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bq_phase_bench.bq(*args, radius=8.0, phase=phase)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert dict(_build.launch_counts) == {"dlbt_bq_phase": 1}
+        assert len(kernels) == 1 and "bq_" in kernels[0].name, [e.name for e in kernels]
