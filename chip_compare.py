@@ -112,6 +112,7 @@ one NVIDIA card, beside
                                           # plans (warps, centroids a block, chunks
                                           # ahead; the cloud whole), each bit-exact,
                                           # by CUDA graph for dist, rank, full and dyn
+                                          # and the staging alone
     python3 chip_compare.py sumslices TAG # the slice sum at its four shapes (7-B's
                                           # 396 x 8192 and 132 x 32768, kernel 8's
                                           # 660 x 128 and 660 x 256): its ptxas report,
@@ -120,7 +121,7 @@ one NVIDIA card, beside
                                           # torch.sum in f64 and the bound, with the
                                           # plan where the tree has one
     python3 chip_compare.py sumtune TAG   # the slice sum at those shapes under every
-                                          # tile width (8-256 values a block), by graph
+                                          # tile width (4-256 values a block), by graph
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -875,7 +876,7 @@ def bq_phase(tag: str) -> None:
             call = lambda: k9.bq(*args, radius=radius, k=k, phase=phase)  # noqa: E731
             cs.require(torch.equal(call(), k9.bq_plain(*args, radius=radius, k=k, phase=phase)),
                        f"kernel 9 {phase} ({label}): differs from plain")
-            row = {"graph": cs.graph_ms(call), "alone": cs.kernel_alone_ms(call, "bq_phase")}
+            row = {"graph": cs.graph_ms(call), "alone": cs.kernel_alone_ms(call, "bq_")}
             for mode in modes:
                 row[mode] = cs.graph_ms(
                     lambda mode_=mode: k9.probe(*args, radius=radius, k=k, phase=phase,
@@ -898,7 +899,8 @@ def bq_tune(tag: str) -> None:
     """Kernel 9 on the tool's data under other plans (``bq_phase_bench.plan``
     patched): warps and centroids a block and chunks tested ahead, the cloud
     whole; each bit-exact against the plain version, then the graph replay's
-    ms (chip_smoke.graph_ms) of ``dist``, ``rank``, ``full`` and ``dyn``."""
+    ms (chip_smoke.graph_ms) of ``dist``, ``rank``, ``full`` and ``dyn``, and
+    of the staging and writing alone (``probe``'s "loads_only")."""
     import itertools
 
     cs, dev = _setup()
@@ -923,7 +925,9 @@ def bq_tune(tag: str) -> None:
                 cs.require(torch.equal(call(), want[ph]),
                            f"plan {tuple(p)}: kernel 9 {ph} differs from plain")
                 out[(ph, p)] = cs.graph_ms(call)
-    for ph in phases:
+            out[("staging", p)] = cs.graph_ms(
+                lambda: k9.probe(*args, radius=radius, k=k, mode="loads_only"))
+    for ph in phases + ("staging",):
         best = sorted((p for q, p in out if q == ph), key=lambda p: out[(ph, p)])
         print(f"{tag} bqtune {ph}: plan {tuple(base)} {out[(ph, base)]:.4f} ms; fastest "
               + ", ".join(f"{tuple(p)} {out[(ph, p)]:.4f}" for p in best[:6])
@@ -975,7 +979,7 @@ def sum_slices(tag: str) -> None:
 
 def sum_tune(tag: str) -> None:
     """The slice sum at SUM_SHAPES under every tile width the source takes
-    (``sum_slices_kernel.plan`` patched: 8 to 256 values a block, the runs
+    (``sum_slices_kernel.plan`` patched: 4 to 256 values a block, the runs
     filling 256 threads): each within 1e-6 of its plain version, then by CUDA
     graph."""
     cs, dev = _setup()
@@ -988,7 +992,9 @@ def sum_tune(tag: str) -> None:
         want = ss.sum_slices_plain(slices)
         base = ss.plan(blocks, n)
         out = {}
-        for cols in (8, 16, 32, 64, 128, 256):
+        for cols in (4, 8, 16, 32, 64, 128, 256):
+            if cols % base.vec:
+                continue
             groups = max(1, min(ss.MAX_THREADS * base.vec // cols, blocks))
             p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
                               grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)

@@ -20,8 +20,8 @@
 // to less, except kDist's all-N scan, which is bound by operations (on the
 // CUDA cores, with no FMA, 9 instructions a test).
 //
-// Design, kernel 3's (csrc/ball_query.cu), with a copy of its staging and
-// scan: a block takes one cloud and a tile of its centroids and stages the
+// Design: kernel 3's (csrc/ball_query.cu), with a copy of its staging and
+// scan. A block takes one cloud and a tile of its centroids and stages the
 // cloud's points in shared memory once, as float4 (x, y, z, 0) read straight
 // from pos (B, N, 3) and mask (B, N); a masked point, or a pad slot past N,
 // holds NaN in x, so it fails every test and the scan needs no bounds or mask
@@ -30,8 +30,8 @@
 // hit ranked by __popc prefixes; the hit count is read once per 32 * AHEAD
 // points. A chunk starts at a multiple of 32 and a group at a multiple of 128,
 // so lane l of chunk t sees bucket 32 (t % 4) + l: each lane keeps four counts
-// of kept hits in registers (a count stays <= cap), carried across chunks of
-// the cloud. The modes:
+// of kept hits in the bytes of one register (a count stays <= cap <= 127),
+// carried across chunks of the cloud. The modes:
 // - kWrite puts each kept hit of rank < k in the warp's k slots in shared
 //   memory (n before the scan, so holes and the tail stay n), stops after the
 //   group that holds the K-th hit and writes the row out once, coalesced,
@@ -109,31 +109,47 @@ struct Args {
 
 // One centroid of a warp: its coordinates; whether it is in the warp's tile
 // (in) and still needs points (need); hits so far (cnt); each lane's counts of
-// kept hits in buckets 32 q + lane (kWrite); the lane's in-radius count
-// (kDist) or the least key found (kFirst).
+// kept hits in buckets 32 q + lane, byte q of counts (kWrite: a count stays <=
+// cap <= 127); the lane's in-radius count (kDist) or the least key found
+// (kFirst).
 struct Centroid {
   float x, y, z;
   int cnt, acc;
-  int counts[4];
+  unsigned counts;
   bool in, need;
 };
 
-// Centroid c of cloud b, if it is below c1; the loads are issued here and
-// waited for at the first use.
+// A centroid at (x, y, z), valid or not, in its warp's tile or not.
+template <int kMode>
+__device__ __forceinline__ Centroid make(const Args& a, float4 p, bool valid, bool in) {
+  Centroid w;
+  w.in = in;
+  w.need = in && valid && a.probe != kLoadsOnly;
+  w.x = p.x;
+  w.y = p.y;
+  w.z = p.z;
+  w.cnt = 0;
+  w.acc = kMode == kDist ? 0 : kIntBig;
+  w.counts = 0;
+  return w;
+}
+
+// Centroid c of cloud b from device memory, if it is below c1.
 template <int kMode>
 __device__ __forceinline__ Centroid load(const Args& a, int b, int c, int c1) {
   const size_t ci = static_cast<size_t>(b) * a.m + min(c, a.m - 1);
-  Centroid w;
-  w.in = c < c1;
-  w.need = w.in && a.cmask[ci] && a.probe != kLoadsOnly;
-  w.x = a.centers[3 * ci];
-  w.y = a.centers[3 * ci + 1];
-  w.z = a.centers[3 * ci + 2];
-  w.cnt = 0;
-  w.acc = kMode == kDist ? 0 : kIntBig;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) w.counts[q] = 0;
-  return w;
+  const float4 p = make_float4(a.centers[3 * ci], a.centers[3 * ci + 1], a.centers[3 * ci + 2],
+                               0.f);
+  return make<kMode>(a, p, a.cmask[ci], c < c1);
+}
+
+// Centroid c0 + i of the block's tile from shared memory (w 1 where valid),
+// if c0 + i is below c1.
+template <int kMode>
+__device__ __forceinline__ Centroid staged(const Args& a, const float4* cen, int i, int c0,
+                                           int c1) {
+  const float4 p = cen[min(i, c1 - c0 - 1)];
+  return make<kMode>(a, p, p.w != 0.f, c0 + i < c1);
 }
 
 // One warp scans pts[0 .. count) (count a multiple of 32 * AHEAD; pts[0] is
@@ -187,8 +203,9 @@ __device__ __forceinline__ void scan(const float4* pts, int count, int first, Ce
 #pragma unroll
       for (int t = 0; t < AHEAD; ++t) {
         const int rank = w.cnt + __popc(hits[t] & below);
-        const bool kept = ok[t] && w.counts[t % 4] < a.cap;
-        w.counts[t % 4] += kept;
+        const int shift = 8 * (t % 4);
+        const bool kept = ok[t] && static_cast<int>((w.counts >> shift) & 0xffu) < a.cap;
+        w.counts += static_cast<unsigned>(kept) << shift;
         if (kept && rank < k) {
           asm volatile("st.shared.u32 [%0], %1;" ::"r"(row + 4 * rank),
                        "r"(first + s + 32 * t + lane)
@@ -199,6 +216,32 @@ __device__ __forceinline__ void scan(const float4* pts, int count, int first, Ce
       w.need = a.probe == kFullScan || w.cnt < k;
     }
   }
+}
+
+// kDist in a whole cloud: one warp scans pts[0 .. count) for two centroids at
+// once, each point read once for both tests (the scan reads shared memory at
+// its rate otherwise).
+template <int AHEAD>
+__device__ __forceinline__ void scan_dist2(const float4* pts, int count, Centroid& w0,
+                                           Centroid& w1, float r2, int lane) {
+  if (!w0.need && !w1.need) return;
+  for (int s = 0; s < count; s += 32 * AHEAD) {
+#pragma unroll
+    for (int t = 0; t < AHEAD; ++t) {
+      const float4 p = pts[s + 32 * t + lane];
+      const float dx0 = __fsub_rn(p.x, w0.x), dx1 = __fsub_rn(p.x, w1.x);
+      const float dy0 = __fsub_rn(p.y, w0.y), dy1 = __fsub_rn(p.y, w1.y);
+      const float dz0 = __fsub_rn(p.z, w0.z), dz1 = __fsub_rn(p.z, w1.z);
+      const float d0 =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx0, dx0), __fmul_rn(dy0, dy0)), __fmul_rn(dz0, dz0));
+      const float d1 =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx1, dx1), __fmul_rn(dy1, dy1)), __fmul_rn(dz1, dz1));
+      w0.acc += d0 <= r2;
+      w1.acc += d1 <= r2;
+    }
+  }
+  if (!w0.need) w0.acc = 0;
+  if (!w1.need) w1.acc = 0;
 }
 
 // The warp's centroid c, if in its tile: its k slots written out (kWrite: the
@@ -226,32 +269,42 @@ __device__ __forceinline__ void write_out(const Centroid& w, const Args& a, int 
   __syncwarp();  // before the slots are placed again
 }
 
-// The cloud staged whole; the block's warps take the tile's centroids from a
-// shared counter, and load the next one before they scan.
+// The cloud and the tile's centroids staged whole; the block's warps take the
+// tile's centroids from a shared counter (kDist two at a time).
 template <int kMode, int AHEAD>
 __global__ void __launch_bounds__(kMaxThreads) bq_whole(Args a) {
   extern __shared__ float4 pts[];
   __shared__ int next;
+  constexpr int kTake = kMode == kDist ? 2 : 1;  // centroids a warp scans at once
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int c0 = blockIdx.x * a.tile, c1 = min(a.m, c0 + a.tile);
-  int* slots = reinterpret_cast<int*>(pts + a.count) + a.k * warp;
+  float4* cen = pts + a.count;  // the tile's centroids, w 1 where valid
+  int* slots = reinterpret_cast<int*>(cen + a.tile) + a.k * warp;
   for (int j = lane; j < a.k; j += 32) slots[j] = a.n;
-  int c = c0 + warp;
-  Centroid cur = load<kMode>(a, b, c, c1);
+  for (int i = threadIdx.x; i < c1 - c0; i += blockDim.x) {
+    const size_t ci = static_cast<size_t>(b) * a.m + c0 + i;
+    cen[i] = make_float4(a.centers[3 * ci], a.centers[3 * ci + 1], a.centers[3 * ci + 2],
+                         a.cmask[ci] ? 1.f : 0.f);
+  }
   stage(pts, a.pos + static_cast<size_t>(b) * 3 * a.n, a.mask + static_cast<size_t>(b) * a.n,
         0, a.count, a.n);
-  if (threadIdx.x == 0) next = c0 + warps;
+  if (threadIdx.x == 0) next = c0 + kTake * warps;
   __syncthreads();
-  while (c < c1) {
+  for (int c = c0 + kTake * warp; c < c1;) {
     int taken = 0;
-    if (lane == 0) taken = atomicAdd(&next, 1);
+    if (lane == 0) taken = atomicAdd(&next, kTake);
     const int nc = __shfl_sync(kFull, taken, 0);
-    const Centroid nx = load<kMode>(a, b, nc, c1);
-    scan<kMode, AHEAD>(pts, a.count, 0, cur, a, slots, lane);
-    write_out<kMode>(cur, a, b, c, slots, lane);
+    Centroid w = staged<kMode>(a, cen, c - c0, c0, c1);
+    if constexpr (kMode == kDist) {
+      Centroid w1 = staged<kMode>(a, cen, c + 1 - c0, c0, c1);
+      scan_dist2<AHEAD>(pts, a.count, w, w1, a.r2, lane);
+      write_out<kMode>(w1, a, b, c + 1, slots, lane);
+    } else {
+      scan<kMode, AHEAD>(pts, a.count, 0, w, a, slots, lane);
+    }
+    write_out<kMode>(w, a, b, c, slots, lane);
     c = nc;
-    cur = nx;
   }
 }
 
@@ -278,9 +331,10 @@ __global__ void __launch_bounds__(kMaxThreads) bq_chunked(Args a) {
   write_out<kMode>(w, a, b, c, slots, lane);
 }
 
-// A block's dynamic shared memory: the staged points, then each warp's slots.
-size_t smem_bytes(int count, int warps, int k) {
-  return static_cast<size_t>(count) * sizeof(float4) +
+// A block's dynamic shared memory: the staged points, the tile's centroids
+// (whole), then each warp's slots.
+size_t smem_bytes(int count, int tile, int warps, int k) {
+  return static_cast<size_t>(count + tile) * sizeof(float4) +
          static_cast<size_t>(warps) * k * sizeof(int);
 }
 
@@ -315,7 +369,7 @@ cudaError_t prepare(int mode, int b, int m, int n, int k, int tile, int warps, i
       count % (32 * ahead) != 0 || (whole && count < n) || (!whole && count < 1)) {
     return cudaErrorInvalidValue;
   }
-  *smem = smem_bytes(count, warps, k);
+  *smem = smem_bytes(count, whole ? tile : 0, warps, k);
   *grid = dim3(whole ? (m + tile - 1) / tile : (m + warps - 1) / warps, b);
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));

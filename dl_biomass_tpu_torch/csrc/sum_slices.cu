@@ -17,11 +17,13 @@
 // `cols`. A block takes one tile; its threads are (groups, cols / V): a thread
 // adds its run's slices of its V consecutive values in slice order in f64,
 // kAhead loads in flight (V = 4: one 16-byte load a slice, where n % 4 == 0).
-// The block writes the runs' partial sums to shared memory, and one thread a
-// value adds them in run order and rounds once. So the order is fixed: the
+// The block writes the runs' partial sums to shared memory; a thread adds
+// kSpan of them in run order, and one thread a value adds those spans' sums in
+// span order and rounds once (a chain of kSpan + groups / kSpan dependent adds
+// where one of groups would hold narrow tiles). So the order is fixed: the
 // result repeats bit for bit on one card, with no float atomics. Narrow n takes
-// narrow tiles and many runs (kernel 8's 128 values: 16 blocks of 128 runs),
-// wide n wide tiles of coalesced rows (7-B's 32768: 256 values a block);
+// narrow tiles and many runs (kernel 8's 128 values: 32 blocks of 256 runs),
+// wide n wider tiles of coalesced rows (7-B's 32768: 64 values a block);
 // sum_slices_kernel.plan mirrors the launch. dlbt_sum_slices_empty launches an
 // empty kernel on the same grid: the floor a launch sets.
 
@@ -31,6 +33,7 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kAhead = 8;  // slices a thread loads before it adds them
+constexpr int kSpan = 8;  // runs' sums added by one thread before the last step
 
 template <int V>
 struct Vec;
@@ -82,9 +85,20 @@ sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols
 #pragma unroll
   for (int v = 0; v < V; ++v) part[g * cols + tx * V + v] = s[v];
   __syncthreads();
+  // the runs' sums of each value, kSpan at a time in run order, each span's
+  // sum kept in place of its first run's
+  const int spans = (groups + kSpan - 1) / kSpan;
+  for (int i = threadIdx.x; i < spans * cols; i += blockDim.x) {
+    const int q0 = i / cols * kSpan, col = i % cols;
+    double t = 0.0;
+    for (int q = q0; q < min(q0 + kSpan, groups); ++q) t += part[q * cols + col];
+    part[q0 * cols + col] = t;
+  }
+  __syncthreads();
+  // then the spans' sums in span order, rounded once
   for (int i = threadIdx.x; i < cols && c0 + i < n; i += blockDim.x) {
     double t = 0.0;
-    for (int q = 0; q < groups; ++q) t += part[q * cols + i];
+    for (int q = 0; q < groups; q += kSpan) t += part[q * cols + i];
     out[c0 + i] = static_cast<float>(t);
   }
 }

@@ -7,8 +7,9 @@ and runs ``sum_slices_plain`` on a CPU tensor.
 The order, which ``plan(blocks, n)`` names: the slices are split into
 ``groups`` runs of consecutive slices (the first ``blocks % groups`` runs one
 slice longer, ``runs`` gives them); each run's slices are added in slice
-order, then the runs' sums in run order, each from 0.0. ``empty`` measures the
-floor a launch sets; no path calls it."""
+order, the runs' sums ``SPAN`` at a time in run order, then those spans' sums
+in span order, each sum from 0.0. ``empty`` measures the floor a launch sets;
+no path calls it."""
 
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ from dl_biomass_tpu_torch.ops import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MAX_THREADS = 256  # threads a block (csrc/sum_slices.cu kMaxThreads)
-MIN_COLS, MAX_COLS = 8, 256  # values a block
+MIN_COLS, MAX_COLS = 4, 256  # values a block
 # the narrowest tile at or above MIN_COLS that still gives this many blocks:
-# about two an SM of an H100's 132
-TARGET_BLOCKS = 256
+# about four an SM of an H100's 132 (the fastest tile at 7-B's two shapes,
+# chip_compare.py sumtune on an H100)
+TARGET_BLOCKS = 512
 SUM_BYTES = 8  # a run's partial sum of one value in shared memory (f64)
+SPAN = 8  # runs' sums a thread adds before one thread a value adds the spans
 
 
 class Plan(NamedTuple):
@@ -40,7 +43,8 @@ class Plan(NamedTuple):
 def plan(blocks: int, n: int) -> Optional[Plan]:
     """The launch that sums ``blocks`` slices of ``n`` values, or None for
     negative sizes. Narrow n takes narrow tiles and many runs, so that it
-    spreads over many SMs; wide n tiles of up to 256 values, coalesced rows."""
+    spreads over many SMs (down to 4 values a block: one 16-byte load a run);
+    wide n tiles of up to 256 values, coalesced rows."""
     if blocks < 0 or n < 0:
         return None
     vec = 4 if n % 4 == 0 else 1
@@ -72,8 +76,7 @@ def sum_slices_plain(slices: torch.Tensor) -> torch.Tensor:
 
 def sum_slices(slices: torch.Tensor) -> torch.Tensor:
     """(blocks, n) float32 -> (n,) float32, the slices added in float64 in the
-    order of ``plan``: each run of consecutive slices in slice order, then the
-    runs in run order."""
+    order of the module docstring."""
     if slices.device.type == "cpu":
         return sum_slices_plain(slices)
     if slices.device.type != "cuda":

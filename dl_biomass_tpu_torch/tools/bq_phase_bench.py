@@ -29,7 +29,8 @@ An invalid centroid gives ``n`` in every slot (``dist`` 0, ``rank`` and
 staged in shared memory at once, whether the cloud is staged whole (the warps
 then take the block's centroids from a shared counter) or a chunk at a time
 (one centroid a warp), and the chunks of 32 points a warp tests before it
-reads its hit count. ``probe`` (no early exit, the staging alone, no writing)
+reads its hit count; ``dist`` scans two centroids a warp at once in a whole
+cloud. ``probe`` (no early exit, the staging alone, no writing)
 and ``launch_of`` measure the kernel; no path calls them.
 
 ``main`` times ``full``, ``mstatic`` and ``munroll`` at ``cm=32`` on the JAX
@@ -79,14 +80,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
 # tests before it reads its hit count (4 or 8; a group starts at a multiple of
 # 128, where the lanes' bucket counts line up); where the padded cloud fits a
 # block (whole), the warps and centroids a block where two blocks fit an SM's
-# shared memory (SHARED), and where one fills it (ALONE); larger clouds are
-# staged CHUNK_POINTS at a time, one centroid a warp
+# shared memory (SHARED: 8 warps, so that four blocks fit its registers), and
+# where one fills it (ALONE); larger clouds are staged CHUNK_POINTS at a time,
+# one centroid a warp
 AHEADS = (4, 8)
 AHEAD = 8
-SHARED_WARPS, SHARED_CENTROIDS = 16, 32
-ALONE_WARPS, ALONE_CENTROIDS = 32, 256
+SHARED_WARPS, SHARED_CENTROIDS = 8, 32
+ALONE_WARPS, ALONE_CENTROIDS = 32, 128
 CHUNK_WARPS, CHUNK_POINTS = 32, 8192
-POINT_BYTES = 16  # one float4 a staged point
+POINT_BYTES = 16  # one float4 a staged point, or a staged centroid of a whole tile
 SLOT_BYTES = 4  # a warp's slots: k int32 in shared memory
 STATIC_SMEM = 16  # the whole kernel's centroid counter, rounded up
 SMEM_PER_BLOCK = 232448  # the shared memory a block may have on an H100 (227 KB)
@@ -102,14 +104,16 @@ class Plan(NamedTuple):
 
 
 def smem_bytes(p: Plan, k: int) -> int:
-    """A block's shared memory: its staged points, each warp's k slots, and
-    the whole kernel's counter."""
+    """A block's shared memory: its staged points (and centroids, whole),
+    each warp's k slots, and the whole kernel's counter."""
     return dynamic_smem(p, k) + (STATIC_SMEM if p.whole else 0)
 
 
 def dynamic_smem(p: Plan, k: int) -> int:
-    """The part of it the launch asks for: the staged points and the slots."""
-    return p.points * POINT_BYTES + p.warps * k * SLOT_BYTES
+    """The part of it the launch asks for: the staged points and centroids
+    and the slots."""
+    staged = p.points + (p.centroids if p.whole else 0)
+    return staged * POINT_BYTES + p.warps * k * SLOT_BYTES
 
 
 def plan(n: int, m: int, k: int) -> Optional[Plan]:

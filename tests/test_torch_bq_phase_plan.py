@@ -15,9 +15,10 @@ from dl_biomass_tpu_torch.tools import bq_phase_bench as k9
 SMEM = 232448  # a block's shared memory on an H100
 
 
-def taken(p: k9.Plan, m: int, seed: int) -> list:
+def taken(p: k9.Plan, m: int, take: int, seed: int) -> list:
     """The centroids each warp of each block scans, as the kernel hands them
-    out, the warps' turns at the shared counter in a random order."""
+    out (``take`` at a time from the shared counter in a whole cloud: 2 for
+    ``dist``), the warps' turns at the counter in a random order."""
     rng = np.random.default_rng(seed)
     out = []
     if not p.whole:  # one centroid a warp
@@ -26,22 +27,23 @@ def taken(p: k9.Plan, m: int, seed: int) -> list:
         return out
     for x in range(-(-m // p.centroids)):
         c0, c1 = x * p.centroids, min(m, (x + 1) * p.centroids)
-        held = [c0 + w for w in range(p.warps)]  # each warp's first centroid
-        nxt = c0 + p.warps
+        held = [c0 + take * w for w in range(p.warps)]  # each warp's first
+        nxt = c0 + take * p.warps
         while any(c < c1 for c in held):
             w = int(rng.choice([i for i, c in enumerate(held) if c < c1]))
-            out.append(held[w])
-            held[w], nxt = nxt, nxt + 1  # atomicAdd on the counter
+            out += [c for c in range(held[w], held[w] + take) if c < c1]  # the rest not in
+            held[w], nxt = nxt, nxt + take  # atomicAdd on the counter
     return out
 
 
+@pytest.mark.parametrize("take", [1, 2])
 @pytest.mark.parametrize("n,m,k", [(2048, 512, 64), (2048, 37, 64), (1200, 100, 1),
                                    (13824, 300, 64), (20608, 70, 127), (0, 5, 64),
-                                   (300, 33, 127)])
-def test_every_centroid_is_taken_once(n, m, k):
+                                   (300, 33, 127), (300, 17, 64)])
+def test_every_centroid_is_taken_once(n, m, k, take):
     p = k9.plan(n, m, k)
     for seed in range(3):
-        assert sorted(taken(p, m, seed)) == list(range(m))
+        assert sorted(taken(p, m, take, seed)) == list(range(m))
 
 
 @pytest.mark.parametrize("k", [1, 8, 64, 127])
@@ -55,11 +57,12 @@ def test_shared_memory_fits_a_block(k):
 
 
 def test_the_plan_switches_where_the_cloud_stops_fitting():
-    # two blocks an SM up to 6912 points at k=64 (2 x (6912 x 16 + 16 x 64 x 4 + 16) bytes),
-    # one block of 32 warps up to 13,824 (13,824 x 16 + 32 x 64 x 4 + 16), then chunks
+    # two blocks an SM up to 6912 points at k=64 (2 x ((6912 + 32) x 16 + 8 x 64 x 4 + 16)
+    # bytes), one block of 32 warps up to 13,824 ((13,824 + 128) x 16 + 32 x 64 x 4 + 16),
+    # then chunks, as kernel 3's
     shared, alone = k9.plan(6912, 512, 64), k9.plan(6913, 512, 64)
-    assert (shared.warps, shared.centroids, shared.whole) == (16, 32, True)
-    assert (alone.warps, alone.centroids, alone.whole) == (32, 256, True)
+    assert (shared.warps, shared.centroids, shared.whole) == (8, 32, True)
+    assert (alone.warps, alone.centroids, alone.whole) == (32, 128, True)
     assert 2 * k9.smem_bytes(shared, 64) <= SMEM < 2 * k9.smem_bytes(alone, 64)
     whole, chunked = k9.plan(13824, 512, 64), k9.plan(13825, 512, 64)
     assert whole.whole and whole.points == 13824 and k9.smem_bytes(whole, 64) <= SMEM

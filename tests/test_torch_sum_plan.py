@@ -18,16 +18,23 @@ SHAPES = [(396, 8192), (132, 32768), (660, 128), (660, 256), (133, 5000), (0, 7)
 
 def planned_sum(slices: np.ndarray) -> np.ndarray:
     """The kernel's order in numpy: each run's slices added in slice order in
-    float64 from 0.0, then the runs' sums in run order from 0.0, rounded once
-    to float32. Elementwise float64 adds round as the card's do."""
+    float64 from 0.0, the runs' sums SPAN at a time in run order, then the
+    spans' sums in span order, each from 0.0, rounded once to float32.
+    Elementwise float64 adds round as the card's do."""
     blocks, n = slices.shape
     p = ss.plan(blocks, n)
-    total = np.zeros(n, np.float64)
+    sums = []
     for lo, hi in ss.runs(blocks, p.groups):
         part = np.zeros(n, np.float64)
         for j in range(lo, hi):
             part = part + slices[j].astype(np.float64)
-        total = total + part
+        sums.append(part)
+    total = np.zeros(n, np.float64)
+    for q in range(0, len(sums), ss.SPAN):
+        span = np.zeros(n, np.float64)
+        for part in sums[q:q + ss.SPAN]:
+            span = span + part
+        total = total + span
     return total.astype(np.float32)
 
 
@@ -52,9 +59,9 @@ def test_launch_within_the_kernels_limits(blocks, n):
 
 
 def test_narrow_slices_spread_and_wide_ones_keep_rows():
-    assert ss.plan(660, 128)[:3] == (4, 8, 128)  # 16 blocks of 128 runs
-    assert ss.plan(396, 8192)[:3] == (4, 32, 32)  # 256 blocks
-    assert ss.plan(132, 32768)[:3] == (4, 128, 8)  # 256 blocks of 128-value rows
+    assert ss.plan(660, 128)[:3] == (4, 4, 256)  # 32 blocks of 256 runs
+    assert ss.plan(396, 8192)[:3] == (4, 16, 64)  # 512 blocks
+    assert ss.plan(132, 32768)[:3] == (4, 64, 16)  # 512 blocks of 64-value rows
     assert ss.plan(10, 1 << 20).cols == ss.MAX_COLS
     assert ss.plan(-1, 5) is None and ss.plan(5, -1) is None
 
