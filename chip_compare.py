@@ -121,7 +121,8 @@ one NVIDIA card, beside
                                           # torch.sum in f64 and the bound, with the
                                           # plan where the tree has one
     python3 chip_compare.py sumtune TAG   # the slice sum at those shapes under every
-                                          # tile width (4-256 values a block), by graph
+                                          # tile width (4-256 values a block) and
+                                          # slices loaded at once, by graph
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -980,8 +981,8 @@ def sum_slices(tag: str) -> None:
 def sum_tune(tag: str) -> None:
     """The slice sum at SUM_SHAPES under every tile width the source takes
     (``sum_slices_kernel.plan`` patched: 4 to 256 values a block, the runs
-    filling 256 threads): each within 1e-6 of its plain version, then by CUDA
-    graph."""
+    filling 256 threads) and each count of slices loaded at once: each within
+    1e-6 of its plain version, then by CUDA graph."""
     cs, dev = _setup()
     from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
 
@@ -996,16 +997,21 @@ def sum_tune(tag: str) -> None:
             if cols % base.vec:
                 continue
             groups = max(1, min(ss.MAX_THREADS * base.vec // cols, blocks))
-            p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
-                              grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)
-            with mock.patch.object(ss, "plan", lambda *_: p):
-                rel = cs.rel_diff(ss.sum_slices(slices), want)
-                cs.require(rel <= 1e-6, f"slice sum {label} at {cols} values a block: vs "
-                                        f"plain rel {rel} > 1e-6")
-                out[p] = cs.graph_ms(lambda: ss.sum_slices(slices))
+            for ahead in getattr(ss, "AHEADS", (None,)):
+                p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
+                                  grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)
+                if ahead is not None:
+                    p = p._replace(ahead=ahead)
+                with mock.patch.object(ss, "plan", lambda *_: p):
+                    rel = cs.rel_diff(ss.sum_slices(slices), want)
+                    cs.require(rel <= 1e-6, f"slice sum {label} at {tuple(p)}: vs plain rel "
+                                            f"{rel} > 1e-6")
+                    out[p] = cs.graph_ms(lambda: ss.sum_slices(slices))
         print(f"{tag} sumtune {label} ({blocks} x {n}): "
-              + ", ".join(f"{p.cols} values x {p.groups} runs ({p.grid} blocks) {ms:.4f}"
-                          + (" (the plan)" if p == base else "") for p, ms in out.items())
+              + ", ".join(f"{p.cols} values x {p.groups} runs ({p.grid} blocks"
+                          + (f", {p.ahead} ahead" if hasattr(p, "ahead") else "")
+                          + f") {ms:.4f}" + (" (the plan)" if p == base else "")
+                          for p, ms in out.items())
               + f" ms [{card}]", flush=True)
 
 
