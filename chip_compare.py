@@ -109,8 +109,8 @@ one NVIDIA card, beside
                                           # and the plan where the tree has one; then
                                           # bq_phase_bench's main()
     python3 chip_compare.py bqtune TAG    # kernel 9 on the tool's data under other
-                                          # plans (warps, centroids a block, chunks
-                                          # ahead; the cloud whole), each bit-exact,
+                                          # plans (warps and centroids a block; the
+                                          # cloud whole), each bit-exact,
                                           # by CUDA graph for dist, rank, full and dyn
                                           # and the staging alone
     python3 chip_compare.py sumslices TAG # the slice sum at its four shapes (7-B's
@@ -121,8 +121,7 @@ one NVIDIA card, beside
                                           # torch.sum in f64 and the bound, with the
                                           # plan where the tree has one
     python3 chip_compare.py sumtune TAG   # the slice sum at those shapes under every
-                                          # tile width (4-256 values a block) and
-                                          # slices loaded at once, by graph
+                                          # tile width (4-256 values a block), by graph
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -898,10 +897,10 @@ def bq_phase(tag: str) -> None:
 
 def bq_tune(tag: str) -> None:
     """Kernel 9 on the tool's data under other plans (``bq_phase_bench.plan``
-    patched): warps and centroids a block and chunks tested ahead, the cloud
-    whole; each bit-exact against the plain version, then the graph replay's
-    ms (chip_smoke.graph_ms) of ``dist``, ``rank``, ``full`` and ``dyn``, and
-    of the staging and writing alone (``probe``'s "loads_only")."""
+    patched): warps and centroids a block, the cloud whole; each bit-exact
+    against the plain version, then the graph replay's ms
+    (chip_smoke.graph_ms) of ``dist``, ``rank``, ``full`` and ``dyn``, and of
+    the staging and writing alone (``probe``'s "loads_only")."""
     import itertools
 
     cs, dev = _setup()
@@ -915,8 +914,8 @@ def bq_tune(tag: str) -> None:
     phases = ("dist", "rank", "full", "dyn")
     want = {ph: k9.bq_plain(*args, radius=radius, k=k, phase=ph) for ph in phases}
     base = k9.plan(n, m, k)
-    plans = [k9.Plan(w * r, w, round_up(n, 32 * a), True, a)
-             for w, r, a in itertools.product((4, 8, 16, 32), (1, 2, 4, 8), k9.AHEADS)]
+    plans = [k9.Plan(w * r, w, round_up(n, k9.GROUP), True)
+             for w, r in itertools.product((4, 8, 16, 32), (1, 2, 4, 8))]
     plans = [p for p in plans if k9.smem_bytes(p, k) <= k9.SMEM_PER_BLOCK]
     out = {}
     for p in dict.fromkeys([base] + plans):
@@ -981,8 +980,8 @@ def sum_slices(tag: str) -> None:
 def sum_tune(tag: str) -> None:
     """The slice sum at SUM_SHAPES under every tile width the source takes
     (``sum_slices_kernel.plan`` patched: 4 to 256 values a block, the runs
-    filling 256 threads) and each count of slices loaded at once: each within
-    1e-6 of its plain version, then by CUDA graph."""
+    filling 256 threads): each within 1e-6 of its plain version, then by CUDA
+    graph."""
     cs, dev = _setup()
     from dl_biomass_tpu_torch.ops import sum_slices_kernel as ss
 
@@ -997,21 +996,16 @@ def sum_tune(tag: str) -> None:
             if cols % base.vec:
                 continue
             groups = max(1, min(ss.MAX_THREADS * base.vec // cols, blocks))
-            for ahead in getattr(ss, "AHEADS", (None,)):
-                p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
-                                  grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)
-                if ahead is not None:
-                    p = p._replace(ahead=ahead)
-                with mock.patch.object(ss, "plan", lambda *_: p):
-                    rel = cs.rel_diff(ss.sum_slices(slices), want)
-                    cs.require(rel <= 1e-6, f"slice sum {label} at {tuple(p)}: vs plain rel "
-                                            f"{rel} > 1e-6")
-                    out[p] = cs.graph_ms(lambda: ss.sum_slices(slices))
+            p = base._replace(cols=cols, groups=groups, threads=groups * cols // base.vec,
+                              grid=-(-n // cols), smem_bytes=groups * cols * ss.SUM_BYTES)
+            with mock.patch.object(ss, "plan", lambda *_: p):
+                rel = cs.rel_diff(ss.sum_slices(slices), want)
+                cs.require(rel <= 1e-6, f"slice sum {label} at {tuple(p)}: vs plain rel "
+                                        f"{rel} > 1e-6")
+                out[p] = cs.graph_ms(lambda: ss.sum_slices(slices))
         print(f"{tag} sumtune {label} ({blocks} x {n}): "
-              + ", ".join(f"{p.cols} values x {p.groups} runs ({p.grid} blocks"
-                          + (f", {p.ahead} ahead" if hasattr(p, "ahead") else "")
-                          + f") {ms:.4f}" + (" (the plan)" if p == base else "")
-                          for p, ms in out.items())
+              + ", ".join(f"{p.cols} values x {p.groups} runs ({p.grid} blocks) {ms:.4f}"
+                          + (" (the plan)" if p == base else "") for p, ms in out.items())
               + f" ms [{card}]", flush=True)
 
 

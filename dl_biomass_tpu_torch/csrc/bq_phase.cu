@@ -25,9 +25,9 @@
 // cloud's points in shared memory once, as float4 (x, y, z, 0) read straight
 // from pos (B, N, 3) and mask (B, N); a masked point, or a pad slot past N,
 // holds NaN in x, so it fails every test and the scan needs no bounds or mask
-// test. A warp scans one centroid in index order, AHEAD chunks of 32 points at
-// a time: every test of the group, then AHEAD ballots, then each chunk that
-// hit ranked by __popc prefixes; the hit count is read once per 32 * AHEAD
+// test. A warp scans one centroid in index order, kAhead = 8 chunks of 32
+// points at a time: every test of the group, then eight ballots, then each
+// chunk that hit ranked by __popc prefixes; the hit count is read once per 256
 // points. A chunk starts at a multiple of 32 and a group at a multiple of 128,
 // so lane l of chunk t sees bucket 32 (t % 4) + l: each lane keeps four counts
 // of kept hits in the bytes of one register (a count stays <= cap <= 127),
@@ -36,20 +36,23 @@
 //   memory (n before the scan, so holes and the tail stay n), stops after the
 //   group that holds the K-th hit and writes the row out once, coalesced,
 //   setting the slots back to n as it reads them.
-// - kDist tests all N points: a count a lane, one warp sum.
+// - kDist tests all N points: a count a lane, one warp sum. In a whole cloud
+//   a warp scans two centroids at once, each point read once for both tests
+//   (one centroid a warp reads shared memory at its rate: 16 bytes a test).
 // - kRank and kExtract (one instantiation) stop at the first group with a
 //   hit: the least packed key is the first hit's, rank 0, its index (kept
 //   under any cap >= 1; kExtract with cap 0 keeps nothing).
-// Whole (the padded cloud and the warps' slots fit a block's shared memory):
-// a warp that is done takes the tile's next centroid from a counter in shared
-// memory (its coordinates loaded before it scans the one it holds). Chunked
+// Whole (the padded cloud, the tile's centroids and the warps' slots fit a
+// block's shared memory): the tile's centroids are staged beside the cloud,
+// in the same round of loads, and a warp that is done takes the tile's next
+// centroid from a counter in shared memory, so no warp waits on device memory
+// between centroids and one long scan does not hold the others idle. Chunked
 // (larger N): the block stages the cloud 8192 points at a time, one centroid a
 // warp, and moves to the next chunk while any of its warps still needs points
 // (__syncthreads_or). bq_phase_bench.plan mirrors the launch: centroids a
-// block, warps, points staged at once, whole or chunked, and AHEAD; cm is not
-// read. Measurement modes (bq_phase_bench.probe): no early exit; the staging
-// and the writing of the outputs alone (as for no hit); the scan without the
-// writing.
+// block, warps, points staged at once, whole or chunked; cm is not read.
+// Measurement modes (bq_phase_bench.probe): no early exit; the staging and the
+// writing of the outputs alone (as for no hit); the scan without the writing.
 
 #include <cuda_runtime.h>
 
@@ -59,6 +62,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kKeyBits = 24;
 constexpr int kIntBig = 0x7fffffff;
 constexpr int kMaxThreads = 1024;
+constexpr int kAhead = 8;  // chunks of 32 points tested before the hit count is read
+static_assert(kAhead % 4 == 0, "a group must start at a multiple of 128");
 // the API's modes, and the kernel's instantiations (kRank and kExtract share kFirst)
 enum Mode { kDist = 0, kRank = 1, kExtract = 2, kWrite = 3 };
 constexpr int kFirst = kRank;
@@ -152,24 +157,23 @@ __device__ __forceinline__ Centroid staged(const Args& a, const float4* cen, int
   return make<kMode>(a, p, p.w != 0.f, c0 + i < c1);
 }
 
-// One warp scans pts[0 .. count) (count a multiple of 32 * AHEAD; pts[0] is
+// One warp scans pts[0 .. count) (count a multiple of 32 * kAhead; pts[0] is
 // point `first` of the cloud, a multiple of 128) for its centroid, as its mode
 // says, until its value is settled or the points end.
-template <int kMode, int AHEAD>
+template <int kMode>
 __device__ __forceinline__ void scan(const float4* pts, int count, int first, Centroid& w,
                                      const Args& a, int* slots, int lane) {
-  static_assert(AHEAD % 4 == 0, "a group must start at a multiple of 128");
   const unsigned below = (1u << lane) - 1u;
   const float r2 = a.r2;
   const int k = a.k;
   // the slots' shared-memory address, held in one register
   const unsigned row = static_cast<unsigned>(__cvta_generic_to_shared(slots));
-  for (int s = 0; s < count && w.need; s += 32 * AHEAD) {
+  for (int s = 0; s < count && w.need; s += 32 * kAhead) {
     // every test of the group before any ballot: the ballot's convergence
     // check would otherwise hold the later chunks' loads behind the first
-    bool ok[AHEAD];
+    bool ok[kAhead];
 #pragma unroll
-    for (int t = 0; t < AHEAD; ++t) {
+    for (int t = 0; t < kAhead; ++t) {
       const float4 p = pts[s + 32 * t + lane];
       const float dx = __fsub_rn(p.x, w.x);
       const float dy = __fsub_rn(p.y, w.y);
@@ -180,12 +184,12 @@ __device__ __forceinline__ void scan(const float4* pts, int count, int first, Ce
     }
     if constexpr (kMode == kDist) {
 #pragma unroll
-      for (int t = 0; t < AHEAD; ++t) w.acc += ok[t];
+      for (int t = 0; t < kAhead; ++t) w.acc += ok[t];
       continue;
     }
-    unsigned hits[AHEAD], any = 0;
+    unsigned hits[kAhead], any = 0;
 #pragma unroll
-    for (int t = 0; t < AHEAD; ++t) {
+    for (int t = 0; t < kAhead; ++t) {
       hits[t] = __ballot_sync(kFull, ok[t]);
       any |= hits[t];
     }
@@ -194,14 +198,14 @@ __device__ __forceinline__ void scan(const float4* pts, int count, int first, Ce
       // the first hit: rank 0, so its key is its index
       int key = kIntBig;
 #pragma unroll
-      for (int t = AHEAD - 1; t >= 0; --t) {
+      for (int t = kAhead - 1; t >= 0; --t) {
         if (hits[t] != 0) key = first + s + 32 * t + __ffs(hits[t]) - 1;
       }
       if (a.cap > 0) w.acc = min(w.acc, key);
       w.need = a.probe == kFullScan;
     } else {
 #pragma unroll
-      for (int t = 0; t < AHEAD; ++t) {
+      for (int t = 0; t < kAhead; ++t) {
         const int rank = w.cnt + __popc(hits[t] & below);
         const int shift = 8 * (t % 4);
         const bool kept = ok[t] && static_cast<int>((w.counts >> shift) & 0xffu) < a.cap;
@@ -221,13 +225,12 @@ __device__ __forceinline__ void scan(const float4* pts, int count, int first, Ce
 // kDist in a whole cloud: one warp scans pts[0 .. count) for two centroids at
 // once, each point read once for both tests (the scan reads shared memory at
 // its rate otherwise).
-template <int AHEAD>
 __device__ __forceinline__ void scan_dist2(const float4* pts, int count, Centroid& w0,
                                            Centroid& w1, float r2, int lane) {
   if (!w0.need && !w1.need) return;
-  for (int s = 0; s < count; s += 32 * AHEAD) {
+  for (int s = 0; s < count; s += 32 * kAhead) {
 #pragma unroll
-    for (int t = 0; t < AHEAD; ++t) {
+    for (int t = 0; t < kAhead; ++t) {
       const float4 p = pts[s + 32 * t + lane];
       const float dx0 = __fsub_rn(p.x, w0.x), dx1 = __fsub_rn(p.x, w1.x);
       const float dy0 = __fsub_rn(p.y, w0.y), dy1 = __fsub_rn(p.y, w1.y);
@@ -271,7 +274,7 @@ __device__ __forceinline__ void write_out(const Centroid& w, const Args& a, int 
 
 // The cloud and the tile's centroids staged whole; the block's warps take the
 // tile's centroids from a shared counter (kDist two at a time).
-template <int kMode, int AHEAD>
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads) bq_whole(Args a) {
   extern __shared__ float4 pts[];
   __shared__ int next;
@@ -298,10 +301,10 @@ __global__ void __launch_bounds__(kMaxThreads) bq_whole(Args a) {
     Centroid w = staged<kMode>(a, cen, c - c0, c0, c1);
     if constexpr (kMode == kDist) {
       Centroid w1 = staged<kMode>(a, cen, c + 1 - c0, c0, c1);
-      scan_dist2<AHEAD>(pts, a.count, w, w1, a.r2, lane);
+      scan_dist2(pts, a.count, w, w1, a.r2, lane);
       write_out<kMode>(w1, a, b, c + 1, slots, lane);
     } else {
-      scan<kMode, AHEAD>(pts, a.count, 0, w, a, slots, lane);
+      scan<kMode>(pts, a.count, 0, w, a, slots, lane);
     }
     write_out<kMode>(w, a, b, c, slots, lane);
     c = nc;
@@ -309,7 +312,7 @@ __global__ void __launch_bounds__(kMaxThreads) bq_whole(Args a) {
 }
 
 // The cloud staged a chunk at a time, one centroid a warp.
-template <int kMode, int AHEAD>
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads) bq_chunked(Args a) {
   extern __shared__ float4 pts[];
   const int b = blockIdx.y;
@@ -318,14 +321,14 @@ __global__ void __launch_bounds__(kMaxThreads) bq_chunked(Args a) {
   int* slots = reinterpret_cast<int*>(pts + a.count) + a.k * warp;
   for (int j = lane; j < a.k; j += 32) slots[j] = a.n;
   Centroid w = load<kMode>(a, b, c, a.m);
-  const int n_pad = (a.n + 32 * AHEAD - 1) / (32 * AHEAD) * (32 * AHEAD);
+  const int n_pad = (a.n + 32 * kAhead - 1) / (32 * kAhead) * (32 * kAhead);
   const float* pos = a.pos + static_cast<size_t>(b) * 3 * a.n;
   const unsigned char* mask = a.mask + static_cast<size_t>(b) * a.n;
   for (int first = 0; first < n_pad; first += a.count) {
     const int count = min(a.count, n_pad - first);
     stage(pts, pos, mask, first, count, a.n);
     __syncthreads();
-    scan<kMode, AHEAD>(pts, count, first, w, a, slots, lane);
+    scan<kMode>(pts, count, first, w, a, slots, lane);
     if (!__syncthreads_or(w.need)) break;  // and off this chunk
   }
   write_out<kMode>(w, a, b, c, slots, lane);
@@ -341,20 +344,16 @@ size_t smem_bytes(int count, int tile, int warps, int k) {
 using Kernel = void (*)(Args);
 
 template <int kMode>
-Kernel pick_mode(int whole, int ahead) {
-  switch (ahead) {
-    case 4: return whole ? bq_whole<kMode, 4> : bq_chunked<kMode, 4>;
-    case 8: return whole ? bq_whole<kMode, 8> : bq_chunked<kMode, 8>;
-    default: return nullptr;
-  }
+Kernel pick_mode(int whole) {
+  return whole ? bq_whole<kMode> : bq_chunked<kMode>;
 }
 
-Kernel pick(int mode, int whole, int ahead) {
+Kernel pick(int mode, int whole) {
   switch (mode) {
-    case kDist: return pick_mode<kDist>(whole, ahead);
+    case kDist: return pick_mode<kDist>(whole);
     case kRank:
-    case kExtract: return pick_mode<kFirst>(whole, ahead);
-    case kWrite: return pick_mode<kWrite>(whole, ahead);
+    case kExtract: return pick_mode<kFirst>(whole);
+    case kWrite: return pick_mode<kWrite>(whole);
     default: return nullptr;
   }
 }
@@ -362,11 +361,11 @@ Kernel pick(int mode, int whole, int ahead) {
 // The launch of a plan: the kernel, its shared memory (set as the kernel's
 // limit) and its grid.
 cudaError_t prepare(int mode, int b, int m, int n, int k, int tile, int warps, int count,
-                    int whole, int ahead, Kernel* kernel, size_t* smem, dim3* grid) {
-  *kernel = pick(mode, whole, ahead);  // nullptr unless ahead is 4 or 8
+                    int whole, Kernel* kernel, size_t* smem, dim3* grid) {
+  *kernel = pick(mode, whole);
   if (*kernel == nullptr || b < 1 || m < 1 || n < 0 || k < 1 || k > 127 ||
       n >= (1 << kKeyBits) || warps < 1 || 32 * warps > kMaxThreads || tile < 1 || count < 0 ||
-      count % (32 * ahead) != 0 || (whole && count < n) || (!whole && count < 1)) {
+      count % (32 * kAhead) != 0 || (whole && count < n) || (!whole && count < 1)) {
     return cudaErrorInvalidValue;
   }
   *smem = smem_bytes(count, whole ? tile : 0, warps, k);
@@ -381,20 +380,19 @@ cudaError_t prepare(int mode, int b, int m, int n, int k, int tile, int warps, i
 // -> out (B, M, K) int32. k 1-127; n < 2^24; mode kDist/kRank/kExtract/kWrite;
 // cap 0-127 (a cap of k or more caps nothing). The plan (bq_phase_bench.plan):
 // tile centroids a block (whole; one a warp where chunked), warps a block,
-// count points staged at once (the cloud padded to 32 * ahead where whole, a
-// multiple of it where chunked), ahead 4 or 8 chunks tested before the hit
-// count is read. probe kKernel, or a measurement mode.
+// count points staged at once (the cloud padded to 256 where whole, a
+// multiple of 256 where chunked). probe kKernel, or a measurement mode.
 extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void* pos,
                              const void* mask, void* out, int b, int m, int n, int k, int mode,
                              int cap, float r2, int tile, int warps, int count, int whole,
-                             int ahead, int probe, void* stream) {
+                             int probe, void* stream) {
   if (cap < 0 || cap > 127 || probe < kKernel || probe > kNoStore) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Kernel kernel;
   size_t smem;
   dim3 grid;
-  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, ahead, &kernel, &smem,
+  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, &kernel, &smem,
                           &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{static_cast<const float*>(centers), static_cast<const unsigned char*>(cmask),
@@ -409,11 +407,11 @@ extern "C" int dlbt_bq_phase(const void* centers, const void* cmask, const void*
 // dynamic), out[3] and out[4] the grid, out[5] registers a thread, out[6]
 // local memory a thread (bytes: spills).
 extern "C" int dlbt_bq_phase_launch(int mode, int b, int m, int n, int k, int tile, int warps,
-                                    int count, int whole, int ahead, int* out) {
+                                    int count, int whole, int* out) {
   Kernel kernel;
   size_t smem;
   dim3 grid;
-  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, ahead, &kernel, &smem,
+  cudaError_t e = prepare(mode, b, m, n, k, tile, warps, count, whole, &kernel, &smem,
                           &grid);
   cudaFuncAttributes attr;
   int per_sm = 0;

@@ -16,15 +16,14 @@
 // first blocks % groups runs one slice longer), and the values into tiles of
 // `cols`. A block takes one tile; its threads are (groups, cols / V): a thread
 // adds its run's slices of its V consecutive values in slice order in f64,
-// a run's loads in flight, up to 16 (V = 4: one 16-byte load a slice, where
-// n % 4 == 0).
+// kAhead loads in flight (V = 4: one 16-byte load a slice, where n % 4 == 0).
 // The block writes the runs' partial sums to shared memory; a thread adds
 // kSpan of them in run order, and one thread a value adds those spans' sums in
 // span order and rounds once (a chain of kSpan + groups / kSpan dependent adds
 // where one of groups would hold narrow tiles). So the order is fixed: the
 // result repeats bit for bit on one card, with no float atomics. Narrow n takes
-// narrow tiles and many runs (kernel 8's 128 values: 32 blocks of 256 runs),
-// wide n wider tiles of coalesced rows (7-B's 32768: 64 values a block);
+// narrow tiles and many runs (kernel 8's 128 values: 16 blocks of 128 runs),
+// wide n wide tiles of coalesced rows (7-B's 32768: 256 values a block);
 // sum_slices_kernel.plan mirrors the launch. dlbt_sum_slices_empty launches an
 // empty kernel on the same grid: the floor a launch sets.
 
@@ -33,6 +32,7 @@
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kAhead = 16;  // slices a thread loads before it adds them
 constexpr int kSpan = 8;  // runs' sums added by one thread before the last step
 
 template <int V>
@@ -53,9 +53,7 @@ struct Vec<4> {
   }
 };
 
-// AHEAD: slices a thread loads before it adds them (8, or 16 where a run is
-// longer than 8, so that a run takes one round of loads)
-template <int V, int AHEAD>
+template <int V>
 __global__ void __launch_bounds__(kMaxThreads)
 sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols, int groups,
                   float* __restrict__ out) {
@@ -72,14 +70,14 @@ sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols
   for (int v = 0; v < V; ++v) s[v] = 0.0;
   if (c < n) {  // V = 4 only where n % 4 == 0: the four values are in the row
     const float* p = partial + static_cast<size_t>(lo) * n + c;
-    for (int j = lo; j < hi; j += AHEAD, p += static_cast<size_t>(AHEAD) * n) {
-      T x[AHEAD];
+    for (int j = lo; j < hi; j += kAhead, p += static_cast<size_t>(kAhead) * n) {
+      T x[kAhead];
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
+      for (int u = 0; u < kAhead; ++u) {
         if (j + u < hi) x[u] = __ldg(reinterpret_cast<const T*>(p + static_cast<size_t>(u) * n));
       }
 #pragma unroll
-      for (int u = 0; u < AHEAD; ++u) {
+      for (int u = 0; u < kAhead; ++u) {
         if (j + u < hi) Vec<V>::add(s, x[u]);
       }
     }
@@ -108,48 +106,44 @@ sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols
 __global__ void empty_kernel() {}
 
 // The launch for (blocks, n) slices as sum_slices_kernel.plan names it: vec
-// values a thread loads at once, cols values a block, groups runs of slices,
-// ahead slices loaded at once.
-cudaError_t check(int blocks, int n, int vec, int cols, int groups, int ahead) {
+// values a thread loads at once, cols values a block, groups runs of slices.
+cudaError_t check(int blocks, int n, int vec, int cols, int groups) {
   if (blocks < 0 || n < 0 || (vec != 1 && vec != 4) || (vec == 4 && n % 4 != 0) || cols < 1 ||
-      cols % vec != 0 || groups < 1 || groups * (cols / vec) > kMaxThreads ||
-      (ahead != 8 && ahead != 16)) {
+      cols % vec != 0 || groups < 1 || groups * (cols / vec) > kMaxThreads) {
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
 
-using Kernel = void (*)(const float*, int, int, int, int, float*);
-
-Kernel pick(int vec, int ahead) {
-  if (vec == 4) return ahead == 8 ? sum_slices_kernel<4, 8> : sum_slices_kernel<4, 16>;
-  return ahead == 8 ? sum_slices_kernel<1, 8> : sum_slices_kernel<1, 16>;
-}
-
 }  // namespace
 
 // out (n) f32 = the sum of the first `blocks` slices of partial (blocks, n)
-// f32 (0 for no slice), by the plan (vec, cols, groups, ahead): n / cols
-// blocks (rounded up) of groups * cols / vec threads; vec 4 needs n % 4 == 0
-// and partial on 16 bytes.
+// f32 (0 for no slice), by the plan (vec, cols, groups): n / cols blocks
+// (rounded up) of groups * cols / vec threads; vec 4 needs n % 4 == 0 and
+// partial on 16 bytes.
 extern "C" int dlbt_sum_slices(const void* partial, void* out, int blocks, int n, int vec,
-                               int cols, int groups, int ahead, void* stream) {
-  cudaError_t e = check(blocks, n, vec, cols, groups, ahead);
+                               int cols, int groups, void* stream) {
+  cudaError_t e = check(blocks, n, vec, cols, groups);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n == 0) return 0;
   const int grid = (n + cols - 1) / cols, threads = groups * (cols / vec);
-  pick(vec, ahead)<<<grid, threads, sizeof(double) * groups * cols,
-                     static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(partial),
-                                                          blocks, n, cols, groups,
-                                                          static_cast<float*>(out));
+  const size_t smem = sizeof(double) * groups * cols;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(partial);
+  float* o = static_cast<float*>(out);
+  if (vec == 4) {
+    sum_slices_kernel<4><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
+  } else {
+    sum_slices_kernel<1><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // An empty kernel on the grid and block that dlbt_sum_slices launches for the
 // same arguments; it reads and writes nothing (a measurement: no path calls it).
 extern "C" int dlbt_sum_slices_empty(int blocks, int n, int vec, int cols, int groups,
-                                     int ahead, void* stream) {
-  cudaError_t e = check(blocks, n, vec, cols, groups, ahead);
+                                     void* stream) {
+  cudaError_t e = check(blocks, n, vec, cols, groups);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n == 0) return 0;
   empty_kernel<<<(n + cols - 1) / cols, groups * (cols / vec), 0,

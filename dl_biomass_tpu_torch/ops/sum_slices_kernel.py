@@ -20,16 +20,16 @@ import torch
 
 from dl_biomass_tpu_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 MAX_THREADS = 256  # threads a block (csrc/sum_slices.cu kMaxThreads)
-MIN_COLS, MAX_COLS = 4, 256  # values a block
+MIN_COLS, MAX_COLS = 8, 256  # values a block
 # the narrowest tile at or above MIN_COLS that still gives this many blocks:
-# about four an SM of an H100's 132 (the fastest tile at 7-B's two shapes,
+# about one an SM of an H100's 132, where a thread loads 16 slices at once
+# (within 0.0003 ms of the fastest tile at each of the four shapes of
 # chip_compare.py sumtune on an H100)
-TARGET_BLOCKS = 512
+TARGET_BLOCKS = 128
 SUM_BYTES = 8  # a run's partial sum of one value in shared memory (f64)
 SPAN = 8  # runs' sums a thread adds before one thread a value adds the spans
-AHEADS = (8, 16)  # slices a thread loads at once: the kernel's instantiations
 
 
 class Plan(NamedTuple):
@@ -39,14 +39,12 @@ class Plan(NamedTuple):
     threads: int  # threads a block: groups * cols / vec
     grid: int  # blocks: n / cols, rounded up
     smem_bytes: int  # the runs' partial sums, groups * cols f64
-    ahead: int  # slices a thread loads at once: its whole run, up to 16
 
 
 def plan(blocks: int, n: int) -> Optional[Plan]:
     """The launch that sums ``blocks`` slices of ``n`` values, or None for
     negative sizes. Narrow n takes narrow tiles and many runs, so that it
-    spreads over many SMs (down to 4 values a block: one 16-byte load a run);
-    wide n tiles of up to 256 values, coalesced rows."""
+    spreads over many SMs; wide n tiles of up to 256 values, coalesced rows."""
     if blocks < 0 or n < 0:
         return None
     vec = 4 if n % 4 == 0 else 1
@@ -54,9 +52,8 @@ def plan(blocks: int, n: int) -> Optional[Plan]:
     while cols > MIN_COLS and -(-n // cols) < TARGET_BLOCKS:
         cols //= 2
     groups = max(1, min(MAX_THREADS * vec // cols, blocks))
-    ahead = AHEADS[0] if -(-blocks // groups) <= AHEADS[0] else AHEADS[1]
     return Plan(vec, cols, groups, groups * cols // vec, -(-n // cols),
-                groups * cols * SUM_BYTES, ahead)
+                groups * cols * SUM_BYTES)
 
 
 def runs(blocks: int, groups: int) -> List[Tuple[int, int]]:
@@ -94,7 +91,7 @@ def sum_slices(slices: torch.Tensor) -> torch.Tensor:
     if p.grid == 0:
         return out
     _build.launch("dlbt_sum_slices", _ARGTYPES, slices.data_ptr(), out.data_ptr(),
-                  slices.shape[0], slices.shape[1], p.vec, p.cols, p.groups, p.ahead,
+                  slices.shape[0], slices.shape[1], p.vec, p.cols, p.groups,
                   _build.stream_of(slices))
     return out
 
@@ -103,6 +100,6 @@ def empty(slices: torch.Tensor) -> None:
     """An empty kernel on the CUDA grid and block that ``sum_slices`` launches
     for these slices (``dlbt_sum_slices_empty``): the floor a launch sets."""
     p = plan(*slices.shape)
-    _build.launch("dlbt_sum_slices_empty", [ctypes.c_int] * 6 + [ctypes.c_void_p],
-                  slices.shape[0], slices.shape[1], p.vec, p.cols, p.groups, p.ahead,
+    _build.launch("dlbt_sum_slices_empty", [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                  slices.shape[0], slices.shape[1], p.vec, p.cols, p.groups,
                   _build.stream_of(slices))

@@ -26,11 +26,10 @@ An invalid centroid gives ``n`` in every slot (``dist`` 0, ``rank`` and
 
 ``plan(n, m, k)`` names kernel 9's launch, the design of kernel 3
 (``ops/ball_query_kernel.py``): the centroids a block, its warps, the points
-staged in shared memory at once, whether the cloud is staged whole (the warps
-then take the block's centroids from a shared counter) or a chunk at a time
-(one centroid a warp), and the chunks of 32 points a warp tests before it
-reads its hit count; ``dist`` scans two centroids a warp at once in a whole
-cloud. ``probe`` (no early exit, the staging alone, no writing)
+staged in shared memory at once, and whether the cloud is staged whole (the
+warps then take the block's centroids from a shared counter; ``dist`` two at
+a time, each point tested against both) or a chunk at a time (one centroid a
+warp). ``probe`` (no early exit, the staging alone, no writing)
 and ``launch_of`` measure the kernel; no path calls them.
 
 ``main`` times ``full``, ``mstatic`` and ``munroll`` at ``cm=32`` on the JAX
@@ -74,17 +73,15 @@ DIST, RANK, EXTRACT, WRITE = range(4)
 # of the cloud alone (the outputs as for no hit), the scan without the writing
 MODES = {"kernel": 0, "full_scan": 1, "loads_only": 2, "no_store": 3}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
-# The launch (csrc/bq_phase.cu), as kernel 3's: chunks of 32 points a warp
-# tests before it reads its hit count (4 or 8; a group starts at a multiple of
-# 128, where the lanes' bucket counts line up); where the padded cloud fits a
-# block (whole), the warps and centroids a block where two blocks fit an SM's
-# shared memory (SHARED: 8 warps, so that four blocks fit its registers), and
-# where one fills it (ALONE); larger clouds are staged CHUNK_POINTS at a time,
-# one centroid a warp
-AHEADS = (4, 8)
-AHEAD = 8
+# The launch (csrc/bq_phase.cu), as kernel 3's: a warp tests GROUP points (8
+# chunks of 32) before it reads its hit count, and the cloud is padded to a
+# multiple of GROUP; where the padded cloud fits a block (whole), the warps
+# and centroids a block where two blocks fit an SM's shared memory (SHARED: 8
+# warps, so that four blocks fit its registers), and where one fills it
+# (ALONE); larger clouds are staged CHUNK_POINTS at a time, one centroid a warp
+GROUP = 256
 SHARED_WARPS, SHARED_CENTROIDS = 8, 32
 ALONE_WARPS, ALONE_CENTROIDS = 32, 128
 CHUNK_WARPS, CHUNK_POINTS = 32, 8192
@@ -100,7 +97,6 @@ class Plan(NamedTuple):
     warps: int  # warps a block
     points: int  # points staged in shared memory at once
     whole: bool  # the cloud staged whole (else a chunk of `points` at a time)
-    ahead: int  # chunks of 32 points tested before the hit count is read
 
 
 def smem_bytes(p: Plan, k: int) -> int:
@@ -122,14 +118,14 @@ def plan(n: int, m: int, k: int) -> Optional[Plan]:
     takes no such clouds."""
     if not (0 <= n <= MAX_POINTS and m >= 1 and 1 <= k <= 127):
         return None
-    n_pad = round_up(n, 32 * AHEAD)
-    shared = Plan(SHARED_CENTROIDS, SHARED_WARPS, n_pad, True, AHEAD)
+    n_pad = round_up(n, GROUP)
+    shared = Plan(SHARED_CENTROIDS, SHARED_WARPS, n_pad, True)
     if 2 * smem_bytes(shared, k) <= SMEM_PER_BLOCK:  # blocks share an SM
         return shared
-    alone = Plan(ALONE_CENTROIDS, ALONE_WARPS, n_pad, True, AHEAD)
+    alone = Plan(ALONE_CENTROIDS, ALONE_WARPS, n_pad, True)
     if smem_bytes(alone, k) <= SMEM_PER_BLOCK:  # one block fills an SM
         return alone
-    return Plan(CHUNK_WARPS, CHUNK_WARPS, CHUNK_POINTS, False, AHEAD)
+    return Plan(CHUNK_WARPS, CHUNK_WARPS, CHUNK_POINTS, False)
 
 
 def launch_plan(n: int, m: int, k: int) -> Plan:
@@ -252,11 +248,10 @@ def launch_of(b: int, n: int, m: int, k: int, phase: str = "full") -> dict:
     thread."""
     p = launch_plan(n, m, k)
     fn = _build.library().dlbt_bq_phase_launch
-    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 7)()
-    rc = fn(variant(phase)[0], b, m, n, k, p.centroids, p.warps, p.points, int(p.whole),
-            p.ahead, vals)
+    rc = fn(variant(phase)[0], b, m, n, k, p.centroids, p.warps, p.points, int(p.whole), vals)
     if rc != 0:
         raise RuntimeError(f"dlbt_bq_phase_launch failed ({rc})")
     return dict(blocks_per_sm=vals[0], threads=vals[1], smem_bytes=vals[2],
@@ -282,7 +277,7 @@ def _launch(centers, center_mask, pos, mask, radius, k, cm, phase, probe_mode):
     eff_cap = k if cap is None else min(cap, k)
     _build.launch("dlbt_bq_phase", _ARGTYPES, centers.data_ptr(), center_mask.data_ptr(),
                   pos.data_ptr(), mask.data_ptr(), out.data_ptr(), b, m, n, k, mode, eff_cap,
-                  radius2(radius), p.centroids, p.warps, p.points, int(p.whole), p.ahead,
+                  radius2(radius), p.centroids, p.warps, p.points, int(p.whole),
                   MODES[probe_mode], _build.stream_of(pos))
     return out
 

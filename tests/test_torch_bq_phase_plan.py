@@ -51,7 +51,7 @@ def test_shared_memory_fits_a_block(k):
     for n in list(range(0, 40000, 97)) + [k9.MAX_POINTS]:
         p = k9.plan(n, 512, k)
         assert k9.smem_bytes(p, k) <= SMEM
-        assert p.ahead in k9.AHEADS and p.points % (32 * p.ahead) == 0
+        assert p.points % k9.GROUP == 0
         assert (p.points >= n) == p.whole  # whole: the padded cloud; else a chunk of it
         assert 32 * p.warps <= 1024 and p.centroids >= p.warps
 
@@ -66,7 +66,7 @@ def test_the_plan_switches_where_the_cloud_stops_fitting():
     assert 2 * k9.smem_bytes(shared, 64) <= SMEM < 2 * k9.smem_bytes(alone, 64)
     whole, chunked = k9.plan(13824, 512, 64), k9.plan(13825, 512, 64)
     assert whole.whole and whole.points == 13824 and k9.smem_bytes(whole, 64) <= SMEM
-    assert chunked == k9.Plan(32, 32, 8192, False, 8)
+    assert chunked == k9.Plan(32, 32, 8192, False)
     # at k=127 the slots leave less room for the cloud
     assert k9.plan(13824, 512, 127).whole is False
 

@@ -56,15 +56,12 @@ def test_launch_within_the_kernels_limits(blocks, n):
     assert ss.MIN_COLS <= p.cols <= ss.MAX_COLS and p.cols % p.vec == 0
     assert p.threads == p.groups * p.cols // p.vec <= ss.MAX_THREADS
     assert p.grid == -(-n // p.cols) and p.smem_bytes == 8 * p.groups * p.cols <= 48 * 1024
-    longest = max(hi - lo for lo, hi in ss.runs(blocks, p.groups))
-    assert p.ahead == (8 if longest <= 8 else 16)  # a run's loads at once, up to 16
 
 
 def test_narrow_slices_spread_and_wide_ones_keep_rows():
-    assert ss.plan(660, 128)[:3] == (4, 4, 256)  # 32 blocks of 256 runs
-    assert ss.plan(396, 8192)[:3] == (4, 16, 64)  # 512 blocks
-    assert ss.plan(132, 32768)[:3] == (4, 64, 16)  # 512 blocks of 64-value rows
-    assert ss.plan(132, 32768).ahead == 16  # runs of 8 and 9 slices: one round of loads
+    assert ss.plan(660, 128)[:3] == (4, 8, 128)  # 16 blocks of 128 runs
+    assert ss.plan(396, 8192)[:3] == (4, 64, 16)  # 128 blocks
+    assert ss.plan(132, 32768)[:3] == (4, 256, 4)  # 128 blocks of 256-value rows
     assert ss.plan(10, 1 << 20).cols == ss.MAX_COLS
     assert ss.plan(-1, 5) is None and ss.plan(5, -1) is None
 
