@@ -546,7 +546,7 @@ def scatter(tag: str) -> None:
 
 def eval5(tag: str) -> None:
     """Kernel 5 at the inputs one fused_eval forward at 16 x 10240 gives it, for
-    the seeded model at neuron_multiplier 1, 2 and 3 in bf16 and in f32 (the
+    the seeded model at neuron_multiplier 1, 2, 3, 4 and 8 in bf16 and in f32 (the
     inputs recorded with the plain version in the kernel's place): held
     against the plain version (max|diff| / max|y|), then the wrapper as the
     engine calls it replayed from a CUDA graph, with its blocks per SM; a
@@ -559,7 +559,7 @@ def eval5(tag: str) -> None:
     for line in ptxas_lines("sa1_fused_eval.cu"):
         print(f"{tag} ptxas: {line}", flush=True)
     req = cs.synthetic_batch(16, 10240, seed=1, device=dev)
-    for nm in (1, 2, 3):
+    for nm in (1, 2, 3, 4, 8):
         for dtype in ("bfloat16", "float32"):
             label = f"x{nm} {dtype}"
             try:

@@ -127,12 +127,19 @@ Phases, each of which raises on failure (exit code 1):
              routing rule ``sa_train_kernel.mma_takes``: SA1 at 2 on the
              tensor cores, the rest on the CUDA cores) and its time. Then
              ``serve_fused_eval_wide``: ``compile_inference(fused_eval=True)``
-             for the seeded model at neuron_multiplier 2 and 3 in bf16 and 2 in
-             float32 (kernel 5 at (128, 128, 256) and (192, 192, 384), each
-             as ``sa_eval_kernel.plan`` names it) answers 16 x 10240 and the
-             partial request, launches counted, against the same engine on
-             the plain versions (1e-2 of max|y|, and 1e-4 in float32) and the
-             unfolded module, timed beside the default engine of that model.
+             for the seeded model at neuron_multiplier 2, 3, 4 and 8 in bf16
+             and in float32 but at 3 (kernel 5 as ``sa_eval_kernel.plan``
+             names it: the resident kernels at 2 and 3, the wide kernel at 4
+             and 8) answers 16 x 10240 and the partial request, launches
+             counted, against the same engine on the plain versions (1e-2 of
+             max|y|, and 1e-4 in float32) and the unfolded module, timed
+             beside the default engine of that model. Then kernel 5 alone
+             against its plain version under the same bounds, in bf16 and in
+             float32, at the inputs the x4 and x8 engines gave it at 16 x
+             10240, at x16 on 2 of those clouds, and at 6 point features at
+             x1 (16 x 10240), each with its plan, registers and spill as
+             built, blocks per SM, and its time from CUDA-graph replays
+             beside its bound and its plain version.
 13. tail_bench, bn_stats_bench, dma_probe and bq_phase_bench — each tool's
              ``main()`` on the card (``dl_biomass_tpu_torch.tools``) with its
              launches counted;
@@ -169,7 +176,19 @@ Phases, each of which raises on failure (exit code 1):
              graph, free of host time) beside the bound, the plain version
              and kernel 3 on the same input; its launch the one
              ``bq_phase_bench.plan`` names.
-14. summary — one JSON line of the kernels with their launches by path, the
+14. device_dataset — training and serving over a ``DeviceDataset`` of 72
+             seeded synthetic plots of 7168 points (capacity
+             ``aug_capacity(7168)`` = 7936): ``Trainer.fit`` for 2 epochs at
+             B=36 with 2 augmented copies of each plot (``train_epoch_scan``,
+             ``evaluate_scan`` on 36 more plots), every launch counted; then
+             one epoch each through ``train_epoch_scan``, ``train_epoch_fused``
+             and ``ds.batches`` + ``train_epoch`` from one state and seed,
+             their losses and parameters bit-identical; ``evaluate_scan``
+             equal to ``evaluate_fused``; ``compile_dataset_inference`` with
+             the default and the ``fused_eval`` engines, its rows bit-identical
+             to each engine's ``serve`` over ``ds.batches``. Ms per epoch,
+             clouds/s, peak memory and launches per epoch by kernel.
+15. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -228,6 +247,16 @@ def per_run(**launches):
     return {e: launches.get(e, 0) for e in ENTRIES}
 
 
+# phase 14: a DeviceDataset of DD_PLOTS synthetic plots of DD_POINTS (seed
+# DD_SEED), validation on DD_VAL_PLOTS more, fit for DD_EPOCHS epochs at B=DD_BATCH
+# with DD_AUGS augmented copies of each plot
+DD_PLOTS, DD_VAL_PLOTS, DD_POINTS, DD_BATCH, DD_AUGS, DD_EPOCHS, DD_SEED = (
+    72, 36, 7168, 36, 2, 2, 40)
+DD_STEPS = -(-DD_PLOTS * (1 + DD_AUGS) // DD_BATCH)
+DD_VAL_BATCHES = -(-DD_VAL_PLOTS // DD_BATCH)
+DD_FORWARDS = DD_EPOCHS * (DD_STEPS + DD_VAL_BATCHES)
+
+
 # the tools' timings in one main(), each a warm-up chain and timed chains:
 # (calls per chain, timed chains, shapes or block sizes), as the tools' own
 # constants give them (tool_paths holds the tools to these)
@@ -267,6 +296,11 @@ EXPECTED = {
     # the fused_eval engine at the wider widths (phase 12), per forward
     "serve_fused_eval_wide": per_run(dlbt_fps=2, dlbt_sa1_fused_eval=1, dlbt_ball_query=1,
                                      dlbt_gather=1),
+    # fit over a DeviceDataset (phase 14), per run: DD_EPOCHS epochs of DD_STEPS
+    # training steps and DD_VAL_BATCHES evaluation forwards each
+    "device_dataset": per_run(dlbt_fps=2 * DD_FORWARDS, dlbt_ball_group=DD_FORWARDS,
+                              dlbt_ball_query=DD_FORWARDS, dlbt_gather=DD_FORWARDS,
+                              dlbt_scatter_rows=DD_EPOCHS * DD_STEPS),
     **{f"fused_sa_x{nm}": per_run(dlbt_fps=6, dlbt_ball_group=3, dlbt_ball_query=3,
                                   dlbt_gather_aux=3, dlbt_scatter_rows=1, dlbt_fused_sa_f1=4,
                                   dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=6, dlbt_fused_sa_b1=2,
@@ -1277,7 +1311,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 14: summary
+    # phase 15: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1289,11 +1323,11 @@ WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
          "train_forward_fused_sa", "train_fused_sa") + tuple(
              f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + (
-                 "serve_fused_eval_wide",) + TOOL_PATHS
+                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset",)
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-13; returns the kernels' summary rows, with each kernel's
+    """Phases 2-14; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1304,8 +1338,10 @@ def drive(device, card: str) -> list:
     rows += check_fused_sa(device, card)
     fused_sa_paths(device, card, launches)
     wide_fused_sa(device, card, launches)
-    wide_fused_eval(device, card, launches)
+    by_width = wide_fused_eval(device, card, launches)
     rows += tool_paths(device, card, launches)
+    device_dataset(device, card, launches)
+    next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
@@ -2304,15 +2340,91 @@ def wide_fused_sa(device, card: str, launches: dict) -> None:
 # compute dtype) of each model, and the bound of its float32 engine against
 # the plain versions (kernel 5 sums each dot product in another order: 1e-7 of
 # max|y| at SA1 on an H100, chip_compare.py eval5)
-WIDE_FUSED_EVAL = ((2, "bfloat16"), (3, "bfloat16"), (2, "float32"))
+WIDE_FUSED_EVAL = ((2, "bfloat16"), (3, "bfloat16"), (2, "float32"), (4, "bfloat16"),
+                   (4, "float32"), (8, "bfloat16"), (8, "float32"))
 F32_SERVE_RTOL = 1e-4
+# kernel 5 alone beyond the engines' inputs: (label, neuron_multiplier, clouds of
+# the x1 engine's 16 x 10240 inputs, point features)
+WIDE_KERNEL_POINTS = (("x16 B=2", 16, 2, 1), ("x1 F=6", 1, SMALL, 6))
+WIDE_GRAPH_CALLS = 3  # the wide points by graph: 3 calls a graph, the median of 3 replays
 
 
-def wide_fused_eval(device, card: str, launches: dict) -> None:
+def seeded_sa1_weights(nm: int, f: int, seed: int, device):
+    """Folded SA1 weights [w1 (F+3, 64 nm), b1, w2, b2, w3 (64 nm, 128 nm), b3]
+    in torch-default Linear ranges, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    dims = (f + 3, 64 * nm, 64 * nm, 128 * nm)
+    out = []
+    for cin, cout in zip(dims[:-1], dims[1:]):
+        bnd = 1.0 / math.sqrt(cin)
+        out += [(torch.rand(cin, cout, generator=g) * 2 - 1) * bnd,
+                (torch.rand(cout, generator=g) * 2 - 1) * bnd]
+    return [w.to(device) for w in out]
+
+
+def check_sa1_wide(label: str, args, weights, radius: float, bf16: bool, card: str) -> dict:
+    """Kernel 5 against its plain version at one point (phase 12), under the
+    bound of the engines' bf16 (float32) forwards: identical zero rows, a
+    repeat bit-identical; its plan as built, graph time, bound and plain time."""
+    from dl_biomass_tpu_torch.ops import ball_group_kernel, sa_eval_kernel
+
+    centers, cmask, pos, mask, feat = args
+    kw = dict(radius=radius, bf16=bf16, out_dtype=torch.bfloat16 if bf16 else torch.float32,
+              packed=sa_eval_kernel.pack_sa1_eval(weights, bf16, pos.device))
+    got = sa_eval_kernel.sa1_fused_eval(*args, weights, **kw)
+    again = sa_eval_kernel.sa1_fused_eval(*args, weights, **kw)
+    want = sa_eval_kernel.sa1_fused_eval_plain(*args, weights, **kw)
+    torch.cuda.synchronize()
+    bnd = BF16_SERVE_RTOL if bf16 else F32_SERVE_RTOL
+    rel = rel_diff(got, want)
+    dtype = "bf16" if bf16 else "f32"
+    require(rel <= bnd, f"sa1_fused_eval {label} {dtype} vs plain: rel {rel} > {bnd}")
+    require(same_bits(got, again), f"sa1_fused_eval {label} {dtype}: a repeat changed bits")
+    require(torch.equal((got == 0).all(-1), (want == 0).all(-1)),
+            f"sa1_fused_eval {label} {dtype}: zero rows differ from plain")
+    err = max_abs_err(got, want)
+    del want
+    ms = graph_ms(lambda: sa_eval_kernel.sa1_fused_eval(*args, weights, **kw),
+                  calls=WIDE_GRAPH_CALLS, replays=WIDE_GRAPH_CALLS)
+    plain_ms = time_ms(lambda: sa_eval_kernel.sa1_fused_eval_plain(*args, weights, **kw),
+                       reps=3, warmup=1)
+    b, m, _ = centers.shape
+    n, f = pos.shape[1], feat.shape[-1]
+    h1, h2, c = (weights[i].shape[1] for i in (0, 2, 4))
+    # the valid slots (the selection reads no feature, and kernel 2 captures at most 4)
+    _, nbr, _ = ball_group_kernel.ball_group(centers, cmask, pos, mask, feat[..., :1],
+                                             radius=radius, need_idx=False)
+    edges = int(nbr.sum())
+    flops = edges * 2 * ((f + 3) * h1 + h1 * h2 + h2 * c)
+    tests = bucket_scan_lengths(centers, cmask, pos, mask, ball_group_kernel._radius2(radius))
+    nbytes = (b * n * (12 + 4 * f + 1) + b * m * 13 + sum(w.numel() * 4 for w in weights)
+              + b * m * c * got.element_size())
+    t_ops = (flops / (PEAK_BF16_FLOP_PER_S if bf16 else PEAK_F32_FLOP_PER_S)
+             + tests * DIST_TEST_FLOPS / PEAK_F32_FLOP_PER_S)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    bound_ms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    occ = sa_eval_kernel.occupancy(bf16, *(-(-w // 64) * 64 for w in (h1, h2, c)), f=f)
+    print(f"kernel sa1_fused_eval {label} {dtype} B={b} M={m} N={n} F={f} widths {h1},{h2},{c}: "
+          f"plan {occ['kernel']} ({occ['threads']} threads, {occ['smem_bytes']} B shared, "
+          f"{occ['scratch_bytes']} B scratch a block, {occ['blocks_per_sm']} block(s) per SM, "
+          f"{occ['registers']} registers, {occ['local_bytes']} B local a thread); "
+          f"{ms:.4f} ms by graph, bound {bound_ms:.4f} ms ({by}: {edges} valid edges x "
+          f"{flops // max(edges, 1)} flop on the {'bf16 tensor' if bf16 else 'f32 CUDA'} cores, "
+          f"{tests} distance tests), plain {plain_ms:.4f} ms; vs plain max|diff|/max|y| "
+          f"{rel:.3e} (bound {bnd}); zero rows identical, a repeat bit-identical [{card}]",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, max_abs_err=err,
+                plan=occ["kernel"], registers=occ["registers"], local_bytes=occ["local_bytes"],
+                blocks_per_sm=occ["blocks_per_sm"])
+
+
+def wide_fused_eval(device, card: str, launches: dict) -> dict:
     """Phase 12, path serve_fused_eval_wide: the fused_eval engine of the seeded
     model at each of WIDE_FUSED_EVAL answers the 16 x 10240 and the partial
     request (every launch counted), held against the same engine on the plain
-    versions and the unfolded module, and timed beside the default engine."""
+    versions and the unfolded module, and timed beside the default engine;
+    then kernel 5 alone at the x4 and x8 engines' inputs and at
+    WIDE_KERNEL_POINTS (``check_sa1_wide``). Returns those points' rows."""
     from dl_biomass_tpu_torch.models.inference import compile_inference
     from dl_biomass_tpu_torch.ops import sa_eval_kernel
 
@@ -2327,6 +2439,7 @@ def wide_fused_eval(device, card: str, launches: dict) -> None:
     outs = counted_run("serve_fused_eval_wide",
                        lambda: [[fn(r) for r in reqs] for *_, fn in engines], launches,
                        len(reqs) * len(engines))
+    by_width = {}
     for (nm, dtype, widths, model, fn), got in zip(engines, outs):
         bound = BF16_SERVE_RTOL if dtype == "bfloat16" else F32_SERVE_RTOL
         for out, req in zip(got, reqs):
@@ -2350,11 +2463,128 @@ def wide_fused_eval(device, card: str, launches: dict) -> None:
               f"{bound}), vs unfolded module {rel_module:.3e} (bound {FOLDED_VS_MODULE_RTOL}); "
               f"B={SMALL} x {N_POINTS} {ms:.3f} ms/batch, default engine {ms_default:.3f} "
               f"[{card}]", flush=True)
-        del default
+        if nm >= 4:  # kernel 5 alone at the inputs this engine gave it
+            (args, kwargs), = record_kernel_inputs(fn, reqs[0])["sa1_fused_eval"]
+            by_width[f"x{nm} {dtype}"] = check_sa1_wide(
+                f"x{nm}", args[:5], list(args[5]), kwargs["radius"], dtype == "bfloat16", card)
+        del default, got, plain
+        torch.cuda.empty_cache()
     print(f"serve_fused_eval_wide launches over {len(reqs) * len(engines)} forwards: "
           f"{launches['serve_fused_eval_wide']}", flush=True)
+    (args, kwargs), = record_kernel_inputs(engines[0][4], reqs[0])["sa1_fused_eval"]
     del engines, outs
     torch.cuda.empty_cache()
+    centers, cmask, pos, mask, feat = args[:5]
+    for label, nm, b, f in WIDE_KERNEL_POINTS:
+        extra = torch.randn(*feat.shape[:2], f - 1, device=device,
+                            generator=torch.Generator(device=device).manual_seed(f))
+        point = (centers[:b], cmask[:b], pos[:b], mask[:b], torch.cat([feat, extra], -1)[:b])
+        weights = seeded_sa1_weights(nm, f, seed=50 + nm, device=device)
+        for bf16 in (True, False):
+            by_width[f"{label} {'bfloat16' if bf16 else 'float32'}"] = check_sa1_wide(
+                label, point, weights, kwargs["radius"], bf16, card)
+        torch.cuda.empty_cache()
+    return by_width
+
+
+def device_dataset(device, card: str, launches: dict) -> None:
+    """Phase 14, path device_dataset: fit over a DeviceDataset (every launch
+    counted), the three epoch paths from one state bit-identical, the two
+    evaluation paths equal, and compile_dataset_inference in both engines
+    bit-identical to serve over ds.batches."""
+    import dataclasses
+
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.io.device_data import DeviceDataset
+    from dl_biomass_tpu_torch.io.synthetic import synthetic_dataset
+    from dl_biomass_tpu_torch.models.inference import (compile_dataset_inference,
+                                                       compile_inference)
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+    from dl_biomass_tpu_torch.transforms.augment import aug_capacity
+
+    ds = DeviceDataset.from_clouds(*synthetic_dataset(DD_PLOTS, DD_POINTS, seed=DD_SEED),
+                                   device=device)
+    val = DeviceDataset.from_clouds(*synthetic_dataset(DD_VAL_PLOTS, DD_POINTS,
+                                                       seed=DD_SEED + 1), device=device)
+    require(tuple(ds.pos.shape) == (DD_PLOTS, aug_capacity(DD_POINTS), 3),
+            f"device_dataset: tensors {tuple(ds.pos.shape)}")
+    nbytes = sum(t.numel() * t.element_size() for t in (ds.pos, ds.feat, ds.mask, ds.y))
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, scan_epochs=True, hp=dataclasses.replace(
+        cfg.hp, batch_size=DD_BATCH, num_augs=DD_AUGS))
+    trainer = Trainer(seeded_model(device), cfg, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hist = counted_run("device_dataset",
+                       lambda: trainer.fit(ds, val, num_epochs=DD_EPOCHS, log_fn=lambda _: None),
+                       launches, runs=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(np.isfinite(hist["train_mse"])) and all(np.isfinite(hist["val_mse"])),
+            f"device_dataset: non-finite loss {hist['train_mse']}, {hist['val_mse']}")
+    per_epoch = {e: n / DD_EPOCHS for e, n in launches["device_dataset"].items() if n}
+    print(f"device_dataset: {DD_PLOTS} plots x {DD_POINTS} points, capacity "
+          f"{aug_capacity(DD_POINTS)}, {nbytes / 1e6:.2f} MB on the device; fit {DD_EPOCHS} "
+          f"epochs at B={DD_BATCH}, {DD_AUGS} augmented copies ({DD_STEPS} steps and "
+          f"{DD_VAL_BATCHES} validation batch(es) an epoch): train MSE {hist['train_mse']}, val "
+          f"{hist['val_mse']}; ms/epoch {[round(t * 1e3, 3) for t in hist['epoch_seconds']]}, "
+          f"clouds/s {[round(c, 1) for c in hist['clouds_per_sec']]}, peak {peak:.2f} GiB; "
+          f"launches per epoch {per_epoch} [{card}]", flush=True)
+
+    # one epoch through each path from one state and seed
+    model_state = copy.deepcopy(trainer.model.state_dict())
+    opt_state = copy.deepcopy(trainer.optimizer.state_dict())
+    seed = trainer.epoch_seed(DD_EPOCHS)
+    runs = {}
+    for name in ("scan", "fused", "batches"):
+        trainer.model.load_state_dict(model_state)
+        # a copy: load_state_dict keeps the tensors it is given, which Adam updates in place
+        trainer.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "scan":
+            out = trainer.train_epoch_scan(ds, seed, batch_size=DD_BATCH, num_augs=DD_AUGS)
+        elif name == "fused":
+            out = trainer.train_epoch_fused(ds, seed, batch_size=DD_BATCH, num_augs=DD_AUGS)
+        else:
+            out = trainer.train_epoch(ds.batches(DD_BATCH, seed=seed, num_augs=DD_AUGS,
+                                                 shuffle=True), trainer.step_generator(seed))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[name] = out, {k: v.clone() for k, v in trainer.model.state_dict().items()}, ms
+    for name in ("fused", "batches"):
+        require(runs[name][0] == runs["scan"][0],
+                f"device_dataset: {name} epoch loss {runs[name][0]} != scan {runs['scan'][0]}")
+        differ = [k for k, v in runs["scan"][1].items() if not same_bits(v, runs[name][1][k])]
+        require(not differ, f"device_dataset: {name} epoch left other parameters: {differ[:5]}")
+    ev_scan = trainer.evaluate_scan(val, batch_size=DD_BATCH)
+    ev_fused = trainer.evaluate_fused(val, batch_size=DD_BATCH)
+    require(ev_scan == ev_fused, f"device_dataset: evaluate_scan {ev_scan} != fused {ev_fused}")
+    print(f"device_dataset: one epoch from one state and seed through train_epoch_scan, "
+          f"train_epoch_fused and ds.batches + train_epoch: loss {runs['scan'][0][0]:.6f} and "
+          f"every parameter bit-identical; "
+          f"{', '.join(f'{k} {v[2]:.1f} ms' for k, v in runs.items())} "
+          f"({runs['scan'][0][1]} clouds); evaluate_scan = evaluate_fused = {ev_scan:.6f} "
+          f"[{card}]", flush=True)
+
+    # serving the dataset through each engine
+    model = trainer.model.eval()
+    for fused_eval in (False, True):
+        serve_ds = compile_dataset_inference(model, device, fused_eval=fused_eval)
+        serve = compile_inference(model, device, fused_eval=fused_eval)
+        serve_ds(ds, DD_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = serve_ds(ds, DD_BATCH)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = torch.cat([serve(b) for b in ds.batches(DD_BATCH)]).cpu().numpy()[:DD_PLOTS]
+        require(rows.shape == (DD_PLOTS, 4) and np.isfinite(rows).all(),
+                f"compile_dataset_inference: rows {rows.shape}")
+        require(np.array_equal(rows.view(np.int32), want.view(np.int32)),
+                f"compile_dataset_inference (fused_eval={fused_eval}) differs from serve over "
+                f"ds.batches")
+        print(f"device_dataset: compile_dataset_inference (fused_eval={fused_eval}) served "
+              f"{DD_PLOTS} plots in {ms:.1f} ms ({DD_PLOTS / ms * 1e3:.1f} clouds/s after a "
+              f"warm-up call), rows bit-identical to serve over ds.batches [{card}]", flush=True)
 
 
 def tail_inputs(shape, device, seed: int):

@@ -12,10 +12,12 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
 - ``models`` — layers (train-mode BatchNorm and dropout included),
                ``PointNet2Regressor`` and the folded serving engine
                ``compile_inference``
-- ``train``  — the weighted loss, ``Trainer`` (Adam, early stopping, fit) and
-               checkpoints
+- ``train``  — the weighted loss, ``Trainer`` (Adam, early stopping, fit, the
+               epochs over a ``DeviceDataset``) and checkpoints
 - ``bridge`` — flax variables <-> torch ``state_dict``
-- ``io``     — the synthetic forest-plot generator
+- ``io``     — the synthetic forest-plot generator and ``DeviceDataset``
+               (the plots on the device, batches gathered and augmented there)
+- ``transforms`` — the on-device augmentation and its host numpy oracle
 
 The package imports torch, numpy and the standard library only: nothing of JAX
 and nothing of ``dl_biomass_tpu``.

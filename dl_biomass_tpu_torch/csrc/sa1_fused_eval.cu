@@ -21,8 +21,11 @@
 // plus the distance tests of the selection (8 flops each, f32); the output is
 // the only sizeable traffic (B*M*C values).
 //
-// Widths: SA1's at neuron_multiplier 1, 2 and 3, (64, 64, 128), (128, 128, 256) and
-// (192, 192, 384), in bf16 and in f32 (sa_eval_kernel.plan mirrors plan_of below).
+// Widths: any hidden and output widths that are multiples of 64, and any F (layer 1's
+// depth is F + 3 in whole MMA steps: 16 in bf16, 8 in f32). SA1's at neuron_multiplier
+// 1, 2 and 3, (64, 64, 128), (128, 128, 256) and (192, 192, 384), run the resident
+// kernels below (bf16 at F <= 13, f32 at F <= 5); every other width runs the wide
+// kernel at the end (sa_eval_kernel.plan mirrors plan_of below).
 //
 // Design: in bf16 the scan dominates. Each of a centroid's 128 residue buckets is
 // walked until its first in-radius point, most of the way through a cloud: point
@@ -57,11 +60,22 @@
 // stay in shared memory and W2 and W3 stream through two buffers, 64 columns at a
 // time (cp.async, the next chunk in flight while one is used): each pass reads the
 // same columns in the same order as from a resident block, so the sums are the same.
+// The wide kernel (bf16 on mma.sync, f32 on FMAs) takes the widths and inputs those
+// do not: a block of 128 threads takes one centroid at a time (the f32 kernel's scan and
+// capture), then streams all three weight matrices through two cp.async buffers in
+// tiles of 64 output columns by at most 64 depths, in one sequence over the layers,
+// each output column's sum built over its tiles in ascending depth in registers. A
+// hidden layer's 64 columns go biased, rectified and rounded into a1 or a2, layer 3's
+// into a running max over the valid slots that is written out column chunk by column
+// chunk, so h3 is never stored. a1 and a2 (64 rows each) stay in shared memory where
+// they fit beside the buffers, else in the block's slice of a scratch tensor in device
+// memory, which L2 holds (bf16 from H = 1024, f32 from H = 512).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "stratified_select.cuh"
@@ -94,16 +108,24 @@ __host__ __device__ __forceinline__ size_t take(size_t& at, size_t bytes) {
   return offset;
 }
 
-// The weight block, as sa_eval_kernel.pack_sa1_eval packs it and the kernels keep it
-// at the start of their shared memory. bf16: W1^T (H1, 16 + 8), b1 (H1 f32), W2^T
-// (H2, H1 + 8), b2, W3^T (C, H2 + 8), b3, the matrices bf16. f32: w1 (8, H1), b1,
-// w2 (H1, H2), b2, w3 (H2, C), b3. Each part a whole number of 16-byte pieces.
+// Layer 1's depth at f features: F + 3 in whole MMA steps (16 in bf16, 8 in f32).
+__host__ __device__ __forceinline__ int in_depth(int f, bool bf16) {
+  const int step = bf16 ? kInMma : kInPad;
+  return (f + 3 + step - 1) / step * step;
+}
+
+// The weight block, as sa_eval_kernel.pack_sa1_eval packs it and the resident kernels
+// keep it at the start of their shared memory. bf16: W1^T (H1, D1 + 8), b1 (H1 f32),
+// W2^T (H2, H1 + 8), b2, W3^T (C, H2 + 8), b3, the matrices bf16. f32: w1 (D1, H1), b1,
+// w2 (H1, H2), b2, w3 (H2, C), b3. D1 = in_depth(F) (d1 0: the resident kernels' 16 in
+// bf16, 8 in f32). Each part a whole number of 16-byte pieces.
 struct Weights {
   size_t w1, b1, w2, b2, w3, b3, total;
-  __host__ __device__ Weights(bool bf16, int h1, int h2, int c) {
+  __host__ __device__ Weights(bool bf16, int h1, int h2, int c, int d1 = 0) {
     size_t at = 0;
     const size_t e = bf16 ? 2 : 4;
-    w1 = take(at, bf16 ? e * h1 * kEdgeLd : e * kInPad * h1);
+    if (d1 == 0) d1 = bf16 ? kInMma : kInPad;
+    w1 = take(at, bf16 ? e * h1 * (d1 + kSkewH) : e * d1 * h1);
     b1 = take(at, 4ull * h1);
     w2 = take(at, bf16 ? e * h2 * (h1 + kSkewH) : e * h1 * h2);
     b2 = take(at, 4ull * h2);
@@ -386,14 +408,10 @@ __device__ __forceinline__ float lane_of(const float4& v, int k) {
 // Thread (rg, cg) of the 16 x 8 thread grid: rows rg + 16 i (i < 4) and columns
 // col0 + cg*4 + {0..3}, col0 + 32 + cg*4 + {0..3} of in (64 x in_dim, rows
 // in_stride apart) @ w (in_dim x w_cols), summed over k in ascending order.
-__device__ __forceinline__ void tile_dot(const float* __restrict__ in, int in_stride, int in_dim,
+// tile_acc adds to acc what tile_dot sets it to (in may lie in shared or device memory).
+__device__ __forceinline__ void tile_acc(const float* in, int in_stride, int in_dim,
                                          const float* __restrict__ w, int w_cols, int col0,
                                          int rg, int cg, float (&acc)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
   for (int k = 0; k < in_dim; k += 4) {
     float4 a[4];
 #pragma unroll
@@ -419,6 +437,17 @@ __device__ __forceinline__ void tile_dot(const float* __restrict__ in, int in_st
       }
     }
   }
+}
+
+__device__ __forceinline__ void tile_dot(const float* __restrict__ in, int in_stride, int in_dim,
+                                         const float* __restrict__ w, int w_cols, int col0,
+                                         int rg, int cg, float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  tile_acc(in, in_stride, in_dim, w, w_cols, col0, rg, cg, acc);
 }
 
 __device__ __forceinline__ int tile_col(int col0, int cg, int j) {
@@ -636,6 +665,286 @@ __global__ void __launch_bounds__(kGroup)
   }
 }
 
+// ---- wide: any widths and inputs, the weights streamed in tiles -----------------
+
+constexpr int kTile = 64;                // a weight tile: 64 output columns, at most 64 deep
+constexpr int kTileLd = kTile + kSkewH;  // bf16 tile rows (an output column each) 72 apart
+
+// Byte offsets of the wide kernel's shared memory: the bucket minima, the slots' flags,
+// the edge rows (64 rows, D1 + skew apart), the warps' maxima of a 64-column chunk, two
+// weight tiles, then a1 and a2 (64 rows, width + skew apart) unless they go to the
+// block's slice of the scratch tensor (slice: its bytes, 0 where they stay here).
+struct Wide {
+  size_t first, valid, edge, red, tile0, tile1, a1, a2, total, slice;
+  __host__ __device__ Wide(bool bf16, int d1, int h1, int h2, bool scratch) {
+    const size_t e = bf16 ? 2 : 4, skew = bf16 ? kSkewH : kSkew;
+    size_t at = 0, s = 0;
+    first = take(at, 4ull * kBuckets);
+    valid = take(at, 4ull * kSlots);
+    edge = take(at, e * kSlots * (d1 + skew));
+    red = take(at, 4ull * kGroupWarps * kTile);
+    const size_t tile = bf16 ? 2ull * kTile * kTileLd : 4ull * kTile * kTile;
+    tile0 = take(at, tile);
+    tile1 = take(at, tile);
+    size_t& acts = scratch ? s : at;
+    a1 = take(acts, e * kSlots * (h1 + skew));
+    a2 = take(acts, e * kSlots * (h2 + skew));
+    total = at;
+    slice = s;
+  }
+};
+
+// Tile t of a centroid's stream: the layers in order, each layer's 64-column chunks in
+// order, each chunk's depths in steps of 64 (kd of them from k0).
+struct TileAt {
+  int layer, n0, k0, kd;
+  bool last_k;  // the chunk's last tile: its columns are complete after it
+};
+
+__device__ __forceinline__ TileAt tile_at(int t, const int (&kdim)[3], const int (&ndim)[3]) {
+  TileAt a{2, 0, 0, 0, false};
+  for (int l = 0; l < 3; ++l) {
+    const int kt = (kdim[l] + kTile - 1) / kTile, count = kt * (ndim[l] / kTile);
+    if (t < count) {
+      a.layer = l;
+      a.n0 = t / kt * kTile;
+      a.k0 = t % kt * kTile;
+      a.kd = min(kTile, kdim[l] - a.k0);
+      a.last_k = t % kt == kt - 1;
+      return a;
+    }
+    t -= count;
+  }
+  return a;
+}
+
+// Starts the cp.async copy of tile a of the packed block w (layout P) into dst, as one
+// group. bf16: W^T rows n0.. (a row an output column, kdim + 8 values apart), depths
+// k0..k0+kd-1, into rows kTileLd apart; f32: w rows k0..k0+kd-1 (ndim apart), columns
+// n0..n0+63, into rows 64 apart.
+template <bool kBf16>
+__device__ __forceinline__ void copy_tile(char* dst, const char* w, const Weights& P,
+                                          const TileAt& a, const int (&kdim)[3],
+                                          const int (&ndim)[3]) {
+  const size_t off = a.layer == 0 ? P.w1 : a.layer == 1 ? P.w2 : P.w3;
+  if constexpr (kBf16) {
+    const int ld = kdim[a.layer] + kSkewH, pieces = a.kd / 8;  // 16 bytes a piece
+    const bf16* src =
+        reinterpret_cast<const bf16*>(w + off) + static_cast<size_t>(a.n0) * ld + a.k0;
+    bf16* d = reinterpret_cast<bf16*>(dst);
+    for (int i = threadIdx.x; i < kTile * pieces; i += blockDim.x) {
+      const int r = i / pieces, q = i % pieces;
+      dlbt::cp_async16(d + r * kTileLd + 8 * q, src + static_cast<size_t>(r) * ld + 8 * q);
+    }
+  } else {
+    const int ld = ndim[a.layer];
+    const float* src =
+        reinterpret_cast<const float*>(w + off) + static_cast<size_t>(a.k0) * ld + a.n0;
+    float* d = reinterpret_cast<float*>(dst);
+    for (int i = threadIdx.x; i < a.kd * 16; i += blockDim.x) {
+      const int r = i / 16, q = i % 16;
+      dlbt::cp_async16(d + r * kTile + 4 * q, src + static_cast<size_t>(r) * ld + 4 * q);
+    }
+  }
+  dlbt::cp_async_commit();
+}
+
+// The A fragment of rows r0..r0+15, depths k0..k0+15 of a (rows lda apart), by 32-bit
+// loads: a may lie in shared or device memory.
+__device__ __forceinline__ void load_a_any(uint32_t (&af)[4], const bf16* a, int lda, int r0,
+                                           int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* p = a + static_cast<size_t>(r0 + g) * lda + k0 + 2 * t;
+  af[0] = dlbt::ld32(p);
+  af[1] = dlbt::ld32(p + 8 * lda);
+  af[2] = dlbt::ld32(p + 8);
+  af[3] = dlbt::ld32(p + 8 * lda + 8);
+}
+
+// bf16: warp w's rows 16w..16w+15; acc[nt] holds columns n0 + 8 nt + 2t, + 1 of rows g
+// and g + 8 (the mma C fragment).
+__device__ __forceinline__ void wide_acc(const bf16* a, int lda, const TileAt& at,
+                                         const char* tile, float (&acc)[8][4]) {
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const bf16* wt = reinterpret_cast<const bf16*>(tile);
+  for (int s = 0; s < at.kd / 16; ++s) {
+    uint32_t af[4];
+    load_a_any(af, a, lda, r0, at.k0 + 16 * s);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b0[2], b1[2];
+      dlbt::load_b_ldm(b0, b1, wt, kTileLd, 16 * s, 16 * np);
+      dlbt::mma_bf16(acc[2 * np], af, b0);
+      dlbt::mma_bf16(acc[2 * np + 1], af, b1);
+    }
+  }
+}
+
+// f32: thread (rg, cg) of the 16 x 8 grid, rows rg + 16 i, columns tile_col(n0, cg, j).
+__device__ __forceinline__ void wide_acc(const float* a, int lda, const TileAt& at,
+                                         const char* tile, float (&acc)[4][8]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  tile_acc(a + at.k0, lda, at.kd, reinterpret_cast<const float*>(tile), kTile, 0,
+           warp * 4 + (lane >> 3), lane & 7, acc);
+}
+
+// A hidden layer's chunk: relu(acc + bias), rounded to the compute type, into columns
+// n0..n0+63 of out (rows ldo apart).
+__device__ __forceinline__ void wide_hidden(const float (&acc)[8][4], const float* bias, int n0,
+                                            bf16* out, int ldo) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r = 16 * (threadIdx.x >> 5) + g;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = n0 + 8 * nt + 2 * t;
+    const float b0 = bias[col], b1 = bias[col + 1];
+    *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r) * ldo + col) =
+        pack_relu(acc[nt][0], b0, acc[nt][1], b1);
+    *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(r + 8) * ldo + col) =
+        pack_relu(acc[nt][2], b0, acc[nt][3], b1);
+  }
+}
+
+__device__ __forceinline__ void wide_hidden(const float (&acc)[4][8], const float* bias, int n0,
+                                            float* out, int ldo) {
+  const int lane = threadIdx.x & 31, cg = lane & 7, rg = (threadIdx.x >> 5) * 4 + (lane >> 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = fmaxf(acc[i][j] + bias[tile_col(n0, cg, j)], 0.0f);
+    float* o = out + static_cast<size_t>(rg + 16 * i) * ldo + n0 + cg * 4;
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(o + 32) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// Layer 3's chunk: red[warp * 64 + col] = the warp's max of its valid rows' acc.
+__device__ __forceinline__ void wide_last(const float (&acc)[8][4], const int* valid, float* red) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+  const bool v0 = valid[16 * warp + g], v1 = valid[16 * warp + g + 8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float mx = fmaxf(v0 ? acc[nt][e] : neg_inf(), v1 ? acc[nt][e + 2] : neg_inf());
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {  // over the 8 row pairs (lane bits 2..4)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      if (g == 0) red[warp * kTile + 8 * nt + 2 * t + e] = mx;
+    }
+  }
+}
+
+__device__ __forceinline__ void wide_last(const float (&acc)[4][8], const int* valid, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, cg = lane & 7;
+  const int rg = warp * 4 + (lane >> 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float mx = neg_inf();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (valid[rg + 16 * i]) mx = fmaxf(mx, acc[i][j]);
+    }
+    // the warp's 4 row groups differ in lane bits 3 and 4
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    if (lane < 8) red[warp * kTile + tile_col(0, cg, j)] = mx;
+  }
+}
+
+// One centroid a block at a time; a1 and a2 in shared memory, or (kScratch) in the
+// block's slice of scratch. The last layer's bias is added after the max: max(h + b) =
+// max(h) + b, rounding being monotone.
+template <bool kBf16, bool kScratch>
+__global__ void __launch_bounds__(kGroup)
+    sa1_eval_wide_kernel(const float* __restrict__ centers,
+                         const unsigned char* __restrict__ cmask,
+                         const float* __restrict__ planes, const unsigned char* __restrict__ mask,
+                         const char* __restrict__ weights, void* __restrict__ out, char* scratch,
+                         int b, int m, int n, int f, int h1, int h2, int c, int c_out, float r2,
+                         int out_bf16) {
+  using T = std::conditional_t<kBf16, bf16, float>;
+  constexpr int kSkewT = kBf16 ? kSkewH : kSkew;
+  extern __shared__ __align__(16) char smem[];
+  const int d1 = in_depth(f, kBf16);
+  const Weights P(kBf16, h1, h2, c, d1);
+  const Wide L(kBf16, d1, h1, h2, kScratch);
+  const int kdim[3] = {d1, h1, h2}, ndim[3] = {h1, h2, c};
+  const int lda[3] = {d1 + kSkewT, h1 + kSkewT, h2 + kSkewT};
+  char* const acts = kScratch ? scratch + blockIdx.x * L.slice : smem;
+  T* const edge = reinterpret_cast<T*>(smem + L.edge);
+  T* const act[2] = {reinterpret_cast<T*>(acts + L.a1), reinterpret_cast<T*>(acts + L.a2)};
+  float* const red = reinterpret_cast<float*>(smem + L.red);
+  int* const valid = reinterpret_cast<int*>(smem + L.valid);
+  int* const first = reinterpret_cast<int*>(smem + L.first);
+  char* const tiles[2] = {smem + L.tile0, smem + L.tile1};
+  const float* const bias[3] = {reinterpret_cast<const float*>(weights + P.b1),
+                                reinterpret_cast<const float*>(weights + P.b2),
+                                reinterpret_cast<const float*>(weights + P.b3)};
+  const int tid = threadIdx.x;
+  int count = 0;
+  for (int l = 0; l < 3; ++l) count += (kdim[l] + kTile - 1) / kTile * (ndim[l] / kTile);
+
+  const long long total = static_cast<long long>(b) * m;
+  for (long long ci = blockIdx.x; ci < total; ci += gridDim.x) {
+    const long long bi = ci / m;
+    const float* px = planes + bi * (3 + f) * static_cast<long long>(n);
+    const float cx = centers[3 * ci], cy = centers[3 * ci + 1], cz = centers[3 * ci + 2];
+    first[tid] = cmask[ci] ? dlbt::bucket_first(px, px + n, px + 2 * n, mask + bi * n, n, cx, cy,
+                                                cz, r2, tid)
+                           : n;
+    __syncthreads();
+    bool ok = false;
+    if (tid < kSlots) {
+      const int sel = dlbt::pair_select(first, tid);
+      ok = sel < n;
+      capture(edge + tid * lda[0], px, n, f, sel, ok, cx, cy, cz, d1);
+      valid[tid] = ok;
+    }
+    if (!__syncthreads_or(ok)) {  // no valid slot (or a masked centroid): the row is 0
+      for (int col = tid; col < c_out; col += kGroup) {
+        store_out(out, ci * c_out + col, 0.0f, out_bf16);
+      }
+      continue;
+    }
+    float acc[kBf16 ? 8 : 4][kBf16 ? 4 : 8];
+    copy_tile<kBf16>(tiles[0], weights, P, tile_at(0, kdim, ndim), kdim, ndim);
+    for (int t = 0; t < count; ++t) {
+      const TileAt at = tile_at(t, kdim, ndim);
+      if (t + 1 < count) {  // the next tile into the buffer the last one freed
+        copy_tile<kBf16>(tiles[(t + 1) & 1], weights, P, tile_at(t + 1, kdim, ndim), kdim, ndim);
+        dlbt::cp_async_wait<1>();
+      } else {
+        dlbt::cp_async_wait<0>();
+      }
+      __syncthreads();  // tile t in place; the layer before complete
+      if (at.k0 == 0) {
+#pragma unroll
+        for (auto& row : acc) {
+#pragma unroll
+          for (float& v : row) v = 0.0f;
+        }
+      }
+      wide_acc(at.layer == 0 ? edge : act[at.layer - 1], lda[at.layer], at, tiles[t & 1], acc);
+      if (at.last_k && at.layer < 2) {
+        wide_hidden(acc, bias[at.layer], at.n0, act[at.layer], lda[at.layer + 1]);
+      } else if (at.last_k) {
+        wide_last(acc, valid, red);
+        __syncthreads();
+        if (tid < kTile && at.n0 + tid < c_out) {
+          float v = red[tid];
+#pragma unroll
+          for (int w = 1; w < kGroupWarps; ++w) v = fmaxf(v, red[w * kTile + tid]);
+          store_out(out, ci * c_out + at.n0 + tid, v + bias[2][at.n0 + tid], out_bf16);
+        }
+      }
+      __syncthreads();  // before the buffer, or red, is filled again
+    }
+  }
+}
+
 // ---- launch ----------------------------------------------------------------------
 
 using Kernel = void (*)(const float*, const unsigned char*, const float*, const unsigned char*,
@@ -645,32 +954,47 @@ using FmaKernel = void (*)(const float*, const unsigned char*, const float*, con
 
 // The launch of these widths (sa_eval_kernel.plan mirrors it): kind 0 none, 1 the
 // bf16 kernel (layer 3's columns in col_groups over gridDim.y), 2 the f32 kernel on a
-// resident weight block, 3 the f32 kernel with W2 and W3 streamed; smem its shared
-// memory, which must fit max_smem.
+// resident weight block, 3 the f32 kernel with W2 and W3 streamed, 4 the wide kernel
+// (scratch: a1 and a2 in device memory, slice bytes a block); smem its shared memory,
+// which must fit max_smem.
 struct Plan {
   int kind = 0, col_groups = 1;
-  size_t smem = 0;
+  bool scratch = false;
+  size_t smem = 0, slice = 0;
 };
 
 Plan plan_of(int f, int h1, int h2, int c, int c_out, int bf16, size_t max_smem) {
   Plan p;
-  if (f < 0 || f + 3 > kInPad || c <= 0 || c % 64 || c_out < 0 || c_out > c || h1 <= 0 ||
-      h2 <= 0 || h1 % 64 || h2 % 64) {
+  if (f < 0 || c <= 0 || c % 64 || c_out < 0 || c_out > c || h1 <= 0 || h2 <= 0 || h1 % 64 ||
+      h2 % 64) {
     return p;
   }
-  if (bf16) {
-    if (h2 != h1 || c != 2 * h1 || (h1 != 64 && h1 != 128 && h1 != 192)) return p;
-    p.col_groups = h1 == 192 ? 2 : 1;
-    p.smem = Weights(true, h1, h2, c / p.col_groups).total + kGroups * Group().stride;
-    p.kind = 1;
-  } else if (Fma(h1, h2, c, false).total <= max_smem) {
+  const int d1 = in_depth(f, bf16);
+  if (bf16 && d1 == kInMma && h2 == h1 && c == 2 * h1 && (h1 == 64 || h1 == 128 || h1 == 192)) {
+    const int groups = h1 == 192 ? 2 : 1;
+    const size_t smem = Weights(true, h1, h2, c / groups).total + kGroups * Group().stride;
+    if (smem <= max_smem) {
+      p.kind = 1;
+      p.col_groups = groups;
+      p.smem = smem;
+      return p;
+    }
+  }
+  if (!bf16 && d1 == kInPad && Fma(h1, h2, c, false).total <= max_smem) {
     p.kind = 2;
     p.smem = Fma(h1, h2, c, false).total;
-  } else {
+    return p;
+  }
+  if (!bf16 && d1 == kInPad && Fma(h1, h2, c, true).total <= max_smem) {
     p.kind = 3;
     p.smem = Fma(h1, h2, c, true).total;
+    return p;
   }
-  if (p.smem > max_smem) p.kind = 0;
+  p.scratch = Wide(bf16, d1, h1, h2, false).total > max_smem;
+  const Wide L(bf16, d1, h1, h2, p.scratch);
+  p.smem = L.total;
+  p.slice = L.slice;
+  p.kind = p.smem <= max_smem ? 4 : 0;
   return p;
 }
 
@@ -687,10 +1011,20 @@ FmaKernel fma_kernel(const Plan& p) {
   return p.kind == 2 ? sa1_eval_fma_kernel<false> : sa1_eval_fma_kernel<true>;
 }
 
+using WideKernel = void (*)(const float*, const unsigned char*, const float*,
+                            const unsigned char*, const char*, void*, char*, int, int, int, int,
+                            int, int, int, int, float, int);
+
+WideKernel wide_kernel(const Plan& p, int bf16) {
+  if (bf16) return p.scratch ? sa1_eval_wide_kernel<true, true> : sa1_eval_wide_kernel<true, false>;
+  return p.scratch ? sa1_eval_wide_kernel<false, true> : sa1_eval_wide_kernel<false, false>;
+}
+
 template <bool kSelectOnly>
-const void* kernel_of(const Plan& p, int h1) {
-  return p.kind == 1 ? reinterpret_cast<const void*>(mma_kernel<kSelectOnly>(h1))
-                     : reinterpret_cast<const void*>(fma_kernel(p));
+const void* kernel_of(const Plan& p, int h1, int bf16) {
+  if (p.kind == 1) return reinterpret_cast<const void*>(mma_kernel<kSelectOnly>(h1));
+  if (p.kind == 4) return reinterpret_cast<const void*>(wide_kernel(p, bf16));
+  return reinterpret_cast<const void*>(fma_kernel(p));
 }
 
 // The card's SMs and the shared memory a block may opt in to.
@@ -718,17 +1052,33 @@ cudaError_t prepare(const void* kernel, size_t smem, int threads, int* per_sm) {
 
 int threads_of(const Plan& p) { return p.kind == 1 ? kGroups * kGroup : kGroup; }
 
+// The grid of a launch: every SM's blocks (per_sm), at most one block a centroid (for
+// the bf16 kernel a group a quad, over its column groups), and where a1 and a2 go to
+// scratch at most max_grid blocks.
+long long grid_of(const Plan& p, int sms, int per_sm, int b, int m, int max_grid) {
+  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (p.kind == 1) {  // the column groups run side by side, each over every quad
+    grid = grid / p.col_groups > 0 ? grid / p.col_groups : 1;
+    const long long quads = b * static_cast<long long>((m + kQuad - 1) / kQuad);
+    return grid < (quads + kGroups - 1) / kGroups ? grid : (quads + kGroups - 1) / kGroups;
+  }
+  const long long total = static_cast<long long>(b) * m;
+  if (p.kind == 4 && p.scratch && grid > max_grid) grid = max_grid;
+  return grid < total ? grid : total;
+}
+
 template <bool kSelectOnly>
 int launch(const void* centers, const void* cmask, const void* planes, const void* mask,
-           const void* weights, void* out, int b, int m, int n, int f, int h1, int h2, int c,
-           int c_out, float r2, int bf16, int out_bf16, void* stream) {
+           const void* weights, void* out, void* scratch, long long scratch_bytes, int b, int m,
+           int n, int f, int h1, int h2, int c, int c_out, float r2, int bf16, int out_bf16,
+           int max_grid, void* stream) {
   int sms = 0, per_sm = 0;
   size_t max_smem = 0;
   cudaError_t e = card(&sms, &max_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Plan p = plan_of(f, h1, h2, c, c_out, bf16, max_smem);
-  if (p.kind == 0 || (kSelectOnly && (!bf16 || out_bf16 || h1 != 64)) ||
-      reinterpret_cast<uintptr_t>(weights) % 16) {
+  if (p.kind == 0 || (kSelectOnly && (p.kind != 1 || out_bf16 || h1 != 64)) ||
+      reinterpret_cast<uintptr_t>(weights) % 16 || max_grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long total = static_cast<long long>(b) * m;
@@ -739,20 +1089,23 @@ int launch(const void* centers, const void* cmask, const void* planes, const voi
   const auto* pl = static_cast<const float*>(planes);
   const auto* mk = static_cast<const unsigned char*>(mask);
   const auto* w = static_cast<const char*>(weights);
-  e = prepare(kernel_of<kSelectOnly>(p, h1), p.smem, threads_of(p), &per_sm);
+  e = prepare(kernel_of<kSelectOnly>(p, h1, bf16), p.smem, threads_of(p), &per_sm);
   if (e != cudaSuccess) return static_cast<int>(e);
-  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long grid = grid_of(p, sms, per_sm, b, m, max_grid);
   if (p.kind == 1) {
-    // the column groups run side by side, each over every quad
-    grid = grid / p.col_groups > 0 ? grid / p.col_groups : 1;
-    const long long quads = b * static_cast<long long>((m + kQuad - 1) / kQuad);
-    if (grid > (quads + kGroups - 1) / kGroups) grid = (quads + kGroups - 1) / kGroups;
     const dim3 blocks(static_cast<unsigned>(grid), p.col_groups);
     mma_kernel<kSelectOnly>(h1)<<<blocks, threads_of(p), p.smem, s>>>(cen, cm, pl, mk, w, out, b,
                                                                        m, n, f, c, c_out, r2,
                                                                        out_bf16);
+  } else if (p.kind == 4) {
+    if (p.scratch && (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 ||
+                      scratch_bytes < grid * static_cast<long long>(p.slice))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    wide_kernel(p, bf16)<<<static_cast<unsigned>(grid), kGroup, p.smem, s>>>(
+        cen, cm, pl, mk, w, out, static_cast<char*>(scratch), b, m, n, f, h1, h2, c, c_out, r2,
+        out_bf16);
   } else {
-    if (grid > total) grid = total;
     fma_kernel(p)<<<static_cast<unsigned>(grid), kGroup, p.smem, s>>>(
         cen, cm, pl, mk, w, out, b, m, n, f, h1, h2, c, c_out, r2, out_bf16);
   }
@@ -762,17 +1115,18 @@ int launch(const void* centers, const void* cmask, const void* planes, const voi
 }  // namespace
 
 // centers (B, M, 3) f32, cmask (B, M) bool, planes (B, 3+F, N) f32 [x, y, z, features],
-// mask (B, N) bool, weights the weight block (Weights; bf16 != 0: the bf16 layout,
-// else the f32 one), 16-byte aligned -> out (B, M, c_out) bf16 (out_bf16 != 0) or f32.
-// H1, H2 and C are multiples of 64 (zero-padded by the caller) that plan_of takes:
-// in bf16 (64, 64, 128), (128, 128, 256) or (192, 192, 384), in f32 any whose streamed
-// layout fits a block; F + 3 <= 8, c_out <= C.
+// mask (B, N) bool, weights the weight block (Weights at D1 = in_depth(F); bf16 != 0: the
+// bf16 layout, else the f32 one), 16-byte aligned -> out (B, M, c_out) bf16 (out_bf16 !=
+// 0) or f32. H1, H2 and C are multiples of 64 (zero-padded by the caller), c_out <= C.
+// Where plan_of puts a1 and a2 in scratch, scratch holds scratch_bytes (at least
+// dlbt_sa1_fused_eval_launch's slice bytes times its grid, which max_grid caps).
 extern "C" int dlbt_sa1_fused_eval(const void* centers, const void* cmask, const void* planes,
-                                   const void* mask, const void* weights, void* out, int b,
-                                   int m, int n, int f, int h1, int h2, int c, int c_out,
-                                   float r2, int bf16, int out_bf16, void* stream) {
-  return launch<false>(centers, cmask, planes, mask, weights, out, b, m, n, f, h1, h2, c, c_out,
-                       r2, bf16, out_bf16, stream);
+                                   const void* mask, const void* weights, void* out,
+                                   void* scratch, long long scratch_bytes, int b, int m, int n,
+                                   int f, int h1, int h2, int c, int c_out, float r2, int bf16,
+                                   int out_bf16, int max_grid, void* stream) {
+  return launch<false>(centers, cmask, planes, mask, weights, out, scratch, scratch_bytes, b, m,
+                       n, f, h1, h2, c, c_out, r2, bf16, out_bf16, max_grid, stream);
 }
 
 // The bf16 kernel's selection and capture alone, with dlbt_sa1_fused_eval's arguments
@@ -781,30 +1135,41 @@ extern "C" int dlbt_sa1_fused_eval(const void* centers, const void* cmask, const
 // scan's share, which no path launches.
 extern "C" int dlbt_sa1_fused_eval_select(const void* centers, const void* cmask,
                                           const void* planes, const void* mask,
-                                          const void* weights, void* out, int b, int m, int n,
-                                          int f, int h1, int h2, int c, int c_out, float r2,
-                                          int bf16, int out_bf16, void* stream) {
-  return launch<true>(centers, cmask, planes, mask, weights, out, b, m, n, f, h1, h2, c, c_out,
-                      r2, bf16, out_bf16, stream);
+                                          const void* weights, void* out, void* scratch,
+                                          long long scratch_bytes, int b, int m, int n, int f,
+                                          int h1, int h2, int c, int c_out, float r2, int bf16,
+                                          int out_bf16, int max_grid, void* stream) {
+  return launch<true>(centers, cmask, planes, mask, weights, out, scratch, scratch_bytes, b, m,
+                      n, f, h1, h2, c, c_out, r2, bf16, out_bf16, max_grid, stream);
 }
 
-// A host query: the launch of dlbt_sa1_fused_eval at these widths (no features) on
-// the current card: its kind (1 bf16, 2 f32 resident, 3 f32 streamed), column groups
-// (gridDim.y), threads and shared memory per block, and the blocks one SM holds at
-// once (*per_sm).
-extern "C" int dlbt_sa1_fused_eval_occupancy(int bf16, int h1, int h2, int c, int* kind,
+// A host query: the launch of dlbt_sa1_fused_eval at these widths and F on the current
+// card: its kind (1 bf16, 2 f32 resident, 3 f32 streamed, 4 wide), column groups
+// (gridDim.y), threads and shared memory per block, the blocks one SM holds at once
+// (*per_sm), the scratch bytes a block (*slice, 0 where a1 and a2 stay in shared
+// memory), and the kernel's registers a thread and local memory a thread (the build's
+// spill) as cudaFuncGetAttributes reports them.
+extern "C" int dlbt_sa1_fused_eval_occupancy(int f, int bf16, int h1, int h2, int c, int* kind,
                                              int* col_groups, int* per_sm, int* threads,
-                                             int* smem_bytes) {
-  *kind = *col_groups = *per_sm = *threads = *smem_bytes = 0;
+                                             int* smem_bytes, int* slice, int* regs,
+                                             int* local_bytes) {
+  *kind = *col_groups = *per_sm = *threads = *smem_bytes = *slice = *regs = *local_bytes = 0;
   int sms = 0;
   size_t max_smem = 0;
   cudaError_t e = card(&sms, &max_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Plan p = plan_of(0, h1, h2, c, c, bf16, max_smem);
+  const Plan p = plan_of(f, h1, h2, c, c, bf16, max_smem);
   if (p.kind == 0) return static_cast<int>(cudaErrorInvalidValue);
   *kind = p.kind;
   *col_groups = p.col_groups;
   *threads = threads_of(p);
   *smem_bytes = static_cast<int>(p.smem);
-  return static_cast<int>(prepare(kernel_of<false>(p, h1), p.smem, *threads, per_sm));
+  *slice = static_cast<int>(p.slice);
+  const void* k = kernel_of<false>(p, h1, bf16);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, k);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(prepare(k, p.smem, *threads, per_sm));
 }

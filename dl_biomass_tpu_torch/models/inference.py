@@ -10,6 +10,8 @@ branch (``inference.py:198-226``); while SA1 keeps at most ``MXU_MAX_POINTS``
 centroids, the split SA2 path with the gathered z-table (``:232-269``) or,
 with ``split_first_layer=False``, the features and positions gathered by one
 index (kernel 4c); and the unsplit per-edge gather beyond (``:270-279``).
+``compile_dataset_inference`` serves a whole ``DeviceDataset`` through the
+same engine, its batches gathered on the device, with one host sync.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Callable, List, Tuple
 
+import numpy as np
 import torch
 
 from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
@@ -76,9 +79,10 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
     ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
     and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
-    in the JAX package, and SA1 widths the kernel takes (``sa_eval_kernel.plan``:
-    those of ``neuron_multiplier`` 1, 2 and 3 in bf16 and float32); others
-    raise ``NotImplementedError`` here, when the engine is built."""
+    in the JAX package, and SA1 widths the kernel takes
+    (``sa_eval_kernel.check_widths``, which takes those of every
+    ``neuron_multiplier`` 1-32 in bf16 and float32); others raise
+    ``NotImplementedError`` here, when the engine is built."""
     if mesh is not None:
         raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
     if not isinstance(model, PointNet2Regressor):
@@ -161,3 +165,25 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
         return _run_folded(h3, head, act=False, compute_dtype=ct).float()
 
     return serve
+
+
+def compile_dataset_inference(model: PointNet2Regressor, device=None, *, fused_eval: bool = False,
+                              mesh=None) -> Callable:
+    """Serving over a whole ``DeviceDataset`` (``io/device_data.py``).
+
+    Returns ``serve_dataset(ds, batch_size) -> (P, 4)`` float32 numpy: every
+    batch of ``ds`` in order, gathered on the device and run through the
+    engine ``compile_inference(model, device, fused_eval=fused_eval)`` builds,
+    the pad samples of the partial last batch dropped, rows in the order of
+    ``ds.plot_ids``; every batch is queued before the one host sync."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
+    serve = compile_inference(model, device, fused_eval=fused_eval)
+
+    def serve_dataset(ds, batch_size: int) -> np.ndarray:
+        idxs, augs, valids, _ = ds.epoch_spec_arrays(batch_size)
+        outs = [serve(ds.assemble(idx, aug, valid, 0, False))
+                for idx, aug, valid in zip(idxs, augs, valids)]
+        return torch.cat(outs).cpu().numpy()[valids.reshape(-1)]
+
+    return serve_dataset

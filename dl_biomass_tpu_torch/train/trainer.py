@@ -13,6 +13,12 @@ train-mode forward (batch statistics, their running update, the head's
 dropout), the loss, its gradients and one optimizer step. Randomness (FPS
 starts, dropout) comes from the ``torch.Generator`` the caller passes. The
 loop syncs with the host once per epoch, not per step.
+
+Over a ``DeviceDataset`` (``io/device_data.py``) an epoch gathers, augments
+and steps on the device from one integer seed: ``train_epoch_fused`` hands
+each step its specs, ``train_epoch_scan`` hands the epoch's specs over as one
+tensor each and indexes them per step; both give the losses and parameters
+of ``train_epoch(ds.batches(...), step_generator(seed))``, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ from dl_biomass_tpu_torch.models.pointnet2 import model_to_dict
 from dl_biomass_tpu_torch.train import checkpoint
 from dl_biomass_tpu_torch.train.loss import weighted_component_mse
 
-_DEVICE_DATASET = ("a DeviceDataset (the fused and scan epochs) is not ported yet: ROADMAP A.3; "
-                   "pass callables that yield CloudBatches")
+
+
+def _is_device_dataset(x) -> bool:
+    return hasattr(x, "epoch_spec_arrays")
 
 
 def make_optimizer(params, hp) -> torch.optim.Optimizer:
@@ -105,11 +113,18 @@ class Trainer:
 
     # ---- loops ---------------------------------------------------------------
 
-    def train_epoch(self, batches: Iterable[CloudBatch],
-                    generator: Optional[torch.Generator] = None) -> Tuple[float, int]:
-        """(mean train loss, real clouds seen); one host sync at the end."""
-        if hasattr(batches, "epoch_specs"):
-            raise NotImplementedError(_DEVICE_DATASET)
+    def train_epoch(self, batches, generator: Optional[torch.Generator] = None, *,
+                    seed: Optional[int] = None) -> Tuple[float, int]:
+        """(mean train loss, real clouds seen); one host sync at the end.
+        ``batches`` yields CloudBatches, or is a ``DeviceDataset``: then the
+        scan or the fused epoch by ``cfg.scan_epochs``, at ``cfg.hp.batch_size``
+        and ``cfg.hp.num_augs``, drawn from ``seed`` (no ``generator``)."""
+        if _is_device_dataset(batches):
+            if seed is None or generator is not None:
+                raise ValueError("train_epoch over a DeviceDataset draws from seed= alone")
+            epoch = self.train_epoch_scan if self.cfg.scan_epochs else self.train_epoch_fused
+            return epoch(batches, seed, batch_size=self.cfg.hp.batch_size,
+                         num_augs=self.cfg.hp.num_augs)
         losses, counts = [], []
         for batch in batches:
             losses.append(self.step(batch, generator))
@@ -119,10 +134,53 @@ class Trainer:
         losses = torch.stack(losses).cpu().numpy()
         return float(np.mean(losses.astype(np.float64))), int(torch.stack(counts).sum())
 
-    def evaluate(self, batches: Iterable[CloudBatch]) -> float:
-        """Mean eval loss over the batches; one host sync at the end."""
-        if hasattr(batches, "epoch_specs"):
-            raise NotImplementedError(_DEVICE_DATASET)
+    def _device_epoch(self, ds, seed: Optional[int], batch_size: int, num_augs: int,
+                      shuffle: bool, scan: bool, train: bool) -> Tuple[float, int]:
+        """One epoch over a DeviceDataset: every batch gathered, augmented and
+        stepped (or evaluated) on the device, one host sync at the end. ``scan``
+        hands the specs over as one tensor each, else one step's at a time."""
+        idxs, augs, valids, b0s = ds.epoch_spec_arrays(batch_size, seed=seed,
+                                                       num_augs=num_augs, shuffle=shuffle)
+        specs = [ds._to_device(a) for a in (idxs, augs, valids)] if scan else None
+        generator = self.step_generator(seed) if train else None
+        losses = []
+        for si in range(len(b0s)):
+            per = [a[si] for a in specs] if scan else (idxs[si], augs[si], valids[si])
+            batch = ds.assemble(*per, ds.aug_seed(seed, int(b0s[si])), bool(augs[si].any()))
+            losses.append(self.step(batch, generator) if train else self._eval_batch(batch)[0])
+        if not losses:
+            raise ValueError("the DeviceDataset holds no plots")
+        loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+        return loss, int(valids.sum())
+
+    def train_epoch_fused(self, ds, seed: int, *, batch_size: int, num_augs: int = 0,
+                          shuffle: bool = True) -> Tuple[float, int]:
+        """``train_epoch`` over a DeviceDataset, each step handed its own specs;
+        the steps draw from ``step_generator(seed)``, the order and the
+        augmentation from ``seed`` (``ds.epoch_specs``)."""
+        return self._device_epoch(ds, seed, batch_size, num_augs, shuffle, False, True)
+
+    def train_epoch_scan(self, ds, seed: int, *, batch_size: int, num_augs: int = 0,
+                         shuffle: bool = True) -> Tuple[float, int]:
+        """``train_epoch_fused`` with the epoch's specs handed over as one tensor
+        each: the same losses and parameters, bit for bit."""
+        return self._device_epoch(ds, seed, batch_size, num_augs, shuffle, True, True)
+
+    def evaluate_fused(self, ds, *, batch_size: int) -> float:
+        """``evaluate`` over a DeviceDataset (in order, unaugmented)."""
+        return self._device_epoch(ds, None, batch_size, 0, False, False, False)[0]
+
+    def evaluate_scan(self, ds, *, batch_size: int) -> float:
+        """``evaluate_fused`` with the specs handed over as one tensor each."""
+        return self._device_epoch(ds, None, batch_size, 0, False, True, False)[0]
+
+    def evaluate(self, batches) -> float:
+        """Mean eval loss over the batches (or a DeviceDataset: ``evaluate_scan``
+        or ``evaluate_fused`` by ``cfg.scan_epochs`` at ``cfg.hp.batch_size``);
+        one host sync at the end."""
+        if _is_device_dataset(batches):
+            epoch = self.evaluate_scan if self.cfg.scan_epochs else self.evaluate_fused
+            return epoch(batches, batch_size=self.cfg.hp.batch_size)
         losses = [self._eval_batch(b)[0] for b in batches]
         if not losses:
             raise ValueError("evaluate got no batches")
@@ -135,11 +193,18 @@ class Trainer:
         out = torch.cat([e[1] for e in evals]).cpu().numpy()
         return out[torch.cat([e[2] for e in evals]).cpu().numpy()]
 
+    def epoch_seed(self, epoch: int) -> int:
+        """The seed of ``epoch``, from ``cfg.seed``: a resumed run draws what an
+        uninterrupted one would have."""
+        return int(self.cfg.seed) * 1_000_003 + epoch
+
+    def step_generator(self, seed: int) -> torch.Generator:
+        """The steps' randomness (FPS starts, dropout) of the epoch of ``seed``."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def epoch_generator(self, epoch: int) -> torch.Generator:
-        """The step randomness of ``epoch``, from ``cfg.seed``: a resumed run
-        draws what an uninterrupted one would have."""
-        return torch.Generator(device=self.device).manual_seed(
-            int(self.cfg.seed) * 1_000_003 + epoch)
+        """The step randomness of ``epoch`` (``step_generator(epoch_seed(epoch))``)."""
+        return self.step_generator(self.epoch_seed(epoch))
 
     def fit(self, train_batches_fn: Callable[[int], Iterable[CloudBatch]],
             val_batches_fn: Callable[[], Iterable[CloudBatch]], *,
@@ -148,12 +213,14 @@ class Trainer:
             resume: bool = False) -> Dict[str, Any]:
         """Training with early stopping and save-on-best.
 
-        ``train_batches_fn(epoch)`` and ``val_batches_fn()`` yield CloudBatches.
-        Returns the history: per-epoch train/val MSE, seconds and clouds/s,
-        ``best_val_mse``, ``best_state`` (a copy of the best model
+        ``train_batches_fn(epoch)`` and ``val_batches_fn()`` yield CloudBatches;
+        either may instead be a ``DeviceDataset``, trained through
+        ``train_epoch_scan`` or ``train_epoch_fused`` (evaluated through
+        ``evaluate_scan`` or ``evaluate_fused``) by ``cfg.scan_epochs``, with
+        ``cfg.hp.batch_size`` and ``cfg.hp.num_augs``, epoch e drawn from
+        ``epoch_seed(e)``. Returns the history: per-epoch train/val MSE, seconds
+        and clouds/s, ``best_val_mse``, ``best_state`` (a copy of the best model
         ``state_dict``) and ``stopped_early``."""
-        if hasattr(train_batches_fn, "epoch_specs") or hasattr(val_batches_fn, "epoch_specs"):
-            raise NotImplementedError(_DEVICE_DATASET)
         cfg = self.cfg
         num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         stopper = EarlyStopping(cfg.hp.patience, cfg.early_stopping)
@@ -182,9 +249,14 @@ class Trainer:
 
         for epoch in range(start_epoch, num_epochs):
             t0 = time.perf_counter()
-            train_mse, n_clouds = self.train_epoch(train_batches_fn(epoch),
-                                                   self.epoch_generator(epoch))
-            val_mse = self.evaluate(val_batches_fn())
+            if _is_device_dataset(train_batches_fn):
+                train_mse, n_clouds = self.train_epoch(train_batches_fn,
+                                                       seed=self.epoch_seed(epoch))
+            else:
+                train_mse, n_clouds = self.train_epoch(train_batches_fn(epoch),
+                                                       self.epoch_generator(epoch))
+            val_mse = self.evaluate(val_batches_fn if _is_device_dataset(val_batches_fn)
+                                    else val_batches_fn())
             dt = time.perf_counter() - t0
 
             history["epoch"].append(epoch)

@@ -308,22 +308,37 @@ def test_scatter_kernel_at_the_models_cases(dev, case, dtype):
         assert not got[1].any()
 
 
-# kernel 5 at the widths neuron_multiplier 2 and 3 give SA1, in bf16 (at 3
-# layer 3 split over gridDim.y) and f32 (W2 and W3 streamed)
-WIDE_SA1 = [(True, (128, 128, 256)), (True, (192, 192, 384)), (False, (128, 128, 256)),
-            (False, (192, 192, 384))]
+# kernel 5 at the widths neuron_multiplier 2 to 32 give SA1, in bf16 and f32: at 2
+# and 3 the resident kernels (bf16 at 3 with layer 3 split over gridDim.y, f32 with
+# W2 and W3 streamed), above them the wide kernel (a1 and a2 in scratch from 16 in
+# bf16, from 8 in f32); widths no SA1 has (H2 other than H1, C other than 2 H1); and
+# 6 and 16 features (layer 1 one or two MMA steps deep), at 1
+WIDE_SA1 = [(True, (128, 128, 256), 1), (True, (192, 192, 384), 1),
+            (False, (128, 128, 256), 1), (False, (192, 192, 384), 1),
+            (True, (256, 256, 512), 1), (False, (256, 256, 512), 1),
+            (True, (512, 512, 1024), 1), (False, (512, 512, 1024), 1),
+            (True, (1024, 1024, 2048), 1), (False, (1024, 1024, 2048), 1),
+            (True, (2048, 2048, 4096), 1), (False, (2048, 2048, 4096), 1),
+            (True, (64, 128, 192), 1), (False, (128, 64, 64), 1),
+            (True, (64, 64, 128), 6), (False, (64, 64, 128), 6),
+            (True, (64, 64, 128), 16), (False, (256, 256, 512), 16)]
+WIDE_IDS = ["bf16x2", "bf16x3", "f32x2", "f32x3", "bf16x4", "f32x4", "bf16x8", "f32x8",
+            "bf16x16", "f32x16", "bf16x32", "f32x32", "bf16_h2", "f32_c", "bf16_f6", "f32_f6",
+            "bf16_f16", "f32x4_f16"]
 
 
-@pytest.mark.parametrize("bf16,widths", WIDE_SA1, ids=["bf16x2", "bf16x3", "f32x2", "f32x3"])
-def test_sa1_fused_eval_kernel_at_wide_widths(dev, bf16, widths):
+@pytest.mark.parametrize("bf16,widths,f", WIDE_SA1, ids=WIDE_IDS)
+def test_sa1_fused_eval_kernel_at_wide_widths(dev, bf16, widths, f):
     """Against the plain version (1e-2 of max|y| in bf16, 1e-5 in f32) at an odd
     M, masked and isolated centroids 0 in both, a repeat bit-identical, and the
     launch the card reports the one ``plan`` names."""
-    pos, mask, feat = _cloud(dev)
+    pos, mask, _ = _cloud(dev)
+    feat = torch.randn(*pos.shape[:2], f, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(f))
     centers, cmask = pos[:, :201].clone(), mask[:, :201].clone()
     cmask[:, 150:] = False
     centers[0, 0] = 50.0
-    ws = _sa_weights(dev, widths, seed=3)
+    ws = _sa_weights(dev, widths, f=f, seed=3)
     out_dtype = torch.bfloat16 if bf16 else torch.float32
     kw = dict(radius=2.0, bf16=bf16, out_dtype=out_dtype)
     got = sa_eval_kernel.sa1_fused_eval(centers, cmask, pos, mask, feat, ws, **kw)
@@ -337,18 +352,35 @@ def test_sa1_fused_eval_kernel_at_wide_widths(dev, bf16, widths):
     assert torch.equal((got == 0).all(-1), (want == 0).all(-1))
     err = float((got.float() - want.float()).abs().max())
     assert err <= (1e-2 if bf16 else 1e-5) * float(want.float().abs().max())
-    occ = sa_eval_kernel.occupancy(bf16, *widths)
-    p = sa_eval_kernel.plan(*widths, bf16)
-    assert (occ["kernel"], occ["column_groups"], occ["smem_bytes"]) == \
-        (p.kernel, p.column_groups, p.smem_bytes)
+    occ = sa_eval_kernel.occupancy(bf16, *widths, f=f)
+    p = sa_eval_kernel.plan(*widths, bf16, f=f)
+    assert (occ["kernel"], occ["column_groups"], occ["smem_bytes"], occ["scratch_bytes"]) == \
+        (p.kernel, p.column_groups, p.smem_bytes, p.scratch_bytes)
     assert occ["blocks_per_sm"] >= 1
 
 
-@pytest.mark.parametrize("nm", [2, 3])
+def test_plan_of_agrees_with_plan_on_every_sa1_width(dev):
+    """csrc/sa1_fused_eval.cu's plan_of names the launch ``plan`` names at SA1's
+    widths for neuron_multiplier 1-32 and 1-16 point features, in both dtypes
+    (the sweep of tests/test_torch_sa_eval.py), and the card holds a block of
+    each at once."""
+    for bf16 in (True, False):
+        for nm in range(1, 33):
+            for f in range(1, 17):
+                widths = (64 * nm, 64 * nm, 128 * nm)
+                occ = sa_eval_kernel.occupancy(bf16, *widths, f=f)
+                p = sa_eval_kernel.plan(*widths, bf16, f=f)
+                assert (occ["kernel"], occ["column_groups"], occ["smem_bytes"],
+                        occ["scratch_bytes"]) == (p.kernel, p.column_groups, p.smem_bytes,
+                                                  p.scratch_bytes), (bf16, nm, f)
+                assert occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("nm", [2, 3, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_fused_eval_engine_at_wide_widths_matches_the_plain_engine(dev, nm, dtype):
     """``compile_inference(fused_eval=True)`` serves the model at
-    neuron_multiplier 2 and 3 through kernel 5, within the serving bound of
+    neuron_multiplier 2, 3, 4 and 8 through kernel 5, within the serving bound of
     the plain-version engine of the same weights (the engine on the CPU): 1e-2
     of max|y| in bf16, 1e-4 in f32."""
     rng = np.random.default_rng(nm)

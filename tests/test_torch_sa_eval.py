@@ -4,6 +4,8 @@ tensor) against the JAX package's ``sa1_fused_eval`` in interpret mode, and the
 serving engine with ``fused_eval=True`` against the JAX engine with the same
 flag, on the same weights through the bridge."""
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,7 +57,8 @@ def _both(pos, mask, feat, centers, cmask, ws, radius, bf16):
     (512, 128, 1, (16, 16, 32)),
     (512, 128, 1, (64, 64, 128)),  # the production widths
     (300, 50, 1, (8, 8, 16)),  # M no multiple of 32, N none of 128
-    (384, 64, 4, (16, 16, 32)),  # the most features the layer takes
+    (384, 64, 4, (16, 16, 32)),  # the most features the engine's fused layer takes
+    (256, 32, 6, (64, 64, 128)),  # 6 features: layer 1 deeper than 8 (f32) values
 ])
 def test_plain_version_matches_jax_interpret(n, m, f, widths, bf16):
     pos, mask, feat, centers, cmask = _cloud(n + f, n=n, m=m, f=f)
@@ -202,16 +205,50 @@ def test_plan_names_the_launch_at_every_width(nm, bf16):
 
 
 @pytest.mark.parametrize("widths,bf16", [
-    ((256, 256, 512), True), ((256, 256, 512), False),  # neuron_multiplier 4
-    ((64, 128, 128), True),  # H2 other than H1
-    ((128, 128, 128), True),  # C other than 2 H1
+    ((256, 256, 500), True), ((256, 256, 500), False),  # C no multiple of 64
+    ((64, 100, 128), True),  # H2 no multiple of 64
+    ((0, 64, 128), True),  # no H1
     ((64, 64, 100), False),  # no multiple of 64
 ])
 def test_plan_refuses_widths_no_launch_takes(widths, bf16):
+    """``plan`` takes padded widths only: multiples of 64, none empty."""
     assert sa_eval_kernel.plan(*widths, bf16) is None
 
 
-def _wide_model(nm, dtype):
+# the wide kernel's launch at SA1's widths above neuron_multiplier 3, (64, 64, 128) x
+# nm, in (bf16, f32): shared memory a block and the scratch bytes a block (a1 and a2
+# in device memory where they do not fit beside the weight tiles)
+WIDE_PLANS = {4: ((90880, 0), (170752, 0)), 8: ((156416, 0), (37632, 264192)),
+              16: ((23296, 264192), (37632, 526336)), 32: ((23296, 526336), (37632, 1050624))}
+
+
+@pytest.mark.parametrize("nm", list(WIDE_PLANS))
+def test_plan_names_the_wide_launch_above_three(nm):
+    """Above neuron_multiplier 3 SA1 runs the wide kernel in both dtypes: one
+    centroid a 128-thread block, every weight streamed in tiles of 64 columns,
+    a1 and a2 in shared memory up to x8 in bf16 and x4 in f32, in scratch
+    above."""
+    for bf16, want in zip((True, False), WIDE_PLANS[nm]):
+        p = sa_eval_kernel.plan(64 * nm, 64 * nm, 128 * nm, bf16)
+        assert (p.kernel, p.column_groups, (p.smem_bytes, p.scratch_bytes)) == ("wide", 1, want)
+        assert p.smem_bytes <= sa_eval_kernel.SMEM_MAX
+
+
+def test_plan_takes_every_sa1_width_and_input_width():
+    """SA1 at every neuron_multiplier 1-32 and 1-16 point features has a launch
+    in both dtypes: the resident kernels at 1-3 where layer 1 is one step deep
+    (bf16 to 13 features, f32 to 5), the wide kernel everywhere else. The card
+    holds csrc/sa1_fused_eval.cu's plan_of to these (tests/test_torch_cuda.py)."""
+    for bf16 in (True, False):
+        for nm in range(1, 33):
+            for f in range(1, 17):
+                p = sa_eval_kernel.plan(64 * nm, 64 * nm, 128 * nm, bf16, f=f)
+                resident = nm <= 3 and f + 3 <= (16 if bf16 else 8)
+                assert p is not None and (p.kernel != "wide") == resident, (bf16, nm, f, p)
+                assert p.smem_bytes <= sa_eval_kernel.SMEM_MAX
+
+
+def _wide_model(nm, dtype, num_features=1):
     import dataclasses
 
     from dl_biomass_tpu_torch.core.config import TrainConfig
@@ -221,18 +258,73 @@ def _wide_model(nm, dtype):
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype),
                               hp=dataclasses.replace(cfg.hp, neuron_multiplier=nm))
     torch.manual_seed(nm)
-    return build_model(cfg, num_features=1).eval()
+    return build_model(cfg, num_features=num_features).eval()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_engine_refuses_widths_the_kernel_does_not_take_when_built(dtype):
-    """At neuron_multiplier 4 kernel 5 has no launch: ``compile_inference``
+def test_engine_refuses_widths_the_kernel_does_not_take_when_built(dtype, monkeypatch):
+    """Where kernel 5 has no launch (here a card whose blocks hold 16 KiB of
+    shared memory, less than any of its kernels needs), ``compile_inference``
     raises when the engine is built, citing ROADMAP C.2, not at its first
     ``serve``; the default engine of the same model builds."""
     model = _wide_model(4, dtype)
+    monkeypatch.setattr(sa_eval_kernel, "SMEM_MAX", 16 * 1024)
     with pytest.raises(NotImplementedError, match="ROADMAP C.2"):
         compile_inference(model, device="cpu", fused_eval=True)
     compile_inference(model, device="cpu")
+
+
+@pytest.mark.parametrize("nm", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_engine_builds_at_every_sa1_width(nm, dtype):
+    """``compile_inference(fused_eval=True)`` builds at neuron_multiplier 4, 8,
+    16 and 32, as the JAX engine does, kernel 5 on the wide launch. At 16 and 32
+    the model's SA1 is put on the x1 model: the engine reads SA1's widths only,
+    and the rest of a x32 model (over 900 M parameters) is not built here."""
+    from dl_biomass_tpu_torch.models.pointnet2 import SAModule
+
+    if nm <= 8:
+        model = _wide_model(nm, dtype)
+    else:
+        model = _wide_model(1, dtype)
+        sa1 = model.sa1
+        model.sa1 = SAModule(sa1.ratio, sa1.radius, [4, 64 * nm, 64 * nm, 128 * nm],
+                             compute_dtype=sa1.compute_dtype, fast_group=True,
+                             fast_fps=True).eval()
+    captured = []
+    real = sa_eval_kernel.check_widths
+    with mock.patch.object(sa_eval_kernel, "check_widths",
+                           lambda *a: captured.append(real(*a)) or captured[-1]):
+        compile_inference(model, device="cpu", fused_eval=True)
+    assert [p.kernel for p in captured] == ["wide"]
+
+
+def test_engine_at_six_features_refuses_fused_eval_as_jax_does():
+    """At 6 point features neither engine takes ``fused_eval``: both need the
+    stratified SA1 path, which takes at most 4 features (kernel 5 itself takes
+    6: ``test_plain_version_matches_jax_interpret``)."""
+    jb, _ = batches(11, 2, 256, [256, 200])
+    jb = type(jb)(pos=jb.pos, feat=jnp.zeros((2, 256, 6), jnp.float32), mask=jb.mask)
+    jm, v, tm = models("production", "float32", jb, num_features=6)
+    with pytest.raises(NotImplementedError, match="fused_eval requires"):
+        jax_compile_inference(jm, v, fused_eval=True)
+    with pytest.raises(NotImplementedError, match="fused_eval requires"):
+        compile_inference(tm, device="cpu", fused_eval=True)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_fused_eval_engine_at_x4_matches_jax_engine(dtype, rtol):
+    """The fused_eval engine at neuron_multiplier 4 (the plain versions on the
+    CPU) against the JAX engine with ``fused_eval=True`` on bridged weights,
+    its fused SA1 kernel in interpret mode: B=2 x 512, one cloud cut to 400
+    points; float32 to rounding of the sums (relative), bf16 within JAX's bound
+    of the fused kernel against the unfused chain."""
+    jb, tb = batches(12, 2, 512, [512, 400])
+    jm, v, tm = models("production", dtype, jb, neuron_multiplier=4)
+    want = np.asarray(jax_compile_inference(jm, v, fused_eval=True)(jb))
+    got = compile_inference(tm, device="cpu", fused_eval=True)(tb)
+    assert got.shape == (2, 4)
+    assert rel_err(got.numpy(), want) <= rtol
 
 
 @pytest.mark.parametrize("nm", [2, 3])

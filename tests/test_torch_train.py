@@ -185,20 +185,24 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_trainer_device_rule_and_device_dataset():
+    """No card: the trainer raises unless given the CPU. On the CPU ``fit``
+    runs over a DeviceDataset, training and validation both on it."""
+    import dataclasses
+
+    from dl_biomass_tpu_torch.io.device_data import DeviceDataset
+
     model = small_model()
     with mock.patch("torch.cuda.is_available", return_value=False):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(model, TrainConfig())
-    trainer = Trainer(model, TrainConfig(), device="cpu")
-
-    class DeviceDatasetLike:
-        def epoch_specs(self, batch_size):
-            return []
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        trainer.fit(DeviceDatasetLike(), lambda: [])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        trainer.train_epoch(DeviceDatasetLike())
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, hp=dataclasses.replace(cfg.hp, batch_size=2, num_augs=1))
+    trainer = Trainer(model, cfg, device="cpu")
+    pos, feat, y, ids = synthetic_dataset(3, N, seed=4)
+    ds = DeviceDataset.from_clouds(pos, feat, y, ids, device="cpu")
+    hist = trainer.fit(ds, ds, num_epochs=1, log_fn=lambda _: None)
+    assert hist["epoch"] == [0] and np.isfinite(hist["train_mse"][0])
+    assert np.isfinite(hist["val_mse"][0]) and hist["clouds_per_sec"][0] > 0
 
 
 def test_model_to_dict_names_the_jax_constructor_arguments():
