@@ -188,7 +188,25 @@ Phases, each of which raises on failure (exit code 1):
              the default and the ``fused_eval`` engines, its rows bit-identical
              to each engine's ``serve`` over ``ds.batches``. Ms per epoch,
              clouds/s, peak memory and launches per epoch by kernel.
-15. summary — one JSON line of the kernels with their launches by path, the
+15. disk_pipeline — the port's normal entry point on files on disk,
+             ``python -m dl_biomass_tpu_torch`` (``__main__.main``) as a user
+             runs it, at the full-width defaults: ``make_corpus`` writes 72
+             train, 36 val and 36 test raw plots of 12,288 points; ``resample
+             --engine cuda --format las`` takes each to 7168 points by exact
+             FPS on kernel 1 (one launch a plot, its global-scratch launch);
+             for 4 plots the picks index-equal to ``fps_rows_plain`` on a CPU
+             copy, the files the plots at those picks, the picks that differ
+             from the ``native`` engine's counted, and the launch timed beside
+             its bound, its plain version and the native engine; ``train`` for
+             2 epochs at B=36 with 2 augmented copies (a finite log of 2 rows,
+             the checkpoint and its sidecar); ``evaluate`` (finite metrics,
+             its predictions bit-identical to ``predict_dataset``);
+             ``predict`` (rows bit-identical to ``compile_dataset_inference``),
+             ``--no-engine`` (within the folded-vs-module bound) and
+             ``--watch --max-polls 2`` (a plot added between the polls gets
+             its row). Each stage's launches counted, its wall, the share of
+             it spent decoding LAS files, s/epoch, clouds/s.
+16. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -255,6 +273,17 @@ DD_PLOTS, DD_VAL_PLOTS, DD_POINTS, DD_BATCH, DD_AUGS, DD_EPOCHS, DD_SEED = (
 DD_STEPS = -(-DD_PLOTS * (1 + DD_AUGS) // DD_BATCH)
 DD_VAL_BATCHES = -(-DD_VAL_PLOTS // DD_BATCH)
 DD_FORWARDS = DD_EPOCHS * (DD_STEPS + DD_VAL_BATCHES)
+
+# phase 15: a raw corpus of DISK_TRAIN, DISK_VAL and DISK_TEST plots of DISK_RAW
+# points (make_corpus, seed DISK_SEED), resampled to DISK_POINTS by exact FPS;
+# fit for DISK_EPOCHS epochs at B=DISK_BATCH with DISK_AUGS augmented copies a
+# plot; evaluate and predict at the CLI's batch DISK_SERVE_BATCH, predict
+# padding the plot count to DISK_BUCKET; kernel 1's picks held against its plain
+# version on the CPU for DISK_CHECKED plots
+DISK_TRAIN, DISK_VAL, DISK_TEST, DISK_RAW, DISK_POINTS, DISK_SEED = 72, 36, 36, 12288, 7168, 50
+DISK_BATCH, DISK_AUGS, DISK_EPOCHS, DISK_SERVE_BATCH, DISK_BUCKET = 36, 2, 2, 32, 64
+DISK_CHECKED = 4
+DISK_STEPS = -(-DISK_TRAIN * (1 + DISK_AUGS) // DISK_BATCH)
 
 
 # the tools' timings in one main(), each a warm-up chain and timed chains:
@@ -1311,7 +1340,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 15: summary
+    # phase 16: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1323,11 +1352,11 @@ WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
          "train_forward_fused_sa", "train_fused_sa") + tuple(
              f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + (
-                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset",)
+                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset", "disk_pipeline")
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-14; returns the kernels' summary rows, with each kernel's
+    """Phases 2-15; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1341,7 +1370,9 @@ def drive(device, card: str) -> list:
     by_width = wide_fused_eval(device, card, launches)
     rows += tool_paths(device, card, launches)
     device_dataset(device, card, launches)
+    resample = disk_pipeline(device, card, launches)
     next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
+    next(r for r in rows if r["entry"] == "dlbt_fps")["resample"] = resample
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
@@ -2585,6 +2616,387 @@ def device_dataset(device, card: str, launches: dict) -> None:
         print(f"device_dataset: compile_dataset_inference (fused_eval={fused_eval}) served "
               f"{DD_PLOTS} plots in {ms:.1f} ms ({DD_PLOTS / ms * 1e3:.1f} clouds/s after a "
               f"warm-up call), rows bit-identical to serve over ds.batches [{card}]", flush=True)
+
+
+def disk_forwards(plots: int, batch: int) -> int:
+    """Eval forwards over ``plots`` plots at ``batch`` a batch."""
+    return -(-plots // batch)
+
+
+def disk_launches(resampled: int = 0, steps: int = 0, forwards: int = 0) -> dict:
+    """Launches of one stage of phase 15: one exact FPS a resampled plot, then
+    the main path's per step and per eval forward."""
+    return per_run(dlbt_fps=resampled + 2 * (steps + forwards), dlbt_ball_group=steps + forwards,
+                   dlbt_ball_query=steps + forwards, dlbt_gather=steps + forwards,
+                   dlbt_scatter_rows=steps)
+
+
+# what each stage of phase 15 launches: the resample of every plot, fit
+# (DISK_EPOCHS epochs of steps and validation forwards), evaluate (the module over
+# the test plots at DISK_SERVE_BATCH), predict with the engine and without it
+# (the test plots padded to DISK_BUCKET), and two polls of --watch (one bucket each)
+DISK_STAGES = {
+    "resample": disk_launches(resampled=DISK_TRAIN + DISK_VAL + DISK_TEST),
+    "train": disk_launches(steps=DISK_EPOCHS * DISK_STEPS,
+                           forwards=DISK_EPOCHS * disk_forwards(DISK_VAL, DISK_BATCH)),
+    "evaluate": disk_launches(forwards=disk_forwards(DISK_TEST, DISK_SERVE_BATCH)),
+    "predict": disk_launches(forwards=disk_forwards(DISK_BUCKET, DISK_SERVE_BATCH)),
+    "predict --no-engine": disk_launches(forwards=disk_forwards(DISK_BUCKET, DISK_SERVE_BATCH)),
+    "predict --watch": disk_launches(forwards=2 * disk_forwards(DISK_BUCKET, DISK_SERVE_BATCH)),
+}
+EXPECTED["disk_pipeline"] = {e: sum(s[e] for s in DISK_STAGES.values()) for e in ENTRIES}
+
+
+class DecodeClock:
+    """Seconds spent in ``read_las`` by the dataset and resample modules, as
+    a share of a stage's wall: the file decoding."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from dl_biomass_tpu_torch.io import dataset, reader, resample
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return reader.read_las(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        self._stack = ExitStack()
+        for mod in (dataset, resample):
+            self._stack.enter_context(mock.patch.object(mod, "read_las", timed))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+
+
+def disk_stage(name: str, argv, device, counts: dict, card: str, expected=None):
+    """One CLI command, ``python -m dl_biomass_tpu_torch`` as a user runs it
+    (``main(argv)``; ``--device cpu`` only off the card), with every launch
+    count set to 0 just before it and read just after, held to ``expected``
+    (default ``DISK_STAGES[name]``); returns (its standard output, wall
+    seconds, decode seconds)."""
+    import contextlib
+    import io
+
+    from dl_biomass_tpu_torch.__main__ import main as cli
+    from dl_biomass_tpu_torch.ops import _build
+
+    argv = list(argv) + ([] if device.type == "cuda" else ["--device", "cpu"])
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    with DecodeClock() as clock, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = {e: _build.launch_counts[e] for e in ENTRIES}
+    require(rc == 0, f"disk_pipeline: {name} exited {rc}: {out.getvalue()[-2000:]}")
+    for e, want in (expected or DISK_STAGES[name]).items():
+        require(got[e] == want, f"disk_pipeline: {name} launched {e} {got[e]} times, "
+                                f"expected {want}")
+    counts[name] = got
+    print(f"disk_pipeline {name}: {wall:.3f} s of wall, {clock.seconds:.3f} s decoding LAS "
+          f"files ({clock.seconds / wall:.1%}); launches "
+          f"{ {e: n for e, n in got.items() if n} } [{card}]", flush=True)
+    return out.getvalue(), wall, clock.seconds
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """``same_bits`` of two host arrays as float32."""
+    return same_bits(*(torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (a, b)))
+
+
+def check_resample_kernel(raw_dir: Path, out_dir: Path, device, card: str) -> dict:
+    """Kernel 1 at a raw plot's row (1 x DISK_RAW, k=DISK_POINTS, its
+    global-scratch launch): for DISK_CHECKED plots, the ``cuda`` engine's picks
+    index-equal to ``fps_rows_plain`` on a CPU copy of the engine's input, the
+    resampled file the CLI wrote equal byte for byte to one written from those
+    picks, and the picks that differ from the ``native`` engine's (float64,
+    uncentred) counted; then the launch timed beside its bound and its plain
+    version on the card, and the native engine's time on the host."""
+    import filecmp
+    import tempfile
+
+    from dl_biomass_tpu_torch.io.reader import normalize_intensity, read_las, write_las
+    from dl_biomass_tpu_torch.io.resample import centred_f32, farthest_point_sampling
+    from dl_biomass_tpu_torch.native import pointops
+    from dl_biomass_tpu_torch.ops import fps_kernel
+
+    require(fps_kernel.plan(DISK_RAW).path == "planes",
+            f"rows of {DISK_RAW} points do not take kernel 1's scratch launch")
+    k = DISK_POINTS
+    native_differ, native_s = [], []
+    for path in sorted(raw_dir.glob("*.las"))[:DISK_CHECKED]:
+        coords, attrs = read_las(str(path), get_attributes=True, filter_height=0)
+        picks = farthest_point_sampling(coords, k, engine="cuda", device=device)
+        pos = centred_f32(coords, "cpu")
+        plain = fps_kernel.fps_rows_plain(pos, torch.ones(pos.shape[:2], dtype=torch.bool),
+                                          torch.zeros(1, dtype=torch.int32), k)[0].numpy()
+        require(np.array_equal(picks, plain),
+                f"disk_pipeline: kernel 1 picks of {path.name} differ from fps_rows_plain")
+        sel = coords[picks]
+        with tempfile.TemporaryDirectory() as tmp:
+            mine = Path(tmp) / "picks.las"
+            write_las(sel - sel.mean(axis=0), mine, {
+                "intensity_normalized": normalize_intensity(attrs["intensity"])[picks]})
+            wrote = out_dir / f"{path.stem}_fps_{k}.las"
+            require(filecmp.cmp(mine, wrote, shallow=False),
+                    f"disk_pipeline: {wrote.name} is not the plot at kernel 1's picks")
+        if pointops.available():
+            t0 = time.perf_counter()
+            native = pointops.fps(coords, k, start=0)
+            native_s.append(time.perf_counter() - t0)
+            native_differ.append(int((native != picks).sum()))
+    print(f"disk_pipeline: kernel 1 at 1 x {DISK_RAW}, k={k} (the cuda engine, centred float32) "
+          f"index-equal to fps_rows_plain on a CPU copy for {DISK_CHECKED} plots, and the CLI's "
+          f"files are those plots at those picks; picks that differ from the native engine's "
+          f"(float64, uncentred): {native_differ if native_s else 'native library unavailable'}"
+          + (f", native {statistics.mean(native_s) * 1e3:.1f} ms a plot on the host"
+             if native_s else ""), flush=True)
+    pos = centred_f32(coords, device)
+    mask = torch.ones(pos.shape[:2], dtype=torch.bool, device=device)
+    starts = torch.zeros(1, dtype=torch.int32, device=device)
+    res = time_fps(f"resample 1 x {DISK_RAW}", (pos, mask, starts, k), card)
+    res["plain_ms"] = time_ms(lambda: fps_kernel.fps_rows_plain(pos, mask, starts, k), reps=1,
+                              warmup=0)
+    res["max_abs_err"] = 0.0
+    res["native_ms"] = statistics.mean(native_s) * 1e3 if native_s else None
+    res["native_differ"] = native_differ
+    print(f"kernel fps resample 1 x {DISK_RAW} k={k}: plain version on the card "
+          f"{res['plain_ms']:.2f} ms [{card}]", flush=True)
+    return res
+
+
+def check_loader(raw: Path, device, card: str) -> None:
+    """``io/pipeline.PrefetchingLoader`` over the raw test plots (a producer
+    thread decoding into pinned buffers, non-blocking copies): without
+    augmentation its batches on the card equal the CPU loader's bit for bit;
+    with DISK_AUGS copies a plot every augmented cloud keeps 90-100% of its
+    points and appends at most 10%; batches/s of each epoch."""
+    from dl_biomass_tpu_torch.io.dataset import PointCloudsInFiles
+    from dl_biomass_tpu_torch.io.pipeline import PrefetchingLoader
+
+    fileset = PointCloudsInFiles(str(raw / "test"), "*.las", max_points=DISK_POINTS,
+                                 use_columns=["intensity_normalized"], filter_height=0.2,
+                                 dataset=("BC", "RM", "PF"), biomass_csv=str(raw / "biomass.csv"))
+    cpu = list(PrefetchingLoader(fileset, DISK_BATCH, DISK_POINTS, device="cpu").epoch(DISK_SEED))
+    t0 = time.perf_counter()
+    card_batches = list(PrefetchingLoader(fileset, DISK_BATCH, DISK_POINTS,
+                                          device=device).epoch(DISK_SEED))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    require(len(card_batches) == len(cpu) and all(
+        torch.equal(getattr(g, f).cpu(), getattr(w, f)) for g, w in zip(card_batches, cpu)
+        for f in ("pos", "feat", "mask", "y")), "PrefetchingLoader: card batches differ from CPU's")
+    loader = PrefetchingLoader(fileset, DISK_BATCH, DISK_POINTS, num_augs=DISK_AUGS, device=device)
+    t0 = time.perf_counter()
+    augmented = list(loader.epoch(DISK_SEED))
+    torch.cuda.synchronize()
+    aug_s = time.perf_counter() - t0
+    for b in augmented:
+        real = b.mask.any(1)  # the partial last batch's pad samples hold no point
+        kept = b.mask[real, :DISK_POINTS].sum(1)
+        extra = b.mask[real, DISK_POINTS:].sum(1)
+        require(bool(torch.isfinite(b.pos).all()) and b.pos.device.type == device.type
+                and bool((kept >= 0.9 * DISK_POINTS - 1).all())
+                and bool((extra <= 0.1 * DISK_POINTS + 1).all()),
+                "PrefetchingLoader: an augmented batch out of its bounds")
+    print(f"disk_pipeline PrefetchingLoader: {len(fileset)} raw plots at B={DISK_BATCH}: "
+          f"{len(card_batches)} batches bit-identical to the CPU loader's in {plain_s:.3f} s; "
+          f"with {DISK_AUGS} augmented copies {len(augmented)} batches "
+          f"({len(augmented) / aug_s:.1f} batches/s, capacity {loader.capacity}) [{card}]",
+          flush=True)
+
+
+def disk_pipeline(device, card: str, launches: dict) -> dict:
+    """Phase 15, path disk_pipeline: the port's normal entry point on LAS files
+    on disk, ``python -m dl_biomass_tpu_torch`` (``__main__.main``) as a user
+    runs it: ``resample --engine cuda`` of a raw corpus, ``train`` at the
+    full-width defaults, ``evaluate``, ``predict`` with and without the
+    engine, and ``predict --watch``; every launch counted by stage. Returns
+    kernel 1's row at the resampler's shape."""
+    import tempfile
+
+    import pandas as pd
+
+    from dl_biomass_tpu_torch.eval import testing
+    from dl_biomass_tpu_torch.io.dataset import PointCloudsInFilesPreSampled
+    from dl_biomass_tpu_torch.models.inference import compile_dataset_inference
+    from dl_biomass_tpu_torch.tools.make_corpus import make_corpus
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    counts = {}
+    k, suffix = DISK_POINTS, f"_fps_{DISK_POINTS}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
+        root = Path(tmp)
+        total = DISK_TRAIN + DISK_VAL + DISK_TEST
+        t0 = time.perf_counter()
+        make_corpus(str(root / "raw"), total, DISK_RAW, seed=DISK_SEED, splits=(
+            ("train", DISK_TRAIN / total), ("val", DISK_VAL / total), ("test", DISK_TEST / total)))
+        print(f"disk_pipeline: make_corpus wrote {total} plots of {DISK_RAW} raw points in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # resample: exact FPS on kernel 1, one launch a plot
+        walls, decodes = [], []
+        for split, plots in (("train", DISK_TRAIN), ("val", DISK_VAL), ("test", DISK_TEST)):
+            argv = ["resample", "--in-dir", str(root / "raw" / split), "--out-dir",
+                    str(root / "fps" / split), "--num-points", str(k), "--method", "fps",
+                    "--format", "las", "--engine", "cuda"]
+            _, wall, dec = disk_stage(f"resample {split}", argv, device, counts, card,
+                                      expected=disk_launches(resampled=plots))
+            walls.append(wall)
+            decodes.append(dec)
+        splits = [counts.pop(f"resample {s}") for s in ("train", "val", "test")]
+        counts["resample"] = {e: sum(c[e] for c in splits) for e in ENTRIES}
+        require(counts["resample"] == DISK_STAGES["resample"], "disk_pipeline: resample launches")
+        print(f"disk_pipeline resample --engine cuda: {total} plots in {sum(walls):.3f} s, "
+              f"{sum(walls) / total * 1e3:.2f} ms a plot (decode, FPS, write), decoding "
+              f"{sum(decodes) / sum(walls):.1%} [{card}]", flush=True)
+        fps_row = check_resample_kernel(root / "raw" / "test", root / "fps" / "test", device,
+                                        card)
+        fps_row["resample_ms_per_plot"] = sum(walls) / total * 1e3
+
+        # train at the full-width defaults
+        cfg = {"hp": {"batch_size": DISK_BATCH, "num_augs": DISK_AUGS},
+               "data": {"train_dir": str(root / "fps" / "train"),
+                        "val_dir": str(root / "fps" / "val"),
+                        "biomass_csv": str(root / "raw" / "biomass.csv"),
+                        "presampled_suffix": suffix},
+               "model_dir": str(root / "models"), "seed": DISK_SEED}
+        cfg_path = root / "cfg.json"
+        cfg_path.write_text(json.dumps(cfg))
+        fit = Trainer.fit
+        hist = {}
+
+        def recorded_fit(self, *args, **kwargs):
+            hist.update(fit(self, *args, **kwargs))
+            return hist
+
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(Trainer, "fit", recorded_fit):
+            _, wall, dec = disk_stage("train", ["train", "--config", str(cfg_path),
+                                                "--num_epochs", str(DISK_EPOCHS)],
+                                      device, counts, card)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log = pd.read_csv(root / "models" / "training_log.csv", header=None)
+        require(log.shape == (DISK_EPOCHS, 3) and np.isfinite(log.to_numpy()).all(),
+                f"disk_pipeline: training log {log.to_numpy().tolist()}")
+        require(bool(sorted((root / "models").glob("epoch_*.pt")))
+                and (root / "models" / "model_config.json").exists(),
+                "disk_pipeline: no checkpoint or no model_config.json sidecar")
+        fit_s = sum(hist["epoch_seconds"])
+        print(f"disk_pipeline train: {DISK_TRAIN} train and {DISK_VAL} val plots of {k} points, "
+              f"B={DISK_BATCH}, {DISK_AUGS} augmented copies, {DISK_EPOCHS} epochs: train MSE "
+              f"{hist['train_mse']}, val {hist['val_mse']}; s/epoch "
+              f"{[round(t, 4) for t in hist['epoch_seconds']]}, clouds/s "
+              f"{[round(c, 1) for c in hist['clouds_per_sec']]}; fit {fit_s:.3f} s of the "
+              f"command's {wall:.3f} s, decoding {dec / wall:.1%}; peak {peak:.2f} GiB [{card}]",
+              flush=True)
+
+        # evaluate: its predictions bit-identical to predict_dataset on the same test set
+        evaluated = {}
+        test_model = testing.test_model
+
+        def recorded_test_model(*args, **kwargs):
+            evaluated["metrics"], evaluated["frame"] = test_model(*args, **kwargs)
+            return evaluated["metrics"], evaluated["frame"]
+
+        test_dir = root / "fps" / "test"
+        with mock.patch.object(testing, "test_model", recorded_test_model):
+            out, wall, dec = disk_stage("evaluate", [
+                "evaluate", "--config", str(cfg_path), "--model-dir", str(root / "models"),
+                "--fig-out-dir", str(root / "figs"), "--data.test_dir", str(test_dir)],
+                device, counts, card)
+        metrics = evaluated["metrics"].to_numpy(np.float64)
+        require(np.isfinite(metrics).all(), f"disk_pipeline: evaluate metrics {metrics}")
+        if testing.figure_module() is None:
+            figures = "no figures (matplotlib is not installed on this machine)"
+            require("matplotlib is not installed" in out, "disk_pipeline: evaluate figures")
+        else:
+            figures = "the 4 figures written"
+            require(len(list((root / "figs").glob("*.png"))) == 4,
+                    "disk_pipeline: evaluate figures")
+        model, _ = testing.load_model_for_eval(str(root / "models"), device=device)
+        ds = PointCloudsInFilesPreSampled(
+            str(test_dir), "*.las", biomass_csv=str(root / "raw" / "biomass.csv"),
+            presampled_suffix=suffix).load_all(for_augmentation=False, device=device)
+        rows = testing.predict_dataset(model, ds, DISK_SERVE_BATCH)
+        frame = evaluated["frame"]
+        pred_cols = [f"{c}_pred" for c in ("bark_btphr", "branch_btphr", "foliage_btphr",
+                                           "wood_btphr")]
+        require(list(frame.index) == ds.plot_ids and bits_equal(frame[pred_cols].to_numpy(), rows),
+                "disk_pipeline: evaluate's predictions differ from predict_dataset's")
+        print(f"disk_pipeline evaluate: {DISK_TEST} plots, metrics finite (r2 tree "
+              f"{evaluated['metrics'].loc['tree_btphr', 'r2']}), predictions bit-identical to "
+              f"predict_dataset, {figures}; {DISK_TEST / wall:.1f} clouds/s over the command's "
+              f"wall {wall:.3f} s [{card}]", flush=True)
+
+        # predict: the engine's rows bit-identical to compile_dataset_inference; the
+        # module's within the folded-vs-module bound
+        csvs = {}
+        for name, extra in (("predict", []), ("predict --no-engine", ["--no-engine"])):
+            csvs[name] = root / f"{name.split()[-1].strip('-')}.csv"
+            _, wall, dec = disk_stage(name, ["predict", "--model-dir", str(root / "models"),
+                                             "--in-dir", str(test_dir), "--out", str(csvs[name]),
+                                             "--presampled-suffix", suffix, *extra],
+                                      device, counts, card)
+            print(f"disk_pipeline {name}: {DISK_TEST} plots, {DISK_TEST / wall:.1f} clouds/s over "
+                  f"the command's wall {wall:.3f} s, decoding {dec / wall:.1%} [{card}]",
+                  flush=True)
+
+        def read(path):
+            df = pd.read_csv(path, index_col="PlotID", float_precision="round_trip")
+            return df, df.to_numpy(np.float32)[:, :4]
+
+        engine_df, engine_rows = read(csvs["predict"])
+        want = compile_dataset_inference(model, device)(ds, DISK_SERVE_BATCH)
+        require(list(engine_df.index) == ds.plot_ids and bits_equal(engine_rows, want),
+                "disk_pipeline: predict's rows differ from compile_dataset_inference's")
+        _, module_rows = read(csvs["predict --no-engine"])
+        rel = rel_diff(torch.from_numpy(module_rows), torch.from_numpy(engine_rows))
+        require(rel <= FOLDED_VS_MODULE_RTOL,
+                f"disk_pipeline: --no-engine vs engine rel {rel} > {FOLDED_VS_MODULE_RTOL}")
+        print(f"disk_pipeline predict: rows bit-identical to compile_dataset_inference(model)(ds, "
+              f"{DISK_SERVE_BATCH}); --no-engine (the module) max|diff|/max|y| {rel:.3e} (bound "
+              f"{FOLDED_VS_MODULE_RTOL}) [{card}]", flush=True)
+
+        # predict --watch: a plot added between two polls gets its row appended
+        arrivals = root / "arrivals"
+        arrivals.mkdir()
+        files = sorted(test_dir.glob("*.las"))
+        for f in files[:-1]:
+            (arrivals / f.name).write_bytes(f.read_bytes())
+
+        def arrive(_seconds):
+            (arrivals / files[-1].name).write_bytes(files[-1].read_bytes())
+
+        watch_csv = root / "watch.csv"
+        with mock.patch.object(time, "sleep", side_effect=arrive):
+            disk_stage("predict --watch", [
+                "predict", "--model-dir", str(root / "models"), "--in-dir", str(arrivals),
+                "--out", str(watch_csv), "--presampled-suffix", suffix, "--watch",
+                "--max-polls", "2", "--poll-seconds", "0"],
+                device, counts, card)
+        watch_df, _ = read(watch_csv)
+        last = ds.plot_ids[-1]
+        require(len(watch_df) == DISK_TEST and list(watch_df.index)[-1] == last,
+                f"disk_pipeline: --watch rows {list(watch_df.index)[-3:]}")
+        require(bits_equal(watch_df.loc[ds.plot_ids].to_numpy(np.float32)[:, :4], engine_rows),
+                "disk_pipeline: --watch rows differ from predict's")
+        print(f"disk_pipeline predict --watch: {DISK_TEST - 1} plots at the first poll, {last} "
+              f"appended at the second, every row bit-identical to predict's [{card}]",
+              flush=True)
+        check_loader(root / "raw", device, card)
+
+    launches["disk_pipeline"] = {e: sum(c[e] for c in counts.values()) for e in ENTRIES}
+    require(launches["disk_pipeline"] == EXPECTED["disk_pipeline"],
+            f"disk_pipeline: launches {launches['disk_pipeline']}")
+    return fps_row
 
 
 def tail_inputs(shape, device, seed: int):

@@ -15,9 +15,20 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
 - ``train``  — the weighted loss, ``Trainer`` (Adam, early stopping, fit, the
                epochs over a ``DeviceDataset``) and checkpoints
 - ``bridge`` — flax variables <-> torch ``state_dict``
-- ``io``     — the synthetic forest-plot generator and ``DeviceDataset``
-               (the plots on the device, batches gathered and augmented there)
+- ``io``     — the LAS codec (``las``, ``reader``), the file datasets
+               (``dataset``), ``split``, the offline resampler
+               (``resample``: native, numpy, cuda on kernel 1, sectored),
+               the prefetching loader (``pipeline``), the synthetic
+               forest-plot generator and ``DeviceDataset`` (the plots on the
+               device, batches gathered and augmented there)
 - ``transforms`` — the on-device augmentation and its host numpy oracle
+- ``eval``   — metrics, figures (where matplotlib is installed),
+               ``test_model`` and ``predict_directory`` / ``watch_directory``
+- ``native`` — ctypes bindings of the C++ point ops in the repo's ``native/``
+- ``utils``  — the TensorBoard event writer ``fit(metric_writer=)`` takes
+- ``tools``  — the measurement tools and ``make_corpus``
+- ``__main__`` — ``python -m dl_biomass_tpu_torch train | evaluate | resample
+               | predict``, on the card (``--device cpu`` asks for the CPU)
 
 The package imports torch, numpy and the standard library only: nothing of JAX
 and nothing of ``dl_biomass_tpu``.

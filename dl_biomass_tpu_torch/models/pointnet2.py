@@ -240,6 +240,22 @@ def model_to_dict(model: PointNet2Regressor) -> dict:
     )
 
 
+def model_from_dict(d: dict) -> PointNet2Regressor:
+    """The regressor from ``model_to_dict``'s arguments (a checkpoint sidecar's
+    ``"model"``), the inverse of ``model_to_dict``. Variants the port does not
+    build yet raise, as ``build_model`` does."""
+    d = dict(d)
+    family = d.pop("family", "pointnet2")
+    unported = [name for name in ("msg", "analytic_bn", "remat") if d.pop(name, False)]
+    widths = {k: d.pop(k, v) for k, v in (("num_outputs", 4), ("global_width_mult", 1))}
+    if family != "pointnet2" or unported or widths != {"num_outputs": 4, "global_width_mult": 1}:
+        raise NotImplementedError(
+            f"not ported yet (ROADMAP A.10, model variants): family={family!r}, options "
+            f"{unported}, {widths}")
+    d["compute_dtype"] = _DTYPES[d.get("compute_dtype", "float32")]
+    return PointNet2Regressor(**d)
+
+
 def build_model(cfg, num_features: int) -> PointNet2Regressor:
     """The regressor from a ``TrainConfig`` (hp + model sections)."""
     hp, mc = cfg.hp, cfg.model

@@ -11,4 +11,7 @@ card, or as ``main(device="cpu")`` on the plain versions of its kernels:
 - ``bq_phase_bench`` — the variants of the TPU's rank-scatter ball query
                        (``full``, ``mstatic``, ``munroll``) as kernel 9
                        (``bq``, ``csrc/bq_phase.cu``), with its phase stubs
+
+and ``make_corpus`` writes a synthetic raw LAS corpus (``{train,val,test}/``
+and ``biomass.csv``) for the disk path of ``python -m dl_biomass_tpu_torch``.
 """

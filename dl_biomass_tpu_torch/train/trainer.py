@@ -210,7 +210,7 @@ class Trainer:
             val_batches_fn: Callable[[], Iterable[CloudBatch]], *,
             num_epochs: Optional[int] = None, csv_path: Optional[str] = None,
             checkpoint_dir: Optional[str] = None, log_fn: Callable[[str], None] = print,
-            resume: bool = False) -> Dict[str, Any]:
+            metric_writer=None, resume: bool = False) -> Dict[str, Any]:
         """Training with early stopping and save-on-best.
 
         ``train_batches_fn(epoch)`` and ``val_batches_fn()`` yield CloudBatches;
@@ -218,7 +218,8 @@ class Trainer:
         ``train_epoch_scan`` or ``train_epoch_fused`` (evaluated through
         ``evaluate_scan`` or ``evaluate_fused``) by ``cfg.scan_epochs``, with
         ``cfg.hp.batch_size`` and ``cfg.hp.num_augs``, epoch e drawn from
-        ``epoch_seed(e)``. Returns the history: per-epoch train/val MSE, seconds
+        ``epoch_seed(e)``. ``metric_writer`` (``utils/tboard.SummaryWriter``)
+        takes each epoch's "Training MSE" and "Validation MSE". Returns the history: per-epoch train/val MSE, seconds
         and clouds/s, ``best_val_mse``, ``best_state`` (a copy of the best model
         ``state_dict``) and ``stopped_early``."""
         cfg = self.cfg
@@ -268,6 +269,9 @@ class Trainer:
             if csv_path:
                 with open(csv_path, "a") as f:
                     f.write(f"{epoch}, {train_mse}, {val_mse}\n")
+            if metric_writer is not None:
+                metric_writer.scalar("Training MSE", train_mse, epoch)
+                metric_writer.scalar("Validation MSE", val_mse, epoch)
 
             if val_mse <= best_val:
                 best_val = val_mse

@@ -4,7 +4,8 @@
   ``chip_compare.py``, imports
   jax, flax or the JAX package (``dl_biomass_tpu`` or its submodules; note
   that ``dl_biomass_tpu_torch`` itself starts with that name).
-- Importing the port leaves jax out of ``sys.modules``.
+- Importing the port leaves jax out of ``sys.modules``, and so does
+  ``python -m dl_biomass_tpu_torch --help``.
 - ``chip_smoke.py`` fails, printing no result, without a card or away from
   the package.
 - Each CUDA source opens with what it replaces, its bound and its design.
@@ -66,6 +67,30 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr
+
+
+def test_the_disk_path_subpackages_and_the_cli_are_checked():
+    """The no-jax checks above cover ``native``, ``eval``, ``utils`` and
+    ``__main__.py`` (every file under the package is in ``PORT_FILES``)."""
+    checked = {p.relative_to(PORT).parts[0] for p in PORT_FILES if PORT in p.parents}
+    assert {"native", "eval", "utils", "io", "__main__.py"} <= checked
+    for sub in ("native/pointops.py", "eval/testing.py", "eval/predict.py", "utils/tboard.py",
+                "io/las.py", "io/dataset.py", "io/resample.py", "io/pipeline.py"):
+        assert PORT / sub in PORT_FILES, sub
+
+
+def test_python_m_help_runs_without_importing_jax():
+    out = subprocess.run([sys.executable, "-m", "dl_biomass_tpu_torch", "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and "python -m dl_biomass_tpu_torch train" in out.stdout, out.stderr
+    code = ("import runpy, sys\nsys.argv = ['dl_biomass_tpu_torch', '--help']\n"
+            "try:\n    runpy.run_module('dl_biomass_tpu_torch', run_name='__main__', "
+            "alter_sys=True)\nexcept SystemExit as e:\n    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', "
+            "'dl_biomass_tpu')]\nassert not bad, bad\nprint('clean')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr
 
 
 def _run_smoke(script: Path, cwd: Path):
