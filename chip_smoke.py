@@ -206,7 +206,31 @@ Phases, each of which raises on failure (exit code 1):
              ``--watch --max-polls 2`` (a plot added between the polls gets
              its row). Each stage's launches counted, its wall, the share of
              it spent decoding LAS files, s/epoch, clouds/s.
-16. summary — one JSON line of the kernels with their launches by path, the
+16. research — the rest of the research workload through ``python -m
+             dl_biomass_tpu_torch`` at the production defaults (bf16,
+             fast_fps, fast_group, split_first_layer) on a raw corpus of 72
+             train and 36 val plots of 12,288 points (``make_corpus``), loaded
+             at 7168 points a plot: ``sweep`` (lrs 1e-4, 1e-3 x wds 0,
+             8.025e-5 at B=36, 2 augmented copies, 2 epochs: 4 trials in turn
+             on each batch; the study JSON and its CSV); a library sweep of 2
+             trials, 3 epochs, patience 1 with a scripted rise for trial 1 at
+             epoch 1 (trial 1 frozen there bit for bit: parameters, Adam
+             moments, BatchNorm running statistics; trial 0 bit-identical to a
+             ``Trainer`` run of the same initial weights, lr, weight decay,
+             batches and generators); ``tune`` (2 trials of 2 epochs, saved,
+             then 1 more with ``--continue-study``); ``density`` (2048 and 7168
+             points, 1 epoch each); ``seed-study`` (2 seeds of the production
+             and parity modes, 48 plots of 4096 points, 1 epoch);
+             ``parity-record --device cpu`` on ``tests/data/parity_fixture``
+             then ``parity-check`` on the card within ``DEFAULT_RTOL`` (exact
+             FPS on kernel 1 and SA1's ball query on kernel 3 against their
+             plain versions through the path from LAS bytes to predictions),
+             the max relative delta printed; ``visualize-aug`` on one plot;
+             ``lr_range_test`` for 20 iterations at B=36 (finite losses, a
+             suggestion inside the range). Every stage's launches counted by
+             kernel and held to what its steps and forwards need; its wall,
+             s/epoch and clouds/s by ``utils/profiling.StepTimer``.
+17. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -1340,7 +1364,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 16: summary
+    # phase 17: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1352,11 +1376,12 @@ WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
          "train_forward_fused_sa", "train_fused_sa") + tuple(
              f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + (
-                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset", "disk_pipeline")
+                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset", "disk_pipeline",
+                                                           "research")
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-15; returns the kernels' summary rows, with each kernel's
+    """Phases 2-16; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1371,6 +1396,7 @@ def drive(device, card: str) -> list:
     rows += tool_paths(device, card, launches)
     device_dataset(device, card, launches)
     resample = disk_pipeline(device, card, launches)
+    research(device, card, launches)
     next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
     next(r for r in rows if r["entry"] == "dlbt_fps")["resample"] = resample
     kernels = []
@@ -2673,29 +2699,38 @@ class DecodeClock:
         self._stack.close()
 
 
-def disk_stage(name: str, argv, device, counts: dict, card: str, expected=None):
-    """One CLI command, ``python -m dl_biomass_tpu_torch`` as a user runs it
-    (``main(argv)``; ``--device cpu`` only off the card), with every launch
-    count set to 0 just before it and read just after, held to ``expected``
-    (default ``DISK_STAGES[name]``); returns (its standard output, wall
-    seconds, decode seconds)."""
+def run_cli(argv, device) -> str:
+    """``python -m dl_biomass_tpu_torch`` as a user runs it (``main(argv)``;
+    ``--device cpu`` only off the card); its standard output. Fails on a
+    non-zero return."""
     import contextlib
     import io
 
     from dl_biomass_tpu_torch.__main__ import main as cli
-    from dl_biomass_tpu_torch.ops import _build
 
     argv = list(argv) + ([] if device.type == "cuda" else ["--device", "cpu"])
     out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    require(rc == 0, f"{argv[0]} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def disk_stage(name: str, argv, device, counts: dict, card: str, expected=None):
+    """One CLI command (``run_cli``) with every launch count set to 0 just
+    before it and read just after, held to ``expected`` (default
+    ``DISK_STAGES[name]``); returns (its standard output, wall seconds, decode
+    seconds)."""
+    from dl_biomass_tpu_torch.ops import _build
+
     torch.cuda.synchronize()
     _build.launch_counts.clear()
-    with DecodeClock() as clock, contextlib.redirect_stdout(out):
+    with DecodeClock() as clock:
         t0 = time.perf_counter()
-        rc = cli(argv)
+        out = run_cli(argv, device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     got = {e: _build.launch_counts[e] for e in ENTRIES}
-    require(rc == 0, f"disk_pipeline: {name} exited {rc}: {out.getvalue()[-2000:]}")
     for e, want in (expected or DISK_STAGES[name]).items():
         require(got[e] == want, f"disk_pipeline: {name} launched {e} {got[e]} times, "
                                 f"expected {want}")
@@ -2703,7 +2738,7 @@ def disk_stage(name: str, argv, device, counts: dict, card: str, expected=None):
     print(f"disk_pipeline {name}: {wall:.3f} s of wall, {clock.seconds:.3f} s decoding LAS "
           f"files ({clock.seconds / wall:.1%}); launches "
           f"{ {e: n for e, n in got.items() if n} } [{card}]", flush=True)
-    return out.getvalue(), wall, clock.seconds
+    return out, wall, clock.seconds
 
 
 def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
@@ -2997,6 +3032,346 @@ def disk_pipeline(device, card: str, launches: dict) -> dict:
     require(launches["disk_pipeline"] == EXPECTED["disk_pipeline"],
             f"disk_pipeline: launches {launches['disk_pipeline']}")
     return fps_row
+
+
+# phase 16: a raw corpus of RS_TRAIN train and RS_VAL val plots of DISK_RAW points
+# (make_corpus, seed RS_SEED), loaded at RS_POINTS points a plot by the raw loader;
+# the research commands at B=RS_BATCH with RS_AUGS augmented copies a plot, their
+# config seeded RS_CONFIG_SEED (the sweep's and tune's TPE draws)
+RS_TRAIN, RS_VAL, RS_POINTS, RS_SEED, RS_CONFIG_SEED = 72, 36, 7168, 60, 0
+RS_BATCH, RS_AUGS = 36, 2
+RS_LRS, RS_WDS, RS_SWEEP_EPOCHS = (1e-4, 1e-3), (0.0, 8.025e-5), 2
+RS_CHECK_EPOCHS = 3  # the library sweep whose trial 1 is stopped at epoch 1
+RS_TUNE_TRIALS, RS_TUNE_EPOCHS = 2, 2
+RS_DENSITY = (2048, 7169, 5120)  # --range: 2048 and 7168 points
+# the ablation's own defaults (experiments/density.py): B=28, 1 augmented copy,
+# a quarter of the plots for validation
+RS_DENSITY_BATCH, RS_DENSITY_AUGS, RS_DENSITY_VAL = 28, 1, RS_TRAIN // 4
+RS_STUDY_SEEDS, RS_STUDY_PLOTS, RS_STUDY_POINTS = 2, 48, 4096
+# run_seed_study's defaults: B=32, 3 augmented copies; a sixth of the plots each
+# for validation and test
+RS_STUDY_BATCH, RS_STUDY_AUGS = 32, 3
+RS_LR_ITERS, RS_LR_RANGE = 20, (1e-7, 1.0)
+FIXTURE = ROOT / "tests" / "data" / "parity_fixture"
+
+
+def batches_of(plots: int, batch: int, augs: int = 0) -> int:
+    """Batches an epoch takes over ``plots`` plots with ``augs`` copies each."""
+    return -(-plots * (1 + augs) // batch)
+
+
+def parity_launches(steps: int = 0, forwards: int = 0) -> dict:
+    """Launches of the parity preset's steps and forwards: exact FPS on kernel
+    1 and the first-K ball query on kernel 3 at both SA layers, SA2's gather
+    (kernel 4a) and, in a step, its scatter-add (kernel 4b)."""
+    n = steps + forwards
+    return per_run(dlbt_fps=2 * n, dlbt_ball_query=2 * n, dlbt_gather=n, dlbt_scatter_rows=steps)
+
+
+def add_launches(*runs: dict) -> dict:
+    return {e: sum(r[e] for r in runs) for e in ENTRIES}
+
+
+def research_stage(name: str, fn, device, card: str, counts: dict, expected=None,
+                   epochs: int = 0, clouds: int = 0):
+    """``fn()`` with every launch count set to 0 just before it and read just
+    after, timed by ``utils/profiling.StepTimer`` up to a ``hard_sync`` on the
+    device; ``expected`` (a launch dict, or a function of ``fn``'s result
+    giving (launches, epochs, clouds trained)) is held to the counts. Returns
+    ``fn``'s result."""
+    from dl_biomass_tpu_torch.ops import _build
+    from dl_biomass_tpu_torch.utils.profiling import StepTimer
+
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    timer.start()
+    out = fn()
+    wall = timer.stop(sync_on=torch.zeros(1, device=device))
+    got = {e: _build.launch_counts[e] for e in ENTRIES}
+    if callable(expected):
+        expected, epochs, clouds = expected(out)
+    for e, want in (expected or per_run()).items():
+        require(got[e] == want, f"research {name}: {e} launched {got[e]} times, expected {want}")
+    counts[name] = got
+    pace = (f"{epochs} epochs ({wall / epochs:.4f} s/epoch), {clouds} clouds trained "
+            f"({clouds / wall:.1f} clouds/s); " if epochs else "")
+    print(f"research {name}: {wall:.3f} s of wall; {pace}launches "
+          f"{ {e: n for e, n in got.items() if n} } [{card}]", flush=True)
+    return out
+
+
+def trainer_state(trainer):
+    """A trainer's module state and optimizer state, copied."""
+    return ({k: v.clone() for k, v in trainer.model.state_dict().items()},
+            copy.deepcopy(trainer.optimizer.state_dict()))
+
+
+def same_trainer_state(a, b) -> bool:
+    """Parameters, BatchNorm running statistics, Adam's step and moments, bit for bit."""
+    (ma, oa), (mb, ob) = a, b
+    sa, sb = oa["state"], ob["state"]
+    return (ma.keys() == mb.keys() and all(same_bits(ma[k], mb[k]) for k in ma)
+            and sa.keys() == sb.keys() and all(same_bits(sa[k][f], sb[k][f]) for k in sa
+                                               for f in ("step", "exp_avg", "exp_avg_sq")))
+
+
+def check_frozen_trial(cfg, device, card: str, counts: dict) -> None:
+    """A library sweep of 2 trials over RS_CHECK_EPOCHS epochs, patience 1,
+    the validation values scripted (trial 0 falling, trial 1 rising at epoch
+    1) on top of the real validation: trial 1 stops at epoch 1 and keeps its
+    state bit for bit; trial 0's state equals a ``Trainer`` run's of the same
+    initial weights over the same batches with the same generators."""
+    from dl_biomass_tpu_torch.__main__ import _load_train_val
+    from dl_biomass_tpu_torch.io.device_data import derive_seed
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+    from dl_biomass_tpu_torch.sweep.vmapped import VmappedSweep
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    ds, val = _load_train_val(cfg, device)
+    sweep = VmappedSweep(build_model(cfg, ds.num_features), RS_LRS, RS_WDS[::-1], patience=1,
+                         device=device)
+    init, snaps, epoch = {}, {}, iter(range(RS_CHECK_EPOCHS))
+    init_states, validate = sweep.init_states, sweep._validate
+
+    def recorded_init(seed):
+        trials = init_states(seed)
+        init.update({i: trainer_state(t) for i, t in enumerate(trials)})
+        return trials
+
+    def scripted_validate(val_ds, batch_size, active):
+        e = next(epoch)
+        vals = validate(val_ds, batch_size, active)
+        snaps[e] = trainer_state(sweep.trials[1])
+        require(np.isfinite(vals[active]).all(), f"research: non-finite validation {vals}")
+        return np.where(active, [RS_CHECK_EPOCHS - e, 1.0 + e], np.nan)
+
+    sweep.init_states, sweep._validate = recorded_init, scripted_validate
+    steps, fwd = batches_of(RS_TRAIN, RS_BATCH, RS_AUGS), batches_of(RS_VAL, RS_BATCH)
+    epochs = RS_CHECK_EPOCHS + 2  # trial 0 all of them, trial 1 until its stop
+    res = research_stage(
+        "sweep (library, trial 1 stopped)",
+        lambda: sweep.run(ds, val, seed=RS_SEED, batch_size=RS_BATCH, num_augs=RS_AUGS,
+                          num_epochs=RS_CHECK_EPOCHS, log_fn=lambda _: None),
+        device, card, counts, disk_launches(steps=epochs * steps, forwards=epochs * fwd),
+        epochs=epochs, clouds=epochs * RS_TRAIN * (1 + RS_AUGS))
+    require([(r.epochs_run, r.stopped_early) for r in res] == [(RS_CHECK_EPOCHS, False),
+                                                              (2, True)],
+            f"research: library sweep stops {[(r.epochs_run, r.stopped_early) for r in res]}")
+    require(same_trainer_state(trainer_state(sweep.trials[1]), snaps[1])
+            and not same_trainer_state(snaps[0], snaps[1]),
+            "research: the stopped trial's state moved after its stop")
+    ref = Trainer(build_model(cfg, ds.num_features), sweep.trial_config(0), device)
+    ref.model.load_state_dict(init[0][0])
+    for e in range(RS_CHECK_EPOCHS):
+        es = derive_seed(RS_SEED, e)
+        ref.train_epoch(ds.batches(RS_BATCH, seed=es, num_augs=RS_AUGS, shuffle=True),
+                        sweep.trial_generator(0, es))
+    require(same_trainer_state(trainer_state(ref), trainer_state(sweep.trials[0])),
+            "research: trial 0 differs from the Trainer run of its weights, batches and "
+            "generators")
+    print(f"research sweep (library): trial 1 stopped at epoch 1 by a scripted rise (patience "
+          f"1) keeps its parameters, Adam moments and BatchNorm running statistics bit for bit "
+          f"over epoch 2; trial 0 ({RS_CHECK_EPOCHS} epochs) bit-identical to a Trainer run of "
+          f"the same initial weights, lr {sweep.lrs[0]}, weight decay {sweep.wds[0]}, batches and "
+          f"generators [{card}]", flush=True)
+
+
+def tune_launches(trials):
+    """(launches, epochs, clouds trained) of tune's trials over the RS_TRAIN
+    and RS_VAL plots, from their sampled batch sizes and copies and the epochs
+    each reported."""
+    steps = forwards = epochs = clouds = 0
+    for t in trials:
+        e, b, a = len(t["intermediate_values"]), t["params"]["batch_size"], t["params"]["num_augs"]
+        steps += e * batches_of(RS_TRAIN, b, a)
+        forwards += e * batches_of(RS_VAL, b)
+        epochs += e
+        clouds += e * RS_TRAIN * (1 + a)
+    return disk_launches(steps=steps, forwards=forwards), epochs, clouds
+
+
+def research(device, card: str, launches: dict) -> None:
+    """Phase 16, path research: sweep, tune (and --continue-study), density,
+    seed-study, parity-record / parity-check, visualize-aug and the LR range
+    test at the production defaults, every stage's launches counted."""
+    import tempfile
+
+    import pandas as pd
+
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.eval.recorded import DEFAULT_RTOL
+    from dl_biomass_tpu_torch.tools.make_corpus import make_corpus
+    from dl_biomass_tpu_torch.train import lr_finder
+
+    counts = {}
+    steps, fwd = batches_of(RS_TRAIN, RS_BATCH, RS_AUGS), batches_of(RS_VAL, RS_BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_research_") as tmp:
+        root = Path(tmp)
+        total = RS_TRAIN + RS_VAL
+        t0 = time.perf_counter()
+        make_corpus(str(root / "raw"), total, DISK_RAW, seed=RS_SEED,
+                    splits=(("train", RS_TRAIN / total), ("val", RS_VAL / total)))
+        print(f"research: make_corpus wrote {total} plots of {DISK_RAW} raw points in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        csv = str(root / "raw" / "biomass.csv")
+        cfg_dict = {"hp": {"batch_size": RS_BATCH, "num_augs": RS_AUGS, "num_points": RS_POINTS},
+                    "data": {"train_dir": str(root / "raw" / "train"),
+                             "val_dir": str(root / "raw" / "val"), "biomass_csv": csv,
+                             "use_presampled": False},
+                    "seed": RS_CONFIG_SEED}
+        cfg_path = root / "cfg.json"
+        cfg_path.write_text(json.dumps(cfg_dict))
+        cfg = TrainConfig.from_json(str(cfg_path))
+
+        # sweep: the 4 trials of the (lr x wd) grid in turn on each batch
+        n_trials = len(RS_LRS) * len(RS_WDS)
+        study = root / "studies" / "sweep.json"
+        research_stage("sweep", lambda: run_cli(
+            ["sweep", "--config", str(cfg_path), "--lrs", ",".join(map(str, RS_LRS)),
+             "--wds", ",".join(map(str, RS_WDS)), "--batch-sizes", str(RS_BATCH),
+             "--num-epochs", str(RS_SWEEP_EPOCHS), "--study-out", str(study)], device),
+            device, card, counts,
+            disk_launches(steps=n_trials * RS_SWEEP_EPOCHS * steps,
+                          forwards=n_trials * RS_SWEEP_EPOCHS * fwd),
+            epochs=n_trials * RS_SWEEP_EPOCHS,
+            clouds=n_trials * RS_SWEEP_EPOCHS * RS_TRAIN * (1 + RS_AUGS))
+        trials = json.loads(study.read_text())["trials"]
+        frame = pd.read_csv(root / "studies" / "sweep_trials.csv")
+        require(len(trials) == n_trials and len(frame) == n_trials
+                and all(np.isfinite(t["value"]) for t in trials),
+                f"research: sweep study {trials}")
+        print(f"research sweep: {n_trials} trials, best val MSE by (lr, wd): "
+              f"{ {(t['params']['lr'], t['params']['weight_decay']): round(t['value'], 4) for t in trials} }",
+              flush=True)
+        check_frozen_trial(cfg, device, card, counts)
+
+        # tune: 2 trials, saved; then one more from the saved study
+        tune_json = root / "tune" / "tune.json"
+        argv = ["tune", "--config", str(cfg_path), "--max-epochs", str(RS_TUNE_EPOCHS),
+                "--study-out", str(tune_json)]
+        out = research_stage(
+            "tune", lambda: run_cli(argv + ["--n-trials", str(RS_TUNE_TRIALS)], device),
+            device, card, counts,
+            lambda _: tune_launches(json.loads(tune_json.read_text())["trials"]))
+        trials = json.loads(tune_json.read_text())["trials"]
+        require(len(trials) == RS_TUNE_TRIALS and all(np.isfinite(t["value"]) for t in trials),
+                f"research: tune study {trials}")
+        require("Param importances" in out or "scikit-learn is not installed" in out,
+                "research: tune's importances")
+        out = research_stage(
+            "tune --continue-study",
+            lambda: run_cli(argv + ["--n-trials", "1", "--continue-study"], device),
+            device, card, counts,
+            lambda _: tune_launches(json.loads(tune_json.read_text())["trials"][RS_TUNE_TRIALS:]))
+        trials = json.loads(tune_json.read_text())["trials"]
+        require(f"Continuing study: {tune_json} ({RS_TUNE_TRIALS} trials)" in out
+                and len(trials) == RS_TUNE_TRIALS + 1
+                and all(np.isfinite(t["value"]) for t in trials),
+                f"research: tune --continue-study {trials}")
+        print(f"research tune: trials (batch, copies, val MSE) "
+              f"{[(t['params']['batch_size'], t['params']['num_augs'], round(t['value'], 4)) for t in trials]}; "
+              f"{out.strip().splitlines()[-1]}", flush=True)
+
+        # density: 2048 and 7168 points, 1 epoch each, the ablation's own defaults
+        lo, hi, stride = RS_DENSITY
+        points = list(range(lo, hi, stride))
+        d_train = RS_TRAIN - RS_DENSITY_VAL
+        d_steps = len(points) * batches_of(d_train, RS_DENSITY_BATCH, RS_DENSITY_AUGS)
+        d_fwd = len(points) * batches_of(RS_DENSITY_VAL, RS_DENSITY_BATCH)
+        density_csv = root / "density.csv"
+        research_stage("density", lambda: run_cli(
+            ["density", "--data.train_dir", str(root / "raw" / "train"), "--data.biomass_csv",
+             csv, "--range", f"{lo}:{hi}:{stride}", "--num_epochs", "1", "--out-csv",
+             str(density_csv)], device), device, card, counts,
+            disk_launches(steps=d_steps, forwards=d_fwd), epochs=len(points),
+            clouds=len(points) * d_train * (1 + RS_DENSITY_AUGS))
+        df = pd.read_csv(density_csv)
+        require(list(df["point_num"]) == points and list(df["epochs"]) == [1] * len(points)
+                and np.isfinite(df[["val_mse", "runtime", "clouds_per_sec"]].to_numpy()).all(),
+                f"research: density CSV {df.to_dict('records')}")
+        print(f"research density: {df.to_dict('records')} [{card}]", flush=True)
+
+        # seed-study: 2 seeds of the production and parity modes
+        n_val = RS_STUDY_PLOTS // 6
+        s_train = RS_STUDY_PLOTS - 2 * n_val
+        per_run_steps = batches_of(s_train, RS_STUDY_BATCH, RS_STUDY_AUGS)
+        per_run_fwd = batches_of(n_val, RS_STUDY_BATCH) + batches_of(n_val, RS_STUDY_BATCH)
+        study_json = root / "seed_study.json"
+        research_stage("seed-study", lambda: run_cli(
+            ["seed-study", "--seeds", str(RS_STUDY_SEEDS), "--modes", "production,parity",
+             "--num-plots", str(RS_STUDY_PLOTS), "--num-points", str(RS_STUDY_POINTS),
+             "--max-epochs", "1", "--out", str(study_json)], device), device, card, counts,
+            add_launches(disk_launches(steps=RS_STUDY_SEEDS * per_run_steps,
+                                       forwards=RS_STUDY_SEEDS * per_run_fwd),
+                         parity_launches(steps=RS_STUDY_SEEDS * per_run_steps,
+                                         forwards=RS_STUDY_SEEDS * per_run_fwd)),
+            epochs=2 * RS_STUDY_SEEDS,
+            clouds=2 * RS_STUDY_SEEDS * s_train * (1 + RS_STUDY_AUGS))
+        runs = json.loads(study_json.read_text())["runs"]
+        require(len(runs) == 2 * RS_STUDY_SEEDS and all(
+            np.isfinite(r["min_val_mse"]) and np.isfinite(r["r2_total"]) for r in runs),
+            f"research: seed-study runs {runs}")
+        print(f"research seed-study: (mode, seed, val MSE, r2 total, clouds/s) "
+              f"{[(r['mode'], r['seed'], round(r['min_val_mse'], 4), round(r['r2_total'], 4), round(r['clouds_per_sec'], 1)) for r in runs]} "
+              f"[{card}]", flush=True)
+
+        # parity: recorded on the CPU (plain versions), replayed on the card (kernels)
+        rec = root / "parity.json"
+        fixture = ["--data-dir", str(FIXTURE), "--biomass-csv", str(FIXTURE / "biomass.csv")]
+        t0 = time.perf_counter()
+        run_cli(["parity-record", *fixture, "--out", str(rec), "--device", "cpu"], device)
+        print(f"research parity-record --device cpu: {time.perf_counter() - t0:.3f} s of wall "
+              f"on the host", flush=True)
+        plots = len(json.loads(rec.read_text())["predictions"])
+        out = research_stage("parity-check", lambda: run_cli(
+            ["parity-check", *fixture, "--recorded", str(rec)], device), device, card, counts,
+            parity_launches(forwards=batches_of(plots, 8)))
+        delta = float(out.split("max relative delta")[1].split()[0])
+        require(delta <= DEFAULT_RTOL, f"research: parity delta {delta}")
+        print(f"research parity: {plots} fixture plots recorded on the CPU (plain versions) and "
+              f"replayed on the card (kernels 1 and 3 exact, 4a): max relative delta {delta:.3e} "
+              f"(bound DEFAULT_RTOL {DEFAULT_RTOL}) [{card}]", flush=True)
+
+        # visualize-aug: one plot augmented on the device
+        las = sorted((root / "raw" / "train").glob("*.las"))[0]
+        vis = root / "vis.png"
+        out = research_stage("visualize-aug", lambda: run_cli(
+            ["visualize-aug", "--las", str(las), "--out", str(vis)], device), device, card, counts)
+        require("augmented" in out and (vis.exists() or "matplotlib is not installed" in out),
+                f"research: visualize-aug said {out}")
+        print(f"research visualize-aug: {out.strip()}", flush=True)
+
+        # the LR range test: RS_LR_ITERS SGD steps at B=RS_BATCH, cycling 2 batches
+        from dl_biomass_tpu_torch.__main__ import _load_train_val
+        from dl_biomass_tpu_torch.models.pointnet2 import build_model, seeded_init
+
+        ds, _ = _load_train_val(cfg, device)
+        model = seeded_init(RS_SEED, build_model, cfg, ds.num_features)
+        sgd_steps, sgd_step = [], lr_finder._sgd_step
+
+        def counted_sgd_step(*args):
+            sgd_steps.append(1)
+            return sgd_step(*args)
+
+        lo, hi = RS_LR_RANGE
+        with mock.patch.object(lr_finder, "_sgd_step", counted_sgd_step):
+            res = research_stage(
+                "lr_range_test", lambda: lr_finder.lr_range_test(
+                    model, ds.batches(RS_BATCH), seed=RS_SEED, start_lr=lo, end_lr=hi,
+                    num_iter=RS_LR_ITERS, device=device), device, card, counts,
+                lambda _: (disk_launches(steps=len(sgd_steps)), 0, 0))
+        require(len(res["loss"]) > 3 and np.isfinite(res["loss"]).all()
+                and res["suggestion"] is not None and lo <= res["suggestion"] <= hi,
+                f"research: lr_range_test {res}")
+        print(f"research lr_range_test: {len(sgd_steps)} steps of {RS_LR_ITERS} at B={RS_BATCH} "
+              f"(lr {res['lr'][0]:.1e} .. {res['lr'][-1]:.3e}), smoothed losses "
+              f"{[round(v, 2) for v in res['loss']]}, suggestion {res['suggestion']:.3e} [{card}]",
+              flush=True)
+
+    launches["research"] = add_launches(*counts.values())
+    print(f"research launches by stage: "
+          f"{ {k: {e: n for e, n in c.items() if n} for k, c in counts.items()} }", flush=True)
 
 
 def tail_inputs(shape, device, seed: int):

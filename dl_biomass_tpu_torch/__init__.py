@@ -13,7 +13,8 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
                ``PointNet2Regressor`` and the folded serving engine
                ``compile_inference``
 - ``train``  — the weighted loss, ``Trainer`` (Adam, early stopping, fit, the
-               epochs over a ``DeviceDataset``) and checkpoints
+               epochs over a ``DeviceDataset``), checkpoints and the LR range
+               test
 - ``bridge`` — flax variables <-> torch ``state_dict``
 - ``io``     — the LAS codec (``las``, ``reader``), the file datasets
                (``dataset``), ``split``, the offline resampler
@@ -23,12 +24,20 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
                device, batches gathered and augmented there)
 - ``transforms`` — the on-device augmentation and its host numpy oracle
 - ``eval``   — metrics, figures (where matplotlib is installed),
-               ``test_model`` and ``predict_directory`` / ``watch_directory``
+               ``test_model``, ``predict_directory`` / ``watch_directory`` and
+               the recorded parity pathway
+- ``sweep``  — the study API (a copy of the JAX package's), the tuning
+               objective and the trial-parallel grid sweep
+- ``experiments`` — the point-density ablation, the seed study and the
+               augmentation figure
 - ``native`` — ctypes bindings of the C++ point ops in the repo's ``native/``
-- ``utils``  — the TensorBoard event writer ``fit(metric_writer=)`` takes
+- ``utils``  — the TensorBoard event writer ``fit(metric_writer=)`` takes, and
+               step timing and ``torch.profiler`` traces
 - ``tools``  — the measurement tools and ``make_corpus``
 - ``__main__`` — ``python -m dl_biomass_tpu_torch train | evaluate | resample
-               | predict``, on the card (``--device cpu`` asks for the CPU)
+               | predict | sweep | tune | density | seed-study | visualize-aug
+               | parity-record | parity-check``, on the card (``--device cpu``
+               asks for the CPU)
 
 The package imports torch, numpy and the standard library only: nothing of JAX
 and nothing of ``dl_biomass_tpu``.

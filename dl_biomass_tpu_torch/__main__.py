@@ -4,15 +4,20 @@
     python -m dl_biomass_tpu_torch train    --config cfg.json [--hp.lr 1e-3 ...]
     python -m dl_biomass_tpu_torch evaluate --config cfg.json --model-dir ...
     python -m dl_biomass_tpu_torch predict  --model-dir ... --in-dir ... --out preds.csv
+    python -m dl_biomass_tpu_torch sweep    --config cfg.json --lrs 1e-4,1e-3 --wds 0,8e-5
+    python -m dl_biomass_tpu_torch tune     --config cfg.json --n-trials 20 [--continue-study]
+    python -m dl_biomass_tpu_torch density  --data.train_dir ... --data.biomass_csv ...
+    python -m dl_biomass_tpu_torch seed-study --seeds 5 --out study.json
+    python -m dl_biomass_tpu_torch visualize-aug --las file.las --out fig.png
+    python -m dl_biomass_tpu_torch parity-record --data-dir ... --biomass-csv ... --out rec.json
+    python -m dl_biomass_tpu_torch parity-check  --data-dir ... --biomass-csv ... --recorded rec.json
 
 Any config knob is overridable with dotted flags (``--hp.batch_size 16``) or
 top-level TrainConfig fields (``--num_epochs 2``). Every subcommand runs on
 the card; ``--device cpu`` runs the kernels' plain versions on the CPU
 instead. Without a card and without that flag, they raise.
 
-Not ported yet (each exits with code 2 and names its ROADMAP item): sweep,
-tune, density, seed-study, visualize-aug, export-model, parity-record and
-parity-check.
+Not ported yet (exits with code 2 and names its ROADMAP item): export-model.
 """
 
 from __future__ import annotations
@@ -29,14 +34,7 @@ _TOP_LEVEL_KEYS = {f.name for f in dataclasses.fields(TrainConfig)}
 
 # the subcommands of the JAX CLI that wait for a module of the port
 UNPORTED = {
-    "sweep": "A.6 (sweeps)",
-    "tune": "A.6 (sweeps)",
-    "density": "A.7 (experiments)",
-    "seed-study": "A.7 (experiments)",
-    "visualize-aug": "A.7 (experiments)",
     "export-model": "A.8 (parallelism and export)",
-    "parity-record": "A.5 (eval/recorded.py)",
-    "parity-check": "A.5 (eval/recorded.py)",
 }
 
 
@@ -299,11 +297,281 @@ def cmd_predict(argv):
     print(f"wrote {len(df)} predictions -> {args.out}")
 
 
+def cmd_sweep(argv):
+    """The (lr x wd) x batch-size grid, each grid's trials in turn on every
+    shared batch (``sweep/vmapped.py``); writes the study JSON and its
+    ``_trials.csv``."""
+    p = argparse.ArgumentParser(prog="sweep")
+    p.add_argument("--config")
+    p.add_argument("--lrs", default="1e-4,3e-4,1e-3,3e-3")
+    p.add_argument("--wds", default="8.025e-5")
+    p.add_argument("--batch-sizes", default="36")
+    p.add_argument("--num-epochs", type=int, default=100)
+    p.add_argument("--study-out", default="studies/sweep.json")
+    _device_flag(p)
+    own, overrides = _split_overrides(argv)
+    args = p.parse_args(own)
+    cfg = _load_cfg(args, overrides)
+
+    from dl_biomass_tpu_torch.core.cloud import resolve_device
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+    from dl_biomass_tpu_torch.sweep import create_study
+    from dl_biomass_tpu_torch.sweep.vmapped import grid_sweep
+
+    device = resolve_device(args.device)
+    ds_train, ds_val = _load_train_val(cfg, device)
+    model = build_model(cfg, num_features=ds_train.num_features)  # the trials' architecture
+    study = create_study(study_name="vmapped_sweep")
+    lrs = [float(x) for x in args.lrs.split(",")]
+    wds = [float(x) for x in args.wds.split(",")]
+    results = grid_sweep(
+        model, ds_train, ds_val, lrs=lrs, wds=wds,
+        batch_sizes=[int(b) for b in args.batch_sizes.split(",")],
+        num_augs=cfg.hp.num_augs, num_epochs=args.num_epochs,
+        patience=cfg.hp.patience, optimizer=cfg.hp.optimizer,
+        seed=cfg.seed, study=study, device=device,
+    )
+    study.save(args.study_out)
+    best = min(results, key=lambda r: r.best_val_mse)
+    print(f"\nBest trial: lr={best.lr} wd={best.weight_decay} "
+          f"batch={best.batch_size} -> val MSE {best.best_val_mse:.4f}")
+    print(f"Study saved to {args.study_out}")
+    df = study.trials_dataframe()
+    df.to_csv(os.path.splitext(args.study_out)[0] + "_trials.csv", index=False)
+
+
+def _param_importances(study):
+    """``study.get_param_importances()``, or None where scikit-learn (its
+    random forest) is not installed."""
+    import importlib.util
+
+    if importlib.util.find_spec("sklearn") is None:
+        return None
+    return study.get_param_importances()
+
+
+def cmd_tune(argv):
+    """Sequential TPE study over the reference's search space (the reference's
+    ``hyperparameter_tuning.py`` surface; see ``sweep`` for the grid)."""
+    p = argparse.ArgumentParser(prog="tune")
+    p.add_argument("--config")
+    p.add_argument("--n-trials", type=int, default=20)
+    p.add_argument("--timeout", type=float, default=None, help="seconds")
+    p.add_argument("--max-epochs", type=int, default=100)
+    p.add_argument("--study-out", default="studies/tune.json")
+    p.add_argument("--continue-study", action="store_true")
+    p.add_argument("--no-pruning", action="store_true")
+    p.add_argument("--catch-failures", action="store_true",
+                   help="mark a crashed trial FAILED and continue the study "
+                        "(Optuna catch=(Exception,)): a fault costs one trial, not the run")
+    _device_flag(p)
+    own, overrides = _split_overrides(argv)
+    args = p.parse_args(own)
+    cfg = _load_cfg(args, overrides)
+
+    from dl_biomass_tpu_torch.core.cloud import resolve_device
+    from dl_biomass_tpu_torch.eval.testing import figure_module
+    from dl_biomass_tpu_torch.sweep import MedianPruner, TPESampler, create_study, load_study
+    from dl_biomass_tpu_torch.sweep.objective import make_training_objective
+    from dl_biomass_tpu_torch.sweep.study import newest_study
+
+    device = resolve_device(args.device)
+    ds_train, ds_val = _load_train_val(cfg, device)
+    study = None
+    if args.continue_study:
+        prev = newest_study(os.path.dirname(args.study_out) or ".")
+        if prev:
+            study = load_study(prev, sampler=TPESampler(seed=cfg.seed),
+                               pruner=None if args.no_pruning else MedianPruner())
+            print(f"Continuing study: {prev} ({len(study.trials)} trials)")
+    if study is None:
+        study = create_study(sampler=TPESampler(seed=cfg.seed),
+                             pruner=None if args.no_pruning else MedianPruner(),
+                             study_name="tune")
+    objective = make_training_objective(
+        ds_train, ds_val, base_cfg=cfg, max_num_epochs=args.max_epochs, seed=cfg.seed,
+        device=device,
+    )
+    try:
+        study.optimize(objective, n_trials=args.n_trials, timeout=args.timeout,
+                       catch=(Exception,) if args.catch_failures else ())
+    finally:
+        # a failing trial re-raises out of optimize — persist the completed
+        # trials either way; a save failure must not mask the trial's own exception
+        try:
+            study.save(args.study_out)
+        except Exception as e:
+            print(f"WARNING: could not save study to {args.study_out}: {e}",
+                  file=sys.stderr)
+    print("Best trial:")
+    print("  Value: ", study.best_value)
+    for k, v in study.best_params.items():
+        print(f"    {k}: {v}")
+    study.trials_dataframe().to_csv(os.path.splitext(args.study_out)[0] + "_trials.csv",
+                                    index=False)
+    imp = _param_importances(study)
+    if imp is None:
+        print("scikit-learn is not installed: parameter importances and their figure skipped")
+        return
+    print("Param importances:", {k: round(v, 3) for k, v in imp.items()})
+    if imp:
+        # splitext, not str.replace: a suffix-less --study-out must not make the
+        # PNG path collide with (and overwrite) the study JSON written above
+        png = os.path.splitext(args.study_out)[0] + "_param_importances.png"
+        plots = figure_module()
+        if plots is None:
+            print(f"matplotlib is not installed: {png} not written")
+        else:
+            plots.plot_param_importances(imp, png)
+            print(f"Wrote {png}")
+
+
+def cmd_density(argv):
+    p = argparse.ArgumentParser(prog="density")
+    p.add_argument("--config")
+    p.add_argument("--out-csv", default="point_density_effect.csv")
+    p.add_argument("--range", default="500:10000:500")
+    _device_flag(p)
+    own, overrides = _split_overrides(argv)
+    args = p.parse_args(own)
+    cfg = _load_cfg(args, overrides)
+
+    import numpy as np
+
+    from dl_biomass_tpu_torch.core.cloud import resolve_device
+    from dl_biomass_tpu_torch.experiments.density import point_density_effect
+    from dl_biomass_tpu_torch.io.dataset import PointCloudsInFiles
+
+    device = resolve_device(args.device)
+    lo, hi, step = (int(x) for x in args.range.split(":"))
+    # Training HPs: the reference ablation runs its own alternate tuned set
+    # (point_density_effect.py:23-33), which is the default here (cfg=None).
+    # A --config or any --hp.* override asks for explicit control, so the
+    # full config is passed through then.
+    hp_overridden = any(o.startswith("--hp.") for o in overrides)
+    train_cfg = cfg if (args.config or hp_overridden) else None
+    rng = np.random.default_rng(cfg.seed)
+    fileset = PointCloudsInFiles(
+        cfg.data.train_dir, cfg.data.glob, max_points=hi,
+        use_columns=cfg.data.use_columns, filter_height=cfg.hp.ground_filter_height,
+        dataset=cfg.data.use_datasets, biomass_csv=cfg.data.biomass_csv,
+    )
+    pos_list, feat_list, ys, ids = [], [], [], []
+    for i in range(len(fileset)):
+        item = fileset.get(i, rng)
+        if item:
+            pos_list.append(item[0])
+            feat_list.append(item[1])
+            ys.append(item[2])
+            ids.append(item[3])
+    point_density_effect(
+        pos_list, feat_list, np.stack(ys), ids,
+        point_range=range(lo, hi, step), out_csv=args.out_csv,
+        cfg=train_cfg, num_epochs=cfg.num_epochs, seed=cfg.seed, device=device,
+    )
+    print(f"wrote {args.out_csv}")
+
+
+def cmd_visualize_aug(argv):
+    p = argparse.ArgumentParser(prog="visualize-aug")
+    p.add_argument("--las", required=True)
+    p.add_argument("--out", default="augmentation_vis.png")
+    p.add_argument("--seed", type=int, default=0)
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from dl_biomass_tpu_torch.experiments.visualize_augmentation import visualize_augmentation
+    from dl_biomass_tpu_torch.io.reader import read_las
+
+    coords = read_las(args.las, get_attributes=False, filter_height=0)
+    coords = coords - coords.mean(axis=0)
+    aug = visualize_augmentation(coords, out_path=args.out, seed=args.seed, device=args.device)
+    print(f"augmented {len(coords)} -> {len(aug)} points"
+          + (f"; wrote {args.out}" if os.path.exists(args.out) else ""))
+
+
+def cmd_parity_record(argv):
+    p = argparse.ArgumentParser(prog="parity-record")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--biomass-csv", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--model-dir", default=None,
+                   help="checkpoint dir; omit for a deterministic seed init")
+    p.add_argument("--num-points", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from dl_biomass_tpu_torch.eval.recorded import record_parity
+
+    rec = record_parity(args.data_dir, args.biomass_csv, args.out,
+                        model_dir=args.model_dir, num_points=args.num_points,
+                        seed=args.seed, device=args.device)
+    print(f"recorded {len(rec['predictions'])} plots -> {args.out}")
+
+
+def cmd_parity_check(argv):
+    p = argparse.ArgumentParser(prog="parity-check")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--biomass-csv", required=True)
+    p.add_argument("--recorded", required=True)
+    p.add_argument("--model-dir", default=None)
+    p.add_argument("--rtol", type=float, default=None)
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from dl_biomass_tpu_torch.eval.recorded import DEFAULT_RTOL, check_parity
+
+    d = check_parity(args.data_dir, args.biomass_csv, args.recorded,
+                     model_dir=args.model_dir, rtol=args.rtol or DEFAULT_RTOL,
+                     device=args.device)
+    print(f"parity OK: max relative delta {d:.2e}")
+
+
+def cmd_seed_study(argv):
+    p = argparse.ArgumentParser(prog="seed-study")
+    p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--modes", default="production,production+fast_fps,parity")
+    p.add_argument("--num-plots", type=int, default=288)
+    p.add_argument("--num-points", type=int, default=4096)
+    p.add_argument("--max-epochs", type=int, default=40)
+    # the study's training config; the defaults are run_seed_study's
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--num-augs", type=int, default=3)
+    p.add_argument("--lr", type=float, default=2e-3)
+    p.add_argument("--patience", type=int, default=8)
+    p.add_argument("--neuron-multiplier", type=int, default=0,
+                   help="SA/head width multiplier (reference constructor "
+                        "knob; 0 = original architecture)")
+    p.add_argument("--out", default="seed_study.json")
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from dl_biomass_tpu_torch.experiments.seed_study import run_seed_study
+
+    run_seed_study(
+        list(range(args.seeds)), args.modes.split(","),
+        num_plots=args.num_plots, n_points=args.num_points,
+        batch_size=args.batch_size, num_augs=args.num_augs,
+        lr=args.lr, patience=args.patience,
+        neuron_multiplier=args.neuron_multiplier,
+        max_epochs=args.max_epochs, out_json=args.out, device=args.device,
+    )
+    print(f"wrote {args.out}")
+
+
 COMMANDS = {
     "train": cmd_train,
+    "seed-study": cmd_seed_study,
     "evaluate": cmd_evaluate,
     "predict": cmd_predict,
     "resample": cmd_resample,
+    "sweep": cmd_sweep,
+    "tune": cmd_tune,
+    "density": cmd_density,
+    "visualize-aug": cmd_visualize_aug,
+    "parity-record": cmd_parity_record,
+    "parity-check": cmd_parity_check,
 }
 
 

@@ -282,3 +282,14 @@ def build_model(cfg, num_features: int) -> PointNet2Regressor:
         fused_sa=mc.fused_sa,
         compute_dtype=_DTYPES[mc.compute_dtype],
     )
+
+
+def seeded_init(seed: int, build, *args, **kwargs) -> PointNet2Regressor:
+    """``build(*args, **kwargs)`` (``build_model``, ``model_from_dict``, the
+    class) with its initial weights drawn from ``seed``: the CPU generator,
+    where the modules are built, is seeded in a fork, so the caller's random
+    state is left as it was. The weights of ``torch.manual_seed(seed)`` then
+    ``build`` (the ``train`` command's)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(int(seed))
+        return build(*args, **kwargs)

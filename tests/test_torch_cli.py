@@ -1,14 +1,18 @@
 """The port's command line (``python -m dl_biomass_tpu_torch``) on the CPU:
 ``resample`` (kernel 1's plain version, ``--engine cuda --device cpu``) ->
 ``train`` (2 epochs) -> ``evaluate`` -> ``predict`` (the engine, ``--no-engine``,
-``--watch``) on a tiny raw corpus, through ``main`` as a user runs it; the
-unported subcommands; and the refusals without a card."""
+``--watch``) on a tiny raw corpus, through ``main`` as a user runs it; then
+the research subcommands on the same corpus (``sweep``, ``tune`` and
+``--continue-study``, ``density``, ``seed-study``, ``visualize-aug``,
+``parity-record`` and ``parity-check``), also with scikit-learn or matplotlib
+hidden; the unported subcommand; and the refusals without a card."""
 
 import contextlib
 import io
 import json
 import os
 import shutil
+import sys
 from pathlib import Path
 from unittest import mock
 
@@ -166,6 +170,137 @@ def test_predict_watch_appended_the_plot_that_arrived(pipeline):
     assert "watch ended: 2 plots predicted" in logs["watch"]
 
 
+FIX = Path(__file__).resolve().parent / "data" / "parity_fixture"
+# the research subcommands on the pipeline's corpus, each a run of main()
+RESEARCH = {
+    "sweep": ["sweep", "--config", "cfg.json", "--lrs", "1e-4,1e-3", "--wds", "0",
+              "--batch-sizes", "4", "--num-epochs", "2", "--study-out", "studies/sweep.json"],
+    "tune": ["tune", "--config", "cfg.json", "--n-trials", "1", "--max-epochs", "1",
+             "--study-out", "tune/tune.json"],
+    "tune --continue-study": ["tune", "--config", "cfg.json", "--n-trials", "1",
+                              "--max-epochs", "1", "--study-out", "tune/tune.json",
+                              "--continue-study"],
+    "density": ["density", "--data.train_dir", "raw/train", "--data.biomass_csv",
+                "raw/biomass.csv", "--range", "100:201:100", "--num_epochs", "1",
+                "--out-csv", "density.csv"],
+    "seed-study": ["seed-study", "--seeds", "2", "--modes", "production,parity", "--num-plots",
+                   "12", "--num-points", "128", "--max-epochs", "1", "--batch-size", "4",
+                   "--num-augs", "0", "--out", "seed_study.json"],
+    "visualize-aug": ["visualize-aug", "--las", "raw/test/PF_0011.las", "--out", "vis.png"],
+    "parity-record": ["parity-record", "--data-dir", str(FIX), "--biomass-csv",
+                      str(FIX / "biomass.csv"), "--out", "rec.json"],
+    "parity-check": ["parity-check", "--data-dir", str(FIX), "--biomass-csv",
+                     str(FIX / "biomass.csv"), "--recorded", "rec.json"],
+}
+
+
+@pytest.fixture(scope="module")
+def research(pipeline):
+    """Every research subcommand, in order, in the pipeline's directory."""
+    root, _ = pipeline
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        logs = {name: run(*argv, "--device", "cpu") for name, argv in RESEARCH.items()}
+    finally:
+        os.chdir(cwd)
+    return root, logs
+
+
+def finite_values(study_json: Path) -> list:
+    trials = json.loads(study_json.read_text())["trials"]
+    assert all(np.isfinite(t["value"]) for t in trials)
+    return trials
+
+
+def check_sweep(root, log):
+    trials = finite_values(root / "studies" / "sweep.json")
+    assert [(t["params"]["lr"], t["params"]["batch_size"]) for t in trials] == [(1e-4, 4),
+                                                                                 (1e-3, 4)]
+    df = pd.read_csv(root / "studies" / "sweep_trials.csv")
+    assert len(df) == 2 and {"value", "params_lr", "params_weight_decay"} <= set(df.columns)
+    assert "2 trials in turn on each batch @ batch_size=4" in log and "Best trial" in log
+
+
+def check_tune(root, log):
+    assert "Best trial:" in log and "Param importances:" in log
+    assert (root / "tune" / "tune_param_importances.png").stat().st_size > 0
+
+
+def check_tune_continue_study(root, log):
+    assert "Continuing study:" in log and "(1 trials)" in log
+    trials = finite_values(root / "tune" / "tune.json")
+    assert [t["number"] for t in trials] == [0, 1]
+    assert len(pd.read_csv(root / "tune" / "tune_trials.csv")) == 2
+
+
+def check_density(root, log):
+    df = pd.read_csv(root / "density.csv")
+    assert list(df["point_num"]) == [100, 200] and np.isfinite(df["val_mse"]).all()
+    assert "wrote density.csv" in log
+
+
+def check_seed_study(root, log):
+    res = json.loads((root / "seed_study.json").read_text())
+    assert [(r["mode"], r["seed"]) for r in res["runs"]] == [
+        ("production", 0), ("production", 1), ("parity", 0), ("parity", 1)]
+    assert all(np.isfinite(r["min_val_mse"]) for r in res["runs"])
+
+
+def check_visualize_aug(root, log):
+    assert (root / "vis.png").stat().st_size > 5000 and "wrote vis.png" in log
+
+
+def check_parity_record(root, log):
+    rec = json.loads((root / "rec.json").read_text())
+    assert len(rec["predictions"]) == 6 and rec["framework"] == "torch"
+    assert "recorded 6 plots" in log
+
+
+def check_parity_check(root, log):
+    assert "parity OK: max relative delta 0.00e+00" in log
+
+
+CHECKS = {"sweep": check_sweep, "tune": check_tune,
+          "tune --continue-study": check_tune_continue_study, "density": check_density,
+          "seed-study": check_seed_study, "visualize-aug": check_visualize_aug,
+          "parity-record": check_parity_record, "parity-check": check_parity_check}
+
+
+@pytest.mark.parametrize("name", list(RESEARCH))
+def test_research_subcommand_runs_end_to_end(research, name):
+    root, logs = research
+    CHECKS[name](root, logs[name])
+
+
+def test_tune_without_scikit_learn_skips_the_importances(research, monkeypatch):
+    root, _ = research
+    monkeypatch.chdir(root)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    out = run("tune", "--config", "cfg.json", "--n-trials", "1", "--max-epochs", "1",
+              "--study-out", "nosk/tune.json", "--device", "cpu")
+    assert "scikit-learn is not installed: parameter importances and their figure skipped" in out
+    assert "Param importances" not in out and not (root / "nosk" /
+                                                   "tune_param_importances.png").exists()
+    assert len(finite_values(root / "nosk" / "tune.json")) == 1
+    assert (root / "nosk" / "tune_trials.csv").exists()
+
+
+def test_without_matplotlib_no_figure_is_written(research, monkeypatch):
+    root, _ = research
+    monkeypatch.chdir(root)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = run("tune", "--config", "cfg.json", "--n-trials", "1", "--max-epochs", "1",
+              "--study-out", "nomp/tune.json", "--device", "cpu")
+    png = "nomp/tune_param_importances.png"
+    assert f"matplotlib is not installed: {png} not written" in out and "Param importances" in out
+    assert not (root / png).exists()
+    out = run("visualize-aug", "--las", "raw/test/PF_0011.las", "--out", "nomp/vis.png",
+              "--device", "cpu")
+    assert "matplotlib is not installed: nomp/vis.png not written" in out
+    assert not (root / "nomp" / "vis.png").exists()
+
+
 @pytest.mark.parametrize("cmd", sorted(UNPORTED))
 def test_unported_subcommands_exit_2_naming_their_roadmap_item(cmd, capsys):
     assert main([cmd, "--anything"]) == 2
@@ -184,6 +319,10 @@ def test_help_and_an_unknown_command(capsys):
     ["evaluate", "--config", "cfg.json", "--model-dir", "models", "--data.test_dir", "fps/test"],
     ["resample", "--in-dir", "raw/test", "--out-dir", "again", "--engine", "numpy"],
     ["predict", "--model-dir", "models", "--in-dir", "fps/test", "--out", "x.csv"],
+    *[RESEARCH[name] for name in ("sweep", "tune", "density", "seed-study", "visualize-aug",
+                                  "parity-record")],
+    ["parity-check", "--data-dir", str(FIX), "--biomass-csv", str(FIX / "biomass.csv"),
+     "--recorded", str(FIX / "recorded.json"), "--model-dir", "models"],
 ])
 def test_every_subcommand_needs_a_card_or_device_cpu(pipeline, argv, monkeypatch):
     if torch.cuda.is_available():

@@ -79,6 +79,31 @@ def test_the_disk_path_subpackages_and_the_cli_are_checked():
         assert PORT / sub in PORT_FILES, sub
 
 
+RESEARCH_MODULES = ("sweep/__init__.py", "sweep/study.py", "sweep/objective.py",
+                    "sweep/vmapped.py", "eval/recorded.py", "experiments/__init__.py",
+                    "experiments/density.py", "experiments/seed_study.py",
+                    "experiments/visualize_augmentation.py", "train/lr_finder.py",
+                    "utils/profiling.py")
+
+
+@pytest.mark.parametrize("sub", RESEARCH_MODULES)
+def test_the_research_modules_are_checked(sub):
+    """The sweeps, the recorded parity path, the experiments and the utilities
+    are under the no-jax checks above."""
+    assert PORT / sub in PORT_FILES
+
+
+def test_the_study_module_is_a_copy_of_the_jax_packages():
+    """``sweep/study.py`` is the JAX package's file but for its docstring, so
+    a study either package saves loads in the other."""
+    def body(path):
+        tree = ast.parse(path.read_text())
+        tree.body = tree.body[1:]  # the module docstring
+        return ast.dump(tree)
+
+    assert body(PORT / "sweep" / "study.py") == body(ROOT / "dl_biomass_tpu" / "sweep" / "study.py")
+
+
 def test_python_m_help_runs_without_importing_jax():
     out = subprocess.run([sys.executable, "-m", "dl_biomass_tpu_torch", "--help"], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
