@@ -230,7 +230,34 @@ Phases, each of which raises on failure (exit code 1):
              suggestion inside the range). Every stage's launches counted by
              kernel and held to what its steps and forwards need; its wall,
              s/epoch and clouds/s by ``utils/profiling.StepTimer``.
-17. summary — one JSON line of the kernels with their launches by path, the
+17. mesh_export — the serving export and data parallelism. ``export_serving``
+             of the seeded production model at 16 x 10240 on the card
+             (``torch.export`` of the flat serving function, kernels 1, 2, 3
+             and 4a as the registered ops ``torch.ops.dlbt.*``), then
+             ``load_serving``: the strict call against ``compile_inference``
+             (bit-identical, or within 1e-2 of max|y| with the difference
+             printed) and ``predict`` on the partial request of 5 clouds; the
+             same for the unsplit model (kernel 4c); launches counted by
+             kernel; export and load seconds; the artifact's and the engine's
+             ms per batch (host clock after a synchronize). Then 2 ranks
+             spawned on the card (``parallel/mesh.spawn``: a card each, nccl,
+             where there are two; else both on cuda:0, gloo), each rank's
+             launches counted by path: the float32 (ELU) model's step at 16 x
+             10240 held against the one-process step on the same global batch
+             and draws (loss rtol 1e-5, gradients and running statistics over
+             their largest atol 1e-4, every rank's gradients bit-identical);
+             5 production bf16 steps at 36 x 10240 (the first loss within 2^-8
+             of one process's, ms/step beside one process's); a ``fit`` of 2
+             epochs over phase 14's ``DeviceDataset`` (the same MSEs on every
+             rank); both serving engines (default and ``fused_eval``) at 16 x
+             10240, every answer on every rank, against one process; a sweep
+             of 4 trials split over the ranks, its results equal to the
+             one-process sweep's. Then ``torchrun --standalone
+             --nproc-per-node 2 -m dl_biomass_tpu_torch train`` on a raw corpus
+             of 36 plots of 12,288 points, its log against the same command in
+             one process (within 2^-8). A rank that fails ends the run with a
+             non-zero exit.
+18. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -369,6 +396,37 @@ EXPECTED = {
     "dma_probe": per_run(dlbt_block_copy=chained_calls("dma_probe")),
     "bq_phase_bench": per_run(dlbt_bq_phase=chained_calls("bq_phase_bench")),
 }
+# phase 17: the serving export at B=SMALL x N_POINTS; MESH_RANKS ranks: the f32 step
+# at B=SMALL, MESH_STEPS bf16 steps at B=LARGE, a fit over phase 14's DeviceDataset,
+# both engines at B=SMALL, and a sweep of the MS_LRS x MS_WDS trials over MS_PLOTS
+# plots (validation MS_VAL_PLOTS) of DD_POINTS at B=MS_BATCH for MS_EPOCHS epochs
+MESH_RANKS, MESH_STEPS, MESH_SEED = 2, 5, 60
+MS_LRS, MS_WDS = (1e-4, 1e-4, 1e-3, 1e-3), (0.0, 8.025e-5, 0.0, 8.025e-5)
+MS_PLOTS, MS_VAL_PLOTS, MS_BATCH, MS_EPOCHS = 24, 12, 12, 2
+# and train under torchrun on a raw corpus of MC_PLOTS plots (make_corpus's
+# splits) at B=MC_BATCH for MC_EPOCHS epochs
+MC_PLOTS, MC_BATCH, MC_EPOCHS = 36, 12, 2
+MS_STEPS = len(MS_LRS) // MESH_RANKS * MS_EPOCHS * -(-MS_PLOTS // MS_BATCH)
+MS_FORWARDS = len(MS_LRS) // MESH_RANKS * MS_EPOCHS * -(-MS_VAL_PLOTS // MS_BATCH)
+# a mesh step vs one process's on the same global batch and draws: the float32
+# loss relative and the running statistics over their largest in
+# tests/test_parallel.py's bounds, the gradients in phase 11's float32 step
+# bounds (FUSED_STEP_RTOL: at 16 x 10240 a max within rounding of a tie flips
+# in one of the two sums' orders); bf16 within one bf16 step of the loss
+MESH_LOSS_RTOL, MESH_GRAD_ATOL, MESH_BF16_RTOL = 1e-5, 1e-4, 2.0**-8
+# launches per forward, step or run of each rank (mesh paths) or of the artifact
+EXPECTED.update({
+    "export": EXPECTED["serve"],
+    "export_unsplit": EXPECTED["serve_unsplit"],
+    "mesh_train": EXPECTED["train"],
+    "mesh_fit": EXPECTED["device_dataset"],
+    "mesh_serve": EXPECTED["serve"],
+    "mesh_serve_fused_eval": EXPECTED["serve_fused_eval"],
+    "mesh_sweep": per_run(dlbt_fps=2 * (MS_STEPS + MS_FORWARDS),
+                          dlbt_ball_group=MS_STEPS + MS_FORWARDS,
+                          dlbt_ball_query=MS_STEPS + MS_FORWARDS,
+                          dlbt_gather=MS_STEPS + MS_FORWARDS, dlbt_scatter_rows=MS_STEPS),
+})
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
 SCATTER_REPS = 100
@@ -1364,7 +1422,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 17: summary
+    # phase 18: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1376,12 +1434,14 @@ WIDE_MULTIPLIERS = (2, 3)
 PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit", "eval_fused_sa",
          "train_forward_fused_sa", "train_fused_sa") + tuple(
              f"fused_sa_x{nm}" for nm in WIDE_MULTIPLIERS) + (
-                 "serve_fused_eval_wide",) + TOOL_PATHS + ("device_dataset", "disk_pipeline",
-                                                           "research")
+                 "serve_fused_eval_wide",) + TOOL_PATHS + (
+                     "device_dataset", "disk_pipeline", "research", "export", "export_unsplit",
+                     "mesh_train", "mesh_fit", "mesh_serve", "mesh_serve_fused_eval",
+                     "mesh_sweep")
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-16; returns the kernels' summary rows, with each kernel's
+    """Phases 2-17; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1397,6 +1457,7 @@ def drive(device, card: str) -> list:
     device_dataset(device, card, launches)
     resample = disk_pipeline(device, card, launches)
     research(device, card, launches)
+    mesh_export(device, card, launches)
     next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
     next(r for r in rows if r["entry"] == "dlbt_fps")["resample"] = resample
     kernels = []
@@ -1445,11 +1506,8 @@ def counted_run(path: str, fn, launches: dict, runs: int):
     _build.launch_counts.clear()
     out = fn()
     torch.cuda.synchronize()
-    got = {e: _build.launch_counts[e] for e in ENTRIES}
-    launches[path] = got
-    for e, per in EXPECTED[path].items():
-        require(got[e] == per * runs,
-                f"{path}: {e} launched {got[e]} times in {runs} runs, expected {per * runs}")
+    launches[path] = {e: _build.launch_counts[e] for e in ENTRIES}
+    check_launches(path, launches[path], runs)
     return out
 
 
@@ -3372,6 +3430,380 @@ def research(device, card: str, launches: dict) -> None:
     launches["research"] = add_launches(*counts.values())
     print(f"research launches by stage: "
           f"{ {k: {e: n for e, n in c.items() if n} for k, c in counts.items()} }", flush=True)
+
+
+# ---- phase 17: the serving export and the data-parallel mesh -----------------------
+
+
+def check_launches(path: str, got: dict, runs: int) -> None:
+    """``got`` (launches by entry in the run of ``path``) held to ``runs``
+    forwards or steps of ``path``."""
+    for e, per in EXPECTED[path].items():
+        require(got[e] == per * runs,
+                f"{path}: {e} launched {got[e]} times in {runs} runs, expected {per * runs}")
+
+
+def dlbt_calls(loaded) -> dict:
+    """The registered kernel ops an exported graph calls, with their counts."""
+    calls = [str(n.target) for n in loaded._fn.graph.nodes if n.op == "call_function"]
+    return {c.split(".")[1]: calls.count(c) for c in sorted(set(calls)) if c.startswith("dlbt.")}
+
+
+def export_paths(device, card: str, launches: dict, root: Path) -> None:
+    """Phase 17, paths export and export_unsplit: ``export_serving`` of the
+    seeded production model (and of its unsplit twin, kernel 4c) at SMALL x
+    N_POINTS, ``load_serving``, the strict call and ``predict`` on the partial
+    request, launches counted, against ``compile_inference``; ms per batch of
+    both."""
+    from dl_biomass_tpu_torch.models.export import export_serving, load_serving
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+
+    req = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
+    sizes = np.random.default_rng(3).integers(PARTIAL_LO, N_POINTS + 1, size=PARTIAL)
+    part = synthetic_batch(PARTIAL, N_POINTS, seed=3, device=device, sizes=sizes)
+    for path, split in (("export", True), ("export_unsplit", False)):
+        model = seeded_model(device, split_first_layer=split)
+        engine = compile_inference(model, device)
+        art = root / path
+        t0 = time.perf_counter()
+        meta = export_serving(model, batch_size=SMALL, num_points=N_POINTS, path=str(art),
+                              device=device)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_serving(str(art), device)
+        t_load = time.perf_counter() - t0
+        require(meta["platforms"] == [device.type], f"{path}: platforms {meta['platforms']}")
+        got, got_part = counted_run(path, lambda: (loaded(req.pos, req.feat, req.mask),
+                                                   loaded.predict(part.pos, part.feat, part.mask)),
+                                    launches, runs=1 + -(-PARTIAL // SMALL))
+        want, want_part = engine(req), engine(part).cpu()
+        identical = same_bits(got, want)
+        err = rel_diff(got, want)
+        require(identical or err <= BF16_SERVE_RTOL,
+                f"{path}: artifact vs compile_inference rel {err} > {BF16_SERVE_RTOL}")
+        part_err = rel_diff(torch.from_numpy(got_part), want_part)
+        require(got_part.shape == (PARTIAL, 4) and np.isfinite(got_part).all()
+                and part_err <= BF16_SERVE_RTOL,
+                f"{path}: predict on {PARTIAL} clouds {got_part.shape}, rel {part_err}")
+        ms_art = serve_timing(lambda b: loaded(b.pos, b.feat, b.mask), req)
+        ms_eng = serve_timing(engine, req)
+        size = sum(f.stat().st_size for f in art.iterdir())
+        print(f"{path}: export_serving {t_export:.1f} s, load_serving {t_load:.1f} s, "
+              f"{size / 1e6:.2f} MB on disk; the graph calls {dlbt_calls(loaded)}; launches over "
+              f"the strict call and predict({PARTIAL}): "
+              f"{ {e: n for e, n in launches[path].items() if n} }; B={SMALL} x {N_POINTS} vs "
+              f"compile_inference: bit-identical {identical}, max|diff|/max|y| {err:.3e} (bound "
+              f"{BF16_SERVE_RTOL}); predict on the partial request vs the engine: "
+              f"{part_err:.3e}; ms per batch (host clock after a synchronize, median of "
+              f"{SERVE_REPS}): artifact {ms_art:.3f}, engine {ms_eng:.3f} [{card}]", flush=True)
+
+
+def mesh_rank(rank: int, world: int, device, tmp: str) -> None:
+    """Phase 17's body in each rank of the group: every data-parallel path,
+    its launches counted, what it gave saved to ``rank<r>.pt`` for the parent
+    to hold against one process."""
+    import dataclasses
+
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.io.device_data import DeviceDataset
+    from dl_biomass_tpu_torch.io.synthetic import synthetic_dataset
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.ops import _build
+    from dl_biomass_tpu_torch.parallel import mesh as dp
+    from dl_biomass_tpu_torch.sweep.vmapped import VmappedSweep
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    mesh = dp.make_mesh(world, 1, device)
+    out = dict(device=str(device), backend=torch.distributed.get_backend(), launches={})
+
+    def counted(path, fn):
+        torch.cuda.synchronize(device)
+        _build.launch_counts.clear()
+        res = fn()
+        torch.cuda.synchronize(device)
+        seen = out["launches"].setdefault(path, dict.fromkeys(ENTRIES, 0))
+        for e in ENTRIES:
+            seen[e] += _build.launch_counts[e]
+        return res
+
+    # the f32 step at SMALL (ELU: no ReLU branch to flip), the bf16 steps at LARGE
+    model = seeded_model(device, compute_dtype="float32", activation="ELU")
+    trainer = Trainer(model, TrainConfig(), device, mesh=mesh)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=MESH_SEED, device=device)
+    loss = counted("mesh_train", lambda: trainer.step(batch, train_gen(device, MESH_SEED)))
+    out["f32"] = dict(loss=float(loss), grads={k: p.grad.cpu() for k, p in
+                                               model.named_parameters()},
+                      stats={k: v.cpu() for k, v in running_stats(model).items()})
+    del trainer, model, batch
+    trainer = Trainer(seeded_model(device), TrainConfig(), device, mesh=mesh)
+    batch = synthetic_batch(LARGE, N_POINTS, seed=MESH_SEED + 1, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def steps():
+        losses, times = [], []
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.step(batch, train_gen(device, MESH_SEED + i))))
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times
+
+    losses, times = counted("mesh_train", steps)
+    out["bf16"] = dict(losses=losses, ms=times,
+                       peak=torch.cuda.max_memory_allocated(device) / 2**30)
+    del trainer, batch
+
+    # fit over phase 14's DeviceDataset
+    ds = DeviceDataset.from_clouds(*synthetic_dataset(DD_PLOTS, DD_POINTS, seed=DD_SEED),
+                                   device=device)
+    val = DeviceDataset.from_clouds(*synthetic_dataset(DD_VAL_PLOTS, DD_POINTS,
+                                                       seed=DD_SEED + 1), device=device)
+    cfg = TrainConfig()
+    cfg = dataclasses.replace(cfg, scan_epochs=True, hp=dataclasses.replace(
+        cfg.hp, batch_size=DD_BATCH, num_augs=DD_AUGS))
+    trainer = Trainer(seeded_model(device), cfg, device, mesh=mesh)
+    hist = counted("mesh_fit", lambda: trainer.fit(ds, val, num_epochs=DD_EPOCHS,
+                                                   log_fn=lambda _: None))
+    out["fit"] = {k: hist[k] for k in ("train_mse", "val_mse", "epoch_seconds",
+                                       "clouds_per_sec")}
+    del trainer, ds, val
+
+    # both engines at SMALL
+    model = seeded_model(device)
+    req = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
+    out["serve"] = {}
+    for path, fused_eval in (("mesh_serve", False), ("mesh_serve_fused_eval", True)):
+        serve = compile_inference(model, device, fused_eval=fused_eval, mesh=mesh)
+        y = counted(path, lambda: serve(req))
+        out["serve"][path] = dict(y=y.cpu(), ms=serve_timing(serve, req))
+
+    # the sweep: MESH_TRIALS trials split over the ranks
+    ds = DeviceDataset.from_clouds(*synthetic_dataset(MS_PLOTS, DD_POINTS, seed=MESH_SEED),
+                                   device=device)
+    val = DeviceDataset.from_clouds(*synthetic_dataset(MS_VAL_PLOTS, DD_POINTS,
+                                                       seed=MESH_SEED + 1), device=device)
+    sweep = VmappedSweep(model, MS_LRS, MS_WDS, mesh=mesh, device=device)
+    t0 = time.perf_counter()
+    res = counted("mesh_sweep", lambda: sweep.run(ds, val, seed=MESH_SEED, batch_size=MS_BATCH,
+                                                  num_epochs=MS_EPOCHS, log_fn=lambda _: None))
+    out["sweep"] = dict(results=[(r.lr, r.weight_decay, r.best_val_mse, r.epochs_run,
+                                  r.stopped_early) for r in res],
+                        local=list(sweep.local), s=time.perf_counter() - t0)
+    torch.save(out, Path(tmp) / f"rank{rank}.pt")
+
+
+def hold_step(name: str, got: dict, want: dict) -> dict:
+    """A mesh step's loss, gradients and running statistics against one
+    process's: the loss within MESH_LOSS_RTOL; each gradient within phase
+    11's float32 step bounds (relative L2, and max|diff| over the step's
+    largest |g|: a max within rounding of a tie takes another slot in one
+    of the two and moves one centroid's share whole), the biases whose true
+    gradient is 0 by size; the statistics over their largest within
+    MESH_GRAD_ATOL. Returns the measures, tests/test_parallel.py's (each
+    gradient over its own largest) among them."""
+    bound = FUSED_STEP_RTOL[False]
+    rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    require(rel_loss <= MESH_LOSS_RTOL, f"{name}: loss rel {rel_loss} > {MESH_LOSS_RTOL}")
+    top = max(float(g.abs().max()) for g in want["grads"].values())
+    l2, by_top, own = 0.0, 0.0, {}
+    for k, g in want["grads"].items():
+        g, mine = g.double(), got["grads"][k].double()
+        diff = mine - g
+        if zero_gradient(k) and float(g.abs().max()) <= bound["zero"] * top:
+            require(float(mine.abs().max()) <= bound["zero"] * top, f"{name}: {k} moved from 0")
+            continue
+        l2 = max(l2, float(diff.norm() / g.norm()))
+        by_top = max(by_top, float(diff.abs().max()) / top)
+        own[k] = float(diff.abs().max()) / float(g.abs().max())
+    require(l2 <= bound["grad_l2"] and by_top <= bound["grad_top"],
+            f"{name}: gradients rel L2 {l2}, max|diff|/max|g| {by_top} > {bound}")
+    stat = max(float((got["stats"][k].double() - s.double()).abs().max()) / float(s.abs().max())
+               for k, s in want["stats"].items())
+    require(stat <= MESH_GRAD_ATOL, f"{name}: running statistics off by {stat}")
+    worst = max(own, key=own.get)
+    return dict(loss=rel_loss, l2=l2, top=by_top, stat=stat, own=own[worst], own_name=worst,
+                own_within=sum(v <= MESH_GRAD_ATOL for v in own.values()), tensors=len(own))
+
+
+def mesh_paths(device, card: str, launches: dict) -> None:
+    """Phase 17, paths mesh_train, mesh_fit, mesh_serve, mesh_serve_fused_eval
+    and mesh_sweep: MESH_RANKS ranks spawned on the card (a card each where
+    there are enough, nccl; else both on cuda:0, gloo), every path's launches
+    counted in each rank, then each held against one process here."""
+    import tempfile
+
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.io.device_data import DeviceDataset
+    from dl_biomass_tpu_torch.io.synthetic import synthetic_dataset
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.parallel import mesh as dp
+    from dl_biomass_tpu_torch.sweep.vmapped import VmappedSweep
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dp.spawn(mesh_rank, MESH_RANKS, str(Path(tmp) / "store"), args=(tmp,), device=device)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", map_location="cpu", weights_only=False)
+                 for r in range(MESH_RANKS)]
+    print(f"mesh: {MESH_RANKS} ranks on {[r['device'] for r in ranks]} ({ranks[0]['backend']}), "
+          f"{wall:.1f} s from spawn to the last rank's end [{card}]", flush=True)
+    runs = {"mesh_train": 1 + MESH_STEPS, "mesh_fit": 1, "mesh_serve": 1,
+            "mesh_serve_fused_eval": 1, "mesh_sweep": 1}
+    for path, n in runs.items():
+        launches[path] = {e: sum(r["launches"][path][e] for r in ranks) for e in ENTRIES}
+        check_launches(path, launches[path], n * MESH_RANKS)
+    print(f"mesh launches over both ranks by path: "
+          f"{ {p: {e: n for e, n in launches[p].items() if n} for p in runs} }", flush=True)
+
+    # the f32 step against one process on the same global batch and draws
+    model = seeded_model(device, compute_dtype="float32", activation="ELU")
+    trainer = Trainer(model, TrainConfig(), device)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=MESH_SEED, device=device)
+    loss = trainer.step(batch, train_gen(device, MESH_SEED))
+    one = dict(loss=float(loss), grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+               stats={k: v.cpu() for k, v in running_stats(model).items()})
+    m = hold_step("mesh f32 step", ranks[0]["f32"], one)
+    same = all(torch.equal(ranks[0]["f32"]["grads"][k], r["f32"]["grads"][k])
+               for r in ranks[1:] for k in one["grads"])
+    require(same, "mesh f32 step: the ranks hold different gradients")
+    print(f"mesh_train f32 (ELU) B={SMALL} x {N_POINTS}, {MESH_RANKS} ranks vs one process, one "
+          f"state and generator: loss {ranks[0]['f32']['loss']:.6f} vs {one['loss']:.6f} (rel "
+          f"{m['loss']:.3e}, bound {MESH_LOSS_RTOL}); gradients rel L2 {m['l2']:.3e}, max|diff| "
+          f"over the step's largest |g| {m['top']:.3e} (bounds {FUSED_STEP_RTOL[False]}); each "
+          f"over its own largest (tests/test_parallel.py's measure): {m['own_within']} of "
+          f"{m['tensors']} within {MESH_GRAD_ATOL}, the worst {m['own']:.3e} ({m['own_name']}); "
+          f"running statistics {m['stat']:.3e} (bound {MESH_GRAD_ATOL}); every rank's gradients "
+          f"bit-identical [{card}]", flush=True)
+    del trainer, model, batch
+
+    trainer = Trainer(seeded_model(device), TrainConfig(), device)
+    batch = synthetic_batch(LARGE, N_POINTS, seed=MESH_SEED + 1, device=device)
+    losses, times = [], []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.step(batch, train_gen(device, MESH_SEED + i))))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    got = ranks[0]["bf16"]
+    rel = abs(got["losses"][0] - losses[0]) / abs(losses[0])
+    require(rel <= MESH_BF16_RTOL and all(r["bf16"]["losses"] == got["losses"] for r in ranks),
+            f"mesh bf16 step: loss rel {rel} > {MESH_BF16_RTOL}, or the ranks disagree")
+    ms_mesh = statistics.median(got["ms"][1:])
+    ms_one = statistics.median(times[1:])
+    print(f"mesh_train bf16 B={LARGE} x {N_POINTS}, {MESH_RANKS} ranks ({LARGE // MESH_RANKS} "
+          f"clouds each): first loss {got['losses'][0]:.6f} vs one process {losses[0]:.6f} (rel "
+          f"{rel:.3e}, bound {MESH_BF16_RTOL:.3e}); {MESH_STEPS} steps {got['losses']} vs "
+          f"{losses}; ms/step (host clock, median of the last {MESH_STEPS - 1}) {ms_mesh:.3f} "
+          f"({LARGE / ms_mesh * 1e3:.1f} clouds/s) vs one process {ms_one:.3f} "
+          f"({LARGE / ms_one * 1e3:.1f} clouds/s); rank peaks "
+          f"{[round(r['bf16']['peak'], 2) for r in ranks]} GiB [{card}]", flush=True)
+    del trainer, batch
+
+    fits = [r["fit"] for r in ranks]
+    require(all(f["val_mse"] == fits[0]["val_mse"] and f["train_mse"] == fits[0]["train_mse"]
+                for f in fits) and np.isfinite(fits[0]["val_mse"]).all(),
+            f"mesh_fit: the ranks' MSEs differ or are not finite: {fits}")
+    print(f"mesh_fit: {DD_EPOCHS} epochs over {DD_PLOTS} plots x {DD_POINTS} at B={DD_BATCH} "
+          f"({DD_BATCH // MESH_RANKS} a rank), {DD_AUGS} augmented copies: train MSE "
+          f"{fits[0]['train_mse']}, val MSE {fits[0]['val_mse']} on every rank; s/epoch "
+          f"{[round(s, 3) for s in fits[0]['epoch_seconds']]}, clouds/s "
+          f"{[round(c, 1) for c in fits[0]['clouds_per_sec']]} [{card}]", flush=True)
+
+    model = seeded_model(device)
+    req = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
+    for path, fused_eval in (("mesh_serve", False), ("mesh_serve_fused_eval", True)):
+        serve = compile_inference(model, device, fused_eval=fused_eval)
+        want = serve(req).cpu()
+        ms_one = serve_timing(serve, req)
+        got = [r["serve"][path] for r in ranks]
+        identical = all(same_bits(g["y"], want) for g in got)
+        err = max(rel_diff(g["y"], want) for g in got)
+        require(all(same_bits(g["y"], got[0]["y"]) for g in got) and err <= BF16_SERVE_RTOL,
+                f"{path}: the ranks' answers differ, or rel {err} > {BF16_SERVE_RTOL}")
+        print(f"{path}: B={SMALL} x {N_POINTS}, {SMALL // MESH_RANKS} clouds a rank, every "
+              f"answer on every rank in batch order: vs one process bit-identical {identical}, "
+              f"max|diff|/max|y| {err:.3e} (bound {BF16_SERVE_RTOL}); ms per batch {got[0]['ms']:.3f}"
+              f" vs one process {ms_one:.3f} [{card}]", flush=True)
+
+    ds = DeviceDataset.from_clouds(*synthetic_dataset(MS_PLOTS, DD_POINTS, seed=MESH_SEED),
+                                   device=device)
+    val = DeviceDataset.from_clouds(*synthetic_dataset(MS_VAL_PLOTS, DD_POINTS,
+                                                       seed=MESH_SEED + 1), device=device)
+    t0 = time.perf_counter()
+    res = VmappedSweep(model, MS_LRS, MS_WDS, device=device).run(
+        ds, val, seed=MESH_SEED, batch_size=MS_BATCH, num_epochs=MS_EPOCHS,
+        log_fn=lambda _: None)
+    s_one = time.perf_counter() - t0
+    want = [(r.lr, r.weight_decay, r.best_val_mse, r.epochs_run, r.stopped_early) for r in res]
+    require(all(r["sweep"]["results"] == want for r in ranks),
+            f"mesh_sweep: {ranks[0]['sweep']['results']} != one process {want}")
+    print(f"mesh_sweep: {len(MS_LRS)} trials ({[r['sweep']['local'] for r in ranks]} by rank), "
+          f"{MS_EPOCHS} epochs over {MS_PLOTS} plots x {DD_POINTS} at B={MS_BATCH}: results equal "
+          f"to one process's, bit for bit ({[round(w[2], 4) for w in want]}); "
+          f"{ranks[0]['sweep']['s']:.1f} s vs one process {s_one:.1f} s [{card}]", flush=True)
+
+
+def mesh_cli(device, card: str, root: Path) -> None:
+    """Phase 17: ``torchrun --standalone --nproc-per-node MESH_RANKS -m
+    dl_biomass_tpu_torch train`` as a user runs it, on a raw corpus of
+    MC_PLOTS plots of DISK_RAW points loaded at DISK_POINTS, against the same
+    command in one process: the logs within MESH_BF16_RTOL, one printer."""
+    import contextlib
+    import io
+    import os
+
+    from dl_biomass_tpu_torch.tools.make_corpus import make_corpus
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_corpus(str(root / "raw"), MC_PLOTS, DISK_RAW, seed=MESH_SEED)
+    cfg = {"hp": {"batch_size": MC_BATCH, "num_augs": 0, "num_points": DISK_POINTS},
+           "data": {"train_dir": str(root / "raw" / "train"), "val_dir": str(root / "raw" / "val"),
+                    "biomass_csv": str(root / "raw" / "biomass.csv"), "use_presampled": False},
+           "num_epochs": MC_EPOCHS}
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    argv = ["train", "--config", str(root / "cfg.json")]
+    cpu = [] if device.type == "cuda" else ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc-per-node={MESH_RANKS}", "-m", "dl_biomass_tpu_torch", *argv,
+                          "--model_dir", str(root / "mesh"), *cpu], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0, f"torchrun train exited {out.returncode}: "
+                                 f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    run_cli(argv + ["--model_dir", str(root / "one")], device)
+    wall_one = time.perf_counter() - t0
+    mesh_log = np.loadtxt(root / "mesh" / "training_log.csv", delimiter=",", ndmin=2)
+    one_log = np.loadtxt(root / "one" / "training_log.csv", delimiter=",", ndmin=2)
+    rel = float(np.abs(mesh_log[:, 1:] - one_log[:, 1:]).max() / np.abs(one_log[:, 1:]).max())
+    printed = out.stdout.count(f"mesh {{'dp': {MESH_RANKS}, 'mp': 1}}")
+    require(mesh_log.shape == one_log.shape == (MC_EPOCHS, 3) and rel <= MESH_BF16_RTOL
+            and printed == 1 and sorted((root / "mesh").glob("epoch_*.pt")),
+            f"torchrun train: logs {mesh_log} vs {one_log} (rel {rel}), printed {printed}")
+    print(f"mesh_cli: torchrun --nproc-per-node {MESH_RANKS} train, {MC_EPOCHS} epochs over "
+          f"{MC_PLOTS} raw plots' train split at {DISK_POINTS} points, B={MC_BATCH}: "
+          f"{wall:.1f} s (one process in this one: {wall_one:.1f} s); (train, val) MSE by "
+          f"epoch {mesh_log[:, 1:].tolist()} vs one process {one_log[:, 1:].tolist()}, max rel "
+          f"{rel:.3e} (bound {MESH_BF16_RTOL:.3e}); rank 0 alone printed and wrote [{card}]",
+          flush=True)
+
+
+def mesh_export(device, card: str, launches: dict) -> None:
+    """Phase 17: the serving export, the data-parallel mesh, then training
+    under torchrun."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        export_paths(device, card, launches, Path(tmp))
+    mesh_paths(device, card, launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_cli(device, card, Path(tmp))
 
 
 def tail_inputs(shape, device, seed: int):

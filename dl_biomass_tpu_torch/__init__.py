@@ -10,8 +10,11 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
                CUDA wrapper and its plain PyTorch version (used for CPU
                tensors only)
 - ``models`` — layers (train-mode BatchNorm and dropout included),
-               ``PointNet2Regressor`` and the folded serving engine
-               ``compile_inference``
+               ``PointNet2Regressor``, the folded serving engine
+               ``compile_inference`` and its ``torch.export`` artifact
+               (``export``)
+- ``parallel`` — the data-parallel ``(dp, mp)`` device mesh over
+               ``torch.distributed``
 - ``train``  — the weighted loss, ``Trainer`` (Adam, early stopping, fit, the
                epochs over a ``DeviceDataset``), checkpoints and the LR range
                test
@@ -35,9 +38,9 @@ kernel of those paths rewritten by hand as a CUDA kernel (``csrc/``):
                step timing and ``torch.profiler`` traces
 - ``tools``  — the measurement tools and ``make_corpus``
 - ``__main__`` — ``python -m dl_biomass_tpu_torch train | evaluate | resample
-               | predict | sweep | tune | density | seed-study | visualize-aug
-               | parity-record | parity-check``, on the card (``--device cpu``
-               asks for the CPU)
+               | predict | export-model | sweep | tune | density | seed-study
+               | visualize-aug | parity-record | parity-check``, on the card
+               (``--device cpu`` asks for the CPU)
 
 The package imports torch, numpy and the standard library only: nothing of JAX
 and nothing of ``dl_biomass_tpu``.

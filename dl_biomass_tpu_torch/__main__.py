@@ -4,6 +4,9 @@
     python -m dl_biomass_tpu_torch train    --config cfg.json [--hp.lr 1e-3 ...]
     python -m dl_biomass_tpu_torch evaluate --config cfg.json --model-dir ...
     python -m dl_biomass_tpu_torch predict  --model-dir ... --in-dir ... --out preds.csv
+    python -m dl_biomass_tpu_torch export-model --model-dir ... --out artifact/
+    python -m dl_biomass_tpu_torch predict  --from-export artifact/ --in-dir ... --out preds.csv
+    torchrun --nproc-per-node N -m dl_biomass_tpu_torch train --config cfg.json
     python -m dl_biomass_tpu_torch sweep    --config cfg.json --lrs 1e-4,1e-3 --wds 0,8e-5
     python -m dl_biomass_tpu_torch tune     --config cfg.json --n-trials 20 [--continue-study]
     python -m dl_biomass_tpu_torch density  --data.train_dir ... --data.biomass_csv ...
@@ -15,9 +18,10 @@
 Any config knob is overridable with dotted flags (``--hp.batch_size 16``) or
 top-level TrainConfig fields (``--num_epochs 2``). Every subcommand runs on
 the card; ``--device cpu`` runs the kernels' plain versions on the CPU
-instead. Without a card and without that flag, they raise.
-
-Not ported yet (exits with code 2 and names its ROADMAP item): export-model.
+instead. Without a card and without that flag, they raise. Under ``torchrun``
+with more than one process, ``train`` trains over ``make_mesh(mesh.dp,
+mesh.mp)``: each rank its ``dp`` slice of every batch, a card each where
+there are enough, else sharing one.
 """
 
 from __future__ import annotations
@@ -32,10 +36,8 @@ from dl_biomass_tpu_torch.core.config import TrainConfig
 
 _TOP_LEVEL_KEYS = {f.name for f in dataclasses.fields(TrainConfig)}
 
-# the subcommands of the JAX CLI that wait for a module of the port
-UNPORTED = {
-    "export-model": "A.8 (parallelism and export)",
-}
+# the subcommands of the JAX CLI that wait for a module of the port: none
+UNPORTED: dict = {}
 
 
 def _split_overrides(argv: List[str]) -> tuple:
@@ -108,25 +110,40 @@ def cmd_train(argv):
     own, overrides = _split_overrides(argv)
     args = p.parse_args(own)
     cfg = _load_cfg(args, overrides)
-    if cfg.mesh.dp > 1 or cfg.mesh.mp > 1:
-        raise NotImplementedError(
-            f"training on more than one device (mesh dp={cfg.mesh.dp}, mp={cfg.mesh.mp}) is "
-            "not ported yet: ROADMAP A.8")
 
-    import torch
+    import contextlib
+    import io
 
     from dl_biomass_tpu_torch.core.cloud import resolve_device
+    from dl_biomass_tpu_torch.parallel import mesh as dp
+
+    mesh = None
+    if _world_size() > 1:  # under torchrun: a mesh, as the JAX CLI takes one over >1 device
+        device = dp.init_from_env(args.device)
+        mesh = dp.make_mesh(cfg.mesh.dp, cfg.mesh.mp, device)
+    else:
+        device = resolve_device(args.device)
+    # under a mesh rank 0 prints, writes and evaluates; the others train quietly
+    with (contextlib.nullcontext() if dp.is_writer(mesh) else
+          contextlib.redirect_stdout(io.StringIO())):
+        _train(args, cfg, device, mesh)
+
+
+def _train(args, cfg: TrainConfig, device, mesh) -> None:
+    import torch
+
     from dl_biomass_tpu_torch.eval.testing import figure_module
     from dl_biomass_tpu_torch.models.pointnet2 import build_model
+    from dl_biomass_tpu_torch.parallel import mesh as dp
     from dl_biomass_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
     print(f"Dataset(s): {cfg.data.use_datasets}")
     print(f"Additional features used: {cfg.data.use_columns}")
     print(f"Using {cfg.hp.num_points} points per plot")
     print(f"Early stopping: {cfg.early_stopping}")
     print(f"Max number of epochs: {cfg.num_epochs}")
-    print(f"Device: {device}")
+    print(f"Device: {device}" + (f", mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                                 if mesh is not None else ""))
     print("\nHyperparameters:")
     for k, v in vars(cfg.hp).items():
         print(f"  {k}: {v}")
@@ -137,10 +154,10 @@ def cmd_train(argv):
 
     torch.manual_seed(cfg.seed)  # the initial weights, as the JAX CLI draws them from cfg.seed
     model = build_model(cfg, num_features=ds_train.num_features)
-    trainer = Trainer(model, cfg, device)
+    trainer = Trainer(model, cfg, device, mesh=mesh)
 
     writer = None
-    if args.tensorboard:
+    if args.tensorboard and dp.is_writer(mesh):
         from dl_biomass_tpu_torch.utils.tboard import SummaryWriter
 
         writer = SummaryWriter(comment=f"_{cfg.hp.num_points}_pts_lr_{cfg.hp.lr}")
@@ -153,6 +170,8 @@ def cmd_train(argv):
     finally:
         if writer is not None:
             writer.close()
+    if not dp.is_writer(mesh):
+        return
     plots = figure_module()
     if plots is None:
         print("matplotlib is not installed: mse_curves.png not written")
@@ -232,6 +251,44 @@ def cmd_resample(argv):
         check_resampling(args.out_dir, os.path.join(args.out_dir, "check_resampling.png"))
 
 
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def cmd_export_model(argv):
+    """Serving export: a checkpoint -> an artifact that serves without the
+    model code (``models/export.py``), the counterpart of the reference's
+    whole-module ``torch.save`` pickles (``main.py:243-245``)."""
+    p = argparse.ArgumentParser(prog="export-model")
+    p.add_argument("--model-dir", default="models_out")
+    p.add_argument("--model-file")
+    p.add_argument("--out", required=True, help="artifact directory to write")
+    p.add_argument("--batch-size", type=int, default=36)
+    p.add_argument("--num-points", type=int, default=7168,
+                   help="served point-axis size; rounded up to the 128-point capacity the "
+                        "datasets produce")
+    p.add_argument("--device", default=None,
+                   help="the device the artifact serves on (default: the card; 'cpu' exports "
+                        "the kernels' plain versions)")
+    args = p.parse_args(argv)
+
+    from dl_biomass_tpu_torch.core.cloud import round_up
+    from dl_biomass_tpu_torch.eval.testing import load_model_for_eval
+    from dl_biomass_tpu_torch.models.export import export_serving
+
+    model, path = load_model_for_eval(args.model_dir, args.model_file, device=args.device)
+    print("Exporting model:", path)
+    meta = export_serving(model, batch_size=args.batch_size,
+                          num_points=round_up(args.num_points, 128), path=args.out,
+                          device=args.device)
+    print(f"wrote artifact -> {args.out} (platforms {meta['platforms']}, envelope "
+          f"{meta['batch_size']}x{meta['num_points']}x{meta['num_features']})")
+
+
 def cmd_predict(argv):
     """Target-free serving: a directory of clouds -> a predictions CSV."""
     p = argparse.ArgumentParser(prog="predict")
@@ -257,7 +314,8 @@ def cmd_predict(argv):
                    help="round the served plot count up to a multiple of this so "
                         "same-bucket directory sizes run the same batch shapes (0 disables)")
     p.add_argument("--from-export", default=None, metavar="DIR",
-                   help="serve through an exported artifact (not ported yet: ROADMAP A.8)")
+                   help="serve through an artifact written by `export-model` instead of a "
+                        "checkpoint (--model-dir is ignored)")
     p.add_argument("--watch", action="store_true",
                    help="keep running: poll --in-dir and append predictions "
                         "for newly arriving plots (restart-safe; the engine "
@@ -565,6 +623,7 @@ COMMANDS = {
     "seed-study": cmd_seed_study,
     "evaluate": cmd_evaluate,
     "predict": cmd_predict,
+    "export-model": cmd_export_model,
     "resample": cmd_resample,
     "sweep": cmd_sweep,
     "tune": cmd_tune,

@@ -6,8 +6,9 @@ biomass table. This module loads a checkpoint, ingests LAS/parquet clouds,
 runs them through the folded serving engine (``compile_dataset_inference``)
 where the architecture has one, else through the eval-mode module
 (``eval/testing.predict_dataset``), and writes ``PlotID,
-bark/branch/foliage/wood_btphr, tree_btphr`` rows. Serving from an exported
-artifact is not ported (ROADMAP A.8).
+bark/branch/foliage/wood_btphr, tree_btphr`` rows. With ``export_path`` it
+serves through an artifact of ``models/export.py`` instead (no model, no
+checkpoint), which chunks and pads the plots into its own envelope.
 """
 
 from __future__ import annotations
@@ -32,10 +33,15 @@ def _targetless(fileset):
     return fileset
 
 
-def _no_export(export_path: Optional[str]) -> None:
-    if export_path is not None:
-        raise NotImplementedError(
-            "serving from an exported artifact is not ported yet: ROADMAP A.8")
+def _exported(export_path: Optional[str], device, log_fn=print):
+    """The artifact at ``export_path`` on ``device``, or None."""
+    if export_path is None:
+        return None
+    from dl_biomass_tpu_torch.models.export import load_serving
+
+    exported = load_serving(export_path, device)
+    log_fn(f"Using exported artifact: {export_path}")
+    return exported
 
 
 def _prefixes(in_dir: str, glob: str) -> List[str]:
@@ -71,9 +77,13 @@ def _engine(model, device):
         return None
 
 
-def _serve(ds, n_real: int, plot_bucket: int, serve_ds, model, batch_size: int) -> np.ndarray:
+def _serve(ds, n_real: int, plot_bucket: int, serve_ds, model, batch_size: int,
+           exported=None) -> np.ndarray:
     """(n_real, 4) rows in plot order; the plot count rounded up to a multiple
-    of ``plot_bucket`` (0: not) with zero-mask plots, whose rows are dropped."""
+    of ``plot_bucket`` (0: not) with zero-mask plots, whose rows are dropped.
+    An artifact chunks and pads into its own envelope."""
+    if exported is not None:
+        return exported.predict(ds.pos, ds.feat, ds.mask)[:n_real]
     if plot_bucket and plot_bucket > 0:
         ds = ds.pad_plots(-(-n_real // plot_bucket) * plot_bucket)
     pred = serve_ds(ds, batch_size) if serve_ds is not None else predict_dataset(
@@ -108,22 +118,29 @@ def predict_directory(
     otherwise through the eval-mode module. ``plot_bucket``: round the served
     plot count up to a multiple of this (padded plots are masked out and
     their rows dropped), so that directories of sizes in one bucket run the
-    same batch shapes; 0 disables."""
-    _no_export(export_path)
+    same batch shapes; 0 disables. ``export_path``: serve through an artifact
+    of ``export-model`` instead of a checkpoint (``model_dir``, ``parity``
+    and ``engine`` are ignored)."""
     use_columns = use_columns or ["intensity_normalized"]
     if use_datasets is None:
         use_datasets = _prefixes(in_dir, glob)
-    model, path = load_model_for_eval(model_dir, model_file, parity=parity, device=device)
-    print("Using model:", path)
-    dev = next(model.parameters()).device
+    exported = _exported(export_path, device)
+    model = serve_ds = None
+    if exported is None:
+        model, path = load_model_for_eval(model_dir, model_file, parity=parity, device=device)
+        print("Using model:", path)
+        dev = next(model.parameters()).device
+    else:
+        dev = exported.device
 
     fileset = _fileset(in_dir, glob, use_datasets, use_presampled, use_columns,
                        presampled_suffix, num_points)
     if len(fileset) == 0:
         raise FileNotFoundError(f"no {glob} plots under {in_dir!r}")
     ds = _load(fileset, use_presampled, seed, dev)
-    serve_ds = _engine(model, dev) if engine and not parity else None
-    pred = _serve(ds, len(ds), plot_bucket, serve_ds, model, batch_size)
+    if exported is None and engine and not parity:
+        serve_ds = _engine(model, dev)
+    pred = _serve(ds, len(ds), plot_bucket, serve_ds, model, batch_size, exported)
 
     df = pd.DataFrame(pred, columns=list(BIOMASS_COLUMNS), index=list(ds.plot_ids))
     df.index.name = "PlotID"
@@ -160,13 +177,17 @@ def watch_directory(
     The model and the folded engine stay warm in-process, so the marginal
     cost of a new plot is its decode and its share of a batch. Restart-safe:
     PlotIDs already in ``out_csv`` are skipped. Returns the number of plots
-    predicted."""
-    _no_export(export_path)
+    predicted. ``export_path``: serve from an artifact of ``export-model``."""
     use_columns = use_columns or ["intensity_normalized"]
-    model, path = load_model_for_eval(model_dir, model_file, device=device)
-    log_fn(f"watching {in_dir!r} with model {path}")
-    dev = next(model.parameters()).device
-    serve_ds = _engine(model, dev)
+    exported = _exported(export_path, device, log_fn)
+    model = serve_ds = None
+    if exported is None:
+        model, path = load_model_for_eval(model_dir, model_file, device=device)
+        log_fn(f"watching {in_dir!r} with model {path}")
+        dev = next(model.parameters()).device
+        serve_ds = _engine(model, dev)
+    else:
+        dev = exported.device
 
     seen: set = set()
     if os.path.exists(out_csv):
@@ -187,8 +208,8 @@ def watch_directory(
         if fileset.files:
             ds = _load(fileset, use_presampled, seed, dev)
             ids = list(ds.plot_ids)
-            pred = np.asarray(_serve(ds, len(ds), plot_bucket, serve_ds, model, batch_size),
-                              np.float32)
+            pred = np.asarray(_serve(ds, len(ds), plot_bucket, serve_ds, model, batch_size,
+                                     exported), np.float32)
             with open(out_csv, "a") as f:
                 for pid, row in zip(ids, pred):
                     f.write(f"{pid}," + ",".join(f"{v}" for v in row) + f",{row.sum()}\n")

@@ -11,7 +11,11 @@ centroids, the split SA2 path with the gathered z-table (``:232-269``) or,
 with ``split_first_layer=False``, the features and positions gathered by one
 index (kernel 4c); and the unsplit per-edge gather beyond (``:270-279``).
 ``compile_dataset_inference`` serves a whole ``DeviceDataset`` through the
-same engine, its batches gathered on the device, with one host sync.
+same engine, its batches gathered on the device, with one host sync. The
+engine is a flat function of the folded weights and the batch
+(``serving_function``, ``serving_weights``), the function
+``models/export.py`` hands to ``torch.export``. Under a mesh each rank
+serves its ``dp`` slice and every rank gets every answer.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel, sa_eval_k
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.grouping import edges_from_gathered, group_neighborhoods
 from dl_biomass_tpu_torch.ops.pooling import masked_max
+from dl_biomass_tpu_torch.parallel import mesh as dp
 
 Layers = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -68,23 +73,9 @@ def _run_folded(x: torch.Tensor, layers, act: bool = True,
     return x
 
 
-def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: bool = False,
-                      mesh=None) -> Callable[[CloudBatch], torch.Tensor]:
-    """Returns ``serve(batch) -> (B, 4)`` float32 on ``device``.
-
-    ``device=None`` means the card, and raises without one; ``device="cpu"``
-    runs the plain PyTorch versions of the kernels. The folded weights are
-    made once, here, on ``device``, and so is kernel 5's weight block under
-    ``fused_eval``.
-
-    ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
-    and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
-    in the JAX package, and SA1 widths the kernel takes
-    (``sa_eval_kernel.check_widths``, which takes those of every
-    ``neuron_multiplier`` 1-32 in bf16 and float32); others raise
-    ``NotImplementedError`` here, when the engine is built."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
+def _check_engine(model, fused_eval: bool) -> bool:
+    """Raise where the engine does not cover ``model``; returns whether SA1
+    takes the stratified branch."""
     if not isinstance(model, PointNet2Regressor):
         raise NotImplementedError(
             f"inference engine covers PointNet2Regressor; got {type(model).__name__}")
@@ -96,39 +87,68 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
         raise NotImplementedError(
             "fused_eval requires the stratified SA1 production path (fast_group, <= 4 "
             "features, not exact_selection)")
+    return stratified
+
+
+def serving_weights(model: PointNet2Regressor, device=None, *,
+                    fused_eval: bool = False) -> List[torch.Tensor]:
+    """The folded weights as one flat list, the order of the JAX package's
+    ``tree_flatten`` of ``serve._folded``: SA1's, SA2's, SA3's and the head's
+    layers, each layer's (W (in, out) in the compute dtype, b float32); under
+    ``fused_eval`` kernel 5's packed weight block last. Made once, on
+    ``device`` (None: the card)."""
+    _check_engine(model, fused_eval)
     dev = resolve_device(device)
     ct = model.compute_dtype
-
-    def prepare(mlp):
-        return [(w.to(dev, ct), b.to(dev)) for w, b in _folded_mlp(mlp)]
-
+    flat = []
     with torch.no_grad():
-        sa1, sa2, sa3, head = (prepare(model.sa1.mlp), prepare(model.sa2.mlp),
-                               prepare(model.sa3.mlp), prepare(model.head))
-        sa1_block = None
+        for mlp in (model.sa1.mlp, model.sa2.mlp, model.sa3.mlp, model.head):
+            for w, b in _folded_mlp(mlp):
+                flat += [w.to(dev, ct), b.to(dev)]
         if fused_eval:  # kernel 5's weight block, packed once per engine
-            sa_eval_kernel.check_widths([w for wb in sa1 for w in wb], ct == torch.bfloat16)
-            sa1_block = sa_eval_kernel.pack_sa1_eval([w for wb in sa1 for w in wb],
-                                                     ct == torch.bfloat16, dev)
+            sa1 = flat[:2 * len(model.sa1.mlp.linears())]
+            sa_eval_kernel.check_widths(sa1, ct == torch.bfloat16)
+            flat.append(sa_eval_kernel.pack_sa1_eval(sa1, ct == torch.bfloat16, dev))
+    return flat
+
+
+def serving_function(model: PointNet2Regressor, *, fused_eval: bool = False) -> Callable:
+    """The flat serving function ``infer(*weights, pos, feat, mask) -> (B, 4)``
+    float32 of ``serving_weights`` (the JAX package's ``serve._infer`` over
+    ``serve._folded``): no module, no state, no read of a tensor's value on
+    the host, so that ``torch.export`` traces it (under ``torch.no_grad``)."""
+    stratified = _check_engine(model, fused_eval)
+    ct = model.compute_dtype
+    sizes = [len(m.linears()) for m in (model.sa1.mlp, model.sa2.mlp, model.sa3.mlp,
+                                         model.head)]
+    n_weights = 2 * sum(sizes) + int(fused_eval)
     r1, r2 = model.sa1_radius, model.sa2_radius
     sectored = model.fast_fps and not model.exact_selection
+    sa1_ratio, sa2_ratio = model.sa1_ratio, model.sa2_ratio
+    split = model.split_first_layer
 
-    @torch.inference_mode()
-    def serve(batch: CloudBatch) -> torch.Tensor:
-        batch = batch.to(dev)
-        feat, pos, mask = batch.feat, batch.pos, batch.mask
+    def infer(*args) -> torch.Tensor:
+        if len(args) != n_weights + 3:
+            raise ValueError(f"infer takes {n_weights} weights and pos, feat, mask; got "
+                             f"{len(args)} arguments")
+        weights, (pos, feat, mask) = args[:n_weights], args[n_weights:]
+        layers, i = [], 0
+        for k in sizes:
+            layers.append([(weights[i + 2 * j], weights[i + 2 * j + 1]) for j in range(k)])
+            i += 2 * k
+        sa1, sa2, sa3, head = layers
         if feat.shape[-1] == 0:
             feat = pos
         n = pos.shape[1]
-        m1 = math.ceil(model.sa1_ratio * n)
-        m2 = math.ceil(model.sa2_ratio * m1)
+        m1 = math.ceil(sa1_ratio * n)
+        m2 = math.ceil(sa2_ratio * m1)
 
         _, c1, cm1 = sample_centroids(pos, mask, m1, sectored=sectored)
         if stratified and fused_eval:
             h1 = sa_eval_kernel.sa1_fused_eval(c1, cm1, pos, mask, feat,
                                                [w for wb in sa1 for w in wb], radius=r1,
                                                bf16=(ct == torch.bfloat16), out_dtype=ct,
-                                               packed=sa1_block)
+                                               packed=weights[-1])
         else:
             if stratified:
                 _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,
@@ -140,7 +160,7 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
 
         _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
         nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
-        if m1 <= MXU_MAX_POINTS and model.split_first_layer:
+        if m1 <= MXU_MAX_POINTS and split:
             # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
             # so it runs once per point and kernel 4 gathers the z-table. Pad
             # slots carry index 0, so their gathered rows are point 0's finite
@@ -164,6 +184,42 @@ def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: boo
         h3 = masked_max(_run_folded(g, sa3, compute_dtype=ct), cm2, dim=1)
         return _run_folded(h3, head, act=False, compute_dtype=ct).float()
 
+    infer.n_weights = n_weights
+    return infer
+
+
+def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: bool = False,
+                      mesh=None) -> Callable[[CloudBatch], torch.Tensor]:
+    """Returns ``serve(batch) -> (B, 4)`` float32 on ``device``.
+
+    ``device=None`` means the card, and raises without one; ``device="cpu"``
+    runs the plain PyTorch versions of the kernels. The folded weights are
+    made once, here, on ``device``, and so is kernel 5's weight block under
+    ``fused_eval``: ``serve.weights`` (``serving_weights``), run by
+    ``serve.infer`` (``serving_function``).
+
+    ``fused_eval=True`` runs SA1 as one kernel (selection, capture, folded MLP
+    and max: ``ops/sa_eval_kernel.py``); it needs the stratified SA1 path, as
+    in the JAX package, and SA1 widths the kernel takes
+    (``sa_eval_kernel.check_widths``, which takes those of every
+    ``neuron_multiplier`` 1-32 in bf16 and float32); others raise
+    ``NotImplementedError`` here, when the engine is built.
+
+    ``mesh`` (``parallel.make_mesh``; every rank of it builds the engine and
+    is handed the same requests): each rank serves its ``dp`` slice of a
+    request, and the answers are gathered to every rank in batch order (the
+    JAX package's ``shard_batch`` with replicated weights); a request must
+    be a multiple of the ``dp`` size."""
+    infer = serving_function(model, fused_eval=fused_eval)
+    dev = resolve_device(device)
+    weights = serving_weights(model, dev, fused_eval=fused_eval)
+
+    @torch.inference_mode()
+    def serve(batch: CloudBatch) -> torch.Tensor:
+        batch = dp.shard_batch(batch.to(dev), mesh)
+        return dp.gather_dp(infer(*weights, batch.pos, batch.feat, batch.mask), mesh)
+
+    serve.infer, serve.weights = infer, weights
     return serve
 
 
@@ -175,10 +231,10 @@ def compile_dataset_inference(model: PointNet2Regressor, device=None, *, fused_e
     batch of ``ds`` in order, gathered on the device and run through the
     engine ``compile_inference(model, device, fused_eval=fused_eval)`` builds,
     the pad samples of the partial last batch dropped, rows in the order of
-    ``ds.plot_ids``; every batch is queued before the one host sync."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel serving is not ported yet: ROADMAP A.8")
-    serve = compile_inference(model, device, fused_eval=fused_eval)
+    ``ds.plot_ids``; every batch is queued before the one host sync. Under
+    ``mesh`` each rank serves its ``dp`` slice of every batch and every rank
+    gets every row (``batch_size`` a multiple of the ``dp`` size)."""
+    serve = compile_inference(model, device, fused_eval=fused_eval, mesh=mesh)
 
     def serve_dataset(ds, batch_size: int) -> np.ndarray:
         idxs, augs, valids, _ = ds.epoch_spec_arrays(batch_size)

@@ -6,7 +6,8 @@ dropout, with a plain final Linear. Matmul inputs are cast to
 accumulation; the float32 bias is added before the result is rounded to
 ``compute_dtype``, in the JAX package's order, and the gradients round where
 JAX's do. BatchNorm normalizes by its running statistics in eval and by the
-masked batch statistics in training.
+masked batch statistics in training: under ``parallel.data_parallel`` those of
+the whole batch, summed over the ``dp`` ranks as XLA's SPMD sums them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dl_biomass_tpu_torch.ops.sa_train_kernel import fused_sa_mlp
+from dl_biomass_tpu_torch.parallel import mesh as dp
 
 
 def resolve_activation(name: Optional[str]) -> Optional[Callable]:
@@ -136,8 +138,12 @@ class MaskedBatchNorm(nn.Module):
     def batch_stats(xf: torch.Tensor, mask: Optional[torch.Tensor]):
         """(mean, var, cnt) of float32 ``xf`` over every axis but the last,
         valid slots only: the one-pass ``E[x^2] - mean^2``, clamped at 0, with
-        ``cnt = max(sum(mask), 1)`` (the row count without a mask)."""
+        ``cnt = max(sum(mask), 1)`` (the row count without a mask). Under a
+        mesh the column sums, the sums of squares and the count are summed
+        over the ``dp`` ranks first, differentiably."""
         axes = tuple(range(xf.dim() - 1))
+        if dp.active() is not None:
+            return MaskedBatchNorm._global_stats(xf, mask, axes)
         if mask is not None:
             m = mask.unsqueeze(-1).float()
             cnt = torch.clamp_min(m.sum(), 1.0)
@@ -148,6 +154,23 @@ class MaskedBatchNorm(nn.Module):
             cnt = float(math.prod(xf.shape[:-1]))
             mean = xf.mean(dim=axes)
             e2 = (xf * xf).mean(dim=axes)
+        return mean, torch.clamp_min(e2 - mean * mean, 0.0), cnt
+
+    @staticmethod
+    def _global_stats(xf: torch.Tensor, mask: Optional[torch.Tensor], axes):
+        if mask is not None:
+            m = mask.unsqueeze(-1).float()
+            xm = xf * m
+            local_cnt = m.sum()
+        else:
+            xm = xf
+            local_cnt = torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device)
+        c = xf.shape[-1]
+        mesh = dp.active()
+        sums = dp.sum_dp(torch.cat([xm.sum(dim=axes), (xm * xf).sum(dim=axes)]), mesh, grad=True)
+        cnt = torch.clamp_min(dp.sum_dp(local_cnt, mesh), 1.0)
+        mean = sums[:c] / cnt
+        e2 = sums[c:] / cnt
         return mean, torch.clamp_min(e2 - mean * mean, 0.0), cnt
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -164,10 +187,11 @@ class MaskedBatchNorm(nn.Module):
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's ``nn.Dropout`` rule, ``where(keep, x / (1 - p), 0)``, with the keep
-    draws from ``generator`` on x's device."""
+    draws from ``generator`` on x's device (under a mesh, the whole batch's
+    draws, of which this rank keeps its rows)."""
     if generator is None:
         raise ValueError("train-mode dropout draws from a torch.Generator: pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = dp.rand_rows(x.shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -261,7 +285,7 @@ class FusedSAMLP(MLP):
         if train:
             out, (m1, v1, m2, v2) = fused_sa_mlp(dense, planes, nbr_mask, params, act=self.act,
                                                  bf16=bf16, train=True)
-            cnt = torch.clamp_min(nbr_mask.sum().float(), 1.0)
+            cnt = torch.clamp_min(dp.sum_dp(nbr_mask.sum().float(), dp.active()), 1.0)
             bn0.update_running(m1, v1, cnt)
             bn1.update_running(m2, v2, cnt)
             return out

@@ -6,8 +6,10 @@ holds the smallest in-radius valid index whose residue is j or j + 64. The
 captured edge row is ``[feat_j, pos_j - center_i]`` in the output type, zero
 where the slot is invalid — the SA1 MLP input, with no gather outside.
 
-``ball_group`` launches ``csrc/ball_group.cu`` on a CUDA tensor and runs
-``ball_group_plain`` on a CPU tensor.
+``ball_group`` calls the registered op ``torch.ops.dlbt.ball_group``, which
+launches ``csrc/ball_group.cu`` on a CUDA tensor and runs
+``ball_group_plain`` on a CPU tensor (its fake implementation gives shapes
+from shapes, for ``torch.export``).
 
 ``plan(n, m)`` names the launch for clouds of n points and m centroids,
 mirroring the kernel's template dispatch: the centroids a 128-thread block
@@ -150,13 +152,47 @@ def ball_group(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tens
     ``need_idx``), ``nbr_mask`` (B, M, 64) bool and ``edges`` (B, M, 64, F+3)
     in ``out_dtype`` (bf16 or f32): ``[feat_j, pos_j - center_i]``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
+    The registered op ``dlbt::ball_group``: a CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if pos.device.type == "cpu":
-        return ball_group_plain(centers, center_mask, pos, mask, feat, radius=radius,
-                                out_dtype=out_dtype, need_idx=need_idx)
-    return _launch(centers, center_mask, pos, mask, feat, radius, out_dtype, need_idx, "kernel")
+    if pos.device.type not in ("cpu", "cuda"):  # refused by the launch's checks
+        _launch(centers, center_mask, pos, mask, feat, radius, out_dtype, need_idx, "kernel")
+    idx, nbr_mask, edges = torch.ops.dlbt.ball_group(centers, center_mask, pos, mask, feat,
+                                                     float(radius), out_dtype, need_idx)
+    return (idx if need_idx else None), nbr_mask, edges
+
+
+def _no_idx(idx, like):
+    # an op returns tensors only: "no index" is an empty one
+    return idx if idx is not None else like.new_empty((0,), dtype=torch.int32)
+
+
+@torch.library.custom_op("dlbt::ball_group", mutates_args=(), device_types="cuda")
+def _ball_group_op(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor,
+                   mask: torch.Tensor, feat: Optional[torch.Tensor], radius: float,
+                   out_dtype: torch.dtype, need_idx: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    idx, nbr_mask, edges = _launch(centers, center_mask, pos, mask, feat, radius, out_dtype,
+                                   need_idx, "kernel")
+    return _no_idx(idx, pos), nbr_mask, edges
+
+
+@_ball_group_op.register_kernel("cpu")
+def _(centers, center_mask, pos, mask, feat, radius, out_dtype, need_idx):
+    idx, nbr_mask, edges = ball_group_plain(centers, center_mask, pos, mask, feat,
+                                            radius=radius, out_dtype=out_dtype,
+                                            need_idx=need_idx)
+    return _no_idx(idx, pos), nbr_mask, edges
+
+
+@_ball_group_op.register_fake
+def _(centers, center_mask, pos, mask, feat, radius, out_dtype, need_idx):
+    b, m, _ = centers.shape
+    f = 0 if feat is None else feat.shape[-1]
+    idx = pos.new_empty((b, m, K) if need_idx else (0,), dtype=torch.int32)
+    return (idx, pos.new_empty((b, m, K), dtype=torch.bool),
+            pos.new_empty((b, m, K, f + 3), dtype=out_dtype))
 
 
 def probe(centers, center_mask, pos, mask, feat=None, *, radius: float, mode: str,

@@ -7,8 +7,10 @@ off. Unlike the Pallas kernel it replaces (``pallas_ballquery.py``), which
 drops neighbours when one residue bucket holds more than 8 of the first 64,
 both versions here are exact.
 
-``ball_query_first_k`` launches ``csrc/ball_query.cu`` on a CUDA tensor and
-runs ``ball_query_plain`` on a CPU tensor.
+``ball_query_first_k`` calls the registered op
+``torch.ops.dlbt.ball_query_first_k``, which launches ``csrc/ball_query.cu``
+on a CUDA tensor and runs ``ball_query_plain`` on a CPU tensor (its fake
+implementation gives shapes from shapes, for ``torch.export``).
 
 ``plan(n, m, k)`` names the launch for clouds of n points, m centroids and k
 slots, mirroring the kernel's dispatch: the centroids a block, its warps, the
@@ -147,10 +149,30 @@ def ball_query_first_k(centers: torch.Tensor, center_mask: torch.Tensor, pos: to
     """centers (B, M, 3), center_mask (B, M), pos (B, N, 3), mask (B, N) ->
     idx (B, M, K) int32 (0 where invalid), nbr_mask (B, M, K) bool.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if pos.device.type == "cpu":
-        return ball_query_plain(centers, center_mask, pos, mask, radius=radius, k=k)
+    The registered op ``dlbt::ball_query_first_k``: a CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
+    if pos.device.type not in ("cpu", "cuda"):  # refused by the launch's checks
+        _launch(centers, center_mask, pos, mask, radius, k, "kernel")
+    return torch.ops.dlbt.ball_query_first_k(centers, center_mask, pos, mask, float(radius), k)
+
+
+@torch.library.custom_op("dlbt::ball_query_first_k", mutates_args=(), device_types="cuda")
+def _ball_query_op(centers: torch.Tensor, center_mask: torch.Tensor, pos: torch.Tensor,
+                   mask: torch.Tensor, radius: float, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _launch(centers, center_mask, pos, mask, radius, k, "kernel")
+
+
+@_ball_query_op.register_kernel("cpu")
+def _(centers, center_mask, pos, mask, radius, k):
+    return ball_query_plain(centers, center_mask, pos, mask, radius=radius, k=k)
+
+
+@_ball_query_op.register_fake
+def _(centers, center_mask, pos, mask, radius, k):
+    b, m, _ = centers.shape
+    return (pos.new_empty((b, m, k), dtype=torch.int32),
+            pos.new_empty((b, m, k), dtype=torch.bool))
 
 
 def probe(centers, center_mask, pos, mask, *, radius: float, k: int = 64, mode: str):

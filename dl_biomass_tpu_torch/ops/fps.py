@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from dl_biomass_tpu_torch.ops import fps_kernel
+from dl_biomass_tpu_torch.parallel import mesh as dp
 
 SECTORS = 8  # most sectors fps_sectored splits a cloud into
 
@@ -27,8 +28,9 @@ def random_starts(mask: torch.Tensor, generator: torch.Generator) -> torch.Tenso
     """(B,) a uniform random valid index per row of ``mask`` (B, N), drawn on
     the mask's device: the argmax of uniform noise over the valid points, as
     the JAX package's Gumbel argmax (``_random_start``). A row with no valid
-    point gives 0."""
-    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    point gives 0. Under a mesh the noise is drawn for the whole batch's rows
+    (cloud-major) and this rank keeps its own."""
+    u = dp.rand_rows(mask.shape, generator, mask.device)
     return torch.where(mask, u, -1.0).argmax(dim=1)
 
 

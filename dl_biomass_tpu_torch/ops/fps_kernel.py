@@ -1,7 +1,9 @@
 """Kernel 1: batched, masked farthest-point sampling from given starts.
 
-``fps_rows`` launches ``csrc/fps.cu`` on a CUDA tensor and runs
-``fps_rows_plain`` on a CPU tensor. Both compute the distance in the Pallas
+``fps_rows`` calls the registered op ``torch.ops.dlbt.fps_rows``, which
+launches ``csrc/fps.cu`` on a CUDA tensor and runs ``fps_rows_plain`` on a
+CPU tensor; its fake implementation gives the shape from the shapes, so that
+``torch.export`` traces the model through it. Both compute the distance in the Pallas
 kernel's form, ``|p|^2 - 2 p.l + |l|^2`` (``dl_biomass_tpu/ops/pallas_fps.py``),
 in the same operation order, so they agree index for index.
 
@@ -116,15 +118,34 @@ def fps_rows_plain(pos: torch.Tensor, mask: torch.Tensor, starts: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("dlbt::fps_rows", mutates_args=(), device_types="cuda")
+def _fps_rows_op(pos: torch.Tensor, mask: torch.Tensor, starts: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    return _launch("dlbt_fps", pos, mask, starts, k)
+
+
+@_fps_rows_op.register_kernel("cpu")
+def _(pos, mask, starts, k):
+    return fps_rows_plain(pos, mask, starts, k)
+
+
+@_fps_rows_op.register_fake
+def _(pos, mask, starts, k):
+    return pos.new_empty((pos.shape[0], k), dtype=torch.int32)
+
+
 def fps_rows(pos: torch.Tensor, mask: torch.Tensor, starts: torch.Tensor,
              k: int) -> torch.Tensor:
     """pos (rows, n, 3) f32, mask (rows, n) bool, starts (rows,) -> (rows, k) int32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    on ``plan(n)``'s path, and a row length no path takes raises."""
-    if pos.device.type == "cpu":
-        return fps_rows_plain(pos, mask, starts, k)
-    return _launch("dlbt_fps", pos, mask, starts, k)
+    The registered op ``dlbt::fps_rows``: a CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel on ``plan(n)``'s path, and a
+    row length no path takes raises."""
+    if pos.device.type not in ("cpu", "cuda"):
+        # the launch's checks refuse it: on the meta device the op would give
+        # its fake implementation's shapes, which torch.export alone should
+        _launch("dlbt_fps", pos, mask, starts, k)
+    return torch.ops.dlbt.fps_rows(pos, mask, starts, k)
 
 
 def chain_only(pos, mask, starts, k) -> torch.Tensor:

@@ -29,13 +29,17 @@ the warps a place block) and the wrapper raises where it gives None;
 backward ``scatter_rows``: each launches its CUDA kernel (``csrc/gather.cu``
 entries ``dlbt_gather`` and ``dlbt_gather_aux``, ``csrc/gather_bwd.cu``) on a
 CUDA tensor and runs its plain version (``gather_rows_plain``,
-``gather_rows_aux_plain``, ``scatter_rows_plain``) on a CPU tensor.
+``gather_rows_aux_plain``, ``scatter_rows_plain``) on a CPU tensor. The two
+forwards are the registered ops ``torch.ops.dlbt.gather_rows_forward`` and
+``torch.ops.dlbt.gather_rows_aux`` (fake implementations give shapes from
+shapes, for ``torch.export``); the gradient stays the ``autograd.Function``
+around them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -94,9 +98,19 @@ def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
 def gather_rows_forward(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values (B, N, C), idx (B, M, K) -> (B, M, K, C) in the values' dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if values.device.type == "cpu":
-        return gather_rows_plain(values, idx)
+    The registered op ``dlbt::gather_rows_forward``: a CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel."""
+    if values.device.type not in ("cpu", "cuda"):  # refused by the launch's checks
+        _launch(values, idx)
+    return torch.ops.dlbt.gather_rows_forward(values, idx)
+
+
+@torch.library.custom_op("dlbt::gather_rows_forward", mutates_args=(), device_types="cuda")
+def _gather_op(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return _launch(values, idx)
+
+
+def _launch(values, idx):
     if values.device.type != "cuda":
         raise RuntimeError(f"gather_rows runs on cuda or cpu tensors, got {values.device}")
     _check(values, idx)
@@ -111,6 +125,16 @@ def gather_rows_forward(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor
     _build.launch("dlbt_gather", _ARGTYPES, values.data_ptr(), idx.data_ptr(), out.data_ptr(),
                   b, m * k, n, row_bytes, vec, _build.stream_of(values))
     return out
+
+
+@_gather_op.register_kernel("cpu")
+def _(values, idx):
+    return gather_rows_plain(values, idx)
+
+
+@_gather_op.register_fake
+def _(values, idx):
+    return values.new_empty((*idx.shape, values.shape[-1]))
 
 
 def _check_aux(values, idx, aux):
@@ -130,9 +154,20 @@ def gather_rows_aux(values: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor):
     """values (B, N, C) float32 or bfloat16 and aux (B, N, C2) float32, gathered
     by one idx (B, M, K) -> ((B, M, K, C), (B, M, K, C2)).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if values.device.type == "cpu":
-        return gather_rows_aux_plain(values, idx, aux)
+    The registered op ``dlbt::gather_rows_aux``: a CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
+    if values.device.type not in ("cpu", "cuda"):  # refused by the launch's checks
+        _launch_aux(values, idx, aux)
+    return torch.ops.dlbt.gather_rows_aux(values, idx, aux)
+
+
+@torch.library.custom_op("dlbt::gather_rows_aux", mutates_args=(), device_types="cuda")
+def _gather_aux_op(values: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _launch_aux(values, idx, aux)
+
+
+def _launch_aux(values, idx, aux):
     if values.device.type != "cuda":
         raise RuntimeError(f"gather_rows_aux runs on cuda or cpu tensors, got {values.device}")
     _check_aux(values, idx, aux)
@@ -152,6 +187,17 @@ def gather_rows_aux(values: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor):
                   idx.data_ptr(), out.data_ptr(), out_aux.data_ptr(), b, m * k, n, row_bytes,
                   vec, c2, _build.stream_of(values))
     return out, out_aux
+
+
+@_gather_aux_op.register_kernel("cpu")
+def _(values, idx, aux):
+    return gather_rows_aux_plain(values, idx, aux)
+
+
+@_gather_aux_op.register_fake
+def _(values, idx, aux):
+    return (values.new_empty((*idx.shape, values.shape[-1])),
+            aux.new_empty((*idx.shape, aux.shape[-1])))
 
 
 def _check_scatter(ct, idx, n):

@@ -20,7 +20,11 @@ slot (a centroid with argmax -1 gets nothing):
 
 with ``t2a = sum(db2n) / cnt`` and ``t2b = sum(db2n xhat2) / cnt`` between
 the passes (0 in eval mode: the running statistics are constants),
-dgamma = sum(db xhat) and dbeta = sum(db). The numerics are the JAX
+dgamma = sum(db xhat) and dbeta = sum(db). Under a mesh
+(``parallel.data_parallel``) F1's and F2's sums, ``cnt`` and the sums that
+make t2a, t2b, t1a and t1b are summed over the ``dp`` ranks first, as XLA's
+SPMD sums them over the whole batch; the weight gradients stay this rank's,
+for the step's gradient sum. The numerics are the JAX
 function's: one-pass statistics ``mean = s / cnt``, ``var = max(ss / cnt -
 mean^2, 0)`` with ``cnt = max(sum(nbr_mask), 1)``, eps 1e-5; in bf16 mode
 each product takes bf16-rounded operands with float32 accumulation (the
@@ -71,6 +75,7 @@ from dl_biomass_tpu_torch.core.cloud import round_up
 from dl_biomass_tpu_torch.ops import _build
 from dl_biomass_tpu_torch.ops.pooling import first_argmax
 from dl_biomass_tpu_torch.ops.sa_eval_kernel import _dot_f32
+from dl_biomass_tpu_torch.parallel import mesh as dp
 
 K = 64  # neighbour slots
 EPS = 1e-5
@@ -675,12 +680,22 @@ def _fold(gamma, beta, mean, var):
     return scale, beta - mean * scale
 
 
-def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train, pack=False):
+def _sum_dp(mesh, *parts):
+    """``parts`` summed over the ``dp`` ranks of ``mesh`` in one collective
+    (themselves without a mesh)."""
+    if mesh is None:
+        return parts
+    return dp.sum_dp(torch.cat(parts), mesh).split([p.numel() for p in parts])
+
+
+def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, train, pack=False,
+             mesh=None):
     """F1 -> F2 -> F3 (train) or F3 alone on the running statistics (eval) ->
     (out, [mean1, var1, mean2, var2], argmax, what the backward needs:
     (folds, [(mean1, inv1), (mean2, inv2)], cnt, the weight block)); with
     ``pack`` (the kernels' passes in bf16 on the card) the passes share one
-    ``pack_fwd`` block, which the backward reuses."""
+    ``pack_fwd`` block, which the backward reuses. Under ``mesh`` the
+    statistics are the whole batch's."""
     if not train and running is None:
         raise ValueError("eval mode (train=False) needs the running statistics")
     ft, _ = _types(dense, planes, bf16)
@@ -688,12 +703,12 @@ def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, trai
         params = {k: v.to(ft) for k, v in params.items()}
     wb = pack_fwd(dense, planes, nbr_mask, params) if pack else None
     kw = dict(act=act, bf16=bf16, packed=wb)
-    cnt = torch.clamp_min(nbr_mask.sum().to(ft), 1.0)
+    cnt = torch.clamp_min(_sum_dp(mesh, nbr_mask.sum().to(ft).view(1))[0][0], 1.0)
     folds, stats, norms = [], [], []
     for layer in (1, 2):
         if train:
-            mean, var = _stats(*stage_fn(layer, dense, planes, nbr_mask, params, folds, **kw),
-                               cnt)
+            mean, var = _stats(*_sum_dp(mesh, *stage_fn(layer, dense, planes, nbr_mask, params,
+                                                        folds, **kw)), cnt)
         else:
             mean, var = (r.to(ft) for r in running[2 * layer - 2:2 * layer])
         folds.append(_fold(params[f"gamma{layer}"], params[f"beta{layer}"], mean, var))
@@ -704,22 +719,23 @@ def _forward(stage_fn, dense, planes, nbr_mask, params, running, act, bf16, trai
 
 
 def _backward(stage_fn, dense, planes, nbr_mask, params, state, g, amax, act, bf16, train,
-              pack=False):
+              pack=False, mesh=None):
     """B1 -> B2 -> B3 with the correction terms between them -> (d(dense) or
     None, {parameter name: gradient}); with ``pack`` (the kernels' passes in
     bf16 on the card) the three passes share one ``pack_bwd`` block, on the
-    forward's weight block where it made one."""
+    forward's weight block where it made one. Under ``mesh`` the terms come
+    from the sums over the ``dp`` ranks; the gradients stay this rank's."""
     folds, norms, cnt, wb = state
     kw = dict(act=act, bf16=bf16)
     if pack:
         kw["packed"] = pack_bwd(dense, planes, nbr_mask, params, folds, norms, wb)
     args = (dense, planes, nbr_mask, params, folds, norms)
     dw3, db3, sdb2, sdb2x = stage_fn(1, *args, [], g, amax, **kw)
-    terms = [(sdb2 / cnt, sdb2x / cnt) if train else
+    terms = [tuple(t / cnt for t in _sum_dp(mesh, sdb2, sdb2x)) if train else
              (torch.zeros_like(sdb2), torch.zeros_like(sdb2x))]
     dw2, db2, sdb1, sdb1x = stage_fn(2, *args, terms, g, amax, **kw)
-    terms.append((sdb1 / cnt, sdb1x / cnt) if train else
-                  (torch.zeros_like(sdb1), torch.zeros_like(sdb1x)))
+    terms.append(tuple(t / cnt for t in _sum_dp(mesh, sdb1, sdb1x)) if train else
+                 (torch.zeros_like(sdb1), torch.zeros_like(sdb1x)))
     dw1, db1, d_dense = stage_fn(3, *args, terms, g, amax, **kw)
     return d_dense, dict(w1=dw1, b1=db1, gamma1=sdb1x, beta1=sdb1, w2=dw2, b2=db2,
                          gamma2=sdb2x, beta2=sdb2, w3=dw3, b3=db3)
@@ -739,25 +755,28 @@ class _FusedSAMLP(torch.autograd.Function):
     def forward(ctx, plain, dense, planes, nbr_mask, running, act, bf16, train, *values):
         params = dict(zip(PARAMS, values))
         stage_fn = fused_sa_stage_plain if plain else fused_sa_stage
+        mesh = dp.active() if train else None
         out, stats, amax, state = _forward(stage_fn, dense, planes, nbr_mask, params, running,
-                                           act, bf16, train, pack=_packs(plain, bf16, nbr_mask))
+                                           act, bf16, train, pack=_packs(plain, bf16, nbr_mask),
+                                           mesh=mesh)
         if not train:  # the running statistics, as new tensors
             stats = [s.clone() for s in stats]
         ctx.save_for_backward(dense, planes, nbr_mask, amax, *values)
         ctx.state = state
-        ctx.config = (plain, act, bf16, train)
+        ctx.config = (plain, act, bf16, train, mesh)
         ctx.mark_non_differentiable(amax, *stats)
         return (out, amax, *stats)
 
     @staticmethod
     def backward(ctx, g_out, *_):
         dense, planes, nbr_mask, amax, *values = ctx.saved_tensors
-        plain, act, bf16, train = ctx.config
+        plain, act, bf16, train, mesh = ctx.config
         ft, _ = _types(dense, planes, bf16)
         params = {k: v.to(ft) for k, v in zip(PARAMS, values)}
         stage_fn = fused_sa_bwd_stage_plain if plain else fused_sa_bwd_stage
         d_dense, grads = _backward(stage_fn, dense, planes, nbr_mask, params, ctx.state, g_out,
-                                   amax, act, bf16, train, pack=_packs(plain, bf16, nbr_mask))
+                                   amax, act, bf16, train, pack=_packs(plain, bf16, nbr_mask),
+                                   mesh=mesh)
         need = ctx.needs_input_grad
         d_dense = d_dense.to(dense.dtype) if need[1] and d_dense is not None else None
         return (None, d_dense, None, None, None, None, None, None,
@@ -775,7 +794,8 @@ def _mlp(plain, dense, planes, nbr_mask, params, running, act, bf16, train, retu
         with torch.no_grad():
             out, stats, amax, _ = _forward(fused_sa_stage_plain if plain else fused_sa_stage,
                                            dense, planes, nbr_mask, params, running, act, bf16,
-                                           train, pack=_packs(plain, bf16, nbr_mask))
+                                           train, pack=_packs(plain, bf16, nbr_mask),
+                                           mesh=dp.active() if train else None)
         return out, tuple(stats), amax
     out, amax, *stats = _FusedSAMLP.apply(plain, dense, planes, nbr_mask, running, act, bf16,
                                           train, *(params[k] for k in PARAMS))

@@ -1,0 +1,4 @@
+from dl_biomass_tpu_torch.parallel.mesh import (data_parallel, init_from_env, make_mesh,
+                                                mesh_shape, shard_batch, spawn)
+
+__all__ = ["make_mesh", "mesh_shape", "shard_batch", "data_parallel", "init_from_env", "spawn"]

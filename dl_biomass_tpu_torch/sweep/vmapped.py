@@ -28,6 +28,13 @@ a ``Trainer`` run of the same initial weights, lr and weight decay over
 ``ds.batches(batch_size, seed=epoch_seed, num_augs=, shuffle=True)`` with the
 generator ``trial_generator(t, epoch_seed)``, bit for bit.
 
+Over a mesh (``mesh=``, ``parallel.make_mesh``; every rank of the world in
+it) the T trials split over the mesh's ranks, as the JAX package shards them
+over every mesh axis: rank r runs trials ``r*T/R .. (r+1)*T/R - 1`` in turn on
+each shared batch, and each epoch's validation losses are gathered to every
+rank, which then takes the same early-stopping decisions and returns the same
+results.
+
 Axes that change shapes (batch size, num_augs, point count) group trials into
 separate runs — see :func:`grid_sweep`.
 """
@@ -45,9 +52,6 @@ from dl_biomass_tpu_torch.core.cloud import resolve_device
 from dl_biomass_tpu_torch.core.config import HyperParams, TrainConfig
 from dl_biomass_tpu_torch.io.device_data import derive_seed
 
-_MESH_REFUSAL = ("a sweep over a device mesh is not ported yet: ROADMAP A.8 (parallelism and "
-                 "export)")
-
 
 @dataclass
 class TrialResult:
@@ -63,14 +67,27 @@ class TrialResult:
 class VmappedSweep:
     """T trials over (lr, weight_decay) with shared data, run in turn on each
     batch. ``model`` is the template: every trial builds its architecture
-    (``model_to_dict``) with weights of its own."""
+    (``model_to_dict``) with weights of its own. Under ``mesh`` this rank runs
+    its share of the trials (``local``)."""
 
     def __init__(self, model, lrs: Sequence[float], wds: Sequence[float],
                  optimizer: str = "Adam", patience: int = 10,
                  early_stopping: bool = True, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_REFUSAL)
         assert len(lrs) == len(wds)
+        ranks, rank = 1, 0
+        if mesh is not None:
+            ranks = mesh.size()
+            if len(lrs) % ranks:
+                raise ValueError(f"{len(lrs)} trials not divisible by {ranks} mesh devices")
+            import torch.distributed as dist
+
+            if ranks != dist.get_world_size():
+                raise ValueError(f"a sweep's mesh must hold every rank: {ranks} of "
+                                 f"{dist.get_world_size()}")
+            rank = dist.get_rank()
+        self.mesh, self.rank, self.ranks = mesh, rank, ranks
+        per = len(lrs) // ranks
+        self.local = range(rank * per, (rank + 1) * per)
         self.model = model
         self.lrs = [float(x) for x in lrs]
         self.wds = [float(x) for x in wds]
@@ -90,15 +107,17 @@ class VmappedSweep:
                            early_stopping=self.early_stopping)
 
     def init_states(self, seed: int) -> list:
-        """One ``Trainer`` a trial on the sweep's device, trial t's weights
-        drawn from ``derive_seed(seed, t)``; kept as ``self.trials``."""
+        """One ``Trainer`` a trial of this rank on the sweep's device (None in
+        the places of other ranks' trials), trial t's weights drawn from
+        ``derive_seed(seed, t)``; kept as ``self.trials``."""
         from dl_biomass_tpu_torch.models.pointnet2 import (model_from_dict, model_to_dict,
                                                            seeded_init)
         from dl_biomass_tpu_torch.train.trainer import Trainer
 
         arch = model_to_dict(self.model)
         self.trials = [Trainer(seeded_init(derive_seed(seed, i), model_from_dict, arch),
-                               self.trial_config(i), self.device) for i in range(self.t)]
+                               self.trial_config(i), self.device) if i in self.local else None
+                       for i in range(self.t)]
         return self.trials
 
     def trial_generator(self, i: int, epoch_seed: int) -> torch.Generator:
@@ -110,12 +129,19 @@ class VmappedSweep:
     def evaluate(self, batches, active: Optional[np.ndarray] = None) -> np.ndarray:
         """Each trial's mean eval-mode loss over ``batches`` (on one batch, the
         JAX package's vmapped ``_eval_step``); NaN for a trial outside
-        ``active``."""
+        ``active``. Under a mesh every rank evaluates its trials and gets
+        every trial's loss."""
         out = np.full(self.t, np.nan)
-        for i in range(self.t):
+        for i in self.local:
             if active is None or active[i]:
                 out[i] = self.trials[i].evaluate(batches)
-        return out
+        if self.mesh is None:
+            return out
+        from dl_biomass_tpu_torch.parallel import mesh as dp
+
+        mine = torch.tensor(out[self.local.start:self.local.stop], dtype=torch.float64,
+                            device=self.device)
+        return dp.gather_slices(mine, self.rank, self.ranks, None).cpu().numpy()
 
     def _validate(self, val_ds, batch_size: int, active: np.ndarray) -> np.ndarray:
         """Every active trial's mean loss over the validation batches, which
@@ -144,7 +170,8 @@ class VmappedSweep:
 
         for epoch in range(num_epochs):
             es = derive_seed(seed, epoch)
-            gens = {i: self.trial_generator(i, es) for i in np.flatnonzero(active)}
+            gens = {i: self.trial_generator(i, es) for i in np.flatnonzero(active)
+                    if i in self.local}
             for batch in train_ds.batches(batch_size, seed=es, num_augs=num_augs, shuffle=True):
                 for i, gen in gens.items():
                     self.trials[i].step(batch, gen)
@@ -158,10 +185,9 @@ class VmappedSweep:
                 last_val = np.where(active & ~rising, val_mse, last_val)
                 newly_stopped = active & (trigger >= self.patience)
                 active = active & ~newly_stopped
-            log_fn(
-                f"  epoch {epoch}: active {int(active.sum())}/{self.t}, "
-                f"best val {np.nanmin(best_val):.4f}"
-            )
+            if self.rank == 0:
+                log_fn(f"  epoch {epoch}: active {int(active.sum())}/{self.t}, "
+                       f"best val {np.nanmin(best_val):.4f}")
             if not active.any():
                 break
 
@@ -197,15 +223,14 @@ def grid_sweep(
     """Full (lr x wd) x batch-size grid: the (lr, wd) product runs as one
     sweep per batch size, seeded ``derive_seed(seed, batch_size)``. Results
     are optionally recorded into a Study for the reporting surface
-    (trials_dataframe / param importances)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_REFUSAL)
+    (trials_dataframe / param importances). Under ``mesh`` every grid's
+    trials split over its ranks, as ``VmappedSweep`` splits them."""
     pairs = list(itertools.product(lrs, wds))
     all_results: List[TrialResult] = []
     for bs in batch_sizes:
         sweep = VmappedSweep(
             model_fn, [p[0] for p in pairs], [p[1] for p in pairs],
-            optimizer=optimizer, patience=patience, device=device,
+            optimizer=optimizer, patience=patience, mesh=mesh, device=device,
         )
         log_fn(f"sweep: {len(pairs)} trials in turn on each batch @ batch_size={bs}")
         all_results += sweep.run(

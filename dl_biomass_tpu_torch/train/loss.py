@@ -17,15 +17,20 @@ COMPONENT_NAMES = ("bark", "branch", "foliage", "wood")
 
 
 def weighted_component_mse(pred: torch.Tensor, target: torch.Tensor,
-                           sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           sample_weight: Optional[torch.Tensor] = None,
+                           total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scalar loss: sum_c w_c * MSE_c, the MSE over the batch per component.
-    ``sample_weight`` (B,) is 0/1, 0 for pad clouds."""
+    ``sample_weight`` (B,) is 0/1, 0 for pad clouds. ``total_weight`` divides
+    in place of ``sample_weight``'s sum: the real clouds of the whole batch
+    when this is one rank's share of it, so that the ranks' shares add up to
+    the whole batch's mean however the pad clouds fall."""
     se = torch.square(pred - target)  # (B, 4)
     if sample_weight is None:
         per_comp = se.mean(dim=0)
     else:
         w = sample_weight.to(se.dtype)[:, None]
-        per_comp = (se * w).sum(dim=0) / torch.clamp_min(w.sum(), 1.0)
+        n = w.sum() if total_weight is None else total_weight.to(se.dtype)
+        per_comp = (se * w).sum(dim=0) / torch.clamp_min(n, 1.0)
     return (per_comp * _weights(se.dtype, se.device)).sum()
 
 

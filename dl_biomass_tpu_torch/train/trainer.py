@@ -19,6 +19,21 @@ and steps on the device from one integer seed: ``train_epoch_fused`` hands
 each step its specs, ``train_epoch_scan`` hands the epoch's specs over as one
 tensor each and indexes them per step; both give the losses and parameters
 of ``train_epoch(ds.batches(...), step_generator(seed))``, bit for bit.
+
+Data parallelism (``mesh=``, a ``parallel.make_mesh`` mesh; the JAX package's
+params replicated and batch sharded over ``dp``): every rank holds the same
+parameters, buffers and Adam state (rank 0's, broadcast at the start and
+after a resume) and is handed the whole batch, of which it steps on its
+``dp`` slice (a batch the ``dp`` size does not divide raises). The FPS
+starts and the dropout are drawn for the whole batch from the shared
+generator and sliced (``parallel/mesh.rand_rows``); the BatchNorm statistics
+and kernel 6's sums are the whole batch's. The loss is the whole batch's
+mean: each rank's share is its clouds' squared errors over the count of
+real clouds of the whole batch, so the shares add up to the mean however
+the pad clouds fall, and the gradients are summed over the ranks before the
+optimizer step. Evaluation's losses and ``predict``'s rows are the whole
+batch's on every rank; ``fit`` takes its decisions from rank 0's numbers,
+and only rank 0 writes checkpoints, the CSV and TensorBoard.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import torch
 from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
 from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.models.pointnet2 import model_to_dict
+from dl_biomass_tpu_torch.parallel import mesh as dp
 from dl_biomass_tpu_torch.train import checkpoint
 from dl_biomass_tpu_torch.train.loss import weighted_component_mse
 
@@ -81,35 +97,54 @@ def _pad_weight(batch: CloudBatch) -> torch.Tensor:
 
 class Trainer:
     """Trains ``model`` on ``device`` (None: the card, which must exist;
-    ``"cpu"`` runs the kernels' plain versions)."""
+    ``"cpu"`` runs the kernels' plain versions), over the ``dp`` axis of
+    ``mesh`` where one is given (every rank of it builds its ``Trainer``)."""
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, device=None):
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, device=None, mesh=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
+        self.mesh = mesh
         self.optimizer = make_optimizer(self.model.parameters(), cfg.hp)
+        if mesh is not None:
+            dp.broadcast_module(self.model)
+
+    def _loss(self, out: torch.Tensor, batch: CloudBatch) -> torch.Tensor:
+        """The weighted MSE of this rank's clouds over the real clouds of the
+        whole batch (the loss itself without a mesh)."""
+        w = _pad_weight(batch)
+        total = None if self.mesh is None else dp.sum_dp(w.sum().float(), self.mesh)
+        return weighted_component_mse(out, batch.y, w, total_weight=total)
 
     # ---- steps ---------------------------------------------------------------
 
     def step(self, batch: CloudBatch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One gradient step; returns the loss (a device tensor, not synced).
-        After it, each parameter's ``.grad`` holds this step's gradient."""
+        After it, each parameter's ``.grad`` holds this step's gradient (under
+        a mesh, the whole batch's, summed over the ranks)."""
         batch = batch.to(self.device)
-        self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(batch, train=True, generator=generator)
-        loss = weighted_component_mse(out, batch.y, _pad_weight(batch))
-        loss.backward()
+        with dp.data_parallel(self.mesh):
+            local = dp.shard_batch(batch, self.mesh)
+            self.optimizer.zero_grad(set_to_none=True)
+            out = self.model(local, train=True, generator=generator)
+            loss = self._loss(out, local)
+            loss.backward()
+        if self.mesh is not None:
+            dp.sum_grads(self.model.parameters(), self.mesh)
         self.optimizer.step()
-        return loss.detach()
+        return dp.sum_dp(loss.detach(), self.mesh)
 
     @torch.inference_mode()
     def _eval_batch(self, batch: CloudBatch):
-        """(loss, predictions, real-cloud mask) of one eval-mode forward."""
+        """(loss, predictions, real-cloud mask) of one eval-mode forward; under
+        a mesh the whole batch's loss and rows."""
         batch = batch.to(self.device)
-        out = self.model(batch, train=False)
-        keep = _pad_weight(batch)
-        return weighted_component_mse(out, batch.y, keep), out, keep
+        with dp.data_parallel(self.mesh):
+            local = dp.shard_batch(batch, self.mesh)
+            out = self.model(local, train=False)
+            loss = dp.sum_dp(self._loss(out, local), self.mesh)
+            return loss, dp.gather_dp(out, self.mesh), _pad_weight(batch)
 
     # ---- loops ---------------------------------------------------------------
 
@@ -225,6 +260,9 @@ class Trainer:
         cfg = self.cfg
         num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         stopper = EarlyStopping(cfg.hp.patience, cfg.early_stopping)
+        writes = dp.is_writer(self.mesh)
+        if not writes:  # the other ranks of a mesh: rank 0 logs and writes
+            log_fn, metric_writer, csv_path = (lambda _: None), None, None
         history: Dict[str, Any] = {"epoch": [], "train_mse": [], "val_mse": [],
                                    "epoch_seconds": [], "clouds_per_sec": []}
         best_val = np.inf
@@ -234,6 +272,9 @@ class Trainer:
 
         if resume and checkpoint_dir:
             meta = checkpoint.restore_latest(checkpoint_dir, self.model, self.optimizer)
+            if self.mesh is not None:
+                dp.broadcast_module(self.model)
+                dp.broadcast_optimizer(self.optimizer)
             if meta is not None:
                 start_epoch = int(meta["epoch"]) + 1
                 best_val = float(meta["val_mse"])
@@ -241,7 +282,7 @@ class Trainer:
                 best_state = copy.deepcopy(self.model.state_dict())
                 log_fn(f"Resuming from epoch {start_epoch} (best val MSE {best_val:.4f})")
 
-        if checkpoint_dir:
+        if checkpoint_dir and writes:
             # sidecar so that evaluation can rebuild the exact model later
             os.makedirs(checkpoint_dir, exist_ok=True)
             with open(os.path.join(checkpoint_dir, "model_config.json"), "w") as f:
@@ -258,6 +299,8 @@ class Trainer:
                                                        self.epoch_generator(epoch))
             val_mse = self.evaluate(val_batches_fn if _is_device_dataset(val_batches_fn)
                                     else val_batches_fn())
+            if self.mesh is not None:  # every rank decides on rank 0's numbers
+                train_mse, val_mse = dp.same_on_all([train_mse, val_mse], self.device)
             dt = time.perf_counter() - t0
 
             history["epoch"].append(epoch)
@@ -276,7 +319,7 @@ class Trainer:
             if val_mse <= best_val:
                 best_val = val_mse
                 best_state = copy.deepcopy(self.model.state_dict())
-                if checkpoint_dir:
+                if checkpoint_dir and writes:
                     checkpoint.save_checkpoint(checkpoint_dir, self.model, self.optimizer,
                                                epoch=epoch, val_mse=val_mse)
                 log_fn(f"    Saving model for epoch {epoch}")

@@ -5,7 +5,9 @@
 the research subcommands on the same corpus (``sweep``, ``tune`` and
 ``--continue-study``, ``density``, ``seed-study``, ``visualize-aug``,
 ``parity-record`` and ``parity-check``), also with scikit-learn or matplotlib
-hidden; the unported subcommand; and the refusals without a card."""
+hidden; ``export-model`` then ``predict --from-export``; ``train`` with a
+config mesh in one process; every subcommand of the JAX CLI ported; and the
+refusals without a card."""
 
 import contextlib
 import io
@@ -301,11 +303,38 @@ def test_without_matplotlib_no_figure_is_written(research, monkeypatch):
     assert not (root / "nomp" / "vis.png").exists()
 
 
-@pytest.mark.parametrize("cmd", sorted(UNPORTED))
-def test_unported_subcommands_exit_2_naming_their_roadmap_item(cmd, capsys):
-    assert main([cmd, "--anything"]) == 2
-    out = capsys.readouterr().out
-    assert cmd in out and f"ROADMAP {UNPORTED[cmd].split()[0]}" in out
+def test_every_subcommand_of_the_jax_cli_is_ported():
+    from dl_biomass_tpu.__main__ import COMMANDS as JAX_COMMANDS
+    from dl_biomass_tpu_torch.__main__ import COMMANDS
+
+    assert UNPORTED == {} and set(JAX_COMMANDS) <= set(COMMANDS)
+
+
+def test_export_model_then_predict_from_export(pipeline, monkeypatch):
+    """The deployment loop: checkpoint -> ``export-model --device cpu`` (the
+    points rounded up to the 128-point capacity) -> ``predict --from-export``,
+    whose rows are the engine's (``engine.csv``); ``--watch`` serves from the
+    artifact too."""
+    root, _ = pipeline
+    monkeypatch.chdir(root)
+    out = run("export-model", "--model-dir", "models", "--out", "art", "--batch-size", "4",
+              "--num-points", str(POINTS), "--device", "cpu")
+    assert "wrote artifact -> art (platforms ['cpu'], envelope 4x384x1)" in out
+    meta = json.loads((root / "art" / "meta.json").read_text())
+    assert meta["num_points"] == 384 and meta["platforms"] == ["cpu"]
+    common = ("--presampled-suffix", SUFFIX, "--from-export", "art", "--device", "cpu")
+    out = run("predict", "--in-dir", "fps/test", "--out", "export.csv", "--model-dir", "none",
+              *common)
+    assert "Using exported artifact: art" in out
+    engine = pd.read_csv(root / "engine.csv", index_col="PlotID")
+    exported = pd.read_csv(root / "export.csv", index_col="PlotID")
+    assert list(exported.index) == list(engine.index)
+    np.testing.assert_allclose(exported.to_numpy(), engine.to_numpy(), rtol=1e-6, atol=1e-6)
+    run("predict", "--in-dir", "fps/test", "--out", "watch_export.csv", "--watch",
+        "--max-polls", "1", "--poll-seconds", "0", *common)
+    watched = pd.read_csv(root / "watch_export.csv", index_col="PlotID")
+    np.testing.assert_allclose(watched.loc[engine.index].to_numpy(), engine.to_numpy(),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_help_and_an_unknown_command(capsys):
@@ -319,6 +348,8 @@ def test_help_and_an_unknown_command(capsys):
     ["evaluate", "--config", "cfg.json", "--model-dir", "models", "--data.test_dir", "fps/test"],
     ["resample", "--in-dir", "raw/test", "--out-dir", "again", "--engine", "numpy"],
     ["predict", "--model-dir", "models", "--in-dir", "fps/test", "--out", "x.csv"],
+    ["export-model", "--model-dir", "models", "--out", "art_card"],
+    ["predict", "--from-export", "art_card", "--in-dir", "fps/test", "--out", "x.csv"],
     *[RESEARCH[name] for name in ("sweep", "tune", "density", "seed-study", "visualize-aug",
                                   "parity-record")],
     ["parity-check", "--data-dir", str(FIX), "--biomass-csv", str(FIX / "biomass.csv"),
@@ -332,7 +363,12 @@ def test_every_subcommand_needs_a_card_or_device_cpu(pipeline, argv, monkeypatch
         main(argv)
 
 
-def test_train_refuses_a_mesh(pipeline, monkeypatch):
-    monkeypatch.chdir(pipeline[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        main(["train", "--config", "cfg.json", "--mesh.dp", "2", "--device", "cpu"])
+def test_train_in_one_process_leaves_the_config_mesh_aside(pipeline, monkeypatch):
+    """Outside ``torchrun`` (one process) a config's mesh is not used, as the
+    JAX CLI uses none over one device: the same log as without it."""
+    root, _ = pipeline
+    monkeypatch.chdir(root)
+    run("train", "--config", "cfg.json", "--num_epochs", "2", "--model_dir", "mesh1",
+        "--mesh.dp", "2", "--device", "cpu")
+    assert (root / "mesh1" / "training_log.csv").read_text() == (
+        root / "models" / "training_log.csv").read_text()

@@ -296,5 +296,3 @@ def test_compile_dataset_inference_matches_jax(dtype, fused_eval, rtol):
     serve = compile_inference(tm, "cpu", fused_eval=fused_eval)
     rows = torch.cat([serve(b) for b in tds.batches(2)]).numpy()[:5]
     np.testing.assert_array_equal(got, rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        compile_dataset_inference(tm, "cpu", mesh=object())

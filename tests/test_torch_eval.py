@@ -192,8 +192,9 @@ def test_predict_directory_engine_and_module_agree(served):
 
 def test_predict_directory_refuses_an_export_and_an_empty_directory(served, tmp_path):
     model_dir, _ = served
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        predict.predict_directory(str(model_dir), str(tmp_path), export_path="x", device="cpu")
+    with pytest.raises(FileNotFoundError, match="meta.json"):  # no artifact at the path
+        predict.predict_directory(str(model_dir), str(tmp_path), export_path=str(tmp_path / "x"),
+                                  device="cpu")
     with pytest.raises(FileNotFoundError, match="no \\*.las plots"):
         predict.predict_directory(str(model_dir), str(tmp_path), device="cpu")
 

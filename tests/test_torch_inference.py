@@ -89,7 +89,6 @@ def test_default_device_raises_without_a_card():
 @pytest.mark.parametrize("kwargs,model_kwargs,match", [
     # fused_eval needs the stratified SA1 path, as in the JAX package
     (dict(fused_eval=True), dict(exact_selection=True), "fused_eval"),
-    (dict(mesh=object()), {}, "ROADMAP A.8"),
     (dict(fused_eval=True), dict(fast_group=False), "fused_eval"),
     ({}, dict(activation_function="ELU"), "ReLU"),
 ])

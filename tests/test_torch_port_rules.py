@@ -69,6 +69,14 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "clean", out.stderr
 
 
+def test_the_mesh_and_export_modules_are_checked():
+    """The no-jax checks above cover the data-parallel mesh and the serving
+    export, and ``chip_smoke.py``, which drives both."""
+    for sub in ("parallel/__init__.py", "parallel/mesh.py", "models/export.py"):
+        assert PORT / sub in PORT_FILES, sub
+    assert ROOT / "chip_smoke.py" in PORT_FILES
+
+
 def test_the_disk_path_subpackages_and_the_cli_are_checked():
     """The no-jax checks above cover ``native``, ``eval``, ``utils`` and
     ``__main__.py`` (every file under the package is in ``PORT_FILES``)."""

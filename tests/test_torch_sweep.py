@@ -9,7 +9,9 @@
   (f32, ``F32_RTOL``); the early-stopping bookkeeping of ``run`` against the
   JAX ``run`` with its compiled steps stubbed, on scripted val MSEs; a stopped
   trial's parameters, moments and running statistics kept bit for bit, and a
-  trial's run equal to a ``Trainer`` run bit for bit; the mesh refusals.
+  trial's run equal to a ``Trainer`` run bit for bit; a trial count the
+  mesh's ranks do not divide refused with the JAX package's message (the
+  sweep over a 2-rank mesh is in ``tests/test_torch_mesh.py``).
 - ``sweep/objective.py``: the search space and the config each trial trains
   with, against ``make_training_objective``.
 """
@@ -390,14 +392,22 @@ def test_trials_draw_their_own_weights_and_streams():
     assert not torch.equal(torch.rand(4, generator=g0), torch.rand(4, generator=g1))
 
 
+class _TwoRanks:
+    """A stand-in for a mesh of two ranks: the trial split reads its size."""
+
+    def size(self):
+        return 2
+
+
 @pytest.mark.parametrize("call", ["sweep", "grid_sweep"])
-def test_a_mesh_is_refused_citing_roadmap_a8(call, tiny_data):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+def test_trials_the_mesh_ranks_do_not_divide_are_refused(call, tiny_data):
+    """The JAX package's rule and message (``vmapped.py:94-104``)."""
+    with pytest.raises(ValueError, match="3 trials not divisible by 2 mesh devices"):
         if call == "sweep":
-            port_sweep([1e-3], [0.0], mesh=object())
+            port_sweep([1e-3, 1e-2, 1e-1], [0.0, 0.0, 0.0], mesh=_TwoRanks())
         else:
-            grid_sweep(PointNet2Regressor(num_features=1), *tiny_data, lrs=[1e-3], wds=[0.0],
-                       mesh=object(), device="cpu")
+            grid_sweep(PointNet2Regressor(num_features=1), *tiny_data, lrs=[1e-3, 1e-2, 1e-1],
+                       wds=[0.0], mesh=_TwoRanks(), device="cpu")
 
 
 def test_grid_sweep_records_its_trials_in_a_study(tiny_data):
