@@ -257,7 +257,29 @@ Phases, each of which raises on failure (exit code 1):
              of 36 plots of 12,288 points, its log against the same command in
              one process (within 2^-8). A rank that fails ends the run with a
              non-zero exit.
-18. summary — one JSON line of the kernels with their launches by path, the
+18. variants — the model variants and the other families at full width, 16
+             x 10240 (remat 36 x 10240), production preset, seeded weights:
+             ``msg`` and ``msg`` + ``doubled_radius`` (two radii a layer, one
+             FPS: kernel 2 at both SA1 radii, kernels 3, 4a and 4b at both SA2
+             radii) 12 steps each with launches per step, one step against the
+             plain-version step, the eval forward against the plain forward, and
+             kernel 2 at r=4 and kernel 3 at r=16 timed beside their bounds;
+             ``msg`` + ``fused_sa`` (kernel 6 at both scales, SA2's
+             [256+3, 128, 128, 256] per scale) one step against the plain step
+             in phase 11's bf16 bounds; ``analytic_bn`` with head dropout 0.5
+             (SA2 through 4c) 12 steps and a step against plain, its engine
+             bit-identical to the standard model's on the same weights;
+             ``remat`` one step bit-identical to the plain step (loss,
+             gradients, running statistics), then 12 steps each with ms/step
+             and peak memory; ``pointnet2_v2`` through ``compile_inference``
+             and the ``torch.export`` artifact; the voxel family
+             (``voxelize`` on the card against a CPU copy, then the probe's
+             configuration, ``voxelnet_deep`` and ``voxelnet_wide48``, 12
+             steps each); the per-point segmentor (exact FPS, kernel 3, 4a,
+             4b) forward and one step against the plain versions;
+             ``voxel_select_first`` on 16 plots of 50,000 raw points at 0.35 m,
+             10240 kept, index-equal to the host path.
+19. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -583,25 +605,33 @@ def synthetic_batch(num: int, n_points: int, seed: int, device, sizes=None):
 
 def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa: bool = False,
                  compute_dtype: str = "bfloat16", activation: str = "ReLU",
-                 neuron_multiplier: int = 0):
+                 neuron_multiplier: int = 0, **model_fields):
     """The production model with weights from a seeded ``torch.Generator``:
     torch-default Linear ranges and BatchNorm affine + running statistics away
     from identity, so that folding does real work. ``split_first_layer``,
     ``fused_sa``, ``compute_dtype`` and ``activation`` change the path, not
     the weights; ``neuron_multiplier`` (0 or 1: the production widths) scales
-    every width, as the reference's constructor knob does."""
+    every width, as the reference's constructor knob does; ``model_fields``
+    (``msg``, ``doubled_radius``, ``analytic_bn``, ``remat``) set more of the
+    config's model section."""
     import dataclasses
 
     from dl_biomass_tpu_torch.core.config import TrainConfig
-    from dl_biomass_tpu_torch.models.layers import Dense, MaskedBatchNorm
     from dl_biomass_tpu_torch.models.pointnet2 import build_model
 
     cfg = TrainConfig()
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, split_first_layer=split_first_layer, fused_sa=fused_sa,
-        compute_dtype=compute_dtype), hp=dataclasses.replace(
+        compute_dtype=compute_dtype, **model_fields), hp=dataclasses.replace(
             cfg.hp, activation_function=activation, neuron_multiplier=neuron_multiplier))
-    model = build_model(cfg, num_features=1)
+    return seed_weights(build_model(cfg, num_features=1), seed).to(device)
+
+
+def seed_weights(model, seed: int):
+    """``model`` with its Linear and BatchNorm weights and statistics drawn
+    from ``seed`` (``seeded_model``'s draws, module by module)."""
+    from dl_biomass_tpu_torch.models.layers import Dense, MaskedBatchNorm
+
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -615,7 +645,7 @@ def seeded_model(device, seed: int = 0, split_first_layer: bool = True, fused_sa
                 mod.bias.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_mean.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_var.copy_(0.5 + 1.5 * torch.rand(c, generator=g))
-    return model.to(device)
+    return model
 
 
 def kernel_sites():
@@ -1422,7 +1452,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 18: summary
+    # phase 19: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1441,7 +1471,7 @@ PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit",
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-17; returns the kernels' summary rows, with each kernel's
+    """Phases 2-18; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1458,12 +1488,18 @@ def drive(device, card: str) -> list:
     resample = disk_pipeline(device, card, launches)
     research(device, card, launches)
     mesh_export(device, card, launches)
+    msg_radii = variants(device, card, launches)
     next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
     next(r for r in rows if r["entry"] == "dlbt_fps")["resample"] = resample
+    for entry, t in (("dlbt_ball_group", msg_radii["group"]),
+                     ("dlbt_ball_query", msg_radii["query"])):  # at msg's second radius
+        next(r for r in rows if r["entry"] == entry)[f"msg_r{t['radius']:g}"] = {
+            k: t[k] for k in ("label", "ms", "graph_ms", "alone_ms", "bound_ms", "bound_by",
+                              "tests")}
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
-        by_path = {path: launches[path][w] for path in PATHS}
+        by_path = {path: launches[path][w] for path in PATHS + VARIANT_PATHS}
         if not r["source"].endswith((FWD_SOURCE, BWD_SOURCE)) and w in ENTRIES_6:
             # kernel 6's entries also run the CUDA-core kernel where mma_takes refuses
             r["cuda_core_launches_by_path"] = {p: c.get(w, 0) for p, c in
@@ -3804,6 +3840,378 @@ def mesh_export(device, card: str, launches: dict) -> None:
     mesh_paths(device, card, launches)
     with tempfile.TemporaryDirectory() as tmp:
         mesh_cli(device, card, Path(tmp))
+
+
+# phase 18: the model variants and the other families at full width, B=VAR_BATCH x
+# N_POINTS (remat at REMAT_BATCH), production preset, seeded weights; VAR_STEPS
+# steps a timed run; voxel_select_first on SELECT_PLOTS raw plots of SELECT_RAW
+# points at SELECT_VOXEL m voxels, SELECT_KEEP kept
+VAR_BATCH, REMAT_BATCH, VAR_SEED = SMALL, LARGE, 70
+VAR_STEPS = TRAIN_WARMUP + TRAIN_TIMED
+SELECT_PLOTS, SELECT_RAW, SELECT_VOXEL, SELECT_KEEP = 16, 50_000, 0.35, N_POINTS
+# the segmentor's forward and step on the kernels vs on the plain versions
+# (float32, every kernel exact: only the order of cuBLAS sums could differ)
+SEGMENTOR_RTOL = 1e-5
+VARIANT_PATHS = ("msg", "msg_doubled", "msg_fused_sa", "analytic_bn", "remat", "v2_serve",
+                 "voxelnet", "segmentor")
+# launches per step (msg, msg_doubled, analytic_bn, remat), per step of the
+# kernels (msg_fused_sa), per forward (v2_serve: the engine and the artifact),
+# per step (voxelnet: no kernel of the port), per forward and step (segmentor)
+EXPECTED.update({
+    # two scales a layer: kernel 2 at both of SA1's radii, kernels 3, 4a and 4b
+    # at both of SA2's
+    "msg": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2, dlbt_gather=2,
+                   dlbt_scatter_rows=2),
+    "msg_doubled": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2, dlbt_gather=2,
+                           dlbt_scatter_rows=2),
+    # kernel 6 at each scale (kernel 2's planes at SA1, 4c's rows at SA2)
+    "msg_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2,
+                            dlbt_gather_aux=2, dlbt_scatter_rows=2, dlbt_fused_sa_f1=4,
+                            dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=4, dlbt_fused_sa_b1=4,
+                            dlbt_fused_sa_b2=4, dlbt_fused_sa_b3=4),
+    # the folded form turns the split first layer off: SA2 gathers through 4c
+    "analytic_bn": EXPECTED["train_unsplit"],
+    "remat": EXPECTED["train"],
+    "v2_serve": EXPECTED["serve"],
+    "voxelnet": per_run(),
+    # exact FPS and kernel 3 at SA1 and SA2, SA2 split (4a); the step adds 4b
+    "segmentor": per_run(dlbt_fps=4, dlbt_ball_query=4, dlbt_gather=2, dlbt_scatter_rows=1),
+})
+
+
+def msg_radii_kernels(model, batch, card: str) -> dict:
+    """Kernel 2 at SA1's second radius and kernel 3 at SA2's second (4 and 16
+    under msg), at the inputs one eval forward of the msg model gives them:
+    exact against their plain versions, timed beside their bounds."""
+    with torch.no_grad():
+        calls = record_kernel_inputs(lambda b: model(b), batch)
+    (g_args, g_kw) = calls["ball_group"][1]
+    (q_args, q_kw) = calls["ball_query_first_k"][1]
+    group = time_group(f"msg SA1 r={g_kw['radius']} B={VAR_BATCH} x {N_POINTS}", g_args, g_kw,
+                       card)
+    group["radius"] = g_kw["radius"]
+    print(f"kernel ball_group {group['label']}: " + " ".join(
+        f"{k}={round(v, 6) if isinstance(v, float) else v}" for k, v in group.items()
+        if k != "label") + f"; index-exact, repeats identical [{card}]", flush=True)
+    query = time_query(f"msg SA2 r={q_kw['radius']} B={VAR_BATCH} x {N_POINTS}", q_args, q_kw,
+                       card)
+    return dict(group=group, query=query)
+
+
+def msg_paths(device, card: str, launches: dict) -> dict:
+    """Phase 18, msg: the msg model and msg + doubled_radius, VAR_STEPS steps
+    each (launches per step counted), one step on the kernels against one on
+    the plain versions, the eval forward against the plain forward; kernels 2
+    and 3 at the second radii; msg + fused_sa, one step against the plain
+    step in phase 11's bf16 bounds."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import sa_train_kernel as k6
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    batch = synthetic_batch(VAR_BATCH, N_POINTS, seed=VAR_SEED, device=device)
+    timings = {}
+    for path, fields in (("msg", dict(msg=True)),
+                         ("msg_doubled", dict(msg=True, doubled_radius=True))):
+        trainer = Trainer(seeded_model(device, **fields), TrainConfig(), device)
+        model = trainer.model
+        radii = (model.sa1.radii, model.sa2.radii)
+        with torch.inference_mode():
+            out = model(batch)
+            with ExitStack() as stack:
+                for p in plain_versions():
+                    stack.enter_context(p)
+                plain = model(batch)
+        rel = rel_diff(out, plain)
+        require(bool(torch.isfinite(out).all()) and rel <= BF16_SERVE_RTOL,
+                f"{path}: eval forward vs plain rel {rel}")
+        if path == "msg":
+            timings = msg_radii_kernels(model, batch, card)
+        ms, peak = counted_run(path, lambda: train_timing(
+            trainer, batch, train_gen(device, 100), f"{path} B={VAR_BATCH} x {N_POINTS}",
+            card, EXPECTED[path]), launches, VAR_STEPS)
+        compare_plain_step(trainer, batch, seed=7)
+        print(f"{path} (radii SA1 {radii[0]}, SA2 {radii[1]}): eval forward vs plain-version "
+              f"forward max|diff|/max|y| {rel:.3e} (bound {BF16_SERVE_RTOL}); {ms:.3f} ms/step, "
+              f"{VAR_BATCH / ms * 1e3:.1f} clouds/s, peak {peak:.2f} GiB; launches per step "
+              f"{ {k: v // VAR_STEPS for k, v in launches[path].items() if v} } [{card}]",
+              flush=True)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    fused = Trainer(seeded_model(device, fused_sa=True, msg=True), TrainConfig(), device)
+    calls = {}
+    note = counted_run("msg_fused_sa", lambda: _recorded_step(fused, batch, calls), launches, 1)
+    cores = {}
+    for calls_of, entries, backward in ((calls["fused_sa_stage"], k6.ENTRIES, False),
+                                        (calls["fused_sa_bwd_stage"], k6.BWD_ENTRIES, True)):
+        for (stage, dense, planes, _, params, *_), kw in calls_of:
+            source = k6.pass_source(stage, backward, 0 if dense is None else dense.shape[-1],
+                                    0 if planes is None else planes.shape[-1], params,
+                                    kw.get("bf16", False))
+            if source == (BWD_SOURCE if backward else FWD_SOURCE):
+                cores[entries[stage]] = cores.get(entries[stage], 0) + 1
+    launches.setdefault("cuda_core", {})["msg_fused_sa"] = cores
+    print(f"msg_fused_sa (SA2 per scale {[l.in_features for l in fused.model.sa2.mlp.linears()]}"
+          f" -> {fused.model.sa2.mlp.lin2.out_features}) launches in one step: "
+          f"{launches['msg_fused_sa']}; of kernel 6 on the CUDA-core kernel ({FWD_SOURCE}, "
+          f"{BWD_SOURCE}): {cores}; step on the kernels vs on the plain versions: {note} "
+          f"[{card}]", flush=True)
+    del fused, calls
+    torch.cuda.empty_cache()
+    return timings
+
+
+def _recorded_step(trainer, batch, calls: dict) -> str:
+    """One fused_sa step on the kernels against one on the plain versions
+    (``compare_fused_plain_step``), the kernels' calls recorded into ``calls``."""
+    out = []
+    calls.update(record_kernel_inputs(
+        lambda b: out.append(compare_fused_plain_step(trainer, b, 7, bf16=True)), batch))
+    return out[0]
+
+
+def analytic_and_remat(device, card: str, launches: dict) -> None:
+    """Phase 18, analytic_bn (head dropout 0.5): VAR_STEPS steps beside the
+    standard model's, one step on the kernels against one on the plain
+    versions, and its serving engine bit for bit the standard model's on the
+    same weights; remat at REMAT_BATCH:
+    VAR_STEPS steps beside the plain model's on the same batch (ms/step, peak
+    memory), and one step of each from one state: the same loss, gradients and
+    running statistics, bit for bit."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    batch = synthetic_batch(VAR_BATCH, N_POINTS, seed=VAR_SEED + 1, device=device)
+    trainer = Trainer(seeded_model(device, analytic_bn=True), TrainConfig(), device)
+    standard = seeded_model(device)  # the same draws: the same weights, unfolded
+    require(trainer.model.head.dropout == 0.5, "analytic_bn: the head's dropout is not 0.5")
+    with torch.inference_mode():
+        served = compile_inference(trainer.model, device)(batch)
+        std_served = compile_inference(standard, device)(batch)
+    require(torch.equal(served, std_served),
+            "analytic_bn: its engine differs from the standard model's on the same weights")
+    ms, peak = counted_run("analytic_bn", lambda: train_timing(
+        trainer, batch, train_gen(device, 100), f"analytic_bn B={VAR_BATCH} x {N_POINTS}", card,
+        EXPECTED["analytic_bn"]), launches, VAR_STEPS)
+    compare_plain_step(trainer, batch, seed=7)
+    ms_s, peak_s = train_timing(Trainer(standard, TrainConfig(), device), batch,
+                                train_gen(device, 100), f"standard B={VAR_BATCH} x {N_POINTS}",
+                                card, EXPECTED["train"])
+    print(f"analytic_bn (head dropout 0.5): {ms:.3f} ms/step, {VAR_BATCH / ms * 1e3:.1f} "
+          f"clouds/s, peak {peak:.2f} GiB; the standard model's steps on the same batch "
+          f"{ms_s:.3f} ms/step, peak {peak_s:.2f} GiB; its engine bit-identical to the standard "
+          f"model's on the same weights [{card}]", flush=True)
+    del trainer, standard
+    torch.cuda.empty_cache()
+
+    batch = synthetic_batch(REMAT_BATCH, N_POINTS, seed=VAR_SEED + 2, device=device)
+    remat = Trainer(seeded_model(device, remat=True), TrainConfig(), device)
+    plain = Trainer(seeded_model(device), TrainConfig(), device)
+    state = copy.deepcopy(plain.model.state_dict())
+    steps = {}
+    for name, t in (("plain", plain), ("remat", remat)):
+        loss = t.step(batch, train_gen(device, 5))
+        steps[name] = (loss, {k: p.grad.clone() for k, p in t.model.named_parameters()},
+                       copy.deepcopy(t.model.state_dict()))
+    (lp, gp, sp), (lr, gr, sr) = steps["plain"], steps["remat"]
+    same = (torch.equal(lp, lr) and all(torch.equal(gp[k], gr[k]) for k in gp)
+            and all(torch.equal(sp[k], sr[k]) for k in sp))
+    require(same, "remat: a step differs from the plain step's (loss, gradients, running "
+                  "statistics or weights)")
+    for t in (plain, remat):  # back to the common state, fresh Adam moments
+        t.model.load_state_dict(state)
+        t.optimizer.state.clear()
+
+    def both():
+        return [train_timing(t, batch, train_gen(device, 100),
+                             f"{name} B={REMAT_BATCH} x {N_POINTS}", card, EXPECTED["remat"])
+                for name, t in (("remat", remat), ("plain", plain))]
+
+    (ms_r, peak_r), (ms_p, peak_p) = counted_run("remat", both, launches, 2 * VAR_STEPS)
+    print(f"remat B={REMAT_BATCH} x {N_POINTS}: one step from one state bit-identical to the "
+          f"plain step (loss, gradients, running statistics, weights); {ms_r:.3f} ms/step, "
+          f"{REMAT_BATCH / ms_r * 1e3:.1f} clouds/s, peak {peak_r:.2f} GiB; plain model in the "
+          f"same run {ms_p:.3f} ms/step, {REMAT_BATCH / ms_p * 1e3:.1f} clouds/s, peak "
+          f"{peak_p:.2f} GiB [{card}]", flush=True)
+    del remat, plain, steps
+    torch.cuda.empty_cache()
+
+
+def v2_serving(device, card: str, launches: dict) -> None:
+    """Phase 18, v2 (one output, SA3 and the head twice as wide):
+    ``compile_inference`` and the ``torch.export`` artifact on a request of
+    VAR_BATCH x N_POINTS: shape (B, 1), finite, the engine against the plain
+    versions and the module, the artifact against the engine; both forwards'
+    launches counted."""
+    import tempfile
+
+    from dl_biomass_tpu_torch.models.export import export_serving, load_serving
+    from dl_biomass_tpu_torch.models.inference import compile_inference
+    from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
+
+    model = seed_weights(PointNet2Regressor(
+        num_features=1, fast_group=True, fast_fps=True, compute_dtype=torch.bfloat16,
+        num_outputs=1, global_width_mult=2), VAR_SEED).to(device)
+    batch = synthetic_batch(VAR_BATCH, N_POINTS, seed=VAR_SEED + 3, device=device)
+    serve = compile_inference(model, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = export_serving(model, batch_size=VAR_BATCH, num_points=N_POINTS, path=tmp,
+                              device=device)
+        artifact = load_serving(tmp, device)
+        out, art = counted_run("v2_serve", lambda: (serve(batch), artifact(
+            batch.pos, batch.feat, batch.mask)), launches, 2)
+    require(meta["num_outputs"] == 1 and tuple(out.shape) == (VAR_BATCH, 1)
+            and bool(torch.isfinite(out).all()), f"v2: output {tuple(out.shape)}, meta {meta}")
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        plain = serve(batch)
+    with torch.inference_mode():
+        module = model(batch)
+    rel_plain, rel_module, rel_art = rel_diff(out, plain), rel_diff(out, module), rel_diff(art,
+                                                                                          out)
+    require(rel_plain <= BF16_SERVE_RTOL and rel_module <= FOLDED_VS_MODULE_RTOL
+            and rel_art <= BF16_SERVE_RTOL,
+            f"v2: engine vs plain {rel_plain}, vs module {rel_module}, artifact {rel_art}")
+    print(f"v2_serve B={VAR_BATCH} x {N_POINTS}: (B, 1) finite; engine vs plain versions "
+          f"{rel_plain:.3e} (bound {BF16_SERVE_RTOL}), vs module {rel_module:.3e} (bound "
+          f"{FOLDED_VS_MODULE_RTOL}); artifact (meta num_outputs {meta['num_outputs']}) vs engine "
+          f"{rel_art:.3e}, bit-identical {torch.equal(art, out)}; launches over the two "
+          f"forwards {launches['v2_serve']}; engine {serve_timing(serve, batch):.3f} ms/batch "
+          f"[{card}]", flush=True)
+
+
+def voxel_paths(device, card: str, launches: dict) -> None:
+    """Phase 18, the voxel family: the card's ``voxelize`` against the same
+    call on a CPU copy (counts exact), then the seed study's three voxel
+    configurations (the probe's, ``voxelnet_deep``, ``voxelnet_wide48``; bf16)
+    VAR_STEPS steps each at VAR_BATCH x N_POINTS: finite and falling loss,
+    ms/step, clouds/s, peak memory; no kernel of the port launches."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.experiments.seed_study import _mode_config
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+    from dl_biomass_tpu_torch.ops.voxelize import voxelize
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    batch = synthetic_batch(VAR_BATCH, N_POINTS, seed=VAR_SEED + 4, device=device)
+    got = voxelize(batch.pos, batch.feat, batch.mask, grid=32)
+    want = voxelize(batch.pos.cpu(), batch.feat.cpu(), batch.mask.cpu(), grid=32)
+    require(torch.equal(got[0].cpu(), want[0]), "voxelize: card and CPU counts differ")
+    errs = [max_abs_err(g.cpu(), w) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got[1:], want[1:])]
+    require(max(errs) <= 1e-5, f"voxelize: card vs CPU sums rel {errs}")
+    vox_ms = time_ms(lambda: voxelize(batch.pos, batch.feat, batch.mask, grid=32))
+    print(f"voxelize B={VAR_BATCH} x {N_POINTS}, grid 32: counts equal to the CPU's, feature "
+          f"and offset sums within {max(errs):.3e} of their largest; {vox_ms:.4f} ms [{card}]",
+          flush=True)
+
+    def runs():
+        for mode in ("voxelnet", "voxelnet_deep", "voxelnet_wide48"):
+            cfg = _mode_config(TrainConfig(), mode)
+            torch.manual_seed(VAR_SEED)
+            trainer = Trainer(build_model(cfg, num_features=1), cfg, device)
+            ms, peak = train_timing(trainer, batch, train_gen(device, 100),
+                                    f"{mode} B={VAR_BATCH} x {N_POINTS}", card, {})
+            m = trainer.model
+            print(f"{mode} (grid {m.grid}, channels {m.channels}, {m.param_count():,} "
+                  f"parameters, bf16): {ms:.3f} ms/step, {VAR_BATCH / ms * 1e3:.1f} clouds/s, "
+                  f"peak {peak:.2f} GiB [{card}]", flush=True)
+
+    counted_run("voxelnet", runs, launches, 3 * VAR_STEPS)
+
+
+def segmentor_path(device, card: str, launches: dict) -> None:
+    """Phase 18, the per-point segmentor (float32) at VAR_BATCH x N_POINTS:
+    one eval forward and one step (a masked per-point MSE, Adam) on the
+    kernels, launches counted; each against the same on the plain versions
+    from one state."""
+    from dl_biomass_tpu_torch.models.decoder import PointNet2Segmentor
+
+    batch = synthetic_batch(VAR_BATCH, N_POINTS, seed=VAR_SEED + 5, device=device)
+    target = torch.where(batch.mask[..., None], batch.pos[..., 2:3] * 0.1, 0.0)
+    torch.manual_seed(VAR_SEED)
+    model = seed_weights(PointNet2Segmentor(num_features=1), VAR_SEED).to(device)
+    state = copy.deepcopy(model.state_dict())
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def run():
+        with torch.inference_mode():
+            out = model(batch)
+        opt.zero_grad(set_to_none=True)
+        pred = model(batch, train=True, generator=train_gen(device, 5))
+        loss = ((pred - target) ** 2).sum() / batch.mask.sum()
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        opt.step()
+        return out, loss.detach(), grads
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, loss, grads = counted_run("segmentor", run, launches, 1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model.load_state_dict(state)
+    opt.state.clear()
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        out_p, loss_p, grads_p = run()
+    require(tuple(out.shape) == (VAR_BATCH, N_POINTS, 1) and bool(torch.isfinite(out).all())
+            and bool((out[~batch.mask] == 0).all()) and bool(torch.isfinite(loss)),
+            "segmentor: output shape, finiteness or pad zeros")
+    rel_out = rel_diff(out, out_p)
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    rel_grad = max(max_abs_err(grads[k], grads_p[k]) for k in grads) / top
+    rel_loss = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    require(max(rel_out, rel_loss) <= SEGMENTOR_RTOL and rel_grad <= PLAIN_STEP_RTOL,
+            f"segmentor vs plain: output {rel_out}, loss {rel_loss}, gradients {rel_grad}")
+    print(f"segmentor B={VAR_BATCH} x {N_POINTS} (float32): (B, N, 1) finite, 0 at pads; vs the "
+          f"plain versions: output {rel_out:.3e}, loss {rel_loss:.3e} (bound {SEGMENTOR_RTOL}), "
+          f"gradients {rel_grad:.3e} of their largest (bound {PLAIN_STEP_RTOL:.3e}); launches "
+          f"in one forward and one step {launches['segmentor']}; the two in {wall:.3f} s, peak "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def voxel_selection(device, card: str) -> None:
+    """Phase 18, ``voxel_select_first`` on SELECT_PLOTS raw plots of SELECT_RAW
+    points: index-equal to the host path (``io/resample.voxel_downsample``,
+    first SELECT_KEEP), timed."""
+    from dl_biomass_tpu_torch.io.resample import voxel_downsample
+    from dl_biomass_tpu_torch.ops.voxelize import voxel_select_first
+
+    batch = synthetic_batch(SELECT_PLOTS, SELECT_RAW, seed=VAR_SEED + 6, device=device)
+    idx, keep = voxel_select_first(batch.pos, batch.mask, voxel_size=SELECT_VOXEL,
+                                   n_keep=SELECT_KEEP)
+    pos, mask = batch.pos.cpu().numpy(), batch.mask.cpu().numpy()
+    idx, keep = idx.cpu().numpy(), keep.cpu().numpy()
+    kept = []
+    for b in range(SELECT_PLOTS):
+        valid = np.flatnonzero(mask[b])
+        host = valid[voxel_downsample(pos[b][valid], SELECT_VOXEL)][:SELECT_KEEP]
+        require(np.array_equal(idx[b][keep[b]], host), f"voxel_select_first: plot {b} differs "
+                                                       "from the host path")
+        kept.append(len(host))
+    ms = time_ms(lambda: voxel_select_first(batch.pos, batch.mask, voxel_size=SELECT_VOXEL,
+                                            n_keep=SELECT_KEEP))
+    print(f"voxel_select_first {SELECT_PLOTS} x {SELECT_RAW} points, {SELECT_VOXEL} m voxels, "
+          f"n_keep {SELECT_KEEP}: index-equal to the host path on every plot (kept "
+          f"{min(kept)}-{max(kept)}); {ms:.4f} ms [{card}]", flush=True)
+
+
+def variants(device, card: str, launches: dict) -> dict:
+    """Phase 18; returns kernels 2's and 3's timings at msg's second radii."""
+    t0 = time.perf_counter()
+    timings = msg_paths(device, card, launches)
+    analytic_and_remat(device, card, launches)
+    v2_serving(device, card, launches)
+    voxel_paths(device, card, launches)
+    segmentor_path(device, card, launches)
+    voxel_selection(device, card)
+    print(f"variants: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return timings
 
 
 def tail_inputs(shape, device, seed: int):

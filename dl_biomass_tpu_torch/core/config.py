@@ -36,7 +36,7 @@ class HyperParams:
 class ModelConfig:
     """Architecture knobs beyond the reference constructor surface."""
 
-    family: str = "pointnet2"  # pointnet2 | voxelnet (voxelnet is not ported yet)
+    family: str = "pointnet2"  # pointnet2 | voxelnet (models/voxelnet.py)
     voxel_grid: int = 32  # voxelnet: voxels per axis
     voxel_extent: float = 0.0  # voxelnet: cube half-width; 0 = per-cloud
     voxel_channels: List[int] = field(default_factory=lambda: [64, 128])
@@ -51,7 +51,7 @@ class ModelConfig:
     # predictions stay float32
     compute_dtype: str = "bfloat16"  # float32 | bfloat16
     use_pallas: str = "auto"  # JAX package only: the port always runs its kernels
-    remat: bool = False  # rematerialize edge MLPs in backward (not ported yet)
+    remat: bool = False  # recompute the SA layers' MLPs in the backward
     fast_group: bool = True  # stratified SA1 grouping (ops/ball_group_kernel.py)
     fast_fps: bool = True  # sectored multi-start FPS (ops/fps.py fps_sectored)
     fused_sa: bool = False  # fused SA MLP+BN+max (kernel 6, forward and backward)
@@ -60,7 +60,7 @@ class ModelConfig:
     split_first_layer: bool = True  # per-POINT first MLP layer on SA2: layer 0
     # is linear in [x_j, p_j - p_i], so it runs once per point before the
     # gather (models/pointnet2.py SAModule)
-    analytic_bn: bool = False  # folded-BN train-mode MLPs (not ported yet)
+    analytic_bn: bool = False  # folded-BN MLPs: statistics from input moments
 
 
 @dataclass

@@ -43,7 +43,7 @@ def figure_module():
 
 
 def load_model_for_eval(model_dir: str, model_file: Optional[str] = None,
-                        parity: bool = False, device=None) -> Tuple[PointNet2Regressor, str]:
+                        parity: bool = False, device=None) -> Tuple[torch.nn.Module, str]:
     """(model in eval mode on ``device``, checkpoint path) from the newest
     (or given) checkpoint and the ``model_config.json`` beside it.
 
@@ -57,7 +57,9 @@ def load_model_for_eval(model_dir: str, model_file: Optional[str] = None,
         raise FileNotFoundError(f"no checkpoints under {model_dir!r}")
     with open(os.path.join(os.path.dirname(path), "model_config.json")) as f:
         mdict = dict(json.load(f)["model"])
-    if parity:
+    if parity and mdict.get("family", "pointnet2") == "voxelnet":
+        mdict.update(compute_dtype="float32")  # no selection to make exact
+    elif parity:
         # must match TrainConfig.apply_parity's model overrides exactly
         mdict.update(compute_dtype="float32", fast_group=False, fast_fps=False,
                      fused_sa=False, exact_selection=True, analytic_bn=False)

@@ -17,9 +17,10 @@ Modes:
   production+fast_fps  — the shipped TrainConfig defaults (adds sectored
                          multi-start FPS)
   parity               — ``TrainConfig.apply_parity()`` numerics
-
-The voxel-grid modes (``voxelnet``, ``voxelnet_deep``, ``voxelnet_wide48``)
-wait for the voxel model (ROADMAP A.10) and raise.
+  voxelnet             — the voxel-grid CNN family (``models/voxelnet.py``)
+                         on the same corpus
+  voxelnet_deep        — its capacity probe: a third conv (64, 128, 256)
+  voxelnet_wide48      — its resolution probe: a 48³ grid, convs (96, 192)
 
 Seeds: run ``seed`` draws its initial weights from ``seed``
 (``models/pointnet2.seeded_init``) and its epochs from ``cfg.seed = 1000 + seed``, as
@@ -40,9 +41,6 @@ import numpy as np
 from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.eval.metrics import r2_score
 
-VOXEL_MODES = ("voxelnet", "voxelnet_deep", "voxelnet_wide48")
-
-
 def _mode_config(base: TrainConfig, mode: str) -> TrainConfig:
     cfg = copy.deepcopy(base)
     if mode == "parity":
@@ -53,10 +51,21 @@ def _mode_config(base: TrainConfig, mode: str) -> TrainConfig:
     if mode == "production+fast_fps":
         cfg.model.fast_fps = True
         return cfg
-    if mode in VOXEL_MODES:
-        raise NotImplementedError(
-            f"seed-study mode {mode!r} trains the voxel-grid model, which is not ported yet: "
-            f"ROADMAP A.10 (model variants)")
+    if mode == "voxelnet":
+        cfg.model.family = "voxelnet"
+        return cfg
+    if mode == "voxelnet_deep":
+        # a deeper conv stack: is the family's gap to the flagship
+        # architecture or capacity
+        cfg.model.family = "voxelnet"
+        cfg.model.voxel_channels = [64, 128, 256]
+        return cfg
+    if mode == "voxelnet_wide48":
+        # the resolution axis: a finer grid and wider convs
+        cfg.model.family = "voxelnet"
+        cfg.model.voxel_grid = 48
+        cfg.model.voxel_channels = [96, 192]
+        return cfg
     raise ValueError(f"unknown mode {mode!r}")
 
 

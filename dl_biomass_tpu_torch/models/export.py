@@ -93,7 +93,7 @@ def export_serving(model, *, batch_size: int, num_points: int, path: str,
         "batch_size": int(batch_size),
         "num_points": int(num_points),
         "num_features": num_features,
-        "num_outputs": 4,
+        "num_outputs": int(model.num_outputs),
         "n_weights": len(weights),
         "weight_dtypes": [_dtype_name(w.dtype) for w in weights],
         "platforms": [dev.type],

@@ -1,7 +1,7 @@
 """Serving engine (port of ``dl_biomass_tpu/models/inference.py``).
 
 ``compile_inference`` folds each eval-mode BatchNorm into the Linear before
-it and returns ``serve(batch) -> (B, 4)``: a flat chain of the kernels (FPS,
+it and returns ``serve(batch) -> (B, num_outputs)``: a flat chain of the kernels (FPS,
 stratified ball grouping or the fused SA1 layer, exact ball query, row
 gather) and folded matmuls, with bf16 activations in production. It follows
 ``compile_inference`` of the JAX package branch for branch: the stratified SA1
@@ -79,8 +79,10 @@ def _check_engine(model, fused_eval: bool) -> bool:
     if not isinstance(model, PointNet2Regressor):
         raise NotImplementedError(
             f"inference engine covers PointNet2Regressor; got {type(model).__name__}")
-    if model.activation_function != "ReLU" or model.max_neighbors != 64:
-        raise NotImplementedError("inference engine covers the flagship SSG/ReLU/K=64 config")
+    if model.activation_function != "ReLU" or model.msg or model.max_neighbors != 64:
+        # analytic_bn, remat and the v2 widths fold as the standard model does
+        raise NotImplementedError("inference engine covers the flagship SSG/ReLU/K=64 config; "
+                                  "serve other variants through the module")
     stratified = (model.fast_group and (model.num_features or 3) <= 4
                   and not model.exact_selection)
     if fused_eval and not stratified:
@@ -113,7 +115,7 @@ def serving_weights(model: PointNet2Regressor, device=None, *,
 
 
 def serving_function(model: PointNet2Regressor, *, fused_eval: bool = False) -> Callable:
-    """The flat serving function ``infer(*weights, pos, feat, mask) -> (B, 4)``
+    """The flat serving function ``infer(*weights, pos, feat, mask) -> (B, num_outputs)``
     float32 of ``serving_weights`` (the JAX package's ``serve._infer`` over
     ``serve._folded``): no module, no state, no read of a tensor's value on
     the host, so that ``torch.export`` traces it (under ``torch.no_grad``)."""
@@ -190,7 +192,7 @@ def serving_function(model: PointNet2Regressor, *, fused_eval: bool = False) -> 
 
 def compile_inference(model: PointNet2Regressor, device=None, *, fused_eval: bool = False,
                       mesh=None) -> Callable[[CloudBatch], torch.Tensor]:
-    """Returns ``serve(batch) -> (B, 4)`` float32 on ``device``.
+    """Returns ``serve(batch) -> (B, num_outputs)`` float32 on ``device``.
 
     ``device=None`` means the card, and raises without one; ``device="cpu"``
     runs the plain PyTorch versions of the kernels. The folded weights are

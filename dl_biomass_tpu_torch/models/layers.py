@@ -8,19 +8,33 @@ accumulation; the float32 bias is added before the result is rounded to
 JAX's do. BatchNorm normalizes by its running statistics in eval and by the
 masked batch statistics in training: under ``parallel.data_parallel`` those of
 the whole batch, summed over the ``dp`` ranks as XLA's SPMD sums them.
+
+``MLP(analytic_bn=True)`` is the folded form of the JAX package's
+``MLP._folded``: each hidden layer's train-mode statistics come from its
+input's moments and the normalize folds into the layer's matmul.
+``MLP(remat=True)`` recomputes the stack in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations, as JAX's
+``nn.remat`` does; the recompute leaves the running statistics alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from dl_biomass_tpu_torch.ops.sa_train_kernel import fused_sa_mlp
 from dl_biomass_tpu_torch.parallel import mesh as dp
+
+# True while a checkpointed MLP runs its forward again in the backward. A plain
+# global, as the mesh is (parallel/mesh.py): autograd runs a CUDA backward on
+# a thread of its own
+_recomputing = False
 
 
 def resolve_activation(name: Optional[str]) -> Optional[Callable]:
@@ -128,7 +142,10 @@ class MaskedBatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor, cnt) -> None:
         """The EMA update with torch semantics (unbiased var for the running
-        stat); ``cnt`` is a tensor or a float."""
+        stat); ``cnt`` is a tensor or a float. Skipped while a checkpointed
+        MLP recomputes its forward in the backward: the forward applied it."""
+        if _recomputing:
+            return
         denom = torch.clamp_min(cnt - 1.0, 1.0) if torch.is_tensor(cnt) else max(cnt - 1.0, 1.0)
         unbiased = var * cnt / denom
         self.running_mean.copy_((1 - self.momentum) * self.running_mean + self.momentum * mean)
@@ -195,19 +212,59 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+@contextlib.contextmanager
+def _recompute():
+    global _recomputing
+    prev, _recomputing = _recomputing, True
+    try:
+        yield
+    finally:
+        _recomputing = prev
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward, where the
+    running statistics' update is skipped; the recompute runs the same
+    operations on the same inputs, so the gradients are the plain call's bit
+    for bit. Under a mesh it sums the statistics over ``dp`` again, on every
+    rank in the same order, to the same values."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+
+
 class MLP(nn.Module):
     """torch_geometric-style MLP: hidden Linear->BN->act->dropout, plain final
     Linear. ``channels`` includes the input width (``[4, 64, 64, 128]`` for
     SA1); ``dropout`` > 0 (the head's) applies in training only. Submodule
     names (``lin{i}``, ``bn{i}``) follow the JAX parameter tree, so the bridge
-    maps it one to one."""
+    maps it one to one.
+
+    ``analytic_bn``: the folded form (JAX ``MLP._folded``, ``layers.py:268-319``).
+    Invalid slots are zeroed before each layer, so the plain moments of the
+    layer input ``x`` (``s1 = Σx``, ``M2 = XᵀX``, float32 sums, under a mesh
+    over every ``dp`` rank) are its masked moments; the train-mode mean and
+    variance of ``y = xW + b`` follow from them, the eval mode takes the
+    running ones, and ``(W·scale, b·scale + shift)`` makes the layer's one
+    matmul. Dropout (the head's) follows the activation, as in the standard
+    form. The JAX package builds that dropout where flax cannot
+    (``layers.py:316``), so its analytic model with dropout raises; this one
+    runs, with the standard form's draws (ROADMAP C, divergences by design).
+
+    ``remat``: in a train-mode call with gradients, ``forward`` and
+    ``from_z0`` keep no activation for the backward and recompute them there
+    (JAX's ``nn.remat``, ``pointnet2.py:102-104``)."""
 
     def __init__(self, channels: Sequence[int], act: Optional[str] = "ReLU",
-                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 compute_dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 analytic_bn: bool = False, remat: bool = False):
         super().__init__()
         chans = list(channels)
         self.act = act
         self.dropout = dropout
+        self.analytic_bn = analytic_bn
+        self.remat = remat
+        self.compute_dtype = compute_dtype
         self.n_lin = len(chans) - 1
         for i in range(self.n_lin):
             setattr(self, f"lin{i}", Dense(chans[i], chans[i + 1], compute_dtype))
@@ -228,13 +285,75 @@ class MLP(nn.Module):
             x = dropout(x, self.dropout, generator)
         return x
 
+    def _remat(self, train: bool) -> bool:
+        return self.remat and train and torch.is_grad_enabled()
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        if self._remat(train):
+            return _checkpoint(self._forward, x, mask, train, generator)
+        return self._forward(x, mask, train, generator)
+
+    def _forward(self, x, mask, train, generator):
         act = resolve_activation(self.act)
         lins, bns = self.linears(), self.norms()
+        if self.analytic_bn:
+            return self._folded(x, mask, lins, bns, act, train, generator)
         for lin, bn in zip(lins[:-1], bns):
             x = self._post(lin(x), bn, mask, act, train, generator)
+        return lins[-1](x)
+
+    @staticmethod
+    def _count(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The valid slots (the rows without a mask), under a mesh of every
+        ``dp`` rank, clamped at 1."""
+        if mask is not None:
+            cnt = mask.sum().float()
+        else:
+            cnt = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
+        return torch.clamp_min(dp.sum_dp(cnt, dp.active()), 1.0)
+
+    @staticmethod
+    def _moments(x: torch.Tensor):
+        """(s1 (Cin,), M2 (Cin, Cin)) of ``x``, float32 sums; under a mesh
+        summed over the ``dp`` ranks, differentiably."""
+        x2 = x.reshape(-1, x.shape[-1])
+        s1 = x2.sum(0, dtype=torch.float32)
+        m2 = dot_f32(x2.t(), x2)
+        mesh = dp.active()
+        if mesh is None:
+            return s1, m2
+        c = s1.numel()
+        sums = dp.sum_dp(torch.cat([s1, m2.reshape(-1)]), mesh, grad=True)
+        return sums[:c], sums[c:].view(c, c)
+
+    def _folded(self, x, mask, lins, bns, act, train, generator):
+        cdt = self.compute_dtype
+        mf = None if mask is None else mask.unsqueeze(-1).to(cdt)
+        x = x.to(cdt) if mf is None else x.to(cdt) * mf
+        cnt = self._count(x, mask) if train else None
+        for lin, bn in zip(lins[:-1], bns):
+            w, b = lin.weight.t(), lin.bias  # float32 (in, out), (out,)
+            if x.shape[-1] != w.shape[0]:
+                raise ValueError(f"MLP expected {w.shape[0]} input features, got {x.shape[-1]}")
+            if train:
+                s1, m2 = self._moments(x)
+                sw = s1 @ w
+                mean = sw / cnt + b
+                quad = (w * (m2 @ w)).sum(0)  # diag(Wᵀ M2 W)
+                e2 = (quad + 2.0 * b * sw) / cnt + b * b
+                var = torch.clamp_min(e2 - mean * mean, 0.0)
+                bn.update_running(mean.detach(), var.detach(), cnt)
+            else:
+                mean, var = bn.running_mean, bn.running_var
+            scale, shift = bn.fold(mean, var)
+            y = dot_f32(x, (w * scale).to(cdt)) + (b * scale + shift)
+            if act is not None:
+                y = act(y)
+            if train and self.dropout > 0.0:
+                y = dropout(y, self.dropout, generator)
+            x = (y if mf is None else y * mf).to(cdt)  # zeros again at invalid slots
         return lins[-1](x)
 
     def from_z0(self, z0: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -242,6 +361,14 @@ class MLP(nn.Module):
                 ) -> torch.Tensor:
         """Continue the stack from layer 0's pre-BN output ``z0`` (computed by the
         caller, as in SAModule's per-point first-layer split)."""
+        if self.analytic_bn:
+            raise ValueError("from_z0 is incompatible with analytic_bn (the folded form "
+                             "takes its statistics from the layer input, z0 is the output)")
+        if self._remat(train):
+            return _checkpoint(self._from_z0, z0, mask, train, generator)
+        return self._from_z0(z0, mask, train, generator)
+
+    def _from_z0(self, z0, mask, train, generator):
         act = resolve_activation(self.act)
         lins, bns = self.linears(), self.norms()
         if not bns:  # single-linear MLP: z0 is the output
@@ -270,7 +397,6 @@ class FusedSAMLP(MLP):
         if len(channels) != 4:
             raise ValueError(f"FusedSAMLP needs [C0, C1, C2, C3] channels, got {list(channels)}")
         super().__init__(channels, act=act, compute_dtype=compute_dtype)
-        self.compute_dtype = compute_dtype
 
     def forward(self, dense: Optional[torch.Tensor], planes: Optional[torch.Tensor],
                 nbr_mask: torch.Tensor, train: bool = False) -> torch.Tensor:

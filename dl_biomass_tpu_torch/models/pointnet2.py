@@ -25,6 +25,17 @@ off there, as in the JAX package. ``train=True`` uses batch statistics in
 every BatchNorm and the head's dropout, with FPS starts and dropout drawn
 from the ``generator`` passed in (without one, FPS starts at the first valid
 point).
+
+The variants (JAX ``pointnet2.py``): ``msg`` groups every SA layer at its
+radius and at twice it from one FPS, each scale with its own MLP (``mlp``,
+``mlp1``), and concatenates them, so SA2's and SA3's inputs double;
+``analytic_bn`` runs every MLP in the folded form (``layers.MLP``), which
+turns SA2's split first layer off (kernel 4c gathers the edges);
+``remat`` recomputes the SA layers' unfused MLPs in the backward;
+``num_outputs`` and ``global_width_mult`` (``pointnet2_v2``: one output, SA3
+and the head twice as wide) size the end of the network. ``model_to_dict``,
+``model_from_dict`` and ``build_model`` also take the voxel family
+(``models/voxelnet.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch
 from torch import nn
 
 from dl_biomass_tpu_torch.models.layers import MLP, FusedSAMLP, dot_f32
+from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
 from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
@@ -62,54 +74,71 @@ def sample_centroids(pos, mask, m: int, *, sectored: bool, generator=None):
 
 
 class SAModule(nn.Module):
-    """Set-abstraction layer: FPS -> neighbours -> grouped pointwise MLP -> max."""
+    """Set-abstraction layer: FPS -> neighbours -> grouped pointwise MLP -> max,
+    at ``radius`` and at each of ``extra_radii`` (MSG) from one FPS, the
+    scales' outputs concatenated."""
 
     def __init__(self, ratio: float, radius: float, mlp_channels: Sequence[int],
                  act: Optional[str] = "ReLU", max_neighbors: int = 64,
                  compute_dtype: torch.dtype = torch.float32, fast_group: bool = False,
                  fast_fps: bool = False, exact_selection: bool = False,
-                 split_first_layer: bool = True, fused_sa: bool = False):
+                 split_first_layer: bool = True, fused_sa: bool = False,
+                 extra_radii: Sequence[float] = (), analytic_bn: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.ratio, self.radius = ratio, radius
+        self.radii = (radius, *extra_radii)
         self.max_neighbors = max_neighbors
         self.compute_dtype = compute_dtype
         self.fast_group, self.fast_fps = fast_group, fast_fps
         self.exact_selection = exact_selection
         self.split_first_layer = split_first_layer
+        self.analytic_bn = analytic_bn
         # the JAX package's use_fused_sa: kernel 6 takes K=64, two hidden layers
         # and its four activations
         self.fused_sa = (fused_sa and max_neighbors == 64 and len(mlp_channels) == 4
                          and act in FUSED_SA_ACTS)
-        mlp_cls = FusedSAMLP if self.fused_sa else MLP
-        self.mlp = mlp_cls(mlp_channels, act=act, compute_dtype=compute_dtype)
+        for i in range(len(self.radii)):  # the flax names: mlp, mlp1, ...
+            mlp = (FusedSAMLP(mlp_channels, act=act, compute_dtype=compute_dtype)
+                   if self.fused_sa else
+                   MLP(mlp_channels, act=act, compute_dtype=compute_dtype,
+                       analytic_bn=analytic_bn, remat=remat))
+            setattr(self, f"mlp{i}" if i else "mlp", mlp)
+
+    def mlps(self):
+        return [getattr(self, f"mlp{i}" if i else "mlp") for i in range(len(self.radii))]
 
     def forward(self, feat, pos, mask, *, train: bool = False, generator=None):
-        n = pos.shape[1]
-        m = math.ceil(self.ratio * n)
-        cdt = self.compute_dtype
+        m = math.ceil(self.ratio * pos.shape[1])
         _, centers, center_mask = sample_centroids(
             pos, mask, m, sectored=self.fast_fps and not self.exact_selection,
             generator=generator)
+        outs = [self._one_scale(mlp, r, feat, pos, mask, centers, center_mask, train)
+                for r, mlp in zip(self.radii, self.mlps())]
+        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), centers, center_mask
+
+    def _one_scale(self, mlp, radius, feat, pos, mask, centers, center_mask, train):
+        n = pos.shape[1]
+        cdt = self.compute_dtype
         if (self.fast_group and not self.exact_selection and self.max_neighbors == 64
                 and (feat is None or feat.shape[-1] <= 4)):
             _, nbr_mask, edges = ball_group_kernel.ball_group(
-                centers, center_mask, pos, mask, feat, radius=self.radius,
+                centers, center_mask, pos, mask, feat, radius=radius,
                 out_dtype=torch.float32 if self.fused_sa else cdt, need_idx=False)
             if self.fused_sa:  # the float32 edges [feat, rel] are kernel 6's planes
-                return self.mlp(None, edges, nbr_mask, train), centers, center_mask
-            h = self.mlp(edges.detach(), nbr_mask, train)
-            return masked_max(h, nbr_mask, dim=2), centers, center_mask
+                return mlp(None, edges, nbr_mask, train)
+            return masked_max(mlp(edges.detach(), nbr_mask, train), nbr_mask, dim=2)
 
-        nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=self.radius,
+        nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=radius,
                                        k=self.max_neighbors)
         use_mxu = (feat is not None and feat.shape[-1] >= 16 and n <= MXU_MAX_POINTS
                    and self.max_neighbors == 64)
-        if use_mxu and self.split_first_layer and not self.fused_sa:
+        if use_mxu and self.split_first_layer and not (self.fused_sa or self.analytic_bn):
             # layer 0 is linear in [x_j, p_j - p_i]: z0 = (Wf x_j + Wp p_j + b0) - Wp p_i
             # runs once per point, and kernel 4 gathers the z-table. Each use
             # casts wp on its own, as JAX does, so the two bf16 gradients of
             # wp meet in float32
-            lin0 = self.mlp.lin0
+            lin0 = mlp.lin0
             w0 = lin0.weight.t()
             fdim = feat.shape[-1]
             wf, wp = w0[:fdim], w0[fdim:]
@@ -118,33 +147,31 @@ class SAModule(nn.Module):
             gz = gather_kernel.gather_rows(zpt, nbr_idx)
             cshift = dot_f32(centers.to(cdt), wp.to(cdt))
             z0 = gz - cshift[:, :, None, :].to(gz.dtype)
-            h = self.mlp.from_z0(z0, nbr_mask, train)
+            return masked_max(mlp.from_z0(z0, nbr_mask, train), nbr_mask, dim=2)
+        if use_mxu:
+            # features (differentiable) and positions (the gradient-free aux
+            # table) gathered by one index, kernel 4c
+            gfeat, gpos = gather_kernel.gather_rows(feat, nbr_idx, aux=pos)
+            if self.fused_sa:  # dense: the masked features; planes: p_j - c_i
+                dense = torch.where(nbr_mask[..., None], gfeat,
+                                    torch.zeros((), dtype=gfeat.dtype, device=gfeat.device))
+                return mlp(dense, gpos - centers[:, :, None, :], nbr_mask, train)
+            grouped = edges_from_gathered(gfeat, gpos, centers, nbr_mask)
         else:
-            if use_mxu:
-                # features (differentiable) and positions (the gradient-free aux
-                # table) gathered by one index, kernel 4c
-                gfeat, gpos = gather_kernel.gather_rows(feat, nbr_idx, aux=pos)
-                if self.fused_sa:  # dense: the masked features; planes: p_j - c_i
-                    dense = torch.where(nbr_mask[..., None], gfeat,
-                                        torch.zeros((), dtype=gfeat.dtype, device=gfeat.device))
-                    planes = gpos - centers[:, :, None, :]
-                    return self.mlp(dense, planes, nbr_mask, train), centers, center_mask
-                grouped = edges_from_gathered(gfeat, gpos, centers, nbr_mask)
-            else:
-                grouped = group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask)
-                if self.fused_sa:
-                    return self.mlp(grouped, None, nbr_mask, train), centers, center_mask
-            h = self.mlp(grouped, nbr_mask, train)
-        return masked_max(h, nbr_mask, dim=2), centers, center_mask
+            grouped = group_neighborhoods(pos, feat, centers, nbr_idx, nbr_mask)
+            if self.fused_sa:
+                return mlp(grouped, None, nbr_mask, train)
+        return masked_max(mlp(grouped, nbr_mask, train), nbr_mask, dim=2)
 
 
 class GlobalSAModule(nn.Module):
     """Global set abstraction: MLP over [feat, pos], then a masked global max."""
 
     def __init__(self, mlp_channels: Sequence[int], act: Optional[str] = "ReLU",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, analytic_bn: bool = False):
         super().__init__()
-        self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype)
+        self.mlp = MLP(mlp_channels, act=act, compute_dtype=compute_dtype,
+                       analytic_bn=analytic_bn)
 
     def forward(self, feat, pos, mask, *, train: bool = False):
         return masked_max(self.mlp(torch.cat([feat, pos], dim=-1), mask, train), mask, dim=1)
@@ -158,10 +185,11 @@ class PointNet2Regressor(nn.Module):
                  neuron_multiplier: int = 0, dropout_probability: float = 0.5,
                  sa1_ratio: float = 0.2, sa1_radius: float = 2.0, sa2_ratio: float = 0.25,
                  sa2_radius: float = 8.0, max_neighbors: int = 64,
-                 doubled_radius: bool = False, fast_group: bool = False,
-                 fast_fps: bool = False, exact_selection: bool = False,
-                 split_first_layer: bool = True, fused_sa: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 doubled_radius: bool = False, msg: bool = False, remat: bool = False,
+                 fast_group: bool = False, fast_fps: bool = False, fused_sa: bool = False,
+                 exact_selection: bool = False, analytic_bn: bool = False,
+                 split_first_layer: bool = True, num_outputs: int = 4,
+                 global_width_mult: int = 1, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_features = num_features
         self.activation_function = activation_function
@@ -172,32 +200,40 @@ class PointNet2Regressor(nn.Module):
         self.sa1_radius = sa1_radius * (2 if doubled_radius else 1)
         self.sa2_radius = sa2_radius * (2 if doubled_radius else 1)
         self.max_neighbors = max_neighbors
+        self.msg, self.remat, self.analytic_bn = msg, remat, analytic_bn
         self.fast_group, self.fast_fps = fast_group, fast_fps
         self.exact_selection = exact_selection
         self.split_first_layer = split_first_layer
         self.fused_sa = fused_sa
+        self.num_outputs, self.global_width_mult = num_outputs, global_width_mult
         self.compute_dtype = compute_dtype
         nm = neuron_multiplier if neuron_multiplier != 0 else 1
         f = num_features if num_features else 3  # no features: coordinates stand in
         act = activation_function
+        sa_mult = 2 if msg else 1  # MSG concatenates two scales
+        gw = global_width_mult
         common = dict(act=act, max_neighbors=max_neighbors, compute_dtype=compute_dtype,
                       fast_fps=fast_fps, exact_selection=exact_selection,
-                      split_first_layer=split_first_layer, fused_sa=fused_sa)
+                      split_first_layer=split_first_layer, fused_sa=fused_sa,
+                      analytic_bn=analytic_bn, remat=remat)
         self.sa1 = SAModule(sa1_ratio, self.sa1_radius, [3 + f, 64 * nm, 64 * nm, 128 * nm],
-                            fast_group=fast_group, **common)
+                            fast_group=fast_group,
+                            extra_radii=(2 * self.sa1_radius,) if msg else (), **common)
         self.sa2 = SAModule(sa2_ratio, self.sa2_radius,
-                            [128 * nm + 3, 128 * nm, 128 * nm, 256 * nm], **common)
-        self.sa3 = GlobalSAModule([256 * nm + 3, 256 * nm, 512 * nm, 1024 * nm], act=act,
-                                  compute_dtype=compute_dtype)
-        self.head = MLP([1024 * nm, 128 * nm, 128 * nm, 4], act=None,
-                        compute_dtype=compute_dtype, dropout=dropout_probability)
+                            [128 * nm * sa_mult + 3, 128 * nm, 128 * nm, 256 * nm],
+                            extra_radii=(2 * self.sa2_radius,) if msg else (), **common)
+        self.sa3 = GlobalSAModule([256 * nm * sa_mult + 3, 256 * nm, 512 * nm, 1024 * nm * gw],
+                                  act=act, compute_dtype=compute_dtype, analytic_bn=analytic_bn)
+        self.head = MLP([1024 * nm * gw, 128 * nm * gw, 128 * nm * gw, num_outputs], act=None,
+                        compute_dtype=compute_dtype, dropout=dropout_probability,
+                        analytic_bn=analytic_bn)
 
     def forward(self, cloud, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, 4) float32 predictions. ``train=True``: batch statistics (and
-        their running update) in every BatchNorm, and the head's dropout,
-        which needs ``generator``; FPS starts are drawn from ``generator``
-        when one is given."""
+        """(B, num_outputs) float32 predictions. ``train=True``: batch
+        statistics (and their running update) in every BatchNorm, and the
+        head's dropout, which needs ``generator``; FPS starts are drawn from
+        ``generator`` when one is given."""
         feat, pos, mask = cloud.feat, cloud.pos, cloud.mask
         if self.num_features == 0:
             feat = pos  # the reference: x = coords when no columns are used
@@ -207,13 +243,32 @@ class PointNet2Regressor(nn.Module):
         return self.head(h, None, train, generator).float()  # predictions always float32
 
 
+def pointnet2_v2(num_features: int, activation_function: str = "ReLU") -> PointNet2Regressor:
+    """The reference's historical V2 variant: one (scalar biomass) output, SA3's
+    output and the head's hidden widths doubled (``Misc/pn2_regressor_V2.py:35-53``)."""
+    return PointNet2Regressor(num_features=num_features,
+                              activation_function=activation_function, num_outputs=1,
+                              global_width_mult=2)
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def model_to_dict(model: PointNet2Regressor) -> dict:
+def _dtype_name(dt: torch.dtype) -> str:
+    return "bfloat16" if dt == torch.bfloat16 else "float32"
+
+
+def model_to_dict(model) -> dict:
     """JSON-serializable constructor arguments, under the JAX package's names
-    (``dl_biomass_tpu/models/pointnet2.py`` model_to_dict), for the
-    checkpoint sidecar."""
+    (``dl_biomass_tpu/models/pointnet2.py`` model_to_dict, less its kernel
+    switch ``use_pallas``), for the checkpoint sidecar; a voxel model's carry
+    ``family``."""
+    if isinstance(model, VoxelNet):
+        return dict(family="voxelnet", num_features=model.num_features,
+                    num_outputs=model.num_outputs, grid=model.grid, extent=model.extent,
+                    channels=list(model.channels),
+                    activation_function=model.activation_function,
+                    compute_dtype=_dtype_name(model.compute_dtype))
     div = 2 if model.doubled_radius else 1
     return dict(
         num_features=model.num_features,
@@ -226,44 +281,45 @@ def model_to_dict(model: PointNet2Regressor) -> dict:
         sa2_radius=model.sa2_radius / div,
         max_neighbors=model.max_neighbors,
         doubled_radius=model.doubled_radius,
-        msg=False,
-        remat=False,
+        msg=model.msg,
+        remat=model.remat,
         fast_group=model.fast_group,
         fast_fps=model.fast_fps,
         fused_sa=model.fused_sa,
         exact_selection=model.exact_selection,
-        analytic_bn=False,
+        analytic_bn=model.analytic_bn,
         split_first_layer=model.split_first_layer,
-        num_outputs=4,
-        global_width_mult=1,
-        compute_dtype="bfloat16" if model.compute_dtype == torch.bfloat16 else "float32",
+        num_outputs=model.num_outputs,
+        global_width_mult=model.global_width_mult,
+        compute_dtype=_dtype_name(model.compute_dtype),
     )
 
 
-def model_from_dict(d: dict) -> PointNet2Regressor:
-    """The regressor from ``model_to_dict``'s arguments (a checkpoint sidecar's
-    ``"model"``), the inverse of ``model_to_dict``. Variants the port does not
-    build yet raise, as ``build_model`` does."""
+def model_from_dict(d: dict):
+    """The model from ``model_to_dict``'s arguments (a checkpoint sidecar's
+    ``"model"``), dispatched on ``family`` (absent: ``pointnet2``)."""
     d = dict(d)
     family = d.pop("family", "pointnet2")
-    unported = [name for name in ("msg", "analytic_bn", "remat") if d.pop(name, False)]
-    widths = {k: d.pop(k, v) for k, v in (("num_outputs", 4), ("global_width_mult", 1))}
-    if family != "pointnet2" or unported or widths != {"num_outputs": 4, "global_width_mult": 1}:
-        raise NotImplementedError(
-            f"not ported yet (ROADMAP A.10, model variants): family={family!r}, options "
-            f"{unported}, {widths}")
     d["compute_dtype"] = _DTYPES[d.get("compute_dtype", "float32")]
+    if family == "voxelnet":
+        d["channels"] = tuple(d.get("channels", (64, 128)))
+        return VoxelNet(**d)
+    if family != "pointnet2":
+        raise ValueError(f"unknown model family {family!r}")
     return PointNet2Regressor(**d)
 
 
-def build_model(cfg, num_features: int) -> PointNet2Regressor:
-    """The regressor from a ``TrainConfig`` (hp + model sections)."""
+def build_model(cfg, num_features: int):
+    """The model of a ``TrainConfig`` (hp + model sections): the regressor, or
+    the voxel CNN under ``model.family = "voxelnet"``."""
     hp, mc = cfg.hp, cfg.model
-    unported = [name for name in ("msg", "analytic_bn", "remat") if getattr(mc, name)]
-    if mc.family != "pointnet2" or unported:
-        raise NotImplementedError(
-            f"not ported yet (ROADMAP A.10, model variants): family={mc.family!r}, options "
-            f"{unported}")
+    if mc.family == "voxelnet":
+        return VoxelNet(num_features=num_features, grid=mc.voxel_grid, extent=mc.voxel_extent,
+                        channels=tuple(mc.voxel_channels),
+                        activation_function=hp.activation_function,
+                        compute_dtype=_DTYPES[mc.compute_dtype])
+    if mc.family != "pointnet2":
+        raise ValueError(f"unknown model family {mc.family!r}")
     return PointNet2Regressor(
         num_features=num_features,
         activation_function=hp.activation_function,
@@ -275,11 +331,14 @@ def build_model(cfg, num_features: int) -> PointNet2Regressor:
         sa2_radius=mc.sa2_radius,
         max_neighbors=mc.max_neighbors,
         doubled_radius=mc.doubled_radius,
+        msg=mc.msg,
+        remat=mc.remat,
         fast_group=mc.fast_group,
         fast_fps=mc.fast_fps,
-        exact_selection=mc.exact_selection,
-        split_first_layer=mc.split_first_layer,
         fused_sa=mc.fused_sa,
+        exact_selection=mc.exact_selection,
+        analytic_bn=mc.analytic_bn,
+        split_first_layer=mc.split_first_layer,
         compute_dtype=_DTYPES[mc.compute_dtype],
     )
 

@@ -6,8 +6,9 @@ the research subcommands on the same corpus (``sweep``, ``tune`` and
 ``--continue-study``, ``density``, ``seed-study``, ``visualize-aug``,
 ``parity-record`` and ``parity-check``), also with scikit-learn or matplotlib
 hidden; ``export-model`` then ``predict --from-export``; ``train`` with a
-config mesh in one process; every subcommand of the JAX CLI ported; and the
-refusals without a card."""
+config mesh in one process; ``train`` -> ``evaluate`` -> ``predict`` of a
+voxel model; every subcommand of the JAX CLI ported; and the refusals without
+a card."""
 
 import contextlib
 import io
@@ -335,6 +336,34 @@ def test_export_model_then_predict_from_export(pipeline, monkeypatch):
     watched = pd.read_csv(root / "watch_export.csv", index_col="PlotID")
     np.testing.assert_allclose(watched.loc[engine.index].to_numpy(), engine.to_numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_train_evaluate_predict_a_voxel_model(pipeline, monkeypatch):
+    """``train --model.family voxelnet`` on the same corpus writes a voxel
+    sidecar; ``evaluate`` rebuilds the model from it, and ``predict`` serves
+    it through the module (the folded engine covers PointNet2Regressor only),
+    its rows those of ``--no-engine``."""
+    from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+
+    root, _ = pipeline
+    monkeypatch.chdir(root)
+    run("train", "--config", "cfg.json", "--num_epochs", "2", "--model.family", "voxelnet",
+        "--model.voxel_grid", "8", "--model_dir", "vox", "--device", "cpu")
+    sidecar = json.loads((root / "vox" / "model_config.json").read_text())["model"]
+    assert sidecar["family"] == "voxelnet" and sidecar["grid"] == 8
+    assert isinstance(model_from_dict(sidecar), VoxelNet)
+    assert len((root / "vox" / "training_log.csv").read_text().splitlines()) == 2
+    out = run("evaluate", "--config", "cfg.json", "--model-dir", "vox", "--data.test_dir",
+              "fps/test", "--fig-out-dir", "vox_figs", "--device", "cpu")
+    assert "tree_btphr" in out
+    common = ("--model-dir", "vox", "--presampled-suffix", SUFFIX, "--batch-size", "4",
+              "--plot-bucket", "4", "--device", "cpu")
+    run("predict", "--in-dir", "fps/test", "--out", "vox.csv", *common)
+    run("predict", "--in-dir", "fps/test", "--out", "vox_module.csv", "--no-engine", *common)
+    served = pd.read_csv(root / "vox.csv", index_col="PlotID")
+    assert list(served.index) == ["PF_0011", "RM_0010"] and np.isfinite(served.to_numpy()).all()
+    np.testing.assert_array_equal(
+        served.to_numpy(), pd.read_csv(root / "vox_module.csv", index_col="PlotID").to_numpy())
 
 
 def test_help_and_an_unknown_command(capsys):

@@ -99,18 +99,66 @@ def test_model_from_dict_rebuilds_the_model(overrides):
     assert rebuilt.sa1_radius == m.sa1_radius and rebuilt.compute_dtype == m.compute_dtype
 
 
-def test_the_sidecar_has_the_jax_names_and_unported_variants_refuse():
+@pytest.mark.parametrize("variant", [
+    {}, {"msg": True}, {"remat": True}, {"analytic_bn": True},
+    {"num_outputs": 3}, {"num_outputs": 1, "global_width_mult": 2},
+])
+def test_the_sidecar_has_the_jax_names(variant):
     """The port's sidecar is JAX's ``model_to_dict`` of the same model less its
-    kernel switch ``use_pallas``; variants the port does not build refuse."""
+    kernel switch ``use_pallas``, for every variant; it rebuilds the model,
+    which takes the original's ``state_dict``."""
     from dl_biomass_tpu.models.pointnet2 import PointNet2Regressor as JaxModel
     from dl_biomass_tpu.models.pointnet2 import model_to_dict as jax_model_to_dict
 
-    jd = jax_model_to_dict(JaxModel(num_features=1, fast_group=True, fast_fps=True))
-    d = model_to_dict(PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True))
+    jd = jax_model_to_dict(JaxModel(num_features=1, fast_group=True, fast_fps=True, **variant))
+    m = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True, **variant)
+    d = model_to_dict(m)
     assert d == {k: v for k, v in jd.items() if k != "use_pallas"}
-    for bad in ({"msg": True}, {"remat": True}, {"num_outputs": 3}, {"family": "voxelnet"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            model_from_dict({**d, **bad})
+    rebuilt = model_from_dict(json.loads(json.dumps(d)))
+    assert model_to_dict(rebuilt) == d
+    rebuilt.load_state_dict(m.state_dict())
+
+
+@pytest.mark.parametrize("kwargs", [dict(num_features=1, grid=12, extent=10.0),
+                                    dict(num_features=2, channels=(64, 128, 256),
+                                         compute_dtype="bfloat16")])
+def test_the_voxel_sidecar_has_the_jax_names(kwargs):
+    """A voxel model's sidecar (``family="voxelnet"``) is the JAX package's and
+    rebuilds the model in either package."""
+    import jax.numpy as jnp
+
+    from dl_biomass_tpu.models.pointnet2 import model_from_dict as jax_model_from_dict
+    from dl_biomass_tpu.models.pointnet2 import model_to_dict as jax_model_to_dict
+    from dl_biomass_tpu.models.voxelnet import VoxelNet as JaxVoxelNet
+    from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+
+    dt = kwargs.pop("compute_dtype", "float32")
+    m = VoxelNet(**kwargs, compute_dtype=getattr(torch, dt))
+    d = model_to_dict(m)
+    assert d == jax_model_to_dict(JaxVoxelNet(**kwargs, compute_dtype=getattr(jnp, dt)))
+    rebuilt = model_from_dict(json.loads(json.dumps(d)))
+    assert isinstance(rebuilt, VoxelNet) and model_to_dict(rebuilt) == d
+    rebuilt.load_state_dict(m.state_dict())
+    assert jax_model_to_dict(jax_model_from_dict(json.loads(json.dumps(d)))) == d
+
+
+def test_load_model_for_eval_rebuilds_a_voxel_model_also_in_parity(tmp_path):
+    """A voxel checkpoint loads through its sidecar; ``parity`` runs it in
+    float32 (it has no selection to make exact)."""
+    from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+
+    vm = VoxelNet(num_features=1, grid=8, compute_dtype=torch.bfloat16)
+    _checkpoint(tmp_path, vm)
+    for parity, dtype in ((False, torch.bfloat16), (True, torch.float32)):
+        model, _ = testing.load_model_for_eval(str(tmp_path), parity=parity, device="cpu")
+        assert isinstance(model, VoxelNet) and model.compute_dtype == dtype
+        for k, v in vm.state_dict().items():
+            assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_an_unknown_family_is_a_value_error():
+    with pytest.raises(ValueError, match="unknown model family"):
+        model_from_dict({"family": "pointnet3", "num_features": 1})
 
 
 @pytest.mark.parametrize("parity", [False, True])

@@ -3,8 +3,8 @@
 - ``experiments/density.py``: the subsampled clouds, the split and the
   ablation's default hyperparameters equal to JAX's for the same seed (both
   packages' training stubbed); a real run at toy size writes the CSV.
-- ``experiments/seed_study.py``: ``_mode_config`` equal field by field; the
-  voxel-grid modes refused citing ROADMAP A.10; a real run's schema.
+- ``experiments/seed_study.py``: ``_mode_config`` equal field by field, the
+  voxel-grid modes among them; a real run's schema, and a voxel mode's run.
 - ``experiments/visualize_augmentation.py``: the augmented cloud, the figure,
   and one line in its place without matplotlib.
 - ``train/lr_finder.py``: the schedule, smoothing, stops and suggestion of
@@ -137,7 +137,8 @@ def test_density_runs_and_writes_its_csv(tmp_path):
 # ---- seed study -----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", ["production", "production+fast_fps", "parity"])
+@pytest.mark.parametrize("mode", ["production", "production+fast_fps", "parity", "voxelnet",
+                                  "voxelnet_deep", "voxelnet_wide48"])
 def test_mode_config_is_the_jax_packages_field_by_field(mode):
     port_base, jax_base = TrainConfig(), JaxConfig()
     for base in (port_base, jax_base):
@@ -146,13 +147,24 @@ def test_mode_config_is_the_jax_packages_field_by_field(mode):
         dataclasses.asdict(jax_seed_study._mode_config(jax_base, mode))
 
 
-@pytest.mark.parametrize("mode", ["voxelnet", "voxelnet_deep", "voxelnet_wide48"])
-def test_voxel_modes_are_refused_citing_roadmap_a10(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        port_seed_study._mode_config(TrainConfig(), mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        port_seed_study.run_seed_study([0], ["production", mode], num_plots=6, n_points=64,
-                                       device="cpu")
+@pytest.mark.parametrize("mode,grid,channels", [("voxelnet", 32, (64, 128)),
+                                                ("voxelnet_deep", 32, (64, 128, 256)),
+                                                ("voxelnet_wide48", 48, (96, 192))])
+def test_voxel_modes_build_the_voxel_model(mode, grid, channels):
+    from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+
+    model = port_pointnet2.build_model(port_seed_study._mode_config(TrainConfig(), mode), 1)
+    assert isinstance(model, VoxelNet)
+    assert (model.grid, model.channels, model.compute_dtype) == (grid, channels, torch.bfloat16)
+
+
+def test_seed_study_runs_a_voxel_mode():
+    res = port_seed_study.run_seed_study(
+        [0], modes=("voxelnet",), num_plots=12, n_points=128, batch_size=4, num_augs=0,
+        max_epochs=1, patience=2, log_fn=lambda s: None, device="cpu")
+    (row,) = res["runs"]
+    assert row["mode"] == "voxelnet" and row["epochs"] == 1
+    assert np.isfinite(row["min_val_mse"]) and np.isfinite(row["r2_total"])
 
 
 def test_an_unknown_mode_is_a_value_error():

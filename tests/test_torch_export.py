@@ -46,6 +46,18 @@ def exported(tmp_path_factory):
     return out
 
 
+def test_a_v2_artifact_writes_its_one_output(tmp_path):
+    """``pointnet2_v2`` (one output, SA3 and the head twice as wide): the
+    artifact's meta names its one output, and it serves the engine's rows."""
+    jb, tb = batches(0, B, N, VALID)
+    _, _, tm = models("production", "float32", jb, num_outputs=1, global_width_mult=2)
+    meta = export_serving(tm, batch_size=B, num_points=N, path=str(tmp_path), device="cpu")
+    assert meta["num_outputs"] == 1
+    got = load_serving(str(tmp_path), device="cpu")(tb.pos, tb.feat, tb.mask)
+    assert tuple(got.shape) == (B, 1)
+    assert torch.equal(got, compile_inference(tm, device="cpu")(tb))
+
+
 def _meta_edit(path, **changes):
     meta_path = os.path.join(path, "meta.json")
     with open(meta_path) as f:

@@ -39,6 +39,26 @@ def test_serving_matches_jax_engine(batch_pair, preset, dtype, rtol):
     assert rel_err(got.numpy(), want) <= rtol
 
 
+@pytest.mark.parametrize("variant", [dict(analytic_bn=True), dict(remat=True),
+                                     dict(num_outputs=1, global_width_mult=2)])
+def test_the_variants_the_jax_engine_serves(batch_pair, variant):
+    """analytic_bn (at dropout 0, where the JAX package builds it), remat and
+    the v2 widths: the JAX engine serves them, and so does the port's, bit for
+    bit the standard model's engine on the same weights (the folding does not
+    see the variant)."""
+    jb, tb = batch_pair
+    jm, v, tm = models("production", "float32", jb, dropout_probability=0.0, **variant)
+    want = np.asarray(jax_compile_inference(jm, v)(jb))
+    got = compile_inference(tm, device="cpu")(tb)
+    assert tuple(got.shape) == want.shape == (B, variant.get("num_outputs", 4))
+    assert rel_err(got.numpy(), want) <= F32_RTOL
+    std = PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True,
+                             **{k: x for k, x in variant.items() if k in (
+                                 "num_outputs", "global_width_mult")})
+    std.load_state_dict(tm.state_dict())
+    assert torch.equal(compile_inference(std, device="cpu")(tb), got)
+
+
 def test_ragged_mask_matches_jax_engine():
     """Clouds of 640, 300 and 129 valid points in one padded batch."""
     jb, tb = batches(2, 3, N, [640, 300, 129])
@@ -91,11 +111,25 @@ def test_default_device_raises_without_a_card():
     (dict(fused_eval=True), dict(exact_selection=True), "fused_eval"),
     (dict(fused_eval=True), dict(fast_group=False), "fused_eval"),
     ({}, dict(activation_function="ELU"), "ReLU"),
+    # the JAX engine refuses MSG too (inference.py:125); the module serves it
+    ({}, dict(msg=True), "SSG"),
 ])
 def test_unported_options_raise(kwargs, model_kwargs, match):
     model = PointNet2Regressor(num_features=1, **model_kwargs)
     with pytest.raises(NotImplementedError, match=match):
         compile_inference(model, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("family", ["voxelnet", "segmentor"])
+def test_other_families_are_refused_before_any_attribute_is_read(family):
+    """A model that is no PointNet2Regressor raises NotImplementedError (not an
+    AttributeError), so that ``predict`` falls back to the module."""
+    from dl_biomass_tpu_torch.models.decoder import PointNet2Segmentor
+    from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+
+    model = VoxelNet(num_features=1, grid=8) if family == "voxelnet" else PointNet2Segmentor(1)
+    with pytest.raises(NotImplementedError, match="PointNet2Regressor"):
+        compile_inference(model, device="cpu")
 
 
 def test_fold_bn_is_the_eval_affine():

@@ -137,6 +137,7 @@ def group(tmp_path_factory):
             os.chdir(cwd)
     torch.save(dict(batches=arrays, cli_dir=str(cli_dir), models=dict(
         f32=(kwargs, tm.state_dict()), fused_sa=(dict(kwargs, fused_sa=True), fused.state_dict()),
+        analytic_remat=(dict(kwargs, analytic_bn=True, remat=True), tm.state_dict()),
         small=(small_kwargs, small.state_dict()))), tmp / "inputs.pt")
     dp.spawn(torch_mesh_worker.run_checks, 2, str(tmp / "store"), args=(str(tmp),),
              device="cpu")
@@ -189,7 +190,19 @@ def test_kernel6_plain_passes_under_the_mesh_match_one_process(group):
     """``fused_sa``: F1's and F2's sums, the count and the backward's terms
     summed over the ranks give the one-process step on the whole batch."""
     ranks, _, _ = group
-    mesh, one = ranks[0]["fused_sa_mesh"], ranks[1]["fused_sa_one"]
+    _hold_to_one_process(ranks[0]["fused_sa_mesh"], ranks[1]["fused_sa_one"])
+
+
+def test_analytic_bn_and_remat_under_the_mesh_match_one_process(group):
+    """``analytic_bn`` + ``remat``: the folded layers' input moments and
+    count summed over the ranks, also when the SA MLPs recompute in the
+    backward (the sums run again there, on both ranks in one order), give the
+    one-process step on the whole batch."""
+    ranks, _, _ = group
+    _hold_to_one_process(ranks[0]["analytic_remat_mesh"], ranks[1]["analytic_remat_one"])
+
+
+def _hold_to_one_process(mesh, one):
     assert abs(mesh["loss"] - one["loss"]) <= LOSS_RTOL * abs(one["loss"])
     top = max(np.abs(g).max() for g in one["grads"].values())
     for name, g in one["grads"].items():

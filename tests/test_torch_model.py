@@ -86,8 +86,9 @@ def test_build_model_follows_config():
     assert not (par.fast_group or par.fast_fps)
     cfg = config.TrainConfig()
     cfg.model.msg = True
-    with pytest.raises(NotImplementedError, match="msg"):
-        build_model(cfg, num_features=1)
+    msg = build_model(cfg, num_features=1)
+    assert msg.msg and msg.sa1.radii == (2.0, 4.0) and msg.sa2.radii == (8.0, 16.0)
+    assert msg.sa1.mlp1.lin0.in_features == 4 and msg.sa2.mlp.lin0.in_features == 259
 
 
 def test_config_copy_matches_reference():

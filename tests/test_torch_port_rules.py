@@ -87,6 +87,19 @@ def test_the_disk_path_subpackages_and_the_cli_are_checked():
         assert PORT / sub in PORT_FILES, sub
 
 
+VARIANT_MODULES = ("models/voxelnet.py", "models/decoder.py", "ops/voxelize.py",
+                   "models/layers.py", "models/pointnet2.py", "bridge.py")
+
+
+@pytest.mark.parametrize("sub", VARIANT_MODULES)
+def test_the_variant_modules_are_checked(sub):
+    """The voxel family, the decoder and the variants' layers carry their own
+    copies of what they take from the JAX package (the numpy voxel oracle
+    among them) and are under the no-jax checks above."""
+    assert PORT / sub in PORT_FILES
+    assert not [m for m in imported_modules(PORT / sub) if _forbidden(m)]
+
+
 RESEARCH_MODULES = ("sweep/__init__.py", "sweep/study.py", "sweep/objective.py",
                     "sweep/vmapped.py", "eval/recorded.py", "experiments/__init__.py",
                     "experiments/density.py", "experiments/seed_study.py",

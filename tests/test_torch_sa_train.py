@@ -255,9 +255,17 @@ def test_build_model_takes_fused_sa_and_writes_it_back():
     assert PointNet2Regressor(**{k: v for k, v in ours.items() if k in (
         "num_features", "fast_group", "fast_fps", "fused_sa")}).fused_sa
     for option in ("analytic_bn", "remat"):
-        unported = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **{option: True}))
-        with pytest.raises(NotImplementedError, match=f"A.10.*{option}"):
-            build_model(unported, num_features=1)
+        # kernel 6 takes the SA layers under either; analytic_bn folds SA3
+        # and the head, as in the JAX package
+        both = build_model(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **{option: True})), num_features=1)
+        assert isinstance(both.sa1.mlp, FusedSAMLP) and isinstance(both.sa2.mlp, FusedSAMLP)
+        assert both.sa3.mlp.analytic_bn == both.head.analytic_bn == (option == "analytic_bn")
+        ref = jax_model_to_dict(JaxModel(num_features=1, fast_group=True, fast_fps=True,
+                                         fused_sa=True, compute_dtype=jnp.bfloat16,
+                                         **{option: True}))
+        ref.pop("use_pallas")
+        assert model_to_dict(both) == ref
 
 
 def _fused_trainer():

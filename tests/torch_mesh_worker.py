@@ -146,12 +146,13 @@ def run_checks(rank, world, device, tmp):
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
     mesh = dp.make_mesh(2, 1, "cpu")
     f32, small = inputs["models"]["f32"], inputs["models"]["small"]
-    fused = inputs["models"]["fused_sa"]
+    fused, folded = inputs["models"]["fused_sa"], inputs["models"]["analytic_remat"]
     uneven = _batch(inputs["batches"]["uneven"])
     res = dict(coordinate=tuple(mesh.get_coordinate()), draws=_draws(mesh))
     for case, arrays in inputs["batches"].items():
         res[f"step_{case}"] = _step(*f32, _batch(arrays), mesh)
     res["fused_sa_mesh"] = _step(*fused, uneven, mesh)
+    res["analytic_remat_mesh"] = _step(*folded, uneven, mesh)
     res["epochs_mesh"] = _epochs(*small, mesh)
     res["serving_mesh"] = _serving(*small, mesh)
     res["sweep_mesh"] = _sweep(small[0], mesh)
@@ -167,6 +168,7 @@ def run_checks(rank, world, device, tmp):
         res["epochs_one"] = _epochs(*small, None)
     else:
         res["fused_sa_one"] = _step(*fused, uneven, None)
+        res["analytic_remat_one"] = _step(*folded, uneven, None)
         res["serving_one"] = _serving(*small, None)
         res["sweep_one"] = _sweep(small[0], None)
     torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
