@@ -279,7 +279,32 @@ Phases, each of which raises on failure (exit code 1):
              4b) forward and one step against the plain versions;
              ``voxel_select_first`` on 16 plots of 50,000 raw points at 0.35 m,
              10240 kept, index-equal to the host path.
-19. summary — one JSON line of the kernels with their launches by path, the
+19. mp_tools — ROADMAP C.4, the point axis over ``mp`` and the tools
+             without kernels of their own. 2 ranks spawned on the card (as
+             phase 17's) take phase 17's float32 (ELU) step at 16 x 10240 on a
+             dp=2 mesh under whole-batch float32 BatchNorm sums (the port's
+             until ROADMAP C.4) and under the port's (float64 over float32
+             chunk partials): against one
+             process, each gradient over its own largest within 1e-4
+             (tests/test_parallel.py's bound; the port's must hold it),
+             printed with (a) the masked max's argmax slots that differ by SA
+             layer, (b) each train-mode BatchNorm's largest E[x^2]/var, (c)
+             the one-process step with its statistics summed from two
+             half-batch partials against the mesh's. Then on an mp=2 mesh
+             (dp=1) the production model in bf16, then float32 with ELU, at 4
+             x 16384: ``Trainer.predict`` and 2 ``Trainer.step`` on each
+             rank's half of every cloud against one process's (eval within
+             2e-4, float32 loss 1e-5 and gradients 1e-4, every loss within
+             2^-8), kernel 2's share of the SA1 centroids a rank (half),
+             ms/step and step peak memory a rank beside one process's,
+             launches a rank. Then each tool's ``main()`` on the card, its
+             repeats cut: ``profile_step`` (train, eval, engine),
+             ``roofline``, ``batch_sweep``, ``serving_matrix`` (and
+             ``--cold``: 36 plots from the artifact in a subprocess),
+             ``dispatch_probe``, ``bq_tile_sweep``, ``fps_divergence_probe``
+             (with and without ``--old-keys``), ``torch_cpu_anchor``, each
+             with its launches counted.
+20. summary — one JSON line of the kernels with their launches by path, the
              card line, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a card, or when the package is
@@ -431,10 +456,10 @@ MC_PLOTS, MC_BATCH, MC_EPOCHS = 36, 12, 2
 MS_STEPS = len(MS_LRS) // MESH_RANKS * MS_EPOCHS * -(-MS_PLOTS // MS_BATCH)
 MS_FORWARDS = len(MS_LRS) // MESH_RANKS * MS_EPOCHS * -(-MS_VAL_PLOTS // MS_BATCH)
 # a mesh step vs one process's on the same global batch and draws: the float32
-# loss relative and the running statistics over their largest in
-# tests/test_parallel.py's bounds, the gradients in phase 11's float32 step
-# bounds (FUSED_STEP_RTOL: at 16 x 10240 a max within rounding of a tie flips
-# in one of the two sums' orders); bf16 within one bf16 step of the loss
+# loss relative, each gradient and the running statistics over their largest in
+# tests/test_parallel.py's bounds (ROADMAP C.4, closed: the statistics' sums in
+# float64 over float32 chunk partials, layers.chunk_sums); bf16 within one
+# bf16 step of the loss
 MESH_LOSS_RTOL, MESH_GRAD_ATOL, MESH_BF16_RTOL = 1e-5, 1e-4, 2.0**-8
 # launches per forward, step or run of each rank (mesh paths) or of the artifact
 EXPECTED.update({
@@ -1349,12 +1374,12 @@ def profile_calls(fn, calls: int = 3):
     return wall_ms / calls, busy_ms, kernels, table(torch.autograd.DeviceType.CPU)
 
 
-def kernel_alone_ms(fn, name: str, calls: int = 5, windows: int = 3) -> float:
+def kernel_alone_ms(fn, name: str, calls: int = 5, windows: int = 8) -> float:
     """Device time per launch of the kernels whose name holds ``name``, over
     ``calls`` calls of ``fn`` under torch.profiler: their time over the
     launches it recorded, since a window can miss its first launch (and has
-    once recorded none of five on an H100: another window is then opened, up
-    to ``windows``)."""
+    recorded none of five on an H100, once in three windows running: another
+    window is then opened, up to ``windows``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -1452,7 +1477,7 @@ def main() -> int:
 
     kernels = drive(torch.device("cuda"), card)
 
-    # phase 19: summary
+    # phase 20: summary
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1471,7 +1496,7 @@ PATHS = ("serve", "serve_fused_eval", "serve_unsplit", "train", "train_unsplit",
 
 
 def drive(device, card: str) -> list:
-    """Phases 2-18; returns the kernels' summary rows, with each kernel's
+    """Phases 2-19; returns the kernels' summary rows, with each kernel's
     launches in the run of each path."""
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
@@ -1489,6 +1514,7 @@ def drive(device, card: str) -> list:
     research(device, card, launches)
     mesh_export(device, card, launches)
     msg_radii = variants(device, card, launches)
+    mp_tools(device, card, launches)
     next(r for r in rows if r["entry"] == "dlbt_sa1_fused_eval")["by_width"] = by_width
     next(r for r in rows if r["entry"] == "dlbt_fps")["resample"] = resample
     for entry, t in (("dlbt_ball_group", msg_radii["group"]),
@@ -1499,7 +1525,8 @@ def drive(device, card: str) -> list:
     kernels = []
     for r in sorted(rows, key=lambda r: ENTRIES.index(r["entry"])):
         w = r.pop("entry")
-        by_path = {path: launches[path][w] for path in PATHS + VARIANT_PATHS}
+        by_path = {path: launches[path][w]
+                   for path in PATHS + VARIANT_PATHS + MP_PATHS + REST_TOOLS}
         if not r["source"].endswith((FWD_SOURCE, BWD_SOURCE)) and w in ENTRIES_6:
             # kernel 6's entries also run the CUDA-core kernel where mma_takes refuses
             r["cuda_core_launches_by_path"] = {p: c.get(w, 0) for p, c in
@@ -3630,35 +3657,32 @@ def mesh_rank(rank: int, world: int, device, tmp: str) -> None:
 
 def hold_step(name: str, got: dict, want: dict) -> dict:
     """A mesh step's loss, gradients and running statistics against one
-    process's: the loss within MESH_LOSS_RTOL; each gradient within phase
-    11's float32 step bounds (relative L2, and max|diff| over the step's
-    largest |g|: a max within rounding of a tie takes another slot in one
-    of the two and moves one centroid's share whole), the biases whose true
-    gradient is 0 by size; the statistics over their largest within
-    MESH_GRAD_ATOL. Returns the measures, tests/test_parallel.py's (each
-    gradient over its own largest) among them."""
-    bound = FUSED_STEP_RTOL[False]
+    process's: the loss within MESH_LOSS_RTOL; each gradient over its own
+    largest within MESH_GRAD_ATOL (tests/test_parallel.py's measure and
+    bound; the biases whose true gradient is 0 by size, within C4_ZERO of
+    the step's largest |g|, as tests/test_torch_mesh.py holds them); the
+    statistics over their largest within MESH_GRAD_ATOL. Returns the
+    measures, the relative L2 and the largest difference over the step's
+    largest |g| among them."""
     rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
     require(rel_loss <= MESH_LOSS_RTOL, f"{name}: loss rel {rel_loss} > {MESH_LOSS_RTOL}")
+    m = grad_misses(got, want)
+    require(not m["miss"] and not m["zero_miss"],
+            f"{name}: gradients past {MESH_GRAD_ATOL} of their largest {m['miss']} or zero "
+            f"gradients past {C4_ZERO} of the step's {m['zero_miss']}: "
+            f"{ {k: m['own'].get(k, m['zero'].get(k)) for k in m['miss'] + m['zero_miss']} }")
     top = max(float(g.abs().max()) for g in want["grads"].values())
-    l2, by_top, own = 0.0, 0.0, {}
-    for k, g in want["grads"].items():
-        g, mine = g.double(), got["grads"][k].double()
-        diff = mine - g
-        if zero_gradient(k) and float(g.abs().max()) <= bound["zero"] * top:
-            require(float(mine.abs().max()) <= bound["zero"] * top, f"{name}: {k} moved from 0")
-            continue
-        l2 = max(l2, float(diff.norm() / g.norm()))
-        by_top = max(by_top, float(diff.abs().max()) / top)
-        own[k] = float(diff.abs().max()) / float(g.abs().max())
-    require(l2 <= bound["grad_l2"] and by_top <= bound["grad_top"],
-            f"{name}: gradients rel L2 {l2}, max|diff|/max|g| {by_top} > {bound}")
+    l2 = max(float((got["grads"][k].double() - g.double()).norm() / g.double().norm())
+             for k, g in want["grads"].items() if k in m["own"])
+    by_top = max(float((got["grads"][k].double() - g.double()).abs().max()) / top
+                 for k, g in want["grads"].items())
     stat = max(float((got["stats"][k].double() - s.double()).abs().max()) / float(s.abs().max())
                for k, s in want["stats"].items())
     require(stat <= MESH_GRAD_ATOL, f"{name}: running statistics off by {stat}")
-    worst = max(own, key=own.get)
-    return dict(loss=rel_loss, l2=l2, top=by_top, stat=stat, own=own[worst], own_name=worst,
-                own_within=sum(v <= MESH_GRAD_ATOL for v in own.values()), tensors=len(own))
+    worst = max(m["own"], key=m["own"].get)
+    return dict(loss=rel_loss, l2=l2, top=by_top, stat=stat, own=m["own"][worst],
+                own_name=worst, own_within=len(m["own"]) - len(m["miss"]),
+                tensors=len(m["own"]), zero=max(m["zero"].values(), default=0.0))
 
 
 def mesh_paths(device, card: str, launches: dict) -> None:
@@ -3707,12 +3731,13 @@ def mesh_paths(device, card: str, launches: dict) -> None:
     require(same, "mesh f32 step: the ranks hold different gradients")
     print(f"mesh_train f32 (ELU) B={SMALL} x {N_POINTS}, {MESH_RANKS} ranks vs one process, one "
           f"state and generator: loss {ranks[0]['f32']['loss']:.6f} vs {one['loss']:.6f} (rel "
-          f"{m['loss']:.3e}, bound {MESH_LOSS_RTOL}); gradients rel L2 {m['l2']:.3e}, max|diff| "
-          f"over the step's largest |g| {m['top']:.3e} (bounds {FUSED_STEP_RTOL[False]}); each "
-          f"over its own largest (tests/test_parallel.py's measure): {m['own_within']} of "
-          f"{m['tensors']} within {MESH_GRAD_ATOL}, the worst {m['own']:.3e} ({m['own_name']}); "
-          f"running statistics {m['stat']:.3e} (bound {MESH_GRAD_ATOL}); every rank's gradients "
-          f"bit-identical [{card}]", flush=True)
+          f"{m['loss']:.3e}, bound {MESH_LOSS_RTOL}); gradients each over its own largest "
+          f"(tests/test_parallel.py's measure): {m['own_within']} of {m['tensors']} within "
+          f"{MESH_GRAD_ATOL}, the worst {m['own']:.3e} ({m['own_name']}); zero-gradient biases "
+          f"{m['zero']:.3e} of the step's largest (bound {C4_ZERO}); rel L2 {m['l2']:.3e}, "
+          f"max|diff| over the step's largest |g| {m['top']:.3e}; running statistics "
+          f"{m['stat']:.3e} (bound {MESH_GRAD_ATOL}); every rank's gradients bit-identical "
+          f"[{card}]", flush=True)
     del trainer, model, batch
 
     trainer = Trainer(seeded_model(device), TrainConfig(), device)
@@ -4212,6 +4237,400 @@ def variants(device, card: str, launches: dict) -> dict:
     voxel_selection(device, card)
     print(f"variants: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
     return timings
+
+
+# ---- phase 19: C.4, the point axis over mp, and the tools without kernels ----------
+
+# C.4: the f32 (ELU) 2-rank step at B=SMALL x N_POINTS (phase 17's batch and
+# draws) against one process's, each gradient over its own largest within
+# MESH_GRAD_ATOL (tests/test_parallel.py's bound), the biases whose true
+# gradient is 0 by size as tests/test_torch_mesh.py holds them; printed with
+# (a) the masked max's argmax slots that differ, by SA layer, (b) each
+# train-mode BatchNorm's largest E[x^2]/var, (c) the one-process step with
+# its statistics summed from two half-batch partials, in the mesh's order,
+# held against the mesh's; each under whole-batch float32 sums (the statistics
+# the repair replaced) and under the port's own
+C4_ZERO = 1e-5
+C4_SA = ("sa1", "sa2", "sa3")
+C4_BN = ("sa1.bn0", "sa1.bn1", "sa2.bn0", "sa2.bn1", "sa3.bn0", "sa3.bn1", "head.bn0",
+         "head.bn1")
+C4_VARIANTS = ("float32", "port")
+
+
+def float32_sums(xf, mask):
+    """(2C,) float32 [sum x, sum x^2] over the valid slots, each one sum
+    over the whole local batch: the sums the repair of C.4 replaced."""
+    axes = tuple(range(xf.dim() - 1))
+    xm = xf if mask is None else xf * mask.unsqueeze(-1).float()
+    return torch.cat([xm.sum(dim=axes), (xm * xf).sum(dim=axes)])
+
+
+def port_sums(xf, mask):
+    """(2C,) float64 sums of the port's statistics (``layers.chunk_sums``)."""
+    from dl_biomass_tpu_torch.models.layers import chunk_sums
+
+    xm = xf if mask is None else xf * mask.unsqueeze(-1).float()
+    return torch.cat([chunk_sums(xm), chunk_sums(xm * xf)])
+
+
+class C4Probe:
+    """Patches ``MaskedBatchNorm.batch_stats`` with the statistics of
+    ``variant`` (summed from two half-batch partials with ``halves``) and
+    ``pooling.first_argmax`` with a recorder: each BatchNorm's (mean, var)
+    and each masked max's argmax of one step, in forward order."""
+
+    def __init__(self, variant: str, halves: bool = False):
+        self.sums = {"float32": float32_sums, "port": port_sums}[variant]
+        self.halves, self.stats, self.argmax = halves, [], []
+
+    def batch_stats(self, xf, mask):
+        from dl_biomass_tpu_torch.parallel import mesh as dp
+
+        c, b = xf.shape[-1], xf.shape[0]
+        parts = [(xf, mask)] if not self.halves else [
+            (xf[:b // 2], None if mask is None else mask[:b // 2]),
+            (xf[b // 2:], None if mask is None else mask[b // 2:])]
+        sums = self.sums(*parts[0])
+        for part in parts[1:]:
+            sums = sums + self.sums(*part)
+        cnt = (mask.sum().float() if mask is not None else
+               torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device))
+        sums = dp.sum_stats(sums, grad=True)
+        cnt = torch.clamp_min(dp.sum_stats(cnt), 1.0)
+        mean = sums[:c] / cnt
+        var = torch.clamp_min(sums[c:] / cnt - mean * mean, 0.0)
+        mean, var = mean.float(), var.float()
+        self.stats.append((mean.detach().cpu(), var.detach().cpu()))
+        return mean, var, cnt
+
+    def __enter__(self):
+        from dl_biomass_tpu_torch.models import layers
+        from dl_biomass_tpu_torch.ops import pooling
+
+        real = pooling.first_argmax
+
+        def first_argmax(filled, out_max, dim):
+            am = real(filled, out_max, dim)
+            self.argmax.append(am.cpu())
+            return am
+
+        self.patches = [mock.patch.object(layers.MaskedBatchNorm, "batch_stats",
+                                          staticmethod(self.batch_stats)),
+                        mock.patch.object(pooling, "first_argmax", first_argmax)]
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.stop()
+
+
+def c4_step(device, variant: str, mesh=None, halves: bool = False) -> dict:
+    """Phase 17's f32 (ELU) step at SMALL x N_POINTS (one process, or this
+    rank's share under ``mesh``) under ``C4Probe(variant, halves)``: loss,
+    gradients, running statistics, the statistics and argmaxes it used."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    model = seeded_model(device, compute_dtype="float32", activation="ELU")
+    trainer = Trainer(model, TrainConfig(), device, mesh=mesh)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=MESH_SEED, device=device)
+    with C4Probe(variant, halves) as probe:
+        loss = trainer.step(batch, train_gen(device, MESH_SEED))
+    return dict(loss=float(loss), grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+                stats={k: v.cpu() for k, v in running_stats(model).items()},
+                used=probe.stats, argmax=probe.argmax)
+
+
+def grad_misses(got: dict, want: dict) -> dict:
+    """Each gradient of ``got`` against ``want``'s over ``want``'s largest
+    entry (tests/test_parallel.py's measure); the biases whose true gradient
+    is 0 over the step's largest |g|, as tests/test_torch_mesh.py holds them."""
+    top = max(float(g.abs().max()) for g in want["grads"].values())
+    own, zero = {}, {}
+    for k, g in want["grads"].items():
+        d = float((got["grads"][k].double() - g.double()).abs().max())
+        if zero_gradient(k) and float(g.abs().max()) <= C4_ZERO * top:
+            zero[k] = float(got["grads"][k].abs().max()) / top
+        else:
+            own[k] = d / float(g.abs().max())
+    return dict(own=own, zero=zero, miss=sorted(k for k, v in own.items() if v > MESH_GRAD_ATOL),
+                zero_miss=sorted(k for k, v in zero.items() if v > C4_ZERO))
+
+
+def argmax_flips(ranks: list, one: dict) -> list:
+    """Argmax slots of the masked maxes (SA1, SA2, SA3) that differ between
+    the ranks' steps and one process's, by layer."""
+    flips = []
+    for i in range(len(C4_SA)):
+        n = 0
+        for r, rank in enumerate(ranks):
+            mine = rank["argmax"][i]
+            b = mine.shape[0]
+            n += int((mine != one["argmax"][i][r * b:(r + 1) * b]).sum())
+        flips.append(n)
+    return flips
+
+
+def stat_gap(a: dict, b: dict) -> tuple:
+    """(largest |mean diff| / |mean|max, largest |var diff| / var max, bits
+    equal) of the statistics two steps used."""
+    dm = max(float((x[0] - y[0]).abs().max() / y[0].abs().max()) for x, y in zip(a["used"],
+                                                                                 b["used"]))
+    dv = max(float((x[1] - y[1]).abs().max() / y[1].abs().max()) for x, y in zip(a["used"],
+                                                                                 b["used"]))
+    same = all(same_bits(x[0], y[0]) and same_bits(x[1], y[1])
+               for x, y in zip(a["used"], b["used"]))
+    return dm, dv, same
+
+
+def c4_report(device, card: str, ranks: list, wall: float) -> None:
+    """Phase 19, C.4: each rank's step under each statistics variant against
+    one process's, whole and with the statistics summed from two half-batch
+    partials (c). Prints (a), (b) and (c) and the gradients' misses; the
+    port's statistics must hold every gradient within MESH_GRAD_ATOL."""
+    for variant in C4_VARIANTS:
+        one, halves = c4_step(device, variant), c4_step(device, variant, halves=True)
+        mesh = [r["c4"][variant] for r in ranks]
+        got = mesh[0]
+        vs_one, vs_halves = grad_misses(got, one), grad_misses(got, halves)
+        ratio = [float(((m * m + v) / v.clamp_min(1e-30)).max()) for m, v in one["used"]]
+        sm, sv, same = stat_gap(got, one)
+        hm, hv, hsame = stat_gap(got, halves)
+        rel = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+        print(f"C.4 {variant} statistics, f32 (ELU) step B={SMALL} x {N_POINTS}, "
+              f"{MESH_RANKS} ranks ({wall:.1f} s spawn to end) vs one process: loss rel "
+              f"{rel:.3e}; gradients over their own largest: {len(vs_one['miss'])} of "
+              f"{len(vs_one['own'])} past {MESH_GRAD_ATOL} {vs_one['miss']}, the worst "
+              f"{max(vs_one['own'].values()):.3e} "
+              f"({max(vs_one['own'], key=vs_one['own'].get)}); zero-gradient biases over the "
+              f"step's largest {max(vs_one['zero'].values(), default=0.0):.3e} (bound "
+              f"{C4_ZERO}); statistics mean {sm:.3e} var {sv:.3e} bit-identical {same}; (a) "
+              f"argmax slots that differ {dict(zip(C4_SA, argmax_flips(mesh, one)))}; (b) "
+              f"largest E[x^2]/var {dict(zip(C4_BN, (round(x, 1) for x in ratio)))}; (c) the "
+              f"one-process step summed from two half-batch partials vs the mesh's: "
+              f"{len(vs_halves['miss'])} past, the worst {max(vs_halves['own'].values()):.3e}, "
+              f"statistics mean {hm:.3e} var {hv:.3e} bit-identical {hsame}, argmax slots that "
+              f"differ {dict(zip(C4_SA, argmax_flips(mesh, halves)))} [{card}]", flush=True)
+        if variant == "port":
+            require(rel <= MESH_LOSS_RTOL and not vs_one["miss"] and not vs_one["zero_miss"],
+                    f"C.4: the 2-rank f32 step: loss rel {rel}, gradients past "
+                    f"{MESH_GRAD_ATOL} {vs_one['miss']}, zero gradients {vs_one['zero_miss']}")
+
+
+# the point axis over mp: MP_RANKS ranks (mp = MP_RANKS, dp = 1) on the card,
+# the production model at full width in bf16, then in float32 with ELU, on
+# MP_BATCH clouds of MP_POINTS (__graft_entry__.py's eval cloud): the eval
+# forward and MP_STEPS steps against one process's. The eval forward within
+# tests/test_parallel.py's 2e-4 (TestModelParallel) in both dtypes (eval
+# mode sums nothing across centroids: on an H100 both came out identical),
+# the float32 first step's loss and each gradient in MESH_LOSS_RTOL and
+# MESH_GRAD_ATOL, every loss within MESH_BF16_RTOL, as phase 17's
+MP_RANKS, MP_BATCH, MP_POINTS, MP_SEED, MP_STEPS = 2, 4, 16384, 80, 2
+MP_EVAL_RTOL = 2e-4
+MP_DTYPES = (("bfloat16", "ReLU"), ("float32", "ELU"))
+MP_PATHS = ("mp_eval", "mp_train")
+EXPECTED.update({"mp_eval": EXPECTED["serve"], "mp_train": EXPECTED["train"]})
+
+
+def mp_run(device, mesh, dtype: str, act: str, counted=None) -> dict:
+    """The mp check's model (``dtype``, ``act``) under ``mesh`` (None: one
+    process): the eval forward, then MP_STEPS steps; their outputs, the first
+    step's gradients, each step's ms (host clock to a synchronize), the
+    steps' peak memory and kernel 2's centroids a call. ``counted(path,
+    fn)`` counts the launches."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import ball_group_kernel
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    counted = counted or (lambda path, fn: fn())
+    model = seeded_model(device, compute_dtype=dtype, activation=act, seed=MP_SEED)
+    trainer = Trainer(model, TrainConfig(), device, mesh=mesh)
+    batch = synthetic_batch(MP_BATCH, MP_POINTS, seed=MP_SEED, device=device)
+    real, centroids = ball_group_kernel.ball_group, []
+
+    def group(centers, *args, **kwargs):
+        centroids.append(int(centers.shape[1]))
+        return real(centers, *args, **kwargs)
+
+    out = dict(losses=[], ms=[])
+    with mock.patch.object(ball_group_kernel, "ball_group", group):
+        out["y"] = counted("mp_eval", lambda: trainer.predict([batch]))
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        for i in range(MP_STEPS):
+            t0 = time.perf_counter()
+            loss = counted("mp_train", lambda: trainer.step(batch, train_gen(device, MP_SEED + i)))
+            out["losses"].append(float(loss))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["grads"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        out["peak"] = torch.cuda.max_memory_allocated(device) / 2**30
+        out["peak_over_base"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    out["centroids"] = centroids
+    return out
+
+
+def phase19_rank(rank: int, world: int, device, tmp: str) -> None:
+    """Phase 19's body in each rank: C.4's steps on a dp mesh, then the
+    point-parallel paths on an mp mesh, launches counted; saved for the parent."""
+    from dl_biomass_tpu_torch.ops import _build
+    from dl_biomass_tpu_torch.parallel import mesh as dp
+
+    mesh = dp.make_mesh(world, 1, device)
+    out = dict(c4={v: c4_step(device, v, mesh) for v in C4_VARIANTS}, launches={},
+               device=str(device), backend=torch.distributed.get_backend())
+    del mesh
+    torch.cuda.empty_cache()
+
+    def counted(path, fn):
+        torch.cuda.synchronize(device)
+        _build.launch_counts.clear()
+        res = fn()
+        torch.cuda.synchronize(device)
+        seen = out["launches"].setdefault(path, dict.fromkeys(ENTRIES, 0))
+        for e in ENTRIES:
+            seen[e] += _build.launch_counts[e]
+        return res
+
+    mesh = dp.make_mesh(1, world, device)
+    out["coordinate"] = tuple(mesh.get_coordinate())
+    out["mp"] = {dtype: mp_run(device, mesh, dtype, act, counted) for dtype, act in MP_DTYPES}
+    torch.save(out, Path(tmp) / f"p19_rank{rank}.pt")
+
+
+def mp_report(device, card: str, ranks: list, launches: dict) -> None:
+    """Phase 19, paths mp_eval and mp_train: each rank's launches (per
+    forward and step, held to one process's), kernel 2's share of the
+    centroids, and the forwards, steps, ms and peak memory against one
+    process's."""
+    runs = {"mp_eval": len(MP_DTYPES), "mp_train": len(MP_DTYPES) * MP_STEPS}
+    for path, n in runs.items():
+        for r in ranks:
+            check_launches(path, r["launches"][path], n)
+        launches[path] = {e: sum(r["launches"][path][e] for r in ranks) for e in ENTRIES}
+    m1 = math.ceil(0.2 * MP_POINTS)
+    share = -(-m1 // MP_RANKS)
+    for dtype, act in MP_DTYPES:
+        one = mp_run(device, None, dtype, act)
+        got = [r["mp"][dtype] for r in ranks]
+        require(all(g["centroids"] == [share] * (1 + MP_STEPS) for g in got)
+                and one["centroids"] == [m1] * (1 + MP_STEPS),
+                f"mp {dtype}: kernel 2's centroids a call {[g['centroids'] for g in got]}, one "
+                f"process {one['centroids']}; expected {share} of {m1}")
+        want = torch.from_numpy(one["y"])
+        err = max(rel_diff(torch.from_numpy(g["y"]), want) for g in got)
+        f32 = dtype == "float32"
+        eval_bound = MP_EVAL_RTOL
+        require(all(np.array_equal(g["y"], got[0]["y"]) for g in got) and err <= eval_bound,
+                f"mp {dtype}: eval forward rel {err} > {eval_bound}, or the ranks disagree")
+        rels = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], one["losses"])]
+        require(all(g["losses"] == got[0]["losses"] for g in got)
+                and all(r <= MESH_BF16_RTOL for r in rels)
+                and (not f32 or rels[0] <= MESH_LOSS_RTOL),
+                f"mp {dtype}: losses {got[0]['losses']} vs one process {one['losses']} (rel "
+                f"{rels}), or the ranks disagree")
+        g = grad_misses(got[0], one)
+        require(not f32 or (not g["miss"] and not g["zero_miss"]),
+                f"mp {dtype}: gradients past {MESH_GRAD_ATOL} of their largest {g['miss']}, "
+                f"zero gradients {g['zero_miss']}")
+        require(all(x["peak_over_base"] < one["peak_over_base"] for x in got),
+                f"mp {dtype}: rank step peaks {[x['peak_over_base'] for x in got]} GiB not below "
+                f"one process's {one['peak_over_base']}")
+        print(f"mp_train / mp_eval {dtype} ({act}) B={MP_BATCH} x {MP_POINTS}, mp={MP_RANKS} "
+              f"ranks on {ranks[0]['device']} ({ranks[0]['backend']}), coordinates "
+              f"{[r['coordinate'] for r in ranks]}: kernel 2 took {share} of the {m1} SA1 "
+              f"centroids a rank (one process {m1}); eval forward vs one process max|diff|/max|y| "
+              f"{err:.3e} (bound {eval_bound}); losses {got[0]['losses']} vs {one['losses']} "
+              f"(rel {[f'{r:.3e}' for r in rels]}); "
+              + (f"first step's gradients over their own largest: "
+                 f"{len(g['own']) - len(g['miss'])} of {len(g['own'])} within {MESH_GRAD_ATOL}, "
+                 f"the worst {max(g['own'].values()):.3e}, zero-gradient biases "
+                 f"{max(g['zero'].values(), default=0.0):.3e} of the step's largest; " if f32
+                 else "") + f"ms/step (host "
+              f"clock, step {MP_STEPS}) {got[0]['ms'][-1]:.3f} / {got[1]['ms'][-1]:.3f} vs one "
+              f"process {one['ms'][-1]:.3f}; step peak GiB a rank "
+              f"{[round(x['peak'], 3) for x in got]} ({[round(x['peak_over_base'], 3) for x in got]}"
+              f" above the memory held before the steps) vs one process {one['peak']:.3f} "
+              f"({one['peak_over_base']:.3f}); launches a rank over {runs['mp_eval']} forwards "
+              f"and {runs['mp_train']} steps "
+              f"{ {p: {e: n for e, n in ranks[0]['launches'][p].items() if n} for p in MP_PATHS} }"
+              f" [{card}]", flush=True)
+
+
+# the tools without kernels of their own, each main() at its real shapes with
+# its repeats cut (timed steps, windows, epochs), launches counted by tool
+REST_TOOLS = ("profile_step", "roofline", "batch_sweep", "serving_matrix", "dispatch_probe",
+              "bq_tile_sweep", "fps_divergence_probe", "torch_cpu_anchor")
+
+
+def rest_calls(device) -> dict:
+    """{tool: its main() calls}, each cut only in repeats."""
+    from dl_biomass_tpu_torch.tools import (batch_sweep, bq_tile_sweep, dispatch_probe,
+                                            fps_divergence_probe, profile_step, roofline,
+                                            serving_matrix, torch_cpu_anchor)
+
+    return {
+        "profile_step": lambda: [profile_step.main(w, device=device, steps=2)
+                                 for w in profile_step.MODES],
+        "roofline": lambda: roofline.main(device=device, repeats=2),
+        "batch_sweep": lambda: batch_sweep.main(device=device, steps=2, repeats=1),
+        "serving_matrix": lambda: (serving_matrix.main(device=device, steps=4, repeats=1),
+                                   serving_matrix.main(cold=True, device=device)),
+        "dispatch_probe": lambda: dispatch_probe.main(device=device, steps=3, repeats=1),
+        "bq_tile_sweep": lambda: bq_tile_sweep.main(device=device),
+        "fps_divergence_probe": lambda: [fps_divergence_probe.main(old=old, device=device,
+                                                                   max_epochs=1)
+                                         for old in (False, True)],
+        "torch_cpu_anchor": lambda: torch_cpu_anchor.main(steps=1, device=device),
+    }
+
+
+def rest_tools(device, card: str, launches: dict) -> None:
+    """Phase 19: each tool's main() on the card, its launches counted; each
+    must launch kernel 1 (all but bq_tile_sweep, whose sweep is kernel 3's)
+    and the cold start must answer every plot."""
+    from dl_biomass_tpu_torch.ops import _build
+
+    for tool, call in rest_calls(device).items():
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out = call()
+        torch.cuda.synchronize()
+        launches[tool] = {e: _build.launch_counts[e] for e in ENTRIES}
+        must = "dlbt_ball_query" if tool == "bq_tile_sweep" else "dlbt_fps"
+        require(launches[tool][must] > 0, f"{tool}: {must} never launched")
+        if tool == "serving_matrix":
+            require(out[1]["ok"] and out[1]["rows"] == 36, f"serving_matrix --cold: {out[1]}")
+        print(f"{tool}: main() in {time.perf_counter() - t0:.1f} s, launches "
+              f"{ {e: n for e, n in launches[tool].items() if n} } [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+
+def mp_tools(device, card: str, launches: dict) -> None:
+    """Phase 19: C.4 and the point axis over mp (MP_RANKS ranks spawned on
+    the card, a card each with nccl where there are enough, else sharing
+    cuda:0 through gloo), then the tools without kernels of their own."""
+    import tempfile
+
+    from dl_biomass_tpu_torch.parallel import mesh as dp
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        dp.spawn(phase19_rank, MP_RANKS, str(Path(tmp) / "store"), args=(tmp,), device=device)
+        wall = time.perf_counter() - t1
+        ranks = [torch.load(Path(tmp) / f"p19_rank{r}.pt", map_location="cpu",
+                            weights_only=False) for r in range(MP_RANKS)]
+    c4_report(device, card, ranks, wall)
+    mp_report(device, card, ranks, launches)
+    rest_tools(device, card, launches)
+    print(f"mp_tools: phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def tail_inputs(shape, device, seed: int):

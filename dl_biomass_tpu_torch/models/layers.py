@@ -7,7 +7,12 @@ accumulation; the float32 bias is added before the result is rounded to
 ``compute_dtype``, in the JAX package's order, and the gradients round where
 JAX's do. BatchNorm normalizes by its running statistics in eval and by the
 masked batch statistics in training: under ``parallel.data_parallel`` those of
-the whole batch, summed over the ``dp`` ranks as XLA's SPMD sums them.
+the whole batch, summed over the ranks that share the rows as XLA's SPMD sums
+them. The statistics' sums run in float64 over float32 partials of fixed
+chunks of each cloud's rows, so that a batch split over ranks gives the
+whole batch's statistics to float32's last bit, also where E[x^2] is many
+times the variance and the one-pass difference would multiply the sums'
+rounding.
 
 ``MLP(analytic_bn=True)`` is the folded form of the JAX package's
 ``MLP._folded``: each hidden layer's train-mode statistics come from its
@@ -118,6 +123,22 @@ class Dense(nn.Linear):
         return y.to(cdt)
 
 
+# rows a float32 partial sum of chunk_sums takes at most
+CHUNK_ROWS = 64
+
+
+def chunk_sums(t: torch.Tensor) -> torch.Tensor:
+    """(C,) float64 sums of ``t`` (B, ..., C) over every axis but the last:
+    float32 sums of chunks of ``gcd(R, CHUNK_ROWS)`` consecutive rows of one
+    cloud (R rows a cloud), then their float64 sum. A chunk never crosses a
+    cloud, so a slice of the batch has the whole batch's chunk partials, and
+    in float64 their sum in another order rounds to the same float32."""
+    c = t.shape[-1]
+    rows = math.prod(t.shape[1:-1])
+    part = t.reshape(-1, math.gcd(rows, CHUNK_ROWS), c).sum(dim=1)
+    return part.double().sum(dim=0)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d with torch semantics over valid (mask=True) elements only:
     eps 1e-5, momentum 0.1, the biased variance to normalize and the unbiased
@@ -155,40 +176,23 @@ class MaskedBatchNorm(nn.Module):
     def batch_stats(xf: torch.Tensor, mask: Optional[torch.Tensor]):
         """(mean, var, cnt) of float32 ``xf`` over every axis but the last,
         valid slots only: the one-pass ``E[x^2] - mean^2``, clamped at 0, with
-        ``cnt = max(sum(mask), 1)`` (the row count without a mask). Under a
-        mesh the column sums, the sums of squares and the count are summed
-        over the ``dp`` ranks first, differentiably."""
-        axes = tuple(range(xf.dim() - 1))
-        if dp.active() is not None:
-            return MaskedBatchNorm._global_stats(xf, mask, axes)
-        if mask is not None:
-            m = mask.unsqueeze(-1).float()
-            cnt = torch.clamp_min(m.sum(), 1.0)
-            xm = xf * m
-            mean = xm.sum(dim=axes) / cnt
-            e2 = (xm * xf).sum(dim=axes) / cnt
-        else:
-            cnt = float(math.prod(xf.shape[:-1]))
-            mean = xf.mean(dim=axes)
-            e2 = (xf * xf).mean(dim=axes)
-        return mean, torch.clamp_min(e2 - mean * mean, 0.0), cnt
-
-    @staticmethod
-    def _global_stats(xf: torch.Tensor, mask: Optional[torch.Tensor], axes):
+        ``cnt = max(sum(mask), 1)`` (the row count without a mask). The sums
+        and the difference run in float64 (``chunk_sums``); under a mesh the
+        sums and the count are summed over the ranks that share the rows
+        first (``parallel.mesh.sum_stats``), differentiably."""
+        c = xf.shape[-1]
         if mask is not None:
             m = mask.unsqueeze(-1).float()
             xm = xf * m
-            local_cnt = m.sum()
+            cnt = m.sum()
         else:
             xm = xf
-            local_cnt = torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device)
-        c = xf.shape[-1]
-        mesh = dp.active()
-        sums = dp.sum_dp(torch.cat([xm.sum(dim=axes), (xm * xf).sum(dim=axes)]), mesh, grad=True)
-        cnt = torch.clamp_min(dp.sum_dp(local_cnt, mesh), 1.0)
+            cnt = torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device)
+        sums = dp.sum_stats(torch.cat([chunk_sums(xm), chunk_sums(xm * xf)]), grad=True)
+        cnt = torch.clamp_min(dp.sum_stats(cnt), 1.0)
         mean = sums[:c] / cnt
-        e2 = sums[c:] / cnt
-        return mean, torch.clamp_min(e2 - mean * mean, 0.0), cnt
+        var = torch.clamp_min(sums[c:] / cnt - mean * mean, 0.0)
+        return mean.float(), var.float(), cnt
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
@@ -226,11 +230,19 @@ def _checkpoint(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward, where the
     running statistics' update is skipped; the recompute runs the same
     operations on the same inputs, so the gradients are the plain call's bit
-    for bit. Under a mesh it sums the statistics over ``dp`` again, on every
-    rank in the same order, to the same values."""
+    for bit. Under a mesh the recompute runs in the forward's mesh context
+    and sums the statistics over the same ranks again, on every rank in the
+    same order, to the same values."""
+    mesh_state = dp.state()
+
+    @contextlib.contextmanager
+    def recompute():
+        with _recompute(), dp.restored(mesh_state):
+            yield
+
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+        context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 class MLP(nn.Module):
@@ -307,25 +319,24 @@ class MLP(nn.Module):
     @staticmethod
     def _count(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The valid slots (the rows without a mask), under a mesh of every
-        ``dp`` rank, clamped at 1."""
+        rank that shares the rows, clamped at 1."""
         if mask is not None:
             cnt = mask.sum().float()
         else:
             cnt = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
-        return torch.clamp_min(dp.sum_dp(cnt, dp.active()), 1.0)
+        return torch.clamp_min(dp.sum_stats(cnt), 1.0)
 
     @staticmethod
     def _moments(x: torch.Tensor):
         """(s1 (Cin,), M2 (Cin, Cin)) of ``x``, float32 sums; under a mesh
-        summed over the ``dp`` ranks, differentiably."""
+        summed over the ranks that share the rows, differentiably."""
         x2 = x.reshape(-1, x.shape[-1])
         s1 = x2.sum(0, dtype=torch.float32)
         m2 = dot_f32(x2.t(), x2)
-        mesh = dp.active()
-        if mesh is None:
+        if dp.active() is None:
             return s1, m2
         c = s1.numel()
-        sums = dp.sum_dp(torch.cat([s1, m2.reshape(-1)]), mesh, grad=True)
+        sums = dp.sum_stats(torch.cat([s1, m2.reshape(-1)]), grad=True)
         return sums[:c], sums[c:].view(c, c)
 
     def _folded(self, x, mask, lins, bns, act, train, generator):
@@ -411,7 +422,7 @@ class FusedSAMLP(MLP):
         if train:
             out, (m1, v1, m2, v2) = fused_sa_mlp(dense, planes, nbr_mask, params, act=self.act,
                                                  bf16=bf16, train=True)
-            cnt = torch.clamp_min(dp.sum_dp(nbr_mask.sum().float(), dp.active()), 1.0)
+            cnt = torch.clamp_min(dp.sum_stats(nbr_mask.sum().float()), 1.0)
             bn0.update_running(m1, v1, cnt)
             bn1.update_running(m2, v2, cnt)
             return out

@@ -36,10 +36,26 @@ turns SA2's split first layer off (kernel 4c gathers the edges);
 and the head twice as wide) size the end of the network. ``model_to_dict``,
 ``model_from_dict`` and ``build_model`` also take the voxel family
 (``models/voxelnet.py``).
+
+Under ``parallel.data_parallel(mesh, points=True)`` with ``mp`` > 1 each rank
+holds its ``mp`` slice of every cloud's points (``mesh.shard_points``), as a
+batch placed with ``P("dp", "mp", None)`` in the JAX package; the forward
+writes out what XLA does there. SA1 gathers the slices (the cloud is small
+beside the edges) and every ``mp`` rank runs FPS on the whole cloud, from
+the same draws; SA1 and SA2 then split by centroid (``_Share``): each rank
+groups, gathers and runs the MLP and the max for its share of the centroids
+alone, its BatchNorm statistics summed over the whole mesh; SA2's z-table
+(or its features) comes from each rank's own SA1 rows, gathered over ``mp``
+before kernel 4 reads it; SA3 and the head run on the gathered SA2 rows,
+replicated over ``mp``. The gathers' backward sums the cotangents over
+``mp``, so a rank's rows get every rank's share. A ``fused_sa`` model
+gathers the points and runs replicated, as XLA runs a Pallas call it cannot
+partition.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -54,6 +70,7 @@ from dl_biomass_tpu_torch.ops.fps import farthest_point_sample, fps_sectored
 from dl_biomass_tpu_torch.ops.grouping import (edges_from_gathered, gather_points,
                                              group_neighborhoods)
 from dl_biomass_tpu_torch.ops.pooling import masked_max
+from dl_biomass_tpu_torch.parallel import mesh as dp
 
 # the JAX package gathers SA2's z-table with its one-hot kernel only while the
 # table (SA1's centroids) holds at most this many rows (pointnet2.py:172,
@@ -61,6 +78,31 @@ from dl_biomass_tpu_torch.ops.pooling import masked_max
 MXU_MAX_POINTS = 4096
 # the activations kernel 6 computes; under fused_sa any other keeps the unfused MLP
 FUSED_SA_ACTS = (None, "None", "ReLU", "LeakyReLU", "ELU")
+
+
+class _Share:
+    """This rank's share of ``n`` rows (dim 1) split over the ``mp`` ranks of
+    the active mesh: rows [lo, lo + size), size = ceil(n / mp), the last
+    share padded past ``n``."""
+
+    def __init__(self, n: int):
+        mesh = dp.active()
+        self.n, self.mesh = n, mesh
+        self.size = -(-n // dp.mp_size(mesh))
+        self.lo = dp.mp_rank(mesh) * self.size
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This share's rows of ``t`` (B, n, ...), zeros (False) past ``n``."""
+        part = t[:, self.lo:self.lo + self.size]
+        pad = self.size - part.shape[1]
+        if pad:
+            part = torch.cat([part, part.new_zeros((part.shape[0], pad, *part.shape[2:]))], 1)
+        return part
+
+    def full(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` (B, size, ...) in order, the first ``n``;
+        differentiable."""
+        return dp.gather_mp(t, self.mesh, self.n)
 
 
 def sample_centroids(pos, mask, m: int, *, sectored: bool, generator=None):
@@ -108,18 +150,31 @@ class SAModule(nn.Module):
     def mlps(self):
         return [getattr(self, f"mlp{i}" if i else "mlp") for i in range(len(self.radii))]
 
-    def forward(self, feat, pos, mask, *, train: bool = False, generator=None):
+    def forward(self, feat, pos, mask, *, train: bool = False, generator=None, rows=None,
+                split: bool = False):
+        """(features of the centroids, centroids (B, M, 3), their mask).
+        ``split`` (points over ``mp``): only this rank's share of the
+        centroids is computed and its rows returned (padded), with that share
+        (``_Share``) as a fourth item; ``rows``, the share of ``pos`` whose
+        features ``feat`` holds (None: ``feat`` holds every row)."""
         m = math.ceil(self.ratio * pos.shape[1])
         _, centers, center_mask = sample_centroids(
             pos, mask, m, sectored=self.fast_fps and not self.exact_selection,
             generator=generator)
-        outs = [self._one_scale(mlp, r, feat, pos, mask, centers, center_mask, train)
-                for r, mlp in zip(self.radii, self.mlps())]
-        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), centers, center_mask
+        mine, mine_mask, share = centers, center_mask, None
+        if split:
+            share = _Share(m)
+            mine, mine_mask = share.take(centers), share.take(center_mask)
+        with dp.split_rows() if split else contextlib.nullcontext():
+            outs = [self._one_scale(mlp, r, feat, pos, mask, mine, mine_mask, train, rows)
+                    for r, mlp in zip(self.radii, self.mlps())]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+        return (out, centers, center_mask) + ((share,) if split else ())
 
-    def _one_scale(self, mlp, radius, feat, pos, mask, centers, center_mask, train):
+    def _one_scale(self, mlp, radius, feat, pos, mask, centers, center_mask, train, rows=None):
         n = pos.shape[1]
         cdt = self.compute_dtype
+        full = (lambda t: t) if rows is None else rows.full
         if (self.fast_group and not self.exact_selection and self.max_neighbors == 64
                 and (feat is None or feat.shape[-1] <= 4)):
             _, nbr_mask, edges = ball_group_kernel.ball_group(
@@ -138,16 +193,19 @@ class SAModule(nn.Module):
             # runs once per point, and kernel 4 gathers the z-table. Each use
             # casts wp on its own, as JAX does, so the two bf16 gradients of
             # wp meet in float32
+            # (split over mp: each rank's own rows, gathered)
             lin0 = mlp.lin0
             w0 = lin0.weight.t()
             fdim = feat.shape[-1]
             wf, wp = w0[:fdim], w0[fdim:]
-            zpt = (dot_f32(feat.to(cdt), wf.to(cdt)) + dot_f32(pos.to(cdt), wp.to(cdt))
-                   + lin0.bias).to(cdt)
+            own = pos if rows is None else rows.take(pos)
+            zpt = full((dot_f32(feat.to(cdt), wf.to(cdt)) + dot_f32(own.to(cdt), wp.to(cdt))
+                        + lin0.bias).to(cdt))
             gz = gather_kernel.gather_rows(zpt, nbr_idx)
             cshift = dot_f32(centers.to(cdt), wp.to(cdt))
             z0 = gz - cshift[:, :, None, :].to(gz.dtype)
             return masked_max(mlp.from_z0(z0, nbr_mask, train), nbr_mask, dim=2)
+        feat = full(feat)
         if use_mxu:
             # features (differentiable) and positions (the gradient-free aux
             # table) gathered by one index, kernel 4c
@@ -235,10 +293,21 @@ class PointNet2Regressor(nn.Module):
         head's dropout, which needs ``generator``; FPS starts are drawn from
         ``generator`` when one is given."""
         feat, pos, mask = cloud.feat, cloud.pos, cloud.mask
+        split = dp.point_parts() > 1
+        if split:  # this rank's mp slice of the points: SA1 reads whole clouds
+            pos, feat, mask = (dp.gather_points(t, dp.active()) for t in (pos, feat, mask))
+            split = not self.fused_sa  # kernel 6 runs replicated over mp
         if self.num_features == 0:
             feat = pos  # the reference: x = coords when no columns are used
-        h, pos, mask = self.sa1(feat, pos, mask, train=train, generator=generator)
-        h, pos, mask = self.sa2(h, pos, mask, train=train, generator=generator)
+        if split:
+            h, pos, mask, rows = self.sa1(feat, pos, mask, train=train, generator=generator,
+                                          split=True)
+            h, pos, mask, rows = self.sa2(h, pos, mask, train=train, generator=generator,
+                                          rows=rows, split=True)
+            h = rows.full(h)
+        else:
+            h, pos, mask = self.sa1(feat, pos, mask, train=train, generator=generator)
+            h, pos, mask = self.sa2(h, pos, mask, train=train, generator=generator)
         h = self.sa3(h, pos, mask, train=train)
         return self.head(h, None, train, generator).float()  # predictions always float32
 

@@ -74,9 +74,10 @@ def fps_sectored(pos: torch.Tensor, mask: torch.Tensor, num_samples: int, *,
                                      generator=generator)
     m = n // s
     k_sec = num_samples // s
-    # (B, N) with N = j*s + sec -> (B, m, s) -> (B*s, m): sector-major rows
-    pos_s = pos.reshape(b, m, s, 3).transpose(1, 2).reshape(b * s, m, 3)
-    mask_s = mask.reshape(b, m, s).transpose(1, 2).reshape(b * s, m)
+    # (B, N) with N = j*s + sec -> (B, m, s) -> (B*s, m): sector-major rows,
+    # copied (at B = 1 the reshape is a strided view, which kernel 1 refuses)
+    pos_s = pos.reshape(b, m, s, 3).transpose(1, 2).reshape(b * s, m, 3).contiguous()
+    mask_s = mask.reshape(b, m, s).transpose(1, 2).reshape(b * s, m).contiguous()
     sub = farthest_point_sample(pos_s, mask_s, k_sec, starts=starts,
                                 generator=generator)  # (B*s, k_sec) local j
     sec = torch.arange(s, dtype=torch.int32, device=pos.device).view(1, s, 1)

@@ -1,11 +1,12 @@
-"""Data parallelism over a ``torch.distributed`` device mesh (port of
-``dl_biomass_tpu/parallel/mesh.py``).
+"""Data and point parallelism over a ``torch.distributed`` device mesh (port
+of ``dl_biomass_tpu/parallel/mesh.py``).
 
 The JAX package runs SPMD over a ``(dp, mp)`` mesh: the batch axis is sharded
-over ``dp`` (``P("dp")``), everything else is replicated, so ``mp`` only
-replicates; XLA inserts the sums that make the sharded step compute what the
-whole batch gives on one device. Here each mesh coordinate is a process (a
-rank) and the sums are written out:
+over ``dp`` (``P("dp")``), and a batch placed with ``P("dp", "mp", None)``
+also has each cloud's points sharded over ``mp``; XLA inserts the sums and
+gathers that make the sharded step compute what the whole batch gives on one
+device. Here each mesh coordinate is a process (a rank) and the sums are
+written out:
 
   * ``shard_batch``: a rank takes its ``dp`` slice of the whole batch; ranks
     that share a ``dp`` coordinate take the same slice;
@@ -18,14 +19,26 @@ rank) and the sums are written out:
     rows, so that the gathered values are the rows, bit for bit);
   * ``rand_rows``: a draw of ``torch.rand`` for the whole batch from the
     shared generator, of which a rank keeps its rows: the FPS starts and the
-    dropout are those of one process on the whole batch.
+    dropout are those of one process on the whole batch (the ``mp`` ranks of
+    one ``dp`` slice draw the same rows);
+  * ``shard_points``: a rank's ``dp`` slice of the clouds and its ``mp``
+    slice of each cloud's points; ``gather_points`` and ``gather_mp`` bring
+    the ``mp`` slices together (the latter differentiably: its backward sums
+    the cotangents over ``mp`` and keeps this rank's rows);
+  * ``sum_stats``: the BatchNorm statistics' sums over the ranks that share
+    the rows: the ``dp`` group, or the whole mesh inside ``split_rows()``,
+    where each ``mp`` rank holds its share of a layer's centroids.
 
-The layers learn of the mesh from ``data_parallel(mesh)``, a context that
-``Trainer`` and the serving engines enter around their forwards and
-backwards; without it every path is the one-process path, unchanged. The
-mesh needs only ``all_reduce`` and ``broadcast``, which gloo also takes on
-CUDA tensors: ``backend_for`` takes nccl where each rank has a card of its
-own and gloo where ranks share a card or run on the CPU.
+The layers learn of the mesh from ``data_parallel(mesh, points=)``, a
+context that ``Trainer`` and the serving engines enter around their forwards
+and backwards; without it every path is the one-process path, unchanged.
+``points=True`` (``Trainer.step``, ``evaluate``, ``predict`` under ``mp`` >
+1) tells the model that each rank holds its ``mp`` slice of the points; the
+serving engines and the trainer's epochs over a ``DeviceDataset`` leave it
+off and run replicated over ``mp``, as the JAX package shards only ``dp``
+there. The mesh needs only ``all_reduce``, ``broadcast`` and groups, which
+gloo also takes on CUDA tensors: ``backend_for`` takes nccl where each rank
+has a card of its own and gloo where ranks share a card or run on the CPU.
 
 A run under ``torchrun`` calls ``init_from_env``; ``spawn`` starts ``world``
 ranks on this machine from a file store (``init_method="file://..."``).
@@ -46,6 +59,9 @@ AXES = ("dp", "mp")
 COLLECTIVE_TIMEOUT_S = 600
 
 _active = None  # the mesh of the enclosing data_parallel(), read by the layers
+_points = False  # each rank of _active holds its mp slice of every cloud's points
+_split = False  # the enclosed layers' rows are this rank's mp share (split_rows)
+_mesh_groups = {}  # the ranks of a mesh built by make_mesh -> a group over all of them
 
 
 def mesh_shape(world: int, dp: int = -1, mp: int = 1) -> Tuple[int, int]:
@@ -107,29 +123,65 @@ def make_mesh(dp: int = -1, mp: int = 1, device=None):
     from dl_biomass_tpu_torch.core.cloud import resolve_device
 
     dp, mp = mesh_shape(dist.get_world_size(), dp, mp)
-    return DeviceMesh(resolve_device(device).type, torch.arange(dp * mp).view(dp, mp),
+    mesh = DeviceMesh(resolve_device(device).type, torch.arange(dp * mp).view(dp, mp),
                       mesh_dim_names=AXES)
+    if mp > 1:  # the whole mesh's sums (statistics, gradients) need a group of their own
+        _mesh_groups[_ranks(mesh)] = dist.new_group(list(range(dp * mp)))
+    return mesh
+
+
+def _ranks(mesh) -> Tuple[int, ...]:
+    return tuple(mesh.mesh.flatten().tolist())
 
 
 # ---- the mesh in use --------------------------------------------------------
 
 
 @contextlib.contextmanager
-def data_parallel(mesh):
+def data_parallel(mesh, points: bool = False):
     """Run the enclosed forwards and backwards over ``mesh`` (None: one
-    process). A plain global, not a context variable: autograd runs a CUDA
-    backward on a thread of its own."""
-    global _active
-    prev, _active = _active, mesh
-    try:
+    process); ``points=True``: each rank holds its ``mp`` slice of every
+    cloud's points (``shard_points``). Plain globals, not context variables:
+    autograd runs a CUDA backward on a thread of its own."""
+    with restored((mesh, bool(points) and mesh is not None and mp_size(mesh) > 1, False)):
         yield mesh
+
+
+@contextlib.contextmanager
+def restored(state):
+    """Run the enclosed code in a ``state()`` taken earlier (a recompute in
+    the backward runs in its forward's)."""
+    global _active, _points, _split
+    prev = (_active, _points, _split)
+    _active, _points, _split = state
+    try:
+        yield
     finally:
-        _active = prev
+        _active, _points, _split = prev
+
+
+def state():
+    """(mesh, points, split) of the enclosing contexts."""
+    return _active, _points, _split
+
+
+@contextlib.contextmanager
+def split_rows():
+    """The enclosed layers run on this rank's ``mp`` share of the rows: their
+    statistics are summed over the whole mesh (``sum_stats``)."""
+    with restored((_active, _points, True)):
+        yield
 
 
 def active():
     """The mesh of the enclosing ``data_parallel``, or None."""
     return _active
+
+
+def point_parts() -> int:
+    """How many ``mp`` slices the enclosing ``data_parallel`` splits each
+    cloud's points into (1: every rank holds whole clouds)."""
+    return mp_size(_active) if _points else 1
 
 
 def _coordinate(mesh) -> Tuple[int, ...]:
@@ -146,6 +198,26 @@ def dp_size(mesh) -> int:
 def dp_rank(mesh) -> int:
     """This rank's coordinate on the ``dp`` axis: its slice of a batch."""
     return _coordinate(mesh)[0]
+
+
+def mp_size(mesh) -> int:
+    return mesh.size(1)
+
+
+def mp_rank(mesh) -> int:
+    """This rank's coordinate on the ``mp`` axis: its slice of each cloud's
+    points, and its share of each split layer's centroids."""
+    return _coordinate(mesh)[1]
+
+
+def mesh_group(mesh):
+    """The group of every rank of ``mesh`` (its ``dp`` group where ``mp`` is 1)."""
+    if mp_size(mesh) == 1:
+        return mesh.get_group("dp")
+    try:
+        return _mesh_groups[_ranks(mesh)]
+    except KeyError:
+        raise ValueError("a mesh with mp > 1 must come from make_mesh") from None
 
 
 def is_writer(mesh) -> bool:
@@ -173,6 +245,24 @@ def shard_batch(batch, mesh):
         return batch
     s = dp_slice(batch.pos.shape[0], mesh)
     return type(batch)(pos=batch.pos[s], feat=batch.feat[s], mask=batch.mask[s],
+                       y=None if batch.y is None else batch.y[s])
+
+
+def shard_points(batch, mesh):
+    """This rank's ``dp`` slice of a ``CloudBatch`` with its ``mp`` slice of
+    each cloud's points (the targets are the clouds'): the counterpart of
+    placing the batch with ``P("dp", "mp", None)``. A point count the ``mp``
+    size does not divide raises ``ValueError``."""
+    if mesh is None:
+        return batch
+    s = dp_slice(batch.pos.shape[0], mesh)
+    n, parts = batch.pos.shape[1], mp_size(mesh)
+    if n % parts:
+        raise ValueError(f"clouds of {n} points do not split over the mesh's mp={parts} "
+                         "ranks: the point count must be a multiple of mp")
+    q = n // parts
+    p = slice(mp_rank(mesh) * q, (mp_rank(mesh) + 1) * q)
+    return type(batch)(pos=batch.pos[s, p], feat=batch.feat[s, p], mask=batch.mask[s, p],
                        y=None if batch.y is None else batch.y[s])
 
 
@@ -210,17 +300,30 @@ class _SumDP(torch.autograd.Function):
         return _SumDP.apply(g, ctx.group), None
 
 
-def sum_dp(t: torch.Tensor, mesh, *, grad: bool = False) -> torch.Tensor:
-    """The sum of ``t`` over the ``dp`` group of ``mesh`` (``t`` itself
-    without one), a new tensor; ``grad=True`` keeps it differentiable."""
-    if mesh is None:
-        return t
-    group = mesh.get_group("dp")
+def _sum_over(t: torch.Tensor, group, grad: bool) -> torch.Tensor:
     if grad:
         return _SumDP.apply(t, group)
     t = t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(t, group=group)
     return t
+
+
+def sum_dp(t: torch.Tensor, mesh, *, grad: bool = False) -> torch.Tensor:
+    """The sum of ``t`` over the ``dp`` group of ``mesh`` (``t`` itself
+    without one), a new tensor; ``grad=True`` keeps it differentiable."""
+    if mesh is None:
+        return t
+    return _sum_over(t, mesh.get_group("dp"), grad)
+
+
+def sum_stats(t: torch.Tensor, *, grad: bool = False) -> torch.Tensor:
+    """A BatchNorm statistic's sum over the ranks that share its rows under
+    the enclosing ``data_parallel``: the ``dp`` group, or inside
+    ``split_rows()`` the whole mesh (``t`` itself without a mesh)."""
+    mesh = _active
+    if mesh is None:
+        return t
+    return _sum_over(t, mesh_group(mesh) if _split else mesh.get_group("dp"), grad)
 
 
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -255,13 +358,48 @@ def gather_dp(local: torch.Tensor, mesh) -> torch.Tensor:
     return gather_slices(local, dp_rank(mesh), dp_size(mesh), mesh.get_group("dp"))
 
 
+def gather_points(local: torch.Tensor, mesh) -> torch.Tensor:
+    """Every ``mp`` slice of the points (dim 1) in order, bit for bit, on
+    every ``mp`` rank: the whole clouds of this rank's ``dp`` slice."""
+    whole = gather_slices(local.transpose(0, 1).contiguous(), mp_rank(mesh), mp_size(mesh),
+                          mesh.get_group("mp"))
+    return whole.transpose(0, 1).contiguous()
+
+
+class _GatherMP(torch.autograd.Function):
+    """``gather_points`` trimmed to ``total`` rows; the backward sums the
+    cotangents of every ``mp`` rank and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, total):
+        ctx.mesh, ctx.rows = mesh, local.shape[1]
+        return gather_points(local, mesh)[:, :total].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, rows = ctx.mesh, ctx.rows
+        whole = g.new_zeros((g.shape[0], rows * mp_size(mesh), *g.shape[2:]))
+        whole[:, :g.shape[1]] = g
+        dist.all_reduce(whole, group=mesh.get_group("mp"))
+        r = mp_rank(mesh)
+        return whole[:, r * rows:(r + 1) * rows].contiguous(), None, None
+
+
+def gather_mp(local: torch.Tensor, mesh, total: int) -> torch.Tensor:
+    """The rows (dim 1) of every ``mp`` rank's share, in order, the first
+    ``total`` of them, on every ``mp`` rank; differentiable (``_GatherMP``)."""
+    return _GatherMP.apply(local, mesh, total)
+
+
 def sum_grads(params, mesh) -> None:
-    """Sum every parameter's ``.grad`` over the ``dp`` group, in place, in one
-    flat buffer (a missing gradient counts as 0)."""
+    """Sum every parameter's ``.grad`` over the whole mesh, in place, in one
+    flat buffer (a missing gradient counts as 0). Under ``mp`` > 1 every rank
+    backpropagates its loss over the ``mp`` size, so that the replicated
+    layers' gradients, summed over ``mp``, count the loss once."""
     params = [p for p in params if p.requires_grad]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.get_group("dp"))
+    dist.all_reduce(flat, group=mesh_group(mesh))
     for p, g in zip(params, flat.split([g.numel() for g in grads])):
         p.grad = g.view_as(p).to(p.dtype)
 

@@ -34,6 +34,14 @@ the pad clouds fall, and the gradients are summed over the ranks before the
 optimizer step. Evaluation's losses and ``predict``'s rows are the whole
 batch's on every rank; ``fit`` takes its decisions from rank 0's numbers,
 and only rank 0 writes checkpoints, the CSV and TensorBoard.
+
+Under ``mp`` > 1, ``step``, ``evaluate`` and ``predict`` hand the model each
+rank's ``mp`` slice of the points too (``parallel/mesh.shard_points``; the
+model splits SA1 and SA2 by centroid over ``mp``); the epochs over a
+``DeviceDataset`` batch as the JAX trainer does, over ``dp`` only, and run
+replicated over ``mp``. Either way every rank backpropagates its loss over
+the ``mp`` size and the gradients are summed over the whole mesh, so the
+loss counts once.
 """
 
 from __future__ import annotations
@@ -118,31 +126,47 @@ class Trainer:
 
     # ---- steps ---------------------------------------------------------------
 
+    def _parts(self) -> int:
+        return 1 if self.mesh is None else dp.mp_size(self.mesh)
+
+    def _input(self, batch: CloudBatch, points: bool) -> CloudBatch:
+        """The model's input on this rank: its ``dp`` slice, and with
+        ``points`` its ``mp`` slice of the points."""
+        return dp.shard_points(batch, self.mesh) if points else dp.shard_batch(batch, self.mesh)
+
     def step(self, batch: CloudBatch,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One gradient step; returns the loss (a device tensor, not synced).
         After it, each parameter's ``.grad`` holds this step's gradient (under
-        a mesh, the whole batch's, summed over the ranks)."""
+        a mesh, the whole batch's, summed over the ranks; under ``mp`` > 1
+        each rank computes its slice of the points)."""
+        return self._step(batch, generator, points=True)
+
+    def _step(self, batch: CloudBatch, generator: Optional[torch.Generator],
+              points: bool) -> torch.Tensor:
         batch = batch.to(self.device)
-        with dp.data_parallel(self.mesh):
+        parts = self._parts()
+        points = points and parts > 1
+        with dp.data_parallel(self.mesh, points=points):
             local = dp.shard_batch(batch, self.mesh)
             self.optimizer.zero_grad(set_to_none=True)
-            out = self.model(local, train=True, generator=generator)
+            out = self.model(self._input(batch, points), train=True, generator=generator)
             loss = self._loss(out, local)
-            loss.backward()
+            (loss / parts if parts > 1 else loss).backward()
         if self.mesh is not None:
             dp.sum_grads(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return dp.sum_dp(loss.detach(), self.mesh)
 
     @torch.inference_mode()
-    def _eval_batch(self, batch: CloudBatch):
+    def _eval_batch(self, batch: CloudBatch, points: bool = True):
         """(loss, predictions, real-cloud mask) of one eval-mode forward; under
         a mesh the whole batch's loss and rows."""
         batch = batch.to(self.device)
-        with dp.data_parallel(self.mesh):
+        points = points and self._parts() > 1
+        with dp.data_parallel(self.mesh, points=points):
             local = dp.shard_batch(batch, self.mesh)
-            out = self.model(local, train=False)
+            out = self.model(self._input(batch, points), train=False)
             loss = dp.sum_dp(self._loss(out, local), self.mesh)
             return loss, dp.gather_dp(out, self.mesh), _pad_weight(batch)
 
@@ -182,7 +206,8 @@ class Trainer:
         for si in range(len(b0s)):
             per = [a[si] for a in specs] if scan else (idxs[si], augs[si], valids[si])
             batch = ds.assemble(*per, ds.aug_seed(seed, int(b0s[si])), bool(augs[si].any()))
-            losses.append(self.step(batch, generator) if train else self._eval_batch(batch)[0])
+            losses.append(self._step(batch, generator, points=False) if train
+                          else self._eval_batch(batch, points=False)[0])
         if not losses:
             raise ValueError("the DeviceDataset holds no plots")
         loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))

@@ -7,6 +7,9 @@ serving engines and the sweep over a mesh) on the CPU.
 - One spawned 2-rank gloo group (a file store under ``tmp_path``) runs every
   check of ``tests/torch_mesh_worker.py`` in one spawn and saves what it saw;
   the tests below read it:
+  * the statistics every train-mode BatchNorm of that step used, against
+    one process's, bit for bit (ROADMAP C.4's repair: the sums in float64
+    over float32 partials of chunks of one cloud's rows);
   * the port's float32 step (ELU, dropout 0, FPS from the first valid point)
     on bridged weights against JAX's step under ``make_mesh(dp=2)``, within
     ``tests/test_parallel.py``'s bounds (loss rtol 1e-5; each gradient over
@@ -175,6 +178,33 @@ def test_two_rank_step_matches_jax_under_make_mesh(group, case):
             path[-1]]]
         scale = np.abs(js).max()
         np.testing.assert_allclose(ts / scale, js / scale, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(BATCHES))
+def test_two_rank_batchnorm_statistics_equal_one_process_bit_for_bit(group, case):
+    """ROADMAP C.4: summed over the ranks in another order than one process
+    sums them, whole-batch float32 statistics parted where E[x^2] is many times
+    the variance; the sums in float64 over float32 chunk partials give one
+    process's statistics bit for bit wherever the BatchNorm's input rows are
+    one process's (SA1's, SA2's and SA3's six, and the head's first, here),
+    and within 1e-5 of their largest where a matmul of fewer rows rounded
+    the inputs otherwise (the head's second, 4 rows a rank: its inputs 7e-7
+    apart)."""
+    ranks, _, _ = group
+    one = ranks[1]["stats_one"][case]
+    same_inputs = []
+    for i, (mean1, var1, halves) in enumerate(one):
+        got = [r[f"stats_{case}"][i] for r in ranks]
+        if all(g[2] == [h] for g, h in zip(got, halves)):
+            same_inputs.append(i)
+            for mean, var, _ in got:
+                np.testing.assert_array_equal(mean, mean1)
+                np.testing.assert_array_equal(var, var1)
+        else:
+            for mean, var, _ in got:
+                np.testing.assert_allclose(mean, mean1, rtol=0, atol=1e-5 * np.abs(mean1).max())
+                np.testing.assert_allclose(var, var1, rtol=0, atol=1e-5 * np.abs(var1).max())
+    assert len(one) == 8 and same_inputs[:6] == list(range(6))
 
 
 @pytest.mark.parametrize("case", sorted(BATCHES))

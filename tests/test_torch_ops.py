@@ -66,6 +66,25 @@ def test_fps_sectored_matches_pallas(n, k):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_fps_sectored_hands_kernel_1_contiguous_rows(b, monkeypatch):
+    """The sector-major rows are a copy at every batch size: at B = 1 the
+    reshape after the transpose is a strided view, which kernel 1's launch
+    refuses on the card (a serving request of one cloud raised there)."""
+    pos, mask = cloud(4, b, 640, [640, 603][:b])
+    real, seen = fps_kernel.fps_rows, []
+
+    def rows(p, m, starts, k):
+        seen.append(p.is_contiguous() and m.is_contiguous())
+        return real(p, m, starts, k)
+
+    monkeypatch.setattr(fps_kernel, "fps_rows", rows)
+    want = np.asarray(jax_fps_sectored(jnp.asarray(pos), jnp.asarray(mask), 128,
+                                       use_pallas=True))
+    np.testing.assert_array_equal(ops.fps_sectored(t(pos), t(mask), 128).numpy(), want)
+    assert seen == [True]
+
+
 def test_fps_sectored_halves_to_two_sectors_at_7168():
     """At N=7168 the SA1 count ceil(0.2 N) = 1434 is not a multiple of 4, so
     both packages run 2 sectors of 3584 points, 717 picks each.

@@ -114,6 +114,20 @@ def test_the_research_modules_are_checked(sub):
     assert PORT / sub in PORT_FILES
 
 
+REST_TOOLS = ("profile_step", "roofline", "batch_sweep", "serving_matrix", "dispatch_probe",
+              "bq_tile_sweep", "fps_divergence_probe", "torch_cpu_anchor")
+
+
+@pytest.mark.parametrize("tool", REST_TOOLS)
+def test_the_tools_without_kernels_are_checked(tool):
+    """The ports of the JAX tools that run no kernel of their own are under
+    the no-jax checks above, as is the test rank body of the point-parallel
+    mesh (a spawned rank must not import jax)."""
+    assert PORT / "tools" / f"{tool}.py" in PORT_FILES
+    worker = ROOT / "tests" / "torch_mesh_mp_worker.py"
+    assert not [m for m in imported_modules(worker) if _forbidden(m)]
+
+
 def test_the_study_module_is_a_copy_of_the_jax_packages():
     """``sweep/study.py`` is the JAX package's file but for its docstring, so
     a study either package saves loads in the other."""

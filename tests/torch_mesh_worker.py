@@ -5,8 +5,10 @@ JAX package and against one process. Imports torch and the port only (a
 spawned rank imports this module, never jax)."""
 
 import contextlib
+import hashlib
 import io
 import os
+from unittest import mock
 
 import torch
 
@@ -15,6 +17,7 @@ from dl_biomass_tpu_torch.core.config import HyperParams, TrainConfig
 from dl_biomass_tpu_torch.io.device_data import DeviceDataset
 from dl_biomass_tpu_torch.io.synthetic import synthetic_dataset
 from dl_biomass_tpu_torch.models.inference import compile_dataset_inference, compile_inference
+from dl_biomass_tpu_torch.models.layers import MaskedBatchNorm
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor
 from dl_biomass_tpu_torch.parallel import mesh as dp
 from dl_biomass_tpu_torch.sweep.vmapped import VmappedSweep
@@ -43,6 +46,24 @@ def _step(kwargs, state, batch, mesh):
     grads = {n: p.grad.double().numpy().copy() for n, p in trainer.model.named_parameters()}
     new = {k: v.double().numpy().copy() for k, v in trainer.model.state_dict().items()}
     return dict(loss=loss, grads=grads, state=new)
+
+
+def _stats_used(fn, parts: int = 1):
+    """``fn()`` and, for each train-mode BatchNorm of it in forward order,
+    the (mean, var) it used and a digest of its input's rows in ``parts``
+    equal slices of the batch (a rank's rows are one slice of one
+    process's)."""
+    real, used = MaskedBatchNorm.batch_stats, []
+
+    def record(xf, mask):
+        mean, var, cnt = real(xf, mask)
+        digests = [hashlib.sha1(x.detach().contiguous().numpy().tobytes()).hexdigest()
+                   for x in xf.chunk(parts, dim=0)]
+        used.append((mean.detach().numpy().copy(), var.detach().numpy().copy(), digests))
+        return mean, var, cnt
+
+    with mock.patch.object(MaskedBatchNorm, "batch_stats", staticmethod(record)):
+        return fn(), used
 
 
 def epoch_data():
@@ -150,7 +171,8 @@ def run_checks(rank, world, device, tmp):
     uneven = _batch(inputs["batches"]["uneven"])
     res = dict(coordinate=tuple(mesh.get_coordinate()), draws=_draws(mesh))
     for case, arrays in inputs["batches"].items():
-        res[f"step_{case}"] = _step(*f32, _batch(arrays), mesh)
+        res[f"step_{case}"], res[f"stats_{case}"] = _stats_used(
+            lambda: _step(*f32, _batch(arrays), mesh))
     res["fused_sa_mesh"] = _step(*fused, uneven, mesh)
     res["analytic_remat_mesh"] = _step(*folded, uneven, mesh)
     res["epochs_mesh"] = _epochs(*small, mesh)
@@ -167,6 +189,9 @@ def run_checks(rank, world, device, tmp):
     if rank == 0:
         res["epochs_one"] = _epochs(*small, None)
     else:
+        res["stats_one"] = {case: _stats_used(lambda: _step(*f32, _batch(arrays), None),
+                                              parts=world)[1]
+                            for case, arrays in inputs["batches"].items()}
         res["fused_sa_one"] = _step(*fused, uneven, None)
         res["analytic_remat_one"] = _step(*folded, uneven, None)
         res["serving_one"] = _serving(*small, None)
