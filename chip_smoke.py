@@ -229,7 +229,7 @@ Phases, each of which raises on failure (exit code 1):
              ``lr_range_test`` for 20 iterations at B=36 (finite losses, a
              suggestion inside the range). Every stage's launches counted by
              kernel and held to what its steps and forwards need; its wall,
-             s/epoch and clouds/s by ``utils/profiling.StepTimer``.
+             s/epoch and clouds/s on the host clock up to a ``hard_sync``.
 17. mesh_export — the serving export and data parallelism. ``export_serving``
              of the seeded production model at 16 x 10240 on the card
              (``torch.export`` of the flat serving function, kernels 1, 2, 3
@@ -3196,19 +3196,19 @@ def add_launches(*runs: dict) -> dict:
 def research_stage(name: str, fn, device, card: str, counts: dict, expected=None,
                    epochs: int = 0, clouds: int = 0):
     """``fn()`` with every launch count set to 0 just before it and read just
-    after, timed by ``utils/profiling.StepTimer`` up to a ``hard_sync`` on the
-    device; ``expected`` (a launch dict, or a function of ``fn``'s result
+    after, timed on the host clock up to a ``utils/profiling.hard_sync`` on
+    the device; ``expected`` (a launch dict, or a function of ``fn``'s result
     giving (launches, epochs, clouds trained)) is held to the counts. Returns
     ``fn``'s result."""
     from dl_biomass_tpu_torch.ops import _build
-    from dl_biomass_tpu_torch.utils.profiling import StepTimer
+    from dl_biomass_tpu_torch.utils.profiling import hard_sync
 
-    timer = StepTimer()
     torch.cuda.synchronize()
     _build.launch_counts.clear()
-    timer.start()
+    t0 = time.perf_counter()
     out = fn()
-    wall = timer.stop(sync_on=torch.zeros(1, device=device))
+    hard_sync(torch.zeros(1, device=device))
+    wall = time.perf_counter() - t0
     got = {e: _build.launch_counts[e] for e in ENTRIES}
     if callable(expected):
         expected, epochs, clouds = expected(out)

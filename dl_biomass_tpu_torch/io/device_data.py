@@ -32,6 +32,7 @@ import torch
 from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device, round_up
 from dl_biomass_tpu_torch.transforms.augment import (AugmentDraws, apply_augment,
                                                      aug_capacity, draw_augment)
+from dl_biomass_tpu_torch.utils import profiling
 
 # domain tags mixed into an epoch's seed: the augmentation of each batch and the
 # epoch's order, each apart from the steps' own stream (seeded with the seed)
@@ -76,10 +77,11 @@ class DeviceDataset:
 
     def __init__(self, pos, feat, mask, y, plot_ids: Sequence[str], base_n: int, device=None):
         dev = resolve_device(device)
-        self.pos = torch.as_tensor(pos, dtype=torch.float32).to(dev)
-        self.feat = torch.as_tensor(feat, dtype=torch.float32).to(dev)
-        self.mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
-        self.y = torch.as_tensor(y, dtype=torch.float32).to(dev)
+        with profiling.span("io.upload"):
+            self.pos = torch.as_tensor(pos, dtype=torch.float32).to(dev)
+            self.feat = torch.as_tensor(feat, dtype=torch.float32).to(dev)
+            self.mask = torch.as_tensor(mask, dtype=torch.bool).to(dev)
+            self.y = torch.as_tensor(y, dtype=torch.float32).to(dev)
         self.plot_ids = list(plot_ids)
         self.base_n = int(base_n)
 
@@ -109,15 +111,16 @@ class DeviceDataset:
         if base_n is None:
             base_n = max(int(p.shape[0]) for p in pos_list)
         cap = aug_capacity(base_n) if for_augmentation else round_up(base_n, 128)
-        p_arr = np.zeros((len(pos_list), cap, 3), np.float32)
-        f_dim = feat_list[0].reshape(len(feat_list[0]), -1).shape[-1]
-        f_arr = np.zeros((len(pos_list), cap, f_dim), np.float32)
-        m_arr = np.zeros((len(pos_list), cap), bool)
-        for i, (p, x) in enumerate(zip(pos_list, feat_list)):
-            n = min(int(p.shape[0]), base_n)
-            p_arr[i, :n] = p[:n]
-            f_arr[i, :n] = x.reshape(len(x), -1)[:n]
-            m_arr[i, :n] = True
+        with profiling.span("io.pack"):
+            p_arr = np.zeros((len(pos_list), cap, 3), np.float32)
+            f_dim = feat_list[0].reshape(len(feat_list[0]), -1).shape[-1]
+            f_arr = np.zeros((len(pos_list), cap, f_dim), np.float32)
+            m_arr = np.zeros((len(pos_list), cap), bool)
+            for i, (p, x) in enumerate(zip(pos_list, feat_list)):
+                n = min(int(p.shape[0]), base_n)
+                p_arr[i, :n] = p[:n]
+                f_arr[i, :n] = x.reshape(len(x), -1)[:n]
+                m_arr[i, :n] = True
         return cls(p_arr, f_arr, m_arr, np.asarray(y, np.float32), plot_ids, base_n, device)
 
     def pad_plots(self, p_to: int) -> "DeviceDataset":
@@ -132,9 +135,10 @@ class DeviceDataset:
         def z(a):
             return torch.cat([a, a.new_zeros((p_to - p, *a.shape[1:]))])
 
-        return DeviceDataset(z(self.pos), z(self.feat), z(self.mask), z(self.y),
-                             self.plot_ids + ["__pad__"] * (p_to - p), self.base_n,
-                             self.device)
+        with profiling.span("io.pad_plots"):
+            return DeviceDataset(z(self.pos), z(self.feat), z(self.mask), z(self.y),
+                                 self.plot_ids + ["__pad__"] * (p_to - p), self.base_n,
+                                 self.device)
 
     # ---- batch serving --------------------------------------------------------
 

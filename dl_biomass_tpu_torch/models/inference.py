@@ -29,12 +29,13 @@ import torch
 from dl_biomass_tpu_torch.core.cloud import CloudBatch, resolve_device
 from dl_biomass_tpu_torch.models.layers import MLP, dot_f32
 from dl_biomass_tpu_torch.models.pointnet2 import (MXU_MAX_POINTS, PointNet2Regressor,
-                                                   sample_centroids)
+                                                   count_edges, sample_centroids)
 from dl_biomass_tpu_torch.ops import ball_group_kernel, gather_kernel, sa_eval_kernel
 from dl_biomass_tpu_torch.ops.ballquery import ball_query
 from dl_biomass_tpu_torch.ops.grouping import edges_from_gathered, group_neighborhoods
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 from dl_biomass_tpu_torch.parallel import mesh as dp
+from dl_biomass_tpu_torch.utils import profiling
 
 Layers = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -145,46 +146,53 @@ def serving_function(model: PointNet2Regressor, *, fused_eval: bool = False) -> 
         m1 = math.ceil(sa1_ratio * n)
         m2 = math.ceil(sa2_ratio * m1)
 
-        _, c1, cm1 = sample_centroids(pos, mask, m1, sectored=sectored)
-        if stratified and fused_eval:
-            h1 = sa_eval_kernel.sa1_fused_eval(c1, cm1, pos, mask, feat,
-                                               [w for wb in sa1 for w in wb], radius=r1,
-                                               bf16=(ct == torch.bfloat16), out_dtype=ct,
-                                               packed=weights[-1])
-        else:
-            if stratified:
-                _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat, radius=r1,
-                                                          out_dtype=ct, need_idx=False)
+        with profiling.span("engine.sa1", device=pos):
+            _, c1, cm1 = sample_centroids(pos, mask, m1, sectored=sectored)
+            if stratified and fused_eval:  # kernel 5 keeps its neighbourhoods: not counted
+                h1 = sa_eval_kernel.sa1_fused_eval(c1, cm1, pos, mask, feat,
+                                                   [w for wb in sa1 for w in wb], radius=r1,
+                                                   bf16=(ct == torch.bfloat16), out_dtype=ct,
+                                                   packed=weights[-1])
             else:
-                nidx1, nm1 = ball_query(c1, cm1, pos, mask, radius=r1, k=64)
-                e1 = group_neighborhoods(pos, feat, c1, nidx1, nm1)
-            h1 = masked_max(_run_folded(e1, sa1, compute_dtype=ct), nm1, dim=2)
+                if stratified:
+                    _, nm1, e1 = ball_group_kernel.ball_group(c1, cm1, pos, mask, feat,
+                                                              radius=r1, out_dtype=ct,
+                                                              need_idx=False)
+                else:
+                    nidx1, nm1 = ball_query(c1, cm1, pos, mask, radius=r1, k=64)
+                    e1 = group_neighborhoods(pos, feat, c1, nidx1, nm1)
+                count_edges(nm1)
+                h1 = masked_max(_run_folded(e1, sa1, compute_dtype=ct), nm1, dim=2)
 
-        _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
-        nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
-        if m1 <= MXU_MAX_POINTS and split:
-            # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
-            # so it runs once per point and kernel 4 gathers the z-table. Pad
-            # slots carry index 0, so their gathered rows are point 0's finite
-            # row, and masked_max leaves them out through nm.
-            w0, b0 = sa2[0]
-            fdim = h1.shape[-1]
-            zpt = (dot_f32(h1.to(ct), w0[:fdim]) + dot_f32(c1.to(ct), w0[fdim:]) + b0).to(ct)
-            gz = gather_kernel.gather_rows(zpt, nidx)
-            cshift = dot_f32(c2.to(ct), w0[fdim:])
-            z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
-            h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
-        else:
-            if m1 <= MXU_MAX_POINTS:  # h1 and c1 gathered by one index, kernel 4c
-                gfeat, gpos = gather_kernel.gather_rows(h1, nidx, aux=c1)
-                e2 = edges_from_gathered(gfeat, gpos, c2, nm)
+        with profiling.span("engine.sa2", device=pos):
+            _, c2, cm2 = sample_centroids(c1, cm1, m2, sectored=sectored)
+            nidx, nm = ball_query(c2, cm2, c1, cm1, radius=r2, k=64)
+            count_edges(nm)
+            if m1 <= MXU_MAX_POINTS and split:
+                # per-point first layer: folded layer 0 is linear in [h1_j, c1_j - c2_i],
+                # so it runs once per point and kernel 4 gathers the z-table. Pad
+                # slots carry index 0, so their gathered rows are point 0's finite
+                # row, and masked_max leaves them out through nm.
+                w0, b0 = sa2[0]
+                fdim = h1.shape[-1]
+                zpt = (dot_f32(h1.to(ct), w0[:fdim]) + dot_f32(c1.to(ct), w0[fdim:])
+                       + b0).to(ct)
+                gz = gather_kernel.gather_rows(zpt, nidx)
+                cshift = dot_f32(c2.to(ct), w0[fdim:])
+                z0 = (gz - cshift[:, :, None, :].to(gz.dtype)).clamp_min_(0)  # layer 0 is hidden
+                h2 = masked_max(_run_folded(z0, sa2[1:], compute_dtype=ct), nm, dim=2)
             else:
-                e2 = group_neighborhoods(c1, h1, c2, nidx, nm)  # [h1_j, c1_j - c2_i], 0 on pads
-            h2 = masked_max(_run_folded(e2, sa2, compute_dtype=ct), nm, dim=2)
+                if m1 <= MXU_MAX_POINTS:  # h1 and c1 gathered by one index, kernel 4c
+                    gfeat, gpos = gather_kernel.gather_rows(h1, nidx, aux=c1)
+                    e2 = edges_from_gathered(gfeat, gpos, c2, nm)
+                else:  # [h1_j, c1_j - c2_i], 0 on pads
+                    e2 = group_neighborhoods(c1, h1, c2, nidx, nm)
+                h2 = masked_max(_run_folded(e2, sa2, compute_dtype=ct), nm, dim=2)
 
-        g = torch.cat([h2, c2], dim=-1)
-        h3 = masked_max(_run_folded(g, sa3, compute_dtype=ct), cm2, dim=1)
-        return _run_folded(h3, head, act=False, compute_dtype=ct).float()
+        with profiling.span("engine.tail", device=pos):
+            g = torch.cat([h2, c2], dim=-1)
+            h3 = masked_max(_run_folded(g, sa3, compute_dtype=ct), cm2, dim=1)
+            return _run_folded(h3, head, act=False, compute_dtype=ct).float()
 
     infer.n_weights = n_weights
     return infer
@@ -240,8 +248,13 @@ def compile_dataset_inference(model: PointNet2Regressor, device=None, *, fused_e
 
     def serve_dataset(ds, batch_size: int) -> np.ndarray:
         idxs, augs, valids, _ = ds.epoch_spec_arrays(batch_size)
-        outs = [serve(ds.assemble(idx, aug, valid, 0, False))
-                for idx, aug, valid in zip(idxs, augs, valids)]
-        return torch.cat(outs).cpu().numpy()[valids.reshape(-1)]
+        outs = []
+        for idx, aug, valid in zip(idxs, augs, valids):
+            batch = ds.assemble(idx, aug, valid, 0, False)
+            with profiling.span("serve.batch"):
+                outs.append(serve(batch))
+        with profiling.span("serve.readback"):
+            rows = torch.cat(outs).cpu().numpy()
+        return rows[valids.reshape(-1)]
 
     return serve_dataset

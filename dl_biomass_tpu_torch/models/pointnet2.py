@@ -71,6 +71,7 @@ from dl_biomass_tpu_torch.ops.grouping import (edges_from_gathered, gather_point
                                              group_neighborhoods)
 from dl_biomass_tpu_torch.ops.pooling import masked_max
 from dl_biomass_tpu_torch.parallel import mesh as dp
+from dl_biomass_tpu_torch.utils import profiling
 
 # the JAX package gathers SA2's z-table with its one-hot kernel only while the
 # table (SA1's centroids) holds at most this many rows (pointnet2.py:172,
@@ -103,6 +104,15 @@ class _Share:
         """Every rank's rows of ``t`` (B, size, ...) in order, the first ``n``;
         differentiable."""
         return dp.gather_mp(t, self.mesh, self.n)
+
+
+def count_edges(nbr_mask: torch.Tensor) -> None:
+    """While spans are recorded: the counters ``edges.valid`` (neighbour
+    slots that hold a neighbour) and ``edges.slots`` (all slots, pads
+    included) of one scale's neighbourhoods."""
+    if profiling.enabled():
+        profiling.count("edges.valid", nbr_mask.sum())
+        profiling.count("edges.slots", nbr_mask.numel())
 
 
 def sample_centroids(pos, mask, m: int, *, sectored: bool, generator=None):
@@ -180,12 +190,14 @@ class SAModule(nn.Module):
             _, nbr_mask, edges = ball_group_kernel.ball_group(
                 centers, center_mask, pos, mask, feat, radius=radius,
                 out_dtype=torch.float32 if self.fused_sa else cdt, need_idx=False)
+            count_edges(nbr_mask)
             if self.fused_sa:  # the float32 edges [feat, rel] are kernel 6's planes
                 return mlp(None, edges, nbr_mask, train)
             return masked_max(mlp(edges.detach(), nbr_mask, train), nbr_mask, dim=2)
 
         nbr_idx, nbr_mask = ball_query(centers, center_mask, pos, mask, radius=radius,
                                        k=self.max_neighbors)
+        count_edges(nbr_mask)
         use_mxu = (feat is not None and feat.shape[-1] >= 16 and n <= MXU_MAX_POINTS
                    and self.max_neighbors == 64)
         if use_mxu and self.split_first_layer and not (self.fused_sa or self.analytic_bn):
@@ -293,6 +305,7 @@ class PointNet2Regressor(nn.Module):
         head's dropout, which needs ``generator``; FPS starts are drawn from
         ``generator`` when one is given."""
         feat, pos, mask = cloud.feat, cloud.pos, cloud.mask
+        dev = pos.device
         split = dp.point_parts() > 1
         if split:  # this rank's mp slice of the points: SA1 reads whole clouds
             pos, feat, mask = (dp.gather_points(t, dp.active()) for t in (pos, feat, mask))
@@ -300,16 +313,22 @@ class PointNet2Regressor(nn.Module):
         if self.num_features == 0:
             feat = pos  # the reference: x = coords when no columns are used
         if split:
-            h, pos, mask, rows = self.sa1(feat, pos, mask, train=train, generator=generator,
-                                          split=True)
-            h, pos, mask, rows = self.sa2(h, pos, mask, train=train, generator=generator,
-                                          rows=rows, split=True)
-            h = rows.full(h)
+            with profiling.span("model.sa1", device=dev):
+                h, pos, mask, rows = self.sa1(feat, pos, mask, train=train,
+                                              generator=generator, split=True)
+            with profiling.span("model.sa2", device=dev):
+                h, pos, mask, rows = self.sa2(h, pos, mask, train=train, generator=generator,
+                                              rows=rows, split=True)
+                h = rows.full(h)
         else:
-            h, pos, mask = self.sa1(feat, pos, mask, train=train, generator=generator)
-            h, pos, mask = self.sa2(h, pos, mask, train=train, generator=generator)
-        h = self.sa3(h, pos, mask, train=train)
-        return self.head(h, None, train, generator).float()  # predictions always float32
+            with profiling.span("model.sa1", device=dev):
+                h, pos, mask = self.sa1(feat, pos, mask, train=train, generator=generator)
+            with profiling.span("model.sa2", device=dev):
+                h, pos, mask = self.sa2(h, pos, mask, train=train, generator=generator)
+        with profiling.span("model.sa3", device=dev):
+            h = self.sa3(h, pos, mask, train=train)
+        with profiling.span("model.head", device=dev):
+            return self.head(h, None, train, generator).float()  # predictions always float32
 
 
 def pointnet2_v2(num_features: int, activation_function: str = "ReLU") -> PointNet2Regressor:

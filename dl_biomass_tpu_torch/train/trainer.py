@@ -61,7 +61,7 @@ from dl_biomass_tpu_torch.models.pointnet2 import model_to_dict
 from dl_biomass_tpu_torch.parallel import mesh as dp
 from dl_biomass_tpu_torch.train import checkpoint
 from dl_biomass_tpu_torch.train.loss import weighted_component_mse
-
+from dl_biomass_tpu_torch.utils import profiling
 
 
 def _is_device_dataset(x) -> bool:
@@ -144,19 +144,24 @@ class Trainer:
 
     def _step(self, batch: CloudBatch, generator: Optional[torch.Generator],
               points: bool) -> torch.Tensor:
-        batch = batch.to(self.device)
-        parts = self._parts()
-        points = points and parts > 1
-        with dp.data_parallel(self.mesh, points=points):
-            local = dp.shard_batch(batch, self.mesh)
-            self.optimizer.zero_grad(set_to_none=True)
-            out = self.model(self._input(batch, points), train=True, generator=generator)
-            loss = self._loss(out, local)
-            (loss / parts if parts > 1 else loss).backward()
-        if self.mesh is not None:
-            dp.sum_grads(self.model.parameters(), self.mesh)
-        self.optimizer.step()
-        return dp.sum_dp(loss.detach(), self.mesh)
+        with profiling.span("train.step"):
+            batch = batch.to(self.device)
+            parts = self._parts()
+            points = points and parts > 1
+            dev = batch.pos.device
+            with dp.data_parallel(self.mesh, points=points):
+                local = dp.shard_batch(batch, self.mesh)
+                self.optimizer.zero_grad(set_to_none=True)
+                with profiling.span("train.forward", device=dev):
+                    out = self.model(self._input(batch, points), train=True, generator=generator)
+                with profiling.span("train.backward", device=dev):
+                    loss = self._loss(out, local)
+                    (loss / parts if parts > 1 else loss).backward()
+            with profiling.span("train.optimizer", device=dev):
+                if self.mesh is not None:
+                    dp.sum_grads(self.model.parameters(), self.mesh)
+                self.optimizer.step()
+            return dp.sum_dp(loss.detach(), self.mesh)
 
     @torch.inference_mode()
     def _eval_batch(self, batch: CloudBatch, points: bool = True):
@@ -205,12 +210,16 @@ class Trainer:
         losses = []
         for si in range(len(b0s)):
             per = [a[si] for a in specs] if scan else (idxs[si], augs[si], valids[si])
-            batch = ds.assemble(*per, ds.aug_seed(seed, int(b0s[si])), bool(augs[si].any()))
+            with profiling.span("train.assemble", device=ds.device):
+                batch = ds.assemble(*per, ds.aug_seed(seed, int(b0s[si])),
+                                    bool(augs[si].any()))
             losses.append(self._step(batch, generator, points=False) if train
                           else self._eval_batch(batch, points=False)[0])
         if not losses:
             raise ValueError("the DeviceDataset holds no plots")
-        loss = float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
+        with profiling.span("train.readback"):
+            losses = torch.stack(losses).cpu().numpy()
+        loss = float(np.mean(losses.astype(np.float64)))
         return loss, int(valids.sum())
 
     def train_epoch_fused(self, ds, seed: int, *, batch_size: int, num_augs: int = 0,
