@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Comparisons of kernels 6 (the fused SA MLP), 5, 1 (FPS), 2 (ball group),
 4b (the gather's scatter-add backward), 3 (exact ball query), 7 (the fused
-tail, forward and backward), 9 (the tool's ball query) and the slice sum on
-one NVIDIA card, beside
+tail, forward and backward), 9 (the tool's ball query), the slice sum and 11
+(the train-mode BatchNorm) on one NVIDIA card, beside
 ``chip_smoke.py``, whose helpers it uses:
 
     python3 chip_compare.py time TAG      # one line: the CUDA-core forward passes
@@ -122,6 +122,15 @@ one NVIDIA card, beside
                                           # plan where the tree has one
     python3 chip_compare.py sumtune TAG   # the slice sum at those shapes under every
                                           # tile width (4-256 values a block), by graph
+    python3 chip_compare.py bntrain TAG   # kernel 11 (the train-mode BatchNorm) at
+                                          # the SSG cell's SA1 and SA2 hidden layers
+                                          # (B=36, bf16, ReLU): its ptxas report, each
+                                          # pass alone and its plain version by CUDA
+                                          # graph beside its bound, then one Dense +
+                                          # BatchNorm + ReLU layer's forward and
+                                          # backward on the kernels and on the
+                                          # PyTorch chain, by CUDA events and by
+                                          # the card's busy time (torch.profiler)
 
 To compare two commits on one card, unpack the other commit (``git archive``)
 into a directory, copy this script beside its ``chip_smoke.py`` (for ``fps``
@@ -1009,6 +1018,87 @@ def sum_tune(tag: str) -> None:
               + f" ms [{card}]", flush=True)
 
 
+# the SSG cell's hidden layers: (B, M, C), rows B x M x 64, and the Dense's input width
+BN_SHAPES = {"SA1": (36, 1588, 64, 4), "SA2": (36, 397, 128, 128)}
+
+
+def bn_train(tag: str) -> None:
+    """Kernel 11's passes at BN_SHAPES on seeded inputs (65% of the slots
+    valid): each by CUDA graph beside its plain version and its bound (each
+    input read once, each output written once), then a Dense + BatchNorm +
+    ReLU layer forward and backward by CUDA events (median of 10; the host's
+    issue time where it is the longer) and by the card's busy time in it
+    (``torch.profiler``, 5 calls), on the kernels and on the chain
+    (``MaskedBatchNorm.plain``)."""
+    cs, dev = _setup()
+    from dl_biomass_tpu_torch.models.layers import Dense, MaskedBatchNorm
+    from dl_biomass_tpu_torch.ops import bn_train_kernel as bk
+    from dl_biomass_tpu_torch.ops.sum_slices_kernel import sum_slices as ssum
+
+    card = cs.card_line()
+    for line in ptxas_lines("bn_train.cu"):
+        print(f"{tag} ptxas: {line}", flush=True)
+    bf16 = torch.bfloat16
+    for label, (b, m, c, cin) in BN_SHAPES.items():
+        rows = b * m * 64
+        gen = torch.Generator(device=dev).manual_seed(3)
+        z = torch.randn((rows, c), device=dev, generator=gen) * 2
+        bias = torch.randn(c, device=dev, generator=gen)
+        mask = torch.rand(rows, device=dev, generator=gen) < 0.65
+        g = torch.randn((rows, c), device=dev, generator=gen).to(bf16)
+        y, part = bk.f1(z, bias, mask, bf16)
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        shift, mean = torch.randn(c, device=dev, generator=gen), y.float().mean(0)
+        d1, d2 = torch.randn(c, device=dev, generator=gen) * 1e-6, torch.randn(
+            c, device=dev, generator=gen) * 1e-7
+        val, msk, prt = rows * c * 2, rows, (rows // 64) * 2 * c * 4
+        passes = {  # name: (kernel, plain, bytes)
+            "F1": (lambda: bk.f1(z, bias, mask, bf16), lambda: bk.f1_plain(z, bias, mask, bf16),
+                   rows * c * 4 + val + msk + prt),
+            "F1 from y": (lambda: bk.f1(y, None, mask, bf16),
+                          lambda: bk.f1_plain(y, None, mask, bf16), val + msk + prt),
+            "F2": (lambda: bk.f2(y, scale, shift, "ReLU"),
+                   lambda: bk.f2_plain(y, scale, shift, "ReLU"), 2 * val),
+            "B1": (lambda: bk.b1(g, y, scale, shift, mean, "ReLU"),
+                   lambda: bk.b1_plain(g, y, scale, shift, mean, "ReLU"), 2 * val + prt),
+            "B2": (lambda: bk.b2(g, y, mask, scale, shift, d1, d2, "ReLU", True),
+                   lambda: bk.b2_plain(g, y, mask, scale, shift, d1, d2, "ReLU", True),
+                   3 * val + msk + prt // 2),
+            "sum f64": (lambda: ssum(part, torch.float64),
+                        lambda: part.double().sum(0), prt + 2 * c * 8),
+        }
+        total_k = total_b = 0.0
+        for name, (kern, plain, nbytes) in passes.items():
+            kms, pms = cs.graph_ms(kern), cs.graph_ms(plain)
+            # some ten operations a value; the sum one add a partial
+            bms, by = cs.bound(nbytes, prt // 4 if name == "sum f64" else 10 * rows * c)
+            if name != "F1 from y":
+                total_k, total_b = total_k + kms, total_b + bms
+            print(f"{tag} bntrain {label} {name}: {kms:.4f} ms, bound {bms:.4f} ms ({by}, "
+                  f"{nbytes / 1e9:.3f} GB), {100 * bms / kms:.1f}% of it; plain {pms:.4f} ms "
+                  f"[{card}]", flush=True)
+        print(f"{tag} bntrain {label} F1+F2+B1+B2+2 sums: {total_k:.4f} ms, bound "
+              f"{total_b:.4f} ms [{card}]", flush=True)
+        x = torch.randn((b, m, 64, cin), device=dev, generator=gen).to(bf16)
+        gl = g.view(b, m, 64, c)
+        ml = mask.view(b, m, 64)
+        lin, bn = Dense(cin, c, bf16).to(dev), MaskedBatchNorm(c).to(dev)
+
+        def layer(fused):
+            def run():
+                xi = x.detach().requires_grad_(True)
+                out = (bn.fused(xi, ml, "ReLU", lin) if fused else
+                       torch.relu(bn.plain(lin(xi), ml, True)))
+                out.backward(gl)
+            return run
+
+        fms, pms = cs.time_ms(layer(True), reps=10), cs.time_ms(layer(False), reps=10)
+        fbusy, pbusy = (cs.profile_calls(layer(f), calls=5)[1] for f in (True, False))
+        print(f"{tag} bntrain {label} layer forward + backward: by events kernels {fms:.3f} ms, "
+              f"chain {pms:.3f} ms ({pms / fms:.2f}x); busy on the card kernels {fbusy:.3f} ms, "
+              f"chain {pbusy:.3f} ms ({pbusy / fbusy:.2f}x) [{card}]", flush=True)
+
+
 def main(argv) -> int:
     commands = {"time": (time_passes, 1), "outputs": (save_outputs, 1), "same": (same, 2),
                 "steps": (steps, 0), "acts": (acts, 0), "fps": (fps, 1),
@@ -1017,7 +1107,8 @@ def main(argv) -> int:
                 "query": (query, 1), "querytune": (query_tune, 1),
                 "querylat": (query_latency, 1), "tail": (tail, 1), "tailbwd": (tail_bwd, 1),
                 "tailtune": (tail_tune, 1), "bqphase": (bq_phase, 1), "bqtune": (bq_tune, 1),
-                "sumslices": (sum_slices, 1), "sumtune": (sum_tune, 1)}
+                "sumslices": (sum_slices, 1), "sumtune": (sum_tune, 1),
+                "bntrain": (bn_train, 1)}
     if not argv or argv[0] not in commands or len(argv) - 1 != commands[argv[0]][1]:
         print(__doc__, file=sys.stderr)
         return 2

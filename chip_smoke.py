@@ -63,7 +63,18 @@ Phases, each of which raises on failure (exit code 1):
              launches, and replayed from a CUDA graph) beside its bound and one
              ``index_add_`` as the library yardstick, each of its four launches
              alone from a graph (``gather_kernel.probe``), also with the pad
-             slots taken out, and the lengths of its segments.
+             slots taken out, and the lengths of its segments. Then kernel
+             11 (the train-mode BatchNorm of the SA layers' hidden layers) at
+             the inputs one training step of the SSG benchmark cell's shape
+             (36 clouds of 7168 points in 7936 slots: SA1 36 x 1588 x 64 x 64,
+             SA2 36 x 397 x 64 x 128, bf16, ReLU) gives it: each of F1, F2, B1,
+             B2 and the float32-to-float64 slice sum of their partials at
+             each of its launches held against its plain version
+             (``bn_train_kernel.f1_plain`` ...; y, the output and dy equal,
+             the partials within 2^-16 of their rows' sum of |term|, the
+             float64 sums within 1e-9 of theirs) and against a second launch
+             bit for bit, timed from a CUDA graph beside its bound and its
+             plain version.
 7. train   — ``Trainer`` on the same production model (Adam, lr, weight decay,
              head dropout 0.5; FPS starts and dropout from a seeded
              ``torch.Generator``) takes 12 steps on each fixed batch of
@@ -275,8 +286,9 @@ Phases, each of which raises on failure (exit code 1):
              and the ``torch.export`` artifact; the voxel family
              (``voxelize`` on the card against a CPU copy, then the probe's
              configuration, ``voxelnet_deep`` and ``voxelnet_wide48``, 12
-             steps each); the per-point segmentor (exact FPS, kernel 3, 4a,
-             4b) forward and one step against the plain versions;
+             steps each, kernel 11 at their 64-cell BatchNorms); the
+             per-point segmentor (exact FPS, kernel 3, 4a, 4b, 11) forward and
+             one step against the plain versions;
              ``voxel_select_first`` on 16 plots of 50,000 raw points at 0.35 m,
              10240 kept, index-equal to the host path.
 19. mp_tools — ROADMAP C.4, the point axis over ``mp`` and the tools
@@ -352,15 +364,54 @@ ENTRIES = ("dlbt_fps", "dlbt_ball_group", "dlbt_ball_query", "dlbt_gather", "dlb
            "dlbt_sa1_fused_eval", "dlbt_scatter_rows", "dlbt_fused_sa_f1", "dlbt_fused_sa_f2",
            "dlbt_fused_sa_f3", "dlbt_fused_sa_b1", "dlbt_fused_sa_b2", "dlbt_fused_sa_b3",
            "dlbt_fused_tail_fwd", "dlbt_fused_tail_bwd", "dlbt_masked_stats", "dlbt_sum_slices",
-           "dlbt_bq_phase", "dlbt_block_copy")
+           "dlbt_bq_phase", "dlbt_block_copy", "dlbt_bn_stats", "dlbt_bn_apply",
+           "dlbt_bn_grad_sums", "dlbt_bn_grad", "dlbt_sum_slices_f64")
 
 
 ENTRIES_6 = tuple(e for e in ENTRIES if e.startswith("dlbt_fused_sa_"))
+ENTRIES_11 = ENTRIES[-5:]  # kernel 11's four passes and Σ's float64 sum of its partials
 
 
 def per_run(**launches):
     """Launches of every kernel in one forward or step of a path (0 unless given)."""
     return {e: launches.get(e, 0) for e in ENTRIES}
+
+
+def add_launches(*runs: dict) -> dict:
+    """The launches of ``runs`` added, by the entries they name."""
+    return {e: sum(r.get(e, 0) for r in runs) for e in dict.fromkeys(e for r in runs for e in r)}
+
+
+def bn_train_launches(layers: int, biases: int, recomputed: int = 0, steps: int = 1,
+                      backward: bool = True) -> dict:
+    """Kernel 11's launches in ``steps`` training steps (``backward`` False:
+    train-mode forwards) with ``layers`` train-mode BatchNorms on it,
+    ``biases`` of them after a Dense (B2 then also writes the bias's
+    partials) and ``recomputed`` run forward again by remat: F1 and F2 a
+    forward, B1 and B2 once, and Σ's float64 sum after each F1, each B1 and
+    each B2 with a bias."""
+    fwd, bwd = layers + recomputed, layers if backward else 0
+    sums = fwd + (layers + biases if backward else 0)
+    return {e: n * steps for e, n in zip(ENTRIES_11, (fwd, fwd, bwd, bwd, sums))}
+
+
+def without_bn_train(launches: dict) -> dict:
+    """``launches`` with kernel 11's taken out: a path whose BatchNorms keep
+    the PyTorch chain (a mesh, ``analytic_bn``)."""
+    return {e: 0 if e in ENTRIES_11 else n for e, n in launches.items()}
+
+
+# kernel 11 a training step of the SSG model: the hidden BatchNorms of SA1 and
+# SA2, the first of each on the given z0 of the split first layer (SA1) or of
+# SA2's gathered rows, the second after its Dense (unsplit: both after one);
+# at N_POINTS slots SA2 keeps 512 centroids a cloud, SA3's rows, so SA3's two
+# hidden BatchNorms (256 and 512 wide, after their Dense) take it too, where
+# at SHORT_POINTS or the cell's 7936 slots (359 and 397 centroids) they keep
+# the chain; so does the head (no mask)
+SA3_BN = bn_train_launches(2, 2)
+BN_STEP_SHORT = bn_train_launches(4, 3)
+BN_STEP = add_launches(BN_STEP_SHORT, SA3_BN)
+BN_STEP_UNSPLIT = add_launches(bn_train_launches(4, 4), SA3_BN)
 
 
 # phase 14: a DeviceDataset of DD_PLOTS synthetic plots of DD_POINTS (seed
@@ -404,20 +455,25 @@ EXPECTED = {
     "serve_unsplit": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                              dlbt_gather_aux=1),
     "train": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1, dlbt_gather=1,
-                     dlbt_scatter_rows=1),
+                     dlbt_scatter_rows=1, **BN_STEP),
     "train_unsplit": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
-                             dlbt_gather_aux=1, dlbt_scatter_rows=1),
-    # fused_sa: kernel 6 at SA1 (kernel 2's planes) and SA2 (kernel 4c's rows)
+                             dlbt_gather_aux=1, dlbt_scatter_rows=1, **BN_STEP_UNSPLIT),
+    # a step at SHORT_POINTS (phase 7's third batch)
+    "train_short": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1, dlbt_gather=1,
+                           dlbt_scatter_rows=1, **BN_STEP_SHORT),
+    # fused_sa: kernel 6 at SA1 (kernel 2's planes) and SA2 (kernel 4c's rows);
+    # in training kernel 11 at SA3's (N_POINTS)
     "eval_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                              dlbt_gather_aux=1, dlbt_fused_sa_f3=2),
     "train_forward_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                                       dlbt_gather_aux=1, dlbt_fused_sa_f1=2,
-                                      dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2),
+                                      dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2,
+                                      **bn_train_launches(2, 2, backward=False)),
     # and its step: B1-B3 at both layers, kernel 4b for SA2's d(dense)
     "train_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=1, dlbt_ball_query=1,
                               dlbt_gather_aux=1, dlbt_scatter_rows=1, dlbt_fused_sa_f1=2,
                               dlbt_fused_sa_f2=2, dlbt_fused_sa_f3=2, dlbt_fused_sa_b1=2,
-                              dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2),
+                              dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2, **SA3_BN),
     # the fused_sa model at neuron_multiplier 2 and 3 (phase 12), per run of one
     # train-mode forward, one eval forward and one step
     # the fused_eval engine at the wider widths (phase 12), per forward
@@ -427,11 +483,17 @@ EXPECTED = {
     # training steps and DD_VAL_BATCHES evaluation forwards each
     "device_dataset": per_run(dlbt_fps=2 * DD_FORWARDS, dlbt_ball_group=DD_FORWARDS,
                               dlbt_ball_query=DD_FORWARDS, dlbt_gather=DD_FORWARDS,
-                              dlbt_scatter_rows=DD_EPOCHS * DD_STEPS),
+                              dlbt_scatter_rows=DD_EPOCHS * DD_STEPS,
+                              **bn_train_launches(4, 3, steps=DD_EPOCHS * DD_STEPS)),
+    # kernel 11 at SA3's first hidden BatchNorm at 2 (512 wide; its second,
+    # 1024, and both at 3, 768 and 1536, are no width it takes)
     **{f"fused_sa_x{nm}": per_run(dlbt_fps=6, dlbt_ball_group=3, dlbt_ball_query=3,
                                   dlbt_gather_aux=3, dlbt_scatter_rows=1, dlbt_fused_sa_f1=4,
                                   dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=6, dlbt_fused_sa_b1=2,
-                                  dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2) for nm in (2, 3)},
+                                  dlbt_fused_sa_b2=2, dlbt_fused_sa_b3=2,
+                                  **(add_launches(bn_train_launches(1, 1, backward=False),
+                                                  bn_train_launches(1, 1)) if nm == 2 else {}))
+       for nm in (2, 3)},
     # the tools, per main(): tail_bench times the forward and the forward +
     # backward; bn_stats_bench calls kernel 8 once more per shape for max_rel_s1
     "tail_bench": per_run(dlbt_fused_tail_fwd=2 * chained_calls("tail_bench"),
@@ -461,18 +523,22 @@ MS_FORWARDS = len(MS_LRS) // MESH_RANKS * MS_EPOCHS * -(-MS_VAL_PLOTS // MS_BATC
 # float64 over float32 chunk partials, layers.chunk_sums); bf16 within one
 # bf16 step of the loss
 MESH_LOSS_RTOL, MESH_GRAD_ATOL, MESH_BF16_RTOL = 1e-5, 1e-4, 2.0**-8
-# launches per forward, step or run of each rank (mesh paths) or of the artifact
+# launches per forward, step or run of each rank (mesh paths: no kernel 11
+# under data_parallel, whose statistics would be this rank's) or of the artifact
 EXPECTED.update({
     "export": EXPECTED["serve"],
     "export_unsplit": EXPECTED["serve_unsplit"],
-    "mesh_train": EXPECTED["train"],
-    "mesh_fit": EXPECTED["device_dataset"],
+    "mesh_train": without_bn_train(EXPECTED["train"]),
+    "mesh_fit": without_bn_train(EXPECTED["device_dataset"]),
     "mesh_serve": EXPECTED["serve"],
     "mesh_serve_fused_eval": EXPECTED["serve_fused_eval"],
+    # the sweep splits its trials over the ranks, each a Trainer of its own
+    # outside data_parallel: kernel 11 takes their steps' BatchNorms
     "mesh_sweep": per_run(dlbt_fps=2 * (MS_STEPS + MS_FORWARDS),
                           dlbt_ball_group=MS_STEPS + MS_FORWARDS,
                           dlbt_ball_query=MS_STEPS + MS_FORWARDS,
-                          dlbt_gather=MS_STEPS + MS_FORWARDS, dlbt_scatter_rows=MS_STEPS),
+                          dlbt_gather=MS_STEPS + MS_FORWARDS, dlbt_scatter_rows=MS_STEPS,
+                          **bn_train_launches(4, 3, steps=MS_STEPS)),
 })
 FUSED_VS_DEFAULT_RTOL = 1e-2  # fused_eval vs default engine, both bf16
 SA1_F32_RTOL = 1e-5  # kernel 5 vs its plain version in float32
@@ -697,10 +763,22 @@ def kernel_sites():
             (bq_phase_bench, "bq", "bq_plain")]
 
 
-def record_kernel_inputs(serve, batch):
+def bn_train_sites():
+    """(module, wrapper name, plain version name) of kernel 11's passes; not
+    among ``kernel_sites``, so that a plain-version step keeps kernel 11 (its
+    gradients differ from its plain version's by the order of the sums,
+    which the zero-gradient biases before a BatchNorm show whole)."""
+    from dl_biomass_tpu_torch.ops import bn_train_kernel
+
+    return [(bn_train_kernel, name, f"{name}_plain") for name in ("f1", "f2", "b1", "b2")]
+
+
+def record_kernel_inputs(serve, batch, sites=None):
     """Run ``serve(batch)`` (a forward or a training step) with recording
-    wrappers: each kernel's arguments as the main path gives them."""
-    calls = {name: [] for _, name, _ in kernel_sites()}
+    wrappers: each kernel's arguments as the main path gives them (the
+    kernels of ``sites``, by default ``kernel_sites()``)."""
+    sites = kernel_sites() if sites is None else sites
+    calls = {name: [] for _, name, _ in sites}
 
     def recorder(module, name):
         real = getattr(module, name)
@@ -711,7 +789,7 @@ def record_kernel_inputs(serve, batch):
         return rec
 
     with ExitStack() as stack:
-        for module, name, _ in kernel_sites():
+        for module, name, _ in sites:
             stack.enter_context(mock.patch.object(module, name, recorder(module, name)))
         serve(batch)
     return calls
@@ -1333,6 +1411,137 @@ def check_scatter(calls, device):
                 graph_ms=res["graph_ms"], library_graph_ms=res["library_graph_ms"])
 
 
+# kernel 11, phase 6: one step at the SSG cell's shape, 36 clouds of
+# BN_POINTS points in BN_SLOTS slots; each pass's partials against its plain
+# version's: two float32 sums of a chunk's 64 terms, in two orders, differ by
+# at most 2 x 63 units of float32's last place of the sum of |term|
+BN_POINTS, BN_SLOTS, BN_SEED = SHORT_POINTS, 7936, 13
+BN_PART_RTOL, BN_SUM_RTOL = 2.0**-16, 1e-9
+
+
+def bn_part_check(label: str, got: torch.Tensor, want: torch.Tensor,
+                  size: torch.Tensor) -> float:
+    """``got`` and ``want`` (chunk partials) within BN_PART_RTOL of ``size``
+    (the chunks' sums of |term|, float64); returns the largest ratio."""
+    err = (got.double() - want.double()).abs()
+    worst = float((err / (size * BN_PART_RTOL + 1e-30)).max()) if err.numel() else 0.0
+    require(bool(torch.isfinite(got).all()) and worst <= 1.0,
+            f"kernel 11 {label}: partials off their plain version's by {worst:.3f} of the bound")
+    return worst
+
+
+def bn_train_calls(trainer, device) -> dict:
+    """Kernel 11's calls in one training step at the SSG cell's shape."""
+    batch = synthetic_batch(LARGE, BN_SLOTS, seed=BN_SEED, device=device,
+                            sizes=[BN_POINTS] * LARGE)
+    return record_kernel_inputs(lambda b: trainer.step(b, train_gen(device, 3)), batch,
+                                bn_train_sites())
+
+
+@torch.no_grad()
+def check_bn_train(calls, card: str) -> dict:
+    """Phase 6, kernel 11: each pass at each of its ``calls`` (``bn_train_calls``),
+    against its plain version and a second launch, timed from a CUDA graph
+    beside its bound and its plain version."""
+    from dl_biomass_tpu_torch.ops import bn_train_kernel as bk
+    from dl_biomass_tpu_torch.ops.sum_slices_kernel import sum_slices
+
+    require([len(calls[n]) for n in ("f1", "f2", "b1", "b2")] == [BN_STEP_SHORT[e] for e in
+                                                                  ENTRIES_11[:4]],
+            f"kernel 11: a step made {[len(v) for v in calls.values()]} calls of F1, F2, B1, B2")
+    chunk = bk.CHUNK
+
+    def chunks(t):
+        return t.reshape(-1, chunk, t.shape[-1]).sum(1)
+
+    rows, total, bound_total, plain_total, worst = [], 0.0, 0.0, 0.0, 0.0
+    for name in ("f1", "f2", "b1", "b2"):
+        for i, (args, kwargs) in enumerate(calls[name]):
+            kern = getattr(bk, name)
+            plain = getattr(bk, f"{name}_plain")
+            got, again, want = kern(*args, **kwargs), kern(*args, **kwargs), plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            if name == "f1":
+                x, bias, mask, dtype = args
+                y = want[0] if bias is not None else x
+                if bias is not None:
+                    require(torch.equal(got[0], want[0]), f"kernel 11 F1 #{i}: y differs")
+                ya, m = y.double().abs(), mask.view(-1, 1).double()
+                worst = max(worst, bn_part_check(
+                    f"F1 #{i}", got[1], want[1], torch.cat([chunks(ya * m), chunks(ya * ya * m)],
+                                                           1)))
+                parts = [got[1]]
+                label = f"F1{'' if bias is not None else ' from y'}"
+                es = y.element_size()
+                nbytes = (x.numel() * 4 + y.numel() * es if bias is not None else y.numel() * es)
+                nbytes += mask.numel() + got[1].numel() * 4
+            elif name == "f2":
+                y, scale, shift, act = args
+                require(torch.equal(got, want), f"kernel 11 F2 #{i}: the output differs")
+                parts, label, nbytes = [], "F2", 2 * y.numel() * y.element_size()
+            elif name == "b1":
+                dout, y, scale, shift, mean, act = args
+                g = bk._act_grad(bk._normalized(y, scale, shift), dout, act).double()
+                size = torch.cat([chunks(g.abs()), chunks((g * (y.double() - mean)).abs())], 1)
+                worst = max(worst, bn_part_check(f"B1 #{i}", got, want, size))
+                parts, label = [got], "B1"
+                nbytes = 2 * y.numel() * y.element_size() + got.numel() * 4
+            else:
+                dout, y, mask = args[:3]
+                bias_sums = kwargs.get("bias_sums", args[8] if len(args) > 8 else False)
+                require(torch.equal(got[0], want[0]), f"kernel 11 B2 #{i}: dy differs")
+                parts, label = [], "B2" + (" with the bias's partials" if bias_sums else "")
+                if bias_sums:
+                    worst = max(worst, bn_part_check(f"B2 #{i}", got[1], want[1],
+                                                     chunks(want[0].double().abs())))
+                    parts = [got[1]]
+                nbytes = 3 * y.numel() * y.element_size() + mask.numel() + (
+                    got[1].numel() * 4 if bias_sums else 0)
+            require(all(same_bits(a, b) for a, b in zip(
+                [t for t in (got if isinstance(got, tuple) else (got,)) if t is not None],
+                [t for t in (again if isinstance(again, tuple) else (again,)) if t is not None])),
+                f"kernel 11 {label} #{i}: a second launch changed bits")
+            n, c = y.shape
+            kms = graph_ms(lambda: kern(*args, **kwargs))
+            pms = graph_ms(lambda: plain(*args, **kwargs), calls=3, replays=3)
+            bms, by = bound(nbytes, 10 * n * c)
+            total, bound_total, plain_total = total + kms, bound_total + bms, plain_total + pms
+            rows.append(dict(call=f"{name} #{i}", rows=n, c=c, ms=kms, bound_ms=bms,
+                             plain_ms=pms))
+            print(f"kernel bn_train {label} #{i} ({n} rows x {c}, {y.dtype}): {kms:.4f} ms by "
+                  f"graph, bound {bms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB), "
+                  f"{100 * bms / kms:.1f}% of it; plain {pms:.4f} ms; equal to plain, "
+                  f"bit-identical across two launches [{card}]", flush=True)
+            for part in parts:  # Σ's float64 sum of this pass's partials
+                got64, want64 = sum_slices(part, torch.float64), part.double().sum(0)
+                err = float(((got64 - want64).abs() / (part.double().abs().sum(0) + 1e-300))
+                            .max())
+                require(err <= BN_SUM_RTOL and torch.equal(got64, sum_slices(
+                    part, torch.float64)), f"kernel 11 Σ f64 after {label} #{i}: rel {err}")
+                sms = graph_ms(lambda: sum_slices(part, torch.float64))
+                sbms, _ = bound(part.numel() * 4 + part.shape[1] * 8, part.numel())
+                total, bound_total = total + sms, bound_total + sbms
+                rows.append(dict(call=f"sum_f64 after {name} #{i}", slices=part.shape[0],
+                                 n=part.shape[1], ms=sms, bound_ms=sbms, rel=err))
+                print(f"kernel bn_train Σ f64 of {label} #{i}'s partials ({part.shape[0]} x "
+                      f"{part.shape[1]}): {sms:.4f} ms by graph, bound {sbms:.4f} ms, within "
+                      f"{err:.2e} of the float64 sum's |terms| (bound {BN_SUM_RTOL:g}) [{card}]",
+                      flush=True)
+    sums = sum(1 for r in rows if r["call"].startswith("sum_f64"))
+    require(sums == BN_STEP_SHORT["dlbt_sum_slices_f64"],
+            f"kernel 11: {sums} float64 sums a step")
+    print(f"kernel bn_train: a step at {LARGE} x {BN_POINTS} ({BN_SLOTS} slots): "
+          f"{len(rows) - sums} passes and {sums} float64 sums {total:.4f} ms by graph, bound "
+          f"{bound_total:.4f} ms ({100 * bound_total / total:.1f}% of it), their plain versions "
+          f"{plain_total:.4f} ms; partials within {worst:.3f} of their bound [{card}]",
+          flush=True)
+    return dict(name="bn_train", source="dl_biomass_tpu_torch/csrc/bn_train.cu",
+                replaces="none: the train-mode MaskedBatchNorm chain of an SA MLP's hidden "
+                         "layer, left to XLA's fusion (dl_biomass_tpu/models/layers.py)",
+                entry="dlbt_bn_stats", ms=total, bound_ms=bound_total, plain_ms=plain_total,
+                worst_part=worst, calls=rows)
+
+
 def serve_timing(serve, batch, reps: int = SERVE_REPS) -> float:
     """Median ms per batch: host clock around a forward ending in a synchronize."""
     for _ in range(2):
@@ -1501,7 +1710,7 @@ def drive(device, card: str) -> list:
     launches = {}  # path -> {entry: launches in that path's run}
     rows, ctx = run(device, card, launches)
     rows += serve_configs(device, card, ctx, launches)
-    rows.append(train_phases(device, card, launches))
+    rows += train_phases(device, card, launches)
     train_unsplit(device, card, launches)
     check_fps_scratch(device, card)
     rows += check_fused_sa(device, card)
@@ -1560,9 +1769,10 @@ def serving_requests(device):
 MAIN_REQUESTS = (0, 1, 5, 6)
 
 
-def counted_run(path: str, fn, launches: dict, runs: int):
+def counted_run(path: str, fn, launches: dict, runs: int, total=None):
     """``fn()`` with every launch count set to 0 just before it and read just
-    after; checks the counts against ``runs`` forwards or steps of ``path``."""
+    after; checks the counts against ``runs`` forwards or steps of ``path``
+    (or against ``total``, launches by entry, where the runs differ)."""
     from dl_biomass_tpu_torch.ops import _build
 
     torch.cuda.synchronize()
@@ -1570,7 +1780,11 @@ def counted_run(path: str, fn, launches: dict, runs: int):
     out = fn()
     torch.cuda.synchronize()
     launches[path] = {e: _build.launch_counts[e] for e in ENTRIES}
-    check_launches(path, launches[path], runs)
+    if total is None:
+        check_launches(path, launches[path], runs)
+    for e, want in (total or {}).items():
+        require(launches[path][e] == want,
+                f"{path}: {e} launched {launches[path][e]} times in {runs} runs, expected {want}")
     return out
 
 
@@ -1783,8 +1997,8 @@ def running_stats(model) -> dict:
 
 
 def train_phases(device, card: str, launches: dict) -> dict:
-    """Phases 6 and 7; returns kernel 4b's row and records the launches of
-    the training run."""
+    """Phases 6 and 7; returns kernel 4b's and kernel 11's rows and records
+    the launches of the training run."""
     from dl_biomass_tpu_torch.core.config import TrainConfig
     from dl_biomass_tpu_torch.train.trainer import Trainer
 
@@ -1798,14 +2012,20 @@ def train_phases(device, card: str, launches: dict) -> dict:
                                              f"{len(calls['scatter_rows'])} times, not once")
     row = check_scatter(calls, device)
     del calls
+    bn_row = check_bn_train(bn_train_calls(trainer, device), card)
 
     # phase 7: train, every launch of the main path counted
+    per_step = [EXPECTED["train"] if n == N_POINTS else EXPECTED["train_short"]
+                for _, n in TRAIN_SHAPES]
+
     def steps():
         for i, ((b, n), batch) in enumerate(zip(TRAIN_SHAPES, batches)):
             train_timing(trainer, batch, train_gen(device, 100 + i), f"B={b} x {n}", card,
-                         EXPECTED["train"])
+                         per_step[i])
 
-    counted_run("train", steps, launches, (TRAIN_WARMUP + TRAIN_TIMED) * len(TRAIN_SHAPES))
+    steps_each = TRAIN_WARMUP + TRAIN_TIMED
+    counted_run("train", steps, launches, steps_each * len(TRAIN_SHAPES),
+                total={e: steps_each * sum(t[e] for t in per_step) for e in ENTRIES})
     compare_plain_step(trainer, batches[0], seed=7)
     for i, b in enumerate(FAULT_BATCHES):
         batch = synthetic_batch(b, SHORT_POINTS, seed=4 + i, device=device)
@@ -1818,7 +2038,7 @@ def train_phases(device, card: str, launches: dict) -> dict:
     print_profile(f"train step B={TRAIN_SHAPES[0][0]}",
                   lambda: trainer.step(batches[0], train_gen(device, 9)), calls=2, n_kernels=14,
                   n_ops=16)
-    return row
+    return [row, bn_row]
 
 
 def train_unsplit(device, card: str, launches: dict) -> None:
@@ -2174,20 +2394,38 @@ def unfused_backward_ms(mlp, call, bf16: bool) -> float:
 
 def check_fused_sa_bwd(device, card: str) -> list:
     """Phase 10, backward: B1-B3 at the inputs of one training step of the
-    fused_sa model (B=16 x 10240), SA1 and SA2, bf16 and f32, against the
-    plain backward, timed beside the unfused layer's autograd backward;
+    fused_sa model (B=16 x 10240) with every BatchNorm on the PyTorch chain,
+    SA1 and SA2, bf16 and f32, against the plain backward, timed beside the
+    unfused layer's autograd backward; then SA2's in bf16 with ELU at the
+    inputs of the step as the model runs it, SA3's BatchNorms on kernel 11;
     returns the three passes' rows."""
     from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import bn_train_kernel
     from dl_biomass_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(seeded_model(device, fused_sa=True), TrainConfig(), device)
     batch = synthetic_batch(SMALL, N_POINTS, seed=1, device=device)
-    calls = record_kernel_inputs(lambda b: trainer.step(b, train_gen(device, 0)),
-                                 batch)["fused_sa_bwd_stage"]
-    # autograd runs SA2's backward first
-    require([(c[0][0], c[0][1] is None) for c in calls]
-            == [(1, False), (2, False), (3, False), (1, True), (2, True), (3, True)],
-            f"a fused_sa step ran backward passes {[c[0][0] for c in calls]}")
+
+    def step_calls(chain: bool):
+        trainer = Trainer(seeded_model(device, fused_sa=True), TrainConfig(), device)
+        with ExitStack() as stack:
+            if chain:
+                stack.enter_context(mock.patch.object(bn_train_kernel, "takes",
+                                                      lambda *a, **kw: False))
+            calls = record_kernel_inputs(lambda b: trainer.step(b, train_gen(device, 0)),
+                                         batch)["fused_sa_bwd_stage"]
+        # autograd runs SA2's backward first
+        require([(c[0][0], c[0][1] is None) for c in calls]
+                == [(1, False), (2, False), (3, False), (1, True), (2, True), (3, True)],
+                f"a fused_sa step ran backward passes {[c[0][0] for c in calls]}")
+        return trainer, calls
+
+    # the step's inputs with SA3's BatchNorms on the chain, as this check's
+    # bounds were set: on kernel 11 (SA2's 512 centroids a cloud at 16 x
+    # 10240) its rounding moves 4 of SA2's 520,406 edges across a ReLU branch,
+    # where the kernel's and the plain version's sums fall on either side,
+    # and their d(dense) rows differ whole (2.0e-2 of its max on an H100; 1.2e-3
+    # with ELU), as phase 12 found at x2: those inputs are held with ELU below
+    trainer, calls = step_calls(chain=True)
     ctx = {}
     mlps = {"SA1": trainer.model.sa1.mlp, "SA2": trainer.model.sa2.mlp}
     for layer, at in (("SA1", 3), ("SA2", 0)):
@@ -2201,6 +2439,11 @@ def check_fused_sa_bwd(device, card: str) -> list:
             print(f"kernel fused_sa {layer} {dt}: B1+B2+B3 {ms:.4f} ms against the unfused "
                   f"layer's autograd backward (MLP + masked_max, train mode) {yard:.4f} ms "
                   f"[{card}]", flush=True)
+    del calls, trainer
+    trainer, calls = step_calls(chain=False)
+    with torch.no_grad():
+        for call in calls[0:3]:
+            check_fused_sa_bwd_call("SA2 bf16 (ELU; SA3 on kernel 11)", call, True, {}, elu=True)
     del calls, trainer
     rows = []
     yard = sum(y["ms"] for y in ctx["yardstick"] if y["bf16"])
@@ -2775,7 +3018,7 @@ def disk_launches(resampled: int = 0, steps: int = 0, forwards: int = 0) -> dict
     the main path's per step and per eval forward."""
     return per_run(dlbt_fps=resampled + 2 * (steps + forwards), dlbt_ball_group=steps + forwards,
                    dlbt_ball_query=steps + forwards, dlbt_gather=steps + forwards,
-                   dlbt_scatter_rows=steps)
+                   dlbt_scatter_rows=steps, **bn_train_launches(4, 3, steps=steps))
 
 
 # what each stage of phase 15 launches: the resample of every plot, fit
@@ -3184,13 +3427,11 @@ def batches_of(plots: int, batch: int, augs: int = 0) -> int:
 def parity_launches(steps: int = 0, forwards: int = 0) -> dict:
     """Launches of the parity preset's steps and forwards: exact FPS on kernel
     1 and the first-K ball query on kernel 3 at both SA layers, SA2's gather
-    (kernel 4a) and, in a step, its scatter-add (kernel 4b)."""
+    (kernel 4a) and, in a step, its scatter-add (kernel 4b) and kernel 11 as
+    in the production step."""
     n = steps + forwards
-    return per_run(dlbt_fps=2 * n, dlbt_ball_query=2 * n, dlbt_gather=n, dlbt_scatter_rows=steps)
-
-
-def add_launches(*runs: dict) -> dict:
-    return {e: sum(r[e] for r in runs) for e in ENTRIES}
+    return per_run(dlbt_fps=2 * n, dlbt_ball_query=2 * n, dlbt_gather=n, dlbt_scatter_rows=steps,
+                   **bn_train_launches(4, 3, steps=steps))
 
 
 def research_stage(name: str, fn, device, card: str, counts: dict, expected=None,
@@ -3655,6 +3896,50 @@ def mesh_rank(rank: int, world: int, device, tmp: str) -> None:
     torch.save(out, Path(tmp) / f"rank{rank}.pt")
 
 
+def one_f32_step(device, chain: bool) -> dict:
+    """Phase 17's f32 (ELU) step at SMALL x N_POINTS in one process, with
+    every BatchNorm on the PyTorch chain (``chain``) or the SA layers' on
+    kernel 11: loss, gradients, running statistics and each masked max's
+    argmax, in forward order."""
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.ops import bn_train_kernel, pooling
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    model = seeded_model(device, compute_dtype="float32", activation="ELU")
+    trainer = Trainer(model, TrainConfig(), device)
+    batch = synthetic_batch(SMALL, N_POINTS, seed=MESH_SEED, device=device)
+    real, argmax = pooling.first_argmax, []
+
+    def first_argmax(filled, out_max, dim):
+        am = real(filled, out_max, dim)
+        argmax.append(am.cpu())
+        return am
+
+    with ExitStack() as stack:
+        stack.enter_context(mock.patch.object(pooling, "first_argmax", first_argmax))
+        if chain:
+            stack.enter_context(mock.patch.object(bn_train_kernel, "takes",
+                                                  lambda *a, **kw: False))
+        loss = trainer.step(batch, train_gen(device, MESH_SEED))
+    return dict(loss=float(loss), grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+                stats={k: v.cpu() for k, v in running_stats(model).items()}, argmax=argmax)
+
+
+def step_gap(got: dict, want: dict) -> dict:
+    """``hold_step``'s measures of ``got`` against ``want``, unheld, and
+    the argmaxes that differ where both recorded them."""
+    m = grad_misses(got, want)
+    worst = max(m["own"], key=m["own"].get)
+    out = dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]), own=m["own"][worst],
+               own_name=worst, within=len(m["own"]) - len(m["miss"]), tensors=len(m["own"]),
+               stat=max(float((got["stats"][k].double() - s.double()).abs().max())
+                        / float(s.abs().max()) for k, s in want["stats"].items()))
+    if "argmax" in got and "argmax" in want:
+        out["flips"] = sum(int((a != b).sum()) for a, b in zip(got["argmax"], want["argmax"]))
+        out["slots"] = sum(a.numel() for a in want["argmax"])
+    return out
+
+
 def hold_step(name: str, got: dict, want: dict) -> dict:
     """A mesh step's loss, gradients and running statistics against one
     process's: the loss within MESH_LOSS_RTOL; each gradient over its own
@@ -3718,13 +4003,10 @@ def mesh_paths(device, card: str, launches: dict) -> None:
     print(f"mesh launches over both ranks by path: "
           f"{ {p: {e: n for e, n in launches[p].items() if n} for p in runs} }", flush=True)
 
-    # the f32 step against one process on the same global batch and draws
-    model = seeded_model(device, compute_dtype="float32", activation="ELU")
-    trainer = Trainer(model, TrainConfig(), device)
-    batch = synthetic_batch(SMALL, N_POINTS, seed=MESH_SEED, device=device)
-    loss = trainer.step(batch, train_gen(device, MESH_SEED))
-    one = dict(loss=float(loss), grads={k: p.grad.cpu() for k, p in model.named_parameters()},
-               stats={k: v.cpu() for k, v in running_stats(model).items()})
+    # the f32 step against one process on the same global batch and draws,
+    # on the BatchNorm chain the mesh runs; then one process on kernel 11
+    # against both, reported
+    one, fused = (one_f32_step(device, chain) for chain in (True, False))
     m = hold_step("mesh f32 step", ranks[0]["f32"], one)
     same = all(torch.equal(ranks[0]["f32"]["grads"][k], r["f32"]["grads"][k])
                for r in ranks[1:] for k in one["grads"])
@@ -3738,7 +4020,14 @@ def mesh_paths(device, card: str, launches: dict) -> None:
           f"max|diff| over the step's largest |g| {m['top']:.3e}; running statistics "
           f"{m['stat']:.3e} (bound {MESH_GRAD_ATOL}); every rank's gradients bit-identical "
           f"[{card}]", flush=True)
-    del trainer, model, batch
+    for name, want in (("the mesh", ranks[0]["f32"]), ("one process on the chain", one)):
+        k = step_gap(fused, want)
+        print(f"mesh_train f32 (ELU) B={SMALL} x {N_POINTS}: one process on kernel 11 against "
+              f"{name}: loss rel {k['loss']:.3e}; gradients over their own largest: "
+              f"{k['within']} of {k['tensors']} within {MESH_GRAD_ATOL}, the worst "
+              f"{k['own']:.3e} ({k['own_name']}); running statistics {k['stat']:.3e}"
+              + (f"; masked-max argmaxes differing {k['flips']} of {k['slots']}"
+                 if "argmax" in want else "") + f" (reported, not held) [{card}]", flush=True)
 
     trainer = Trainer(seeded_model(device), TrainConfig(), device)
     batch = synthetic_batch(LARGE, N_POINTS, seed=MESH_SEED + 1, device=device)
@@ -3879,29 +4168,40 @@ SELECT_PLOTS, SELECT_RAW, SELECT_VOXEL, SELECT_KEEP = 16, 50_000, 0.35, N_POINTS
 SEGMENTOR_RTOL = 1e-5
 VARIANT_PATHS = ("msg", "msg_doubled", "msg_fused_sa", "analytic_bn", "remat", "v2_serve",
                  "voxelnet", "segmentor")
-# launches per step (msg, msg_doubled, analytic_bn, remat), per step of the
-# kernels (msg_fused_sa), per forward (v2_serve: the engine and the artifact),
-# per step (voxelnet: no kernel of the port), per forward and step (segmentor)
+# launches per step (msg, msg_doubled, analytic_bn), per step of the remat
+# model and one of the plain model (remat), per step of the kernels
+# (msg_fused_sa), per forward (v2_serve: the engine and the artifact), per step
+# of each of the three voxel configurations (voxelnet: kernel 11 at the
+# 64-cell BatchNorms of the probe's (2) and voxelnet_deep (3), none at
+# voxelnet_wide48's widths), per forward and step (segmentor)
 EXPECTED.update({
     # two scales a layer: kernel 2 at both of SA1's radii, kernels 3, 4a and 4b
-    # at both of SA2's
+    # at both of SA2's; kernel 11 at both scales' hidden BatchNorms
     "msg": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2, dlbt_gather=2,
-                   dlbt_scatter_rows=2),
+                   dlbt_scatter_rows=2, **add_launches(bn_train_launches(8, 6), SA3_BN)),
     "msg_doubled": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2, dlbt_gather=2,
-                           dlbt_scatter_rows=2),
+                           dlbt_scatter_rows=2, **add_launches(bn_train_launches(8, 6), SA3_BN)),
     # kernel 6 at each scale (kernel 2's planes at SA1, 4c's rows at SA2)
+    # (and kernel 11 at SA3 in the plain-version step too, which keeps it)
     "msg_fused_sa": per_run(dlbt_fps=2, dlbt_ball_group=2, dlbt_ball_query=2,
                             dlbt_gather_aux=2, dlbt_scatter_rows=2, dlbt_fused_sa_f1=4,
                             dlbt_fused_sa_f2=4, dlbt_fused_sa_f3=4, dlbt_fused_sa_b1=4,
-                            dlbt_fused_sa_b2=4, dlbt_fused_sa_b3=4),
-    # the folded form turns the split first layer off: SA2 gathers through 4c
-    "analytic_bn": EXPECTED["train_unsplit"],
-    "remat": EXPECTED["train"],
+                            dlbt_fused_sa_b2=4, dlbt_fused_sa_b3=4,
+                            **bn_train_launches(2, 2, steps=2)),
+    # the folded form turns the split first layer off: SA2 gathers through 4c;
+    # its statistics come from the input moments, not from kernel 11
+    "analytic_bn": without_bn_train(EXPECTED["train_unsplit"]),
+    # the recompute runs F1 and F2 of SA1's and SA2's four BatchNorms again
+    "remat_step": {**EXPECTED["train"], **bn_train_launches(6, 5, recomputed=4)},
     "v2_serve": EXPECTED["serve"],
-    "voxelnet": per_run(),
+    "voxelnet": per_run(**bn_train_launches(2 + 3, 0)),
     # exact FPS and kernel 3 at SA1 and SA2, SA2 split (4a); the step adds 4b
-    "segmentor": per_run(dlbt_fps=4, dlbt_ball_query=4, dlbt_gather=2, dlbt_scatter_rows=1),
+    # and kernel 11 at the eleven hidden BatchNorms of SA1, SA2 and the FP
+    # decoder (10 after a Dense)
+    "segmentor": per_run(dlbt_fps=4, dlbt_ball_query=4, dlbt_gather=2, dlbt_scatter_rows=1,
+                         **bn_train_launches(11, 10)),
 })
+EXPECTED["remat"] = {e: EXPECTED["remat_step"][e] + EXPECTED["train"][e] for e in ENTRIES}
 
 
 def msg_radii_kernels(model, batch, card: str) -> dict:
@@ -4050,10 +4350,11 @@ def analytic_and_remat(device, card: str, launches: dict) -> None:
 
     def both():
         return [train_timing(t, batch, train_gen(device, 100),
-                             f"{name} B={REMAT_BATCH} x {N_POINTS}", card, EXPECTED["remat"])
-                for name, t in (("remat", remat), ("plain", plain))]
+                             f"{name} B={REMAT_BATCH} x {N_POINTS}", card, EXPECTED[path])
+                for name, t, path in (("remat", remat, "remat_step"),
+                                      ("plain", plain, "train"))]
 
-    (ms_r, peak_r), (ms_p, peak_p) = counted_run("remat", both, launches, 2 * VAR_STEPS)
+    (ms_r, peak_r), (ms_p, peak_p) = counted_run("remat", both, launches, VAR_STEPS)
     print(f"remat B={REMAT_BATCH} x {N_POINTS}: one step from one state bit-identical to the "
           f"plain step (loss, gradients, running statistics, weights); {ms_r:.3f} ms/step, "
           f"{REMAT_BATCH / ms_r * 1e3:.1f} clouds/s, peak {peak_r:.2f} GiB; plain model in the "
@@ -4112,7 +4413,8 @@ def voxel_paths(device, card: str, launches: dict) -> None:
     call on a CPU copy (counts exact), then the seed study's three voxel
     configurations (the probe's, ``voxelnet_deep``, ``voxelnet_wide48``; bf16)
     VAR_STEPS steps each at VAR_BATCH x N_POINTS: finite and falling loss,
-    ms/step, clouds/s, peak memory; no kernel of the port launches."""
+    ms/step, clouds/s, peak memory; of the port's kernels only kernel 11
+    launches, at the BatchNorms of 64 cells a cloud (launches counted)."""
     from dl_biomass_tpu_torch.core.config import TrainConfig
     from dl_biomass_tpu_torch.experiments.seed_study import _mode_config
     from dl_biomass_tpu_torch.models.pointnet2 import build_model
@@ -4143,7 +4445,7 @@ def voxel_paths(device, card: str, launches: dict) -> None:
                   f"parameters, bf16): {ms:.3f} ms/step, {VAR_BATCH / ms * 1e3:.1f} clouds/s, "
                   f"peak {peak:.2f} GiB [{card}]", flush=True)
 
-    counted_run("voxelnet", runs, launches, 3 * VAR_STEPS)
+    counted_run("voxelnet", runs, launches, VAR_STEPS)
 
 
 def segmentor_path(device, card: str, launches: dict) -> None:
@@ -4277,7 +4579,10 @@ class C4Probe:
     """Patches ``MaskedBatchNorm.batch_stats`` with the statistics of
     ``variant`` (summed from two half-batch partials with ``halves``) and
     ``pooling.first_argmax`` with a recorder: each BatchNorm's (mean, var)
-    and each masked max's argmax of one step, in forward order."""
+    and each masked max's argmax of one step, in forward order. Every
+    BatchNorm keeps the PyTorch chain (``bn_train_kernel.takes`` refuses),
+    whose sums are what the variants change, in one process as over the
+    mesh."""
 
     def __init__(self, variant: str, halves: bool = False):
         self.sums = {"float32": float32_sums, "port": port_sums}[variant]
@@ -4305,7 +4610,7 @@ class C4Probe:
 
     def __enter__(self):
         from dl_biomass_tpu_torch.models import layers
-        from dl_biomass_tpu_torch.ops import pooling
+        from dl_biomass_tpu_torch.ops import bn_train_kernel, pooling
 
         real = pooling.first_argmax
 
@@ -4316,7 +4621,8 @@ class C4Probe:
 
         self.patches = [mock.patch.object(layers.MaskedBatchNorm, "batch_stats",
                                           staticmethod(self.batch_stats)),
-                        mock.patch.object(pooling, "first_argmax", first_argmax)]
+                        mock.patch.object(pooling, "first_argmax", first_argmax),
+                        mock.patch.object(bn_train_kernel, "takes", lambda *a, **kw: False)]
         for p in self.patches:
             p.start()
         return self
@@ -4431,7 +4737,7 @@ MP_RANKS, MP_BATCH, MP_POINTS, MP_SEED, MP_STEPS = 2, 4, 16384, 80, 2
 MP_EVAL_RTOL = 2e-4
 MP_DTYPES = (("bfloat16", "ReLU"), ("float32", "ELU"))
 MP_PATHS = ("mp_eval", "mp_train")
-EXPECTED.update({"mp_eval": EXPECTED["serve"], "mp_train": EXPECTED["train"]})
+EXPECTED.update({"mp_eval": EXPECTED["serve"], "mp_train": without_bn_train(EXPECTED["train"])})
 
 
 def mp_run(device, mesh, dtype: str, act: str, counted=None) -> dict:
@@ -4504,8 +4810,12 @@ def phase19_rank(rank: int, world: int, device, tmp: str) -> None:
 def mp_report(device, card: str, ranks: list, launches: dict) -> None:
     """Phase 19, paths mp_eval and mp_train: each rank's launches (per
     forward and step, held to one process's), kernel 2's share of the
-    centroids, and the forwards, steps, ms and peak memory against one
-    process's."""
+    centroids, the forwards and ms against one process's, and the steps and
+    their peak memory against one process's on the BatchNorm chain the mesh
+    runs; the steps of one process on kernel 11 against the ranks',
+    reported."""
+    from dl_biomass_tpu_torch.ops import bn_train_kernel
+
     runs = {"mp_eval": len(MP_DTYPES), "mp_train": len(MP_DTYPES) * MP_STEPS}
     for path, n in runs.items():
         for r in ranks:
@@ -4515,6 +4825,8 @@ def mp_report(device, card: str, ranks: list, launches: dict) -> None:
     share = -(-m1 // MP_RANKS)
     for dtype, act in MP_DTYPES:
         one = mp_run(device, None, dtype, act)
+        with mock.patch.object(bn_train_kernel, "takes", lambda *a, **kw: False):
+            chain = mp_run(device, None, dtype, act)
         got = [r["mp"][dtype] for r in ranks]
         require(all(g["centroids"] == [share] * (1 + MP_STEPS) for g in got)
                 and one["centroids"] == [m1] * (1 + MP_STEPS),
@@ -4526,35 +4838,42 @@ def mp_report(device, card: str, ranks: list, launches: dict) -> None:
         eval_bound = MP_EVAL_RTOL
         require(all(np.array_equal(g["y"], got[0]["y"]) for g in got) and err <= eval_bound,
                 f"mp {dtype}: eval forward rel {err} > {eval_bound}, or the ranks disagree")
-        rels = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], one["losses"])]
+        rels = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], chain["losses"])]
         require(all(g["losses"] == got[0]["losses"] for g in got)
                 and all(r <= MESH_BF16_RTOL for r in rels)
                 and (not f32 or rels[0] <= MESH_LOSS_RTOL),
-                f"mp {dtype}: losses {got[0]['losses']} vs one process {one['losses']} (rel "
+                f"mp {dtype}: losses {got[0]['losses']} vs one process {chain['losses']} (rel "
                 f"{rels}), or the ranks disagree")
-        g = grad_misses(got[0], one)
+        g = grad_misses(got[0], chain)
+        k11 = grad_misses(got[0], one)
+        k11_rels = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], one["losses"])]
         require(not f32 or (not g["miss"] and not g["zero_miss"]),
                 f"mp {dtype}: gradients past {MESH_GRAD_ATOL} of their largest {g['miss']}, "
                 f"zero gradients {g['zero_miss']}")
-        require(all(x["peak_over_base"] < one["peak_over_base"] for x in got),
+        require(all(x["peak_over_base"] < chain["peak_over_base"] for x in got),
                 f"mp {dtype}: rank step peaks {[x['peak_over_base'] for x in got]} GiB not below "
-                f"one process's {one['peak_over_base']}")
+                f"one process's on the chain {chain['peak_over_base']}")
         print(f"mp_train / mp_eval {dtype} ({act}) B={MP_BATCH} x {MP_POINTS}, mp={MP_RANKS} "
               f"ranks on {ranks[0]['device']} ({ranks[0]['backend']}), coordinates "
               f"{[r['coordinate'] for r in ranks]}: kernel 2 took {share} of the {m1} SA1 "
               f"centroids a rank (one process {m1}); eval forward vs one process max|diff|/max|y| "
-              f"{err:.3e} (bound {eval_bound}); losses {got[0]['losses']} vs {one['losses']} "
-              f"(rel {[f'{r:.3e}' for r in rels]}); "
+              f"{err:.3e} (bound {eval_bound}); losses {got[0]['losses']} vs "
+              f"{chain['losses']} on the chain (rel {[f'{r:.3e}' for r in rels]}); "
               + (f"first step's gradients over their own largest: "
                  f"{len(g['own']) - len(g['miss'])} of {len(g['own'])} within {MESH_GRAD_ATOL}, "
                  f"the worst {max(g['own'].values()):.3e}, zero-gradient biases "
                  f"{max(g['zero'].values(), default=0.0):.3e} of the step's largest; " if f32
-                 else "") + f"ms/step (host "
+                 else "") + f"one process on kernel 11 (reported, not held): losses rel "
+              f"{[f'{r:.3e}' for r in k11_rels]}, gradients "
+              f"{len(k11['own']) - len(k11['miss'])} of {len(k11['own'])} within "
+              f"{MESH_GRAD_ATOL}, the worst {max(k11['own'].values()):.3e}; ms/step (host "
               f"clock, step {MP_STEPS}) {got[0]['ms'][-1]:.3f} / {got[1]['ms'][-1]:.3f} vs one "
               f"process {one['ms'][-1]:.3f}; step peak GiB a rank "
               f"{[round(x['peak'], 3) for x in got]} ({[round(x['peak_over_base'], 3) for x in got]}"
-              f" above the memory held before the steps) vs one process {one['peak']:.3f} "
-              f"({one['peak_over_base']:.3f}); launches a rank over {runs['mp_eval']} forwards "
+              f" above the memory held before the steps) vs one process on the chain "
+              f"{chain['peak']:.3f} ({chain['peak_over_base']:.3f}), on kernel 11 "
+              f"{one['peak']:.3f} ({one['peak_over_base']:.3f}); launches a rank over "
+              f"{runs['mp_eval']} forwards "
               f"and {runs['mp_train']} steps "
               f"{ {p: {e: n for e, n in ranks[0]['launches'][p].items() if n} for p in MP_PATHS} }"
               f" [{card}]", flush=True)

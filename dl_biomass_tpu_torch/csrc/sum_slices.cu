@@ -1,7 +1,9 @@
-// The cross-block step of kernels 7-B and 8: the f32 slices that the blocks of
-// a kernel write, each summed over that block's share of the work, added in
-// f64 in a fixed order and rounded once to f32. Kernel 7's backward writes dW3
-// slices (C2 * C3 values a block), kernel 8 its (2, C) statistics.
+// The cross-block step of kernels 7-B, 8 and 11: the f32 slices that the
+// blocks of a kernel write, each summed over that block's share of the work,
+// added in f64 in a fixed order and rounded once to f32 (dlbt_sum_slices) or
+// kept in f64 (dlbt_sum_slices_f64). Kernel 7's backward writes dW3 slices
+// (C2 * C3 values a block), kernel 8 its (2, C) statistics, kernel 11 a
+// (2, C) or (C) partial for each chunk of 64 rows.
 //
 // Replaces: no TPU kernel of its own; on the TPU the grid's steps run in order
 // and accumulate into one output block (dl_biomass_tpu/ops/pallas_tail.py
@@ -53,10 +55,10 @@ struct Vec<4> {
   }
 };
 
-template <int V>
+template <int V, typename Out>
 __global__ void __launch_bounds__(kMaxThreads)
 sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols, int groups,
-                  float* __restrict__ out) {
+                  Out* __restrict__ out) {
   using T = typename Vec<V>::T;
   extern __shared__ double part[];  // (groups, cols): each run's partial sums
   const int cx = cols / V;
@@ -95,11 +97,11 @@ sum_slices_kernel(const float* __restrict__ partial, int blocks, int n, int cols
     part[q0 * cols + col] = t;
   }
   __syncthreads();
-  // then the spans' sums in span order, rounded once
+  // then the spans' sums in span order, rounded once (to f32 where Out is)
   for (int i = threadIdx.x; i < cols && c0 + i < n; i += blockDim.x) {
     double t = 0.0;
     for (int q = 0; q < groups; q += kSpan) t += part[q * cols + i];
-    out[c0 + i] = static_cast<float>(t);
+    out[c0 + i] = static_cast<Out>(t);
   }
 }
 
@@ -115,6 +117,23 @@ cudaError_t check(int blocks, int n, int vec, int cols, int groups) {
   return cudaSuccess;
 }
 
+template <typename Out>
+cudaError_t launch(const void* partial, void* out, int blocks, int n, int vec, int cols,
+                   int groups, cudaStream_t st) {
+  cudaError_t e = check(blocks, n, vec, cols, groups);
+  if (e != cudaSuccess || n == 0) return e;
+  const int grid = (n + cols - 1) / cols, threads = groups * (cols / vec);
+  const size_t smem = sizeof(double) * groups * cols;
+  const float* p = static_cast<const float*>(partial);
+  Out* o = static_cast<Out*>(out);
+  if (vec == 4) {
+    sum_slices_kernel<4, Out><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
+  } else {
+    sum_slices_kernel<1, Out><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // out (n) f32 = the sum of the first `blocks` slices of partial (blocks, n)
@@ -123,20 +142,16 @@ cudaError_t check(int blocks, int n, int vec, int cols, int groups) {
 // partial on 16 bytes.
 extern "C" int dlbt_sum_slices(const void* partial, void* out, int blocks, int n, int vec,
                                int cols, int groups, void* stream) {
-  cudaError_t e = check(blocks, n, vec, cols, groups);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n == 0) return 0;
-  const int grid = (n + cols - 1) / cols, threads = groups * (cols / vec);
-  const size_t smem = sizeof(double) * groups * cols;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* p = static_cast<const float*>(partial);
-  float* o = static_cast<float*>(out);
-  if (vec == 4) {
-    sum_slices_kernel<4><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
-  } else {
-    sum_slices_kernel<1><<<grid, threads, smem, st>>>(p, blocks, n, cols, groups, o);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<float>(partial, out, blocks, n, vec, cols, groups,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+// The same sum, kept in f64: out (n) f64 (kernel 11's statistics, whose
+// one-pass difference E[x^2] - mean^2 needs the sums unrounded).
+extern "C" int dlbt_sum_slices_f64(const void* partial, void* out, int blocks, int n, int vec,
+                                   int cols, int groups, void* stream) {
+  return static_cast<int>(launch<double>(partial, out, blocks, n, vec, cols, groups,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // An empty kernel on the grid and block that dlbt_sum_slices launches for the

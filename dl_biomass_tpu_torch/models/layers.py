@@ -12,7 +12,11 @@ them. The statistics' sums run in float64 over float32 partials of fixed
 chunks of each cloud's rows, so that a batch split over ranks gives the
 whole batch's statistics to float32's last bit, also where E[x^2] is many
 times the variance and the one-pass difference would multiply the sums'
-rounding.
+rounding. On the card a train-mode hidden layer with a neighbour mask (the
+SA layers', VoxelNet's, the decoder's at 64-row chunks) runs its Dense's
+bias add, BatchNorm and activation on kernel 11
+(``ops/bn_train_kernel``), where ``bn_train_kernel.takes`` its shapes:
+the same values, the statistics to float32's last bit.
 
 ``MLP(analytic_bn=True)`` is the folded form of the JAX package's
 ``MLP._folded``: each hidden layer's train-mode statistics come from its
@@ -33,8 +37,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from dl_biomass_tpu_torch.ops import bn_train_kernel
 from dl_biomass_tpu_torch.ops.sa_train_kernel import fused_sa_mlp
 from dl_biomass_tpu_torch.parallel import mesh as dp
+from dl_biomass_tpu_torch.utils import profiling
 
 # True while a checkpointed MLP runs its forward again in the backward. A plain
 # global, as the mesh is (parallel/mesh.py): autograd runs a CUDA backward on
@@ -114,13 +120,18 @@ class Dense(nn.Linear):
         super().__init__(in_features, out_features)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def operands(self, x: torch.Tensor):
+        """The product's operands: ``x`` and the (in, out) weight in the
+        compute dtype."""
         if x.shape[-1] != self.in_features:
             raise ValueError(
                 f"Dense expected {self.in_features} input features, got {x.shape[-1]}")
         cdt = self.compute_dtype
-        y = dot_f32(x.to(cdt), self.weight.t().to(cdt)) + self.bias
-        return y.to(cdt)
+        return x.to(cdt), self.weight.t().to(cdt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dot_f32(*self.operands(x)) + self.bias
+        return y.to(self.compute_dtype)
 
 
 # rows a float32 partial sum of chunk_sums takes at most
@@ -139,11 +150,24 @@ def chunk_sums(t: torch.Tensor) -> torch.Tensor:
     return part.double().sum(dim=0)
 
 
+def _count_values(n: int, fused: bool) -> None:
+    """While spans are recorded: the counters ``bn.values`` (the values a
+    train-mode BatchNorm normalizes) and ``bn.fused`` (those of them on
+    kernel 11), host numbers."""
+    if profiling.enabled():
+        profiling.count("bn.values", n)
+        profiling.count("bn.fused", n if fused else 0)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d with torch semantics over valid (mask=True) elements only:
     eps 1e-5, momentum 0.1, the biased variance to normalize and the unbiased
     one for the running estimate. ``x * scale + shift`` in float32, returned
-    in the input's dtype."""
+    in the input's dtype.
+
+    In training, where ``bn_train_kernel.takes`` the input, ``forward`` runs
+    on kernel 11 (``fused``), else the PyTorch chain (``plain``): the same
+    values, the statistics to the last float32 bit."""
 
     momentum = 0.1
 
@@ -180,7 +204,6 @@ class MaskedBatchNorm(nn.Module):
         and the difference run in float64 (``chunk_sums``); under a mesh the
         sums and the count are summed over the ranks that share the rows
         first (``parallel.mesh.sum_stats``), differentiably."""
-        c = xf.shape[-1]
         if mask is not None:
             m = mask.unsqueeze(-1).float()
             xm = xf * m
@@ -190,12 +213,31 @@ class MaskedBatchNorm(nn.Module):
             cnt = torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device)
         sums = dp.sum_stats(torch.cat([chunk_sums(xm), chunk_sums(xm * xf)]), grad=True)
         cnt = torch.clamp_min(dp.sum_stats(cnt), 1.0)
-        mean = sums[:c] / cnt
-        var = torch.clamp_min(sums[c:] / cnt - mean * mean, 0.0)
-        return mean.float(), var.float(), cnt
+        mean, var, _, _ = bn_train_kernel.statistics(sums, cnt)
+        return mean, var, cnt
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
+        if train and self.fusable(x, mask):
+            return self.fused(x, mask, None)
+        return self.plain(x, mask, train)
+
+    def fusable(self, x: torch.Tensor, mask: Optional[torch.Tensor], act: Optional[str] = None,
+                dense: Optional["Dense"] = None, dropout: float = 0.0) -> bool:
+        """Whether ``act(self(dense(x), mask, train=True))``, then a dropout
+        of ``dropout``, runs on kernel 11 (``fused``): ``bn_train_kernel.takes``
+        on the normalized tensor's shape and dtype (``dense`` None: ``x``'s)."""
+        shape, dtype = ((x.shape, x.dtype) if dense is None else
+                        ((*x.shape[:-1], dense.out_features), dense.compute_dtype))
+        return bn_train_kernel.takes(shape, None if mask is None else mask.shape, dtype,
+                                     x.device.type, train=True, act=act, dropout=dropout,
+                                     mesh=dp.active())
+
+    def plain(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              train: bool = False) -> torch.Tensor:
+        """The normalize as a chain of PyTorch operations."""
+        if train:
+            _count_values(x.numel(), False)
         xf = x.float()
         if train:
             mean, var, cnt = self.batch_stats(xf, mask)
@@ -204,6 +246,22 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         scale, shift = self.fold(mean, var)
         return (xf * scale + shift).to(x.dtype)
+
+    def fused(self, x: torch.Tensor, mask: torch.Tensor, act: Optional[str],
+              dense: Optional["Dense"] = None) -> torch.Tensor:
+        """``act(self(dense(x), mask, train=True))`` (``dense`` None: ``x``
+        itself) on kernel 11 (``ops/bn_train_kernel.bn_train``), with the
+        running statistics' update; for inputs ``bn_train_kernel.takes``.
+        ``act`` is a name of ``resolve_activation``."""
+        w = bias = None
+        if dense is not None:
+            x, w = dense.operands(x)
+            bias = dense.bias
+        out, mean, var, cnt = bn_train_kernel.bn_train(x, mask, self.weight, self.bias,
+                                                       eps=self.eps, act=act, w=w, bias=bias)
+        self.update_running(mean, var, cnt)
+        _count_values(out.numel(), True)
+        return out
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -289,8 +347,13 @@ class MLP(nn.Module):
     def norms(self):
         return [getattr(self, f"bn{i}") for i in range(self.n_lin - 1)]
 
-    def _post(self, x, bn, mask, act, train, generator):
-        x = bn(x, mask, train)
+    def _post(self, x, lin, bn, mask, act, train, generator):
+        """``act(bn(lin(x)))`` (``lin`` None: ``x`` is the layer's output), then
+        the training dropout; on kernel 11 where ``bn_train_kernel.takes``
+        the layer's output."""
+        if train and bn.fusable(x, mask, self.act, lin, self.dropout):
+            return bn.fused(x, mask, self.act, lin)
+        x = bn.plain(x if lin is None else lin(x), mask, train)
         if act is not None:
             x = act(x)
         if train and self.dropout > 0.0:
@@ -313,7 +376,7 @@ class MLP(nn.Module):
         if self.analytic_bn:
             return self._folded(x, mask, lins, bns, act, train, generator)
         for lin, bn in zip(lins[:-1], bns):
-            x = self._post(lin(x), bn, mask, act, train, generator)
+            x = self._post(x, lin, bn, mask, act, train, generator)
         return lins[-1](x)
 
     @staticmethod
@@ -384,9 +447,9 @@ class MLP(nn.Module):
         lins, bns = self.linears(), self.norms()
         if not bns:  # single-linear MLP: z0 is the output
             return z0
-        x = self._post(z0, bns[0], mask, act, train, generator)
+        x = self._post(z0, None, bns[0], mask, act, train, generator)
         for lin, bn in zip(lins[1:-1], bns[1:]):
-            x = self._post(lin(x), bn, mask, act, train, generator)
+            x = self._post(x, lin, bn, mask, act, train, generator)
         return lins[-1](x)
 
 

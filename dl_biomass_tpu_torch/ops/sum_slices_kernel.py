@@ -1,8 +1,9 @@
-"""The cross-block step of kernels 7-B and 8 (``csrc/sum_slices.cu``): the
-float32 slices that a kernel's blocks write, added in float64 in a fixed
-order and rounded once to float32, so the sum repeats bit for bit without
-float atomics. ``sum_slices`` launches ``dlbt_sum_slices`` on a CUDA tensor
-and runs ``sum_slices_plain`` on a CPU tensor.
+"""The cross-block step of kernels 7-B, 8 and 11 (``csrc/sum_slices.cu``):
+the float32 slices that a kernel's blocks write, added in float64 in a fixed
+order and rounded once to float32 (or kept in float64: kernel 11's chunk
+partials), so the sum repeats bit for bit without float atomics.
+``sum_slices`` launches ``dlbt_sum_slices`` (``_f64``) on a CUDA tensor and
+runs ``sum_slices_plain`` on a CPU tensor.
 
 The order, which ``plan(blocks, n)`` names: the slices are split into
 ``groups`` runs of consecutive slices (the first ``blocks % groups`` runs one
@@ -69,16 +70,19 @@ def runs(blocks: int, groups: int) -> List[Tuple[int, int]]:
     return out
 
 
-def sum_slices_plain(slices: torch.Tensor) -> torch.Tensor:
-    """The plain version: the slices added in float64."""
-    return slices.double().sum(0).float()
+def sum_slices_plain(slices: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version: the slices added in float64, returned in ``dtype``."""
+    return slices.double().sum(0).to(dtype)
 
 
-def sum_slices(slices: torch.Tensor) -> torch.Tensor:
-    """(blocks, n) float32 -> (n,) float32, the slices added in float64 in the
-    order of the module docstring."""
+def sum_slices(slices: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(blocks, n) float32 -> (n,) ``dtype``, the slices added in float64 in
+    the order of the module docstring and rounded once to float32, or kept
+    in float64 (``dtype=torch.float64``: ``dlbt_sum_slices_f64``)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"sum_slices returns float32 or float64, not {dtype}")
     if slices.device.type == "cpu":
-        return sum_slices_plain(slices)
+        return sum_slices_plain(slices, dtype)
     if slices.device.type != "cuda":
         raise RuntimeError(f"sum_slices runs on cuda or cpu tensors, got {slices.device}")
     if slices.dim() != 2 or slices.dtype != torch.float32:
@@ -87,12 +91,12 @@ def sum_slices(slices: torch.Tensor) -> torch.Tensor:
     p = plan(*slices.shape)
     slices = _build.aligned16(slices.contiguous()) if p.vec == 4 else slices.contiguous()
     _build.check_cuda("sum_slices", slices)
-    out = torch.empty(slices.shape[1], dtype=torch.float32, device=slices.device)
+    out = torch.empty(slices.shape[1], dtype=dtype, device=slices.device)
     if p.grid == 0:
         return out
-    _build.launch("dlbt_sum_slices", _ARGTYPES, slices.data_ptr(), out.data_ptr(),
-                  slices.shape[0], slices.shape[1], p.vec, p.cols, p.groups,
-                  _build.stream_of(slices))
+    entry = "dlbt_sum_slices" if dtype == torch.float32 else "dlbt_sum_slices_f64"
+    _build.launch(entry, _ARGTYPES, slices.data_ptr(), out.data_ptr(), slices.shape[0],
+                  slices.shape[1], p.vec, p.cols, p.groups, _build.stream_of(slices))
     return out
 
 

@@ -18,9 +18,12 @@ from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.models.inference import compile_inference
 from dl_biomass_tpu_torch.models.pointnet2 import PointNet2Regressor, build_model
 from dl_biomass_tpu_torch.train.trainer import Trainer
-from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel, fps_kernel,
-                                      gather_kernel, sa_eval_kernel, sa_train_kernel,
-                                      sum_slices_kernel, tail_kernel)
+from dl_biomass_tpu_torch.models.layers import Dense, MaskedBatchNorm, resolve_activation
+from dl_biomass_tpu_torch.models.voxelnet import VoxelNet
+from dl_biomass_tpu_torch.ops import (_build, ball_group_kernel, ball_query_kernel,
+                                      bn_train_kernel, fps_kernel, gather_kernel,
+                                      sa_eval_kernel, sa_train_kernel, sum_slices_kernel,
+                                      tail_kernel)
 from dl_biomass_tpu_torch.tools import bn_stats_bench, bq_phase_bench, dma_probe
 from fps_cases import EDGE_CASES, edge_case
 from group_cases import CASES as GROUP_CASES
@@ -404,6 +407,11 @@ def test_fused_eval_engine_at_wide_widths_matches_the_plain_engine(dev, nm, dtyp
     assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
+# kernel 11's passes in a training step: the four hidden BatchNorms of SA1 and SA2
+BN_STEP_LAUNCHES = {"dlbt_bn_stats": 4, "dlbt_bn_apply": 4, "dlbt_bn_grad_sums": 4,
+                    "dlbt_bn_grad": 4}
+
+
 def test_train_step_launches_every_kernel(dev):
     rng = np.random.default_rng(2)
     pos = [rng.normal(size=(640, 3)).astype(np.float32) * 3 for _ in range(4)]
@@ -417,9 +425,13 @@ def test_train_step_launches_every_kernel(dev):
     loss = trainer.step(batch, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(loss))
+    # kernel 11 at SA1's two BatchNorms and SA2's (the first from the z-table,
+    # no Dense): F1, F2, B1 and B2 each, a float64 slice sum after F1 and B1,
+    # and one of the bias's partials after B2 where a Dense precedes
     assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
                                           "dlbt_ball_query": 1, "dlbt_gather": 1,
-                                          "dlbt_scatter_rows": 1}
+                                          "dlbt_scatter_rows": 1, **BN_STEP_LAUNCHES,
+                                          "dlbt_sum_slices_f64": 11}
 
 
 def test_unsplit_train_step_launches_the_aux_gather(dev):
@@ -437,7 +449,8 @@ def test_unsplit_train_step_launches_the_aux_gather(dev):
     assert bool(torch.isfinite(loss))
     assert dict(_build.launch_counts) == {"dlbt_fps": 2, "dlbt_ball_group": 1,
                                           "dlbt_ball_query": 1, "dlbt_gather_aux": 1,
-                                          "dlbt_scatter_rows": 1}
+                                          "dlbt_scatter_rows": 1, **BN_STEP_LAUNCHES,
+                                          "dlbt_sum_slices_f64": 12}
 
 
 @pytest.mark.parametrize("fused_eval,split,launched", [
@@ -1198,3 +1211,175 @@ def test_bq_phase_is_one_launch_a_call(dev):
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         assert dict(_build.launch_counts) == {"dlbt_bq_phase": 1}
         assert len(kernels) == 1 and "bq_" in kernels[0].name, [e.name for e in kernels]
+
+
+# ---- kernel 11: the train-mode BatchNorm of the SA layers ---------------------------------
+
+# (B, M, Cin, C): the SSG cell's SA1 and SA2 hidden layers (SA1's first from
+# the 4 edge features, SA2's second from SA2's 128 hidden), B cut to 2; and
+# the widest channel counts the kernels take, 256 and 512 (SA2's hidden
+# layers at neuron_multiplier 2 and 4), where a lane takes 2 or 4 column
+# groups of 16 bytes
+BN_SHAPES = {"sa1": (2, 1588, 4, 64), "sa2": (2, 397, 128, 128), "c256": (2, 97, 64, 256),
+             "c512": (2, 97, 64, 512)}
+BN_ACTS = [None, "ReLU", "LeakyReLU", "ELU"]
+BN_PASSES = ("dlbt_bn_stats", "dlbt_bn_apply", "dlbt_bn_grad_sums", "dlbt_bn_grad")
+
+
+def _bn_inputs(dev, b, m, cin, c, dtype, seed):
+    """The Dense's input, the slots' mask (the last cloud with no valid slot,
+    centroid 1 of cloud 0 with one) and a cotangent, in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((b, m, 64, cin), generator=gen) * 2 + 0.3).to(dtype)
+    mask = torch.rand((b, m, 64), generator=gen) < 0.65
+    mask[-1] = False
+    mask[0, 1] = False
+    mask[0, 1, 5] = True
+    g = torch.randn((b, m, 64, c), generator=gen).to(dtype)
+    return x.to(dev), mask.to(dev), g.to(dev)
+
+
+def _bn_layer(dev, cin, c, dtype, seed):
+    torch.manual_seed(seed)  # the Dense's init
+    gen = torch.Generator().manual_seed(seed)
+    lin, bn = Dense(cin, c, dtype), MaskedBatchNorm(c)
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen))
+        bn.bias.copy_(0.2 * torch.randn(c, generator=gen))
+    return lin.to(dev), bn.to(dev)
+
+
+def _bn_run(dev, shape, dtype, act, fused, dense=True, seed=0):
+    """(output, gradients by name, running statistics, launches) of one
+    Dense + BatchNorm + act layer (or, ``dense`` False, BatchNorm + act of the
+    Dense's output as given), on kernel 11 or on the PyTorch chain."""
+    b, m, cin, c = shape
+    x, mask, g = _bn_inputs(dev, b, m, cin, c, dtype, seed)
+    lin, bn = _bn_layer(dev, cin, c, dtype, seed + 1)
+    if not dense:
+        with torch.no_grad():
+            x = lin(x)
+    xi = x.clone().requires_grad_(True)
+    _build.launch_counts.clear()
+    if fused:
+        out = bn.fused(xi, mask, act, lin if dense else None)
+    else:
+        fn = resolve_activation(act)
+        out = bn.plain(lin(xi) if dense else xi, mask, True)
+        out = out if fn is None else fn(out)
+    names = ("x", "weight", "bias", "gamma", "beta") if dense else ("x", "gamma", "beta")
+    params = (xi, lin.weight, lin.bias, bn.weight, bn.bias) if dense else (xi, bn.weight,
+                                                                          bn.bias)
+    grads = dict(zip(names, torch.autograd.grad(out, params, g)))
+    torch.cuda.synchronize()
+    return out, grads, (bn.running_mean, bn.running_var), dict(_build.launch_counts)
+
+
+def _assert_bn_close(got, want, dtype):
+    """Kernel 11 against the chain: the output exact but where the statistics
+    differ in their last float32 bit (a value then one step of its type
+    away: in bf16 a value near a rounding boundary, in float32 most of a
+    channel's), the running statistics to that bit, each gradient to the
+    rounding of its sums (a Dense bias, whose gradient is 0 but for
+    rounding, on its weight's gradient's scale)."""
+    (fo, fg, fs, _), (po, pg, ps, _) = got, want
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert fo.dtype == po.dtype == dtype
+    torch.testing.assert_close(fo.float(), po.float(), rtol=step, atol=1e-6)
+    if dtype == torch.bfloat16:
+        assert float((fo != po).float().mean()) < 1e-3
+    for a, b in zip(fs, ps):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for n, w in pg.items():
+        assert fg[n].dtype == w.dtype, n
+        scale = pg["weight"] if n == "bias" else w
+        rel = float((fg[n].double() - w.double()).norm() / scale.double().norm())
+        assert rel < tol, (n, rel)
+
+
+@pytest.mark.parametrize("act", BN_ACTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layer", list(BN_SHAPES))
+def test_bn_train_kernels_match_the_pytorch_chain(dev, layer, dtype, act):
+    fused = _bn_run(dev, BN_SHAPES[layer], dtype, act, True)
+    plain = _bn_run(dev, BN_SHAPES[layer], dtype, act, False)
+    assert all(fused[3][e] == 1 for e in BN_PASSES)
+    assert fused[3]["dlbt_sum_slices_f64"] == 3  # after F1, B1, and B2's bias partials
+    assert not any(e in plain[3] for e in BN_PASSES)
+    _assert_bn_close(fused, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_train_kernels_from_a_given_output_repeat_bit_for_bit(dev, dtype):
+    """SA2's first BatchNorm (``from_z0``: the Dense's output given, F1 only
+    reads it) against the chain, and a second run bit for bit (no float
+    atomics)."""
+    runs = [_bn_run(dev, BN_SHAPES["sa2"], dtype, "ReLU", True, dense=False) for _ in range(2)]
+    plain = _bn_run(dev, BN_SHAPES["sa2"], dtype, "ReLU", False, dense=False)
+    assert runs[0][3]["dlbt_sum_slices_f64"] == 2  # no bias
+    _assert_bn_close(runs[0], plain, dtype)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layer", ["c256", "c512"])
+def test_bn_train_kernels_from_a_given_output_at_every_column_group(dev, layer, dtype):
+    """F1 reading a given output at 256 and 512 channels (in float32 a lane
+    then takes 2 and 4 column groups, in bf16 1 and 2) against the chain, and
+    a second run bit for bit."""
+    runs = [_bn_run(dev, BN_SHAPES[layer], dtype, "ELU", True, dense=False) for _ in range(2)]
+    plain = _bn_run(dev, BN_SHAPES[layer], dtype, "ELU", False, dense=False)
+    assert all(runs[0][3][e] == 1 for e in BN_PASSES)
+    _assert_bn_close(runs[0], plain, dtype)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in runs[0][1])
+
+
+def _card_step(dev, model, batch, monkeypatch, fused):
+    if not fused:
+        monkeypatch.setattr(bn_train_kernel, "takes", lambda *a, **kw: False)
+    trainer = Trainer(model.to(dev), TrainConfig())
+    _build.launch_counts.clear()
+    loss = trainer.step(batch, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return (loss, {n: p.grad.clone() for n, p in model.named_parameters()},
+            {k: v.clone() for k, v in model.state_dict().items() if "running" in k},
+            dict(_build.launch_counts))
+
+
+@pytest.mark.parametrize("family", ["remat", "voxelnet"])
+def test_bn_train_steps_match_the_pytorch_chain(dev, monkeypatch, family):
+    """A float32 training step of the remat regressor (the recompute runs F1
+    and F2 again) and of VoxelNet (its two BatchNorms, 8^3 and 4^3 sites a
+    cloud, with no activation of their own) on kernel 11 against the same
+    step on the chain. cuDNN's convolutions run in full float32 here: the
+    kernel's output is channels-last where the chain's is not, and TF32
+    algorithms chosen by layout would differ by more than the step's
+    rounding."""
+    rng = np.random.default_rng(4)
+    pos = [rng.normal(size=(1024, 3)).astype(np.float32) * 3 for _ in range(4)]
+    feat = [rng.normal(size=(1024, 1)).astype(np.float32) for _ in range(4)]
+    y = rng.normal(size=(4, 4)).astype(np.float32)
+    batch = CloudBatch.from_numpy(pos, feat, y, device=dev)
+    out = []
+    for fused in (True, False):
+        torch.manual_seed(0)
+        model = (PointNet2Regressor(num_features=1, fast_group=True, fast_fps=True, remat=True)
+                 if family == "remat" else VoxelNet(num_features=1, grid=16))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out.append(_card_step(dev, model, batch, monkeypatch, fused))
+    (lf, gf, sf, cf), (lp, gp, sp, cp) = out
+    assert cf["dlbt_bn_stats"] == (8 if family == "remat" else 2)  # remat: F1 again
+    assert "dlbt_bn_stats" not in cp
+    torch.testing.assert_close(lf, lp, rtol=1e-5, atol=1e-6)
+    for k in sp:
+        torch.testing.assert_close(sf[k], sp[k], rtol=1e-5, atol=1e-6)
+    for k, w in gp.items():
+        # a Dense's or a convolution's bias before a BatchNorm: 0 but for rounding
+        pre_bn = k.endswith(".bias") and k.split(".")[-2].startswith(("lin", "conv"))
+        scale = gp[k[:-len("bias")] + "weight"] if pre_bn else w
+        rel = float((gf[k] - w).norm() / max(float(scale.norm()), 1e-30))
+        assert rel < 1e-3, (k, rel)

@@ -12,6 +12,7 @@
 """
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -194,6 +195,53 @@ def test_cuda_source_opens_with_its_note(name, replaces):
     where = "" if replaces.startswith("tools/") else "dl_biomass_tpu/ops/"  # the JAX tools
     assert f"Replaces: {where}{replaces}" in flat
     assert "Bound on the H100:" in flat and "Design:" in flat
+
+
+@pytest.mark.parametrize("name", ["sum_slices.cu", "bn_train.cu"])
+def test_cuda_source_without_a_tpu_kernel_opens_with_its_note(name):
+    """The kernels that replace no TPU kernel say so, and why they were
+    added, beside their bound and design."""
+    head = (PORT / "csrc" / name).read_text().split("#include")[0]
+    flat = " ".join(line.lstrip("/ ") for line in head.splitlines())
+    assert "Replaces: no TPU kernel" in flat
+    assert "Bound on the H100:" in flat and "Design:" in flat
+
+
+def _column_group_launches(src: str, host: str):
+    """{column groups a lane takes: the KG its launch instantiates} of each
+    ``switch (groups(c, v))`` in the host function ``host`` of bn_train.cu,
+    with v; ``default`` stands for every count above the cases."""
+    body = src.split(f"cudaError_t {host}(")[1].split("\n}\n")[0]
+    out = []
+    for v, block in re.findall(r"switch \(groups\(c, (.*?)\)\) \{(.*?)\n *\}", body, re.S):
+        launches = {}
+        for label, arm in re.findall(r"(case \d+|default):(.*?)(?=case \d+:|default:|$)", block,
+                                     re.S):
+            kg = int(re.search(r"_kernel<T, (\d)", arm).group(1))
+            launches[int(label.split()[1]) if label != "default" else "default"] = kg
+        out.append((v, launches))
+    return out
+
+
+def test_bn_train_launches_the_column_groups_of_every_width():
+    """Each launch of kernel 11 instantiates, for every width and dtype
+    ``bn_train_kernel`` takes, the column groups a lane needs there: the row's
+    16-byte vectors over the warp's 32 lanes (a lane that took fewer would
+    leave channels unwritten, more would read past the row)."""
+    from dl_biomass_tpu_torch.ops import bn_train_kernel as bk
+
+    src = (PORT / "csrc" / "bn_train.cu").read_text()
+    switches = {host: _column_group_launches(src, host) for host in ("stats", "apply",
+                                                                      "backward")}
+    assert [len(v) for v in switches.values()] == [2, 1, 1]
+    for itemsize in (2, 4):  # bf16, float32
+        for c in bk.WIDTHS:
+            for host, cases in switches.items():
+                for v, launches in cases:
+                    vec = 4 if v == "4" else 16 // itemsize  # "16 / sizeof(T)"
+                    need = max(c // vec // 32, 1)
+                    kg = launches.get(need, launches["default"])
+                    assert need == kg, (host, v, c, itemsize, need, launches)
 
 
 def test_pyproject_packages_the_port_and_registers_the_cuda_marker():

@@ -198,7 +198,11 @@ def test_training_steps_record_their_spans_and_edge_counts(msg, masks):
     assert_nested(rec["spans"])
     assert all(s.device_ms is None for s in rec["spans"])  # no card, no marks
     assert len(masks) == steps * (4 if msg else 2)  # a mask a scale of SA1 and SA2
-    assert rec["counters"] == edge_counts(masks)
+    counters = dict(rec["counters"])
+    # the train-mode BatchNorms' values, none on kernel 11 on the CPU
+    # (tests/test_torch_bn_train.py counts them exactly)
+    assert counters.pop("bn.fused") == 0 < counters.pop("bn.values")
+    assert counters == edge_counts(masks)
     assert 0 < rec["counters"]["edges.valid"] < rec["counters"]["edges.slots"]
 
 
