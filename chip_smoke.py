@@ -288,7 +288,13 @@ Phases, each of which raises on failure (exit code 1):
              configuration, ``voxelnet_deep`` and ``voxelnet_wide48``, 12
              steps each, kernel 11 at their 64-cell BatchNorms); the
              per-point segmentor (exact FPS, kernel 3, 4a, 4b, 11) forward and
-             one step against the plain versions;
+             one step against the plain versions, in float32 and, through
+             ``build_model`` with the benchmark cell's configuration
+             (``portbench/configs/pn2_seg_biomass.json``: bf16, sectored FPS,
+             kernel 2, head dropout 0.5) at the cell's 36 clouds of 7168
+             points in 7936 slots, a forward and a ``Trainer.step`` on
+             per-point targets, each leaf's gradient against the plain
+             versions';
              ``voxel_select_first`` on 16 plots of 50,000 raw points at 0.35 m,
              10240 kept, index-equal to the host path.
 19. mp_tools — ROADMAP C.4, the point axis over ``mp`` and the tools
@@ -4166,8 +4172,18 @@ SELECT_PLOTS, SELECT_RAW, SELECT_VOXEL, SELECT_KEEP = 16, 50_000, 0.35, N_POINTS
 # the segmentor's forward and step on the kernels vs on the plain versions
 # (float32, every kernel exact: only the order of cuBLAS sums could differ)
 SEGMENTOR_RTOL = 1e-5
+# the cell's bf16 segmentor step on the kernels vs on the plain versions, at
+# the cell's 36 clouds of 7168 points in 7936 slots: each leaf's gradient
+# gap, ||g - g_plain|| over the larger of ||g_plain|| and the median leaf's
+# (the measure of tests/test_torch_segmentor.py); the forward is the same bit
+# for bit, and kernel 11's backward sums its partials in another order than
+# the chain, so in bf16 an element at a rounding boundary of dy takes the
+# other side (a Linear bias before a BatchNorm has a true gradient of 0, so
+# its gradient is that rounding alone, held by the median leaf's norm)
+SEGMENTOR_BF16_GRAD_RTOL = 2.0**-4
 VARIANT_PATHS = ("msg", "msg_doubled", "msg_fused_sa", "analytic_bn", "remat", "v2_serve",
-                 "voxelnet", "segmentor")
+                 "voxelnet", "segmentor", "segmentor_bf16")
+SEGMENTOR_CONFIG = ROOT / "portbench" / "configs" / "pn2_seg_biomass.json"
 # launches per step (msg, msg_doubled, analytic_bn), per step of the remat
 # model and one of the plain model (remat), per step of the kernels
 # (msg_fused_sa), per forward (v2_serve: the engine and the artifact), per step
@@ -4200,6 +4216,13 @@ EXPECTED.update({
     # decoder (10 after a Dense)
     "segmentor": per_run(dlbt_fps=4, dlbt_ball_query=4, dlbt_gather=2, dlbt_scatter_rows=1,
                          **bn_train_launches(11, 10)),
+    # the cell's configuration at its 7936 slots: sectored FPS and kernel 2
+    # at SA1, as the SSG model's; kernel 11 at the six hidden BatchNorms of
+    # SA1, SA2 and FP1 (five after a Dense), whose rows a cloud are whole
+    # 64-row chunks; SA3's, FP3's (397 rows a cloud), FP2's (1588) and the
+    # head's (dropout 0.5) on the chain
+    "segmentor_bf16": per_run(dlbt_fps=4, dlbt_ball_group=2, dlbt_ball_query=2, dlbt_gather=2,
+                              dlbt_scatter_rows=1, **bn_train_launches(6, 5)),
 })
 EXPECTED["remat"] = {e: EXPECTED["remat_step"][e] + EXPECTED["train"][e] for e in ENTRIES}
 
@@ -4502,6 +4525,73 @@ def segmentor_path(device, card: str, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def segmentor_bf16_path(device, card: str, launches: dict) -> None:
+    """Phase 18, the segmentor as the benchmark cell builds it
+    (``build_model`` on ``SEGMENTOR_CONFIG``) at the cell's LARGE clouds of
+    BN_POINTS points in BN_SLOTS slots: one eval forward and one
+    ``Trainer.step`` on per-point targets (the per-point MSE, Adam) on the
+    kernels, launches counted; each against the same on the plain versions
+    from one state and one seed."""
+    from dl_biomass_tpu_torch.core.cloud import CloudBatch
+    from dl_biomass_tpu_torch.core.config import TrainConfig
+    from dl_biomass_tpu_torch.models.pointnet2 import build_model
+    from dl_biomass_tpu_torch.train.trainer import Trainer
+
+    cfg = json.loads(SEGMENTOR_CONFIG.read_text())
+    tc = TrainConfig.from_dict({"hp": cfg["hp"], "model": cfg["model"]})
+    batch = synthetic_batch(LARGE, BN_SLOTS, seed=VAR_SEED + 7, device=device,
+                            sizes=[BN_POINTS] * LARGE)
+    batch = CloudBatch(pos=batch.pos, feat=batch.feat, mask=batch.mask,
+                       y=torch.where(batch.mask[..., None], batch.pos[..., 2:3] * 0.1, 0.0))
+    trainer = Trainer(seed_weights(build_model(tc, 1), VAR_SEED), tc, device=device)
+    model = trainer.model
+    require(model.compute_dtype == torch.bfloat16 and model.sa1.fast_group,
+            "segmentor_bf16: build_model did not take the cell's configuration")
+    state = copy.deepcopy(model.state_dict())
+
+    def run():
+        with torch.inference_mode():
+            out = model(batch)
+        loss = trainer.step(batch, train_gen(device, 7))
+        return out, loss, {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, loss, grads = counted_run("segmentor_bf16", run, launches, 1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model.load_state_dict(state)
+    trainer.optimizer.state.clear()
+    with ExitStack() as stack:
+        for p in plain_versions():
+            stack.enter_context(p)
+        out_p, loss_p, grads_p = run()
+    require(tuple(out.shape) == (LARGE, BN_SLOTS, 1) and bool(torch.isfinite(out).all())
+            and bool((out[~batch.mask] == 0).all()) and bool(torch.isfinite(loss)),
+            "segmentor_bf16: output shape, finiteness or pad zeros")
+    rel_out = rel_diff(out, out_p)
+    rel_loss = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    norms = {k: float(g.double().norm()) for k, g in grads_p.items()}
+    med = statistics.median(norms.values())
+    gaps = {k: float((grads[k].double() - grads_p[k].double()).norm()) / max(norms[k], med)
+            for k in grads}
+    worst = sorted(gaps, key=gaps.get, reverse=True)[:3]
+    require(rel_out <= BF16_SERVE_RTOL and rel_loss <= PLAIN_STEP_RTOL
+            and gaps[worst[0]] <= SEGMENTOR_BF16_GRAD_RTOL,
+            f"segmentor_bf16 vs plain: output {rel_out}, loss {rel_loss}, gradient gaps "
+            f"{[(k, gaps[k]) for k in worst]}")
+    print(f"segmentor_bf16 B={LARGE} x {BN_POINTS} in {BN_SLOTS} slots (the cell's "
+          f"configuration): (B, N, 1) finite, 0 at pads; vs the plain versions: eval output "
+          f"{rel_out:.3e} (bound {BF16_SERVE_RTOL}), step loss {rel_loss:.3e} (bound "
+          f"{PLAIN_STEP_RTOL:.3e}), each leaf's gradient gap over the larger of its norm and "
+          f"the median leaf's, worst {', '.join(f'{k} {gaps[k]:.3e}' for k in worst)} (bound "
+          f"{SEGMENTOR_BF16_GRAD_RTOL:.3e}), median {statistics.median(gaps.values()):.3e}; "
+          f"launches in one forward and one step {launches['segmentor_bf16']}; the two in "
+          f"{wall:.3f} s, peak {peak:.2f} GiB [{card}]", flush=True)
+    del model, trainer
+    torch.cuda.empty_cache()
+
+
 def voxel_selection(device, card: str) -> None:
     """Phase 18, ``voxel_select_first`` on SELECT_PLOTS raw plots of SELECT_RAW
     points: index-equal to the host path (``io/resample.voxel_downsample``,
@@ -4536,6 +4626,7 @@ def variants(device, card: str, launches: dict) -> dict:
     v2_serving(device, card, launches)
     voxel_paths(device, card, launches)
     segmentor_path(device, card, launches)
+    segmentor_bf16_path(device, card, launches)
     voxel_selection(device, card)
     print(f"variants: phase 18 in {time.perf_counter() - t0:.1f} s", flush=True)
     return timings

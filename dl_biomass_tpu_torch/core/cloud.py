@@ -39,7 +39,8 @@ class CloudBatch:
       pos:  ``(B, N, 3)`` float32 — xyz coordinates (centered per cloud).
       feat: ``(B, N, F)`` float32 — per-point features (e.g. normalized intensity).
       mask: ``(B, N)`` bool — True for real points, False for padding.
-      y:    ``(B, 4)`` float32 or None — biomass targets.
+      y:    ``(B, 4)`` float32 or None — biomass targets; ``(B, N, k)`` for
+            per-point targets (the segmentor's).
     """
 
     pos: torch.Tensor

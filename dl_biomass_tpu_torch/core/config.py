@@ -36,7 +36,8 @@ class HyperParams:
 class ModelConfig:
     """Architecture knobs beyond the reference constructor surface."""
 
-    family: str = "pointnet2"  # pointnet2 | voxelnet (models/voxelnet.py)
+    # pointnet2 | voxelnet (models/voxelnet.py) | segmentor (per-point, models/decoder.py)
+    family: str = "pointnet2"
     voxel_grid: int = 32  # voxelnet: voxels per axis
     voxel_extent: float = 0.0  # voxelnet: cube half-width; 0 = per-cloud
     voxel_channels: List[int] = field(default_factory=lambda: [64, 128])

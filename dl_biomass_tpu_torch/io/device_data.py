@@ -19,6 +19,11 @@ b0)`` and its per-step ``fold_in(key, i)``).
 
 Pad samples of a partial last batch carry an all-False mask, and the loss
 weighs them 0.
+
+Targets are a plot's (``y`` (P, k), the regressor's four components) or a
+point's (``y`` (P, C, k), the segmentor's, packed like the features): these
+travel with their points through the augmentation
+(``transforms/augment.apply_augment``).
 """
 
 from __future__ import annotations
@@ -50,13 +55,18 @@ def _assemble_batch(pos, feat, mask, y, idx, aug_flag, sample_valid,
                     draws: Optional[AugmentDraws], *, base_n: int) -> CloudBatch:
     """Gather clouds ``idx`` (device int64) from the dataset's tensors, augment
     those with ``aug_flag`` with ``draws`` (None: no sample of the batch is
-    augmented), and mask out the invalid (pad) samples."""
+    augmented), and mask out the invalid (pad) samples. Per-point targets
+    (``y`` (P, C, k)) are augmented with their points."""
     bpos, bfeat, by = pos[idx], feat[idx], y[idx]
     bmask = mask[idx] & sample_valid[:, None]
     if draws is None:
         return CloudBatch(pos=bpos, feat=bfeat, mask=bmask, y=by)
-    apos, afeat, amask = apply_augment(draws, bpos, bfeat, bmask, base_n)
     f = aug_flag[:, None]
+    per_point = by.dim() == 3
+    out = apply_augment(draws, bpos, bfeat, bmask, base_n, y=by if per_point else None)
+    apos, afeat, amask = out[:3]
+    if per_point:
+        by = torch.where(f[..., None], out[3], by)
     return CloudBatch(pos=torch.where(f[..., None], apos, bpos),
                       feat=torch.where(f[..., None], afeat, bfeat),
                       mask=torch.where(f, amask, bmask), y=by)
@@ -69,7 +79,7 @@ class DeviceDataset:
       pos:  (P, C, 3) float32, valid points in slots [0, base_n).
       feat: (P, C, F) float32.
       mask: (P, C) bool.
-      y:    (P, 4) float32 biomass targets.
+      y:    (P, 4) float32 biomass targets, or (P, C, k) per-point targets.
       plot_ids: host-side list of P plot IDs.
       base_n: nominal points per cloud (e.g. 7168 for the presampled path).
       device: None for the card (which must exist), or e.g. ``"cpu"``.
@@ -101,6 +111,8 @@ class DeviceDataset:
                     y: np.ndarray, plot_ids: Sequence[str], base_n: Optional[int] = None,
                     for_augmentation: bool = True, device=None) -> "DeviceDataset":
         """Pack host numpy clouds (each (n_i, 3) + (n_i, F)) into device tensors.
+        ``y`` is (P, k), a row a plot, or a list of (n_i, k) arrays, a row a
+        point, packed as the features are.
 
         Capacity is ``aug_capacity(base_n)`` when the dataset will be augmented
         (noise-append needs ~10% headroom, reference ``augmentation.py:113-120``),
@@ -116,12 +128,17 @@ class DeviceDataset:
             f_dim = feat_list[0].reshape(len(feat_list[0]), -1).shape[-1]
             f_arr = np.zeros((len(pos_list), cap, f_dim), np.float32)
             m_arr = np.zeros((len(pos_list), cap), bool)
+            per_point = not isinstance(y, np.ndarray) and np.ndim(y[0]) == 2
+            y_arr = (np.zeros((len(pos_list), cap, np.shape(y[0])[1]), np.float32) if per_point
+                     else np.asarray(y, np.float32))
             for i, (p, x) in enumerate(zip(pos_list, feat_list)):
                 n = min(int(p.shape[0]), base_n)
                 p_arr[i, :n] = p[:n]
                 f_arr[i, :n] = x.reshape(len(x), -1)[:n]
                 m_arr[i, :n] = True
-        return cls(p_arr, f_arr, m_arr, np.asarray(y, np.float32), plot_ids, base_n, device)
+                if per_point:
+                    y_arr[i, :n] = y[i][:n]
+        return cls(p_arr, f_arr, m_arr, y_arr, plot_ids, base_n, device)
 
     def pad_plots(self, p_to: int) -> "DeviceDataset":
         """Zero-pad the plot axis to ``p_to`` (all-False masks, ``__pad__`` ids):

@@ -79,7 +79,8 @@ def _check_engine(model, fused_eval: bool) -> bool:
     takes the stratified branch."""
     if not isinstance(model, PointNet2Regressor):
         raise NotImplementedError(
-            f"inference engine covers PointNet2Regressor; got {type(model).__name__}")
+            f"inference engine covers PointNet2Regressor; got {type(model).__name__} "
+            "(the voxel and per-point families predict through the module, Trainer.predict)")
     if model.activation_function != "ReLU" or model.msg or model.max_neighbors != 64:
         # analytic_bn, remat and the v2 widths fold as the standard model does
         raise NotImplementedError("inference engine covers the flagship SSG/ReLU/K=64 config; "

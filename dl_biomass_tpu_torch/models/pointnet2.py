@@ -35,7 +35,8 @@ turns SA2's split first layer off (kernel 4c gathers the edges);
 ``num_outputs`` and ``global_width_mult`` (``pointnet2_v2``: one output, SA3
 and the head twice as wide) size the end of the network. ``model_to_dict``,
 ``model_from_dict`` and ``build_model`` also take the voxel family
-(``models/voxelnet.py``).
+(``models/voxelnet.py``) and the per-point segmentor (``models/decoder.py``),
+which refuses the options it does not take (``SEGMENTOR_REFUSES``).
 
 Under ``parallel.data_parallel(mesh, points=True)`` with ``mp`` > 1 each rank
 holds its ``mp`` slice of every cloud's points (``mesh.shard_points``), as a
@@ -346,11 +347,31 @@ def _dtype_name(dt: torch.dtype) -> str:
     return "bfloat16" if dt == torch.bfloat16 else "float32"
 
 
+# the ModelConfig switches the segmentor does not take, each refused when set,
+# and the mesh's mp (its decoder runs on whole clouds)
+SEGMENTOR_REFUSES = ("msg", "remat", "fused_sa", "analytic_bn", "doubled_radius")
+_SEGMENTOR_ARGS = ("sa1_ratio", "sa1_radius", "sa2_ratio", "sa2_radius", "max_neighbors",
+                   "fast_group", "fast_fps", "exact_selection", "split_first_layer")
+
+
+def _segmentor_class():
+    from dl_biomass_tpu_torch.models.decoder import PointNet2Segmentor  # imports this module
+
+    return PointNet2Segmentor
+
+
 def model_to_dict(model) -> dict:
     """JSON-serializable constructor arguments, under the JAX package's names
     (``dl_biomass_tpu/models/pointnet2.py`` model_to_dict, less its kernel
-    switch ``use_pallas``), for the checkpoint sidecar; a voxel model's carry
-    ``family``."""
+    switch ``use_pallas``), for the checkpoint sidecar; a voxel model's and a
+    segmentor's carry ``family``."""
+    if isinstance(model, _segmentor_class()):
+        return dict(family="segmentor", num_features=model.num_features,
+                    activation_function=model.activation_function,
+                    num_outputs=model.num_outputs,
+                    dropout_probability=model.dropout_probability,
+                    **{k: getattr(model, k) for k in _SEGMENTOR_ARGS},
+                    compute_dtype=_dtype_name(model.compute_dtype))
     if isinstance(model, VoxelNet):
         return dict(family="voxelnet", num_features=model.num_features,
                     num_outputs=model.num_outputs, grid=model.grid, extent=model.extent,
@@ -392,20 +413,35 @@ def model_from_dict(d: dict):
     if family == "voxelnet":
         d["channels"] = tuple(d.get("channels", (64, 128)))
         return VoxelNet(**d)
+    if family == "segmentor":
+        return _segmentor_class()(**d)
     if family != "pointnet2":
         raise ValueError(f"unknown model family {family!r}")
     return PointNet2Regressor(**d)
 
 
 def build_model(cfg, num_features: int):
-    """The model of a ``TrainConfig`` (hp + model sections): the regressor, or
-    the voxel CNN under ``model.family = "voxelnet"``."""
+    """The model of a ``TrainConfig`` (hp + model sections): the regressor, the
+    voxel CNN under ``model.family = "voxelnet"``, or the per-point segmentor
+    under ``"segmentor"`` (one output a point; a ``ValueError`` names the
+    options it does not take)."""
     hp, mc = cfg.hp, cfg.model
     if mc.family == "voxelnet":
         return VoxelNet(num_features=num_features, grid=mc.voxel_grid, extent=mc.voxel_extent,
                         channels=tuple(mc.voxel_channels),
                         activation_function=hp.activation_function,
                         compute_dtype=_DTYPES[mc.compute_dtype])
+    if mc.family == "segmentor":
+        refused = [k for k in SEGMENTOR_REFUSES if getattr(mc, k)]
+        refused += ["hp.neuron_multiplier"] if hp.neuron_multiplier not in (0, 1) else []
+        refused += ["mesh.mp > 1"] if cfg.mesh.mp > 1 else []
+        if refused:
+            raise ValueError(f"the segmentor family does not take {', '.join(refused)}")
+        return _segmentor_class()(
+            num_features=num_features, activation_function=hp.activation_function,
+            dropout_probability=hp.dropout_probability,
+            **{k: getattr(mc, k) for k in _SEGMENTOR_ARGS},
+            compute_dtype=_DTYPES[mc.compute_dtype])
     if mc.family != "pointnet2":
         raise ValueError(f"unknown model family {mc.family!r}")
     return PointNet2Regressor(

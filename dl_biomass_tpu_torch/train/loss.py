@@ -1,7 +1,8 @@
 """Weighted multi-component biomass loss (port of ``dl_biomass_tpu/train/loss.py``).
 
 Per-component MSE combined with fixed weights 1/11, 1/12, 1/5, 1/72 for
-bark, branch, foliage and wood (the reference's ``main.py:157-169``).
+bark, branch, foliage and wood (the reference's ``main.py:157-169``); and
+the segmentor's per-point MSE (``per_point_mse``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,20 @@ def weighted_component_mse(pred: torch.Tensor, target: torch.Tensor,
         n = w.sum() if total_weight is None else total_weight.to(se.dtype)
         per_comp = (se * w).sum(dim=0) / torch.clamp_min(n, 1.0)
     return (per_comp * _weights(se.dtype, se.device)).sum()
+
+
+def per_point_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                  total_points: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-point MSE of pred and target (B, N, k) over the valid points of
+    ``mask`` (B, N): the squared error summed over every valid point and
+    output, over k times the valid points (the historical segmentor loop's
+    ``F.mse_loss`` over the batch's flattened points). ``total_points``
+    counts the points in place of ``mask``'s sum: the whole batch's when
+    this is one rank's share of it."""
+    se = torch.square(pred - target).sum(dim=-1)
+    n = mask.sum().to(se.dtype) if total_points is None else total_points.to(se.dtype)
+    total = torch.where(mask, se, torch.zeros((), dtype=se.dtype, device=se.device)).sum()
+    return total / (torch.clamp_min(n, 1.0) * pred.shape[-1])
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,9 @@
   * torch ``Adam(lr, weight_decay)``: L2 folded into the gradient before the
     moment updates, which is what the JAX package builds from optax's
     ``add_decayed_weights`` + ``adam``; ``AdamW`` is torch's own;
-  * the weighted 4-component MSE (``train/loss.py``), pad clouds weighted 0;
+  * the weighted 4-component MSE (``train/loss.py``), pad clouds weighted 0,
+    or under per-point targets (the segmentor's, ``y`` (B, N, k)) the MSE
+    over the valid points, ``per_point_mse``;
   * early stopping with the reference's trigger rule (``main.py:226-235``);
   * a per-epoch CSV line ``epoch, train_mse, val_mse``, save-on-best
     checkpoints of model + optimizer state, and resume.
@@ -29,7 +31,8 @@ starts and the dropout are drawn for the whole batch from the shared
 generator and sliced (``parallel/mesh.rand_rows``); the BatchNorm statistics
 and kernel 6's sums are the whole batch's. The loss is the whole batch's
 mean: each rank's share is its clouds' squared errors over the count of
-real clouds of the whole batch, so the shares add up to the mean however
+real clouds of the whole batch (per-point targets: its points' over the
+valid points of the whole batch), so the shares add up to the mean however
 the pad clouds fall, and the gradients are summed over the ranks before the
 optimizer step. Evaluation's losses and ``predict``'s rows are the whole
 batch's on every rank; ``fit`` takes its decisions from rank 0's numbers,
@@ -60,7 +63,7 @@ from dl_biomass_tpu_torch.core.config import TrainConfig
 from dl_biomass_tpu_torch.models.pointnet2 import model_to_dict
 from dl_biomass_tpu_torch.parallel import mesh as dp
 from dl_biomass_tpu_torch.train import checkpoint
-from dl_biomass_tpu_torch.train.loss import weighted_component_mse
+from dl_biomass_tpu_torch.train.loss import per_point_mse, weighted_component_mse
 from dl_biomass_tpu_torch.utils import profiling
 
 
@@ -119,7 +122,11 @@ class Trainer:
 
     def _loss(self, out: torch.Tensor, batch: CloudBatch) -> torch.Tensor:
         """The weighted MSE of this rank's clouds over the real clouds of the
-        whole batch (the loss itself without a mesh)."""
+        whole batch, or under per-point targets the MSE of its points over the
+        valid points of the whole batch (the loss itself without a mesh)."""
+        if batch.y.dim() == 3:
+            n = None if self.mesh is None else dp.sum_dp(batch.mask.sum().float(), self.mesh)
+            return per_point_mse(out, batch.y, batch.mask, total_points=n)
         w = _pad_weight(batch)
         total = None if self.mesh is None else dp.sum_dp(w.sum().float(), self.mesh)
         return weighted_component_mse(out, batch.y, w, total_weight=total)
@@ -256,8 +263,9 @@ class Trainer:
         return float(np.mean(torch.stack(losses).cpu().numpy().astype(np.float64)))
 
     def predict(self, batches: Iterable[CloudBatch]) -> np.ndarray:
-        """(clouds, 4) predictions of the real clouds, in batch order; every
-        batch is queued before the one host sync."""
+        """(clouds, 4) predictions of the real clouds, in batch order ((clouds,
+        N, k) of a per-point model, 0 at invalid points); every batch is
+        queued before the one host sync."""
         evals = [self._eval_batch(b) for b in batches]
         out = torch.cat([e[1] for e in evals]).cpu().numpy()
         return out[torch.cat([e[2] for e in evals]).cpu().numpy()]

@@ -22,7 +22,11 @@ Randomness comes from an explicit ``torch.Generator`` on the batch's device.
 ``draw_augment(generator, B, C, F)`` makes every draw of a batch (the angle,
 the removal's keep count, sigma, the sign, the two normal tensors, the append
 count and the permutation scores); ``apply_augment(draws, pos, feat, mask,
-base_n)`` applies them, batched over the clouds. The JAX package draws from
+base_n)`` applies them, batched over the clouds. Per-point targets (the
+segmentor's) travel with their points through ``apply_augment``'s ``y``:
+a removed point's target leaves with its mask, an appended copy takes its
+source slot's target (no noise is added to a target), and the rotation
+leaves them as they are. The JAX package draws from
 ``jax.random`` keys, so a parity test computes its draws from the same key
 splits and hands them to ``apply_augment``. The JAX transform is plain XLA
 with no Pallas kernel; this one is plain PyTorch.
@@ -111,7 +115,9 @@ def _removal(mask: torch.Tensor, ranks: torch.Tensor, keep_u: torch.Tensor) -> t
 
 
 def _append_noise(pos, feat, mask, base_n: int, order, sd, sign, noise_pos, noise_feat,
-                  extra_u):
+                  extra_u, y=None):
+    """(pos, feat, mask, y) with the noisy copies appended; ``y`` (per-point
+    targets, or None) appended unjittered from the same source slots."""
     cap_extra = mask.shape[-1] - base_n
     step = (sign * sd)[..., None, None]
     noisy_pos = pos + step * noise_pos
@@ -129,7 +135,8 @@ def _append_noise(pos, feat, mask, base_n: int, order, sd, sign, noise_pos, nois
 
     out_mask = mask.clone()
     out_mask[..., base_n:] = app_valid
-    return append(pos, noisy_pos), append(feat, noisy_feat), out_mask
+    return (append(pos, noisy_pos), append(feat, noisy_feat), out_mask,
+            None if y is None else append(y, y))
 
 
 def _rotate(pos: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -140,19 +147,22 @@ def _rotate(pos: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
 
 
 def apply_augment(draws: AugmentDraws, pos: torch.Tensor, feat: torch.Tensor,
-                  mask: torch.Tensor, base_n: int, with_scale: bool = False):
+                  mask: torch.Tensor, base_n: int, with_scale: bool = False,
+                  y: Optional[torch.Tensor] = None):
     """The reference chain point_removal -> random_noise -> rotate_points
     (``augmentation.py:278-280``), then the optional random_scale, on clouds
     pos (B, C, 3), feat (B, C, F), mask (B, C) with the draws given: returns
-    (pos, feat, mask)."""
+    (pos, feat, mask), and with per-point targets ``y`` (B, C, k) given also
+    y after them, each appended slot's target its source slot's, the removed
+    points' left in place (their mask is False)."""
     ranks, order = _ranks_over_valid(mask, draws.scores)
     mask = _removal(mask, ranks, draws.keep_u)
-    pos, feat, mask = _append_noise(pos, feat, mask, base_n, order, draws.sd, draws.sign,
-                                    draws.noise_pos, draws.noise_feat, draws.extra_u)
+    pos, feat, mask, y_out = _append_noise(pos, feat, mask, base_n, order, draws.sd, draws.sign,
+                                           draws.noise_pos, draws.noise_feat, draws.extra_u, y)
     pos = _rotate(pos, draws.theta)
     if with_scale:
         pos = pos * draws.scale[..., None, None]
-    return pos, feat, mask
+    return (pos, feat, mask) if y is None else (pos, feat, mask, y_out)
 
 
 # ---- the transforms one at a time, each drawing from a generator ----------------
@@ -192,7 +202,7 @@ def random_noise(generator: torch.Generator, pos: torch.Tensor, feat: torch.Tens
     if order is None:
         _, order = _ranks_over_valid(mask, _uniform(generator, mask.shape))
     return _append_noise(pos, feat, mask, base_n, order, sd, sign, noise_pos, noise_feat,
-                         _uniform(generator, ()))
+                         _uniform(generator, ()))[:3]
 
 
 def augment_cloud(generator: torch.Generator, pos: torch.Tensor, feat: torch.Tensor,
